@@ -1,0 +1,17 @@
+"""brpc_tpu_torch — the ici:// RPC fabric on PyTorch and CUDA.
+
+The port of :mod:`brpc_tpu` (the JAX package, which stays the reference)
+to an NVIDIA Hopper card.  It imports nothing of JAX and nothing of
+``brpc_tpu``.  Layer map of this slice:
+
+  L5  API          brpc_tpu_torch.rpc.Server / Channel / Controller
+  L4  policies     brpc_tpu_torch.policy.tpu_std (the framed protocol)
+  L3  core runtime brpc_tpu_torch.rpc.* Socket, InputMessenger, SocketMap;
+                   brpc_tpu_torch.ici.* mesh of logical ranks, ici://
+                   transport, device plane, the p2p_copy kernel
+  L2  scheduling   brpc_tpu_torch.bthread.* tasklets, butex, correlation
+                   ids, timer thread, CUDA-event completion waits
+  L1  base         brpc_tpu_torch.butil.* IOBuf (device-block capable),
+                   ResourcePool, EndPoint, flags, logging
+"""
+__version__ = "0.1.0"

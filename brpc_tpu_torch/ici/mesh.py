@@ -1,0 +1,125 @@
+"""IciMesh: the logical ranks underlying the ici:// transport.
+
+The JAX package's mesh is a list of devices: ``ici://k`` is device k and
+an array's device names its endpoint.  Here the mesh is ``ranks`` logical
+ranks placed on the visible devices — rank k lives on
+``cuda:(k % torch.cuda.device_count())``, or on ``cpu`` for a host mesh.
+On one card all ranks report ``cuda:0``, so a tensor's ``device`` does not
+name its rank.  The mesh therefore keeps an explicit **residency
+registry**: ``device_put(t, k)`` (the ``jax.device_put(arr,
+mesh.device(k))`` counterpart) returns a tensor owned by rank k, and
+``rank_of(t)`` reads it back.
+
+The registry is keyed on the tensor's underlying storage, so a view or a
+slice of a registered tensor resolves to the same rank (the transport
+slices IOBuf refs at any offset), and an entry is dropped when its storage
+dies — a later allocation at the same address is never mistaken for it.
+"""
+from __future__ import annotations
+
+import threading
+import weakref
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from ..butil.endpoint import EndPoint, SCHEME_ICI
+
+
+class IciMesh:
+    _default: Optional["IciMesh"] = None
+    _lock = threading.Lock()
+    # bumped whenever the default mesh is (re)bound: consumers caching
+    # mesh-relative facts key their entries on this and recompute after
+    # a swap
+    generation: int = 0
+
+    def __init__(self, ranks: int = 8, device: Optional[str] = None):
+        kind = torch.device(device if device is not None else "cuda").type
+        if kind == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "IciMesh: CUDA is not available; pass device='cpu' to "
+                    "build a host mesh explicitly")
+            n = torch.cuda.device_count()
+            self.devices: List[torch.device] = [
+                torch.device("cuda", k % n) for k in range(ranks)]
+        elif kind == "cpu":
+            self.devices = [torch.device("cpu")] * ranks
+        else:
+            raise ValueError(f"IciMesh: unsupported device type {kind!r}")
+        self.device_type = kind
+        self.size = ranks
+        # (device, storage address) -> (rank, storage weakref)
+        self._residency: Dict[Tuple[str, int], Tuple[int, weakref.ref]] = {}
+        self._res_lock = threading.Lock()
+
+    @classmethod
+    def default(cls) -> "IciMesh":
+        with cls._lock:
+            if cls._default is None:
+                cls._default = IciMesh()
+            return cls._default
+
+    @classmethod
+    def set_default(cls, mesh: Optional["IciMesh"]) -> None:
+        with cls._lock:
+            cls._default = mesh
+            cls.generation += 1
+
+    # ---- endpoints -----------------------------------------------------
+    def endpoint(self, rank: int) -> EndPoint:
+        return EndPoint(scheme=SCHEME_ICI, coords=(rank,))
+
+    def device(self, rank: int) -> torch.device:
+        return self.devices[rank % self.size]
+
+    # ---- residency -----------------------------------------------------
+    @staticmethod
+    def _key(t: torch.Tensor) -> Tuple[str, int]:
+        return (str(t.device), t.untyped_storage().data_ptr())
+
+    def register(self, t: torch.Tensor, rank: int) -> torch.Tensor:
+        """Record that ``t`` (and every view of its storage) is owned by
+        ``rank``; returns ``t``."""
+        if not 0 <= rank < self.size:
+            raise ValueError(f"rank {rank} outside a mesh of {self.size}")
+        if t.device != self.device(rank):
+            raise ValueError(f"rank {rank} lives on {self.device(rank)}, "
+                             f"not {t.device}")
+        storage = t.untyped_storage()
+        key = self._key(t)
+        ref = weakref.ref(storage)
+        with self._res_lock:
+            self._residency[key] = (rank, ref)
+        weakref.finalize(storage, self._forget, key, ref)
+        return t
+
+    def _forget(self, key: Tuple[str, int], ref: weakref.ref) -> None:
+        with self._res_lock:
+            entry = self._residency.get(key)
+            if entry is not None and entry[1] is ref:
+                del self._residency[key]
+
+    def rank_of(self, t: torch.Tensor) -> int:
+        """Logical rank owning ``t``'s storage; -1 when off-mesh."""
+        with self._res_lock:
+            entry = self._residency.get(self._key(t))
+        if entry is None or entry[1]() is None:
+            return -1
+        return entry[0]
+
+    def device_put(self, t: torch.Tensor, rank: int) -> torch.Tensor:
+        """A tensor owned by ``rank`` holding ``t``'s values: ``t`` itself
+        when that rank already owns it, else a fresh copy.  The copy never
+        aliases ``t`` — the detach rule for host buffers that other code
+        may free or reuse."""
+        if self.rank_of(t) == rank:
+            return t
+        out = torch.empty(t.shape, dtype=t.dtype, device=self.device(rank))
+        out.copy_(t)
+        return self.register(out, rank)
+
+    def live_registrations(self) -> int:
+        with self._res_lock:
+            return len(self._residency)

@@ -1,0 +1,309 @@
+"""Controller: per-RPC state machine for both client and server sides.
+
+Reference: src/brpc/controller.{h,cpp}.  Client-side lifecycle of a unary
+call:
+
+  Channel.call_method
+    → correlation id created ranged over max_retry+1 try-versions
+      (channel.cpp:442): try k sends version k; a retry advances the
+      current version so older tries' responses fail to lock (ignored)
+    → deadline timer through TimerThread (channel.cpp:537-574)
+    → issue_rpc: pick socket, pack, Socket.write (controller.cpp:985-1144)
+    → completion funnels through the correlation id's on_error/lock — the
+      single synchronization point (OnVersionedRPCReturned controller.cpp:568)
+
+Server side carries the request's attachment and peer; its Controllers
+come from a pool.
+"""
+from __future__ import annotations
+
+import threading
+import time
+from typing import Any, Callable, Optional
+
+from ..butil.iobuf import IOBuf
+from ..butil.endpoint import EndPoint
+from ..butil.resource_pool import ResourcePool
+from ..bthread import id as bthread_id
+from ..bthread.timer_thread import TimerThread
+from . import errors
+
+
+class _LazyField:
+    """Non-data descriptor: materializes a per-instance default on first
+    READ (the instance dict shadows it afterwards).  A request that never
+    touches its attachments never pays for their IOBufs."""
+    __slots__ = ("name", "factory")
+
+    def __init__(self, name: str, factory):
+        self.name = name
+        self.factory = factory
+
+    def __get__(self, obj, owner=None):
+        if obj is None:
+            return self
+        val = obj.__dict__[self.name] = self.factory()
+        return val
+
+
+class Controller:
+    # Every scalar default lives on the CLASS: __init__ sets nothing, so a
+    # pooled reset is one ``__dict__.clear()`` (reference ResetPods).
+    error_code_: int = 0
+    error_text_: str = ""
+    log_id: int = 0
+    request_attachment = _LazyField("request_attachment", IOBuf)
+    response_attachment = _LazyField("response_attachment", IOBuf)
+    remote_side: Optional[EndPoint] = None
+    # client call state
+    timeout_ms: Optional[int] = None
+    max_retry: Optional[int] = None
+    retried_count: int = 0
+    current_try: int = 0
+    latency_us: int = 0
+    response: Any = None
+    _response_cls: Any = None
+    _done: Optional[Callable[["Controller"], None]] = None
+    _cid: int = 0
+    _timeout_timer = None
+    _channel = None                 # issuing channel (for re-issues)
+    _method_full_name: str = ""
+    _request_buf: Optional[IOBuf] = None
+    _start_us: int = 0
+    _ended_ev: Optional[threading.Event] = None
+
+    def _peek_response_attachment(self) -> Optional[IOBuf]:
+        """The response attachment if one was touched (reading the field
+        would materialize an empty IOBuf)."""
+        return self.__dict__.get("response_attachment")
+
+    _ended_create_lock = threading.Lock()
+
+    @property
+    def _ended(self) -> threading.Event:
+        """Completion event, created on first touch (double-checked under
+        a class lock: a completer's set() and a joiner's wait() may both
+        be the first toucher)."""
+        ev = self._ended_ev
+        if ev is None:
+            with Controller._ended_create_lock:
+                ev = self._ended_ev
+                if ev is None:
+                    ev = self._ended_ev = threading.Event()
+        return ev
+
+    # ---- error surface (reference Controller::SetFailed/Failed) -------
+    def set_failed(self, code: int, text: str = "") -> None:
+        self.error_code_ = code
+        self.error_text_ = text or errors.berror(code)
+
+    def failed(self) -> bool:
+        return self.error_code_ != 0
+
+    @property
+    def error_code(self) -> int:
+        return self.error_code_
+
+    @property
+    def error_text(self) -> str:
+        return self.error_text_
+
+    def reset(self) -> None:
+        # every field is a class default: clearing the instance dict
+        # restores pristine state in one C-level op
+        self.__dict__.clear()
+
+    def _maybe_recycle(self) -> None:
+        """Return a pool-acquired server-side Controller to its pool once
+        the response is sent.  No-op for plain Controllers."""
+        pool = self.__dict__.get("_recycle_pool")
+        if pool is not None:
+            pool.release(self)
+
+    # ---- client call orchestration ------------------------------------
+    def _start_call(self, channel, method_full_name: str, request_buf: IOBuf,
+                    response_cls, done) -> None:
+        self._channel = channel
+        self._method_full_name = method_full_name
+        self._request_buf = request_buf
+        self._response_cls = response_cls
+        self._done = done
+        self._start_us = time.monotonic_ns() // 1000
+        opts = channel.options
+        if self.timeout_ms is None:
+            self.timeout_ms = opts.timeout_ms
+        if self.max_retry is None:
+            self.max_retry = opts.max_retry
+        # +1: versions are try indices 0..max_retry
+        self._cid = bthread_id.create_ranged(
+            self, self._on_rpc_event, self.max_retry + 1)
+        self._issue_rpc()
+        # the deadline timer is only needed if the call is still in flight
+        # — inline device completions skip the timer heap entirely
+        if (self.timeout_ms and self.timeout_ms > 0
+                and not self._ended.is_set()):
+            self._schedule_try_timer()
+
+    def _schedule_try_timer(self) -> None:
+        """Arm the overall deadline (reference semantics: timeout_ms is a
+        single deadline and ERPCTIMEDOUT is final).  The try version is
+        bound now, so a stale timer that already popped cannot poke a
+        later try."""
+        if self._timeout_timer is not None:
+            TimerThread.instance().unschedule(self._timeout_timer)
+            self._timeout_timer = None
+        if not self.timeout_ms or self.timeout_ms <= 0 or self._ended.is_set():
+            return
+        elapsed_ms = (time.monotonic_ns() // 1000 - self._start_us) / 1000.0
+        remaining = max(0.0, self.timeout_ms - elapsed_ms)
+        ver = self.current_try
+        self._timeout_timer = TimerThread.instance().schedule_after(
+            lambda: self._handle_timeout(ver), remaining / 1000.0)
+
+    def current_cid(self) -> int:
+        return bthread_id.with_version(self._cid, self.current_try)
+
+    def _issue_rpc(self) -> None:
+        try:
+            self._channel._issue_rpc(self)
+        except Exception:
+            bthread_id.error(self.current_cid(), errors.EFAILEDSOCKET)
+
+    def _handle_timeout(self, ver: int) -> None:
+        bthread_id.error(bthread_id.with_version(self._cid, ver),
+                         errors.ERPCTIMEDOUT)
+
+    # the correlation-id funnel (always entered with the id locked) ------
+    def _on_rpc_event(self, data, cid: int, error_code: int) -> None:
+        """on_error callback: timeout, send failure, or socket death all
+        land here — the retry decision point."""
+        if bthread_id.get_version(cid) < self.current_try:
+            # a straggler from an abandoned try must not decide the call
+            bthread_id.unlock(cid)
+            return
+        if error_code == errors.ERPCTIMEDOUT:
+            self.set_failed(errors.ERPCTIMEDOUT,
+                            f"reached timeout={self.timeout_ms}ms")
+            self._end_rpc(cid)
+            return
+        if self._retryable(error_code) and self.current_try < self.max_retry:
+            self.current_try += 1
+            self.retried_count += 1
+            bthread_id.reset_version(self._cid, self.current_try)
+            self._schedule_try_timer()
+            self._issue_rpc()
+            bthread_id.unlock(cid)
+            return
+        self.set_failed(error_code)
+        self._end_rpc(cid)
+
+    @staticmethod
+    def _retryable(error_code: int) -> bool:
+        return error_code in (errors.EFAILEDSOCKET, errors.EEOF,
+                              errors.ELOGOFF, errors.ECONNREFUSED,
+                              errors.ECONNRESET, errors.EAGAIN)
+
+    def handle_response(self, cid: int, meta, payload: IOBuf) -> None:
+        """Called by the protocol with the correlation id locked and
+        validated (stale tries never get here)."""
+        rmeta = meta.response
+        if rmeta.error_code != 0:
+            err = rmeta.error_code
+            self.set_failed(err, rmeta.error_text)
+            if self._retryable(err) and self.current_try < self.max_retry:
+                self.error_code_ = 0
+                self.error_text_ = ""
+                self.current_try += 1
+                self.retried_count += 1
+                bthread_id.reset_version(self._cid, self.current_try)
+                self._schedule_try_timer()
+                self._issue_rpc()
+                bthread_id.unlock(cid)
+                return
+            self._end_rpc(cid)
+            return
+        try:
+            att_size = meta.attachment_size
+            body = payload
+            if att_size:
+                att = IOBuf()
+                keep = len(body) - att_size
+                tmp = body.cut(keep)
+                body.cutn(att, att_size)
+                body = tmp
+                self.response_attachment = att
+            data = body.to_bytes()
+            if self._response_cls is not None:
+                resp = self._response_cls()
+                resp.ParseFromString(data)
+                self.response = resp
+            else:
+                self.response = data
+        except Exception as e:
+            self.set_failed(errors.ERESPONSE, f"fail to parse response: {e}")
+        self._end_rpc(cid)
+
+    def _end_rpc(self, cid: int) -> None:
+        if self._timeout_timer is not None:
+            TimerThread.instance().unschedule(self._timeout_timer)
+        self.latency_us = time.monotonic_ns() // 1000 - self._start_us
+        done = self._done
+        bthread_id.unlock_and_destroy(cid)   # wakes sync joiner
+        self._ended.set()
+        if done is not None:
+            from ..bthread import scheduler
+            scheduler.start_background(done, self, name="rpc_done")
+
+    def join(self, timeout: Optional[float] = None) -> None:
+        """Wait for RPC completion (sync calls).  When the caller is a
+        scheduler tasklet, compensate the blocked worker so server-side
+        processing can't be starved by sync callers."""
+        from ..bthread import scheduler
+        scheduler.note_worker_blocked()
+        try:
+            if not self._ended.wait(timeout):
+                raise TimeoutError("RPC join timed out")
+        finally:
+            scheduler.note_worker_unblocked()
+
+
+class ControllerPool:
+    """Server-side Controller pool.  In-use shims are tracked through a
+    versioned-id ResourcePool — ``live()`` is the census, and a double
+    release is rejected by the id version instead of corrupting the free
+    list.  Reset is ``Controller.reset()`` (one dict clear), so a recycled
+    shim never leaks request k's error code or attachment into k+1."""
+
+    def __init__(self, capacity: int = 1024):
+        self.capacity = capacity
+        self._ids: "ResourcePool[Controller]" = ResourcePool()
+        self._free: list = []
+        self._lock = threading.Lock()
+
+    def acquire(self) -> Controller:
+        with self._lock:
+            c = self._free.pop() if self._free else None
+        if c is None:
+            c = Controller()
+        d = c.__dict__
+        d["_pool_rid"] = self._ids.get_resource(c)
+        d["_recycle_pool"] = self
+        return c
+
+    def release(self, c: Controller) -> None:
+        rid = c.__dict__.get("_pool_rid", 0)
+        if not rid or not self._ids.return_resource(rid):
+            return                   # not ours / already released: drop
+        c.reset()
+        with self._lock:
+            if len(self._free) < self.capacity:
+                self._free.append(c)
+
+    def live(self) -> int:
+        """Controllers currently handed out (in-flight requests)."""
+        return self._ids.size()
+
+
+# The process-wide server-side pool tpu_std draws per-request Controllers
+# from.
+server_controller_pool = ControllerPool()

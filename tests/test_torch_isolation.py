@@ -1,0 +1,85 @@
+"""The port stands alone: it loads neither JAX nor the JAX package, and its
+entry points run on the card unless the caller asks for the CPU."""
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from brpc_tpu_torch.ici.mesh import IciMesh
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_ECHO = r"""
+import json, sys
+import torch
+import brpc_tpu_torch.policy
+from brpc_tpu_torch import rpc
+from brpc_tpu_torch.butil import flags
+from brpc_tpu_torch.ici import device_plane
+from brpc_tpu_torch.ici.mesh import IciMesh
+from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
+
+mesh = IciMesh(ranks=8, device="cpu")
+IciMesh.set_default(mesh)
+flags.set_flag("ici_device_plane_host_mesh", True)
+flags.set_flag("ici_device_plane_threshold", 1024)
+
+class Echo(rpc.Service):
+    @rpc.method(EchoRequest, EchoResponse)
+    def Echo(self, cntl, request, response, done):
+        response.message = request.message
+        cntl.response_attachment.append(cntl.request_attachment)
+        done()
+
+server = rpc.Server(rpc.ServerOptions(usercode_inline=True))
+server.add_service(Echo())
+server.start("ici://0")
+ch = rpc.Channel()
+ch.init("ici://0", rpc.ChannelOptions(timeout_ms=30000, max_retry=0))
+cntl = rpc.Controller()
+payload = mesh.device_put(torch.arange(8192).to(torch.uint8), 1)
+cntl.request_attachment.append_device_array(payload)
+resp = ch.call_method("Echo.Echo", cntl, EchoRequest(message="iso"),
+                      EchoResponse)
+ok = (not cntl.failed() and resp.message == "iso"
+      and cntl.response_attachment.to_bytes() == bytes(payload.numpy()))
+ch.close()
+server.stop()
+print(json.dumps({
+    "ok": ok,
+    "transfers": device_plane.plane().stats()["transfers"],
+    "jax": sorted(m for m in sys.modules
+                  if m == "jax" or m.startswith(("jax.", "jaxlib"))),
+    "brpc_tpu": sorted(m for m in sys.modules
+                       if m == "brpc_tpu" or m.startswith("brpc_tpu.")),
+}))
+"""
+
+
+def test_port_echo_loads_no_jax_and_no_jax_package():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = _REPO
+    proc = subprocess.run([sys.executable, "-c", _ECHO], cwd=_REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["ok"]
+    assert out["transfers"] == 2          # request and response legs
+    assert out["jax"] == []
+    assert out["brpc_tpu"] == []
+
+
+def test_default_mesh_is_the_card():
+    """``IciMesh()`` with no device asks for CUDA: without a card it
+    raises instead of carrying on on the CPU."""
+    if torch.cuda.is_available():
+        assert IciMesh().device_type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            IciMesh()
+    assert IciMesh(ranks=2, device="cpu").device_type == "cpu"
+    with pytest.raises(ValueError):
+        IciMesh(ranks=2, device="meta")
