@@ -36,22 +36,11 @@ class Butex:
         with self._cond:
             return self._value
 
-    def set_value(self, v: int) -> None:
-        with self._cond:
-            self._value = v
-
     def fetch_add(self, delta: int) -> int:
         with self._cond:
             old = self._value
             self._value += delta
             return old
-
-    def compare_exchange(self, expected: int, desired: int) -> bool:
-        with self._cond:
-            if self._value != expected:
-                return False
-            self._value = desired
-            return True
 
     # -- wait/wake -----------------------------------------------------
     def wait(self, expected: int, timeout: Optional[float] = None) -> int:
@@ -77,12 +66,6 @@ class Butex:
                 self._waiters -= 1
                 scheduler.note_worker_unblocked()
 
-    def wake(self, n: int = 1) -> int:
-        with self._cond:
-            woken = min(n, self._waiters)
-            self._cond.notify(n)
-            return woken
-
     def wake_all(self) -> int:
         with self._cond:
             woken = self._waiters
@@ -90,8 +73,8 @@ class Butex:
             return woken
 
     def wake_all_and_set(self, value: int) -> int:
-        """Atomically store value and wake everyone (the completion pattern
-        used by join/countdown)."""
+        """Atomically store value and wake everyone (the completion
+        pattern)."""
         with self._cond:
             self._value = value
             woken = self._waiters

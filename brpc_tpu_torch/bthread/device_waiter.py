@@ -109,7 +109,6 @@ class DeviceEventDispatcher:
         self.on_event(ev, device, callback)
 
 
-
 class DeviceCompletion:
     """One-shot completion record — the CQ-entry of the device plane.
 

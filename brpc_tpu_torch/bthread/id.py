@@ -9,8 +9,8 @@ lock and is ignored — that single mechanism resolves every
 timeout/retry/late-response race in the client (SURVEY.md §3.3).
 
 Semantics kept: create_ranged / lock (blocking, version-checked) / unlock /
-unlock_and_destroy / error (lock + on_error callback) / join (wait destroy) /
-reset_version (start try k, staling older versions).
+unlock_and_destroy / error (lock + on_error callback) / reset_version
+(start try k, staling older versions).
 """
 from __future__ import annotations
 
@@ -18,7 +18,6 @@ import threading
 from typing import Any, Callable, Optional, Tuple
 
 from ..butil.resource_pool import ResourcePool
-from .butex import Butex
 
 EINVAL = 22
 EPERM = 1
@@ -31,7 +30,7 @@ _pool: ResourcePool = ResourcePool()
 
 class _IdState:
     __slots__ = ("data", "on_error", "range", "cur_version", "locked",
-                 "destroyed", "cond", "join_butex", "pending_errors")
+                 "destroyed", "cond", "pending_errors")
 
     def __init__(self, data: Any, on_error: Optional[OnError], version_range: int):
         self.data = data
@@ -41,7 +40,6 @@ class _IdState:
         self.locked = False
         self.destroyed = False
         self.cond = threading.Condition()
-        self.join_butex = Butex(0)
         self.pending_errors = []
 
 
@@ -52,10 +50,6 @@ def _split(cid: int) -> Tuple[int, int]:
 
 def _make_cid(rid: int, version: int) -> int:
     return (version << 48) | rid
-
-
-def create(data: Any = None, on_error: Optional[OnError] = None) -> int:
-    return create_ranged(data, on_error, 1)
 
 
 def create_ranged(data: Any, on_error: Optional[OnError],
@@ -125,7 +119,6 @@ def unlock_and_destroy(cid: int) -> int:
         st.locked = False
         st.cond.notify_all()
     _pool.return_resource(rid)
-    st.join_butex.wake_all_and_set(1)
     return 0
 
 
@@ -187,11 +180,3 @@ def _drain_pending(st: _IdState) -> None:
                 continue            # stale try's error — drop
             st.locked = True
         _invoke_on_error(st, cid, code)
-
-
-def join(cid: int, timeout: Optional[float] = None) -> int:
-    st = _state(cid)
-    if st is None:
-        return 0                    # already destroyed
-    rc = st.join_butex.wait(0, timeout)
-    return rc if rc == 110 else 0

@@ -22,11 +22,10 @@ from __future__ import annotations
 
 import collections
 import threading
-from typing import Any, Callable, Deque, Dict, List, Optional
+from typing import Callable, Deque, List, Optional
 
 from ..butil.resource_pool import ResourcePool
 from ..butil import flags as _flags
-from .butex import Butex
 
 _flags.define_flag("bthread_concurrency", 4,
                    "number of scheduler worker threads",
@@ -36,20 +35,15 @@ _flags.define_flag("bthread_max_concurrency", 64,
 
 
 class Tasklet:
-    __slots__ = ("fn", "args", "kwargs", "result", "exception", "done_butex",
-                 "tid", "name", "local_storage")
+    __slots__ = ("fn", "args", "kwargs", "tid", "name")
 
     def __init__(self, fn: Callable, args: tuple, kwargs: dict,
                  name: Optional[str] = None):
         self.fn = fn
         self.args = args
         self.kwargs = kwargs
-        self.result: Any = None
-        self.exception: Optional[BaseException] = None
-        self.done_butex = Butex(0)
         self.tid = 0
         self.name = name
-        self.local_storage: Dict[str, Any] = {}   # bthread-local (key.cpp)
 
 
 _tls = threading.local()
@@ -63,7 +57,6 @@ class TaskGroup:
         self.index = index
         self.deque: Deque[Tasklet] = collections.deque()
         self.lock = threading.Lock()
-        self.steal_count = 0
 
     def push_urgent(self, t: Tasklet) -> None:
         with self.lock:
@@ -99,8 +92,6 @@ class TaskControl:
         self._blocked_lock = threading.Lock()
         self._stop = False
         self._next_victim = 0
-        self.tasklet_count = 0
-        self._count_lock = threading.Lock()
         for i in range(self.concurrency):
             self._add_worker(i)
 
@@ -143,28 +134,21 @@ class TaskControl:
                 continue
             t = victim.steal()
             if t is not None:
-                thief.steal_count += 1
                 return t
         return None
 
     def _run_task(self, task: Tasklet) -> None:
-        _tls.current = task
         try:
-            task.result = task.fn(*task.args, **task.kwargs)
-        except BaseException as e:  # noqa: BLE001 — reported via join
-            task.exception = e
+            task.fn(*task.args, **task.kwargs)
+        except Exception:
+            from ..butil import logging as log
+            log.error("tasklet %s raised", task.name, exc_info=True)
         finally:
-            _tls.current = None
-            task.done_butex.wake_all_and_set(1)
             self.pool.return_resource(task.tid)
-            with self._count_lock:
-                self.tasklet_count -= 1
 
     # -- submission (signal_task / steal_task of the reference) --------
     def submit(self, task: Tasklet, urgent: bool) -> int:
         task.tid = self.pool.get_resource(task)
-        with self._count_lock:
-            self.tasklet_count += 1
         group: Optional[TaskGroup] = getattr(_tls, "group", None)
         if group is not None:
             (group.push_urgent if urgent else group.push_background)(task)
@@ -196,13 +180,6 @@ class TaskControl:
                 and len(self._workers) < _flags.get_flag("bthread_max_concurrency")):
             self._add_worker(len(self.groups))
 
-    # -- introspection -------------------------------------------------
-    def worker_count(self) -> int:
-        return len(self._workers)
-
-    def address(self, tid: int) -> Optional[Tasklet]:
-        return self.pool.address(tid)
-
 
 # ---- module-level API (the bthread_* C functions) ---------------------
 
@@ -214,30 +191,6 @@ def start_urgent(fn: Callable, *args, name: Optional[str] = None, **kwargs) -> i
 def start_background(fn: Callable, *args, name: Optional[str] = None, **kwargs) -> int:
     """bthread_start_background: scheduled FIFO."""
     return TaskControl.instance().submit(Tasklet(fn, args, kwargs, name), False)
-
-
-def join(tid: int, timeout: Optional[float] = None):
-    """bthread_join: wait for completion, return the tasklet's result.
-    Raises the tasklet's exception if it failed."""
-    ctl = TaskControl.instance()
-    task = ctl.address(tid)
-    if task is None:
-        return None       # already finished & reclaimed
-    rc = task.done_butex.wait(0, timeout)
-    if rc == 110:  # ETIMEDOUT
-        raise TimeoutError(f"join({tid}) timed out")
-    if task.exception is not None:
-        raise task.exception
-    return task.result
-
-
-def self_id() -> int:
-    cur = getattr(_tls, "current", None)
-    return cur.tid if cur is not None else 0
-
-
-def current_tasklet() -> Optional[Tasklet]:
-    return getattr(_tls, "current", None)
 
 
 def in_worker() -> bool:
@@ -252,31 +205,3 @@ def note_worker_blocked() -> None:
 def note_worker_unblocked() -> None:
     if in_worker():
         TaskControl.instance().note_unblocked()
-
-
-def yield_tasklet() -> None:
-    """bthread_yield: give other runnables a chance (a hint here)."""
-    import time
-    time.sleep(0)
-
-
-# ---- bthread-local storage (reference key.cpp) ------------------------
-
-def local_set(key: str, value: Any) -> None:
-    cur = current_tasklet()
-    store = cur.local_storage if cur is not None else _thread_fallback_store()
-    store[key] = value
-
-
-def local_get(key: str, default: Any = None) -> Any:
-    cur = current_tasklet()
-    store = cur.local_storage if cur is not None else _thread_fallback_store()
-    return store.get(key, default)
-
-
-def _thread_fallback_store() -> Dict[str, Any]:
-    s = getattr(_tls, "fallback_store", None)
-    if s is None:
-        s = {}
-        _tls.fallback_store = s
-    return s

@@ -29,8 +29,6 @@ class TimerThread:
         self._cv = threading.Condition()
         self._thread: Optional[threading.Thread] = None
         self._stop = False
-        self.scheduled_count = 0
-        self.triggered_count = 0
 
     @classmethod
     def instance(cls) -> "TimerThread":
@@ -45,7 +43,6 @@ class TimerThread:
             tid = next(self._next_id)
             heapq.heappush(self._heap, (abstime, tid, fn))
             self._entries[tid] = True
-            self.scheduled_count += 1
             if self._thread is None:
                 self._thread = threading.Thread(
                     target=self._run, name="brpc_timer", daemon=True)
@@ -74,7 +71,6 @@ class TimerThread:
                     live = self._entries.pop(tid, False)
                     if not live:
                         continue
-                    self.triggered_count += 1
                     self._cv.release()
                     try:
                         self._fire(fn)
@@ -91,11 +87,3 @@ class TimerThread:
         from . import scheduler
         # timers run in tasklets so a slow callback can't delay the wheel
         scheduler.start_urgent(fn, name="timer_cb")
-
-
-def timer_add(fn: Callable[[], None], delay_s: float) -> TimerId:
-    return TimerThread.instance().schedule_after(fn, delay_s)
-
-
-def timer_del(tid: TimerId) -> int:
-    return TimerThread.instance().unschedule(tid)

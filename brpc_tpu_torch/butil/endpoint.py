@@ -16,7 +16,6 @@ and by every naming service.
 from __future__ import annotations
 
 import re
-import socket as _socket
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -51,9 +50,6 @@ class EndPoint:
         if len(self.coords) != 1:
             raise ValueError(f"{self} has mesh coords, not a flat device id")
         return self.coords[0]
-
-    def is_device(self) -> bool:
-        return self.scheme == SCHEME_ICI
 
 
 def parse_endpoint(s: str) -> EndPoint:
@@ -94,15 +90,3 @@ def parse_endpoint(s: str) -> EndPoint:
         return EndPoint(scheme=SCHEME_MEM, host=s)
     host, _, port = s.rpartition(":")
     return EndPoint(scheme=SCHEME_TCP, host=host, port=int(port))
-
-
-def endpoint2str(ep: EndPoint) -> str:
-    return str(ep)
-
-
-def hostname2endpoint(hostport: str) -> EndPoint:
-    """Resolve hostname:port to a numeric tcp endpoint (reference
-    butil::hostname2endpoint)."""
-    host, _, port = hostport.rpartition(":")
-    ip = _socket.gethostbyname(host)
-    return EndPoint(scheme=SCHEME_TCP, host=ip, port=int(port))

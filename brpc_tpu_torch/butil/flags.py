@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import os
 import threading
-from typing import Any, Callable, Dict, Iterable, Optional
+from typing import Any, Callable, Dict, Optional
 
 
 class Flag:
@@ -34,10 +34,6 @@ class Flag:
             if validator is not None and not validator(default):
                 raise ValueError(f"env override for flag {name} rejected by validator: {env!r}")
         self.value = default
-
-    @property
-    def reloadable(self) -> bool:
-        return self._reloadable and (self.validator is not None or self._reloadable)
 
     def get(self) -> Any:
         return self.value
@@ -85,18 +81,5 @@ def set_flag(name: str, value: Any) -> None:
     _registry[name].set(value)
 
 
-def flag_object(name: str) -> Flag:
-    return _registry[name]
-
-
-def list_flags() -> Iterable[Flag]:
-    with _registry_lock:
-        return sorted(_registry.values(), key=lambda f: f.name)
-
-
 def positive_integer(v: Any) -> bool:
     return isinstance(v, int) and v > 0
-
-
-def non_negative_integer(v: Any) -> bool:
-    return isinstance(v, int) and v >= 0

@@ -259,14 +259,6 @@ class IOBuf:
     def device_refs(self) -> List[BlockRef]:
         return [r for r in self._refs if r.block.kind == DEVICE]
 
-    def has_device_blocks(self) -> bool:
-        return any(r.block.kind == DEVICE for r in self._refs)
-
-    def device_bytes(self) -> int:
-        """Total bytes referenced from DEVICE blocks — the volume a
-        transport's device plane is responsible for moving."""
-        return sum(r.length for r in self._refs if r.block.kind == DEVICE)
-
 
 class IOPortal(IOBuf):
     """The read-side buffer a socket's transport fills (reference

@@ -113,7 +113,7 @@ class P2PCopy:
         if proc.returncode != 0:
             raise RuntimeError(f"p2p_copy: nvcc failed ({proc.returncode}):\n"
                                f"{proc.stderr}")
-        os.replace(tmp, lib_path)       # atomic: concurrent builders agree
+        os.replace(tmp, lib_path)       # atomic: concurrent builds agree
 
     def _blocks_cap(self, device: torch.device) -> int:
         idx = device.index if device.index is not None \

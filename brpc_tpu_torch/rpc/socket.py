@@ -3,9 +3,8 @@
 Reference: src/brpc/socket.{h,cpp} — the heart of the runtime.  Kept
 capabilities:
 
-  * SocketId: versioned id from a global ResourcePool (socket_id.h:35).
-    ``Socket.address(sid)`` fails after ``set_failed`` — handle revocation
-    without locks.
+  * SocketId: versioned id from a global ResourcePool (socket_id.h:35),
+    returned at ``set_failed``; the pool's live ids are the socket census.
   * Write path (socket.cpp:1584-1790): callers enqueue WriteRequests; the
     first uncontended writer drains in place, leftover work moves to a
     single "KeepWrite" tasklet that batches everyone else's requests.  One
@@ -91,12 +90,7 @@ class Socket:
         self._cid_lock = threading.Lock()
         self.is_server_side = False
 
-    # ---- id management ----------------------------------------------
-    @staticmethod
-    def address(sid: int) -> Optional["Socket"]:
-        s = _socket_pool.address(sid)
-        return s if s is not None and not s.failed else None
-
+    # ---- failure -----------------------------------------------------
     def set_failed(self, error_code: int = errors.EFAILEDSOCKET,
                    reason: str = "") -> bool:
         with self._write_lock:
@@ -276,11 +270,6 @@ class Socket:
 
     def _transport_close(self) -> None:
         pass
-
-    def description(self) -> str:
-        return (f"Socket{{id={self.id} remote={self.remote_side} "
-                f"failed={self.failed} in={self.stat.in_size}B "
-                f"out={self.stat.out_size}B}}")
 
 
 def list_sockets() -> List[Socket]:
