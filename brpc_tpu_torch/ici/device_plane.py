@@ -163,14 +163,13 @@ def platform_allows(mesh: IciMesh) -> bool:
 
 
 def eligible(nbytes: int, mesh: IciMesh, src: int, dst: int) -> bool:
-    """Route this payload device-plane?  Flag + threshold + platform, and
-    both ranks on one device: the kernel's peer-pointer leg between cards
-    is not built yet, so ranks on different cards keep the device_put
-    path."""
+    """Route this payload device-plane?  Flag + threshold + platform.
+    Ranks on different cards are eligible too: ``post_send`` refuses them
+    (the kernel's peer-pointer leg is not built yet) and the write fails,
+    rather than moving the bytes with a library copy."""
     return (bool(_flags.get_flag("ici_device_plane"))
             and nbytes >= _flags.get_flag("ici_device_plane_threshold")
-            and platform_allows(mesh)
-            and mesh.device(src) == mesh.device(dst))
+            and platform_allows(mesh))
 
 
 class DevicePlane:
@@ -189,15 +188,11 @@ class DevicePlane:
         self.transfers = 0
         self.bytes_sent = 0
         self.bytes_recv = 0
-        # posts refused because the kernel could not be built (the JAX
-        # plane's name; nothing falls back — the refused write fails)
-        self.fallbacks = 0
-        # the port has one kernel for every size and route, so the JAX
-        # program cache reduces to: misses = kernel builds this plane
-        # triggered, hits = transfers served by an already-built kernel
-        # (or by the plain version on a CPU mesh)
-        self.cache_hits = 0
-        self.cache_misses = 0
+        # one kernel serves every size and route, so the JAX plane's
+        # program cache and its fallbacks have no counterpart: what is
+        # left to count is building that kernel and failing to
+        self.kernel_builds = 0
+        self.build_failures = 0      # posts refused; the write fails
         self.match_timeouts = 0
 
     @classmethod
@@ -245,10 +240,10 @@ class DevicePlane:
                     p2p_copy.build()
                 except Exception as e:
                     with self._lock:
-                        self.fallbacks += 1
+                        self.build_failures += 1
                     raise DevicePlaneError(f"p2p_copy build failed: {e}")
                 with self._lock:
-                    self.cache_misses += 1
+                    self.kernel_builds += 1
         t = DeviceTransfer(self.next_uuid(), src_dev, dst_dev,
                            int(arr.shape[0]), arr, mesh)
         if arr.is_cuda:
@@ -288,8 +283,6 @@ class DevicePlane:
         if not src.is_cuda:
             out = torch.empty(t.nbytes, dtype=torch.uint8, device=dst_device)
             p2p_copy(src, out)
-            with self._lock:
-                self.cache_hits += 1
             return t.mesh.register(out, t.dst_dev), None
         caller = torch.cuda.current_stream(dst_device)
         out = torch.empty(t.nbytes, dtype=torch.uint8, device=dst_device)
@@ -305,8 +298,6 @@ class DevicePlane:
             done_event.record(stream)
         src.record_stream(stream)
         out.record_stream(stream)
-        with self._lock:
-            self.cache_hits += 1
         return t.mesh.register(out, t.dst_dev), done_event
 
     def _matched(self, t: DeviceTransfer, out: torch.Tensor,
@@ -379,9 +370,8 @@ class DevicePlane:
                 "transfers": self.transfers,
                 "bytes_sent": self.bytes_sent,
                 "bytes_recv": self.bytes_recv,
-                "fallbacks": self.fallbacks,
-                "program_cache_hits": self.cache_hits,
-                "program_cache_misses": self.cache_misses,
+                "kernel_builds": self.kernel_builds,
+                "build_failures": self.build_failures,
                 "match_timeouts": self.match_timeouts,
             }
         out["pending_sends"] = self.pending_sends()

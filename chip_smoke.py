@@ -10,8 +10,10 @@ Phases, each fatal on failure:
   2. kernel     p2p_copy against its plain version at 4 KiB, 65,537 B
                 (misaligned source), 4 MiB, 4 MiB (source and destination
                 misaligned) and 256 MiB: bit-exact, with CUDA-event times
-                (median of 25 single launches, L2 flushed before each)
-                beside Tensor.copy_ and the HBM bound 2·n / 3.35 TB/s
+                (median of 25 single launches, L2 flushed before each;
+                kernel, plain version and Tensor.copy_ timed in turns,
+                twice, each keeping the better median) beside the HBM
+                bound 2·n / 3.35 TB/s
   3. plane      the device-plane echo of the JAX package's
                 bench_device_plane: IciMesh(ranks=8) on the card, server on
                 ici://0 answering inline, payload owned by rank 1,
@@ -115,12 +117,17 @@ def phase_kernel(p2p_copy, p2p_copy_plain, dev) -> list:
         check(err == 0, f"p2p_copy differs from its plain version at "
                         f"{label}: max abs err {err}")
         check(torch.equal(ref, src), f"plain version wrong at {label}")
-        # in turns: kernel, plain, library, kernel; the kernel keeps the
+        # two rounds in turns (kernel, plain, library): each keeps the
         # better of its two medians
-        ms = event_ms(lambda: p2p_copy(src, dst), flush)
-        plain_ms = event_ms(lambda: p2p_copy_plain(src, ref), flush)
-        library_ms = event_ms(lambda: lib.copy_(src), flush)
-        ms = min(ms, event_ms(lambda: p2p_copy(src, dst), flush))
+        timed = {"ms": lambda: p2p_copy(src, dst),
+                 "plain_ms": lambda: p2p_copy_plain(src, ref),
+                 "library_ms": lambda: lib.copy_(src)}
+        best = dict.fromkeys(timed, float("inf"))
+        for _ in range(2):
+            for key, fn in timed.items():
+                best[key] = min(best[key], event_ms(fn, flush))
+        ms, plain_ms, library_ms = (best["ms"], best["plain_ms"],
+                                    best["library_ms"])
         check(torch.equal(dst, src), f"p2p_copy wrong after timing, {label}")
         bound_ms = 2 * n / HBM_BYTES_PER_S * 1e3
         row = {"label": label, "bytes": n, "src_offset": so,
@@ -138,73 +145,6 @@ def phase_kernel(p2p_copy, p2p_copy_plain, dev) -> list:
         del src_buf, src, dst, ref, lib
     del flush
     return rows
-
-
-def device_busy_share(fn) -> dict:
-    """Run ``fn`` under torch.profiler: device time of every kernel and
-    copy over the window's wall time."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
-    return {"wall_us": wall_us, "device_busy_us": busy_us,
-            "device_idle_share": 1.0 - busy_us / wall_us}
-
-
-def sample_stacks(fn, threads=("MainThread", "device_poller_cuda:0"),
-                  interval_s: float = 0.0002) -> list:
-    """Run ``fn`` while a sampler reads the stacks of ``threads``; each
-    sample is charged to the innermost frame in this repository's port
-    package (and the leaf function it was in).  Returns the sites with
-    their share of each thread's samples."""
-    import collections
-    import os
-    import threading
-    pkg = os.sep + "brpc_tpu_torch" + os.sep
-    counts: collections.Counter = collections.Counter()
-    per_thread: collections.Counter = collections.Counter()
-    stop = threading.Event()
-
-    def sampler() -> None:
-        while not stop.is_set():
-            names = {t.ident: t.name for t in threading.enumerate()}
-            for ident, frame in sys._current_frames().items():
-                name = names.get(ident)
-                if name not in threads:
-                    continue
-                f, site = frame, "outside the package"
-                while f is not None:
-                    if pkg in f.f_code.co_filename:
-                        site = (os.path.basename(f.f_code.co_filename)
-                                + ":" + f.f_code.co_name)
-                        break
-                    f = f.f_back
-                counts[(name, site, frame.f_code.co_name)] += 1
-                per_thread[name] += 1
-            time.sleep(interval_s)
-
-    # a short switch interval lets the sampler take the GIL between
-    # samples; with the default 5 ms it would only see the points where
-    # the sampled threads release the GIL
-    switch = sys.getswitchinterval()
-    sys.setswitchinterval(interval_s / 2)
-    t = threading.Thread(target=sampler, name="stack_sampler", daemon=True)
-    t.start()
-    try:
-        fn()
-    finally:
-        stop.set()
-        t.join(5.0)
-        sys.setswitchinterval(switch)
-    return [{"thread": k[0], "site": k[1], "leaf": k[2],
-             "share": n / per_thread[k[0]]}
-            for k, n in counts.most_common(16)]
 
 
 def make_payload(mesh, nbytes: int, rank: int, seed: int):
@@ -263,12 +203,6 @@ def phase_plane_echo(rpc, mesh, plane, p2p_copy, EchoRequest, EchoResponse):
         calls += 20
         out["gbps_4m"] = 16 * big / (sum(lat) / 1e6) / 1e9
         out["p50_us_4m"] = lat[len(lat) // 2]
-        # where a 4 KiB call's time goes: the device's idle share over a
-        # profiled window, and sampled host stacks (windows apart from the
-        # timed loops above, which they would perturb)
-        out["profile_4k"] = device_busy_share(lambda: drive(small, 30, 0))
-        out["stacks_4k"] = sample_stacks(lambda: drive(small, 200, 0))
-        calls += 230
         torch.cuda.synchronize()
         after = plane.stats()
         out["calls"] = calls

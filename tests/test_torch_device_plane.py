@@ -114,13 +114,19 @@ class TestQPLifecycle:
         jplane.post_recv(jt.uuid)
         assert jt.wait(30) == 0
         after, jafter = plane_on.stats(), jplane.stats()
-        for key in ("transfers", "bytes_sent", "bytes_recv",
-                    "match_timeouts", "fallbacks"):
+        shared = {"transfers", "bytes_sent", "bytes_recv", "match_timeouts",
+                  "pending_sends"}
+        for key in shared - {"pending_sends"}:
             assert after[key] - before[key] == jafter[key] - jbefore[key], key
         assert after["transfers"] == before["transfers"] + 1
         assert after["bytes_sent"] == before["bytes_sent"] + 2048
         assert after["bytes_recv"] == before["bytes_recv"] + 2048
-        assert set(after) == set(jafter)            # the same stats() keys
+        # keys whose meaning holds keep the JAX name; the program cache
+        # and its fallbacks have no counterpart in a one-kernel plane
+        assert set(after) & set(jafter) == shared
+        assert set(after) - shared == {"kernel_builds", "build_failures"}
+        assert set(jafter) - shared == {"fallbacks", "program_cache_hits",
+                                        "program_cache_misses"}
 
     def test_same_rank_post_is_refused(self, plane_on, port_mesh):
         with pytest.raises(dp.DevicePlaneError):
@@ -149,7 +155,7 @@ class TestOneKernelForEveryShape:
     def test_no_shape_or_route_builds_a_program(self, plane_on, port_mesh):
         """The JAX plane compiles one program per (size, route); the port
         runs one kernel for all.  On a CPU mesh nothing is built at all:
-        every transfer is a cache hit, none a miss."""
+        five transfers, no build and no build failure."""
         s0 = plane_on.stats()
         for _ in range(4):
             t = plane_on.post_send(_payload(port_mesh, 3072, 1), 1, 2)
@@ -159,8 +165,9 @@ class TestOneKernelForEveryShape:
         plane_on.post_recv(t.uuid)
         assert t.wait(30) == 0
         s1 = plane_on.stats()
-        assert s1["program_cache_misses"] == s0["program_cache_misses"]
-        assert s1["program_cache_hits"] == s0["program_cache_hits"] + 5
+        assert s1["kernel_builds"] == s0["kernel_builds"]
+        assert s1["build_failures"] == s0["build_failures"]
+        assert s1["transfers"] == s0["transfers"] + 5
 
 
 class TestFailureModes:
@@ -199,12 +206,12 @@ class TestFailureModes:
     def test_ranks_on_different_devices_are_refused_before_posting(
             self, plane_on):
         """The kernel copies within one device; a pair of ranks on two
-        devices is refused before any descriptor exists (the transport
-        keeps its device_put route for it)."""
+        devices is still eligible, so it reaches post_send, which refuses
+        it before any descriptor exists (no library copy stands in)."""
         mesh = IciMesh(ranks=2, device="cpu")
         src = mesh.device_put(torch.arange(4096).to(torch.uint8), 0)
         mesh.devices = [torch.device("cpu"), torch.device("meta")]
-        assert not dp.eligible(4096, mesh, 0, 1)
+        assert dp.eligible(4096, mesh, 0, 1)
         pending = plane_on.pending_sends()
         with pytest.raises(dp.DevicePlaneError, match="cross-card"):
             plane_on.post_send(src, 0, 1, mesh=mesh)

@@ -294,6 +294,33 @@ class TestIciWindow:
         a.set_failed()
         b.set_failed()
 
+    def test_cross_device_payload_fails_the_write_instead_of_copying(self):
+        """Ranks on two devices: a plane-sized payload is refused by the
+        plane (its cross-card leg is not built) and the write fails; it
+        is never moved by mesh.device_put instead."""
+        mesh = IciMesh(ranks=2, device="cpu")
+        src = mesh.device_put(torch.arange(4096).to(torch.uint8), 0)
+        mesh.devices = [torch.device("cpu"), torch.device("meta")]
+        a, b = self._pair(mesh, 1 << 20, a_dev=0, b_dev=1)
+        put = []
+        mesh.device_put = lambda t, rank: put.append(rank)
+        codes = []
+        t0 = dp.plane().stats()["transfers"]
+        pending = dp.plane().pending_sends()
+        buf = IOBuf()
+        buf.append_device_array(src)
+        a.write(buf, on_done=codes.append)
+        deadline = time.monotonic() + 5
+        while not codes and time.monotonic() < deadline:
+            time.sleep(0.005)
+        assert codes and codes[0] != 0
+        assert a.failed
+        assert put == []
+        assert dp.plane().stats()["transfers"] == t0
+        assert dp.plane().pending_sends() == pending
+        assert len(b._inbox) == 0
+        b.set_failed()
+
 
 class TestOrderedDelivery:
     class _Host(T.OrderedDelivery):
