@@ -2,13 +2,18 @@
 
 The port of :mod:`brpc_tpu` (the JAX package, which stays the reference)
 to an NVIDIA Hopper card.  It imports nothing of JAX and nothing of
-``brpc_tpu``.  Layer map of this slice:
+``brpc_tpu``.  Layer map of slices 1-2:
 
-  L5  API          brpc_tpu_torch.rpc.Server / Channel / Controller
+  L5  API          brpc_tpu_torch.rpc.Server / Channel / Controller;
+                   brpc_tpu_torch.channels.CollectiveChannel (combo
+                   channels lowered to mesh collectives)
   L4  policies     brpc_tpu_torch.policy.tpu_std (the framed protocol)
   L3  core runtime brpc_tpu_torch.rpc.* Socket, InputMessenger, SocketMap;
                    brpc_tpu_torch.ici.* mesh of logical ranks, ici://
-                   transport, device plane, the p2p_copy kernel
+                   transport, device plane, the p2p_copy kernel;
+                   sharded layout, Collectives, ring pipelines, ring and
+                   Ulysses attention, the ring_all_reduce and
+                   ring_all_gather kernels
   L2  scheduling   brpc_tpu_torch.bthread.* tasklets, butex, correlation
                    ids, timer thread, CUDA-event completion waits
   L1  base         brpc_tpu_torch.butil.* IOBuf (device-block capable),

@@ -1,9 +1,13 @@
-"""Carry IOBuf contents across from the JAX package.
+"""Carry state across from the JAX package.
 
 The JAX package's IOBuf holds host bytes and DEVICE blocks resident on mesh
 devices.  Exported as numpy — host segments as ``bytes``, device segments
 as ``(uint8 ndarray, mesh_index)`` — the same buffer is rebuilt here with
 each device segment owned by the same logical rank of the port's mesh.
+
+A JAX array sharded one row per device, exported as an ``(n, *chunk)``
+numpy array, becomes a :class:`~.ici.mesh.ShardedTensor` with row r owned
+by rank r.
 """
 from __future__ import annotations
 
@@ -13,7 +17,7 @@ import numpy as np
 import torch
 
 from .butil.iobuf import IOBuf
-from .ici.mesh import IciMesh
+from .ici.mesh import IciMesh, ShardedTensor
 
 Segment = Union[bytes, Tuple[np.ndarray, int]]
 
@@ -33,3 +37,24 @@ def iobuf_from_segments(segments: Iterable[Segment], mesh: IciMesh) -> IOBuf:
         host = torch.from_numpy(arr.copy())
         buf.append_device_array(mesh.device_put(host, int(rank)))
     return buf
+
+
+def _tensor(arr: np.ndarray) -> torch.Tensor:
+    """A tensor of its own holding ``arr``; numpy's bfloat16 extension
+    type (what a JAX bfloat16 array exports to) crosses as its bits."""
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(arr).view(np.uint16)).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
+
+
+def sharded_from_numpy(rows: np.ndarray, mesh: IciMesh) -> ShardedTensor:
+    """An ``(n, *chunk)`` array as a ShardedTensor of ``mesh``: row r
+    owned by rank r, on rank r's device."""
+    rows = np.asarray(rows)
+    if rows.ndim == 0 or rows.shape[0] != mesh.size:
+        raise ValueError(f"expected ({mesh.size}, ...) rows, got "
+                         f"{rows.shape}")
+    return ShardedTensor.adopt(
+        [_tensor(rows[r]).to(mesh.device(r)) for r in range(mesh.size)],
+        mesh)

@@ -14,12 +14,22 @@ The registry is keyed on the tensor's underlying storage, so a view or a
 slice of a registered tensor resolves to the same rank (the transport
 slices IOBuf refs at any offset), and an entry is dropped when its storage
 dies — a later allocation at the same address is never mistaken for it.
+
+Sharded and replicated values (the collectives' layouts).  Because
+ownership is per storage, the rows of one ``(n, *chunk)`` tensor cannot
+belong to n ranks.  A JAX array sharded one row per device
+(``PartitionSpec(axis)``) is therefore a :class:`ShardedTensor`: n row
+tensors, row r a tensor of its own owned by rank r, so a row sent as an
+RPC attachment leaves from the right rank.  A replicated JAX array
+(``PartitionSpec()``) is one plain tensor on the mesh's card,
+``mesh.device(0)``, owned by no rank.
 """
 from __future__ import annotations
 
 import threading
 import weakref
-from typing import Dict, List, Optional, Tuple
+from typing import (Callable, Dict, Iterator, List, Optional, Sequence,
+                    Tuple)
 
 import torch
 
@@ -71,8 +81,23 @@ class IciMesh:
     def endpoint(self, rank: int) -> EndPoint:
         return EndPoint(scheme=SCHEME_ICI, coords=(rank,))
 
+    def endpoints(self) -> List[EndPoint]:
+        return [self.endpoint(i) for i in range(self.size)]
+
     def device(self, rank: int) -> torch.device:
         return self.devices[rank % self.size]
+
+    # ---- topology ------------------------------------------------------
+    def ring_perm(self, shift: int = 1) -> List[Tuple[int, int]]:
+        """Source→dest pairs rotating the ring by ``shift`` hops."""
+        n = self.size
+        return [(i, (i + shift) % n) for i in range(n)]
+
+    def neighbors(self, rank: int) -> List[int]:
+        n = self.size
+        if n == 1:
+            return [0]
+        return sorted({(rank - 1) % n, (rank + 1) % n})
 
     # ---- residency -----------------------------------------------------
     @staticmethod
@@ -120,6 +145,84 @@ class IciMesh:
         out.copy_(t)
         return self.register(out, rank)
 
+    def own(self, t: torch.Tensor, rank: int) -> torch.Tensor:
+        """``t`` owned by ``rank``, copied only where it must be: ``t``
+        itself when ``rank`` owns it already, ``t`` registered to ``rank``
+        when no rank owns it and it lies on ``rank``'s device, else a copy
+        (:meth:`device_put`).  For results that nobody else holds — a
+        fresh tensor or a view of one: registering claims the storage."""
+        owner = self.rank_of(t)
+        if owner == rank:
+            return t
+        if owner == -1 and t.device == self.device(rank):
+            return self.register(t, rank)
+        return self.device_put(t, rank)
+
     def live_registrations(self) -> int:
         with self._res_lock:
             return len(self._residency)
+
+
+class ShardedTensor:
+    """An ``(n, *chunk)`` value held one row per rank of ``mesh``: row r is
+    a tensor of its own, owned by rank r (the JAX ``PartitionSpec(axis)``
+    layout).  Iterating yields the rows, as iterating the stacked tensor
+    would."""
+
+    __slots__ = ("rows", "mesh")
+
+    def __init__(self, rows: Sequence[torch.Tensor], mesh: IciMesh):
+        rows = list(rows)
+        if len(rows) != mesh.size:
+            raise ValueError(f"ShardedTensor: {len(rows)} rows for a mesh "
+                             f"of {mesh.size}")
+        first = rows[0]
+        for r, row in enumerate(rows):
+            if not isinstance(row, torch.Tensor):
+                raise TypeError(f"ShardedTensor: row {r} is not a tensor")
+            if row.shape != first.shape or row.dtype != first.dtype:
+                raise ValueError(
+                    f"ShardedTensor: row {r} is {row.dtype}{tuple(row.shape)}"
+                    f", row 0 {first.dtype}{tuple(first.shape)}")
+            if mesh.rank_of(row) != r:
+                raise ValueError(f"ShardedTensor: row {r} is owned by rank "
+                                 f"{mesh.rank_of(row)}")
+        self.rows: List[torch.Tensor] = rows
+        self.mesh = mesh
+
+    @classmethod
+    def adopt(cls, rows: Sequence[torch.Tensor],
+              mesh: IciMesh) -> "ShardedTensor":
+        """Rows that nobody else holds (fresh results, or views of a row
+        of the same rank), each made owned by its rank (:meth:`IciMesh.own`)."""
+        return cls([mesh.own(t, r) for r, t in enumerate(rows)], mesh)
+
+    @property
+    def shape(self) -> torch.Size:
+        return torch.Size((len(self.rows),) + tuple(self.rows[0].shape))
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.rows[0].dtype
+
+    @property
+    def device(self) -> torch.device:
+        """Row 0's device: every row's on a mesh of one card."""
+        return self.rows[0].device
+
+    def row(self, r: int) -> torch.Tensor:
+        return self.rows[r]
+
+    def map(self, fn: Callable[[torch.Tensor], torch.Tensor]
+            ) -> "ShardedTensor":
+        """``fn`` applied to every row; each result must be new or a view
+        of its row (see :meth:`adopt`)."""
+        return ShardedTensor.adopt([fn(t) for t in self.rows], self.mesh)
+
+    def stack(self) -> torch.Tensor:
+        """One ``(n, *chunk)`` tensor on row 0's device (for tests and
+        ``.cpu().numpy()``)."""
+        return torch.stack([t.to(self.device) for t in self.rows])
+
+    def __iter__(self) -> Iterator[torch.Tensor]:
+        return iter(self.rows)

@@ -6,7 +6,9 @@ NVIDIA card.
 Needs one CUDA device; exits non-zero (and prints no result) without one.
 Phases, each fatal on failure:
 
-  1. build      compile csrc/p2p_copy.cu with nvcc (sm_90a) and load it
+  1. build      compile csrc/p2p_copy.cu, csrc/ring_all_reduce.cu and
+                csrc/ring_all_gather.cu with nvcc (sm_90a), one nvcc each,
+                all started together, and load them
   2. kernel     p2p_copy against its plain version at 4 KiB, 65,537 B
                 (misaligned source), 4 MiB, 4 MiB (source and destination
                 misaligned) and 256 MiB: bit-exact, with CUDA-event times
@@ -22,10 +24,33 @@ Phases, each fatal on failure:
   4. echo       the default 64 KiB threshold with an Echo service that
                 returns the attachment: 64 KiB and 4 MiB ride the plane,
                 4 KiB takes mesh.device_put; returned bytes must match
+  5. ring       ring_all_reduce and ring_all_gather against their plain
+                versions, bit-exact (max abs err 0): n = 8 in float32 at
+                64 MiB in all (bench.py's allreduce size) and 1 GiB, timed
+                like phase 2 beside their HBM bounds and a library
+                yardstick; then bfloat16, float16, int32, a ragged chunk of
+                1,003 elements, a row that is not 16-byte aligned, and
+                n = 2, 3 and 20
+  6. collectives  the collectives path at full width on IciMesh(ranks=8):
+                64 MiB and 1 GiB of float32 gradients through
+                Collectives.all_reduce (psum), ring.ring_all_reduce and
+                pallas_ring.ring_all_reduce (GB/s = input bytes over host
+                time per call, as bench.py's bench_allreduce_gbps; the ring
+                equals the kernel bit for bit, psum within 1e-6·n·max Σ|x|),
+                ring_all_gather at both sizes, a CollectiveChannel
+                tensor-parallel matvec (weight (8, 4096, 4096), MAP_SHARD +
+                MERGE_SUM, rtol 1e-5 against the dense product in float64)
+                and a MERGE_GATHER method with takes_index, a RingStream of
+                6 chunks with window 2, and ring_attention (causal and not)
+                and ulysses_attention at bench_ring_attention's shape (seq
+                4096 over 8 ranks, 8 heads, dim 128, float32, TF32 off)
+                against reference_attention within rtol = atol = 1e-4
 
-Launch counts are zeroed just before phase 3 and read after phase 4: the
-kernel's launches must equal the plane's transfers.  The line before the
-last is the ``kernels`` JSON; the last line is the device JSON.
+Launch counts are zeroed just before each path and read just after it:
+during phases 3-4 p2p_copy's launches must equal the plane's transfers;
+during phase 6 each ring kernel's launches must equal the calls of its
+entry point.  The line before the last is the ``kernels`` JSON; the last
+line is the device JSON.
 """
 from __future__ import annotations
 
@@ -34,6 +59,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -41,6 +67,12 @@ import torch
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3, NVIDIA data sheet
 TIMED_RUNS = 25
 SPIN_CYCLES = 200_000              # ~100 µs of GPU spin ahead of each timing
+# phases 5-6: total float32 bytes over the 8 ranks (bench.py's allreduce
+# size and the north star's 1 GiB), the matvec width, and
+# bench_ring_attention's (seq, heads, dim)
+RING_SIZES = (("64 MiB", 64 << 20), ("1 GiB", 1 << 30))
+MATVEC_D = 4096
+ATTENTION = (4096, 8, 128)
 
 
 def fail(msg: str) -> None:
@@ -84,6 +116,17 @@ def event_ms(fn, flush: torch.Tensor, runs: int = TIMED_RUNS,
     return statistics.median(times)
 
 
+def time_in_turns(timed: dict, flush: torch.Tensor,
+                  runs: int = TIMED_RUNS) -> dict:
+    """Two rounds of ``event_ms`` over ``timed`` (key -> fn) in turns,
+    each key keeping the better of its two medians."""
+    best = dict.fromkeys(timed, float("inf"))
+    for _ in range(2):
+        for key, fn in timed.items():
+            best[key] = min(best[key], event_ms(fn, flush, runs=runs))
+    return best
+
+
 def host_us(fn, runs: int = 500) -> float:
     """Host cost of enqueueing ``fn`` once (µs), over ``runs`` calls."""
     torch.cuda.synchronize()
@@ -117,15 +160,9 @@ def phase_kernel(p2p_copy, p2p_copy_plain, dev) -> list:
         check(err == 0, f"p2p_copy differs from its plain version at "
                         f"{label}: max abs err {err}")
         check(torch.equal(ref, src), f"plain version wrong at {label}")
-        # two rounds in turns (kernel, plain, library): each keeps the
-        # better of its two medians
-        timed = {"ms": lambda: p2p_copy(src, dst),
-                 "plain_ms": lambda: p2p_copy_plain(src, ref),
-                 "library_ms": lambda: lib.copy_(src)}
-        best = dict.fromkeys(timed, float("inf"))
-        for _ in range(2):
-            for key, fn in timed.items():
-                best[key] = min(best[key], event_ms(fn, flush))
+        best = time_in_turns({"ms": lambda: p2p_copy(src, dst),
+                              "plain_ms": lambda: p2p_copy_plain(src, ref),
+                              "library_ms": lambda: lib.copy_(src)}, flush)
         ms, plain_ms, library_ms = (best["ms"], best["plain_ms"],
                                     best["library_ms"])
         check(torch.equal(dst, src), f"p2p_copy wrong after timing, {label}")
@@ -270,12 +307,319 @@ def phase_default_echo(rpc, mesh, plane, p2p_copy, EchoRequest,
     return out
 
 
+def build_all(kernels) -> dict:
+    """Build every kernel, one nvcc each, all started together."""
+    t0 = time.monotonic()
+    with ThreadPoolExecutor(len(kernels)) as pool:
+        secs = list(pool.map(lambda k: k.build(), kernels))
+    out = {k.name: s for k, s in zip(kernels, secs)}
+    out["wall"] = time.monotonic() - t0
+    return out
+
+
+def _mixed(gen, shape, dev, dtype=torch.float32, top: int = 4
+           ) -> torch.Tensor:
+    """Seeded values of magnitudes 1e-4..1e``top``: the ring's per-rank
+    fold orders then give other last bits."""
+    x = torch.randn(shape, generator=gen, device=dev)
+    x *= torch.pow(10.0, torch.randint(-4, top + 1, shape, generator=gen,
+                                       device=dev).float())
+    return x.to(dtype)
+
+
+def _bitwise_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """0 when the bits agree, else the max abs difference (inf if NaN)."""
+    if torch.equal(a.view(torch.uint8), b.view(torch.uint8)):
+        return 0.0
+    d = (a.double() - b.double()).abs().max().item()
+    return d if d > 0 else float("inf")
+
+
+
+
+def phase_ring_kernels(pr, dev) -> dict:
+    n = 8
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    out = {"ring_all_reduce": [], "ring_all_gather": [], "small": []}
+    for label, total in RING_SIZES:
+        chunk = total // 4 // n
+        rows = [_mixed(gen, (chunk,), dev) for _ in range(n)]
+        x = torch.stack(rows)
+        # all-reduce: kernel, plain version, torch.sum(x, 0) as yardstick
+        outs = [torch.empty_like(t) for t in rows]
+        pouts = [torch.empty_like(t) for t in rows]
+        lib = torch.empty(chunk, device=dev)
+        pr.ring_all_reduce_kernel(rows, outs)
+        pr.ring_all_reduce_plain(rows, pouts)
+        torch.cuda.synchronize()
+        err = max(_bitwise_err(a, b) for a, b in zip(outs, pouts))
+        check(err == 0, f"ring_all_reduce differs from its plain version at "
+                        f"{label}: max abs err {err}")
+        differs = sum(not torch.equal(outs[0], t) for t in outs[1:])
+        best = time_in_turns({
+            "ms": lambda: pr.ring_all_reduce_kernel(rows, outs),
+            "plain_ms": lambda: pr.ring_all_reduce_plain(rows, pouts),
+            "nearest_library_ms": lambda: torch.sum(x, 0, out=lib)}, flush)
+        check(all(torch.equal(a, b) for a, b in zip(outs, pouts)),
+              f"ring_all_reduce wrong after timing, {label}")
+        bound_ms = 2 * total / HBM_BYTES_PER_S * 1e3
+        row = {"label": label, "ranks": n, "bytes_in": total,
+               "dtype": "float32", "max_abs_err": err,
+               "rows_differing_from_rank_0": differs, **best,
+               "nearest_library": "torch.sum(x, 0): one sum for all ranks, "
+                                  "not the per-rank ring fold",
+               "bound_ms": bound_ms, "share_of_bound": bound_ms / best["ms"]}
+        out["ring_all_reduce"].append(row)
+        print(f"ring {label:>7} all_reduce: kernel {best['ms'] * 1e3:9.2f} us"
+              f"  plain {best['plain_ms'] * 1e3:9.2f} us  torch.sum "
+              f"{best['nearest_library_ms'] * 1e3:9.2f} us  bound "
+              f"{bound_ms * 1e3:9.2f} us  share {bound_ms / best['ms']:6.1%}"
+              f"  err {err}  rows differing from rank 0: {differs}",
+              flush=True)
+        del outs, pouts, lib
+        # all-gather: kernel, plain version, one expand-copy as yardstick
+        gouts = [torch.empty((n, chunk), device=dev) for _ in range(n)]
+        gpouts = [torch.empty((n, chunk), device=dev) for _ in range(n)]
+        glib = torch.empty((n, n, chunk), device=dev)
+        pr.ring_all_gather_kernel(rows, gouts)
+        pr.ring_all_gather_plain(rows, gpouts)
+        torch.cuda.synchronize()
+        err = max(_bitwise_err(a, b) for a, b in zip(gouts, gpouts))
+        check(err == 0, f"ring_all_gather differs from its plain version at "
+                        f"{label}: max abs err {err}")
+        runs = TIMED_RUNS if total <= 64 << 20 else 9
+        best = time_in_turns({
+            "ms": lambda: pr.ring_all_gather_kernel(rows, gouts),
+            "plain_ms": lambda: pr.ring_all_gather_plain(rows, gpouts),
+            "library_ms": lambda: glib.copy_(
+                x.unsqueeze(0).expand(n, n, chunk))}, flush, runs=runs)
+        check(all(torch.equal(g, x) for g in gouts),
+              f"ring_all_gather wrong after timing, {label}")
+        bound_ms = (n + 1) * total / HBM_BYTES_PER_S * 1e3
+        row = {"label": label, "ranks": n, "bytes_in": total,
+               "bytes_out": n * total, "dtype": "float32", "max_abs_err": err,
+               **best, "timed_runs": runs,
+               "library": "out.copy_(x.unsqueeze(0).expand(n, n, chunk))",
+               "bound_ms": bound_ms, "share_of_bound": bound_ms / best["ms"]}
+        out["ring_all_gather"].append(row)
+        print(f"ring {label:>7} all_gather: kernel {best['ms'] * 1e3:9.2f} us"
+              f"  plain {best['plain_ms'] * 1e3:9.2f} us  expand-copy "
+              f"{best['library_ms'] * 1e3:9.2f} us  bound "
+              f"{bound_ms * 1e3:9.2f} us  share {bound_ms / best['ms']:6.1%}"
+              f"  err {err}", flush=True)
+        del rows, x, gouts, gpouts, glib
+        torch.cuda.empty_cache()
+    # small checks: dtypes, ragged, misaligned, mesh sizes (no timing)
+    cases = [(8, 1 << 20, torch.bfloat16, 0), (8, 1 << 20, torch.float16, 0),
+             (8, 1 << 20, torch.int32, 0), (8, 1003, torch.float32, 0),
+             (8, 1003, torch.bfloat16, 0), (8, 1 << 16, torch.float32, 1),
+             (8, 1 << 16, torch.bfloat16, 3), (2, 1 << 16, torch.float32, 0),
+             (3, 1 << 16, torch.float32, 0), (20, 1 << 16, torch.float32, 0),
+             (20, 1003, torch.bfloat16, 0)]
+    for n_, chunk, dtype, offset in cases:
+        rows = []
+        for _ in range(n_):
+            buf = torch.empty(chunk + offset, dtype=dtype, device=dev)
+            if dtype == torch.int32:
+                buf[offset:] = torch.randint(-2**31, 2**31 - 1, (chunk,),
+                                             generator=gen, device=dev,
+                                             dtype=torch.int32)
+            else:               # float16 sums stay finite below 1e2
+                buf[offset:] = _mixed(gen, (chunk,), dev, dtype,
+                                      top=1 if dtype == torch.float16 else 4)
+            rows.append(buf[offset:])
+        outs = pr.ring_all_reduce_kernel(
+            rows, [torch.empty_like(t) for t in rows])
+        ref = pr.ring_all_reduce_plain(
+            rows, [torch.empty_like(t) for t in rows])
+        gouts = pr.ring_all_gather_kernel(
+            rows, [torch.empty((n_, chunk), dtype=dtype, device=dev)
+                   for _ in rows])
+        torch.cuda.synchronize()
+        stacked = torch.stack(rows)
+        err_r = max(_bitwise_err(a, b) for a, b in zip(outs, ref))
+        err_g = max(_bitwise_err(g, stacked) for g in gouts)
+        label = (f"n={n_} chunk={chunk} {str(dtype).split('.')[-1]} "
+                 f"offset={offset}")
+        check(err_r == 0 and err_g == 0,
+              f"ring kernels differ from their plain versions at {label}: "
+              f"all_reduce {err_r}, all_gather {err_g}")
+        out["small"].append({"case": label, "all_reduce_err": err_r,
+                             "all_gather_err": err_g})
+    print(f"ring small checks: {len(cases)} cases bit-exact "
+          f"({'; '.join(c['case'] for c in out['small'])})", flush=True)
+    del flush
+    return out
+
+
+def _gbps(fn, nbytes: int, reps: int = 5):
+    """bench.py's bench_allreduce_gbps: input bytes over the host time per
+    call of ``reps`` calls ending in a synchronize.  Two warm calls: a call
+    allocates its output while the previous one is still alive, so the
+    caching allocator holds two sets before the timed calls reuse them."""
+    for _ in range(2):
+        out = fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = fn()
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / reps
+    return out, nbytes / dt / 1e9, dt * 1e3
+
+
+def phase_collectives(mesh, dev) -> dict:
+    from brpc_tpu_torch import channels
+    from brpc_tpu_torch.ici import pallas_ring as pr
+    from brpc_tpu_torch.ici import ring
+    from brpc_tpu_torch.ici import ring_attention as ra
+    from brpc_tpu_torch.ici.collective import Collectives
+
+    n = mesh.size
+    coll = Collectives(mesh)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    calls = {"ring_all_reduce": 0, "ring_all_gather": 0}
+    out = {"allreduce": [], "allgather": []}
+
+    def kernel_reduce(x):
+        calls["ring_all_reduce"] += 1
+        return pr.ring_all_reduce(x)
+
+    def kernel_gather(x):
+        calls["ring_all_gather"] += 1
+        return pr.ring_all_gather(x)
+
+    # the allreduce example (examples/allreduce_performance.py): the
+    # three routes side by side on the same gradients
+    for label, total in RING_SIZES:
+        t_phase = time.monotonic()
+        grads = coll.shard(_mixed(gen, (n, total // 4 // n), dev))
+        check([mesh.rank_of(t) for t in grads] == list(range(n)),
+              "shard: rows not owned by their ranks")
+        kern, kern_gbps, kern_ms = _gbps(lambda: kernel_reduce(grads), total)
+        rng, ring_gbps, ring_ms = _gbps(
+            lambda: ring.ring_all_reduce(grads), total)
+        psum, psum_gbps, psum_ms = _gbps(lambda: coll.all_reduce(grads),
+                                         total)
+        check(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                  for a, b in zip(rng, kern)),
+              f"{label}: ring.ring_all_reduce differs from the kernel")
+        atol = 1e-6 * n * grads.stack().abs().sum(0).max().item()
+        psum_err = max((psum - t).abs().max().item() for t in kern)
+        check(psum_err <= atol, f"{label}: psum off the ring by {psum_err} "
+                                f"> {atol}")
+        row = {"label": label, "bytes": total, "psum_gbps": psum_gbps,
+               "ring_gbps": ring_gbps, "kernel_gbps": kern_gbps,
+               "psum_ms": psum_ms, "ring_ms": ring_ms, "kernel_ms": kern_ms,
+               "psum_max_abs_diff": psum_err, "psum_atol": atol}
+        del kern, rng, psum
+        gathered, g_gbps, g_ms = _gbps(lambda: kernel_gather(grads), total)
+        full = grads.stack()
+        check(all(torch.equal(t, full) for t in gathered),
+              f"{label}: ring_all_gather rows differ from the input")
+        check([mesh.rank_of(t) for t in gathered] == list(range(n)),
+              "ring_all_gather: rows not owned by their ranks")
+        del gathered, full, grads
+        torch.cuda.empty_cache()
+        row.update({"allgather_gbps": g_gbps, "allgather_ms": g_ms,
+                    "wall_s": time.monotonic() - t_phase})
+        out["allreduce"].append(row)
+        print(f"collectives {label:>7}: psum {psum_gbps:8.2f} GB/s  "
+              f"ring {ring_gbps:8.2f} GB/s  kernel {kern_gbps:8.2f} GB/s  "
+              f"all_gather {g_gbps:8.2f} GB/s  (psum off the ring by "
+              f"{psum_err:.3g}, atol {atol:.3g})", flush=True)
+
+    # CollectiveChannel: tensor-parallel matvec and an indexed gather
+    t_phase = time.monotonic()
+    ch = channels.CollectiveChannel(mesh)
+    ch.register("Shard.PartialMatVec", lambda w_shard, x_full: w_shard @ x_full,
+                merge=channels.MERGE_SUM, mapping=channels.MAP_SHARD)
+    ch.register("Shard.Scale", lambda idx, row: row * (idx + 1),
+                merge=channels.MERGE_GATHER, mapping=channels.MAP_SHARD,
+                takes_index=True)
+    d = MATVEC_D
+    # uniform [0, 1): no cancellation, so rtol 1e-5 holds element-wise
+    w = torch.rand((n, d, d), generator=gen, device=dev)
+    xv = torch.rand((d,), generator=gen, device=dev)
+    ws, xr = ch.shard(w), ch.replicate(xv)
+    y, _, mv_ms = _gbps(lambda: ch.call("Shard.PartialMatVec", ws, xr), 0)
+    dense = torch.einsum("rij,j->i", w.double(), xv.double())
+    mv_err = ((y.double() - dense).abs() / dense.abs()).max().item()
+    check(y.shape == (d,) and mv_err <= 1e-5,
+          f"CollectiveChannel matvec off the dense product: rel {mv_err}")
+    del w, ws, dense
+    ones = ch.shard(torch.ones((n, d), device=dev))
+    g = ch.call("Shard.Scale", ones)
+    check(torch.equal(g, torch.arange(1, n + 1, dtype=torch.float32,
+                                      device=dev)[:, None].expand(n, d)),
+          "CollectiveChannel MERGE_GATHER with takes_index")
+    out["channel"] = {"matvec_ms": mv_ms, "matvec_max_rel_err": mv_err,
+                      "wall_s": time.monotonic() - t_phase}
+    print(f"collective channel: matvec ({n}, {d}, {d}) {mv_ms:.3f} ms per "
+          f"call, max rel err {mv_err:.3g}; indexed gather ok", flush=True)
+
+    # RingStream: 6 chunks, window 2, delivered in order one hop on
+    t_phase = time.monotonic()
+    got = []
+    stream = ring.RingStream(hops=1, window=2, mesh=mesh,
+                             on_chunk=got.append)
+    chunks = [_mixed(gen, (n, 1 << 20), dev) for _ in range(6)]
+    for c in chunks:
+        check(stream.write(coll.shard(c), timeout=30), "RingStream write")
+    check(stream.flush(60), "RingStream flush")
+    check(len(got) == 6 and stream.in_flight == 0, "RingStream lost chunks")
+    for c, g in zip(chunks, got):
+        check(torch.equal(g.stack(), c.roll(1, 0)),
+              "RingStream delivered out of order or changed a chunk")
+    out["ring_stream"] = {"chunks": 6, "window": 2,
+                          "wall_s": time.monotonic() - t_phase}
+    print("ring stream: 6 chunks of (8, 1M) float32, window 2, in order",
+          flush=True)
+
+    # sequence parallelism at bench_ring_attention's shape
+    t_phase = time.monotonic()
+    seq, heads, dim = ATTENTION
+    block = seq // n
+    q, k, v = (torch.randn((seq, heads, dim), generator=gen, device=dev)
+               for _ in range(3))
+    qs, ks, vs = (coll.shard(t.reshape(n, block, heads, dim))
+                  for t in (q, k, v))
+    attn = {}
+    for name, fn, causal in (
+            ("ring", lambda: ra.ring_attention(qs, ks, vs), False),
+            ("ring_causal",
+             lambda: ra.ring_attention(qs, ks, vs, causal=True), True),
+            ("ulysses", lambda: ra.ulysses_attention(qs, ks, vs), False)):
+        got_o, _, ms = _gbps(fn, 0, reps=3)
+        ref = ra.reference_attention(q, k, v, causal=causal)
+        diff = (got_o.stack().reshape(q.shape) - ref).abs()
+        bad = (diff > 1e-4 + 1e-4 * ref.abs()).sum().item()
+        check(bad == 0, f"{name} attention off the reference at {bad} "
+                        f"places (max abs diff {diff.max().item():.3g})")
+        _, _, ref_ms = _gbps(
+            lambda: ra.reference_attention(q, k, v, causal=causal), 0, reps=3)
+        attn[name] = {"ms": ms, "tokens_per_s": seq / ms * 1e3,
+                      "reference_ms": ref_ms,
+                      "max_abs_diff": diff.max().item()}
+        print(f"attention {name:>11}: {ms:8.3f} ms ({seq / ms * 1e3:,.0f} "
+              f"tokens/s), dense reference {ref_ms:8.3f} ms, max abs diff "
+              f"{diff.max().item():.3g}", flush=True)
+    out["attention"] = attn
+    out["attention_wall_s"] = time.monotonic() - t_phase
+    out["calls"] = calls
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
     import brpc_tpu_torch.policy  # noqa: F401  (registers tpu_std)
     from brpc_tpu_torch import rpc
     from brpc_tpu_torch.ici import device_plane
+    from brpc_tpu_torch.ici import pallas_ring as pr
     from brpc_tpu_torch.ici.mesh import IciMesh
     from brpc_tpu_torch.ici.p2p_copy import p2p_copy, p2p_copy_plain
     from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
@@ -287,9 +631,20 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"devices {count}", flush=True)
 
+    # full float32 for every matmul of the run (attention checks)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels_all = [p2p_copy, pr.ring_all_reduce_kernel,
+                   pr.ring_all_gather_kernel]
+
+    def zero_counts():
+        for k in kernels_all:
+            k.launches = 0
+
     # 1. build
-    build_s = p2p_copy.build()
-    print(f"build: p2p_copy built and loaded in {build_s:.2f} s", flush=True)
+    builds = build_all(kernels_all)
+    print("build: " + ", ".join(f"{k} {v:.2f} s" for k, v in builds.items()),
+          flush=True)
 
     # 2. kernel vs plain version
     dev = torch.device("cuda", 0)
@@ -300,7 +655,7 @@ def main() -> int:
     check(mesh.device_type == "cuda", "default mesh is not on the card")
     IciMesh.set_default(mesh)
     plane = device_plane.plane()
-    p2p_copy.launches = 0
+    zero_counts()
     bench = phase_plane_echo(rpc, mesh, plane, p2p_copy, EchoRequest,
                              EchoResponse)
     print("plane echo: " + json.dumps(bench), flush=True)
@@ -313,7 +668,30 @@ def main() -> int:
     check(main_launches > 0, "the main path never launched p2p_copy")
     print("plane stats: " + json.dumps(plane.stats()), flush=True)
 
+    # 5. ring kernels vs their plain versions (not counted)
+    t0 = time.monotonic()
+    ring_rows = phase_ring_kernels(pr, dev)
+    print(f"ring kernel phase: {time.monotonic() - t0:.1f} s", flush=True)
+
+    # 6. the collectives path, with the counts zeroed just before it
+    t0 = time.monotonic()
+    zero_counts()
+    coll = phase_collectives(mesh, dev)
+    coll_launches = {k.name: k.launches for k in kernels_all}
+    print(f"collectives phase: {time.monotonic() - t0:.1f} s; calls "
+          f"{json.dumps(coll['calls'])}, launches "
+          f"{json.dumps(coll_launches)}", flush=True)
+    for name in ("ring_all_reduce", "ring_all_gather"):
+        check(coll_launches[name] == coll["calls"][name] > 0,
+              f"{name}: {coll_launches[name]} launches for "
+              f"{coll['calls'][name]} calls on the collectives path")
+    print("collectives: " + json.dumps(coll), flush=True)
+
     head = next(r for r in rows if r["label"] == "4 MiB")
+    red = ring_rows["ring_all_reduce"]
+    gat = ring_rows["ring_all_gather"]
+    small_err = max(max(c["all_reduce_err"], c["all_gather_err"])
+                    for c in ring_rows["small"])
     kernels = {"kernels": [{
         "name": "p2p_copy",
         "route": "cuda",
@@ -332,6 +710,44 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": head["library_ms"],
         "by_size": rows,
+    }, {
+        "name": "ring_all_reduce",
+        "route": "cuda",
+        "source": "brpc_tpu_torch/csrc/ring_all_reduce.cu",
+        "replaces": "brpc_tpu/ici/pallas_ring.py:135",
+        "tpu_counterpart": "_build_all_reduce.kernel "
+                           "(brpc_tpu/ici/pallas_ring.py:107-132)",
+        "launches": coll_launches["ring_all_reduce"],
+        "max_abs_err": max([r["max_abs_err"] for r in red] + [small_err]),
+        "shape": "8 x 2,097,152 float32 (64 MiB in all)",
+        "ms": red[0]["ms"],
+        "plain_ms": red[0]["plain_ms"],
+        "bound_ms": red[0]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes the per-rank ring "
+                        "fold; nearest_library_ms is torch.sum(x, 0), a "
+                        "different function",
+        "nearest_library_ms": red[0]["nearest_library_ms"],
+        "by_size": red,
+    }, {
+        "name": "ring_all_gather",
+        "route": "cuda",
+        "source": "brpc_tpu_torch/csrc/ring_all_gather.cu",
+        "replaces": "brpc_tpu/ici/pallas_ring.py:76",
+        "tpu_counterpart": "_build_all_gather.kernel "
+                           "(brpc_tpu/ici/pallas_ring.py:50-73)",
+        "launches": coll_launches["ring_all_gather"],
+        "max_abs_err": max([r["max_abs_err"] for r in gat] + [small_err]),
+        "shape": "8 x 2,097,152 float32 in, 8 x (8, 2,097,152) out",
+        "ms": gat[0]["ms"],
+        "plain_ms": gat[0]["plain_ms"],
+        "bound_ms": gat[0]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": gat[0]["library_ms"],
+        "library_note": "out.copy_(x.unsqueeze(0).expand(n, n, chunk))",
+        "by_size": gat,
+        "small_checks": ring_rows["small"],
     }]}
     print(smi, flush=True)
     print(json.dumps(kernels), flush=True)

@@ -59,15 +59,58 @@ print(json.dumps({
 """
 
 
-def test_port_echo_loads_no_jax_and_no_jax_package():
+_COLLECTIVES = r"""
+import json, sys
+import torch
+from brpc_tpu_torch import channels
+from brpc_tpu_torch.ici import pallas_ring, ring, ring_attention
+from brpc_tpu_torch.ici.collective import Collectives
+from brpc_tpu_torch.ici.mesh import IciMesh
+
+mesh = IciMesh(ranks=4, device="cpu")
+coll = Collectives(mesh)
+x = coll.shard(torch.arange(12, dtype=torch.float32).reshape(4, 3))
+total = torch.arange(12, dtype=torch.float32).reshape(4, 3).sum(0)
+ch = channels.CollectiveChannel(mesh)
+ch.register("Sum", lambda row: row, merge=channels.MERGE_SUM)
+q = coll.shard(torch.randn(4, 2, 4, 8))
+ok = (torch.equal(coll.all_reduce(x), total)
+      and torch.equal(pallas_ring.ring_all_reduce(x).stack()[0], total)
+      and torch.equal(ring.ring_all_reduce(x).stack()[1], total)
+      and pallas_ring.ring_all_gather(x).shape == (4, 4, 3)
+      and torch.equal(ch.call("Sum", x), total)
+      and ring_attention.ring_attention(q, q, q).shape == q.shape
+      and ring_attention.ulysses_attention(q, q, q).shape == q.shape)
+print(json.dumps({
+    "ok": ok,
+    "jax": sorted(m for m in sys.modules
+                  if m == "jax" or m.startswith(("jax.", "jaxlib"))),
+    "brpc_tpu": sorted(m for m in sys.modules
+                       if m == "brpc_tpu" or m.startswith("brpc_tpu.")),
+}))
+"""
+
+
+def _run_alone(script: str) -> dict:
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = _REPO
-    proc = subprocess.run([sys.executable, "-c", _ECHO], cwd=_REPO, env=env,
+    proc = subprocess.run([sys.executable, "-c", script], cwd=_REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def test_port_echo_loads_no_jax_and_no_jax_package():
+    out = _run_alone(_ECHO)
     assert out["ok"]
     assert out["transfers"] == 2          # request and response legs
+    assert out["jax"] == []
+    assert out["brpc_tpu"] == []
+
+
+def test_port_collectives_load_no_jax_and_no_jax_package():
+    out = _run_alone(_COLLECTIVES)
+    assert out["ok"]
     assert out["jax"] == []
     assert out["brpc_tpu"] == []
 
