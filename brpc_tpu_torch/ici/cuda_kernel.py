@@ -9,9 +9,13 @@ is imported.
 
 Each launcher takes its arguments and, last, the CUDA stream, and returns
 ``cudaGetLastError()`` after the launch.  :meth:`CudaKernel.launch` calls it
-on the current stream of the tensors' device, raises on a non-zero code
-and adds one to ``launches``: the count a run reads to show that its path
-went through the kernel.
+on the current stream of a device, raises on a non-zero code and adds one
+to ``launches``: the count a run reads to show that its path went through
+the kernel.  The launch path is lean because the device plane launches
+once per transfer: one :class:`DeviceRecord` per device is cached (SM
+count, grid cap), the current stream's raw handle is read once per call,
+and the device guard is entered only when the launch targets a device
+other than the current one.
 """
 from __future__ import annotations
 
@@ -34,6 +38,17 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 BLOCKS_PER_SM = 8          # 8 x 256 threads: the SM's 2048 resident threads
 
 
+class DeviceRecord:
+    """What a launch needs to know of one device, looked up once."""
+
+    __slots__ = ("index", "sms", "blocks_cap")
+
+    def __init__(self, index: int, sms: int):
+        self.index = index
+        self.sms = sms
+        self.blocks_cap = BLOCKS_PER_SM * sms   # fills every SM (256 threads)
+
+
 class CudaKernel:
     """The library built from ``source`` and the launch counter of its
     wrapper.  ``launcher`` names the C function and ``argtypes`` its
@@ -47,7 +62,9 @@ class CudaKernel:
         self.build_s: Optional[float] = None     # wall time of the build
         self._fn = None
         self._lock = threading.Lock()
-        self._sms: Dict[int, int] = {}
+        self._records: Dict[int, DeviceRecord] = {}
+        self._stream = None
+        self._current = None
 
     @property
     def name(self) -> str:
@@ -75,6 +92,12 @@ class CudaKernel:
             fn = getattr(ctypes.CDLL(str(lib_path)), self.launcher)
             fn.argtypes = self.argtypes + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
+            # PyTorch's own kernel launchers read the current stream's raw
+            # handle and the current device this way: no Stream object is
+            # built and no lazy-init check runs (a launch follows tensors
+            # already on the card)
+            self._stream = torch._C._cuda_getCurrentRawStream
+            self._current = torch._C._cuda_getDevice
             self._fn = fn
             self.build_s = time.monotonic() - t0
             return self.build_s
@@ -95,25 +118,33 @@ class CudaKernel:
                                f":\n{proc.stderr}")
         os.replace(tmp, lib_path)       # atomic: concurrent builds agree
 
-    def blocks_cap(self, device: torch.device) -> int:
-        """Most blocks a grid-stride launch on ``device`` uses: enough
-        256-thread blocks to fill every SM."""
-        idx = device.index if device.index is not None \
-            else torch.cuda.current_device()
-        sms = self._sms.get(idx)
-        if sms is None:
-            sms = self._sms[idx] = \
-                torch.cuda.get_device_properties(idx).multi_processor_count
-        return BLOCKS_PER_SM * sms
-
-    def launch(self, device: torch.device, *args) -> None:
-        """Run the launcher with ``args`` on ``device``'s current stream;
-        raise if CUDA refused the launch, else count it."""
+    def record(self, index: int) -> DeviceRecord:
+        """The cached record of CUDA device ``index``; the first call
+        builds the kernel if needed."""
+        rec = self._records.get(index)
+        if rec is not None:
+            return rec
         if self._fn is None:
             self.build()
-        stream = torch.cuda.current_stream(device).cuda_stream
-        with torch.cuda.device(device):
+        with self._lock:
+            rec = self._records.get(index)
+            if rec is None:
+                sms = torch.cuda.get_device_properties(index) \
+                    .multi_processor_count
+                rec = DeviceRecord(index, sms)
+                self._records[index] = rec
+        return rec
+
+    def launch(self, rec: DeviceRecord, *args) -> None:
+        """Run the launcher with ``args`` on the current stream of
+        ``rec``'s device; raise if CUDA refused the launch, else count it."""
+        index = rec.index
+        stream = self._stream(index)
+        if self._current() == index:
             rc = self._fn(*args, stream)
+        else:
+            with torch.cuda.device(index):
+                rc = self._fn(*args, stream)
         if rc != 0:
             raise RuntimeError(f"{self.name}: kernel launch failed with CUDA "
                                f"error {rc}")

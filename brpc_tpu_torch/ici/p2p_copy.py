@@ -4,7 +4,8 @@ The hand-written Hopper kernel in ``csrc/p2p_copy.cu`` replaces the TPU
 kernel ``DevicePlane._pallas_body.kern`` (brpc_tpu/ici/device_plane.py:
 395-444, ``pl.pallas_call`` at :428), the one-hop remote DMA every
 device-plane transfer rides.  The source states its bound (bytes:
-``2·n / 3.35 TB/s`` on one H100 SXM) and its design.
+``2·n / 3.35 TB/s`` on one H100 SXM), its design and the candidates it
+was measured against (``sweeps/``, outside the package).
 
 Build and binding: :class:`~.cuda_kernel.CudaKernel` (``nvcc`` at first
 use into ``_build/``, ``ctypes``).
@@ -24,6 +25,8 @@ from .cuda_kernel import CSRC, NVCC_FLAGS, CudaKernel  # noqa: F401
 
 SOURCE = CSRC / "p2p_copy.cu"
 
+_U8 = torch.uint8
+
 
 def p2p_copy_plain(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     """The plain PyTorch version: the same function as the kernel."""
@@ -31,11 +34,29 @@ def p2p_copy_plain(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     return dst
 
 
-def _check(src: torch.Tensor, dst: torch.Tensor) -> None:
+def _check(src, dst) -> int:
+    """The CUDA device index of a pair of tensors on one card, or -1 for a
+    pair on the CPU; raises TypeError or ValueError on what the kernel does
+    not take.  The accepted case costs one chained test."""
+    if (isinstance(src, torch.Tensor) and isinstance(dst, torch.Tensor)
+            and src.dtype is _U8 and dst.dtype is _U8 and src.dim() == 1
+            and src.shape == dst.shape and src.is_contiguous()
+            and dst.is_contiguous()):
+        if src.is_cuda:
+            index = src.get_device()
+            if dst.is_cuda and dst.get_device() == index:
+                return index
+        elif src.is_cpu and dst.is_cpu:
+            return -1
+    _refuse(src, dst)
+
+
+def _refuse(src, dst) -> None:
+    """Raise the error that names what is wrong with the pair."""
     for name, t in (("src", src), ("dst", dst)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"p2p_copy: {name} must be a tensor")
-        if t.dtype != torch.uint8 or t.dim() != 1:
+        if t.dtype != _U8 or t.dim() != 1:
             raise TypeError(f"p2p_copy: {name} must be a flat uint8 tensor, "
                             f"got {t.dtype} of shape {tuple(t.shape)}")
         if not t.is_contiguous():
@@ -46,8 +67,7 @@ def _check(src: torch.Tensor, dst: torch.Tensor) -> None:
     if src.device != dst.device:
         raise ValueError(f"p2p_copy: src on {src.device}, dst on "
                          f"{dst.device}; the kernel copies within one device")
-    if src.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"p2p_copy: unsupported device {src.device}")
+    raise ValueError(f"p2p_copy: unsupported device {src.device}")
 
 
 class P2PCopy(CudaKernel):
@@ -56,18 +76,17 @@ class P2PCopy(CudaKernel):
     def __init__(self):
         super().__init__(SOURCE, "p2p_copy_launch",
                          [ctypes.c_void_p, ctypes.c_void_p,
-                          ctypes.c_ulonglong, ctypes.c_int])
+                          ctypes.c_ulonglong])
 
     def __call__(self, src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
         """``dst[:] = src`` on the current stream; returns ``dst``."""
-        _check(src, dst)
-        if src.device.type == "cpu":
+        index = _check(src, dst)
+        if index < 0:
             return p2p_copy_plain(src, dst)
         n = src.numel()
-        if n == 0:
-            return dst
-        self.launch(src.device, src.data_ptr(), dst.data_ptr(), n,
-                    self.blocks_cap(src.device))
+        if n:
+            rec = self._records.get(index) or self.record(index)
+            self.launch(rec, src.data_ptr(), dst.data_ptr(), n)
         return dst
 
 

@@ -136,9 +136,9 @@ class RingAllReduce(CudaKernel):
             return ring_all_reduce_plain(rows, outs)
         numel = rows[0].numel()
         if numel:
-            self.launch(device, _pointers(rows), _pointers(outs), len(rows),
-                        numel, _REDUCE_DTYPES[rows[0].dtype],
-                        self.blocks_cap(device))
+            rec = self.record(device.index)
+            self.launch(rec, _pointers(rows), _pointers(outs), len(rows),
+                        numel, _REDUCE_DTYPES[rows[0].dtype], rec.blocks_cap)
         return list(outs)
 
 
@@ -159,8 +159,9 @@ class RingAllGather(CudaKernel):
             return ring_all_gather_plain(rows, outs)
         nbytes = rows[0].numel() * rows[0].element_size()
         if nbytes:
-            self.launch(device, _pointers(rows), _pointers(outs), len(rows),
-                        nbytes, self.blocks_cap(device))
+            rec = self.record(device.index)
+            self.launch(rec, _pointers(rows), _pointers(outs), len(rows),
+                        nbytes, rec.blocks_cap)
         return list(outs)
 
 

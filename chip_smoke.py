@@ -6,16 +6,34 @@ NVIDIA card.
 Needs one CUDA device; exits non-zero (and prints no result) without one.
 Phases, each fatal on failure:
 
-  1. build      compile csrc/p2p_copy.cu, csrc/ring_all_reduce.cu and
-                csrc/ring_all_gather.cu with nvcc (sm_90a), one nvcc each,
-                all started together, and load them
+  1. build      compile csrc/p2p_copy.cu, csrc/ring_all_reduce.cu,
+                csrc/ring_all_gather.cu and an empty kernel with nvcc
+                (sm_90a), one nvcc each, all started together, and load
+                them
   2. kernel     p2p_copy against its plain version at 4 KiB, 65,537 B
                 (misaligned source), 4 MiB, 4 MiB (source and destination
-                misaligned) and 256 MiB: bit-exact, with CUDA-event times
-                (median of 25 single launches, L2 flushed before each;
-                kernel, plain version and Tensor.copy_ timed in turns,
-                twice, each keeping the better median) beside the HBM
-                bound 2·n / 3.35 TB/s
+                misaligned), 32 MiB and 256 MiB: bit-exact, timed beside
+                the HBM bound 2·n / 3.35 TB/s by two harnesses, kernel,
+                plain version and Tensor.copy_ alike, in turns, twice (the
+                second round in reverse order), each keeping the better
+                median:
+                - single launch: CUDA events around one launch, median of
+                  25, the 50 MB L2 flushed before each, a spin ahead;
+                - back to back: up to 256 launches between one pair of
+                  events, divided by the count, over a rotation of source
+                  and destination slices from two 128 MiB pools (so each
+                  launch finds its source cold), a spin ahead long enough
+                  for the host to enqueue them all; the same loop around
+                  an empty kernel (built in phase 1 beside the others)
+                  gives the method's floor.
+                And host µs per launch of p2p_copy and copy_.  The
+                harnesses live in brpc_tpu_torch/tools/timing.py.  The
+                kernel's candidate shapes (a TMA bulk-copy pipeline,
+                register spans, a 4-chunk stream, cache flavours) were
+                timed against it and copy_ in turns, one line each, in one
+                call, by sweeps/sweep_p2p_copy.py; the kernel keeps only
+                the winner, and the losers' code stays in
+                sweeps/p2p_copy_candidates.cu
   3. plane      the device-plane echo of the JAX package's
                 bench_device_plane: IciMesh(ranks=8) on the card, server on
                 ici://0 answering inline, payload owned by rank 1,
@@ -45,6 +63,8 @@ Phases, each fatal on failure:
                 and ulysses_attention at bench_ring_attention's shape (seq
                 4096 over 8 ranks, 8 heads, dim 128, float32, TF32 off)
                 against reference_attention within rtol = atol = 1e-4
+  7. card tests  python -m pytest --noconftest -m cuda
+                tests/test_torch_cuda.py in a process of its own
 
 Launch counts are zeroed just before each path and read just after it:
 during phases 3-4 p2p_copy's launches must equal the plane's transfers;
@@ -55,18 +75,26 @@ line is the device JSON.
 from __future__ import annotations
 
 import json
-import statistics
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3, NVIDIA data sheet
-TIMED_RUNS = 25
-SPIN_CYCLES = 200_000              # ~100 µs of GPU spin ahead of each timing
+from brpc_tpu_torch.tools.timing import (HBM_BYTES_PER_S, TIMED_RUNS,
+                                         Rotation, b2b_in_turns,
+                                         empty_kernel, host_us,
+                                         nvidia_smi_line, spin_cycles_per_us,
+                                         time_in_turns)
+
+ROOT = Path(__file__).resolve().parent
+# phase 2: the copies (label, bytes, src offset, dst offset)
+KERNEL_CASES = (("4 KiB", 4096, 0, 0), ("65,537 B src+3", 65537, 3, 0),
+                ("4 MiB", 4 << 20, 0, 0), ("4 MiB src+1 dst+7", 4 << 20, 1, 7),
+                ("32 MiB", 32 << 20, 0, 0), ("256 MiB", 256 << 20, 0, 0))
 # phases 5-6: total float32 bytes over the 8 ranks (bench.py's allreduce
 # size and the north star's 1 GiB), the matvec width, and
 # bench_ring_attention's (seq, heads, dim)
@@ -85,68 +113,18 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def nvidia_smi_line() -> str:
-    proc = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    check(proc.returncode == 0, f"nvidia-smi failed: {proc.stderr}")
-    return proc.stdout.strip().splitlines()[0]
+def phase_kernel(p2p_copy, p2p_copy_plain, empty, dev) -> list:
+    empty_rec = empty.record(dev.index)
 
+    def empty_call(src, dst):
+        empty.launch(empty_rec)
 
-def event_ms(fn, flush: torch.Tensor, runs: int = TIMED_RUNS,
-             warm: int = 3) -> float:
-    """Device time of ``fn``: the median over ``runs`` single calls, each
-    between two CUDA events, with the 50 MB L2 cache flushed (``flush``
-    rewritten) before each.  A spin kernel ahead of the start event keeps
-    the stream busy while the host enqueues ``fn``, so the host's launch
-    cost stays out of the interval."""
-    for _ in range(warm):
-        fn()
-    times = []
-    for _ in range(runs):
-        flush.zero_()
-        torch.cuda._sleep(SPIN_CYCLES)
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
-def time_in_turns(timed: dict, flush: torch.Tensor,
-                  runs: int = TIMED_RUNS) -> dict:
-    """Two rounds of ``event_ms`` over ``timed`` (key -> fn) in turns,
-    each key keeping the better of its two medians."""
-    best = dict.fromkeys(timed, float("inf"))
-    for _ in range(2):
-        for key, fn in timed.items():
-            best[key] = min(best[key], event_ms(fn, flush, runs=runs))
-    return best
-
-
-def host_us(fn, runs: int = 500) -> float:
-    """Host cost of enqueueing ``fn`` once (µs), over ``runs`` calls."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(runs):
-        fn()
-    t1 = time.perf_counter()
-    torch.cuda.synchronize()
-    return (t1 - t0) / runs * 1e6
-
-
-def phase_kernel(p2p_copy, p2p_copy_plain, dev) -> list:
+    cycles_per_us = spin_cycles_per_us()
     rows = []
-    cases = [("4 KiB", 4096, 0, 0), ("65,537 B src+3", 65537, 3, 0),
-             ("4 MiB", 4 << 20, 0, 0), ("4 MiB src+1 dst+7", 4 << 20, 1, 7),
-             ("256 MiB", 256 << 20, 0, 0)]
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    for label, n, so, do in cases:
+    for label, n, so, do in KERNEL_CASES:
         src_buf = torch.randint(0, 256, (n + so,), dtype=torch.uint8,
                                 device=dev, generator=gen)
         src = src_buf[so:]
@@ -167,19 +145,41 @@ def phase_kernel(p2p_copy, p2p_copy_plain, dev) -> list:
                                     best["library_ms"])
         check(torch.equal(dst, src), f"p2p_copy wrong after timing, {label}")
         bound_ms = 2 * n / HBM_BYTES_PER_S * 1e3
+        rot = Rotation(n, so, do, dev, gen)
+        b2b = b2b_in_turns({"ms": p2p_copy, "plain_ms": p2p_copy_plain,
+                            "library_ms": lambda s, d: d.copy_(s),
+                            "empty_ms": empty_call}, rot, cycles_per_us)
+        for s_, d_ in rot.pairs[:4]:
+            check(torch.equal(s_, d_), f"p2p_copy wrong in the rotation, "
+                                       f"{label}")
         row = {"label": label, "bytes": n, "src_offset": so,
-               "dst_offset": do, "max_abs_err": err, "ms": ms,
+               "dst_offset": do,
+               "max_abs_err": err, "ms": ms,
                "plain_ms": plain_ms, "library_ms": library_ms,
                "bound_ms": bound_ms, "share_of_bound": bound_ms / ms,
+               "b2b": {**b2b, "launches_per_window": rot.window,
+                       "pairs": len(rot.pairs),
+                       "share_of_bound": bound_ms / b2b["ms"],
+                       "library_share_of_bound": bound_ms / b2b["library_ms"]},
                "host_us": host_us(lambda: p2p_copy(src, dst)),
                "library_host_us": host_us(lambda: lib.copy_(src))}
         rows.append(row)
-        print(f"kernel {label:>18}: p2p_copy {ms * 1e3:8.2f} us  "
-              f"copy_ {library_ms * 1e3:8.2f} us  bound "
-              f"{bound_ms * 1e3:8.2f} us  share {bound_ms / ms:6.1%}  "
-              f"host {row['host_us']:6.2f} vs {row['library_host_us']:6.2f} "
-              f"us  err {err}", flush=True)
-        del src_buf, src, dst, ref, lib
+        print(f"kernel {label:>18}: single launch: p2p_copy "
+              f"{ms * 1e3:8.2f} us  plain {plain_ms * 1e3:8.2f}  copy_ "
+              f"{library_ms * 1e3:8.2f}  bound {bound_ms * 1e3:8.2f} us  "
+              f"share {bound_ms / ms:6.1%} (copy_ {bound_ms / library_ms:6.1%})"
+              f"  err {err}", flush=True)
+        print(f"kernel {label:>18}: back to back ({rot.window} launches, "
+              f"{len(rot.pairs)} pairs): p2p_copy {b2b['ms'] * 1e3:8.2f} us  "
+              f"plain {b2b['plain_ms'] * 1e3:8.2f}  copy_ "
+              f"{b2b['library_ms'] * 1e3:8.2f}  empty kernel "
+              f"{b2b['empty_ms'] * 1e3:6.2f}  share "
+              f"{bound_ms / b2b['ms']:6.1%} (copy_ "
+              f"{bound_ms / b2b['library_ms']:6.1%});  host "
+              f"{row['host_us']:6.2f} vs {row['library_host_us']:6.2f} us",
+              flush=True)
+        del src_buf, src, dst, ref, lib, rot
+        torch.cuda.empty_cache()
     del flush
     return rows
 
@@ -613,6 +613,22 @@ def phase_collectives(mesh, dev) -> dict:
     return out
 
 
+def phase_card_tests() -> str:
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda", "-q",
+         "-p", "no:cacheprovider", "tests/test_torch_cuda.py"],
+        capture_output=True, text=True, timeout=600, cwd=ROOT)
+    lines = proc.stdout.strip().splitlines()
+    summary = lines[-1] if lines else proc.stderr.strip()[-200:]
+    print(f"card tests: {summary} ({time.monotonic() - t0:.1f} s)",
+          flush=True)
+    check(proc.returncode == 0, f"card tests failed (rc {proc.returncode}):"
+                                f"\n{proc.stdout[-6000:]}{proc.stderr[-2000:]}")
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
@@ -641,14 +657,15 @@ def main() -> int:
         for k in kernels_all:
             k.launches = 0
 
-    # 1. build
-    builds = build_all(kernels_all)
+    # 1. build (the empty kernel is phase 2's floor)
+    empty = empty_kernel()
+    builds = build_all(kernels_all + [empty])
     print("build: " + ", ".join(f"{k} {v:.2f} s" for k, v in builds.items()),
           flush=True)
 
     # 2. kernel vs plain version
     dev = torch.device("cuda", 0)
-    rows = phase_kernel(p2p_copy, p2p_copy_plain, dev)
+    rows = phase_kernel(p2p_copy, p2p_copy_plain, empty, dev)
 
     # 3-4. the main path: ici:// echo through the device plane
     mesh = IciMesh(ranks=8)
@@ -687,6 +704,9 @@ def main() -> int:
               f"{coll['calls'][name]} calls on the collectives path")
     print("collectives: " + json.dumps(coll), flush=True)
 
+    # 7. the card-only tests, in a process of their own
+    phase_card_tests()
+
     head = next(r for r in rows if r["label"] == "4 MiB")
     red = ring_rows["ring_all_reduce"]
     gat = ring_rows["ring_all_gather"]
@@ -709,6 +729,7 @@ def main() -> int:
         "bound_ms": head["bound_ms"],
         "bound_by": "bytes",
         "library_ms": head["library_ms"],
+        "b2b_ms": head["b2b"]["ms"],
         "by_size": rows,
     }, {
         "name": "ring_all_reduce",

@@ -9,6 +9,9 @@ only PyTorch is installed.  On the card, without the repository's conftest
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
+import sys
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -42,6 +45,108 @@ def test_kernel_launch_matches_plain_version(cuda_device):
         torch.cuda.synchronize()
         assert torch.equal(out, p2p_copy_plain(src, torch.empty_like(out)))
     assert kern.launches == 3
+
+
+def _copy_matches_plain(kern, dev, n, src_offset=0, dst_offset=0):
+    """Copy n seeded bytes from ``src_offset`` into a slice ``dst_offset``
+    bytes into a guarded buffer; the slice must equal the plain version's
+    copy and the guard bytes around it must be untouched."""
+    data = torch.from_numpy(_seeded(src_offset + n)).to(dev)
+    src = data[src_offset:]
+    guard = torch.full((dst_offset + n + 32,), 0xA5, dtype=torch.uint8,
+                       device=dev)
+    dst = guard[dst_offset:dst_offset + n]
+    kern(src, dst)
+    ref = p2p_copy_plain(src, torch.empty(n, dtype=torch.uint8, device=dev))
+    torch.cuda.synchronize()
+    where = f"n={n} src+{src_offset} dst+{dst_offset}"
+    assert torch.equal(dst, ref), where
+    assert bool((guard[:dst_offset] == 0xA5).all()), where
+    assert bool((guard[dst_offset + n:] == 0xA5).all()), where
+
+
+# The byte counts at which the kernel's launch changes shape: the first
+# whole 16-byte chunk, and the second and third 256-thread block (a block
+# copies one 4 KiB unit).
+_SHAPE_EDGES = (16, 4096, 8192)
+
+
+@pytest.mark.cuda
+def test_launch_shape_edges_are_bit_exact(cuda_device):
+    """Each byte count where the launch changes shape, and one byte either
+    side, aligned and with a source off dst's 16-byte phase."""
+    kern = P2PCopy()
+    for edge in _SHAPE_EDGES:
+        for n in (edge - 1, edge, edge + 1):
+            for src_offset in (0, 3):
+                _copy_matches_plain(kern, cuda_device, n, src_offset)
+    assert kern.launches == 6 * len(_SHAPE_EDGES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dst_offset", [0, 7])
+@pytest.mark.parametrize("src_offset", range(16))
+def test_every_source_phase_is_bit_exact(cuda_device, src_offset,
+                                         dst_offset):
+    """Every source phase 0-15 against destinations at offsets 0 and 7,
+    at a size of one block and a size of many blocks."""
+    kern = P2PCopy()
+    for n in (4099, (1 << 20) + 4099):
+        _copy_matches_plain(kern, cuda_device, n, src_offset, dst_offset)
+    assert kern.launches == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [
+    15,                           # edge bytes only, no whole chunk
+    3 * 4096 + 48,                # a partial last block
+    7 * 4096 + 15,                # whole blocks and a tail
+    (40 << 20) + 16 * 3 + 5,      # a partial last block and a tail
+], ids=["edges-only", "partial-block", "tail", "40MiB"])
+def test_partial_last_block_is_bit_exact(cuda_device, n):
+    kern = P2PCopy()
+    _copy_matches_plain(kern, cuda_device, n, 0, 0)
+    _copy_matches_plain(kern, cuda_device, n, 5, 5)
+    assert kern.launches == 2
+
+
+@pytest.mark.cuda
+def test_launches_stay_exact_when_two_threads_launch_at_once(cuda_device):
+    """The caller thread and the plane's poller may launch at once: the
+    counter must count every launch."""
+    kern = P2PCopy()
+    calls = 400
+    src = torch.from_numpy(_seeded(4096)).to(cuda_device)
+    start = threading.Barrier(2)
+    errors = []
+
+    def worker():
+        try:
+            stream = torch.cuda.Stream(cuda_device)
+            dst = torch.empty_like(src)
+            with torch.cuda.stream(stream):
+                start.wait(30)
+                for _ in range(calls):
+                    kern(src, dst)
+            stream.synchronize()
+            assert torch.equal(dst, src)
+        except Exception as e:        # noqa: BLE001 - reported below
+            errors.append(e)
+
+    kern.record(cuda_device.index)          # build before the race
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=worker) for _ in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert errors == []
+    assert kern.launches == 2 * calls
 
 
 @pytest.mark.cuda

@@ -6,6 +6,10 @@ against the JAX package's ``DevicePlane._pallas_body`` kernel in interpret
 mode on the same seeded payloads (tolerance: exact, the data is uint8).
 The kernel launch itself needs a card: tests/test_torch_cuda.py.
 """
+import contextlib
+import sys
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -13,6 +17,8 @@ import torch
 from brpc_tpu.butil import flags as jfl
 from brpc_tpu.ici import device_plane as jdp
 from brpc_tpu.ici.mesh import IciMesh as JaxMesh
+from brpc_tpu_torch.ici import cuda_kernel
+from brpc_tpu_torch.ici.cuda_kernel import DeviceRecord
 from brpc_tpu_torch.ici.p2p_copy import (P2PCopy, p2p_copy, p2p_copy_plain,
                                          NVCC_FLAGS, SOURCE)
 
@@ -97,3 +103,65 @@ def test_build_targets_hopper_from_the_package_source():
     # the source names the TPU kernel it replaces and its bound
     assert "_pallas_body" in text and "3.35 TB/s" in text
     assert 'extern "C" int p2p_copy_launch' in text
+
+
+def _fake_launcher(kern, current=0, rc=0):
+    """Bind ``kern`` to a stand-in launcher that records its arguments, so
+    the launch path's Python side runs without a card."""
+    calls = []
+    kern._fn = lambda *args: calls.append(args) or rc
+    kern._stream = lambda index: 1000 + index
+    kern._current = lambda: current
+    return calls
+
+
+def test_launch_count_is_exact_when_two_threads_launch_at_once():
+    kern = P2PCopy()
+    _fake_launcher(kern)
+    rec = DeviceRecord(0, sms=132)
+    per_thread = 20000
+
+    def worker():
+        for _ in range(per_thread):
+            kern.launch(rec, 1, 2, 16)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=worker) for _ in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert kern.launches == 2 * per_thread
+
+
+def test_launch_enters_the_device_guard_only_off_the_current_device(
+        monkeypatch):
+    kern = P2PCopy()
+    calls = _fake_launcher(kern, current=0)
+    entered = []
+
+    @contextlib.contextmanager
+    def guard(index):
+        entered.append(index)
+        yield
+
+    monkeypatch.setattr(cuda_kernel.torch.cuda, "device", guard)
+    kern.launch(DeviceRecord(0, sms=132), 7)
+    kern.launch(DeviceRecord(1, sms=132), 8)
+    assert entered == [1]
+    # the stream of the launch's own device rides last
+    assert calls == [(7, 1000), (8, 1001)]
+    assert kern.launches == 2
+
+
+def test_refused_launch_raises_and_is_not_counted():
+    kern = P2PCopy()
+    _fake_launcher(kern, rc=1)
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        kern.launch(DeviceRecord(0, sms=132), 7)
+    assert kern.launches == 0
