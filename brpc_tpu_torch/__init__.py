@@ -2,13 +2,20 @@
 
 The port of :mod:`brpc_tpu` (the JAX package, which stays the reference)
 to an NVIDIA Hopper card.  It imports nothing of JAX and nothing of
-``brpc_tpu``.  Layer map of slices 1-2:
+``brpc_tpu``.  Layer map of slices 1-3:
 
+  L6  serving      brpc_tpu_torch.serving: PagedKvPool (KV arenas on the
+                   card), ContinuousBatchScheduler (the batched decode
+                   step on the card), the KV handoff's fill, the
+                   load-aware router; examples.disagg_serving (prefill,
+                   decode and router services, the toy model, the demo)
   L5  API          brpc_tpu_torch.rpc.Server / Channel / Controller;
                    brpc_tpu_torch.channels.CollectiveChannel (combo
                    channels lowered to mesh collectives)
-  L4  policies     brpc_tpu_torch.policy.tpu_std (the framed protocol)
-  L3  core runtime brpc_tpu_torch.rpc.* Socket, InputMessenger, SocketMap;
+  L4  policies     brpc_tpu_torch.policy.tpu_std (the framed protocol,
+                   request context on the wire), load_balancers (LALB)
+  L3  core runtime brpc_tpu_torch.rpc.* Socket, InputMessenger, SocketMap,
+                   the mem:// loopback transport;
                    brpc_tpu_torch.ici.* mesh of logical ranks, ici://
                    transport, device plane, the p2p_copy kernel;
                    sharded layout, Collectives, ring pipelines, ring and
@@ -17,6 +24,7 @@ to an NVIDIA Hopper card.  It imports nothing of JAX and nothing of
   L2  scheduling   brpc_tpu_torch.bthread.* tasklets, butex, correlation
                    ids, timer thread, CUDA-event completion waits
   L1  base         brpc_tpu_torch.butil.* IOBuf (device-block capable),
-                   ResourcePool, EndPoint, flags, logging
+                   ResourcePool, EndPoint, flags, logging;
+                   brpc_tpu_torch.bvar (Adder, IntRecorder)
 """
 __version__ = "0.1.0"

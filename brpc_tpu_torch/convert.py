@@ -8,6 +8,11 @@ each device segment owned by the same logical rank of the port's mesh.
 A JAX array sharded one row per device, exported as an ``(n, *chunk)``
 numpy array, becomes a :class:`~.ici.mesh.ShardedTensor` with row r owned
 by rank r.
+
+A JAX prefill's quantized KV (the flat uint8 array of
+``examples/disagg_serving/model.py``), exported as numpy, becomes a flat
+uint8 tensor owned by a rank (:func:`kv_from_numpy`), ready to ride a
+LoadKv attachment.
 """
 from __future__ import annotations
 
@@ -58,3 +63,13 @@ def sharded_from_numpy(rows: np.ndarray, mesh: IciMesh) -> ShardedTensor:
     return ShardedTensor.adopt(
         [_tensor(rows[r]).to(mesh.device(r)) for r in range(mesh.size)],
         mesh)
+
+
+def kv_from_numpy(arr: np.ndarray, mesh: IciMesh, rank: int) -> torch.Tensor:
+    """A flat uint8 KV array as a tensor of its own owned by ``rank`` of
+    ``mesh``, on that rank's device."""
+    arr = np.asarray(arr)
+    if arr.dtype != np.uint8:
+        raise TypeError(f"KV bytes must be uint8, got {arr.dtype}")
+    return mesh.device_put(torch.from_numpy(arr.reshape(-1).copy()),
+                           int(rank))

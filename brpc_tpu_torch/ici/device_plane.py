@@ -209,6 +209,17 @@ class DevicePlane:
                 s = self._streams[device] = torch.cuda.Stream(device)
             return s
 
+    def order_after_copies(self, device: torch.device) -> None:
+        """Make ``device``'s current stream wait for every copy the plane
+        has launched there so far: a consumer of a delivered payload
+        orders its kernels after the copy on the device, with no host
+        sync.  (Delivery already waits for the copy's completion event;
+        this states the order on the device as well.)"""
+        with self._lock:
+            stream = self._streams.get(device)
+        if stream is not None:
+            torch.cuda.current_stream(device).wait_stream(stream)
+
     # ---- QP interface --------------------------------------------------
     def next_uuid(self) -> int:
         with self._lock:

@@ -9,6 +9,7 @@ of the JAX package's tpu_std: the two interoperate frame for frame.
 """
 from __future__ import annotations
 
+import threading
 import time
 from typing import Any
 
@@ -104,6 +105,11 @@ def pack_request(payload: IOBuf, cid: int, cntl: Controller,
                       - cntl._start_us) / 1000.0 if cntl._start_us else 0.0
         meta.request.deadline_left_ms = max(
             int(cntl.timeout_ms - elapsed_ms), 1)
+    if cntl.priority is not None:
+        # offset-encoded: 0 on the wire = unset (server default band)
+        meta.request.priority = cntl.priority + 1
+    if cntl.tenant:
+        meta.request.tenant = cntl.tenant
     body = IOBuf()
     body.append(payload)
     att_size = len(cntl.request_attachment)
@@ -130,7 +136,7 @@ def process_request(msg: StdMessage, socket, server) -> None:
     """ProcessRpcRequest (baidu_rpc_protocol.cpp:312): find the method,
     run user code in this tasklet, respond via socket write.  The
     per-request Controller comes from the server-side pool and is recycled
-    once the response is written."""
+    once the response is written, by whichever thread calls ``done``."""
     meta = msg.meta
     req_meta = meta.request
     full_name = f"{req_meta.service_name}.{req_meta.method_name}"
@@ -139,6 +145,13 @@ def process_request(msg: StdMessage, socket, server) -> None:
     cntl = server_controller_pool.acquire()
     cntl.log_id = req_meta.log_id
     cntl.remote_side = socket.remote_side
+    # request context (offset-decoded priority; handlers may read)
+    if req_meta.priority:
+        cntl.priority = req_meta.priority - 1
+    if req_meta.tenant:
+        cntl.tenant = req_meta.tenant
+    if req_meta.deadline_left_ms:
+        cntl.deadline_left_ms = req_meta.deadline_left_ms
     md = server.find_method(full_name)
 
     def send_response(resp: Any = None) -> None:
@@ -146,6 +159,9 @@ def process_request(msg: StdMessage, socket, server) -> None:
         rmeta.correlation_id = cid
         rmeta.response.error_code = cntl.error_code_
         rmeta.response.error_text = cntl.error_text_
+        if cntl.retry_after_ms:
+            # shed hint: how long the client should back off
+            rmeta.response.retry_after_ms = cntl.retry_after_ms
         payload = IOBuf()
         if resp is not None and not cntl.failed():
             payload.append(resp.SerializeToString())
@@ -179,22 +195,27 @@ def process_request(msg: StdMessage, socket, server) -> None:
         return
 
     response = md.response_cls()
-    done_called = [False]
+    # taken by the one caller that responds: a handler may hand ``done``
+    # to another thread and return (an async handler completes from a
+    # step loop), so a late or racing second caller must neither respond
+    # again nor touch a Controller that a later request already holds
+    responding = threading.Lock()
+
+    def respond() -> None:
+        send_response(response)
+        cntl._maybe_recycle()
 
     def done() -> None:
-        if done_called[0]:
-            return
-        done_called[0] = True
-        send_response(response)
+        if responding.acquire(blocking=False):
+            respond()
 
     try:
         md.invoke(cntl, request, response, done)
     except Exception as e:   # uncaught user exception → EINTERNAL
         log.error("method %s raised: %s", full_name, e, exc_info=True)
-        if not done_called[0]:
+        if responding.acquire(blocking=False):
             cntl.set_failed(errors.EINTERNAL, f"{type(e).__name__}: {e}")
-            done()
-            cntl._maybe_recycle()
+            respond()
 
 
 PROTOCOL = Protocol(

@@ -2,14 +2,16 @@
 
 Reference: src/brpc/channel.{h,cpp} (Init :236-393, CallMethod :407-592) and
 Controller::IssueRPC (controller.cpp:985-1144).  A channel targets one
-``ici://k`` endpoint over tpu_std; per-call state lives in the Controller.
+``ici://k`` or ``mem://name`` endpoint over tpu_std; per-call state lives in
+the Controller.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
-from ..butil.endpoint import EndPoint, parse_endpoint, SCHEME_ICI
+from ..butil.endpoint import (EndPoint, parse_endpoint, SCHEME_ICI,
+                               SCHEME_MEM)
 from .controller import Controller
 from .input_messenger import InputMessenger
 from .protocol import find_protocol
@@ -38,9 +40,9 @@ class Channel:
             raise ValueError("tpu_std is not registered: import "
                              "brpc_tpu_torch.policy")
         ep = parse_endpoint(target) if isinstance(target, str) else target
-        if ep.scheme != SCHEME_ICI:
-            raise ValueError(f"unsupported scheme {ep.scheme}: this slice "
-                             "connects ici:// only")
+        if ep.scheme not in (SCHEME_ICI, SCHEME_MEM):
+            raise ValueError(f"unsupported scheme {ep.scheme}: the port "
+                             "connects ici:// and mem:// only")
         self._endpoint = ep
         return 0
 

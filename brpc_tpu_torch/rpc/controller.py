@@ -55,6 +55,16 @@ class Controller:
     request_attachment = _LazyField("request_attachment", IOBuf)
     response_attachment = _LazyField("response_attachment", IOBuf)
     remote_side: Optional[EndPoint] = None
+    # request context carried in RequestMeta on every call: the priority
+    # band (0 = most protected; None = the server's default band) and the
+    # fair-queueing tenant, set by a client and read by a handler;
+    # deadline_left_ms is the budget left when the request arrived (server
+    # side) and retry_after_ms the backoff hint a shedding handler sets
+    # and its caller reads
+    priority: Optional[int] = None
+    tenant: str = ""
+    retry_after_ms: int = 0
+    deadline_left_ms: int = 0
     # client call state
     timeout_ms: Optional[int] = None
     max_retry: Optional[int] = None
@@ -210,6 +220,8 @@ class Controller:
         if rmeta.error_code != 0:
             err = rmeta.error_code
             self.set_failed(err, rmeta.error_text)
+            if rmeta.retry_after_ms:
+                self.retry_after_ms = rmeta.retry_after_ms
             if self._retryable(err) and self.current_try < self.max_retry:
                 self.error_code_ = 0
                 self.error_text_ = ""

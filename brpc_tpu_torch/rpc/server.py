@@ -1,8 +1,9 @@
 """Server: service registry + lifecycle over the ici:// transport.
 
 Reference: src/brpc/server.{h,cpp} (StartInternal :741, AddService :1477).
-A server listens on one ``ici://k`` endpoint (a rank of the mesh) and
-exposes its registered services through tpu_std.
+A server listens on one ``ici://k`` endpoint (a rank of the mesh) or one
+``mem://name`` endpoint (the in-process loopback) and exposes its
+registered services through tpu_std.
 """
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ import threading
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
 
-from ..butil.endpoint import parse_endpoint, SCHEME_ICI
+from ..butil.endpoint import parse_endpoint, SCHEME_ICI, SCHEME_MEM
 from ..butil import logging as log
 from . import errors
 from .input_messenger import InputMessenger
@@ -33,6 +34,8 @@ class Server:
         self._methods: Dict[str, MethodDescriptor] = {}
         self._started = False
         self._ici_listener = None
+        self._mem_listener = None
+        self.listen_endpoint = None
         self.messenger = InputMessenger(server=self)
         self._connections: List[Any] = []
         self._conn_lock = threading.Lock()
@@ -57,15 +60,21 @@ class Server:
 
     # ---- lifecycle ----------------------------------------------------
     def start(self, addr: Any) -> int:
-        """Listen on ``ici://k`` (a string or an EndPoint)."""
+        """Listen on ``ici://k`` or ``mem://name`` (a string or an
+        EndPoint)."""
         if self._started:
             return errors.EINVAL
         ep = parse_endpoint(addr) if isinstance(addr, str) else addr
-        if ep.scheme != SCHEME_ICI:
-            raise ValueError(f"cannot listen on scheme {ep.scheme}: this "
-                             "slice serves ici:// only")
-        from ..ici.transport import ici_listen
-        self._ici_listener = ici_listen(ep.device_id, self._on_accept)
+        if ep.scheme == SCHEME_ICI:
+            from ..ici.transport import ici_listen
+            self._ici_listener = ici_listen(ep.device_id, self._on_accept)
+        elif ep.scheme == SCHEME_MEM:
+            from .mem_transport import mem_listen
+            self._mem_listener = mem_listen(ep.host, self._on_accept)
+        else:
+            raise ValueError(f"cannot listen on scheme {ep.scheme}: the "
+                             "port serves ici:// and mem:// only")
+        self.listen_endpoint = ep
         with self._conn_lock:
             self._connections = []
         self._started = True
@@ -89,6 +98,10 @@ class Server:
             from ..ici.transport import ici_unlisten
             ici_unlisten(self._ici_listener.device_id)
             self._ici_listener = None
+        if self._mem_listener is not None:
+            from .mem_transport import mem_unlisten
+            mem_unlisten(self._mem_listener.name)
+            self._mem_listener = None
         with self._conn_lock:
             conns, self._connections = self._connections, []
         for s in conns:

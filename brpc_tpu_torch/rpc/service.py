@@ -41,17 +41,11 @@ class MethodDescriptor:
         self.fn = fn
 
     def invoke(self, cntl, request, response, done) -> None:
-        """Run the handler with a done that recycles the pooled server
-        Controller once the response is sent.  After ``done`` returns the
-        controller may be reset and reused by another request, so handlers
-        must not touch it past their ``done()`` call (the reference's
-        Closure contract)."""
-        def wrapped_done(*args, **kwargs):
-            try:
-                return done(*args, **kwargs)
-            finally:
-                cntl._maybe_recycle()
-        self.fn(cntl, request, response, wrapped_done)
+        """Run the handler.  ``done`` sends the response and recycles the
+        pooled server Controller: after it returns the controller may be
+        reset and reused by another request, so handlers must not touch
+        it past their ``done()`` call (the reference's Closure contract)."""
+        self.fn(cntl, request, response, done)
 
 
 class Service:

@@ -3,14 +3,14 @@
 Reference: src/brpc/socket_map.{h,cpp} (SocketMapInsert :82,
 SingleConnection :180).  Channels to the same endpoint share one "single"
 connection; a failed socket is replaced on next use.  This slice connects
-``ici://`` endpoints only.
+``ici://`` and ``mem://`` endpoints only.
 """
 from __future__ import annotations
 
 import threading
 from typing import Any, Dict, Optional
 
-from ..butil.endpoint import EndPoint, SCHEME_ICI
+from ..butil.endpoint import EndPoint, SCHEME_ICI, SCHEME_MEM
 from . import errors
 from .socket import Socket
 
@@ -65,6 +65,9 @@ class SocketMap:
         if ep.scheme == SCHEME_ICI:
             from ..ici.transport import ici_connect
             return ici_connect(ep)
+        if ep.scheme == SCHEME_MEM:
+            from .mem_transport import mem_connect
+            return mem_connect(ep.host)
         raise ValueError(f"unsupported scheme {ep.scheme}")
 
     def close_endpoint(self, ep: EndPoint, group: Any = "") -> None:

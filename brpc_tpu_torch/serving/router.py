@@ -1,0 +1,111 @@
+"""Load-aware prefill→decode routing over the LALB divided-weight balancer.
+
+Port of :mod:`brpc_tpu.serving.router` with explicit targets.  The router
+must KNOW which decode worker it chose (the prefill worker pushes the KV
+to that endpoint) and feed the decode call's outcome back so a slow or
+failing worker's weight collapses within one request time:
+
+  * selection — ``pick()`` = LALB ``select_server`` + a per-call exclusion
+    list, so a retry after a dead worker never re-picks it;
+  * feedback — ``feedback(url, error_code, latency_us)`` closes the loop.
+
+Membership from a naming url (``pod://``) and session affinity wait for
+the fabric and migration slices.
+"""
+from __future__ import annotations
+
+import random
+import threading
+from typing import Dict, List, Optional
+
+from ..butil.endpoint import parse_endpoint
+from ..policy.load_balancers import LocalityAwareLB
+
+
+class LoadAwareRouter:
+    """LALB selection + channel cache for a router service.  Thread-safe.
+    ``rng`` draws the weighted selections (a seeded ``random.Random``
+    makes them reproducible)."""
+
+    def __init__(self, targets: List[str], channel_options=None,
+                 rng: Optional[random.Random] = None):
+        from .. import rpc
+        self._copts = channel_options or rpc.ChannelOptions(
+            timeout_ms=60000)
+        self._lock = threading.Lock()
+        self._lb = LocalityAwareLB(rng)
+        self._channels: Dict[str, object] = {}
+        self._picks: Dict[str, int] = {}
+        self._closed = False
+        for url in targets:
+            self.add_target(url)
+
+    # ---- membership ----------------------------------------------------
+    def add_target(self, url: str) -> bool:
+        return self._lb.add_server(parse_endpoint(url))
+
+    # ---- selection / feedback ------------------------------------------
+    def pick(self, exclude: Optional[set] = None) -> Optional[str]:
+        """Choose a decode worker by divided weight; ``exclude`` carries
+        the endpoints a retry already burned."""
+        if exclude:
+            excl_eps = {parse_endpoint(u) for u in exclude}
+            ep = None
+            for _ in range(8):
+                cand = self._lb.select_server()
+                if cand is None or cand not in excl_eps:
+                    ep = cand
+                    break
+                # a discarded draw must retire its in-flight entry
+                self._lb.cancel_inflight(cand)
+            if ep is None:
+                # the weighted draw kept landing on excluded workers: a
+                # retry must still reach ANY remaining member
+                for e in self._lb.servers():
+                    if e.endpoint not in excl_eps:
+                        ep = e.endpoint
+                        break
+        else:
+            ep = self._lb.select_server()
+        if ep is None:
+            return None
+        url = str(ep)
+        with self._lock:
+            self._picks[url] = self._picks.get(url, 0) + 1
+        return url
+
+    def channel(self, url: str):
+        from .. import rpc
+        with self._lock:
+            if self._closed:
+                raise RuntimeError("router closed")
+            ch = self._channels.get(url)
+            if ch is None:
+                ch = rpc.Channel()
+                ch.init(url, options=self._copts)
+                self._channels[url] = ch
+            return ch
+
+    def feedback(self, url: str, error_code: int, latency_us: int) -> None:
+        self._lb.feedback(parse_endpoint(url), error_code, latency_us)
+
+    def weight_of(self, url: str) -> float:
+        return self._lb.weight_of(parse_endpoint(url))
+
+    # ---- lifecycle / observability --------------------------------------
+    def close(self) -> None:
+        with self._lock:
+            self._closed = True
+            chans, self._channels = list(self._channels.values()), {}
+        for ch in chans:
+            ch.close()
+
+    def describe(self) -> dict:
+        """The /status serving block's routing half: divided weights +
+        pick distribution per decode worker."""
+        with self._lock:
+            picks = dict(self._picks)
+        weights = {str(e.endpoint): round(self._lb.weight_of(e.endpoint), 1)
+                   for e in self._lb.servers()}
+        return {"balancer": "la", "weights": weights, "picks": picks,
+                "naming": "static"}

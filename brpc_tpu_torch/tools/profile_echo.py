@@ -34,9 +34,10 @@ import torch
 SIZE = 4096
 
 
-def device_busy_share(fn) -> dict:
+def device_busy_share(fn, top: int = 0) -> dict:
     """Run ``fn`` under torch.profiler: device time of every kernel and
-    copy over the window's wall time."""
+    copy over the window's wall time; with ``top``, also the ``top``
+    operations with the most device time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -45,28 +46,43 @@ def device_busy_share(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
-    return {"wall_us": wall_us, "device_busy_us": busy_us,
-            "device_idle_share": 1.0 - busy_us / wall_us}
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in dev)
+    out = {"wall_us": wall_us, "device_busy_us": busy_us,
+           "device_idle_share": 1.0 - busy_us / wall_us}
+    if top:
+        dev.sort(key=lambda e: -e.self_device_time_total)
+        out["top_device"] = [{"name": e.key[:80], "count": e.count,
+                              "us": e.self_device_time_total}
+                             for e in dev[:top]]
+    return out
 
 
 def sample_stacks(fn, threads=("MainThread", "device_poller_cuda:0"),
-                  interval_s: float = 0.0002) -> list:
+                  interval_s: float = 0.0002, role_of=None,
+                  top: int = 16) -> list:
     """Run ``fn`` while a sampler reads the stacks of ``threads``; returns
-    the 16 most frequent (thread, package site, leaf) with their share of
-    that thread's samples."""
+    the ``top`` most frequent (thread, package site, leaf) with their
+    share of that thread's samples.  ``role_of(name, frame)``, where
+    given, replaces ``threads``: it names the role a thread's sample is
+    charged to, or None to skip it."""
     pkg = os.sep + "brpc_tpu_torch" + os.sep
     counts: collections.Counter = collections.Counter()
     per_thread: collections.Counter = collections.Counter()
     stop = threading.Event()
+    if role_of is None:
+        def role_of(name, frame):
+            return name if name in threads else None
 
     def sampler() -> None:
+        me = threading.get_ident()
         while not stop.is_set():
             names = {t.ident: t.name for t in threading.enumerate()}
             for ident, frame in sys._current_frames().items():
-                name = names.get(ident)
-                if name not in threads:
+                name = (None if ident == me else
+                        role_of(names.get(ident, ""), frame))
+                if name is None:
                     continue
                 f, site = frame, "outside the package"
                 while f is not None:
@@ -94,7 +110,7 @@ def sample_stacks(fn, threads=("MainThread", "device_poller_cuda:0"),
         sys.setswitchinterval(switch)
     return [{"thread": k[0], "site": k[1], "leaf": k[2],
              "share": n / per_thread[k[0]]}
-            for k, n in counts.most_common(16)]
+            for k, n in counts.most_common(top)]
 
 
 def main(argv=None) -> int:

@@ -11,7 +11,8 @@ Phases, each fatal on failure:
                 (sm_90a), one nvcc each, all started together, and load
                 them
   2. kernel     p2p_copy against its plain version at 4 KiB, 65,537 B
-                (misaligned source), 4 MiB, 4 MiB (source and destination
+                (misaligned source), 512 KiB and 2 MiB (phase 8's KV
+                handoffs), 4 MiB, 4 MiB (source and destination
                 misaligned), 32 MiB and 256 MiB: bit-exact, timed beside
                 the HBM bound 2·n / 3.35 TB/s by two harnesses, kernel,
                 plain version and Tensor.copy_ alike, in turns, twice (the
@@ -65,17 +66,35 @@ Phases, each fatal on failure:
                 against reference_attention within rtol = atol = 1e-4
   7. card tests  python -m pytest --noconftest -m cuda
                 tests/test_torch_cuda.py in a process of its own
+  8. serving    disaggregated prefill/decode on IciMesh(ranks=8): the
+                router on mem://, prefill on rank 1, decode on ranks 2 and
+                3, each decode pool 65,536 blocks of 16 tokens x 1,024 B
+                (a 1 GiB KV arena and an 8 MiB reduction arena) on the
+                card, plane threshold 64 KiB.  (a) 2 warm-ups, then 20
+                Router.Generate of 512 tokens x 64 steps from 2 client
+                threads (bench.py's serving leg) and 4 of 2,048 tokens,
+                every result equal to reference_generate on the card;
+                (b) 64 sessions of 512 tokens and 2 of 2,048 loaded with
+                Decode.LoadKv, then 64 Decode calls of 64 steps issued
+                asynchronously, so the batched step runs at max_batch =
+                64; every loaded session's pool rows (materialize) equal,
+                byte for byte, the token-major permute of the KV sent; the
+                step's wall and device µs at roster 64; (c) the card's prefill
+                bytes against the CPU's on the same prompts (printed)
 
 Launch counts are zeroed just before each path and read just after it:
-during phases 3-4 p2p_copy's launches must equal the plane's transfers;
-during phase 6 each ring kernel's launches must equal the calls of its
-entry point.  The line before the last is the ``kernels`` JSON; the last
-line is the device JSON.
+during phases 3-4 and during phase 8 p2p_copy's launches must equal the
+plane's transfers (in phase 8 also the LoadKv calls); during phase 6 each
+ring kernel's launches must equal the calls of its entry point.  The line
+before the last is the ``kernels`` JSON; the last line is the device
+JSON.
 """
 from __future__ import annotations
 
 import json
+import random
 import subprocess
+import threading
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -92,7 +111,10 @@ from brpc_tpu_torch.tools.timing import (HBM_BYTES_PER_S, TIMED_RUNS,
 
 ROOT = Path(__file__).resolve().parent
 # phase 2: the copies (label, bytes, src offset, dst offset)
+# (512 KiB and 2 MiB are the KV handoffs of phase 8's 512- and 2,048-token
+# prompts)
 KERNEL_CASES = (("4 KiB", 4096, 0, 0), ("65,537 B src+3", 65537, 3, 0),
+                ("512 KiB", 512 << 10, 0, 0), ("2 MiB", 2 << 20, 0, 0),
                 ("4 MiB", 4 << 20, 0, 0), ("4 MiB src+1 dst+7", 4 << 20, 1, 7),
                 ("32 MiB", 32 << 20, 0, 0), ("256 MiB", 256 << 20, 0, 0))
 # phases 5-6: total float32 bytes over the 8 ranks (bench.py's allreduce
@@ -101,6 +123,14 @@ KERNEL_CASES = (("4 KiB", 4096, 0, 0), ("65,537 B src+3", 65537, 3, 0),
 RING_SIZES = (("64 MiB", 64 << 20), ("1 GiB", 1 << 30))
 MATVEC_D = 4096
 ATTENTION = (4096, 8, 128)
+# phase 8: bench.py's serving leg (prompt length, decode steps, prompts,
+# warm-ups, client threads), the long prompts, the full roster and a
+# decode worker's pool on one card (1 M tokens of the toy model)
+SERVE_PROMPT, SERVE_STEPS, SERVE_PROMPTS, SERVE_WARM, SERVE_THREADS = \
+    512, 64, 20, 2, 2
+SERVE_LONG, SERVE_LONG_PROMPTS = 2048, 4
+SERVE_ROSTER = 64
+SERVE_POOL_BLOCKS, SERVE_BLOCK_TOKENS = 65536, 16
 
 
 def fail(msg: str) -> None:
@@ -629,6 +659,285 @@ def phase_card_tests() -> str:
     return summary
 
 
+def _pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(int(len(xs) * q), len(xs) - 1)]
+
+
+def phase_serving(mesh, plane, p2p_copy) -> dict:
+    """The disaggregated serving path through its entry points (see the
+    module docstring, phase 8)."""
+    import brpc_tpu_torch.policy  # noqa: F401
+    from brpc_tpu_torch import rpc
+    from brpc_tpu_torch.butil import flags
+    from brpc_tpu_torch.examples.disagg_serving import model
+    from brpc_tpu_torch.examples.disagg_serving.workers import (
+        BYTES_PER_TOKEN, close_services, start_decode_worker,
+        start_prefill_worker, start_router)
+    from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
+    from brpc_tpu_torch.serving import (BatchSchedulerOptions,
+                                        ContinuousBatchScheduler,
+                                        KvPoolOptions, StepRequest)
+    from brpc_tpu_torch.tools.profile_echo import device_busy_share
+
+    t_phase = time.monotonic()
+    dev = mesh.device(0)
+    flags.set_flag("ici_device_plane_threshold", 64 * 1024)
+    rng = np.random.default_rng(8)
+
+    def prompt(n):
+        return rng.integers(0, model.VOCAB, n).tolist()
+
+    def pool_options():
+        return KvPoolOptions(bytes_per_token=BYTES_PER_TOKEN,
+                             num_blocks=SERVE_POOL_BLOCKS,
+                             block_tokens=SERVE_BLOCK_TOKENS)
+
+    prefill = start_prefill_worker("ici://1", mesh=mesh)
+    decodes = [start_decode_worker(f"ici://{r}", mesh=mesh,
+                                   pool_options=pool_options())
+               for r in (2, 3)]
+    router = start_router("mem://chip-smoke-router", "ici://1",
+                          ["ici://2", "ici://3"], rng=random.Random(8))
+    pre_svc = next(iter(prefill.services().values()))
+    dec_svcs = [next(iter(d.services().values())) for d in decodes]
+    channels = []
+
+    def channel(target):
+        ch = rpc.Channel()
+        ch.init(target, rpc.ChannelOptions(timeout_ms=120000, max_retry=0))
+        channels.append(ch)
+        return ch
+
+    out = {}
+    try:
+        for svc in dec_svcs:
+            check(svc.pool._store.is_cuda and svc.pool.pos_sums_flat.is_cuda,
+                  f"decode pool of rank {svc.rank} is not on the card")
+        transfers0 = plane.stats()["transfers"]
+        loads0 = sum(svc.loads for svc in dec_svcs)
+        front = channel("mem://chip-smoke-router")
+
+        def generate(tokens):
+            cntl = rpc.Controller()
+            t0 = time.perf_counter_ns()
+            resp = front.call_method("Router.Generate", cntl, EchoRequest(
+                message=json.dumps({"tokens": tokens,
+                                    "steps": SERVE_STEPS})), EchoResponse)
+            ms = (time.perf_counter_ns() - t0) / 1e6
+            check(not cntl.failed(), f"Generate failed: {cntl.error_text}")
+            return json.loads(resp.message)["tokens"], ms
+
+        # (a) Generates: warm-ups, then 20 from 2 threads, then 4 long
+        prompts = [prompt(SERVE_PROMPT) for _ in range(SERVE_PROMPTS)]
+        longs = [prompt(SERVE_LONG) for _ in range(SERVE_LONG_PROMPTS)]
+        for _ in range(SERVE_WARM):
+            generate(prompt(SERVE_PROMPT))
+        got = [None] * len(prompts)
+        h0 = (pre_svc.handoff_bytes, pre_svc.handoff_ns)
+
+        def client(k):
+            for i in range(k, len(prompts), SERVE_THREADS):
+                got[i] = generate(prompts[i])
+
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(SERVE_THREADS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        wall = time.perf_counter() - t0
+        check(not any(t.is_alive() for t in threads) and all(got),
+              "Generate clients did not finish")
+        h_bytes = pre_svc.handoff_bytes - h0[0]
+        h_ns = pre_svc.handoff_ns - h0[1]
+        lat = [ms for _, ms in got]
+        long_got = [generate(tokens) for tokens in longs]
+        bad = [i for i, (tokens, (toks, _)) in enumerate(
+            zip(prompts + longs, got + long_got))
+            if toks != model.reference_generate(tokens, SERVE_STEPS, dev)]
+        check(not bad, f"Generate tokens differ from reference_generate on "
+                       f"the card for prompts {bad}")
+        out["generate"] = {
+            "prompts": len(prompts), "prompt_tokens": SERVE_PROMPT,
+            "steps": SERVE_STEPS, "threads": SERVE_THREADS,
+            "p50_ms": _pct(lat, 0.5), "p99_ms": _pct(lat, 0.99),
+            "tokens_per_s": len(prompts) * SERVE_STEPS / wall,
+            "wall_s": wall, "handoff_gbps": h_bytes / h_ns,
+            "long_prompt_tokens": SERVE_LONG,
+            "long_p50_ms": _pct([ms for _, ms in long_got], 0.5),
+            "verified": len(prompts) + len(longs)}
+        print(f"serving generate: {len(prompts)} x {SERVE_PROMPT} tokens x "
+              f"{SERVE_STEPS} steps from {SERVE_THREADS} threads: p50 "
+              f"{out['generate']['p50_ms']:.3f} ms, p99 "
+              f"{out['generate']['p99_ms']:.3f} ms, "
+              f"{out['generate']['tokens_per_s']:.1f} tokens/s; KV handoff "
+              f"{out['generate']['handoff_gbps']:.3f} GB/s; "
+              f"{SERVE_LONG_PROMPTS} x {SERVE_LONG} tokens p50 "
+              f"{out['generate']['long_p50_ms']:.3f} ms; all "
+              f"{out['generate']['verified']} equal reference_generate",
+              flush=True)
+
+        # (b) the full roster: 64 LoadKv (and 2 long ones, not decoded),
+        # then 64 async Decodes
+        dec = channel("ici://2")
+        roster = [prompt(SERVE_PROMPT) for _ in range(SERVE_ROSTER)]
+        load_us = []
+        sent = {}                       # session -> token-major rows sent
+
+        def load_kv(session, tokens):
+            kv = mesh.own(model.toy_kv_blocks(tokens, mesh.device(1)), 1)
+            sent[session] = kv.view(model.KV_LAYERS, len(tokens),
+                                    model.KV_DMODEL).permute(1, 0, 2).reshape(
+                len(tokens), BYTES_PER_TOKEN)
+            cntl = rpc.Controller()
+            cntl.request_attachment.append_device_array(kv)
+            t0 = time.perf_counter_ns()
+            dec.call_method("Decode.LoadKv", cntl, EchoRequest(
+                message=json.dumps({"session": session,
+                                    "seq_len": len(tokens),
+                                    "last_token": tokens[-1]})),
+                EchoResponse)
+            check(not cntl.failed(), f"LoadKv failed: {cntl.error_text}")
+            return (time.perf_counter_ns() - t0) / 1e3
+
+        for i, tokens in enumerate(roster):
+            load_us.append(load_kv(f"r{i}", tokens))
+        for i, tokens in enumerate(longs[:2]):
+            load_kv(f"long{i}", tokens)
+        results = [None] * SERVE_ROSTER
+        left = [SERVE_ROSTER]
+        all_done = threading.Event()
+        lock = threading.Lock()
+
+        def on_done(i, cntl):
+            results[i] = (None if cntl.failed() else
+                          json.loads(cntl.response.message)["tokens"],
+                          cntl.error_text)
+            with lock:
+                left[0] -= 1
+                if left[0] == 0:
+                    all_done.set()
+
+        steps0 = dec_svcs[0].scheduler.steps.get_value()
+        t0 = time.perf_counter()
+        for i in range(SERVE_ROSTER):
+            cntl = rpc.Controller()
+            dec.call_method("Decode.Decode", cntl, EchoRequest(
+                message=json.dumps({"session": f"r{i}", "steps": SERVE_STEPS,
+                                    "release": False})), EchoResponse,
+                done=lambda c, i=i: on_done(i, c))
+        check(all_done.wait(600), "full-roster Decodes did not complete")
+        roster_wall = time.perf_counter() - t0
+        steps = dec_svcs[0].scheduler.steps.get_value() - steps0
+        bad = [i for i, (tokens, (toks, err)) in enumerate(zip(roster,
+                                                               results))
+               if toks != model.reference_generate(tokens, SERVE_STEPS, dev)]
+        check(not bad, f"full-roster sessions {bad} differ from "
+                       f"reference_generate (first error: "
+                       f"{results[bad[0]][1] if bad else ''})")
+        check(all(t.is_cuda for t in dec_svcs[0].scheduler.roster_tensors()
+                  if t is not None), "step tensors are not on the card")
+        # the bytes delivered: every loaded session's rows in the pool
+        # against the KV sent, before any release
+        pool = dec_svcs[0].pool
+        bad = [s for s, rows in sent.items()
+               if not torch.equal(pool.materialize(s), rows)]
+        check(not bad, f"pool rows differ from the KV sent for sessions "
+                       f"{bad}")
+        for s in sent:
+            if s.startswith("long"):
+                pool.release(s)
+        # the step at roster 64, on the same pool and sessions: wall per
+        # step (host clock, with the step's one sync) and device time
+        sched = ContinuousBatchScheduler(pool, BatchSchedulerOptions(
+            vocab=model.VOCAB, max_batch=SERVE_ROSTER, auto_start=False))
+        for i in range(SERVE_ROSTER):
+            sched.submit(StepRequest(f"r{i}", 10 ** 6, lambda t: None,
+                                     lambda *a: None))
+        check(sched.step_once() == SERVE_ROSTER, "manual roster not full")
+        walls = []
+        for _ in range(32):
+            t1 = time.perf_counter_ns()
+            sched.step_once()
+            walls.append((time.perf_counter_ns() - t1) / 1e3)
+        prof = device_busy_share(lambda: [sched.step_once()
+                                          for _ in range(32)])
+        check(all(t.is_cuda for t in sched.roster_tensors()),
+              "step tensors are not on the card")
+        sched.stop()
+        for i in range(SERVE_ROSTER):
+            pool.release(f"r{i}")
+        out["roster"] = {
+            "sessions": SERVE_ROSTER, "bytes_checked_sessions": len(sent),
+            "loadkv_p50_us": _pct(load_us, 0.5),
+            "loadkv_p99_us": _pct(load_us, 0.99),
+            "decode_wall_s": roster_wall, "service_steps": steps,
+            "tokens_per_s": SERVE_ROSTER * SERVE_STEPS / roster_wall,
+            "step_wall_us_p50": _pct(walls, 0.5),
+            "step_device_us": prof["device_busy_us"] / 32,
+            "step_profiled_wall_us": prof["wall_us"] / 32,
+            "step_device_idle_share": prof["device_idle_share"]}
+        print(f"serving roster: {SERVE_ROSTER} LoadKv p50 "
+              f"{out['roster']['loadkv_p50_us']:.1f} us; {len(sent)} "
+              f"sessions' pool rows equal the KV sent; {SERVE_ROSTER} "
+              f"async Decodes of {SERVE_STEPS} steps in "
+              f"{roster_wall * 1e3:.1f} ms over {steps} steps "
+              f"({out['roster']['tokens_per_s']:.1f} tokens/s); step at "
+              f"roster {SERVE_ROSTER}: wall p50 "
+              f"{out['roster']['step_wall_us_p50']:.1f} us, device "
+              f"{out['roster']['step_device_us']:.2f} us", flush=True)
+
+        # the counts: one plane transfer and one p2p_copy launch per LoadKv
+        torch.cuda.synchronize()
+        out["loadkv_calls"] = sum(svc.loads for svc in dec_svcs) - loads0
+        out["plane_transfers"] = plane.stats()["transfers"] - transfers0
+        out["launches"] = p2p_copy.launches
+        check(out["plane_transfers"] >= out["loadkv_calls"],
+              f"{out['loadkv_calls']} LoadKv calls but "
+              f"{out['plane_transfers']} plane transfers: a KV did not "
+              f"ride the plane")
+        check(out["launches"] == out["plane_transfers"]
+              == out["loadkv_calls"],
+              f"serving: p2p_copy launches {out['launches']}, plane "
+              f"transfers {out['plane_transfers']}, LoadKv calls "
+              f"{out['loadkv_calls']}")
+
+        # (c) the card's prefill bytes against the CPU's
+        diff_bytes, max_diff = 0, 0
+        for tokens in prompts + longs:
+            card = model.toy_kv_blocks(tokens, dev).cpu().int()
+            host = model.toy_kv_blocks(tokens, "cpu").int()
+            d = (card - host).abs()
+            diff_bytes += int((d > 0).sum())
+            max_diff = max(max_diff, int(d.max()))
+        out["kv_bytes_vs_cpu"] = {
+            "prompts": len(prompts) + len(longs),
+            "bytes": sum(model.kv_nbytes(len(t)) for t in prompts + longs),
+            "differing_bytes": diff_bytes, "max_abs_diff": max_diff}
+        print(f"serving prefill bytes, card vs CPU: {diff_bytes} of "
+              f"{out['kv_bytes_vs_cpu']['bytes']} differ, max abs diff "
+              f"{max_diff}", flush=True)
+        out["pools"] = {str(svc.rank): {
+            k: v for k, v in svc.pool.describe().items()
+            if k in ("blocks_total", "blocks_used", "sessions", "loads",
+                     "bytes_in", "evictions", "device", "prefix")}
+            for svc in dec_svcs}
+        out["schedulers"] = {str(svc.rank): svc.scheduler.describe()
+                             for svc in dec_svcs}
+    finally:
+        for ch in channels:
+            ch.close()
+        close_services(router, prefill, *decodes)
+    out["wall_s"] = time.monotonic() - t_phase
+    print(f"serving: p2p_copy launches {out['launches']} = plane transfers "
+          f"{out['plane_transfers']} = LoadKv calls {out['loadkv_calls']}; "
+          f"pools {json.dumps(out['pools'])}; phase {out['wall_s']:.1f} s",
+          flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
@@ -707,6 +1016,14 @@ def main() -> int:
     # 7. the card-only tests, in a process of their own
     phase_card_tests()
 
+    # 8. the serving path, with the counts zeroed just before it
+    zero_counts()
+    serve = phase_serving(mesh, plane, p2p_copy)
+    serve_launches = {k.name: k.launches for k in kernels_all}
+    check(serve_launches["p2p_copy"] == serve["launches"] > 0,
+          "the serving path never launched p2p_copy")
+    print("serving: " + json.dumps(serve), flush=True)
+
     head = next(r for r in rows if r["label"] == "4 MiB")
     red = ring_rows["ring_all_reduce"]
     gat = ring_rows["ring_all_gather"]
@@ -719,7 +1036,9 @@ def main() -> int:
         "replaces": "brpc_tpu/ici/device_plane.py:428",
         "tpu_counterpart": "DevicePlane._pallas_body.kern "
                            "(brpc_tpu/ici/device_plane.py:395-444)",
-        "launches": main_launches,
+        "launches": main_launches + serve["launches"],
+        "launches_by_path": {"echo": main_launches,
+                             "serving": serve["launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "max_abs_diff": max(r["max_abs_err"] for r in rows),
         "shape": f"{head['bytes']} B",

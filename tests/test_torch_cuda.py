@@ -1,5 +1,6 @@
-"""Card-only tests of the port: the p2p_copy and ring kernels, and the
-device plane and the sharded layout on a CUDA mesh.  A CUDA kernel has no
+"""Card-only tests of the port: the p2p_copy and ring kernels, the
+device plane and the sharded layout on a CUDA mesh, and the serving pool,
+KV fill and batched step on the card against the same on the CPU.  A CUDA kernel has no
 CPU mode, so every test here carries the ``cuda`` marker and skips without
 a card.
 
@@ -21,6 +22,9 @@ from brpc_tpu_torch.ici import pallas_ring
 from brpc_tpu_torch.ici.collective import Collectives
 from brpc_tpu_torch.ici.mesh import IciMesh
 from brpc_tpu_torch.ici.p2p_copy import P2PCopy, p2p_copy, p2p_copy_plain
+from brpc_tpu_torch.butil.iobuf import IOBuf
+from brpc_tpu_torch.examples.disagg_serving import model
+from brpc_tpu_torch import serving
 
 
 @pytest.fixture()
@@ -240,3 +244,76 @@ def test_sharded_rows_are_owned_by_their_ranks_on_the_card(cuda_device):
     assert pallas_ring.ring_all_reduce_kernel.launches == launches + 1
     assert [mesh.rank_of(t) for t in out] == list(range(8))
     assert torch.equal(out.row(3), coll.all_reduce(xs))  # integers: exact
+
+
+def _serving_pair(dev):
+    """The same pool and scheduler on the card and on the CPU."""
+    sides = []
+    for d in (dev, torch.device("cpu")):
+        pool = serving.PagedKvPool(serving.KvPoolOptions(
+            bytes_per_token=model.KV_LAYERS * model.KV_DMODEL,
+            num_blocks=96, block_tokens=16, use_timers=False), device=d)
+        sched = serving.ContinuousBatchScheduler(
+            pool, serving.BatchSchedulerOptions(
+                vocab=model.VOCAB, max_batch=8, auto_start=False))
+        sides.append((pool, sched))
+    return sides
+
+
+@pytest.mark.cuda
+def test_serving_pool_and_step_on_the_card_equal_the_cpu(cuda_device):
+    """One set of KV bytes (made on the CPU) loaded through a DEVICE
+    attachment into a pool on the card and one on the CPU: blocks, bytes,
+    accumulators and the batched step's tokens must agree exactly, and
+    the step's tensors must be on the card."""
+    sides = _serving_pair(cuda_device)
+    prompts = {f"s{i}": [(31 * i + 7 * j) % 997 for j in range(40 + 53 * i)]
+               for i in range(6)}
+    prompts["shared"] = prompts["s5"][:64] + [1, 2, 3]   # prefix hits
+    sinks = [{}, {}]
+    try:
+        for (pool, sched), sink in zip(sides, sinks):
+            for s, tokens in prompts.items():
+                wire = model.toy_kv_blocks(tokens, "cpu").to(pool.device)
+                att = IOBuf()
+                att.append_device_array(wire)
+                serving.load_wire_attachment(
+                    pool, att, s, len(tokens), model.KV_LAYERS,
+                    model.KV_DMODEL, last_token=tokens[-1])
+                sink[s] = []
+                sched.submit(serving.StepRequest(
+                    s, 20 + len(tokens) % 7, sink[s].extend,
+                    lambda *a: None))
+        (cpool, csched), (hpool, hsched) = sides
+        for s in prompts:
+            a, b = cpool.get(s), hpool.get(s)
+            assert list(a.blocks) == list(b.blocks) and a.acc == b.acc
+            assert torch.equal(cpool.materialize(s).cpu(),
+                               hpool.materialize(s))
+        assert cpool.describe()["prefix"]["prefix_hits"] == \
+            hpool.describe()["prefix"]["prefix_hits"] > 0
+        assert cpool._store.is_cuda and cpool.pos_sums_flat.is_cuda
+        assert torch.equal(cpool.pos_sums_flat.cpu(), hpool.pos_sums_flat)
+        for _ in range(40):
+            assert csched.step_once() == hsched.step_once()
+            if csched.active():
+                assert all(t.is_cuda for t in csched.roster_tensors())
+        for s, tokens in prompts.items():
+            assert sinks[0][s] == sinks[1][s] != []
+            wire = model.toy_kv_blocks(tokens, "cpu")
+            assert sinks[0][s] == model.toy_decode(
+                wire, len(tokens), tokens[-1], len(sinks[0][s]))
+    finally:
+        for pool, sched in sides:
+            sched.stop()
+            pool.close()
+
+
+@pytest.mark.cuda
+def test_toy_decode_on_the_card_equals_the_cpu_on_the_same_bytes(
+        cuda_device):
+    tokens = [(5 * j + 3) % 997 for j in range(512)]
+    kv = model.toy_kv_blocks(tokens, cuda_device)
+    assert kv.is_cuda and kv.dtype == torch.uint8
+    assert model.toy_decode(kv, 512, tokens[-1], 32) == \
+        model.toy_decode(kv.cpu(), 512, tokens[-1], 32)

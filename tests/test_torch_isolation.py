@@ -91,6 +91,26 @@ print(json.dumps({
 """
 
 
+_SERVING = r"""
+import json, sys
+import brpc_tpu_torch.policy
+from brpc_tpu_torch.butil import flags
+from brpc_tpu_torch.ici import device_plane
+from brpc_tpu_torch.ici.mesh import IciMesh
+from brpc_tpu_torch.examples.disagg_serving import demo
+
+rc = demo.main(["--device", "cpu"])
+print(json.dumps({
+    "ok": rc == 0,
+    "transfers": device_plane.plane().stats()["transfers"],
+    "jax": sorted(m for m in sys.modules
+                  if m == "jax" or m.startswith(("jax.", "jaxlib"))),
+    "brpc_tpu": sorted(m for m in sys.modules
+                       if m == "brpc_tpu" or m.startswith("brpc_tpu.")),
+}))
+"""
+
+
 def _run_alone(script: str) -> dict:
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = _REPO
@@ -113,6 +133,30 @@ def test_port_collectives_load_no_jax_and_no_jax_package():
     assert out["ok"]
     assert out["jax"] == []
     assert out["brpc_tpu"] == []
+
+
+def test_port_serving_stack_loads_no_jax_and_no_jax_package():
+    out = _run_alone(_SERVING)
+    assert out["ok"]
+    assert out["transfers"] == 4          # one KV handoff per Generate
+    assert out["jax"] == []
+    assert out["brpc_tpu"] == []
+
+
+def test_serving_entry_points_default_to_the_card():
+    """The pool and the toy model ask for CUDA unless given the CPU."""
+    from brpc_tpu_torch.examples.disagg_serving import model
+    from brpc_tpu_torch.serving import KvPoolOptions, PagedKvPool
+    opts = KvPoolOptions(bytes_per_token=8, num_blocks=2)
+    if torch.cuda.is_available():
+        assert PagedKvPool(opts).device.type == "cuda"
+        assert model.toy_kv_blocks([1, 2]).is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            PagedKvPool(opts)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            model.toy_kv_blocks([1, 2])
+    assert PagedKvPool(opts, device="cpu").device.type == "cpu"
 
 
 def test_default_mesh_is_the_card():

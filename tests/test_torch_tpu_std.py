@@ -111,3 +111,21 @@ def test_parse_waits_for_whole_frame_and_refuses_foreign_bytes():
     absurd = b"TRPC" + (1 << 27).to_bytes(4, "big") + (0).to_bytes(4, "big")
     assert tpu_std.parse(IOBuf(absurd), None, False,
                          None).type == ParseResultType.ERROR
+
+
+@pytest.mark.parametrize("priority,tenant", [(None, ""), (0, "gold"),
+                                             (3, "t-7")])
+def test_pack_request_with_request_context_is_byte_identical(priority,
+                                                             tenant):
+    """Priority (offset-encoded) and tenant ride RequestMeta as the JAX
+    package writes them."""
+    c_port, c_jax = Controller(), JaxController()
+    for c in (c_port, c_jax):
+        c.timeout_ms = 900
+        c.priority = priority
+        c.tenant = tenant
+    f_port = tpu_std.pack_request(IOBuf(b"body"), 77, c_port,
+                                  "Decode.Decode").to_bytes()
+    f_jax = jstd.pack_request(JaxIOBuf(b"body"), 77, c_jax,
+                              "Decode.Decode").to_bytes()
+    assert f_port == f_jax
