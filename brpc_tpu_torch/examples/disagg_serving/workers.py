@@ -11,22 +11,33 @@ rides an attachment:
     (one ``p2p_copy`` launch per handoff, at or above the plane's
     threshold), and LoadKv scatters the delivered tensor straight into
     the paged pool's reserved blocks.
-  * **DecodeService** (``LoadKv`` / ``Decode``): KV pages into a
+  * **DecodeService** (``LoadKv`` / ``Decode`` / ``MigrateIn`` /
+    ``MigrateOut``): KV pages into a
     :class:`~brpc_tpu_torch.serving.PagedKvPool` on the decode rank's
-    device and tokens stream out of a
+    device (with a pinned host tier when the pool options give
+    ``host_blocks``) and tokens stream out of a
     :class:`~brpc_tpu_torch.serving.ContinuousBatchScheduler`: one batched
     step per tick over every active session.  ``Decode`` is ASYNC — the
     RPC completes from the step loop — so concurrent sessions share each
     step.  ``{"mode": "sync"}`` keeps the one-RPC-one-shot path.
+    ``MigrateOut`` moves a live session to another decode worker's
+    ``MigrateIn`` (:func:`~brpc_tpu_torch.serving.migrate_out`): the
+    payload is a DEVICE attachment, so over ``ici://`` it rides the device
+    plane, one ``p2p_copy`` launch per migration.  The cutover records
+    the destination before the source copy is released, so a Decode that
+    reaches the source afterwards gets a shed naming the destination
+    (:func:`migrated_dest`) instead of an unknown session.
   * **RouterService** (``Generate``): the front door — prefill, then
     decode on the worker the LALB balancer picked; every decode outcome
     feeds the balancer, and failures retry against another worker
     (re-prefill).
 
-Handlers block on nested sync calls (a Generate on Prefill, a Prefill on
-LoadKv), so none may run ``usercode_inline``: a nested sync call on the
-delivering thread would wait on itself.  Live migration (``MigrateIn`` /
-``MigrateOut``) waits for the migration slice.
+Outbound calls inherit the inbound request's priority, tenant and
+remaining deadline budget (``rpc/request_context.py``), so a Generate's
+client budget reaches Prefill, LoadKv and Decode.  Handlers block on
+nested sync calls (a Generate on Prefill, a Prefill on LoadKv), so none
+may run ``usercode_inline``: a nested sync call on the delivering thread
+would wait on itself.
 """
 from __future__ import annotations
 
@@ -44,11 +55,34 @@ from ...proto.echo_pb2 import EchoRequest, EchoResponse
 from ...serving import (BatchSchedulerOptions, ContinuousBatchScheduler,
                         KvPoolOptions, LoadAwareRouter, PagedKvPool,
                         PoolSaturated, SessionBusy, StepRequest,
-                        kv_load_stats, load_wire_attachment)
+                        kv_load_stats, load_token_major_attachment,
+                        load_wire_attachment, migrate_out)
+from ...serving import migration as _migration
 from .model import (KV_DMODEL, KV_LAYERS, VOCAB, kv_nbytes, toy_decode,
                     toy_kv_blocks)
 
 BYTES_PER_TOKEN = KV_LAYERS * KV_DMODEL
+
+#: timeout of the workers' peer channels (a Prefill's LoadKv handoff, a
+#: MigrateOut's MigrateIn)
+PEER_TIMEOUT_MS = 60000
+
+#: sessions a decode worker remembers having migrated away
+MAX_MOVED_SESSIONS = 256
+
+_MIGRATED = "kv migrated to "
+
+
+def migrated_dest(cntl: rpc.Controller) -> Optional[str]:
+    """The decode worker a failed Decode's session migrated to (retry the
+    Decode there, after rebinding the session to it), else None."""
+    if not cntl.failed() or cntl.error_code_ != rpc.errors.ELIMIT:
+        return None
+    text = cntl.error_text
+    i = text.find(_MIGRATED)
+    if i < 0:
+        return None
+    return text[i + len(_MIGRATED):].split(" ", 1)[0]
 
 
 def _reply(response, done, **kw) -> None:
@@ -64,7 +98,7 @@ class PrefillService(rpc.Service):
         self.mesh = mesh or IciMesh.default()
         self.rank = rank
         self.channel_options = channel_options or rpc.ChannelOptions(
-            timeout_ms=60000)
+            timeout_ms=PEER_TIMEOUT_MS)
         self._channels: Dict[str, rpc.Channel] = {}
         self._lock = threading.Lock()
         self.handoff_bytes = 0
@@ -103,11 +137,9 @@ class PrefillService(rpc.Service):
             done_ev.synchronize()
         t1 = time.perf_counter_ns()
         # the KV-cache handoff: device payload to the decode worker (the
-        # inbound call's priority/tenant cascade onto the outbound call)
+        # call inherits the inbound priority, tenant and budget)
         ch = self._channel_to(decode_target)
         hand = rpc.Controller()
-        hand.priority = cntl.priority
-        hand.tenant = cntl.tenant
         hand.request_attachment.append_device_array(kv)
         load = EchoRequest(message=json.dumps(
             {"session": session, "seq_len": len(tokens),
@@ -144,7 +176,18 @@ class DecodeService(rpc.Service):
             self.pool, sched_options or BatchSchedulerOptions(
                 vocab=VOCAB, max_batch=64))
         self._lock = threading.Lock()
-        self.loads = 0
+        self._channels: Dict[str, rpc.Channel] = {}   # migration peers
+        # session -> the worker it migrated to, recorded at the cutover
+        self._moved: Dict[str, str] = {}
+        #: chaos hook: an UNSET Event here black-holes MigrateIn — the
+        #: handler parks until it is set, so the source's transfer
+        #: deadline is what fires
+        self.migrate_in_gate: Optional[threading.Event] = None
+        self.loads = 0              # LoadKv calls that committed
+        # calls as the handlers receive them, sheds and retries included:
+        # each one's attachment crossed the transport once
+        self.loadkv_received = 0
+        self.migrate_in_received = 0
 
     def live_sessions(self) -> int:
         return self.pool.sessions()
@@ -152,6 +195,31 @@ class DecodeService(rpc.Service):
     def close(self) -> None:
         self.scheduler.stop()
         self.pool.close()
+        with self._lock:
+            chans, self._channels = list(self._channels.values()), {}
+        for ch in chans:
+            ch.close()
+
+    def _channel_to(self, target: str) -> rpc.Channel:
+        with self._lock:
+            ch = self._channels.get(target)
+            if ch is None:
+                ch = rpc.Channel()
+                ch.init(target, options=rpc.ChannelOptions(
+                    timeout_ms=PEER_TIMEOUT_MS))
+                self._channels[target] = ch
+            return ch
+
+    def _note_moved(self, session: str, dest: str) -> None:
+        with self._lock:
+            self._moved.pop(session, None)
+            self._moved[session] = dest
+            while len(self._moved) > MAX_MOVED_SESSIONS:
+                self._moved.pop(next(iter(self._moved)))
+
+    def _moved_to(self, session: str) -> Optional[str]:
+        with self._lock:
+            return self._moved.get(session)
 
     def describe_serving(self) -> dict:
         """The /status serving block: step rate, batch occupancy, pool
@@ -162,6 +230,8 @@ class DecodeService(rpc.Service):
 
     @rpc.method(EchoRequest, EchoResponse)
     def LoadKv(self, cntl, request, response, done):
+        with self._lock:
+            self.loadkv_received += 1
         req = json.loads(request.message)
         session = req["session"]
         seq_len = req["seq_len"]
@@ -204,7 +274,96 @@ class DecodeService(rpc.Service):
             return
         with self._lock:
             self.loads += 1
+            self._moved.pop(session, None)    # it lives here again
         _reply(response, done, session=session, loaded=want)
+
+    @rpc.method(EchoRequest, EchoResponse)
+    def MigrateIn(self, cntl, request, response, done):
+        """Destination half of a live migration: a peer pool's TOKEN-MAJOR
+        payload lands through the ordinary reserve / fill-outside-the-lock
+        / commit path.  Refusals are LoadKv's retryable sheds: a saturated
+        or busy destination aborts the migration cleanly, the source copy
+        stays authoritative, no plane event."""
+        with self._lock:
+            self.migrate_in_received += 1
+        gate = self.migrate_in_gate
+        if gate is not None:
+            gate.wait()          # chaos: black-hole until released
+        req = json.loads(request.message)
+        session = req["session"]
+        seq_len = req["seq_len"]
+        want = seq_len * self.pool.options.bytes_per_token
+        att = cntl.request_attachment
+        if seq_len <= 0 or len(att) != want:
+            cntl.set_failed(rpc.errors.EREQUEST,
+                            f"migrate payload {len(att)} != {want}")
+            done()
+            return
+        try:
+            load_token_major_attachment(
+                self.pool, att, session, seq_len,
+                last_token=req["last_token"],
+                tenant=req.get("tenant", ""),
+                priority=req.get("priority"))
+            att.clear()
+        except PoolSaturated:
+            cntl.retry_after_ms = 20
+            cntl.set_failed(rpc.errors.ELIMIT,
+                            "kv pool saturated (shed): migration refused, "
+                            "source stays authoritative")
+            done()
+            return
+        except SessionBusy as e:
+            cntl.retry_after_ms = 10
+            cntl.set_failed(rpc.errors.ELIMIT, str(e))
+            done()
+            return
+        with self._lock:
+            self._moved.pop(session, None)
+        _migration.stats.migrations_in << 1
+        _reply(response, done, session=session, loaded=want)
+
+    @rpc.method(EchoRequest, EchoResponse)
+    def MigrateOut(self, cntl, request, response, done):
+        """Source half: ship one session to the ``dest`` decode worker
+        (``Decode.MigrateIn`` there) under the transfer-deadline latch.
+        The source copy serves until the destination commits.  The
+        cutover then records ``dest`` for the session, and only after it
+        is the source copy released: a Decode that finds the session gone
+        is shed towards ``dest``.  Every abort reads as a retryable
+        shed."""
+        req = json.loads(request.message)
+        session = req["session"]
+        dest = req["dest"]
+        ch = self._channel_to(dest)
+
+        def send(meta, payload):
+            mc = rpc.Controller()
+            # the gathered rows, owned by this rank: over ici:// the
+            # transport moves them on the device plane
+            mc.request_attachment.append_device_array(
+                self.mesh.own(payload.reshape(-1), self.rank))
+            ch.call_method("Decode.MigrateIn", mc,
+                           EchoRequest(message=json.dumps(meta)),
+                           EchoResponse)
+            if mc.failed():
+                # ELIMIT from the destination is a clean shed, not a dead
+                # peer
+                return (False, mc.error_text,
+                        mc.error_code_ == rpc.errors.ELIMIT)
+            return True, "", False
+
+        ok, err = migrate_out(
+            self.pool, session, send, scheduler=self.scheduler,
+            on_cutover=lambda: self._note_moved(session, dest),
+            deadline_ms=req.get("deadline_ms"))
+        if not ok:
+            cntl.retry_after_ms = 10
+            cntl.set_failed(rpc.errors.ELIMIT,
+                            f"migration failed (shed): {err}")
+            done()
+            return
+        _reply(response, done, session=session, migrated=True, dest=dest)
 
     @rpc.method(EchoRequest, EchoResponse)
     def Decode(self, cntl, request, response, done):
@@ -231,6 +390,11 @@ class DecodeService(rpc.Service):
             _reply(response, done, session=session, tokens=tokens)
 
         def fail(code, text, retry_after_ms):
+            dest = (self._moved_to(session)
+                    if code == rpc.errors.EREQUEST else None)
+            if dest is not None:
+                # the session migrated away after this request was sent
+                code, text, retry_after_ms = self._migrated_shed(dest)
             if retry_after_ms:
                 cntl.retry_after_ms = retry_after_ms
             cntl.set_failed(code, text)
@@ -242,14 +406,26 @@ class DecodeService(rpc.Service):
             session, steps, emit, fail, priority=cntl.priority,
             tenant=cntl.tenant, deadline_us=deadline_us))
 
+    @staticmethod
+    def _migrated_shed(dest: str):
+        """(code, text, hint) of the shed for a session that migrated to
+        ``dest``: no hint, since a retry here cannot succeed."""
+        return (rpc.errors.ELIMIT,
+                f"{_MIGRATED}{dest} (shed): rebind the session and retry "
+                "there", 0)
+
     def _decode_sync(self, cntl, session, steps, release, response,
                      done) -> None:
         """The one-RPC-one-shot path: read the session out of the pool (a
         pinned view when its blocks are one extent) and decode inline."""
         snap = self.pool.snapshot(session, view=True)
         if snap is None:
+            dest = self._moved_to(session)
             reason = self.pool.evicted_reason(session)
-            if reason is not None:
+            if dest is not None:
+                code, text, _ = self._migrated_shed(dest)
+                cntl.set_failed(code, text)
+            elif reason is not None:
                 cntl.retry_after_ms = 1
                 cntl.set_failed(rpc.errors.ELIMIT,
                                 f"kv {reason}-evicted: re-prefill")
@@ -328,8 +504,6 @@ class RouterService(rpc.Service):
             session = f"s{base_session}" if attempt == 0 \
                 else f"s{base_session}r{attempt}"
             pc = rpc.Controller()
-            pc.priority = cntl.priority
-            pc.tenant = cntl.tenant
             t_pre = time.perf_counter_ns()
             pre_resp = self._prefill.call_method(
                 "Prefill.Prefill", pc,
@@ -361,8 +535,6 @@ class RouterService(rpc.Service):
                 continue
             pre = json.loads(pre_resp.message)
             dc = rpc.Controller()
-            dc.priority = cntl.priority
-            dc.tenant = cntl.tenant
             t0 = time.perf_counter_ns()
             dec_resp = self._router.channel(decode_url).call_method(
                 "Decode.Decode", dc,

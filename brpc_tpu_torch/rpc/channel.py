@@ -3,13 +3,16 @@
 Reference: src/brpc/channel.{h,cpp} (Init :236-393, CallMethod :407-592) and
 Controller::IssueRPC (controller.cpp:985-1144).  A channel targets one
 ``ici://k`` or ``mem://name`` endpoint over tpu_std; per-call state lives in
-the Controller.
+the Controller.  A call made inside a handler inherits the inbound
+request's context (:mod:`.request_context`).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
+from . import errors
+from . import request_context as _reqctx
 from ..butil.endpoint import (EndPoint, parse_endpoint, SCHEME_ICI,
                                SCHEME_MEM)
 from .controller import Controller
@@ -22,6 +25,10 @@ from .socket_map import SocketMap
 class ChannelOptions:
     timeout_ms: int = 1000
     max_retry: int = 3
+    # admission defaults for every call on the channel: a call's own
+    # Controller values win, then the inbound request's, then these
+    priority: Optional[int] = None
+    tenant: str = ""
 
 
 class Channel:
@@ -51,6 +58,31 @@ class Channel:
                     request: Any, response_cls: Any = None,
                     done: Optional[Callable[[Controller], None]] = None):
         """Sync when done is None (returns the response); async otherwise."""
+        ctx = _reqctx.current()
+        if ctx is not None:
+            # inside a handler: inherit what the call did not set, and cap
+            # the timeout at the budget the inbound request has left
+            if cntl.priority is None and ctx.priority is not None:
+                cntl.priority = ctx.priority
+            if not cntl.tenant and ctx.tenant:
+                cntl.tenant = ctx.tenant
+            residual = ctx.residual_deadline_ms()
+            if residual is not None:
+                if residual <= 0:
+                    cntl.set_failed(errors.ERPCTIMEDOUT,
+                                    "inherited deadline budget spent "
+                                    "before call")
+                    if done is not None:
+                        done(cntl)
+                    return None
+                base = (cntl.timeout_ms if cntl.timeout_ms is not None
+                        else self.options.timeout_ms)
+                if base is None or base <= 0 or base > residual:
+                    cntl.timeout_ms = max(int(residual), 1)
+        if cntl.priority is None and self.options.priority is not None:
+            cntl.priority = self.options.priority
+        if not cntl.tenant and self.options.tenant:
+            cntl.tenant = self.options.tenant
         payload = self._protocol.serialize_request(request, cntl)
         cntl._start_call(self, method_full_name, payload, response_cls, done)
         if done is None:

@@ -11,6 +11,8 @@ call:
     → issue_rpc: pick socket, pack, Socket.write (controller.cpp:985-1144)
     → completion funnels through the correlation id's on_error/lock — the
       single synchronization point (OnVersionedRPCReturned controller.cpp:568)
+    → an ELIMIT shed with a retry_after_ms hint is retried after the hint
+      (admission.shed_backoff_s), from the timer thread, while tries remain
 
 Server side carries the request's attachment and peer; its Controllers
 come from a pool.
@@ -27,6 +29,7 @@ from ..butil.resource_pool import ResourcePool
 from ..bthread import id as bthread_id
 from ..bthread.timer_thread import TimerThread
 from . import errors
+from .admission import shed_backoff_s
 
 
 class _LazyField:
@@ -220,16 +223,32 @@ class Controller:
         if rmeta.error_code != 0:
             err = rmeta.error_code
             self.set_failed(err, rmeta.error_text)
-            if rmeta.retry_after_ms:
-                self.retry_after_ms = rmeta.retry_after_ms
-            if self._retryable(err) and self.current_try < self.max_retry:
+            hint_ms = rmeta.retry_after_ms
+            if hint_ms:
+                self.retry_after_ms = hint_ms
+            # an admission shed (ELIMIT + retry_after_ms) is retryable, but
+            # only after the server's hint: an immediate re-dispatch would
+            # be the retry storm the shed exists to prevent.  (The port's
+            # Channel has one endpoint, so there is no server to exclude.)
+            shed_retry = err == errors.ELIMIT and hint_ms > 0
+            if (self._retryable(err) or shed_retry) \
+                    and self.current_try < self.max_retry:
                 self.error_code_ = 0
                 self.error_text_ = ""
                 self.current_try += 1
                 self.retried_count += 1
                 bthread_id.reset_version(self._cid, self.current_try)
                 self._schedule_try_timer()
-                self._issue_rpc()
+                if shed_retry:
+                    # issued from the timer thread after the hint plus
+                    # jitter above it; a delay past the overall deadline
+                    # loses to ERPCTIMEDOUT, which is the right bound
+                    delay_s = shed_backoff_s(
+                        hint_ms, seed=(self._cid << 8) ^ self.retried_count)
+                    TimerThread.instance().schedule_after(
+                        self._start_shed_retry, delay_s)
+                else:
+                    self._issue_rpc()
                 bthread_id.unlock(cid)
                 return
             self._end_rpc(cid)
@@ -254,6 +273,14 @@ class Controller:
         except Exception as e:
             self.set_failed(errors.ERESPONSE, f"fail to parse response: {e}")
         self._end_rpc(cid)
+
+    def _start_shed_retry(self) -> None:
+        """Timer callback: re-issue a shed call off the timer thread,
+        unless the deadline already ended it."""
+        if self._ended.is_set():
+            return
+        from ..bthread import scheduler
+        scheduler.start_background(self._issue_rpc, name="shed_retry")
 
     def _end_rpc(self, cid: int) -> None:
         if self._timeout_timer is not None:

@@ -19,6 +19,8 @@ from __future__ import annotations
 import inspect
 from typing import Callable, Dict, Optional, Type
 
+from . import request_context as _reqctx
+
 
 def method(request_cls: Type, response_cls: Type):
     def deco(fn: Callable) -> Callable:
@@ -44,8 +46,13 @@ class MethodDescriptor:
         """Run the handler.  ``done`` sends the response and recycles the
         pooled server Controller: after it returns the controller may be
         reset and reused by another request, so handlers must not touch
-        it past their ``done()`` call (the reference's Closure contract)."""
-        self.fn(cntl, request, response, done)
+        it past their ``done()`` call (the reference's Closure contract).
+
+        The handler's synchronous body runs under the inbound request's
+        context (:mod:`.request_context`): outbound calls it makes inherit
+        priority, tenant and the decremented deadline budget."""
+        with _reqctx.scope(cntl):
+            self.fn(cntl, request, response, done)
 
 
 class Service:

@@ -13,15 +13,20 @@ prefill/decode path runs:
     (the device plane's output tensor) scattered straight into the
     reserved pool blocks;
   * :mod:`.router` — ``LoadAwareRouter``: prefill→decode routing by load
-    through the LALB balancer.
+    through the LALB balancer, and session affinity;
+  * :mod:`.migration` — ``migrate_out``: a live session moved to another
+    decode worker's pool under a transfer-deadline latch.
 
-Not ported yet: the host tier, ``write_rows``, migration, the
-autoscaler, the ``pod://`` router and the shm/native KV routes.
+The pool's host tier (spill/restore) and ``write_rows`` live in
+:mod:`.kv_pool`.  Not ported yet: the autoscaler, the ``pod://`` router
+and the shm/native KV routes.
 """
 from .kv_pool import (KvPoolOptions, PagedKvPool, PoolSaturated,
                       SessionBusy)
-from .kv_source import (WireKvSource, kv_load_stats, load_wire_attachment,
+from .kv_source import (WireKvSource, kv_load_stats,
+                        load_token_major_attachment, load_wire_attachment,
                         wire_source)
+from .migration import migrate_health, migrate_out, migration_stats
 from .router import LoadAwareRouter
 from .scheduler import (BatchSchedulerOptions, ContinuousBatchScheduler,
                         StepRequest, step_tokens)
@@ -37,7 +42,11 @@ __all__ = [
     "StepRequest",
     "WireKvSource",
     "kv_load_stats",
+    "load_token_major_attachment",
     "load_wire_attachment",
+    "migrate_health",
+    "migrate_out",
+    "migration_stats",
     "step_tokens",
     "wire_source",
 ]

@@ -40,17 +40,35 @@ tables over a fixed block pool).  One pool per decode worker:
   * **Pins** fence eviction and expiry: the decode scheduler pins every
     session in its step roster.
 
-Host syncs per load: the accumulator ``acc`` (one ``.item()``) and the
-CRC pass; byte verification adds one per prefix hit.
+  * **The host tier** (``host_blocks > 0``): the picker's "evict" becomes
+    "demote".  A pressure victim's blocks are copied into a pinned host
+    arena (a refcounted shared block spills once) and the session stays
+    retrievable.  Any later touch (``get``, ``pin``, ``snapshot``,
+    ``write_rows``, the scheduler's roster add) restores it through the
+    same reserve / fill-outside-the-lock / commit shape, after checking
+    the chained CRC recorded at demote against the host bytes: a corrupt
+    host block becomes a typed "corrupt" re-prefill shed, never served
+    bytes.  Both copies are stream-ordered ``copy_`` calls between the
+    card and pinned memory, followed by a sync.  The spill path registers
+    the "spill" plane-health row (timer latch): a failing host arena
+    turns pressure back into eviction until the latch lapses.
+  * **``write_rows``** overwrites a live session's rows in place, splitting
+    a shared block copy-on-write first.
 
-Not ported yet: the host tier (spill/restore), ``write_rows`` and its CoW
-split, and the A/B flags of the reference.
+Host syncs per load: the accumulator ``acc`` (one ``.item()``) and the
+CRC pass; byte verification adds one per prefix hit.  A demote syncs
+once after its device-to-host copy, a restore once after its
+host-to-device copy.
+
+Not ported: the A/B flags of the reference (``host_blocks=0`` is the
+evict-only pool).
 """
 from __future__ import annotations
 
 import threading
 import time
 import zlib
+from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
 
@@ -58,6 +76,12 @@ import numpy as np
 import torch
 
 from .. import bvar
+from ..butil import flags as _flags
+
+_flags.define_flag(
+    "serving_kv_spill_reprobe_s", 0.25,
+    "spill plane-health timer latch: how long after a demote/restore IO "
+    "failure before the first use re-probes the host tier")
 
 BANDS = 4                # priority bands, 0 = most protected
 DEFAULT_PRIORITY = 2     # sessions arriving without one
@@ -104,6 +128,8 @@ class KvPoolOptions:
     bytes_per_token: int
     num_blocks: int = 256
     block_tokens: int = 16
+    # host-tier arena size in blocks: 0 disables spill (pressure evicts)
+    host_blocks: int = 0
     ttl_s: float = 120.0             # idle-session expiry
     sweep_interval_s: float = 0.0    # 0 = auto: ttl_s / 4, floored
     use_timers: bool = True          # False: tests drive expire_idle()
@@ -144,6 +170,46 @@ class _KvSession:
         self.release_pending = False
         self.contiguous = bool((np.diff(blocks) == 1).all())
         self.crcs = crcs
+
+
+class _SpilledSession:
+    """One session parked in the host tier (access under the pool lock).
+    ``hblocks`` indexes the host arena; ``crcs`` is the chained crc32 per
+    block position, taken over the host copy at demote — the restore
+    recomputes it from the host bytes and any divergence aborts into a
+    typed re-prefill shed.  ``acc`` survives the round trip."""
+
+    __slots__ = ("session", "tenant", "priority", "seq_len",
+                 "last_token", "acc", "hblocks", "crcs", "last_used")
+
+    def __init__(self, session: str, tenant: str, priority: int,
+                 seq_len: int, last_token: int, acc: int,
+                 hblocks: np.ndarray, crcs: List[int], now: float):
+        self.session = session
+        self.tenant = tenant
+        self.priority = priority
+        self.seq_len = seq_len
+        self.last_token = last_token
+        self.acc = acc
+        self.hblocks = hblocks           # np.int64 (n_blocks,)
+        self.crcs = crcs
+        self.last_used = now
+
+
+def _runs(pairs):
+    """Coalesce (device block, host block) pairs into runs where both
+    sides advance by one: ``[(first device block, first host block, n)]``
+    — one copy per run."""
+    runs: List[list] = []
+    for b, h in pairs:
+        b, h = int(b), int(h)
+        if runs:
+            r = runs[-1]
+            if b == r[0] + r[2] and h == r[1] + r[2]:
+                r[2] += 1
+                continue
+        runs.append([b, h, 1])
+    return runs
 
 
 class PagedKvPool:
@@ -189,6 +255,32 @@ class PagedKvPool:
         # recently-evicted ids -> reason, so a late Decode gets a typed
         # "re-prefill" shed instead of an unknown-session error
         self._recent_evicted: Dict[str, str] = {}
+        # ---- host tier, all empty when host_blocks == 0.  A host block is
+        # written once (at demote, under the lock) and read by at most one
+        # restore, which holds its own host refcount for the copy.
+        pin = self.device.type == "cuda" and o.host_blocks > 0
+        self._host_store = torch.zeros(
+            (o.host_blocks, o.block_tokens * o.bytes_per_token),
+            dtype=torch.uint8, pin_memory=pin)
+        self._host_np = self._host_store.numpy()     # the CRC's view
+        self._host_free: List[int] = list(range(o.host_blocks - 1, -1, -1))
+        self._spilled: Dict[str, _SpilledSession] = {}
+        # per-HOST-block refcount: spilled sessions sharing a prefix share
+        # one host copy; an in-flight restore holds an extra count
+        self._host_refs: Dict[int, int] = {}
+        # live device block -> its host copy, valid while the device
+        # block's bytes are unchanged (dropped on free, on an in-place
+        # write, and when the host copy frees)
+        self._spill_map: Dict[int, int] = {}
+        self._restoring: set = set()
+        self._spill_fault: Optional[str] = None   # test injection
+        self._restore_us: deque = deque(maxlen=512)
+        self._spill_health = None
+        if o.host_blocks > 0:
+            from ..ici.plane_health import register_plane
+            self._spill_health = register_plane(
+                "spill", retry_s=lambda: float(_flags.get_flag(
+                    "serving_kv_spill_reprobe_s")))
         self._sweep_timer = None
         self._closed = False
         self.loads = bvar.Adder("serving_kv_pool_loads")
@@ -202,6 +294,18 @@ class PagedKvPool:
         # the CRC's device-to-host passes and the bytes they moved
         self.crc_passes = bvar.Adder("serving_kv_pool_crc_d2h_passes")
         self.crc_bytes = bvar.Adder("serving_kv_pool_crc_d2h_bytes")
+        self.cow_splits = bvar.Adder("serving_kv_pool_cow_splits")
+        # tier truth: demote/restore round trips, restores that failed the
+        # CRC (degraded to re-prefill), spilled sessions dropped under
+        # host-arena pressure, and the bytes and copy time of each way
+        self.demotions = bvar.Adder("serving_kv_pool_demotions")
+        self.restores = bvar.Adder("serving_kv_pool_restores")
+        self.restore_corrupt = bvar.Adder("serving_kv_pool_restore_corrupt")
+        self.host_evictions = bvar.Adder("serving_kv_pool_host_evictions")
+        self.demote_bytes = bvar.Adder("serving_kv_pool_demote_bytes")
+        self.demote_copy_ns = bvar.Adder("serving_kv_pool_demote_copy_ns")
+        self.restore_bytes = bvar.Adder("serving_kv_pool_restore_bytes")
+        self.restore_copy_ns = bvar.Adder("serving_kv_pool_restore_copy_ns")
         self._counters: Dict[tuple, bvar.Adder] = {}
         self._tenant_labels: set = set()
 
@@ -396,10 +500,17 @@ class PagedKvPool:
             else:
                 self._free_session_locked(old, "reloaded")
         if need > len(self._free):
-            victims = self._pick_victims_locked(need - len(self._free), pri)
+            spill = self._spill_usable_locked()
+            victims = self._pick_victims_locked(need - len(self._free), pri,
+                                                spill=spill)
             if victims is None:
                 raise PoolSaturated(need, len(self._free))
             for v in victims:
+                # eviction becomes demotion when the host tier is usable;
+                # a demote that fails (host arena full, injected fault)
+                # falls back to eviction, which frees the same blocks
+                if spill and self._demote_session_locked(v):
+                    continue
                 self._free_session_locked(v, "pressure")
         blocks = np.empty(need, np.int64)
         for k in range(need):
@@ -431,6 +542,8 @@ class PagedKvPool:
         for b in s.blocks:
             b = int(b)
             self._refs[b] = self._refs.get(b, 0) + 1
+        # fresh bytes supersede any parked host copy of this id
+        self._drop_spilled_locked(s.session)
         if cur is not None:
             self._free_session_locked(cur, "reloaded")
         self._tables[s.session] = s
@@ -473,16 +586,64 @@ class PagedKvPool:
         if h is not None and self._prefix_index.get(h) == blk:
             del self._prefix_index[h]
 
-    def _pick_victims_locked(self, blocks_needed: int, requester_pri: int):
+    def _pick_victims_locked(self, blocks_needed: int, requester_pri: int,
+                             exclude=None, spill: bool = False):
         """Eviction order under pressure: most-sheddable band first,
         lighter tenants before heavier inside a band, LRU inside a class;
         never a band more protected than the requester's.  A victim only
         contributes the blocks that would ACTUALLY free (refcount
-        decrements simulated across the victim list)."""
+        decrements simulated across the victim list).  ``exclude`` fences
+        one session out (``write_rows`` never evicts the session it
+        writes).
+
+        ``spill=True``: victims will be demoted, so the order prefers a
+        whole shared-owner set over an unshared session of the same
+        class — the set's blocks spill once for all its owners, and only
+        taking it whole frees its shared blocks.  Candidates are grouped
+        into shared-block connected components; a group sorts by its most
+        protected member's band, shared sets before singletons, then its
+        lightest weight, then its oldest LRU.  The free-block simulation
+        is the same; grouping only reorders."""
         cands = [s for s in self._tables.values()
-                 if not s.pinned and s.priority >= requester_pri]
-        cands.sort(key=lambda s: (-s.priority, self._weight(s.tenant),
-                                  s.last_used))
+                 if not s.pinned and s.priority >= requester_pri
+                 and s is not exclude]
+        if spill and len(cands) > 1 and self._any_shared_locked():
+            parent = list(range(len(cands)))
+
+            def find(x: int) -> int:
+                while parent[x] != x:
+                    parent[x] = parent[parent[x]]
+                    x = parent[x]
+                return x
+
+            block_owner: Dict[int, int] = {}
+            for i, s in enumerate(cands):
+                for b in s.blocks:
+                    b = int(b)
+                    if self._refs.get(b, 1) > 1:
+                        j = block_owner.get(b)
+                        if j is None:
+                            block_owner[b] = i
+                        else:
+                            ra, rb = find(i), find(j)
+                            if ra != rb:
+                                parent[rb] = ra
+            comps: Dict[int, List[_KvSession]] = {}
+            for i, s in enumerate(cands):
+                comps.setdefault(find(i), []).append(s)
+            groups = list(comps.values())
+            groups.sort(key=lambda g: (
+                -min(s.priority for s in g),
+                0 if len(g) > 1 else 1,
+                min(self._weight(s.tenant) for s in g),
+                min(s.last_used for s in g)))
+            for g in groups:
+                g.sort(key=lambda s: (-s.priority, self._weight(s.tenant),
+                                      s.last_used))
+            cands = [s for g in groups for s in g]
+        else:
+            cands.sort(key=lambda s: (-s.priority, self._weight(s.tenant),
+                                      s.last_used))
         victims, have = [], 0
         sim: Dict[int, int] = {}
         for s in cands:
@@ -496,6 +657,15 @@ class PagedKvPool:
                 if self._refs.get(b, 1) - taken == 1:
                     have += 1
         return victims if have >= blocks_needed else None
+
+    def _any_shared_locked(self) -> bool:
+        """Does any block have more than one owner?  Every table entry
+        holds one ref, so exactly when the entries outnumber the physical
+        blocks.  Without a shared block every group of the spill picker is
+        a singleton and its order is the plain one, so the grouping pass —
+        a walk over every block of every candidate — is skipped."""
+        logical = sum(len(s.blocks) for s in self._tables.values())
+        return logical > len(self._refs)
 
     def _return_blocks_locked(self, blocks) -> None:
         """Put blocks back keeping the free list sorted descending, so
@@ -514,30 +684,334 @@ class PagedKvPool:
             if r <= 0:
                 self._refs.pop(b, None)
                 self._unregister_block_locked(b)
+                # the block's bytes are about to be rewritten: its host
+                # copy no longer mirrors it
+                self._spill_map.pop(b, None)
                 dead.append(b)
             else:
                 self._refs[b] = r
         if dead:
             self._return_blocks_locked(dead)
         if reason in ("pressure", "expired"):
-            self._recent_evicted[s.session] = reason
-            while len(self._recent_evicted) > 256:
-                self._recent_evicted.pop(next(iter(self._recent_evicted)))
+            self._note_gone_locked(s.session, reason)
         if reason == "expired":
             self.expirations << 1
         elif reason == "pressure":
             self.evictions << 1
-        if reason == "released":
-            self._count("released", s.tenant)
+        elif reason == "spilled":
+            # demotion, not death: no recent-evicted entry, no eviction
+            self.demotions << 1
+        if reason in ("released", "spilled"):
+            self._count(reason, s.tenant)
         else:
             self._count(f"evicted_{reason}", s.tenant)
 
-    def release(self, session: str) -> bool:
-        """Session finished: return its blocks.  Idempotent.  A PINNED
-        session's release is accepted and deferred to the last unpin."""
+    def _note_gone_locked(self, session: str, reason: str) -> None:
+        """Remember why a session died, for a typed re-prefill shed."""
+        self._recent_evicted[session] = reason
+        while len(self._recent_evicted) > 256:
+            self._recent_evicted.pop(next(iter(self._recent_evicted)))
+
+    # ---- host tier: spill / restore -------------------------------------
+    def _spill_usable_locked(self) -> bool:
+        """Demotion is on when the pool has a host arena and the spill
+        plane is usable: a latched IO failure turns pressure back into
+        eviction until the latch lapses."""
+        return (self.options.host_blocks > 0
+                and self._spill_health.usable())
+
+    def _tier_copy(self, runs, to_host: bool) -> int:
+        """Copy whole blocks between the device arena and the host arena,
+        one stream-ordered ``copy_`` per run, then wait for them: a demote
+        reads the host bytes next, a restore drops its host refs next.
+        Returns the ns the copies took."""
+        t0 = time.perf_counter_ns()
+        cuda = self.device.type == "cuda"
+        for b, h, n in runs:
+            dev, host = self._store[b:b + n], self._host_store[h:h + n]
+            if to_host:
+                host.copy_(dev, non_blocking=cuda)
+            else:
+                dev.copy_(host, non_blocking=cuda)
+        if cuda:
+            torch.cuda.current_stream(self.device).synchronize()
+        return time.perf_counter_ns() - t0
+
+    def _demote_session_locked(self, s: _KvSession) -> bool:
+        """Copy ``s``'s blocks into the host arena and retire its device
+        table ("spilled": retrievable, not dead).  A device block that
+        already has a live host copy reuses it under a refcount — a shared
+        block spills once.  False, with the session untouched, when the
+        host tier cannot take it (arena full even after reclaiming older
+        spilled sessions, or the injected fault): the caller evicts."""
+        if self._spill_fault == "demote":
+            self._spill_health.mark_down("demote_io")
+            return False
+
+        def need_new() -> int:
+            return sum(1 for b in s.blocks if int(b) not in self._spill_map)
+
+        short = need_new() - len(self._host_free)
+        if short > 0 and not self._host_reclaim_locked(short, s.priority):
+            return False
+        # a reclaimed record may have held the host copy of one of s's
+        # shared blocks: count again
+        if need_new() > len(self._host_free):
+            return False
+        hblocks = np.empty(len(s.blocks), np.int64)
+        fresh = []
+        for k, b in enumerate(s.blocks):
+            b = int(b)
+            hb = self._spill_map.get(b)
+            if hb is None:
+                hb = self._host_free.pop()
+                self._spill_map[b] = hb
+                fresh.append((b, hb))
+            self._host_refs[hb] = self._host_refs.get(hb, 0) + 1
+            hblocks[k] = hb
+        if fresh:
+            self.demote_copy_ns << self._tier_copy(_runs(fresh), True)
+            self.demote_bytes << len(fresh) * self._host_store.shape[1]
+        crcs, chain = [], 0
+        for hb in hblocks:
+            chain = zlib.crc32(self._host_np[int(hb)], chain)
+            crcs.append(chain)
+        self._spilled[s.session] = _SpilledSession(
+            s.session, s.tenant, s.priority, s.seq_len, s.last_token,
+            s.acc, hblocks, crcs, self._now())
+        self._free_session_locked(s, "spilled")
+        return True
+
+    def _host_reclaim_locked(self, shortage: int, requester_pri: int
+                             ) -> bool:
+        """Make room in the host arena by dropping the most sheddable
+        spilled sessions: the device picker's band/weight/LRU order and
+        refcount simulation, fenced to bands no more protected than the
+        demoting session's, skipping sessions mid-restore.  The dropped
+        sessions die for real (typed "pressure" shed)."""
+        cands = [sp for sess, sp in self._spilled.items()
+                 if sess not in self._restoring
+                 and sp.priority >= requester_pri]
+        cands.sort(key=lambda sp: (-sp.priority, self._weight(sp.tenant),
+                                   sp.last_used))
+        victims, have = [], 0
+        sim: Dict[int, int] = {}
+        for sp in cands:
+            if have >= shortage:
+                break
+            victims.append(sp)
+            for h in sp.hblocks:
+                h = int(h)
+                taken = sim.get(h, 0)
+                sim[h] = taken + 1
+                if self._host_refs.get(h, 1) - taken == 1:
+                    have += 1
+        if have < shortage:
+            return False
+        for sp in victims:
+            self._drop_spilled_locked(sp.session)
+            self._note_gone_locked(sp.session, "pressure")
+            self.host_evictions << 1
+            self._count("evicted_pressure", sp.tenant)
+        return True
+
+    def _drop_spilled_locked(self, session: str) -> None:
+        """Retire one spilled record, freeing the host blocks whose
+        refcount reaches zero."""
+        sp = self._spilled.pop(session, None)
+        if sp is not None:
+            self._host_unref_locked(sp.hblocks)
+
+    def _host_unref_locked(self, hblocks) -> None:
+        dead = []
+        for h in hblocks:
+            h = int(h)
+            r = self._host_refs.get(h, 1) - 1
+            if r <= 0:
+                self._host_refs.pop(h, None)
+                dead.append(h)
+            else:
+                self._host_refs[h] = r
+        if dead:
+            dead_set = set(dead)
+            # a freed host block's mapping is stale: a later demote must
+            # never alias a recycled host slot
+            for b in [b for b, h in self._spill_map.items()
+                      if h in dead_set]:
+                del self._spill_map[b]
+            self._host_free.extend(dead)
+            self._host_free.sort(reverse=True)
+
+    def _maybe_restore(self, session: str) -> None:
+        """Fault a spilled session back in if (and only if) it is
+        host-resident."""
+        with self._lock:
+            if session in self._tables or session not in self._spilled:
+                return
+        self._restore(session)
+
+    def _restore(self, session: str) -> Optional[_KvSession]:
+        """Bring a spilled session back to the device tier through the
+        ``load_into`` shape: device blocks reserved under the lock
+        (evicting or demoting others at the session's own priority), the
+        CRC check and host-to-device copy outside it (the restore holds
+        its own host refs, so a concurrent drop of the record cannot free
+        the bytes mid-copy), and a re-checked commit.  A CRC mismatch
+        aborts the restore into a typed "corrupt" re-prefill shed.
+        Returns None when the restore could not happen (device saturated,
+        lost race, IO fault): the caller sheds."""
+        o = self.options
+        bt, bpt = o.block_tokens, o.bytes_per_token
+        t0 = time.perf_counter_ns()
+        while True:
+            with self._lock:
+                s = self._tables.get(session)
+                if s is not None:
+                    return s
+                sp = self._spilled.get(session)
+                if sp is None:
+                    return None
+                if session not in self._restoring:
+                    self._restoring.add(session)
+                    try:
+                        blocks, _ = self._reserve_locked(
+                            session, len(sp.hblocks), sp.priority)
+                    except PoolSaturated:
+                        # no device room even after pressure: the session
+                        # stays spilled (a retryable shed)
+                        self._restoring.discard(session)
+                        return None
+                    except BaseException:
+                        self._restoring.discard(session)
+                        raise
+                    for h in sp.hblocks:
+                        self._host_refs[int(h)] += 1
+                    fault = self._spill_fault
+                    break
+            # another thread is restoring this session: wait it out
+            time.sleep(0.0005)
+        # outside the lock: reserved rows have one writer, and the extra
+        # host refs pin the source bytes.  Every outcome resolves through
+        # _finish_restore_locked.
+        ok = True
+        try:
+            io_fail = fault == "restore"
+            if not io_fail:
+                chain = 0
+                for k, h in enumerate(sp.hblocks):
+                    chain = zlib.crc32(self._host_np[int(h)], chain)
+                    if chain != sp.crcs[k]:
+                        ok = False
+                        break
+                if ok:
+                    self.restore_copy_ns << self._tier_copy(
+                        _runs(zip(blocks, sp.hblocks)), False)
+                    self.restore_bytes << len(blocks) * bt * bpt
+                    idx = torch.as_tensor(blocks, device=self.device)
+                    self._pos_sums[idx] = self._store[idx].view(
+                        -1, bt, bpt).sum(dim=2, dtype=torch.int64)
+            now = self._now()
+        except BaseException:
+            with self._lock:
+                self._finish_restore_locked(session, sp, blocks, t0,
+                                            ok=False, io_fail=False,
+                                            now=None, failed=True)
+            raise
+        with self._lock:
+            return self._finish_restore_locked(session, sp, blocks, t0,
+                                               ok=ok, io_fail=io_fail,
+                                               now=now)
+
+    def _finish_restore_locked(self, session: str, sp, blocks, t0, *,
+                               ok: bool, io_fail: bool,
+                               now: Optional[float], failed: bool = False):
+        """The restore's one resolution point for both the device
+        reservation and its host refs: exactly one of commit, return the
+        blocks, or nothing left (the pool closed) happens here."""
+        self._restoring.discard(session)
+        if self._closed:
+            return None
+        self._host_unref_locked(sp.hblocks)
+        if failed:
+            # the copy raised: the record stays, the reservation returns,
+            # the exception propagates
+            self._return_blocks_locked(blocks)
+            return None
+        if io_fail:
+            # the transport failed, host bytes presumed intact: keep the
+            # record, latch the plane, shed
+            self._return_blocks_locked(blocks)
+            self._spill_health.mark_down("restore_io")
+            return None
+        if not ok:
+            # the host copy is corrupt: drop it and degrade to a typed
+            # re-prefill — corruption is not plane death
+            self._return_blocks_locked(blocks)
+            if self._spilled.get(session) is sp:
+                self._drop_spilled_locked(session)
+            self._note_gone_locked(session, "corrupt")
+            self.restore_corrupt << 1
+            return None
+        cur = self._tables.get(session)
+        if cur is not None:
+            # a re-prefill committed fresh bytes mid-restore: it wins
+            self._return_blocks_locked(blocks)
+            return cur
+        if self._spilled.get(session) is not sp:
+            # released, expired or reclaimed mid-copy
+            self._return_blocks_locked(blocks)
+            return None
+        full = sp.seq_len // self.options.block_tokens
+        s = _KvSession(session, sp.tenant, sp.priority, sp.seq_len,
+                       sp.last_token, sp.acc, blocks, now, sp.crcs[:full])
+        # the commit of a load: the first restored co-owner re-registers
+        # the shared blocks and later restores map onto them
+        self._commit_locked(s, None)
+        self.restores << 1
+        self._restore_us.append((time.perf_counter_ns() - t0) // 1000)
+        return s
+
+    def spill(self, session: str) -> bool:
+        """Demote one session to the host tier now.  A pinned session
+        refuses with :class:`SessionBusy`; False when the session is
+        unknown or the host tier cannot take it."""
         with self._lock:
             s = self._tables.get(session)
             if s is None:
+                return False
+            if s.pinned:
+                raise SessionBusy(session)
+            if not self._spill_usable_locked():
+                return False
+            return self._demote_session_locked(s)
+
+    def spilled_sessions(self) -> List[str]:
+        with self._lock:
+            return list(self._spilled)
+
+    def inject_spill_fault(self, mode: Optional[str]) -> None:
+        """Chaos hook: ``"demote"`` fails every demote, ``"restore"``
+        every restore copy (both latch the spill plane down), ``None``
+        heals."""
+        if mode not in (None, "demote", "restore"):
+            raise ValueError(f"unknown spill fault {mode!r}")
+        with self._lock:
+            self._spill_fault = mode
+
+    def release(self, session: str) -> bool:
+        """Session finished: return its blocks.  Idempotent.  A PINNED
+        session's release is accepted and deferred to the last unpin; a
+        spilled one drops its host record without a restore."""
+        with self._lock:
+            s = self._tables.get(session)
+            if s is None:
+                sp = self._spilled.get(session)
+                if sp is not None:
+                    # an in-flight restore survives the drop (it holds its
+                    # own host refs) and its commit re-check aborts
+                    self._drop_spilled_locked(session)
+                    self._count("released", sp.tenant)
+                    return True
                 return False
             if s.pinned:
                 s.release_pending = True
@@ -545,27 +1019,129 @@ class PagedKvPool:
             self._free_session_locked(s, "released")
             return True
 
+    # ---- mutation / CoW -------------------------------------------------
+    def write_rows(self, session: str, start_token: int, rows) -> int:
+        """Overwrite token rows of a live session in place.  A target
+        block whose refcount is > 1 is SPLIT first: a private copy is
+        allocated (evicting at the session's own priority if the free
+        list is empty, never the session being written), the shared
+        original keeps its other owners, and the session publishes a NEW
+        blocks array.  A private block registered as a prefix donor is
+        unregistered before the overwrite, and its host copy unmapped.
+        Returns the number of splits.  ``rows``: uint8 ``(n,
+        bytes_per_token)``, a numpy array or a tensor."""
+        o = self.options
+        bt, bpt = o.block_tokens, o.bytes_per_token
+        rows = (rows if isinstance(rows, torch.Tensor)
+                else torch.as_tensor(np.ascontiguousarray(rows, np.uint8)))
+        if rows.dtype != torch.uint8 or rows.dim() != 2 \
+                or rows.shape[1] != bpt:
+            raise ValueError(f"rows must be uint8 (n, {bpt}), got "
+                             f"{rows.dtype} {tuple(rows.shape)}")
+        n = rows.shape[0]
+        if n <= 0:
+            raise ValueError("rows must hold at least one token")
+        rows = rows.to(self.device)
+        now = self._now()
+        self._maybe_restore(session)
+        with self._lock:
+            s = self._tables.get(session)
+            if s is None or s.release_pending:
+                raise KeyError(session)
+            if start_token < 0 or start_token + n > s.seq_len:
+                raise ValueError(
+                    f"write [{start_token}, {start_token + n}) outside "
+                    f"session of {s.seq_len} tokens")
+            first_b = start_token // bt
+            last_b = (start_token + n - 1) // bt
+            new_blocks = None
+            splits = 0
+            for k in range(first_b, last_b + 1):
+                blk = int(s.blocks[k] if new_blocks is None
+                          else new_blocks[k])
+                if self._refs.get(blk, 1) > 1 and not self._free:
+                    victims = self._pick_victims_locked(1, s.priority,
+                                                        exclude=s)
+                    if victims is None:
+                        raise PoolSaturated(1, 0)
+                    for v in victims:
+                        self._free_session_locked(v, "pressure")
+                # re-checked after the eviction: taking the last co-owner
+                # leaves the block private, and splitting it then would
+                # strand it off both the free list and every table
+                if self._refs.get(blk, 1) > 1:
+                    nb = self._free.pop()
+                    self._store[nb].copy_(self._store[blk])
+                    self._pos_sums[nb].copy_(self._pos_sums[blk])
+                    self._refs[blk] -= 1
+                    self._refs[nb] = 1
+                    if new_blocks is None:
+                        new_blocks = s.blocks.copy()
+                    new_blocks[k] = nb
+                    splits += 1
+                    self.cow_splits << 1
+                else:
+                    self._unregister_block_locked(blk)
+                    self._spill_map.pop(blk, None)
+            if new_blocks is not None:
+                s.blocks = new_blocks
+                s.contiguous = bool((np.diff(new_blocks) == 1).all())
+            delta = None
+            for k in range(first_b, last_b + 1):
+                blk = int(s.blocks[k])
+                t0 = max(start_token, k * bt)
+                t1 = min(start_token + n, (k + 1) * bt)
+                src = rows[t0 - start_token:t1 - start_token]
+                sl0 = t0 - k * bt
+                self._store[blk].view(bt, bpt)[sl0:sl0 + (t1 - t0)].copy_(
+                    src)
+                new_sums = src.sum(dim=1, dtype=torch.int64)
+                ps = self._pos_sums[blk, sl0:sl0 + (t1 - t0)]
+                d = new_sums.sum() - ps.sum()
+                delta = d if delta is None else delta + d
+                ps.copy_(new_sums)
+            s.acc += int(delta.item())
+            s.last_used = now
+            return splits
+
     # ---- lookup / scheduler surface -----------------------------------
     def get(self, session: str) -> Optional[_KvSession]:
+        """The session's table; a host-resident session is restored first
+        (the scheduler's roster add and every read surface restore)."""
         with self._lock:
-            return self._tables.get(session)
+            s = self._tables.get(session)
+            if s is not None or session not in self._spilled:
+                return s
+        return self._restore(session)
 
     def evicted_reason(self, session: str) -> Optional[str]:
         """Why a recently-missing session is gone ("pressure" /
-        "expired"), so the RPC layer sheds with a re-prefill hint."""
+        "expired" / "corrupt"), so the RPC layer sheds with a re-prefill
+        hint.  A session still parked in the host tier answers
+        "spilled": its restore failed transiently and a retry may
+        succeed without a re-prefill."""
         with self._lock:
+            if session in self._spilled:
+                return "spilled"
             return self._recent_evicted.get(session)
 
     def touch(self, session: str) -> None:
+        """Keep-alive; reaches the host tier too without restoring."""
         now = self._now()
         with self._lock:
             s = self._tables.get(session)
             if s is not None:
                 s.last_used = now
+            else:
+                sp = self._spilled.get(session)
+                if sp is not None:
+                    sp.last_used = now
 
     def pin(self, session: str) -> bool:
         """Fence a session against eviction/expiry (counted — pins nest).
-        False when the session is gone, including a deferred release."""
+        False when the session is gone, including a deferred release.  A
+        host-resident session is restored first: a pin is a read intent."""
+        self._maybe_restore(session)
         with self._lock:
             s = self._tables.get(session)
             if s is None or s.release_pending:
@@ -608,6 +1184,7 @@ class PagedKvPool:
         blocks; a tensor cannot be made read-only).  Otherwise the rows
         are a copy, ``is_view=False`` and no pin is owed."""
         o = self.options
+        self._maybe_restore(session)
         with self._lock:
             s = self._tables.get(session)
             if s is None or s.release_pending:
@@ -654,6 +1231,15 @@ class PagedKvPool:
                 if not s.pinned and now - s.last_used > ttl:
                     self._free_session_locked(s, "expired")
                     n += 1
+            for sess, sp in list(self._spilled.items()):
+                # spilled sessions age out on the same TTL
+                if sess not in self._restoring \
+                        and now - sp.last_used > ttl:
+                    self._drop_spilled_locked(sess)
+                    self._note_gone_locked(sess, "expired")
+                    self.expirations << 1
+                    self._count("evicted_expired", sp.tenant)
+                    n += 1
         return n
 
     # ---- lifecycle / observability --------------------------------------
@@ -673,6 +1259,12 @@ class PagedKvPool:
             self._prefix_index.clear()
             self._block_hash.clear()
             self._free = list(range(self.options.num_blocks - 1, -1, -1))
+            self._spilled.clear()
+            self._host_refs.clear()
+            self._spill_map.clear()
+            self._restoring.clear()
+            self._host_free = list(
+                range(self.options.host_blocks - 1, -1, -1))
         if timer is not None:
             from ..bthread.timer_thread import TimerThread
             TimerThread.instance().unschedule(timer)
@@ -693,6 +1285,12 @@ class PagedKvPool:
                 logical += len(s.blocks)
             shared = sum(1 for r in self._refs.values() if r > 1)
             physical = len(self._refs)
+            host_free = len(self._host_free)
+            spilled_sessions = len(self._spilled)
+            spilled_blocks = len(self._host_refs)
+            restore_us = sorted(self._restore_us)
+            plane = (self._spill_health.snapshot()
+                     if self._spill_health is not None else None)
         with self._counters_lock:
             by_class = {f"{what}[{tenant or 'shared'}]": a.get_value()
                         for (what, tenant), a in self._counters.items()}
@@ -725,5 +1323,41 @@ class PagedKvPool:
                                   if physical else 1.0),
                 "crc_d2h_passes": self.crc_passes.get_value(),
                 "crc_d2h_bytes": self.crc_bytes.get_value(),
+                "cow_splits": self.cow_splits.get_value(),
             },
+            "tiers": self._describe_tiers(
+                sessions, host_free, spilled_sessions, spilled_blocks,
+                restore_us, plane),
         }
+
+    def _describe_tiers(self, resident: int, host_free: int,
+                        spilled_sessions: int, spilled_blocks: int,
+                        restore_us: List[int], plane) -> dict:
+        """Resident against host-parked sessions, the round trips, the
+        restore latency, the copies' bytes and time, the spill plane row,
+        and the process-wide migration ledger."""
+        o = self.options
+        out = {
+            "enabled": o.host_blocks > 0,
+            "host_blocks_total": o.host_blocks,
+            "host_blocks_free": host_free,
+            "resident_sessions": resident,
+            "spilled_sessions": spilled_sessions,
+            "spilled_blocks": spilled_blocks,
+            "demotions": self.demotions.get_value(),
+            "restores": self.restores.get_value(),
+            "restore_corrupt": self.restore_corrupt.get_value(),
+            "host_evictions": self.host_evictions.get_value(),
+            "restore_p50_us": (restore_us[len(restore_us) // 2]
+                               if restore_us else 0),
+            "demote_bytes": self.demote_bytes.get_value(),
+            "demote_copy_us": self.demote_copy_ns.get_value() // 1000,
+            "restore_bytes": self.restore_bytes.get_value(),
+            "restore_copy_us": self.restore_copy_ns.get_value() // 1000,
+        }
+        if plane is not None:
+            out["plane"] = plane
+        from . import migration as _migration
+        out["migration"] = {**_migration.migration_stats(),
+                            "scope": "process"}
+        return out

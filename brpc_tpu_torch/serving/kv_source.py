@@ -18,9 +18,10 @@ Segment boundaries need not align with pool block, token or layer
 boundaries: the general path walks (extent × layer) destination slices
 through the segment list.  Per-route truth rides
 ``serving_kv_load_{adopted,scattered,materialized}`` Adders plus
-``serving_kv_load_copy_bytes`` (copy passes × payload bytes).  The
-shared-memory ring claims and native attachment handles of the reference
-are not ported yet.
+``serving_kv_load_copy_bytes`` (copy passes × payload bytes).
+:func:`load_token_major_attachment` is the same path for a live
+migration's token-major payload.  The shared-memory ring claims and
+native attachment handles of the reference are not ported yet.
 """
 from __future__ import annotations
 
@@ -239,3 +240,18 @@ def load_wire_attachment(pool, att: IOBuf, session: str, seq_len: int,
         src.release()
     stats.record(src.route, seq_len * layers * dmodel, 1)
     return s
+
+
+def load_token_major_attachment(pool, att: IOBuf, session: str,
+                                seq_len: int, *, last_token: int,
+                                tenant: str = "",
+                                priority: Optional[int] = None):
+    """The KV migration ingest: the payload is already token-major
+    ``(seq_len, bytes_per_token)``, the source pool's row layout, so there
+    is no layer transpose to undo.  Declaring ``layers=1`` with
+    ``dmodel=bytes_per_token`` makes the wire layout the pool's block rows
+    and the fill one strided copy per extent (after a stream wait on the
+    plane); everything else is :func:`load_wire_attachment`."""
+    return load_wire_attachment(
+        pool, att, session, seq_len, 1, pool.options.bytes_per_token,
+        last_token=last_token, tenant=tenant, priority=priority)

@@ -7,10 +7,12 @@ failing worker's weight collapses within one request time:
 
   * selection — ``pick()`` = LALB ``select_server`` + a per-call exclusion
     list, so a retry after a dead worker never re-picks it;
-  * feedback — ``feedback(url, error_code, latency_us)`` closes the loop.
+  * feedback — ``feedback(url, error_code, latency_us)`` closes the loop;
+  * session affinity — ``bind_session`` / ``session_url`` / ``rebind`` /
+    ``unbind``: a live session routes by session, and ``rebind`` is a
+    migration's cutover, one dict write under the lock.
 
-Membership from a naming url (``pod://``) and session affinity wait for
-the fabric and migration slices.
+Membership from a naming url (``pod://``) waits for the fabric slice.
 """
 from __future__ import annotations
 
@@ -27,6 +29,9 @@ class LoadAwareRouter:
     ``rng`` draws the weighted selections (a seeded ``random.Random``
     makes them reproducible)."""
 
+    # session-affinity cardinality cap: session ids are wire input
+    MAX_BOUND_SESSIONS = 8192
+
     def __init__(self, targets: List[str], channel_options=None,
                  rng: Optional[random.Random] = None):
         from .. import rpc
@@ -36,6 +41,10 @@ class LoadAwareRouter:
         self._lb = LocalityAwareLB(rng)
         self._channels: Dict[str, object] = {}
         self._picks: Dict[str, int] = {}
+        # session -> decode worker url: a reader sees the old worker or
+        # the new one, never neither
+        self._affinity: Dict[str, str] = {}
+        self._rebinds = 0
         self._closed = False
         for url in targets:
             self.add_target(url)
@@ -92,6 +101,36 @@ class LoadAwareRouter:
     def weight_of(self, url: str) -> float:
         return self._lb.weight_of(parse_endpoint(url))
 
+    # ---- session affinity (the migration cutover) ----------------------
+    def bind_session(self, session: str, url: str) -> None:
+        """Pin a live session to the decode worker holding its KV, so
+        follow-up decodes route by session, not by weight."""
+        with self._lock:
+            while len(self._affinity) >= self.MAX_BOUND_SESSIONS:
+                self._affinity.pop(next(iter(self._affinity)))
+            self._affinity[session] = url
+
+    def session_url(self, session: str) -> Optional[str]:
+        with self._lock:
+            return self._affinity.get(session)
+
+    def rebind(self, session: str, url: str) -> Optional[str]:
+        """The cutover: point a session's affinity at the migration
+        destination.  Returns the previous binding (None if unbound)."""
+        with self._lock:
+            prev = self._affinity.get(session)
+            while session not in self._affinity \
+                    and len(self._affinity) >= self.MAX_BOUND_SESSIONS:
+                self._affinity.pop(next(iter(self._affinity)))
+            self._affinity[session] = url
+            if prev is not None and prev != url:
+                self._rebinds += 1
+            return prev
+
+    def unbind(self, session: str) -> None:
+        with self._lock:
+            self._affinity.pop(session, None)
+
     # ---- lifecycle / observability --------------------------------------
     def close(self) -> None:
         with self._lock:
@@ -105,7 +144,10 @@ class LoadAwareRouter:
         pick distribution per decode worker."""
         with self._lock:
             picks = dict(self._picks)
+            bound = len(self._affinity)
+            rebinds = self._rebinds
         weights = {str(e.endpoint): round(self._lb.weight_of(e.endpoint), 1)
                    for e in self._lb.servers()}
         return {"balancer": "la", "weights": weights, "picks": picks,
+                "sessions_bound": bound, "rebinds": rebinds,
                 "naming": "static"}

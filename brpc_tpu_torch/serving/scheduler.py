@@ -419,6 +419,13 @@ class ContinuousBatchScheduler:
             for req, (code, text) in victims:
                 self._safe_fail(req, code, text, 0)
 
+    def owns(self, session: str) -> bool:
+        """True while this scheduler holds the session (pending or
+        rostered): the migration fence — a session mid-decode must not cut
+        over under its running batched step."""
+        with self._cv:
+            return session in self._owned
+
     def queued(self) -> int:
         with self._cv:
             return sum(len(b) for b in self._pending)

@@ -81,11 +81,34 @@ Phases, each fatal on failure:
                 byte for byte, the token-major permute of the KV sent; the
                 step's wall and device µs at roster 64; (c) the card's prefill
                 bytes against the CPU's on the same prompts (printed)
+  9. tiers      phase 8's layout, each decode pool also holding 65,536
+                host blocks (a 1 GiB pinned arena), after 2 Generates:
+                (a) 576 sessions of 2,048 tokens loaded on rank 2 with
+                Decode.LoadKv, 1.125x the device arena, so at least 64
+                demote under pressure; 32 demoted sessions decoded 64
+                steps (each restored at the roster add), tokens equal to
+                reference_generate and rows equal, byte for byte, to the
+                KV sent; spill and restore GB/s (the pool's copy bytes
+                over copy time), restore p50 µs, describe()["tiers"], and
+                a pinned copy_ of one session's 2 MiB each way as the host
+                link's yardstick; (b) 64 sessions of 512 tokens moved rank
+                2 -> rank 3 with Decode.MigrateOut (one p2p_copy each on
+                the plane), each cutover LoadAwareRouter.rebind, the
+                follow-up Decodes routed by session equal to
+                reference_generate, rank 2 holding none of them; migration
+                p50 ms and payload GB/s; (c) rank 3's MigrateIn
+                black-holed: one migration trips the 500 ms transfer
+                deadline (migrate_down 1), the next refuses fast, the
+                source serves throughout, and after
+                serving_migrate_reprobe_s the plane revives on its timer
+                and the migration lands
 
 Launch counts are zeroed just before each path and read just after it:
 during phases 3-4 and during phase 8 p2p_copy's launches must equal the
-plane's transfers (in phase 8 also the LoadKv calls); during phase 6 each
-ring kernel's launches must equal the calls of its entry point.  The line
+plane's transfers (in phase 8 also the LoadKv calls the servers
+received); during phase 9 they must equal the transfers and the LoadKv
+plus MigrateIn calls the servers received; during phase 6 each ring
+kernel's launches must equal the calls of its entry point.  The line
 before the last is the ``kernels`` JSON; the last line is the device
 JSON.
 """
@@ -93,6 +116,7 @@ from __future__ import annotations
 
 import json
 import random
+import statistics
 import subprocess
 import threading
 import sys
@@ -103,8 +127,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from brpc_tpu_torch.tools.timing import (HBM_BYTES_PER_S, TIMED_RUNS,
-                                         Rotation, b2b_in_turns,
+from brpc_tpu_torch.tools.timing import (HBM_BYTES_PER_S, SPIN_CYCLES,
+                                         TIMED_RUNS, Rotation, b2b_in_turns,
                                          empty_kernel, host_us,
                                          nvidia_smi_line, spin_cycles_per_us,
                                          time_in_turns)
@@ -131,6 +155,14 @@ SERVE_PROMPT, SERVE_STEPS, SERVE_PROMPTS, SERVE_WARM, SERVE_THREADS = \
 SERVE_LONG, SERVE_LONG_PROMPTS = 2048, 4
 SERVE_ROSTER = 64
 SERVE_POOL_BLOCKS, SERVE_BLOCK_TOKENS = 65536, 16
+# phase 9: phase 8's layout with a 1 GiB pinned host arena per decode pool;
+# 2,048-token sessions to 1.125x the device arena (64 demote), 32 of the
+# demoted decoded back, 64 migrations of 512-token sessions, and the
+# black-holed migration's deadline
+TIER_HOST_BLOCKS = SERVE_POOL_BLOCKS
+TIER_SESSIONS, TIER_DECODED = 576, 32
+MIGRATE_SESSIONS = 64
+LATCH_DEADLINE_MS = 500
 
 
 def fail(msg: str) -> None:
@@ -715,7 +747,9 @@ def phase_serving(mesh, plane, p2p_copy) -> dict:
             check(svc.pool._store.is_cuda and svc.pool.pos_sums_flat.is_cuda,
                   f"decode pool of rank {svc.rank} is not on the card")
         transfers0 = plane.stats()["transfers"]
-        loads0 = sum(svc.loads for svc in dec_svcs)
+        # LoadKv calls as the servers receive them: a retried shed
+        # relocates its attachment again
+        loads0 = sum(svc.loadkv_received for svc in dec_svcs)
         front = channel("mem://chip-smoke-router")
 
         def generate(tokens):
@@ -891,7 +925,8 @@ def phase_serving(mesh, plane, p2p_copy) -> dict:
 
         # the counts: one plane transfer and one p2p_copy launch per LoadKv
         torch.cuda.synchronize()
-        out["loadkv_calls"] = sum(svc.loads for svc in dec_svcs) - loads0
+        out["loadkv_calls"] = (sum(svc.loadkv_received for svc in dec_svcs)
+                               - loads0)
         out["plane_transfers"] = plane.stats()["transfers"] - transfers0
         out["launches"] = p2p_copy.launches
         check(out["plane_transfers"] >= out["loadkv_calls"],
@@ -934,6 +969,338 @@ def phase_serving(mesh, plane, p2p_copy) -> dict:
     print(f"serving: p2p_copy launches {out['launches']} = plane transfers "
           f"{out['plane_transfers']} = LoadKv calls {out['loadkv_calls']}; "
           f"pools {json.dumps(out['pools'])}; phase {out['wall_s']:.1f} s",
+          flush=True)
+    return out
+
+
+def _copy_ms(fn, runs: int = 20) -> float:
+    """Median CUDA-event ms of one stream-ordered copy (a spin ahead, so
+    the host's enqueue stays out)."""
+    ts = []
+    for _ in range(runs):
+        torch.cuda._sleep(SPIN_CYCLES)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b))
+    return statistics.median(ts)
+
+
+def phase_tiers_migration(mesh, plane, p2p_copy) -> dict:
+    """The KV pool's host tier and live migration through the serving
+    entry points (see the module docstring, phase 9)."""
+    import brpc_tpu_torch.policy  # noqa: F401
+    from brpc_tpu_torch import rpc
+    from brpc_tpu_torch.butil import flags
+    from brpc_tpu_torch.examples.disagg_serving import model
+    from brpc_tpu_torch.examples.disagg_serving.workers import (
+        BYTES_PER_TOKEN, close_services, migrated_dest, start_decode_worker,
+        start_prefill_worker, start_router)
+    from brpc_tpu_torch.ici.route import plane_stats
+    from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
+    from brpc_tpu_torch.serving import KvPoolOptions, migration_stats
+
+    t_phase = time.monotonic()
+    dev = mesh.device(0)
+    flags.set_flag("ici_device_plane_threshold", 64 * 1024)
+    rng = np.random.default_rng(9)
+
+    def prompt(n):
+        return rng.integers(0, model.VOCAB, n).tolist()
+
+    def pool_options():
+        return KvPoolOptions(bytes_per_token=BYTES_PER_TOKEN,
+                             num_blocks=SERVE_POOL_BLOCKS,
+                             block_tokens=SERVE_BLOCK_TOKENS,
+                             host_blocks=TIER_HOST_BLOCKS)
+
+    prefill = start_prefill_worker("ici://1", mesh=mesh)
+    decodes = [start_decode_worker(f"ici://{r}", mesh=mesh,
+                                   pool_options=pool_options())
+               for r in (2, 3)]
+    router = start_router("mem://chip-smoke-tiers", "ici://1",
+                          ["ici://2", "ici://3"], rng=random.Random(9))
+    dec2, dec3 = [next(iter(d.services().values())) for d in decodes]
+    affinity = next(iter(router.services().values()))._router
+    channels = []
+
+    def channel(target):
+        ch = rpc.Channel()
+        ch.init(target, rpc.ChannelOptions(timeout_ms=120000, max_retry=0))
+        channels.append(ch)
+        return ch
+
+    def call(ch, method, body):
+        cntl = rpc.Controller()
+        resp = ch.call_method(method, cntl,
+                              EchoRequest(message=json.dumps(body)),
+                              EchoResponse)
+        return cntl, resp
+
+    def rows_of(tokens):
+        n = len(tokens)
+        return model.toy_kv_blocks(tokens, dev).view(
+            model.KV_LAYERS, n, model.KV_DMODEL).permute(1, 0, 2).reshape(
+            n, BYTES_PER_TOKEN)
+
+    def received():
+        return sum(s.loadkv_received + s.migrate_in_received
+                   for s in (dec2, dec3))
+
+    def decode_all(ch_of, sessions, release):
+        """Async Decodes of SERVE_STEPS, all in flight at once, so the
+        batched step runs them together; returns {session: tokens}."""
+        results, left, done_ev = {}, [len(sessions)], threading.Event()
+        lock = threading.Lock()
+
+        def on_done(s, c):
+            results[s] = (None if c.failed() else
+                          json.loads(c.response.message)["tokens"],
+                          c.error_text)
+            with lock:
+                left[0] -= 1
+                if left[0] == 0:
+                    done_ev.set()
+
+        for s in sessions:
+            cntl = rpc.Controller()
+            ch_of(s).call_method("Decode.Decode", cntl, EchoRequest(
+                message=json.dumps({"session": s, "steps": SERVE_STEPS,
+                                    "release": release})), EchoResponse,
+                done=lambda c, s=s: on_done(s, c))
+        check(done_ev.wait(600), "phase 9 Decodes did not complete")
+        return results
+
+    out = {}
+    try:
+        for svc in (dec2, dec3):
+            check(svc.pool._store.is_cuda
+                  and svc.pool._host_store.is_pinned(),
+                  f"rank {svc.rank}: device arena not on the card or host "
+                  f"arena not pinned")
+        transfers0 = plane.stats()["transfers"]
+        received0 = received()
+        migrate_in0 = dec3.migrate_in_received
+        front = channel("mem://chip-smoke-tiers")
+        ch2 = channel("ici://2")
+        for tokens in (prompt(SERVE_PROMPT), prompt(SERVE_PROMPT)):
+            cntl, resp = call(front, "Router.Generate",
+                              {"tokens": tokens, "steps": SERVE_STEPS})
+            check(not cntl.failed(), f"Generate failed: {cntl.error_text}")
+            check(json.loads(resp.message)["tokens"]
+                  == model.reference_generate(tokens, SERVE_STEPS, dev),
+                  "Generate through the tiered pools differs from "
+                  "reference_generate")
+
+        def load_kv(session, tokens):
+            kv = mesh.own(model.toy_kv_blocks(tokens, mesh.device(1)), 1)
+            cntl = rpc.Controller()
+            cntl.request_attachment.append_device_array(kv)
+            ch2.call_method("Decode.LoadKv", cntl, EchoRequest(
+                message=json.dumps({"session": session,
+                                    "seq_len": len(tokens),
+                                    "last_token": tokens[-1]})),
+                EchoResponse)
+            check(not cntl.failed(), f"LoadKv {session} failed: "
+                                     f"{cntl.error_text}")
+
+        # (a) tiers: 1.125x the device arena in 2,048-token sessions
+        pool = dec2.pool
+        tier = [prompt(SERVE_LONG) for _ in range(TIER_SESSIONS)]
+        t0 = time.perf_counter()
+        for i, tokens in enumerate(tier):
+            load_kv(f"t{i}", tokens)
+        load_s = time.perf_counter() - t0
+        spilled = sorted(pool.spilled_sessions(), key=lambda s: int(s[1:]))
+        need = TIER_SESSIONS - SERVE_POOL_BLOCKS * SERVE_BLOCK_TOKENS \
+            // SERVE_LONG
+        check(len(spilled) >= need, f"only {len(spilled)} sessions demoted "
+                                    f"under pressure, {need} expected")
+        loaded = pool.describe()["tiers"]
+        pick = spilled[:TIER_DECODED]
+        t0 = time.perf_counter()
+        results = decode_all(lambda s: ch2, pick, release=False)
+        decode_s = time.perf_counter() - t0
+        bad = [s for s in pick if results[s][0] != model.reference_generate(
+            tier[int(s[1:])], SERVE_STEPS, dev)]
+        first = results[bad[0]][1] if bad else ""
+        check(not bad, f"restored sessions {bad} decode differently from "
+                       f"reference_generate ({first})")
+        bad = [s for s in pick if not torch.equal(
+            pool.materialize(s), rows_of(tier[int(s[1:])]))]
+        check(not bad, f"restored sessions {bad}: rows differ from the KV "
+                       f"sent")
+        tiers = pool.describe()["tiers"]
+        check(tiers["restores"] - loaded["restores"] >= TIER_DECODED
+              and tiers["restore_corrupt"] == 0,
+              f"tiers: {json.dumps(tiers)}")
+        nbytes = SERVE_LONG * BYTES_PER_TOKEN
+        on_card = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        pinned = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        d2h_ms = _copy_ms(lambda: pinned.copy_(on_card, non_blocking=True))
+        h2d_ms = _copy_ms(lambda: on_card.copy_(pinned, non_blocking=True))
+        out["tiers"] = {
+            "sessions": TIER_SESSIONS, "prompt_tokens": SERVE_LONG,
+            "device_blocks": SERVE_POOL_BLOCKS,
+            "host_blocks": TIER_HOST_BLOCKS,
+            "demoted_by_loads": loaded["demotions"],
+            "decoded_restored": len(pick), "load_s": load_s,
+            "decode_s": decode_s,
+            "spill_gbps": tiers["demote_bytes"]
+            / max(tiers["demote_copy_us"], 1) / 1e3,
+            "restore_gbps": tiers["restore_bytes"]
+            / max(tiers["restore_copy_us"], 1) / 1e3,
+            "restore_p50_us": tiers["restore_p50_us"],
+            "pinned_copy_d2h_gbps": nbytes / (d2h_ms * 1e6),
+            "pinned_copy_h2d_gbps": nbytes / (h2d_ms * 1e6),
+            "pinned_copy_bytes": nbytes,
+            "describe": {k: v for k, v in tiers.items()
+                         if k != "migration"}}
+        print(f"tiers: {TIER_SESSIONS} x {SERVE_LONG}-token LoadKv in "
+              f"{load_s:.2f} s, {loaded['demotions']} demoted; "
+              f"{len(pick)} demoted sessions decoded {SERVE_STEPS} steps "
+              f"after restore, tokens and rows exact; spill "
+              f"{out['tiers']['spill_gbps']:.3f} GB/s, restore "
+              f"{out['tiers']['restore_gbps']:.3f} GB/s, restore p50 "
+              f"{tiers['restore_p50_us']} us; pinned copy_ of "
+              f"{nbytes} B: D2H {out['tiers']['pinned_copy_d2h_gbps']:.3f}"
+              f" GB/s, H2D {out['tiers']['pinned_copy_h2d_gbps']:.3f} GB/s; "
+              f"tiers {json.dumps(out['tiers']['describe'])}", flush=True)
+        for i in range(TIER_SESSIONS):
+            pool.release(f"t{i}")
+
+        # (b) migration: rank 2 -> rank 3, each cutover a rebind
+        mig = [prompt(SERVE_PROMPT) for _ in range(MIGRATE_SESSIONS)]
+        for i, tokens in enumerate(mig):
+            load_kv(f"m{i}", tokens)
+            affinity.bind_session(f"m{i}", "ici://2")
+        mig_ms = []
+        for i in range(MIGRATE_SESSIONS):
+            t0 = time.perf_counter_ns()
+            cntl, resp = call(ch2, "Decode.MigrateOut",
+                              {"session": f"m{i}", "dest": "ici://3"})
+            mig_ms.append((time.perf_counter_ns() - t0) / 1e6)
+            check(not cntl.failed(), f"MigrateOut m{i}: {cntl.error_text}")
+            if i == 0:
+                # released, not yet rebound: the source sheds towards rank 3
+                cntl, _ = call(ch2, "Decode.Decode",
+                               {"session": "m0", "steps": 1,
+                                "release": False})
+                check(migrated_dest(cntl) == "ici://3",
+                      f"late Decode on the source: {cntl.error_text!r}")
+            check(affinity.rebind(f"m{i}", "ici://3") == "ici://2",
+                  "rebind did not find the source binding")
+        left = [f"m{i}" for i in range(MIGRATE_SESSIONS)
+                if pool.get(f"m{i}") is not None
+                or f"m{i}" in pool.spilled_sessions()]
+        check(not left, f"rank 2 still holds {left} after cutover")
+        results = decode_all(
+            lambda s: affinity.channel(affinity.session_url(s)),
+            [f"m{i}" for i in range(MIGRATE_SESSIONS)], release=True)
+        bad = [i for i, tokens in enumerate(mig)
+               if results[f"m{i}"][0]
+               != model.reference_generate(tokens, SERVE_STEPS, dev)]
+        check(not bad, f"migrated sessions {bad} decode differently on "
+                       f"rank 3")
+        payload = SERVE_PROMPT * BYTES_PER_TOKEN
+        out["migration"] = {
+            "sessions": MIGRATE_SESSIONS, "prompt_tokens": SERVE_PROMPT,
+            "p50_ms": _pct(mig_ms, 0.5), "p99_ms": _pct(mig_ms, 0.99),
+            "payload_bytes": payload,
+            "payload_gbps": payload * len(mig_ms) / (sum(mig_ms) * 1e6),
+            "rebinds": affinity.describe()["rebinds"]}
+        print(f"migration: {MIGRATE_SESSIONS} x {SERVE_PROMPT}-token "
+              f"sessions rank 2 -> rank 3, p50 "
+              f"{out['migration']['p50_ms']:.3f} ms, p99 "
+              f"{out['migration']['p99_ms']:.3f} ms, payload "
+              f"{out['migration']['payload_gbps']:.3f} GB/s; follow-up "
+              f"Decodes routed by session equal reference_generate",
+              flush=True)
+
+        # (c) the transfer-deadline latch, then the timer's revival
+        before = plane_stats()
+        latch = prompt(SERVE_PROMPT)
+        load_kv("latch", latch)
+        want = model.reference_generate(latch, SERVE_STEPS, dev)
+        gate = threading.Event()
+        dec3.migrate_in_gate = gate
+        cntl, _ = call(ch2, "Decode.MigrateOut",
+                       {"session": "latch", "dest": "ici://3",
+                        "deadline_ms": LATCH_DEADLINE_MS})
+        check(cntl.failed() and "deadline" in cntl.error_text,
+              f"black-holed migration did not trip the deadline: "
+              f"{cntl.error_text}")
+        plane_row = migration_stats()["plane"]
+        check(plane_row["state"] == "down"
+              and plane_row["reason"] == "transfer_deadline",
+              f"migrate plane {plane_row}")
+        t0 = time.perf_counter()
+        cntl, _ = call(ch2, "Decode.MigrateOut",
+                       {"session": "latch", "dest": "ici://3"})
+        refused_ms = (time.perf_counter() - t0) * 1e3
+        check(cntl.failed() and "latched" in cntl.error_text,
+              f"latched plane did not refuse: {cntl.error_text}")
+        cntl, resp = call(ch2, "Decode.Decode", {
+            "session": "latch", "steps": SERVE_STEPS, "release": False,
+            "mode": "sync"})
+        check(not cntl.failed()
+              and json.loads(resp.message)["tokens"] == want,
+              "the source stopped serving during the latch")
+        gate.set()
+        dec3.migrate_in_gate = None
+        deadline = time.monotonic() + 30
+        while dec3.pool.get("latch") is None and time.monotonic() < deadline:
+            time.sleep(0.01)
+        time.sleep(float(flags.get_flag("serving_migrate_reprobe_s")) + 0.1)
+        cntl, _ = call(ch2, "Decode.MigrateOut",
+                       {"session": "latch", "dest": "ici://3",
+                        "deadline_ms": 30000})
+        check(not cntl.failed(), f"migration after the latch lapsed: "
+                                 f"{cntl.error_text}")
+        affinity.rebind("latch", "ici://3")
+        cntl, resp = call(affinity.channel(affinity.session_url("latch")),
+                          "Decode.Decode", {"session": "latch",
+                                            "steps": SERVE_STEPS})
+        check(not cntl.failed()
+              and json.loads(resp.message)["tokens"] == want,
+              "the migrated latch session decodes differently on rank 3")
+        after = plane_stats()
+        deltas = {e: after.get(f"migrate_{e}", 0)
+                  - before.get(f"migrate_{e}", 0)
+                  for e in ("down", "reprobe", "revived", "ramp")}
+        check(deltas["down"] == 1 and deltas["revived"] >= 1,
+              f"migrate plane deltas {deltas}")
+        out["latch"] = {"plane_stats_delta": deltas,
+                        "refused_ms": refused_ms,
+                        "deadline_ms": LATCH_DEADLINE_MS}
+        print(f"latch: plane_stats deltas {json.dumps(deltas)}; the "
+              f"latched plane refused in {refused_ms:.3f} ms; the source "
+              f"served throughout", flush=True)
+
+        # the counts: one plane transfer and one p2p_copy launch per
+        # LoadKv and per MigrateIn the servers received
+        torch.cuda.synchronize()
+        out["calls_received"] = received() - received0
+        out["migrate_in_calls"] = dec3.migrate_in_received - migrate_in0
+        out["plane_transfers"] = plane.stats()["transfers"] - transfers0
+        out["launches"] = p2p_copy.launches
+        check(out["launches"] == out["plane_transfers"]
+              == out["calls_received"],
+              f"phase 9: p2p_copy launches {out['launches']}, plane "
+              f"transfers {out['plane_transfers']}, LoadKv + MigrateIn "
+              f"calls received {out['calls_received']}")
+    finally:
+        for ch in channels:
+            ch.close()
+        close_services(router, prefill, *decodes)
+    out["wall_s"] = time.monotonic() - t_phase
+    print(f"tiers and migration: p2p_copy launches {out['launches']} = "
+          f"plane transfers {out['plane_transfers']} = LoadKv + MigrateIn "
+          f"calls received {out['calls_received']} (MigrateIn "
+          f"{out['migrate_in_calls']}); phase {out['wall_s']:.1f} s",
           flush=True)
     return out
 
@@ -1024,6 +1391,18 @@ def main() -> int:
           "the serving path never launched p2p_copy")
     print("serving: " + json.dumps(serve), flush=True)
 
+    # 9. the host tier and live migration, with the counts zeroed just
+    # before them
+    zero_counts()
+    tiers = phase_tiers_migration(mesh, plane, p2p_copy)
+    tier_launches = {k.name: k.launches for k in kernels_all}
+    check(tier_launches["p2p_copy"] == tiers["launches"] > 0,
+          "the tiers and migration path never launched p2p_copy")
+    check(tier_launches["ring_all_reduce"] == 0
+          and tier_launches["ring_all_gather"] == 0,
+          "a ring kernel launched on the tiers and migration path")
+    print("tiers and migration: " + json.dumps(tiers), flush=True)
+
     head = next(r for r in rows if r["label"] == "4 MiB")
     red = ring_rows["ring_all_reduce"]
     gat = ring_rows["ring_all_gather"]
@@ -1036,9 +1415,13 @@ def main() -> int:
         "replaces": "brpc_tpu/ici/device_plane.py:428",
         "tpu_counterpart": "DevicePlane._pallas_body.kern "
                            "(brpc_tpu/ici/device_plane.py:395-444)",
-        "launches": main_launches + serve["launches"],
+        "launches": main_launches + serve["launches"] + tiers["launches"],
         "launches_by_path": {"echo": main_launches,
-                             "serving": serve["launches"]},
+                             "serving": serve["launches"],
+                             "migration": tiers["launches"]},
+        "migration_path_split": {
+            "migrate_in": tiers["migrate_in_calls"],
+            "loadkv": tiers["calls_received"] - tiers["migrate_in_calls"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "max_abs_diff": max(r["max_abs_err"] for r in rows),
         "shape": f"{head['bytes']} B",

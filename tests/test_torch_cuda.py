@@ -317,3 +317,94 @@ def test_toy_decode_on_the_card_equals_the_cpu_on_the_same_bytes(
     assert kv.is_cuda and kv.dtype == torch.uint8
     assert model.toy_decode(kv, 512, tokens[-1], 32) == \
         model.toy_decode(kv.cpu(), 512, tokens[-1], 32)
+
+
+@pytest.mark.cuda
+def test_spill_and_restore_between_the_card_and_pinned_memory(cuda_device):
+    """The host tier on the card: the host arena is pinned, pressure
+    demotes through a device-to-host copy, a touch restores through a
+    host-to-device copy, and every session's bytes and accumulator come
+    back exactly as the same operations leave them on the CPU."""
+    bpt = model.KV_LAYERS * model.KV_DMODEL
+    pools = [serving.PagedKvPool(serving.KvPoolOptions(
+        bytes_per_token=bpt, num_blocks=16, block_tokens=16, host_blocks=64,
+        use_timers=False), device=d)
+        for d in (cuda_device, torch.device("cpu"))]
+    try:
+        assert pools[0]._host_store.is_pinned()
+        prompts = {f"s{i}": [(13 * i + 5 * j) % 997 for j in range(60 + 9 * i)]
+                   for i in range(8)}
+        for pool in pools:
+            for s, tokens in prompts.items():
+                rows = model.toy_kv_blocks(tokens, "cpu").view(
+                    model.KV_LAYERS, len(tokens), model.KV_DMODEL).permute(
+                    1, 0, 2).reshape(len(tokens), bpt)
+                pool.load(s, rows.to(pool.device), last_token=tokens[-1])
+        card, host = pools
+        assert card.spilled_sessions() == host.spilled_sessions() != []
+        for s, tokens in prompts.items():
+            a, b = card.get(s), host.get(s)
+            assert a.acc == b.acc and list(a.blocks) == list(b.blocks)
+            rows = model.toy_kv_blocks(tokens, "cpu").view(
+                model.KV_LAYERS, len(tokens), model.KV_DMODEL).permute(
+                1, 0, 2).reshape(len(tokens), bpt)
+            assert torch.equal(card.materialize(s).cpu(), rows)
+        dc, dh = (p.describe()["tiers"] for p in pools)
+        for k in ("demotions", "restores", "spilled_sessions",
+                  "host_blocks_free", "restore_corrupt"):
+            assert dc[k] == dh[k], k
+        assert dc["restores"] > 0 and dc["demote_bytes"] > 0
+        assert torch.equal(card.pos_sums_flat.cpu(), host.pos_sums_flat)
+    finally:
+        for pool in pools:
+            pool.close()
+
+
+@pytest.mark.cuda
+def test_migration_between_two_ranks_launches_once_per_migrate_in(
+        cuda_device):
+    """A live migration between two decode ranks of one card: the payload
+    rides the device plane, p2p_copy launches once per MigrateIn call
+    received, the destination holds the bytes and the source lets go."""
+    import json
+    import brpc_tpu_torch.policy  # noqa: F401
+    from brpc_tpu_torch import rpc
+    from brpc_tpu_torch.examples.disagg_serving.workers import (
+        close_services, start_decode_worker)
+    from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
+    mesh = IciMesh(ranks=8, device="cuda")
+    IciMesh.set_default(mesh)
+    bpt = model.KV_LAYERS * model.KV_DMODEL
+    a = start_decode_worker("ici://2", mesh=mesh)
+    b = start_decode_worker("ici://3", mesh=mesh)
+    src, dst = (next(iter(w.services().values())) for w in (a, b))
+    ch = rpc.Channel()
+    ch.init("ici://2", rpc.ChannelOptions(timeout_ms=60000, max_retry=0))
+    try:
+        tokens = [(7 * j + 1) % 997 for j in range(512)]
+        rows = model.toy_kv_blocks(tokens, cuda_device).view(
+            model.KV_LAYERS, 512, model.KV_DMODEL).permute(1, 0, 2).reshape(
+            512, bpt)
+        src.pool.load("mv", rows, last_token=tokens[-1])
+        p2p_copy.record(cuda_device.index)
+        torch.cuda.synchronize()
+        launches0, received0 = p2p_copy.launches, dst.migrate_in_received
+        transfers0 = dp.plane().stats()["transfers"]
+        cntl = rpc.Controller()
+        resp = ch.call_method("Decode.MigrateOut", cntl, EchoRequest(
+            message=json.dumps({"session": "mv", "dest": "ici://3"})),
+            EchoResponse)
+        assert not cntl.failed(), cntl.error_text
+        assert json.loads(resp.message)["migrated"]
+        torch.cuda.synchronize()
+        received = dst.migrate_in_received - received0
+        assert received == 1
+        assert p2p_copy.launches - launches0 == received == \
+            dp.plane().stats()["transfers"] - transfers0
+        assert src.pool.get("mv") is None
+        assert torch.equal(dst.pool.materialize("mv"), rows)
+        assert dst.pool._store.is_cuda
+    finally:
+        ch.close()
+        close_services(a, b)
+        IciMesh.set_default(None)

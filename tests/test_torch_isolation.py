@@ -111,6 +111,62 @@ print(json.dumps({
 """
 
 
+_SLICE4 = r"""
+import json, sys
+import numpy as np
+import torch
+import brpc_tpu_torch.policy
+from brpc_tpu_torch import rpc
+from brpc_tpu_torch.butil import flags
+from brpc_tpu_torch.ici import device_plane, plane_health, route
+from brpc_tpu_torch.ici.mesh import IciMesh
+from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
+from brpc_tpu_torch.rpc import admission, request_context
+from brpc_tpu_torch.serving import (KvPoolOptions, LoadAwareRouter,
+                                    PagedKvPool, migration, migrate_out)
+from brpc_tpu_torch.examples.disagg_serving.workers import (
+    close_services, start_decode_worker)
+
+mesh = IciMesh(ranks=4, device="cpu")
+IciMesh.set_default(mesh)
+flags.set_flag("ici_device_plane_host_mesh", True)
+flags.set_flag("ici_device_plane_threshold", 1024)
+rows = torch.arange(64 * 32, dtype=torch.int64).remainder(251).to(
+    torch.uint8).view(64, 32)
+pool = PagedKvPool(KvPoolOptions(bytes_per_token=32, num_blocks=4,
+                                 block_tokens=16, host_blocks=4,
+                                 use_timers=False), device="cpu")
+pool.load("a", rows, last_token=1)
+spilled = pool.spill("a")
+restored = torch.equal(pool.materialize("a"), rows)
+pool.close()
+a, b = start_decode_worker("ici://1"), start_decode_worker("ici://2")
+svc = next(iter(a.services().values()))
+svc.pool.load("m", torch.zeros(40, svc.pool.options.bytes_per_token,
+                               dtype=torch.uint8), last_token=0)
+ch = rpc.Channel()
+ch.init("ici://1", rpc.ChannelOptions(timeout_ms=30000, max_retry=0))
+cntl = rpc.Controller()
+ch.call_method("Decode.MigrateOut", cntl, EchoRequest(
+    message=json.dumps({"session": "m", "dest": "ici://2"})), EchoResponse)
+ch.close()
+moved = not cntl.failed() and svc.pool.get("m") is None
+close_services(a, b)
+router = LoadAwareRouter(["ici://1"])
+router.bind_session("m", "ici://2")
+router.close()
+print(json.dumps({
+    "ok": spilled and restored and moved,
+    "transfers": device_plane.plane().stats()["transfers"],
+    "migrations": migration.migration_stats()["migrations_out"],
+    "jax": sorted(m for m in sys.modules
+                  if m == "jax" or m.startswith(("jax.", "jaxlib"))),
+    "brpc_tpu": sorted(m for m in sys.modules
+                       if m == "brpc_tpu" or m.startswith("brpc_tpu.")),
+}))
+"""
+
+
 def _run_alone(script: str) -> dict:
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = _REPO
@@ -139,6 +195,17 @@ def test_port_serving_stack_loads_no_jax_and_no_jax_package():
     out = _run_alone(_SERVING)
     assert out["ok"]
     assert out["transfers"] == 4          # one KV handoff per Generate
+    assert out["jax"] == []
+    assert out["brpc_tpu"] == []
+
+
+def test_port_tiers_migration_and_context_load_no_jax():
+    """The host tier, migration over the plane, plane health, router
+    affinity, the request context and the shed backoff, driven alone."""
+    out = _run_alone(_SLICE4)
+    assert out["ok"]
+    assert out["transfers"] == 1          # the one MigrateIn
+    assert out["migrations"] == 1
     assert out["jax"] == []
     assert out["brpc_tpu"] == []
 
