@@ -2,18 +2,23 @@
 
 The port of :mod:`brpc_tpu` (the JAX package, which stays the reference)
 to an NVIDIA Hopper card.  It imports nothing of JAX and nothing of
-``brpc_tpu``.  Layer map of slices 1-3:
+``brpc_tpu``.  Layer map of slices 1-5:
 
   L6  serving      brpc_tpu_torch.serving: PagedKvPool (KV arenas on the
                    card), ContinuousBatchScheduler (the batched decode
                    step on the card), the KV handoff's fill, the
                    load-aware router; examples.disagg_serving (prefill,
-                   decode and router services, the toy model, the demo)
-  L5  API          brpc_tpu_torch.rpc.Server / Channel / Controller;
+                   decode and router services, the toy model, the
+                   demo); the pool's host tier, live migration, the
+                   autoscaler
+  L5  API          brpc_tpu_torch.rpc.Server (admission, limits, the
+                   usercode pool, the lame-duck stop) / Channel (the
+                   circuit-breaker gate) / Controller;
                    brpc_tpu_torch.channels.CollectiveChannel (combo
                    channels lowered to mesh collectives)
   L4  policies     brpc_tpu_torch.policy.tpu_std (the framed protocol,
-                   request context on the wire), load_balancers (LALB)
+                   request context on the wire, the server's gates),
+                   load_balancers (LALB, timed exclusions), limiters
   L3  core runtime brpc_tpu_torch.rpc.* Socket, InputMessenger, SocketMap,
                    the mem:// loopback transport;
                    brpc_tpu_torch.ici.* mesh of logical ranks, ici://
@@ -25,6 +30,7 @@ to an NVIDIA Hopper card.  It imports nothing of JAX and nothing of
                    ids, timer thread, CUDA-event completion waits
   L1  base         brpc_tpu_torch.butil.* IOBuf (device-block capable),
                    ResourcePool, EndPoint, flags, logging;
-                   brpc_tpu_torch.bvar (Adder, IntRecorder)
+                   brpc_tpu_torch.bvar (Adder, IntRecorder,
+                   LatencyRecorder)
 """
 __version__ = "0.1.0"

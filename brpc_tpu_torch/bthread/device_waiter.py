@@ -59,6 +59,9 @@ class _DevicePoller:
             except Exception:
                 from ..butil import logging as log
                 log.error("device completion callback raised", exc_info=True)
+            # parked on the condvar, the loop must not keep the last
+            # completion alive (its transfer holds the delivered tensor)
+            event = on_ready = None
 
 
 class DeviceEventDispatcher:

@@ -145,6 +145,9 @@ class TaskControl:
             log.error("tasklet %s raised", task.name, exc_info=True)
         finally:
             self.pool.return_resource(task.tid)
+            # an idle worker still holds its last tasklet: drop what it
+            # ran on (a request's frame, and so its device attachment)
+            task.fn = task.args = task.kwargs = None
 
     # -- submission (signal_task / steal_task of the reference) --------
     def submit(self, task: Tasklet, urgent: bool) -> int:

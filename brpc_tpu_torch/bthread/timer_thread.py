@@ -4,8 +4,10 @@ Reference: src/bthread/timer_thread.{h,cpp} (schedule/unschedule at
 timer_thread.h:74-82).  Runs RPC deadlines and backup-request triggers.  The
 reference hashes timers into buckets to cut lock contention; a single binary
 heap is the right shape at Python scale, with the same observable semantics:
-``unschedule`` of a not-yet-run timer prevents it from firing (lazily — the
-entry stays heaped but is skipped).
+``unschedule`` of a not-yet-run timer prevents it from firing and drops its
+callback at once (the heap keeps only the id, skipped when it surfaces):
+a cancelled deadline must not keep its call's Controller, and with it the
+call's device attachment, alive until the deadline would have passed.
 """
 from __future__ import annotations
 
@@ -23,8 +25,8 @@ class TimerThread:
     _instance_lock = threading.Lock()
 
     def __init__(self):
-        self._heap: list = []
-        self._entries: Dict[TimerId, bool] = {}    # id -> live?
+        self._heap: list = []                         # (abstime, id)
+        self._entries: Dict[TimerId, Callable[[], None]] = {}  # live ones
         self._next_id = itertools.count(1)
         self._cv = threading.Condition()
         self._thread: Optional[threading.Thread] = None
@@ -41,8 +43,8 @@ class TimerThread:
         """abstime is time.monotonic()-based."""
         with self._cv:
             tid = next(self._next_id)
-            heapq.heappush(self._heap, (abstime, tid, fn))
-            self._entries[tid] = True
+            heapq.heappush(self._heap, (abstime, tid))
+            self._entries[tid] = fn
             if self._thread is None:
                 self._thread = threading.Thread(
                     target=self._run, name="brpc_timer", daemon=True)
@@ -56,25 +58,23 @@ class TimerThread:
     def unschedule(self, tid: TimerId) -> int:
         """0 if prevented from running, 1 if already run/unknown."""
         with self._cv:
-            if self._entries.get(tid):
-                self._entries[tid] = False
-                return 0
-            return 1
+            return 0 if self._entries.pop(tid, None) is not None else 1
 
     def _run(self) -> None:
         while not self._stop:
             with self._cv:
                 now = time.monotonic()
                 while self._heap and (self._heap[0][0] <= now
-                                      or not self._entries.get(self._heap[0][1])):
-                    abstime, tid, fn = heapq.heappop(self._heap)
-                    live = self._entries.pop(tid, False)
-                    if not live:
+                                      or self._heap[0][1] not in self._entries):
+                    _, tid = heapq.heappop(self._heap)
+                    fn = self._entries.pop(tid, None)
+                    if fn is None:
                         continue
                     self._cv.release()
                     try:
                         self._fire(fn)
                     finally:
+                        fn = None     # parked, hold no fired callback
                         self._cv.acquire()
                     now = time.monotonic()
                 wait = None

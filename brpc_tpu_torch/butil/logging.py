@@ -1,7 +1,7 @@
 """glog-style logging facade (reference: src/butil/logging.h).
 
 Thin shim over the stdlib ``logging`` module with the reference's line
-format; this slice logs at INFO and ERROR.
+format; the port logs at INFO, WARNING and ERROR.
 """
 from __future__ import annotations
 
@@ -20,6 +20,10 @@ if not _logger.handlers:
 
 def info(msg: str, *args, **kw) -> None:
     _logger.info(msg, *args, stacklevel=2, **kw)
+
+
+def warning(msg: str, *args, **kw) -> None:
+    _logger.warning(msg, *args, stacklevel=2, **kw)
 
 
 def error(msg: str, *args, **kw) -> None:

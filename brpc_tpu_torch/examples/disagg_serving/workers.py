@@ -192,6 +192,13 @@ class DecodeService(rpc.Service):
     def live_sessions(self) -> int:
         return self.pool.sessions()
 
+    def load(self) -> float:
+        """The step's pressure: (roster + queue) / max_batch — the
+        autoscaler's load signal for this worker."""
+        d = self.scheduler.describe()
+        return (d["active"] + sum(d["pending_by_band"])) \
+            / max(d["max_batch"], 1)
+
     def close(self) -> None:
         self.scheduler.stop()
         self.pool.close()
@@ -478,6 +485,13 @@ class RouterService(rpc.Service):
     def close(self) -> None:
         self._prefill.close()
         self._router.close()
+
+    # elastic membership (the autoscaler's registration surface)
+    def add_decode_target(self, url: str) -> bool:
+        return self._router.add_target(url)
+
+    def remove_decode_target(self, url: str) -> bool:
+        return self._router.remove_target(url)
 
     def describe_serving(self) -> dict:
         with self._lock:

@@ -30,7 +30,9 @@ QP semantics (rdma_endpoint.h:37-108):
 Failure semantics: a refused post raises :class:`DevicePlaneError` before
 any descriptor exists.  An in-process posted send whose recv never arrives
 is reaped after ``ici_device_plane_match_timeout_s`` and fails only that
-transfer.
+transfer; a server's lame-duck stop whose grace expired reaps the sends
+posted before its drain began (``fail_pending``).  A failed transfer
+releases its source pin, and nothing falls back to another route.
 """
 from __future__ import annotations
 
@@ -350,9 +352,32 @@ class DevicePlane:
             self._active.discard(t)
 
     def active_transfers(self) -> int:
-        """Posted-but-incomplete transfers (each holds a source pin)."""
+        """Posted-but-incomplete transfers (each holds a source pin): the
+        server's drain gate waits for this to reach zero.  A launched
+        copy leaves the set only when the completion poller has seen its
+        event, so zero means the bytes are resident, not just enqueued."""
         with self._lock:
             return len(self._active)
+
+    def fail_pending(self, reason: str,
+                     posted_before_ns: Optional[int] = None) -> int:
+        """Fail posted sends whose rendezvous never came (a lame-duck
+        grace expired): their completions fire with an error and their
+        source pins release NOW instead of at the match-timeout sweep.
+        ``posted_before_ns`` scopes the reap to sends already posted at
+        that instant: the plane is process-wide, and a send some other
+        server or channel posted mid-drain must not be collateral.  A
+        launched copy is never failed here — it completes on the card.
+        Returns the number failed."""
+        stale = []
+        with self._lock:
+            for uuid, t in list(self._pending.items()):
+                if posted_before_ns is None \
+                        or t.posted_ns < posted_before_ns:
+                    stale.append(self._pending.pop(uuid))
+        for t in stale:
+            self._fail(t, reason)
+        return len(stale)
 
     def _sweep_stale(self) -> None:
         """Reap posted sends whose recv never matched (peer died between

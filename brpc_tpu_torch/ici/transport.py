@@ -339,9 +339,30 @@ class IciSocket(CreditWindow, OrderedDelivery, Socket):
         peer = self.peer
         return peer is None or peer.failed or self._peer_closed
 
+    # ---- lame-duck (GOODBYE) -------------------------------------------
+    def send_goodbye(self) -> None:
+        """Server drain: the in-process GOODBYE — notify the peer socket
+        directly (same process, no wire needed)."""
+        peer = self.peer
+        if peer is not None and not peer.failed:
+            peer.on_peer_goodbye()
+
+    def on_peer_goodbye(self) -> None:
+        # the peer endpoint is draining: no new calls ride this socket
+        # (SocketMap replaces logoff sockets on next use) and every live
+        # LB pulls the endpoint now — before any health-check probe
+        self.logoff = True
+        from ..rpc import lameduck
+        lameduck.notify_peer_draining(self.remote_side)
+
     def _transport_close(self) -> None:
         peer = self.peer
         if peer is not None and not peer.failed:
+            if self.failed_error == errors.ELOGOFF:
+                # lame-duck hard stop: the peer's unanswered calls fail
+                # with the retryable server code, on the EOF path after
+                # the queued responses drain
+                peer._eof_error_code = errors.ELOGOFF
             with peer._inbox_lock:
                 peer._peer_closed = True
             peer.start_input_event()
@@ -381,6 +402,9 @@ class IciListener:
         self.device_id = device_id
         self.on_accept = on_accept
         self.mesh = mesh
+        # set by a server's lame-duck drain: the listener still accepts
+        # (new callers get the ELOGOFF bounce) but probes read it as down
+        self.draining = False
 
     def connect(self, client_dev: int) -> IciSocket:
         client = IciSocket(client_dev, self.device_id, self.mesh)

@@ -3,8 +3,11 @@ picks decode workers with.
 
 Reference: src/brpc/policy/locality_aware_load_balancer.{h,cpp} and
 docs/cn/lalb.md, ported from :mod:`brpc_tpu.policy.load_balancers` (its
-``LocalityAwareLB`` and the ``_ListLB`` membership base).  The other
-strategies there have no caller in the port yet.
+``LocalityAwareLB`` and the ``_ListLB`` membership base, with its
+timed exclusions).  Every balancer joins a weak registry,
+:func:`live_load_balancers`, through which the lame-duck registry pulls a
+draining endpoint from all of them at once.  The other strategies there
+have no caller in the port yet.
 """
 from __future__ import annotations
 
@@ -12,6 +15,7 @@ import collections
 import random
 import threading
 import time
+import weakref
 from typing import Dict, List, Optional
 
 from ..butil.endpoint import EndPoint
@@ -26,14 +30,28 @@ class ServerEntry:
         self.tag = tag
 
 
+# Every live LB, weakly held: the lame-duck registry pulls a draining
+# endpoint (GOODBYE) from ALL balancers at once (rpc/lameduck.py).
+_live_lbs: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def live_load_balancers() -> List["_ListLB"]:
+    return list(_live_lbs)
+
+
 class _ListLB:
     """Membership: a list of ServerEntry replaced whole on every change, so
     a selection reads one immutable snapshot (the reference keeps it in
-    DoublyBufferedData for the same reason)."""
+    DoublyBufferedData for the same reason), and timed exclusions: an
+    endpoint excluded until ``until_ts`` (``time.monotonic()``) is not
+    selected before then, unless every member is excluded."""
 
     def __init__(self):
         self._list_lock = threading.Lock()
         self._list: List[ServerEntry] = []
+        self._excl_lock = threading.Lock()
+        self._excluded: Dict[EndPoint, float] = {}
+        _live_lbs.add(self)
 
     def add_server(self, ep: EndPoint, weight: int = 100,
                    tag: str = "") -> bool:
@@ -43,8 +61,38 @@ class _ListLB:
             self._list = self._list + [ServerEntry(ep, weight, tag)]
             return True
 
+    def remove_server(self, ep: EndPoint) -> bool:
+        with self._list_lock:
+            kept = [e for e in self._list if e.endpoint != ep]
+            if len(kept) == len(self._list):
+                return False
+            self._list = kept
+            return True
+
     def servers(self) -> List[ServerEntry]:
         return list(self._list)
+
+    def exclude(self, ep: EndPoint, until_ts: float) -> None:
+        """Keep ``ep`` out of selection until ``until_ts``: ``inf`` for a
+        draining peer, 0 lifts the exclusion."""
+        with self._excl_lock:
+            if until_ts > 0:
+                self._excluded[ep] = until_ts
+            else:
+                self._excluded.pop(ep, None)
+
+    def _usable(self) -> List[ServerEntry]:
+        lst = self._list
+        if not self._excluded:       # the common case: no lock taken
+            return lst
+        now = time.monotonic()
+        with self._excl_lock:
+            excl = {ep for ep, ts in self._excluded.items() if ts > now}
+        if not excl:
+            return lst
+        out = [e for e in lst if e.endpoint not in excl]
+        # cluster-recover guard: if everything is excluded, serve anyway
+        return out if out else lst
 
 
 class _LaWeight:
@@ -103,6 +151,16 @@ class LocalityAwareLB(_ListLB):
         self._w_lock = threading.Lock()
         self._servers: Dict[EndPoint, _LaWeight] = {}
 
+    def remove_server(self, ep: EndPoint) -> bool:
+        """Drop ``ep`` and its latency window: a member added back later
+        (an autoscaler's restarted worker) starts from INITIAL_WEIGHT
+        instead of the window of the server that was stopped.  (The
+        reference keeps the window across a removal.)"""
+        ok = super().remove_server(ep)
+        with self._w_lock:
+            self._servers.pop(ep, None)
+        return ok
+
     def _weight_for(self, ep: EndPoint) -> _LaWeight:
         w = self._servers.get(ep)
         if w is None:
@@ -122,7 +180,7 @@ class LocalityAwareLB(_ListLB):
         return max(base, self.MIN_WEIGHT)
 
     def select_server(self) -> Optional[EndPoint]:
-        usable = self._list
+        usable = self._usable()
         if not usable:
             return None
         now_us = time.monotonic() * 1e6

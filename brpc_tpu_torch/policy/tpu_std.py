@@ -17,7 +17,7 @@ from ..butil.iobuf import IOBuf
 from ..butil import logging as log
 from ..bthread import id as bthread_id
 from ..proto import rpc_meta_pb2 as meta_pb
-from ..rpc import errors
+from ..rpc import admission, errors
 from ..rpc.controller import Controller, server_controller_pool
 from ..rpc.protocol import (Protocol, ParseResult, find_protocol,
                             register_protocol)
@@ -27,12 +27,14 @@ HEADER_SIZE = 12
 
 
 class StdMessage:
-    """A cut but not yet parsed frame."""
-    __slots__ = ("meta", "body")
+    """A cut but not yet parsed frame.  ``recv_ns`` stamps the cut: the
+    admission layer charges a request's deadline budget from there."""
+    __slots__ = ("meta", "body", "recv_ns")
 
     def __init__(self, meta: meta_pb.RpcMeta, body: IOBuf):
         self.meta = meta
         self.body = body
+        self.recv_ns = 0
 
 
 # ---- frame codec ------------------------------------------------------
@@ -70,7 +72,9 @@ def parse(source: IOBuf, socket, read_eof: bool, arg) -> ParseResult:
         meta.ParseFromString(meta_buf.to_bytes())
     except Exception as e:
         return ParseResult.parse_error(f"bad meta: {e}")
-    return ParseResult.ok(StdMessage(meta, body))
+    msg = StdMessage(meta, body)
+    msg.recv_ns = time.monotonic_ns()
+    return ParseResult.ok(msg)
 
 
 # ---- client side ------------------------------------------------------
@@ -134,13 +138,22 @@ def process_response(msg: StdMessage, socket) -> None:
 
 def process_request(msg: StdMessage, socket, server) -> None:
     """ProcessRpcRequest (baidu_rpc_protocol.cpp:312): find the method,
-    run user code in this tasklet, respond via socket write.  The
-    per-request Controller comes from the server-side pool and is recycled
-    once the response is written, by whichever thread calls ``done``."""
+    pass the server's gates, run user code in this tasklet, respond via
+    socket write.  The gates, in order: a draining server bounces with
+    retryable ELOGOFF; then either the admission controller decides
+    (admit, queue, or shed with a ``retry_after_ms`` hint) or, without
+    one, the server's ``max_concurrency`` and the method's limiter reject
+    at the gate with ELIMIT.  A request turned away never reaches its
+    MethodStatus (a shed is not a method failure).  The per-request
+    Controller comes from the server-side pool and is recycled once the
+    response is written, by whichever thread calls ``done``: recycling
+    drops the request's attachment, so a shed request's received tensor
+    is released with its response."""
     meta = msg.meta
     req_meta = meta.request
     full_name = f"{req_meta.service_name}.{req_meta.method_name}"
     cid = meta.correlation_id
+    start_us = time.monotonic_ns() // 1000
 
     cntl = server_controller_pool.acquire()
     cntl.log_id = req_meta.log_id
@@ -153,6 +166,10 @@ def process_request(msg: StdMessage, socket, server) -> None:
     if req_meta.deadline_left_ms:
         cntl.deadline_left_ms = req_meta.deadline_left_ms
     md = server.find_method(full_name)
+    status = server.method_status(full_name) if md is not None else None
+    if status is not None:
+        status.received << 1
+    server_counted = False
 
     def send_response(resp: Any = None) -> None:
         rmeta = meta_pb.RpcMeta()
@@ -171,51 +188,107 @@ def process_request(msg: StdMessage, socket, server) -> None:
             rmeta.attachment_size = att_size
             payload.append(resp_att)
         socket.write(pack_frame(rmeta, payload))
+        if status is not None:
+            status.on_responded(cntl.error_code_,
+                                time.monotonic_ns() // 1000 - start_us)
+        if server_counted:
+            server.on_request_out()
 
+    def reject(code: int, text: str, retry_after_ms: int = 0) -> None:
+        # turned away before the method's gate: nothing to account
+        nonlocal status
+        status = None
+        cntl.set_failed(code, text)
+        if retry_after_ms:
+            cntl.retry_after_ms = retry_after_ms
+        send_response()
+        cntl._maybe_recycle()
+
+    if server.is_draining():
+        # lame duck: NEW requests bounce with retryable ELOGOFF so callers
+        # fail over now; work admitted before the flip keeps running
+        reject(errors.ELOGOFF, "server is draining (lame duck)")
+        return
+
+    def parse_and_invoke() -> None:
+        # the gates are held; send_response accounts for them
+        try:
+            body = msg.body
+            if meta.attachment_size:
+                keep = len(body) - meta.attachment_size
+                payload_part = body.cut(keep)
+                body.cutn(cntl.request_attachment, meta.attachment_size)
+                body = payload_part
+            request = md.request_cls()
+            request.ParseFromString(body.to_bytes())
+        except Exception as e:
+            cntl.set_failed(errors.EREQUEST, f"fail to parse request: {e}")
+            send_response()
+            cntl._maybe_recycle()
+            return
+
+        response = md.response_cls()
+        # taken by the one caller that responds: a handler may hand
+        # ``done`` to another thread and return (an async handler
+        # completes from a step loop), so a late or racing second caller
+        # must neither respond again nor touch a Controller that a later
+        # request already holds
+        responding = threading.Lock()
+
+        def respond() -> None:
+            send_response(response)
+            cntl._maybe_recycle()
+
+        def done() -> None:
+            if responding.acquire(blocking=False):
+                respond()
+
+        try:
+            md.invoke(cntl, request, response, done)
+        except Exception as e:   # uncaught user exception → EINTERNAL
+            log.error("method %s raised: %s", full_name, e, exc_info=True)
+            if responding.acquire(blocking=False):
+                cntl.set_failed(errors.EINTERNAL,
+                                f"{type(e).__name__}: {e}")
+                respond()
+
+    def no_method() -> None:
+        reject(errors.ENOMETHOD if req_meta.service_name in
+               server.services() else errors.ENOSERVICE,
+               f"no method {full_name}")
+
+    adm = server.admission
+    if adm is None:
+        # reject at the gate (no admission layer)
+        if not server.on_request_in():
+            reject(errors.ELIMIT, "server max_concurrency reached")
+            return
+        server_counted = True
+        if md is None:
+            no_method()
+            return
+        if status is not None and not status.on_requested():
+            reject(errors.ELIMIT,
+                   f"method {full_name} max_concurrency reached")
+            return
+        parse_and_invoke()
+        return
+
+    # the admission path: the controller admits, queues or sheds
     if md is None:
-        cntl.set_failed(errors.ENOMETHOD if req_meta.service_name in
-                        server.services() else errors.ENOSERVICE,
-                        f"no method {full_name}")
-        send_response()
-        cntl._maybe_recycle()
-        return
-    try:
-        body = msg.body
-        if meta.attachment_size:
-            keep = len(body) - meta.attachment_size
-            payload_part = body.cut(keep)
-            body.cutn(cntl.request_attachment, meta.attachment_size)
-            body = payload_part
-        request = md.request_cls()
-        request.ParseFromString(body.to_bytes())
-    except Exception as e:
-        cntl.set_failed(errors.EREQUEST, f"fail to parse request: {e}")
-        send_response()
-        cntl._maybe_recycle()
+        no_method()
         return
 
-    response = md.response_cls()
-    # taken by the one caller that responds: a handler may hand ``done``
-    # to another thread and return (an async handler completes from a
-    # step loop), so a late or racing second caller must neither respond
-    # again nor touch a Controller that a later request already holds
-    responding = threading.Lock()
+    def admitted(_queued_us: int) -> None:
+        nonlocal server_counted
+        server_counted = True
+        parse_and_invoke()
 
-    def respond() -> None:
-        send_response(response)
-        cntl._maybe_recycle()
-
-    def done() -> None:
-        if responding.acquire(blocking=False):
-            respond()
-
-    try:
-        md.invoke(cntl, request, response, done)
-    except Exception as e:   # uncaught user exception → EINTERNAL
-        log.error("method %s raised: %s", full_name, e, exc_info=True)
-        if responding.acquire(blocking=False):
-            cntl.set_failed(errors.EINTERNAL, f"{type(e).__name__}: {e}")
-            respond()
+    adm.submit(priority=cntl.priority, tenant=cntl.tenant,
+               deadline_left_ms=cntl.deadline_left_ms or None,
+               recv_us=msg.recv_ns // 1000 if msg.recv_ns else start_us,
+               try_enter=admission.server_method_gate(server, status),
+               run=admitted, shed=reject)
 
 
 PROTOCOL = Protocol(

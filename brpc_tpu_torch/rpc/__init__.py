@@ -10,3 +10,5 @@ from .service import Service, method, MethodDescriptor
 from .server import Server, ServerOptions
 from .channel import Channel, ChannelOptions
 from .socket_map import SocketMap
+from .admission import AdmissionController, AdmissionOptions
+from .method_status import MethodStatus

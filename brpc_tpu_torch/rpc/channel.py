@@ -4,7 +4,11 @@ Reference: src/brpc/channel.{h,cpp} (Init :236-393, CallMethod :407-592) and
 Controller::IssueRPC (controller.cpp:985-1144).  A channel targets one
 ``ici://k`` or ``mem://name`` endpoint over tpu_std; per-call state lives in
 the Controller.  A call made inside a handler inherits the inbound
-request's context (:mod:`.request_context`).
+request's context (:mod:`.request_context`).  Every call's outcome feeds
+the endpoint's circuit breaker; while the breaker isolates the endpoint a
+call fails fast instead of stampeding a recovering peer, and the health
+checker's probe lifts the isolation (:mod:`.circuit_breaker`,
+:mod:`.health_check`).
 """
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ from typing import Any, Callable, Optional
 
 from . import errors
 from . import request_context as _reqctx
+from .circuit_breaker import BreakerRegistry
 from ..butil.endpoint import (EndPoint, parse_endpoint, SCHEME_ICI,
                                SCHEME_MEM)
 from .controller import Controller
@@ -93,6 +98,9 @@ class Channel:
 
     # IssueRPC: runs once per try -----------------------------------------
     def _issue_rpc(self, cntl: Controller) -> None:
+        if BreakerRegistry.instance().breaker(self._endpoint).is_isolated():
+            raise ConnectionError(
+                f"{self._endpoint} isolated by circuit breaker")
         sock = SocketMap.instance().get_socket(
             self._endpoint, self.messenger, group=self._protocol.name)
         cntl.remote_side = sock.remote_side
@@ -102,6 +110,21 @@ class Channel:
         rc = sock.write(packet, notify_cid=cid)
         if rc != 0:
             raise ConnectionError(f"write failed: {rc}")
+
+    def _on_call_end(self, cntl: Controller) -> None:
+        """Feed the endpoint's breaker; a trip hands the endpoint to the
+        health checker, whose successful probe resets the breaker.  An
+        admission shed (ELIMIT with a retry_after_ms hint) is a healthy
+        server saying "not now": it counts as a success here, or an
+        overload would isolate the server still serving its protected
+        band."""
+        code = cntl.error_code_
+        if code == errors.ELIMIT and cntl.retry_after_ms > 0:
+            code = 0
+        if not BreakerRegistry.instance().breaker(
+                self._endpoint).on_call_end(code):
+            from .health_check import start_health_check
+            start_health_check(self._endpoint)
 
     def close(self) -> None:
         """Tear down this channel's connection (failed with ECLOSE).

@@ -286,6 +286,7 @@ class Controller:
         if self._timeout_timer is not None:
             TimerThread.instance().unschedule(self._timeout_timer)
         self.latency_us = time.monotonic_ns() // 1000 - self._start_us
+        self._channel._on_call_end(self)
         done = self._done
         bthread_id.unlock_and_destroy(cid)   # wakes sync joiner
         self._ended.set()

@@ -5,7 +5,9 @@ OnNewMessages at :317, QueueMessage at :169).  Reads the transport until
 EAGAIN, tries registered protocols to cut complete messages (remembering the
 first protocol that succeeds per socket), then dispatches every message in
 its own tasklet — the request-isolation doctrine: a slow handler only slows
-its own request.
+its own request.  A server with ``usercode_in_pthread`` hands requests to
+its backup thread pool instead, counted from submission so the lame-duck
+drain sees a request still queued behind a busy pool.
 """
 from __future__ import annotations
 
@@ -54,7 +56,12 @@ class InputMessenger:
             if last is not None:
                 self._queue_message(*last, socket)
                 last = None
-            socket.set_failed(errors.EEOF, "remote closed")
+            # a peer that closed with an explicit code (a server's
+            # lame-duck ELOGOFF) surfaces it here, AFTER the queued
+            # responses above were handled: an executed call completes,
+            # only the unanswered ones see the retryable code
+            code = socket._eof_error_code or errors.EEOF
+            socket.set_failed(code, "remote closed")
         return last
 
     def process_in_place(self, last, socket) -> None:
@@ -95,6 +102,26 @@ class InputMessenger:
                                    name="msg")
 
     def _process_message(self, proto: Protocol, msg: Any, socket) -> None:
+        pool = getattr(self.server, "usercode_pool", None) \
+            if self.server is not None else None
+        if pool is not None and proto.process_request is not None:
+            self.server.on_usercode_queued()
+            try:
+                pool.submit(self._run_usercode, proto, msg, socket)
+                return
+            except RuntimeError:
+                # the pool shut down mid-stop: run here
+                self.server.on_usercode_done()
+        self._process_message_inline(proto, msg, socket)
+
+    def _run_usercode(self, proto: Protocol, msg: Any, socket) -> None:
+        try:
+            self._process_message_inline(proto, msg, socket)
+        finally:
+            self.server.on_usercode_done()
+
+    def _process_message_inline(self, proto: Protocol, msg: Any,
+                                socket) -> None:
         try:
             if self.server is not None and proto.process_request is not None:
                 proto.process_request(msg, socket, self.server)

@@ -55,6 +55,11 @@ class MemSocket(Socket):
     def _transport_close(self) -> None:
         peer = self.peer
         if peer is not None and not peer.failed:
+            if self.failed_error == errors.ELOGOFF:
+                # lame-duck hard stop: the peer's unanswered calls fail
+                # with the retryable server code, on the EOF path after
+                # the queued responses drain
+                peer._eof_error_code = errors.ELOGOFF
             with peer._inbox_lock:
                 peer._peer_closed = True
             peer.start_input_event()    # let it observe EOF
@@ -79,6 +84,9 @@ class MemListener:
     def __init__(self, name: str, on_accept):
         self.name = name
         self.on_accept = on_accept
+        # set by a server's lame-duck drain: the listener still accepts
+        # (new callers get the ELOGOFF bounce) but probes read it as down
+        self.draining = False
 
     def connect(self, client_remote: EndPoint) -> MemSocket:
         client, serv = new_mem_pair()

@@ -1,20 +1,36 @@
-"""Server: service registry + lifecycle over the ici:// transport.
+"""Server: service registry, admission and lame-duck lifecycle over the
+ici:// and mem:// transports.
 
-Reference: src/brpc/server.{h,cpp} (StartInternal :741, AddService :1477).
-A server listens on one ``ici://k`` endpoint (a rank of the mesh) or one
+Reference: src/brpc/server.{h,cpp} (StartInternal :741, AddService :1477,
+Stop(closewait_ms)/Join), ported from :mod:`brpc_tpu.rpc.server`.  A
+server listens on one ``ici://k`` endpoint (a rank of the mesh) or one
 ``mem://name`` endpoint (the in-process loopback) and exposes its
-registered services through tpu_std.
+registered services through tpu_std.  Around that:
+
+  * per-method :class:`MethodStatus` with an optional concurrency limiter
+    (``method_max_concurrency`` / ``concurrency_limiter``) and a
+    server-wide ``max_concurrency`` gate;
+  * an optional :class:`~.admission.AdmissionController` in front of the
+    handlers (``ServerOptions.admission``);
+  * an optional backup thread pool for handlers
+    (``usercode_in_pthread``, :mod:`.usercode_pool`);
+  * ``stop(grace_s)``: the lame-duck drain — new requests bounce with
+    retryable ELOGOFF, peers get GOODBYE, in-flight handlers, queued
+    usercode and posted device-plane transfers finish inside the grace
+    window, and only stragglers are failed.
 """
 from __future__ import annotations
 
 import threading
-from dataclasses import dataclass
+import time as _time
+from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
 from ..butil.endpoint import parse_endpoint, SCHEME_ICI, SCHEME_MEM
 from ..butil import logging as log
 from . import errors
 from .input_messenger import InputMessenger
+from .method_status import MethodStatus
 from .service import MethodDescriptor, Service
 
 
@@ -25,6 +41,32 @@ class ServerOptions:
     # of a scheduler tasklet.  Minimal latency; only safe when handlers
     # are fast and non-blocking.
     usercode_inline: bool = False
+    max_concurrency: int = 0            # 0 = unlimited; else ELIMIT beyond
+    # per-method limiter: {"Service.Method": n or "auto"}
+    method_max_concurrency: Dict[str, Any] = field(default_factory=dict)
+    concurrency_limiter: str = ""       # "", "constant", "auto", "timeout"
+    # Run user handlers on a dedicated backup THREAD pool instead of
+    # scheduler workers (the reference's usercode_in_pthread): the
+    # scheduler compensates for workers parked in butexes, but a
+    # CPU-bound handler never parks, and enough of them would occupy
+    # every worker and stall unrelated sockets' reads.
+    usercode_in_pthread: bool = False
+    usercode_backup_threads: int = 8
+    # isolation backend of the backup pool (rpc/usercode_pool.py): "auto",
+    # "pthread" or "subinterp"; only handlers registered on the pool as
+    # isolated run isolated
+    usercode_pool_kind: str = "auto"
+    # Lame-duck drain window applied by stop() when no explicit grace is
+    # passed (reference Server::Stop(closewait_ms)); 0 = immediate stop.
+    graceful_shutdown_s: float = 0.0
+    # Install a process-wide SIGTERM hook that drains this server with
+    # graceful_shutdown_s (reference -graceful_quit_on_sigterm).  A
+    # second TERM during the drain kills immediately.
+    graceful_quit_on_sigterm: bool = False
+    # Overload admission control (rpc/admission.py): True uses the
+    # AdmissionOptions defaults, an AdmissionOptions tunes bands, queue
+    # bound and tenant weights; None/False keeps reject-at-gate.
+    admission: Any = None
 
 
 class Server:
@@ -32,13 +74,27 @@ class Server:
         self.options = options or ServerOptions()
         self._services: Dict[str, Service] = {}
         self._methods: Dict[str, MethodDescriptor] = {}
+        self._method_status: Dict[str, MethodStatus] = {}
         self._started = False
-        self._ici_listener = None
-        self._mem_listener = None
+        self._listener = None            # IciListener or MemListener
         self.listen_endpoint = None
         self.messenger = InputMessenger(server=self)
         self._connections: List[Any] = []
         self._conn_lock = threading.Lock()
+        self._server_concurrency = 0
+        self._usercode_queued = 0        # queued/running backup-pool work
+        self._conc_lock = threading.Lock()
+        self._stopped = threading.Event()
+        self._draining = False
+        self._stop_lock = threading.Lock()
+        self._stop_in_progress = False
+        self._stopping_thread: Optional[threading.Thread] = None
+        self.usercode_pool = None        # usercode_in_pthread backup pool
+        self.admission = None            # AdmissionController when enabled
+        # the last stop's drain: {"grace_s", "drained", "seconds"}, where
+        # drained means in-flight work and plane transfers reached zero
+        # inside the window
+        self.last_drain: Optional[dict] = None
 
     # ---- registry -----------------------------------------------------
     def add_service(self, svc: Service) -> int:
@@ -50,34 +106,131 @@ class Server:
         self._services[name] = svc
         for md in svc.methods().values():
             self._methods[md.full_name] = md
+            self._method_status[md.full_name] = MethodStatus(
+                md.full_name, self._make_limiter(md.full_name))
         return 0
+
+    def _make_limiter(self, full_name: str):
+        mc = self.options.method_max_concurrency.get(full_name)
+        kind = self.options.concurrency_limiter
+        from ..policy import limiters
+        if isinstance(mc, int) and mc > 0:
+            return limiters.ConstantConcurrencyLimiter(mc)
+        if mc == "auto" or kind == "auto":
+            return limiters.AutoConcurrencyLimiter()
+        if kind == "timeout":
+            return limiters.TimeoutConcurrencyLimiter()
+        if kind == "constant" and self.options.max_concurrency > 0:
+            return limiters.ConstantConcurrencyLimiter(
+                self.options.max_concurrency)
+        return None
 
     def find_method(self, full_name: str) -> Optional[MethodDescriptor]:
         return self._methods.get(full_name)
 
+    def method_status(self, full_name: str) -> Optional[MethodStatus]:
+        return self._method_status.get(full_name)
+
+    def method_statuses(self) -> List[MethodStatus]:
+        return list(self._method_status.values())
+
     def services(self) -> Dict[str, Service]:
         return dict(self._services)
+
+    # ---- server-level concurrency (reference max_concurrency) ---------
+    def on_request_in(self) -> bool:
+        mc = self.options.max_concurrency
+        with self._conc_lock:
+            if mc > 0 and self._server_concurrency >= mc:
+                return False
+            self._server_concurrency += 1
+            return True
+
+    def on_request_out(self) -> None:
+        with self._conc_lock:
+            self._server_concurrency -= 1
+        adm = self.admission
+        if adm is not None:
+            # a slot just freed: the admission queue's release pump
+            adm.on_release()
+
+    def on_request_rollback(self) -> None:
+        """Undo on_request_in for a request that was never admitted (the
+        method gate refused after the server gate passed).  Unlike
+        on_request_out this neither pumps the admission queue nor records
+        a service-rate sample: a rollback is not a completion, and
+        pumping here would recurse (pump → gate → rollback → pump)."""
+        with self._conc_lock:
+            self._server_concurrency -= 1
+
+    # usercode_in_pthread backlog accounting (InputMessenger): a request
+    # QUEUED on the backup pool has not yet passed on_request_in, so the
+    # drain gate needs its own counter to see it
+    def on_usercode_queued(self) -> None:
+        with self._conc_lock:
+            self._usercode_queued += 1
+
+    def on_usercode_done(self) -> None:
+        with self._conc_lock:
+            self._usercode_queued -= 1
+
+    def inflight_requests(self) -> int:
+        """Requests currently admitted or queued: the drain/join gate.
+        One request can sit in several counters (the server's and its
+        method's concurrency; the usercode backlog while it runs), so
+        they combine with max(): zero exactly when everything finished."""
+        with self._conc_lock:
+            server_n = self._server_concurrency
+            queued_n = self._usercode_queued
+        method_n = sum(ms.concurrency
+                       for ms in self._method_status.values())
+        return max(server_n, method_n, queued_n)
 
     # ---- lifecycle ----------------------------------------------------
     def start(self, addr: Any) -> int:
         """Listen on ``ici://k`` or ``mem://name`` (a string or an
-        EndPoint)."""
+        EndPoint).  A stopped server may start again."""
         if self._started:
             return errors.EINVAL
         ep = parse_endpoint(addr) if isinstance(addr, str) else addr
-        if ep.scheme == SCHEME_ICI:
-            from ..ici.transport import ici_listen
-            self._ici_listener = ici_listen(ep.device_id, self._on_accept)
-        elif ep.scheme == SCHEME_MEM:
-            from .mem_transport import mem_listen
-            self._mem_listener = mem_listen(ep.host, self._on_accept)
-        else:
+        if ep.scheme not in (SCHEME_ICI, SCHEME_MEM):
             raise ValueError(f"cannot listen on scheme {ep.scheme}: the "
                              "port serves ici:// and mem:// only")
-        self.listen_endpoint = ep
+        # a fresh event per run: stop() callers of the previous run hold
+        # their own (set) event
+        self._stopped = threading.Event()
+        self._draining = False
         with self._conn_lock:
             self._connections = []
+        if self.options.usercode_in_pthread and self.usercode_pool is None:
+            from .usercode_pool import UsercodePool
+            self.usercode_pool = UsercodePool(
+                kind=self.options.usercode_pool_kind,
+                workers=max(self.options.usercode_backup_threads, 1))
+        if self.options.admission:
+            from .admission import AdmissionController, AdmissionOptions
+            if self.admission is None:
+                aopts = self.options.admission if isinstance(
+                    self.options.admission, AdmissionOptions) else None
+                self.admission = AdmissionController(self, aopts)
+            else:
+                self.admission.reset()   # restart lifts the stop refusal
+        if ep.scheme == SCHEME_ICI:
+            from ..ici.transport import ici_listen
+            self._listener = ici_listen(ep.device_id, self._on_accept)
+        else:
+            from .mem_transport import mem_listen
+            self._listener = mem_listen(ep.host, self._on_accept)
+        self.listen_endpoint = ep
         self._started = True
+        from . import lameduck
+        lameduck.clear_local_draining(ep)   # restart lifts the drain mark
+        if self.options.graceful_quit_on_sigterm:
+            if not lameduck.enable_graceful_quit(self):
+                log.warning(
+                    "graceful_quit_on_sigterm requested but the SIGTERM "
+                    "hook could not be installed (server started off "
+                    "the main thread): TERM will not drain this server")
         log.info("Server started on %s with %d services", ep,
                  len(self._services))
         return 0
@@ -89,22 +242,175 @@ class Server:
             self._connections = [s for s in self._connections if not s.failed]
             self._connections.append(sock)
 
-    def stop(self) -> int:
-        """Stop listening and fail every accepted connection with ELOGOFF
-        (their clients' in-flight calls complete with it)."""
-        if not self._started:
-            return 0
-        if self._ici_listener is not None:
+    def is_running(self) -> bool:
+        return self._started and not self._stopped.is_set()
+
+    def is_draining(self) -> bool:
+        """Lame-duck state: new requests bounce with retryable ELOGOFF
+        while in-flight work completes."""
+        return self._draining
+
+    def _close_listener(self) -> None:
+        listener, self._listener = self._listener, None
+        if listener is None:
+            return
+        if self.listen_endpoint.scheme == SCHEME_ICI:
             from ..ici.transport import ici_unlisten
-            ici_unlisten(self._ici_listener.device_id)
-            self._ici_listener = None
-        if self._mem_listener is not None:
+            ici_unlisten(listener.device_id)
+        else:
             from .mem_transport import mem_unlisten
-            mem_unlisten(self._mem_listener.name)
-            self._mem_listener = None
+            mem_unlisten(listener.name)
+
+    def stop(self, grace_s: Optional[float] = None) -> int:
+        """Stop the server.  ``grace_s > 0`` (default: ``ServerOptions.
+        graceful_shutdown_s``) drains first — lame-duck mode (reference
+        Server::Stop(closewait_ms)):
+
+          1. the server flips to *draining*: the admission queue bounces
+             its waiting entries with ELOGOFF, ici:// sockets send
+             GOODBYE so peers pull the endpoint from their balancers,
+             and NEW requests bounce with retryable ELOGOFF.  The
+             listener stays open through the window, marked draining, so
+             a caller that reconnects gets the same bounce (both of the
+             port's planes are in-process front doors);
+          2. in-flight handlers, queued usercode and device-plane
+             transfers complete inside the grace window (a transfer
+             counts until the completion poller saw its copy's event);
+          3. only stragglers past the window are failed: connections with
+             ELOGOFF, and sends posted before the drain and still
+             unmatched, so their source pins release.
+
+        A stop from a thread the drain itself runs returns at once; a
+        second concurrent stop waits for the first."""
+        if grace_s is None:
+            grace_s = self.options.graceful_shutdown_s or 0.0
+        with self._stop_lock:
+            if not self._started:
+                return 0
+            if self._stop_in_progress:
+                stopping, stopped = self._stopping_thread, self._stopped
+            else:
+                self._stop_in_progress = True
+                self._stopping_thread = threading.current_thread()
+                stopping = None
+        if stopping is not None:
+            if stopping is not threading.current_thread():
+                stopped.wait()
+            return 0
+        try:
+            self._stop_locked(grace_s)
+        finally:
+            with self._stop_lock:
+                self._stop_in_progress = False
+                self._stopping_thread = None
+            if not self._stopped.is_set():
+                # _stop_locked raised midway: the error propagates to this
+                # caller, but waiting stop() callers and join() unblock
+                self._draining = False
+                self._started = False
+                self._stopped.set()
+        return 0
+
+    def _stop_locked(self, grace_s: float) -> None:
+        from . import lameduck
+        ep = self.listen_endpoint
+        drained = True
+        drain_start_ns = 0
+        if grace_s > 0:
+            self._draining = True
+            drain_start_ns = _time.monotonic_ns()
+            lameduck.mark_local_draining(ep)
+            if self._listener is not None:
+                self._listener.draining = True
+            if self.admission is not None:
+                # queued-not-started entries bounce at drain start:
+                # callers fail over now instead of waiting out the window
+                self.admission.fail_all(errors.ELOGOFF,
+                                        "server is draining (lame duck)")
+            self._send_goodbyes()
+            drained = self._drain_until(_time.monotonic() + grace_s)
+            self.last_drain = {
+                "grace_s": grace_s, "drained": drained,
+                "seconds": (_time.monotonic_ns() - drain_start_ns) / 1e9}
+        if self.admission is not None:
+            self.admission.fail_all(errors.ELOGOFF, "server stopping")
+        self._close_listener()
         with self._conn_lock:
             conns, self._connections = self._connections, []
+        if grace_s > 0 and not drained:
+            self._fail_pending_device_transfers(drain_start_ns)
         for s in conns:
             s.set_failed(errors.ELOGOFF, "server stopping")
+        pool, self.usercode_pool = self.usercode_pool, None
+        if pool is not None:
+            pool.shutdown(wait=False)
+        self._stopped.set()
         self._started = False
-        return 0
+        self._draining = False
+        lameduck.clear_local_draining(ep)
+
+    # ---- drain machinery ----------------------------------------------
+    def _send_goodbyes(self) -> None:
+        """Proactive lame-duck notification on every connection whose
+        transport supports it (ici:// sockets): peers pull this endpoint
+        from their balancers NOW instead of at a health-check probe."""
+        with self._conn_lock:
+            conns = list(self._connections)
+        for s in conns:
+            fn = getattr(s, "send_goodbye", None)
+            if fn is not None:
+                try:
+                    fn()
+                except Exception:
+                    log.error("GOODBYE to %s failed", s.remote_side,
+                              exc_info=True)
+
+    def _drain_until(self, deadline: float) -> bool:
+        """Block until in-flight handlers, queued usercode and device-plane
+        transfers are all done, or the deadline passes.  True when fully
+        drained."""
+        while True:
+            if (self.inflight_requests() == 0
+                    and self._device_plane_active() == 0):
+                return True
+            if _time.monotonic() >= deadline:
+                return False
+            _time.sleep(0.005)
+
+    @staticmethod
+    def _device_plane_active() -> int:
+        """Posted-but-incomplete device-plane transfers in this process; 0
+        when the plane was never instantiated."""
+        from ..ici.device_plane import DevicePlane
+        plane = DevicePlane._instance
+        return plane.active_transfers() if plane is not None else 0
+
+    @staticmethod
+    def _fail_pending_device_transfers(posted_before_ns: int) -> None:
+        """Grace expired with transfers still posted: fail the ones that
+        were posted before the drain began (and so sat unmatched through
+        the whole window), so their completions fire and their source
+        pins release — a lame-duck stop may strand a straggler RPC, never
+        a pin in device memory.  Newer posts belong to other traffic."""
+        from ..ici.device_plane import DevicePlane
+        plane = DevicePlane._instance
+        if plane is not None:
+            plane.fail_pending("server stopped before rendezvous "
+                               "(lame-duck grace expired)",
+                               posted_before_ns=posted_before_ns)
+
+    def join(self, timeout: Optional[float] = None) -> None:
+        """Block until the server has stopped AND its in-flight handlers
+        have finished (reference Server::Join runs after Stop's
+        close-wait)."""
+        deadline = None if timeout is None else _time.monotonic() + timeout
+        if not self._stopped.wait(timeout):
+            return
+        while self.inflight_requests() > 0:
+            if deadline is not None and _time.monotonic() >= deadline:
+                return
+            _time.sleep(0.002)
+
+    def connections(self) -> List[Any]:
+        with self._conn_lock:
+            return [s for s in self._connections if not s.failed]

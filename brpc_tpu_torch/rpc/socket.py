@@ -89,6 +89,12 @@ class Socket:
         self._inflight_prune_at = 256    # high-water mark (see write())
         self._cid_lock = threading.Lock()
         self.is_server_side = False
+        # the peer announced a lame-duck drain (GOODBYE): no new call
+        # rides this socket, SocketMap replaces it on next use
+        self.logoff = False
+        # the error a peer's close maps to once the queued input drained
+        # (ELOGOFF for a server's lame-duck stop; 0 = plain EOF)
+        self._eof_error_code = 0
 
     # ---- failure -----------------------------------------------------
     def set_failed(self, error_code: int = errors.EFAILEDSOCKET,
@@ -153,21 +159,29 @@ class Socket:
         if err is not None:
             self._complete_write(req, err)
             return err
-        # we are the writer: drain once in place; leftover (transport not
-        # writable) moves to a KeepWrite tasklet that batches later writers
-        if not self._drain():
+        # we are the writer: write our own request in place; leftover work
+        # (later writers' requests, or a transport not writable now) moves
+        # to a KeepWrite tasklet that batches them
+        if not self._drain(own=req):
             scheduler.start_urgent(self._keep_write, name="keep_write")
         return 0
 
-    def _drain(self) -> bool:
-        """Write head requests until the queue empties (release writer,
-        return True) or the transport stops accepting (stay writer, return
-        False so the caller reschedules via KeepWrite)."""
+    def _drain(self, own: Optional[WriteRequest] = None) -> bool:
+        """Write head requests in order.  True: the queue emptied and the
+        writer role is released.  False: the writer role stays, and the
+        caller hands the rest to KeepWrite — the transport stopped
+        accepting bytes, or ``own`` (an in-place writer's request) is
+        written and later writers' requests remain.  An in-place writer
+        writes its own request and returns (reference socket.cpp
+        StartWrite): under continuous writes from other threads, draining
+        them all would hold it, and its caller, until the load stopped."""
         while True:
             with self._write_lock:
                 if self.failed or not self._write_queue:
                     self._writing = False
                     return True
+                if own is not None and own.completed:
+                    return False
                 req = self._write_queue[0]
             try:
                 n = self._do_write(req.data)

@@ -2,7 +2,8 @@
 
 Reference: src/brpc/socket_map.{h,cpp} (SocketMapInsert :82,
 SingleConnection :180).  Channels to the same endpoint share one "single"
-connection; a failed socket is replaced on next use.  This slice connects
+connection; a failed socket, or one whose peer sent GOODBYE, is replaced
+on next use.  This slice connects
 ``ici://`` and ``mem://`` endpoints only.
 """
 from __future__ import annotations
@@ -53,7 +54,8 @@ class SocketMap:
         """The shared 'single' connection to ep (creates/replaces lazily)."""
         e = self._entry(ep, group)
         with e.lock:
-            if e.socket is not None and not e.socket.failed:
+            if e.socket is not None and not e.socket.failed \
+                    and not e.socket.logoff:
                 return e.socket
             s = self._connect(ep)
             s.messenger = messenger

@@ -15,12 +15,15 @@ prefill/decode path runs:
   * :mod:`.router` — ``LoadAwareRouter``: prefill→decode routing by load
     through the LALB balancer, and session affinity;
   * :mod:`.migration` — ``migrate_out``: a live session moved to another
-    decode worker's pool under a transfer-deadline latch.
+    decode worker's pool under a transfer-deadline latch;
+  * :mod:`.autoscaler` — ``LoadThresholdAutoscaler``: hysteresis over a
+    load signal firing scale-up / drain + scale-down callbacks.
 
 The pool's host tier (spill/restore) and ``write_rows`` live in
-:mod:`.kv_pool`.  Not ported yet: the autoscaler, the ``pod://`` router
-and the shm/native KV routes.
+:mod:`.kv_pool`.  Not ported yet: the autoscaler's pod attach, the
+``pod://`` router and the shm/native KV routes.
 """
+from .autoscaler import AutoscalerOptions, LoadThresholdAutoscaler
 from .kv_pool import (KvPoolOptions, PagedKvPool, PoolSaturated,
                       SessionBusy)
 from .kv_source import (WireKvSource, kv_load_stats,
@@ -32,10 +35,12 @@ from .scheduler import (BatchSchedulerOptions, ContinuousBatchScheduler,
                         StepRequest, step_tokens)
 
 __all__ = [
+    "AutoscalerOptions",
     "BatchSchedulerOptions",
     "ContinuousBatchScheduler",
     "KvPoolOptions",
     "LoadAwareRouter",
+    "LoadThresholdAutoscaler",
     "PagedKvPool",
     "PoolSaturated",
     "SessionBusy",

@@ -77,6 +77,7 @@ import torch
 
 from .. import bvar
 from ..butil import flags as _flags
+from ..rpc.admission import tenant_weight_of
 
 _flags.define_flag(
     "serving_kv_spill_reprobe_s", 0.25,
@@ -85,13 +86,6 @@ _flags.define_flag(
 
 BANDS = 4                # priority bands, 0 = most protected
 DEFAULT_PRIORITY = 2     # sessions arriving without one
-
-
-def tenant_weight_of(weights: Dict[str, int], default: int,
-                     tenant: str) -> int:
-    """THE tenant-weight lookup (floor 1), as the admission queue of the
-    reference applies it (brpc_tpu/rpc/admission.py)."""
-    return max(1, weights.get(tenant, default))
 
 
 class SessionBusy(RuntimeError):
@@ -135,6 +129,22 @@ class KvPoolOptions:
     use_timers: bool = True          # False: tests drive expire_idle()
     tenant_weights: Dict[str, int] = field(default_factory=dict)
     default_tenant_weight: int = 1
+
+    @classmethod
+    def from_admission(cls, adm, **kw) -> "KvPoolOptions":
+        """Take the eviction order's tenant table from an
+        ``rpc.admission.AdmissionOptions``, so queue fairness and memory
+        pressure agree on who absorbs overload.  The pool's bands are
+        fixed (``BANDS``, ``DEFAULT_PRIORITY``): admission options with
+        other bands are refused rather than silently disagreeing."""
+        if adm.bands != BANDS or adm.default_priority != DEFAULT_PRIORITY:
+            raise ValueError(
+                f"the pool has {BANDS} bands and default priority "
+                f"{DEFAULT_PRIORITY}; the admission options have "
+                f"{adm.bands} and {adm.default_priority}")
+        kw.setdefault("tenant_weights", dict(adm.tenant_weights))
+        kw.setdefault("default_tenant_weight", adm.default_tenant_weight)
+        return cls(**kw)
 
     def effective_sweep_s(self) -> float:
         if self.sweep_interval_s > 0:
@@ -1246,6 +1256,12 @@ class PagedKvPool:
     def sessions(self) -> int:
         with self._lock:
             return len(self._tables)
+
+    def session_ids(self) -> List[str]:
+        """The device-resident sessions, oldest load first (what a
+        scale-down's drain migrates away)."""
+        with self._lock:
+            return list(self._tables)
 
     def close(self) -> None:
         with self._lock:

@@ -34,6 +34,7 @@ import threading
 from typing import Callable, Optional, Tuple
 
 from .. import bvar
+from ..bthread import scheduler as _bthread
 from ..butil import flags as _flags
 
 _flags.define_flag(
@@ -157,7 +158,15 @@ def migrate_out(pool, session: str,
             _flags.get_flag("serving_migrate_deadline_ms"))
         threading.Thread(target=_runner, name="kv_migrate_send",
                          daemon=True).start()
-        if not done.wait(dl_ms / 1000.0):
+        # a handler waiting here holds a scheduler worker: count it as
+        # blocked, so the destination's MigrateIn (and any other request)
+        # still finds a worker when every other one is parked too
+        _bthread.note_worker_blocked()
+        try:
+            arrived = done.wait(dl_ms / 1000.0)
+        finally:
+            _bthread.note_worker_unblocked()
+        if not arrived:
             # a hung peer is detected here, by the transfer deadline
             health.mark_down("transfer_deadline")
             stats.abort("transfer deadline")

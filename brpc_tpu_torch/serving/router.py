@@ -1,6 +1,8 @@
 """Load-aware prefill→decode routing over the LALB divided-weight balancer.
 
-Port of :mod:`brpc_tpu.serving.router` with explicit targets.  The router
+Port of :mod:`brpc_tpu.serving.router` with explicit targets, added and
+removed by the caller (``add_target`` / ``remove_target``, the
+autoscaler's registration surface).  The router
 must KNOW which decode worker it chose (the prefill worker pushes the KV
 to that endpoint) and feed the decode call's outcome back so a slow or
 failing worker's weight collapses within one request time:
@@ -52,6 +54,20 @@ class LoadAwareRouter:
     # ---- membership ----------------------------------------------------
     def add_target(self, url: str) -> bool:
         return self._lb.add_server(parse_endpoint(url))
+
+    def remove_target(self, url: str) -> bool:
+        """Take a decode worker out of selection and close its channel
+        (the autoscaler's scale-down); calls already issued complete."""
+        ep = parse_endpoint(url)
+        ok = self._lb.remove_server(ep)
+        with self._lock:
+            ch = self._channels.pop(str(ep), None)
+        if ch is not None:
+            ch.close()
+        return ok
+
+    def targets(self) -> List[str]:
+        return [str(e.endpoint) for e in self._lb.servers()]
 
     # ---- selection / feedback ------------------------------------------
     def pick(self, exclude: Optional[set] = None) -> Optional[str]:

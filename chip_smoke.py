@@ -102,12 +102,52 @@ Phases, each fatal on failure:
                 source serves throughout, and after
                 serving_migrate_reprobe_s the plane revives on its timer
                 and the migration lands
+ 10. admission, drain, elastic  (a) bench.py's overload leg
+                (_overload_one_plane) on ici://5: max_concurrency 2, the
+                usercode pool with 4 threads, AdmissionOptions(max_queue_ms
+                10, queue_capacity 64), a 20 ms Echo (100 rps); 1.2 s at 50
+                rps of priority 0 from t0, then 3 s at 1,000 rps from 4
+                tenants (per tenant a priority-0 stream at 62.5 rps and two
+                priority-3 streams at 93.75), one paced thread and Channel
+                (max_retry 0) per stream; every request carries a 4 MiB
+                DEVICE attachment owned by rank 6 or 7 that rides the
+                plane, the handler holds it equal to what was sent and
+                returns it, the client holds the answer equal too.  Every
+                shed is ELIMIT with a retry_after_ms hint, no tenant's
+                served priority-0 count is under half the mean, launches =
+                transfers = requests received + attachments returned, no
+                transfer is active after the stop and device memory is
+                back within 64 MiB; the p99 ratio is printed, not gated.
+                (b) ici://5 with graceful_shutdown_s 5 and a 50 ms
+                handler: 8 calls with 4 MiB attachments in flight through
+                stop(); they complete OK, calls after the flip get
+                ELOGOFF, the client saw the GOODBYE, nothing is active or
+                pending when stop() returns, launches = transfers; a
+                restart serves again.  (c) phase 8's layout: 64 sessions
+                of 512 tokens on rank 3; 20 Generates from 2 clients; a
+                LoadThresholdAutoscaler (samples_to_scale 2, sizes 1-2)
+                over the decode workers' (roster + queue) / (size x
+                max_batch), ticked at fixed points: after the 5th Generate
+                two idle ticks drain rank 3 (MigrateOut of every live
+                session to rank 2) and scale it down
+                (remove_decode_target, stop(grace 5 s)); after the 15th,
+                the 64 migrated sessions decode 1,024 steps on rank 2 at
+                once, load 1.0, and two ticks scale rank 3 back up
+                (restart, add_decode_target); 4 more Generates, one at
+                least on rank 3.  Every Generate and migrated session
+                equals reference_generate, generate_failures is 0,
+                scale_downs and scale_ups are 1, rank 3's stop returned
+                with nothing in flight, launches = transfers = LoadKv +
+                MigrateIn received
 
 Launch counts are zeroed just before each path and read just after it:
 during phases 3-4 and during phase 8 p2p_copy's launches must equal the
 plane's transfers (in phase 8 also the LoadKv calls the servers
 received); during phase 9 they must equal the transfers and the LoadKv
-plus MigrateIn calls the servers received; during phase 6 each ring
+plus MigrateIn calls the servers received; during phase 10 they must
+equal the transfers and, in (a) and (b), the requests the server received
+plus the attachments it returned, in (c) the LoadKv and MigrateIn calls
+the servers received (bounced ones included); during phase 6 each ring
 kernel's launches must equal the calls of its entry point.  The line
 before the last is the ``kernels`` JSON; the last line is the device
 JSON.
@@ -163,6 +203,23 @@ TIER_HOST_BLOCKS = SERVE_POOL_BLOCKS
 TIER_SESSIONS, TIER_DECODED = 576, 32
 MIGRATE_SESSIONS = 64
 LATCH_DEADLINE_MS = 500
+# phase 10 (a): bench.py's overload leg (_overload_one_plane: capacity 2 /
+# 20 ms = 100 rps, 10x offered over 4 tenants, 1.2 s unloaded then 3 s)
+# with 4 MiB DEVICE attachments from ranks 6 and 7, a bank of patterns per
+# rank, and the device memory the run may leave behind; (b) the drain's
+# calls, handler and grace; (c) the elastic fleet's held sessions, the
+# Generate counts at which the autoscaler acts, the steps of the Decodes
+# that load rank 2, and the bound on the restarted worker's revival
+ADM_PAYLOAD, ADM_PATTERNS = 4 << 20, 4
+ADM_SERVICE_MS, ADM_MAX_CONC, ADM_FACTOR = 20.0, 2, 10
+ADM_TENANTS = ("t0", "t1", "t2", "t3")
+ADM_UNLOADED_S, ADM_OVERLOAD_S = 1.2, 3.0
+ADM_MEMORY_SLACK = 64 << 20
+ADM_WINDOW_BYTES = 256 << 20
+DRAIN_CALLS, DRAIN_LATE_CALLS, DRAIN_SERVICE_MS, DRAIN_GRACE_S = \
+    8, 4, 50.0, 5.0
+ELASTIC_HELD, ELASTIC_DOWN_AT, ELASTIC_UP_AT, ELASTIC_AFTER = 64, 5, 15, 4
+ELASTIC_LOAD_STEPS, ELASTIC_GRACE_S, ELASTIC_REVIVE_S = 1024, 5.0, 15.0
 
 
 def fail(msg: str) -> None:
@@ -1305,6 +1362,671 @@ def phase_tiers_migration(mesh, plane, p2p_copy) -> dict:
     return out
 
 
+def _tensor_of(att) -> torch.Tensor:
+    """The bytes of a received attachment as one flat uint8 tensor on its
+    rank (a view when it arrived as one DEVICE block)."""
+    from brpc_tpu_torch.butil.iobuf import DEVICE
+    segs = []
+    for i in range(att.backing_block_num()):
+        r = att.backing_block(i)
+        check(r.block.kind == DEVICE, "an attachment arrived in host memory")
+        segs.append(r.block.data[r.offset:r.offset + r.length])
+    return segs[0] if len(segs) == 1 else torch.cat(segs)
+
+
+def phase_admission(mesh, plane, p2p_copy) -> dict:
+    """(a) bench.py's overload leg (_overload_one_plane) on ici:// with
+    4 MiB DEVICE attachments (see the module docstring, phase 10)."""
+    import brpc_tpu_torch.policy  # noqa: F401
+    from brpc_tpu_torch import rpc
+    from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
+
+    t_phase = time.monotonic()
+    dev = mesh.device(0)
+    # one attachment bank per client rank: request i of a stream carries
+    # pattern i % ADM_PATTERNS, seeded bytes, owned by the stream's rank
+    bank = {rank: [mesh.own(torch.from_numpy(np.random.default_rng(
+        100 * rank + k).integers(0, 256, ADM_PAYLOAD, dtype=np.uint8)).to(
+        dev), rank) for k in range(ADM_PATTERNS)] for rank in (6, 7)}
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated(dev)
+    lock = threading.Lock()
+    served = {"returned": 0, "bad": 0}
+
+    class Echo(rpc.Service):
+        @rpc.method(EchoRequest, EchoResponse)
+        def Echo(self, cntl, request, response, done):
+            time.sleep(ADM_SERVICE_MS / 1000.0)
+            rank, k = map(int, request.message.split(":"))
+            got = _tensor_of(cntl.request_attachment)
+            ok = (got.device == bank[rank][k].device
+                  and torch.equal(got, bank[rank][k]))
+            cntl.response_attachment.append(cntl.request_attachment)
+            with lock:
+                served["returned"] += 1
+                served["bad"] += not ok
+            done()
+
+    server = rpc.Server(rpc.ServerOptions(
+        max_concurrency=ADM_MAX_CONC, usercode_in_pthread=True,
+        usercode_backup_threads=ADM_MAX_CONC + 2,
+        admission=rpc.AdmissionOptions(max_queue_ms=ADM_SERVICE_MS / 2.0,
+                                       queue_capacity=64)))
+    server.add_service(Echo())
+    check(server.start("ici://5") == 0, "admission server start on ici://5")
+    capacity = ADM_MAX_CONC / (ADM_SERVICE_MS / 1000.0)
+
+    def run_phase(spec, duration):
+        """One paced thread per (priority, tenant, rps, rank), each on its
+        own Channel with max_retry 0.  The channels share the process's
+        one connection to the server, so they close after every thread
+        is done (a close fails the shared connection)."""
+        stats = {}
+        stop = time.monotonic() + duration
+        chans = []
+
+        def worker(pri, tenant, rate, rank, wid):
+            ch = rpc.Channel()
+            ch.init("ici://5", rpc.ChannelOptions(timeout_ms=2000,
+                                                  max_retry=0))
+            chans.append(ch)
+            interval = 1.0 / rate
+            next_fire = time.monotonic() + (wid % 7) * 0.003
+            i = 0
+            while time.monotonic() < stop:
+                now = time.monotonic()
+                if now < next_fire:
+                    time.sleep(min(next_fire - now, 0.02))
+                    continue
+                next_fire += interval
+                k = i % ADM_PATTERNS
+                i += 1
+                cntl = rpc.Controller()
+                cntl.priority = pri
+                cntl.tenant = tenant
+                cntl.request_attachment.append_device_array(bank[rank][k])
+                t0 = time.perf_counter_ns()
+                ch.call_method("Echo.Echo", cntl,
+                               EchoRequest(message=f"{rank}:{k}"),
+                               EchoResponse)
+                lat_us = (time.perf_counter_ns() - t0) / 1000.0
+                back = None
+                if not cntl.failed():
+                    back = torch.equal(_tensor_of(cntl.response_attachment),
+                                       bank[rank][k])
+                with lock:
+                    c = stats.setdefault((pri, tenant), {
+                        "ok": 0, "shed": 0, "shed_with_hint": 0, "err": 0,
+                        "issued": 0, "bad": 0, "lats": [], "codes": [],
+                        "in_call_s": 0.0, "max_call_ms": 0.0})
+                    c["issued"] += 1
+                    c["in_call_s"] += lat_us / 1e6
+                    c["max_call_ms"] = max(c["max_call_ms"], lat_us / 1e3)
+                    if back is not None:
+                        c["ok"] += 1
+                        c["bad"] += not back
+                        c["lats"].append(lat_us)
+                    elif cntl.error_code_ == rpc.errors.ELIMIT:
+                        c["shed"] += 1
+                        c["shed_with_hint"] += cntl.retry_after_ms > 0
+                    else:
+                        c["err"] += 1
+                        c["codes"].append(cntl.error_code_)
+
+        threads = [threading.Thread(target=worker, args=(*s, i),
+                                    daemon=True)
+                   for i, s in enumerate(spec)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(duration + 30)
+        check(not any(t.is_alive() for t in threads),
+              "admission clients did not finish")
+        for ch in chans:
+            ch.close()
+        return stats
+
+    out = {"capacity_rps": capacity}
+    try:
+        transfers0 = plane.stats()["transfers"]
+        base = run_phase([(0, "t0", capacity / 2.0, 6)], ADM_UNLOADED_S)
+        spec = []
+        per_tenant = ADM_FACTOR * capacity / len(ADM_TENANTS)
+        for j, t in enumerate(ADM_TENANTS):
+            rank = 6 + j % 2
+            spec.append((0, t, per_tenant * 0.25, rank))
+            spec.append((3, t, per_tenant * 0.375, rank))
+            spec.append((3, t, per_tenant * 0.375, rank))
+        over = run_phase(spec, ADM_OVERLOAD_S)
+        received = server.method_status("Echo.Echo").received.get_value()
+        describe = server.admission.describe()
+        server.stop()
+        torch.cuda.synchronize()
+        out["active_after_stop"] = plane.active_transfers()
+        out["transfers"] = plane.stats()["transfers"] - transfers0
+        out["launches"] = p2p_copy.launches
+        out["requests_received"] = received
+        out["attachments_returned"] = served["returned"]
+    finally:
+        server.stop()
+    hi, hi_by_tenant = [], {}
+    shed = hinted = low_ok = issued = errs = bad = 0
+    codes = []
+    streams = {}
+    for (pri, tenant), c in over.items():
+        streams[f"{tenant}/p{pri}"] = {
+            k: round(c[k], 3) if isinstance(c[k], float) else c[k]
+            for k in ("issued", "ok", "shed", "in_call_s", "max_call_ms")}
+        if pri == 0:
+            hi.extend(c["lats"])
+            hi_by_tenant[tenant] = c["ok"]
+        else:
+            low_ok += c["ok"]
+        shed += c["shed"]
+        hinted += c["shed_with_hint"]
+        issued += c["issued"]
+        errs += c["err"]
+        bad += c["bad"]
+        codes += c["codes"]
+    base_lats = base[(0, "t0")]["lats"]
+    bad += base[(0, "t0")]["bad"]
+    mean_share = sum(hi_by_tenant.values()) / len(ADM_TENANTS)
+    out.update({
+        "offered_rps": ADM_FACTOR * capacity,
+        "offered_rps_measured": issued / ADM_OVERLOAD_S,
+        "hi_p99_unloaded_us": _pct(base_lats, 0.99),
+        "hi_p99_overload_us": _pct(hi, 0.99) if hi else -1.0,
+        "hi_goodput_by_tenant": hi_by_tenant, "low_goodput": low_ok,
+        "shed": shed, "shed_with_retry_after": hinted, "errors": errs,
+        "tenant_min_share_ratio": (min(hi_by_tenant.values()) / mean_share
+                                   if mean_share else -1.0),
+        "payload_bytes": ADM_PAYLOAD, "describe": describe,
+        "streams": streams,
+        "wall_s": time.monotonic() - t_phase})
+    out["hi_p99_ratio"] = (out["hi_p99_overload_us"]
+                           / out["hi_p99_unloaded_us"])
+    torch.cuda.synchronize()
+    out["memory_delta_bytes"] = torch.cuda.memory_allocated(dev) - mem0
+    print(f"admission: capacity {capacity:.0f} rps, offered "
+          f"{out['offered_rps_measured']:.1f} rps measured "
+          f"({out['offered_rps']:.0f} paced); priority-0 p99 "
+          f"{out['hi_p99_unloaded_us']:.1f} us unloaded, "
+          f"{out['hi_p99_overload_us']:.1f} us at overload (ratio "
+          f"{out['hi_p99_ratio']:.3f}; bench.py bounds it at 2, not gated "
+          f"here); served p0 by tenant {json.dumps(hi_by_tenant)}, low "
+          f"{low_ok}; shed {shed} ({hinted} with a hint); errors {errs} "
+          f"{sorted(set(codes))}; per stream class {json.dumps(streams)}; "
+          f"describe {json.dumps(describe)}", flush=True)
+    check(served["bad"] == 0 and bad == 0,
+          f"payloads differ: {served['bad']} at the server, {bad} back")
+    check(shed > 0 and hinted == shed,
+          f"{shed - hinted} of {shed} sheds carried no retry_after_ms")
+    check(errs == 0, f"{errs} calls failed other than by a shed: "
+                     f"{sorted(set(codes))}")
+    check(len(hi_by_tenant) == len(ADM_TENANTS)
+          and min(hi_by_tenant.values()) >= 0.5 * mean_share > 0,
+          f"a tenant starved: {hi_by_tenant}")
+    check(out["launches"] == out["transfers"]
+          == out["requests_received"] + out["attachments_returned"],
+          f"admission: p2p_copy launches {out['launches']}, plane transfers "
+          f"{out['transfers']}, requests received "
+          f"{out['requests_received']} + attachments returned "
+          f"{out['attachments_returned']}")
+    check(out["active_after_stop"] == 0,
+          f"{out['active_after_stop']} transfers active after the stop")
+    check(abs(out["memory_delta_bytes"]) <= ADM_MEMORY_SLACK,
+          f"device memory {out['memory_delta_bytes']} B off its level "
+          f"after the overload")
+    print(f"admission: p2p_copy launches {out['launches']} = plane transfers "
+          f"{out['transfers']} = requests received "
+          f"{out['requests_received']} + attachments returned "
+          f"{out['attachments_returned']}; memory delta "
+          f"{out['memory_delta_bytes']} B; phase {out['wall_s']:.1f} s",
+          flush=True)
+    return out
+
+
+def phase_drain(mesh, plane, p2p_copy) -> dict:
+    """(b) a lame-duck stop under traffic on ici:// (see the module
+    docstring, phase 10)."""
+    import brpc_tpu_torch.policy  # noqa: F401
+    from brpc_tpu_torch import rpc
+    from brpc_tpu_torch.butil.endpoint import parse_endpoint
+    from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
+    from brpc_tpu_torch.rpc import health_check, lameduck
+
+    t_phase = time.monotonic()
+    dev = mesh.device(0)
+    ep = parse_endpoint("ici://5")
+    payload = mesh.own(torch.from_numpy(np.random.default_rng(55).integers(
+        0, 256, ADM_PAYLOAD, dtype=np.uint8)).to(dev), 6)
+
+    entered = []
+
+    class Echo(rpc.Service):
+        @rpc.method(EchoRequest, EchoResponse)
+        def Echo(self, cntl, request, response, done):
+            entered.append(1)
+            time.sleep(DRAIN_SERVICE_MS / 1000.0)
+            cntl.response_attachment.append(cntl.request_attachment)
+            done()
+
+    server = rpc.Server(rpc.ServerOptions(
+        graceful_shutdown_s=DRAIN_GRACE_S, usercode_in_pthread=True,
+        usercode_backup_threads=DRAIN_CALLS + 4))
+    server.add_service(Echo())
+    check(server.start("ici://5") == 0, "drain server start on ici://5")
+    ch = rpc.Channel()
+    ch.init("ici://5", rpc.ChannelOptions(timeout_ms=30000, max_retry=0))
+    out = {}
+    try:
+        transfers0 = plane.stats()["transfers"]
+        results, all_done = {}, threading.Event()
+        lock = threading.Lock()
+
+        def on_done(i, c):
+            with lock:
+                results[i] = (c.error_code_, None if c.failed() else
+                              torch.equal(_tensor_of(c.response_attachment),
+                                          payload))
+                if len(results) == DRAIN_CALLS:
+                    all_done.set()
+
+        for i in range(DRAIN_CALLS):
+            cntl = rpc.Controller()
+            cntl.request_attachment.append_device_array(payload)
+            ch.call_method("Echo.Echo", cntl, EchoRequest(message=str(i)),
+                           EchoResponse, done=lambda c, i=i: on_done(i, c))
+        deadline = time.monotonic() + 10
+        while len(entered) < DRAIN_CALLS and time.monotonic() < deadline:
+            time.sleep(0.001)
+        check(len(entered) == DRAIN_CALLS,
+              "the drain's calls never all reached the handler")
+        stop_s = {}
+
+        def stopper():
+            t0 = time.monotonic()
+            server.stop()
+            stop_s["s"] = time.monotonic() - t0
+
+        stop_thread = threading.Thread(target=stopper)
+        stop_thread.start()
+        deadline = time.monotonic() + 5
+        while not server.is_draining() and time.monotonic() < deadline:
+            time.sleep(0.0005)
+        check(server.is_draining(), "the server never flipped to draining")
+        late = []
+        for i in range(DRAIN_LATE_CALLS):
+            cntl = rpc.Controller()
+            cntl.request_attachment.append_device_array(payload)
+            ch.call_method("Echo.Echo", cntl,
+                           EchoRequest(message=f"late{i}"), EchoResponse)
+            late.append(cntl.error_code_)
+        goodbye = ep in lameduck.peer_draining()
+        stop_thread.join(DRAIN_GRACE_S + 10)
+        check(not stop_thread.is_alive(), "stop() did not return")
+        out["active_at_stop_return"] = plane.active_transfers()
+        out["pending_at_stop_return"] = plane.pending_sends()
+        out["inflight_at_stop_return"] = server.inflight_requests()
+        check(all_done.wait(10), "in-flight calls never completed")
+        torch.cuda.synchronize()
+        out["transfers"] = plane.stats()["transfers"] - transfers0
+        out["launches"] = p2p_copy.launches
+        out["received"] = server.method_status("Echo.Echo").received \
+            .get_value()
+        out.update({"calls": DRAIN_CALLS, "ok": sum(
+            1 for code, same in results.values() if code == 0 and same),
+            "late_codes": late, "goodbye_seen": goodbye,
+            "stop_s": stop_s["s"], "last_drain": server.last_drain})
+        check(out["ok"] == DRAIN_CALLS,
+              f"in-flight calls through the drain: {results}")
+        check(all(code == rpc.errors.ELOGOFF for code in late),
+              f"calls after the flip got {late}, not ELOGOFF")
+        check(goodbye, "the client's socket never saw the GOODBYE")
+        check(out["active_at_stop_return"] == 0
+              and out["pending_at_stop_return"] == 0
+              and out["inflight_at_stop_return"] == 0,
+              f"stop() returned with active {out['active_at_stop_return']}, "
+              f"pending {out['pending_at_stop_return']}, in flight "
+              f"{out['inflight_at_stop_return']}")
+        check(out["launches"] == out["transfers"]
+              == out["received"] + DRAIN_CALLS,
+              f"drain: p2p_copy launches {out['launches']}, plane transfers "
+              f"{out['transfers']}, requests received {out['received']} + "
+              f"{DRAIN_CALLS} returned")
+        # the restart lifts the local mark; the checker's probe the peer's
+        check(server.start("ici://5") == 0, "restart on ici://5")
+        check(health_check.start_health_check(ep).probe_now(),
+              "the restarted endpoint did not revive")
+        check(not lameduck.is_draining(ep), "the drain mark survived")
+        cntl = rpc.Controller()
+        cntl.request_attachment.append_device_array(payload)
+        ch.call_method("Echo.Echo", cntl, EchoRequest(message="again"),
+                       EchoResponse)
+        check(not cntl.failed() and torch.equal(
+            _tensor_of(cntl.response_attachment), payload),
+            f"the restarted server did not serve: {cntl.error_text}")
+        out["path_launches"] = p2p_copy.launches
+    finally:
+        ch.close()
+        server.stop()
+    out["wall_s"] = time.monotonic() - t_phase
+    print(f"drain: {DRAIN_CALLS} in-flight calls of {ADM_PAYLOAD} B "
+          f"completed OK through stop(grace {DRAIN_GRACE_S} s) in "
+          f"{out['stop_s'] * 1e3:.1f} ms ({json.dumps(out['last_drain'])}); "
+          f"{DRAIN_LATE_CALLS} calls after the flip got {sorted(set(late))}; "
+          f"GOODBYE seen; launches {out['launches']} = transfers "
+          f"{out['transfers']} = received {out['received']} + returned "
+          f"{DRAIN_CALLS}; restart served; phase {out['wall_s']:.1f} s",
+          flush=True)
+    return out
+
+
+def phase_elastic(mesh, plane, p2p_copy) -> dict:
+    """(c) an elastic decode fleet: the autoscaler's scale-down (drain by
+    migration, then a lame-duck stop) and scale-up under Generate
+    traffic (see the module docstring, phase 10)."""
+    import brpc_tpu_torch.policy  # noqa: F401
+    from brpc_tpu_torch import rpc
+    from brpc_tpu_torch.butil import flags
+    from brpc_tpu_torch.butil.endpoint import parse_endpoint
+    from brpc_tpu_torch.examples.disagg_serving import model
+    from brpc_tpu_torch.examples.disagg_serving.workers import (
+        BYTES_PER_TOKEN, close_services, start_decode_worker,
+        start_prefill_worker, start_router)
+    from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
+    from brpc_tpu_torch.rpc import lameduck
+    from brpc_tpu_torch.serving import (AutoscalerOptions, KvPoolOptions,
+                                        LoadThresholdAutoscaler)
+
+    t_phase = time.monotonic()
+    dev = mesh.device(0)
+    flags.set_flag("ici_device_plane_threshold", 64 * 1024)
+    rng = np.random.default_rng(10)
+    ep3 = parse_endpoint("ici://3")
+
+    def prompt(n):
+        return rng.integers(0, model.VOCAB, n).tolist()
+
+    def pool_options():
+        return KvPoolOptions(bytes_per_token=BYTES_PER_TOKEN,
+                             num_blocks=SERVE_POOL_BLOCKS,
+                             block_tokens=SERVE_BLOCK_TOKENS)
+
+    prefill = start_prefill_worker("ici://1", mesh=mesh)
+    decodes = {url: start_decode_worker(url, mesh=mesh,
+                                        pool_options=pool_options())
+               for url in ("ici://2", "ici://3")}
+    router = start_router("mem://chip-smoke-elastic", "ici://1",
+                          list(decodes), rng=random.Random(10))
+    rsvc = next(iter(router.services().values()))
+    svcs = {url: next(iter(s.services().values()))
+            for url, s in decodes.items()}
+    live = dict(decodes)
+    wlock = threading.Lock()
+    channels = []
+
+    def channel(target):
+        ch = rpc.Channel()
+        ch.init(target, rpc.ChannelOptions(timeout_ms=120000, max_retry=0))
+        channels.append(ch)
+        return ch
+
+    def call(ch, method, body, cntl=None):
+        cntl = cntl or rpc.Controller()
+        resp = ch.call_method(method, cntl,
+                              EchoRequest(message=json.dumps(body)),
+                              EchoResponse)
+        return cntl, (None if resp is None else json.loads(resp.message))
+
+    def received():
+        return sum(s.method_status(m).received.get_value()
+                   for s in decodes.values()
+                   for m in ("Decode.LoadKv", "Decode.MigrateIn"))
+
+    def load_fn():
+        with wlock:
+            members = [svcs[url] for url in live]
+        return sum(s.load() for s in members) / len(members)
+
+    def size_fn():
+        with wlock:
+            return len(live)
+
+    timing = {}
+    to3 = channel("ici://3")
+
+    def drain():
+        t0 = time.monotonic()
+        moved, refused = [], []
+        for session in svcs["ici://3"].pool.session_ids():
+            cntl, _ = call(to3, "Decode.MigrateOut",
+                           {"session": session, "dest": "ici://2"})
+            if cntl.failed():
+                refused.append((session, cntl.error_text))
+            else:
+                moved.append(session)
+        timing["drain_s"] = time.monotonic() - t0
+        timing["moved"], timing["refused"] = moved, refused
+
+    def scale_down():
+        with wlock:
+            server = live.pop("ici://3")
+        rsvc.remove_decode_target("ici://3")
+        t0 = time.monotonic()
+        server.stop(grace_s=ELASTIC_GRACE_S)
+        timing["stop_s"] = time.monotonic() - t0
+        timing["inflight_at_stop"] = server.inflight_requests()
+        timing["active_at_stop"] = plane.active_transfers()
+        timing["last_drain"] = server.last_drain
+        return True
+
+    def scale_up():
+        server = decodes["ici://3"]
+        if server.start("ici://3") != 0:
+            return False
+        with wlock:
+            live["ici://3"] = server
+        rsvc.add_decode_target("ici://3")
+        return True
+
+    scaler = LoadThresholdAutoscaler(
+        load_fn, size_fn, scale_up, scale_down, drain=drain,
+        options=AutoscalerOptions(samples_to_scale=2, min_size=1,
+                                  max_size=2))
+    out = {}
+    try:
+        transfers0 = plane.stats()["transfers"]
+        received0 = received()
+        # 1. 64 live sessions on rank 3
+        held = {f"e{i}": prompt(SERVE_PROMPT) for i in range(ELASTIC_HELD)}
+        for session, tokens in held.items():
+            cntl = rpc.Controller()
+            cntl.request_attachment.append_device_array(
+                mesh.own(model.toy_kv_blocks(tokens, mesh.device(1)), 1))
+            cntl, _ = call(to3, "Decode.LoadKv",
+                           {"session": session, "seq_len": len(tokens),
+                            "last_token": tokens[-1]}, cntl)
+            check(not cntl.failed(), f"LoadKv {session}: {cntl.error_text}")
+        # 2. Generates from two clients; the autoscaler acts at fixed
+        # points of the count
+        front = channel("mem://chip-smoke-elastic")
+        prompts = [prompt(SERVE_PROMPT) for _ in range(SERVE_PROMPTS)]
+        got = [None] * len(prompts)
+        count = [0]
+        cv = threading.Condition()
+
+        def client(k):
+            for i in range(k, len(prompts), SERVE_THREADS):
+                t0 = time.perf_counter_ns()
+                cntl, resp = call(front, "Router.Generate",
+                                  {"tokens": prompts[i],
+                                   "steps": SERVE_STEPS})
+                ms = (time.perf_counter_ns() - t0) / 1e6
+                got[i] = (cntl.error_code_, cntl.error_text,
+                          resp["tokens"] if resp else None,
+                          resp["decode_worker"] if resp else None, ms)
+                with cv:
+                    count[0] += 1
+                    cv.notify_all()
+                    # hold at the scale-up point until it has fired
+                    while count[0] >= ELASTIC_UP_AT and "up" not in timing:
+                        cv.wait(60)
+
+        def wait_count(n):
+            with cv:
+                check(cv.wait_for(lambda: count[0] >= n, 600),
+                      f"Generates stalled before {n} completed")
+
+        threads = [threading.Thread(target=client, args=(k,), daemon=True)
+                   for k in range(SERVE_THREADS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        # 4. scale-down after the 5th Generate: two low samples
+        wait_count(ELASTIC_DOWN_AT)
+        ticks = [scaler.tick(now=0.0), scaler.tick(now=1.0)]
+        check(ticks == [None, "down"], f"scale-down ticks {ticks}")
+        check(all(s in timing["moved"] for s in held),
+              f"the drain did not move every held session: "
+              f"{timing['refused']}")
+        left = [s for s in held
+                if svcs["ici://3"].pool.get(s) is not None]
+        check(not left, f"rank 3 still holds {left}")
+        check(timing["inflight_at_stop"] == 0
+              and timing["last_drain"]["drained"],
+              f"rank 3 stopped with {timing['inflight_at_stop']} in flight, "
+              f"drain {timing['last_drain']}")
+        # 5. scale-up after the 15th: the 64 migrated sessions decode on
+        # rank 2, async, all at once
+        wait_count(ELASTIC_UP_AT)
+        results, all_done = {}, threading.Event()
+        rlock = threading.Lock()
+
+        def on_done(s, c):
+            with rlock:
+                results[s] = (c.error_code_, None if c.failed() else
+                              json.loads(c.response.message)["tokens"])
+                if len(results) == len(held):
+                    all_done.set()
+
+        to2 = channel("ici://2")
+        for session in held:
+            cntl = rpc.Controller()
+            to2.call_method("Decode.Decode", cntl, EchoRequest(
+                message=json.dumps({"session": session,
+                                    "steps": ELASTIC_LOAD_STEPS})),
+                EchoResponse,
+                done=lambda c, s=session: on_done(s, c))
+        deadline = time.monotonic() + 60
+        while load_fn() < 1.0 and time.monotonic() < deadline:
+            time.sleep(0.0005)
+        out["load_at_scale_up"] = load_fn()
+        ticks = [scaler.tick(now=10.0), scaler.tick(now=11.0)]
+        with cv:
+            timing["up"] = ticks
+            cv.notify_all()
+        check(ticks == [None, "up"],
+              f"scale-up ticks {ticks} at load {out['load_at_scale_up']}")
+        check(all_done.wait(600), "the migrated sessions' Decodes stalled")
+        bad = [s for s, tokens in held.items()
+               if results[s] != (0, model.reference_generate(
+                   tokens, ELASTIC_LOAD_STEPS, dev))]
+        check(not bad, f"migrated sessions {bad} decode differently on "
+                       f"rank 2")
+        # the restarted worker: its peer mark (where a GOODBYE reached a
+        # connection) lifts at the health checker's next probe
+        t_rev = time.monotonic()
+        while lameduck.is_draining(ep3) \
+                and time.monotonic() - t_rev < ELASTIC_REVIVE_S:
+            time.sleep(0.01)
+        check(not lameduck.is_draining(ep3),
+              "the restarted rank 3 was never revived")
+        timing["revive_wait_s"] = time.monotonic() - t_rev
+        for t in threads:
+            t.join(600)
+        wall = time.perf_counter() - t0
+        check(not any(t.is_alive() for t in threads) and all(got),
+              "Generate clients did not finish")
+        # 6. four more Generates: at least one routed to rank 3
+        after = []
+        for _ in range(ELASTIC_AFTER):
+            tokens = prompt(SERVE_PROMPT)
+            cntl, resp = call(front, "Router.Generate",
+                              {"tokens": tokens, "steps": SERVE_STEPS})
+            after.append((cntl.error_code_, cntl.error_text,
+                          resp["tokens"] if resp else None,
+                          resp["decode_worker"] if resp else None, 0.0))
+            prompts.append(tokens)
+        got += after
+        bad = [i for i, (tokens, g) in enumerate(zip(prompts, got))
+               if g[0] != 0 or g[2] != model.reference_generate(
+                   tokens, SERVE_STEPS, dev)]
+        check(not bad, f"Generates {bad} failed or differ from "
+                       f"reference_generate: {[got[i][:2] for i in bad]}")
+        router_d = rsvc.describe_serving()["router"]
+        check(router_d["generate_failures"] == 0,
+              f"generate_failures {router_d['generate_failures']}")
+        check(any(g[3] == "ici://3" for g in after),
+              f"no Generate after the scale-up reached rank 3: "
+              f"{[g[3] for g in after]}")
+        d = scaler.describe()
+        check((d["scale_downs"], d["scale_ups"]) == (1, 1),
+              f"autoscaler {d}")
+        torch.cuda.synchronize()
+        out["transfers"] = plane.stats()["transfers"] - transfers0
+        out["launches"] = p2p_copy.launches
+        out["calls_received"] = received() - received0
+        out["active_at_end"] = plane.active_transfers()
+        check(out["active_at_end"] == 0,
+              f"{out['active_at_end']} transfers active at the end")
+        check(out["launches"] == out["transfers"] == out["calls_received"],
+              f"elastic: p2p_copy launches {out['launches']}, plane "
+              f"transfers {out['transfers']}, LoadKv + MigrateIn received "
+              f"{out['calls_received']}")
+        lat = [g[4] for g in got[:SERVE_PROMPTS]]
+        out.update({
+            "generates": len(got), "generate_p50_ms": _pct(lat, 0.5),
+            "generate_p99_ms": _pct(lat, 0.99), "wall_s_generates": wall,
+            "workers_after": [g[3] for g in after],
+            "router_retries": router_d["retries"],
+            "drain_s": timing["drain_s"], "stop_s": timing["stop_s"],
+            "migrated": len(timing["moved"]),
+            "drain_refused": timing["refused"],
+            "last_drain": timing["last_drain"],
+            "active_at_stop_return": timing["active_at_stop"],
+            "revive_wait_s": timing["revive_wait_s"],
+            "autoscaler": d, "router": router_d})
+        # requests the decode servers parsed but never ran: with no
+        # admission layer here, the lame-duck bounces
+        statuses = [s.method_status(f"Decode.{m}") for s in decodes.values()
+                    for m in ("LoadKv", "Decode", "MigrateOut", "MigrateIn")]
+        out["elogoff_bounces"] = sum(
+            st.received.get_value() - st.latency_rec.count()
+            - st.error_count.get_value() - st.shed_count.get_value()
+            for st in statuses)
+    finally:
+        scaler.stop()
+        for ch in channels:
+            ch.close()
+        close_services(router, prefill, *decodes.values())
+    out["wall_s"] = time.monotonic() - t_phase
+    print(f"elastic: {len(out['workers_after'])} Generates after the "
+          f"scale-up went to {out['workers_after']}; {out['generates']} "
+          f"Generates p50 {out['generate_p50_ms']:.3f} ms, p99 "
+          f"{out['generate_p99_ms']:.3f} ms, all equal reference_generate; "
+          f"scale-down: drain {out['drain_s'] * 1e3:.1f} ms "
+          f"({out['migrated']} migrated, refused {out['drain_refused']}), "
+          f"stop {out['stop_s'] * 1e3:.1f} ms ({json.dumps(out['last_drain'])},"
+          f" active at its return {out['active_at_stop_return']}); router "
+          f"retries {out['router_retries']}, ELOGOFF bounces "
+          f"{out['elogoff_bounces']}; revived after "
+          f"{out['revive_wait_s']:.2f} s; launches {out['launches']} = "
+          f"transfers {out['transfers']} = LoadKv + MigrateIn received "
+          f"{out['calls_received']}; phase {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
@@ -1403,6 +2125,37 @@ def main() -> int:
           "a ring kernel launched on the tiers and migration path")
     print("tiers and migration: " + json.dumps(tiers), flush=True)
 
+    # 10. admission, the lame-duck drain and the elastic fleet, each with
+    # the counts zeroed just before it.  (a) and (b) move 4 MiB
+    # attachments: the socket window is raised so a frame is never cut
+    # across writes (a cut device block would ride as two transfers)
+    from brpc_tpu_torch.butil import flags
+    window = flags.get_flag("ici_socket_window_bytes")
+    flags.set_flag("ici_socket_window_bytes", ADM_WINDOW_BYTES)
+    flags.set_flag("ici_device_plane_threshold", 64 * 1024)
+    paths = {}
+    for name, phase in (("admission", phase_admission),
+                        ("drain", phase_drain)):
+        zero_counts()
+        res = phase(mesh, plane, p2p_copy)
+        paths[name] = ({k.name: k.launches for k in kernels_all}, res)
+    flags.set_flag("ici_socket_window_bytes", window)
+    zero_counts()
+    res = phase_elastic(mesh, plane, p2p_copy)
+    paths["elastic"] = ({k.name: k.launches for k in kernels_all}, res)
+    for name, (launches, res) in paths.items():
+        want = res["path_launches"] if name == "drain" else res["launches"]
+        check(launches["p2p_copy"] == want > 0,
+              f"the {name} path launched p2p_copy {launches['p2p_copy']} "
+              f"times, its own count {want}")
+        check(launches["ring_all_reduce"] == 0
+              and launches["ring_all_gather"] == 0,
+              f"a ring kernel launched on the {name} path")
+    phase10 = {name: launches["p2p_copy"]
+               for name, (launches, _) in paths.items()}
+    print("admission, drain, elastic: " + json.dumps(
+        {name: res for name, (_, res) in paths.items()}), flush=True)
+
     head = next(r for r in rows if r["label"] == "4 MiB")
     red = ring_rows["ring_all_reduce"]
     gat = ring_rows["ring_all_gather"]
@@ -1415,10 +2168,11 @@ def main() -> int:
         "replaces": "brpc_tpu/ici/device_plane.py:428",
         "tpu_counterpart": "DevicePlane._pallas_body.kern "
                            "(brpc_tpu/ici/device_plane.py:395-444)",
-        "launches": main_launches + serve["launches"] + tiers["launches"],
+        "launches": (main_launches + serve["launches"] + tiers["launches"]
+                     + sum(phase10.values())),
         "launches_by_path": {"echo": main_launches,
                              "serving": serve["launches"],
-                             "migration": tiers["launches"]},
+                             "migration": tiers["launches"], **phase10},
         "migration_path_split": {
             "migrate_in": tiers["migrate_in_calls"],
             "loadkv": tiers["calls_received"] - tiers["migrate_in_calls"]},

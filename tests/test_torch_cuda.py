@@ -408,3 +408,152 @@ def test_migration_between_two_ranks_launches_once_per_migrate_in(
         ch.close()
         close_services(a, b)
         IciMesh.set_default(None)
+
+
+def _echo_server(addr, options=None, block=None):
+    """A port server whose Echo returns the attachment; ``block`` (an
+    Event) parks requests whose message is "block"."""
+    import brpc_tpu_torch.policy  # noqa: F401
+    from brpc_tpu_torch import rpc
+    from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
+
+    class Echo(rpc.Service):
+        @rpc.method(EchoRequest, EchoResponse)
+        def Echo(self, cntl, request, response, done):
+            if block is not None and request.message == "block":
+                block.wait(30)
+            cntl.response_attachment.append(cntl.request_attachment)
+            done()
+
+    server = rpc.Server(options)
+    server.add_service(Echo())
+    assert server.start(addr) == 0
+    return server
+
+
+@pytest.mark.cuda
+def test_drain_gate_waits_for_the_copy_on_the_card(cuda_device):
+    """A lame-duck stop waits until the completion poller has seen a
+    launched p2p_copy's event, not just until post_recv returned: the
+    copy is held back on the device behind a spin, and stop() returns
+    with the transfer COMPLETE and its bytes exact."""
+    import time
+    from brpc_tpu_torch.tools.timing import spin_cycles_per_us
+    mesh = IciMesh(ranks=8, device="cuda")
+    plane = dp.plane()
+    data = _seeded(4 << 20)
+    src = mesh.device_put(torch.from_numpy(data).to(cuda_device), 1)
+    server = _echo_server("mem://card-drain")
+    try:
+        cycles = spin_cycles_per_us()
+        torch.cuda.synchronize()
+        # the plane stream starts after the event posted behind the spin
+        torch.cuda._sleep(int(300_000 * cycles))
+        t = plane.post_send(src, 1, 0, mesh=mesh)
+        plane.post_recv(t.uuid)
+        assert t.state == dp.MATCHED and plane.active_transfers() >= 1
+        t0 = time.monotonic()
+        server.stop(5.0)
+        dt = time.monotonic() - t0
+        assert t.state == dp.COMPLETE, t.state
+        assert plane.active_transfers() == 0
+        assert 0.1 <= dt < 5.0, dt
+        np.testing.assert_array_equal(t.out.cpu().numpy(), data)
+    finally:
+        server.stop()
+
+
+@pytest.mark.cuda
+def test_fail_pending_releases_the_source_pin_on_the_card(cuda_device):
+    """A grace expiry fails a send that never met its recv: the transfer
+    fails, its release fires, and the source's device memory is freed
+    (memory back to its level)."""
+    import gc
+    mesh = IciMesh(ranks=8, device="cuda")
+    plane = dp.plane()
+    torch.cuda.synchronize()
+    gc.collect()
+    base = torch.cuda.memory_allocated(cuda_device)
+    src = mesh.own(torch.full((64 << 20,), 7, dtype=torch.uint8,
+                              device=cuda_device), 1)
+    released = []
+    t = plane.post_send(src, 1, 0, mesh=mesh)
+    t.add_source_release(lambda: released.append(1))
+    del src
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(cuda_device) >= base + (64 << 20)
+    server = _echo_server("mem://card-straggle")
+    server.stop(0.2)
+    assert t.state == dp.FAILED and released == [1]
+    assert plane.pending_sends() == 0 and plane.active_transfers() == 0
+    t = None
+    gc.collect()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(cuda_device) - base < (1 << 20)
+
+
+@pytest.mark.cuda
+def test_a_shed_request_frees_its_received_attachment(cuda_device):
+    """An overloaded ici:// server sheds a request whose 64 MiB DEVICE
+    attachment already rode the plane: the shed carries its hint, the
+    received tensor is freed with the response, and memory returns to
+    its level once the client drops its own."""
+    import gc
+    import threading as _th
+    import time
+    import brpc_tpu_torch.policy  # noqa: F401
+    from brpc_tpu_torch import rpc
+    from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
+    from brpc_tpu_torch.butil import flags
+    mesh = IciMesh(ranks=8, device="cuda")
+    IciMesh.set_default(mesh)
+    # a window past the payload: a 64 MiB frame cut across writes would
+    # ride as several transfers
+    window = flags.get_flag("ici_socket_window_bytes")
+    flags.set_flag("ici_socket_window_bytes", 256 << 20)
+    block = _th.Event()
+    server = _echo_server("ici://5", rpc.ServerOptions(
+        max_concurrency=1, admission=rpc.AdmissionOptions(max_queue_ms=10)),
+        block=block)
+    ch = rpc.Channel()
+    ch.init("ici://5", rpc.ChannelOptions(timeout_ms=30000, max_retry=0))
+    plane = dp.plane()
+    try:
+        blocker = rpc.Controller()
+        ch.call_method("Echo.Echo", blocker, EchoRequest(message="block"),
+                       EchoResponse, done=lambda c: None)
+        deadline = time.monotonic() + 10
+        while server.inflight_requests() == 0 \
+                and time.monotonic() < deadline:
+            time.sleep(0.001)
+        torch.cuda.synchronize()
+        gc.collect()
+        base = torch.cuda.memory_allocated(cuda_device)
+        launches0, transfers0 = p2p_copy.launches, plane.stats()["transfers"]
+        cntl = rpc.Controller()
+        cntl.priority = 3
+        cntl.request_attachment.append_device_array(mesh.own(
+            torch.full((64 << 20,), 9, dtype=torch.uint8,
+                       device=cuda_device), 6))
+        ch.call_method("Echo.Echo", cntl, EchoRequest(message="x"),
+                       EchoResponse)
+        assert cntl.error_code_ == rpc.errors.ELIMIT
+        assert cntl.retry_after_ms > 0
+        assert p2p_copy.launches - launches0 == 1
+        assert plane.stats()["transfers"] - transfers0 == 1
+        cntl = None
+        deadline = time.monotonic() + 10
+        while time.monotonic() < deadline:
+            gc.collect()
+            torch.cuda.synchronize()
+            if torch.cuda.memory_allocated(cuda_device) - base < (1 << 20):
+                break
+            time.sleep(0.01)
+        assert torch.cuda.memory_allocated(cuda_device) - base < (1 << 20)
+        assert plane.active_transfers() == 0
+    finally:
+        block.set()
+        ch.close()
+        server.stop()
+        flags.set_flag("ici_socket_window_bytes", window)
+        IciMesh.set_default(None)

@@ -167,6 +167,103 @@ print(json.dumps({
 """
 
 
+_SLICE5 = r"""
+import json, sys, threading, time
+import torch
+import brpc_tpu_torch.policy
+from brpc_tpu_torch import bvar, rpc
+from brpc_tpu_torch.butil import flags
+from brpc_tpu_torch.butil.endpoint import parse_endpoint
+from brpc_tpu_torch.ici import device_plane
+from brpc_tpu_torch.ici.mesh import IciMesh
+from brpc_tpu_torch.policy import limiters
+from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
+from brpc_tpu_torch.rpc import (circuit_breaker, health_check, lameduck,
+                                method_status, usercode_pool)
+from brpc_tpu_torch.serving import AutoscalerOptions, LoadThresholdAutoscaler
+
+mesh = IciMesh(ranks=4, device="cpu")
+IciMesh.set_default(mesh)
+flags.set_flag("ici_device_plane_host_mesh", True)
+flags.set_flag("ici_device_plane_threshold", 1024)
+gate = threading.Event()
+
+class Echo(rpc.Service):
+    @rpc.method(EchoRequest, EchoResponse)
+    def Echo(self, cntl, request, response, done):
+        if request.message == "block":
+            gate.wait(10)
+        cntl.response_attachment.append(cntl.request_attachment)
+        done()
+
+server = rpc.Server(rpc.ServerOptions(
+    max_concurrency=1, usercode_in_pthread=True, usercode_backup_threads=2,
+    admission=rpc.AdmissionOptions(max_queue_ms=10)))
+server.add_service(Echo())
+server.start("ici://2")
+ch = rpc.Channel()
+ch.init("ici://2", rpc.ChannelOptions(timeout_ms=30000, max_retry=0))
+blocker = rpc.Controller()
+ch.call_method("Echo.Echo", blocker, EchoRequest(message="block"),
+               EchoResponse, done=lambda c: None)
+while server.inflight_requests() == 0:
+    time.sleep(0.001)
+shed = rpc.Controller()
+shed.priority = 3
+shed.request_attachment.append_device_array(
+    mesh.own(torch.ones(4096, dtype=torch.uint8), 1))
+ch.call_method("Echo.Echo", shed, EchoRequest(message="x"), EchoResponse)
+gate.set()
+server.stop(2.0)
+drained = lameduck.is_draining(parse_endpoint("ici://2"))
+ch.close()
+pool = usercode_pool.UsercodePool(kind="auto", workers=1)
+pool.register("M.h", "def handle(b):\n    return b[::-1]\n")
+iso = pool.call_isolated("M.h", b"abc") == b"cba"
+pool.shutdown()
+lim = limiters.AutoConcurrencyLimiter()
+ms = method_status.MethodStatus("M.h", lim)
+rec = bvar.LatencyRecorder()
+rec << 5
+scaler = LoadThresholdAutoscaler(lambda: 0.0, lambda: 2, lambda: True,
+                                 lambda: True,
+                                 options=AutoscalerOptions(samples_to_scale=1))
+down = scaler.tick(now=0.0) == "down"
+health_check.start_health_check(parse_endpoint("ici://2")).cancel()
+print(json.dumps({
+    "ok": (shed.error_code_ == rpc.errors.ELIMIT and shed.retry_after_ms > 0
+           and drained and iso and down and ms.on_requested()
+           and rec.count() == 1
+           and not circuit_breaker.BreakerRegistry.instance().breaker(
+               parse_endpoint("ici://2")).is_isolated()),
+    "transfers": device_plane.plane().stats()["transfers"],
+    "active": device_plane.plane().active_transfers(),
+    "jax": sorted(m for m in sys.modules
+                  if m == "jax" or m.startswith(("jax.", "jaxlib"))),
+    "brpc_tpu": sorted(m for m in sys.modules
+                       if m == "brpc_tpu" or m.startswith("brpc_tpu.")),
+}))
+"""
+
+
+_EVERY_MODULE = r"""
+import importlib, json, pkgutil, sys
+import brpc_tpu_torch
+names = sorted(m.name for m in pkgutil.walk_packages(
+    brpc_tpu_torch.__path__, "brpc_tpu_torch."))
+for name in names:
+    importlib.import_module(name)
+print(json.dumps({
+    "ok": True,
+    "modules": names,
+    "jax": sorted(m for m in sys.modules
+                  if m == "jax" or m.startswith(("jax.", "jaxlib"))),
+    "brpc_tpu": sorted(m for m in sys.modules
+                       if m == "brpc_tpu" or m.startswith("brpc_tpu.")),
+}))
+"""
+
+
 def _run_alone(script: str) -> dict:
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = _REPO
@@ -206,6 +303,36 @@ def test_port_tiers_migration_and_context_load_no_jax():
     assert out["ok"]
     assert out["transfers"] == 1          # the one MigrateIn
     assert out["migrations"] == 1
+    assert out["jax"] == []
+    assert out["brpc_tpu"] == []
+
+
+def test_port_admission_drain_pool_and_autoscaler_load_no_jax():
+    """Slice 5 driven alone: an overloaded ici:// server sheds a request
+    whose attachment rode the plane, a lame-duck stop sends GOODBYE, the
+    usercode pool runs an isolated handler, the limiter, method status,
+    latency recorder, breaker, health check and autoscaler all run."""
+    out = _run_alone(_SLICE5)
+    assert out["ok"]
+    assert out["transfers"] == 1          # the shed request's attachment
+    assert out["active"] == 0
+    assert out["jax"] == []
+    assert out["brpc_tpu"] == []
+
+
+def test_every_port_module_imports_without_jax():
+    """Every module of the package, this slice's included, imports with
+    neither JAX nor the JAX package loaded."""
+    out = _run_alone(_EVERY_MODULE)
+    for name in ("brpc_tpu_torch.policy.limiters",
+                 "brpc_tpu_torch.rpc.method_status",
+                 "brpc_tpu_torch.rpc.admission",
+                 "brpc_tpu_torch.rpc.usercode_pool",
+                 "brpc_tpu_torch.rpc.lameduck",
+                 "brpc_tpu_torch.rpc.circuit_breaker",
+                 "brpc_tpu_torch.rpc.health_check",
+                 "brpc_tpu_torch.serving.autoscaler"):
+        assert name in out["modules"], name
     assert out["jax"] == []
     assert out["brpc_tpu"] == []
 
