@@ -2,7 +2,7 @@
 
 The port of :mod:`brpc_tpu` (the JAX package, which stays the reference)
 to an NVIDIA Hopper card.  It imports nothing of JAX and nothing of
-``brpc_tpu``.  Layer map of slices 1-5:
+``brpc_tpu``.  Layer map of slices 1-6:
 
   L6  serving      brpc_tpu_torch.serving: PagedKvPool (KV arenas on the
                    card), ContinuousBatchScheduler (the batched decode
@@ -12,13 +12,19 @@ to an NVIDIA Hopper card.  It imports nothing of JAX and nothing of
                    demo); the pool's host tier, live migration, the
                    autoscaler
   L5  API          brpc_tpu_torch.rpc.Server (admission, limits, the
-                   usercode pool, the lame-duck stop) / Channel (the
-                   circuit-breaker gate) / Controller;
-                   brpc_tpu_torch.channels.CollectiveChannel (combo
+                   usercode pool, the lame-duck stop) / Channel (one
+                   endpoint or a naming url and a balancer, the
+                   circuit-breaker gate) / Controller; streams and the
+                   progressive reader (rpc.stream, rpc.progressive);
+                   brpc_tpu_torch.channels: ParallelChannel,
+                   PartitionChannel, DynamicPartitionChannel,
+                   SelectiveChannel, and CollectiveChannel (combo
                    channels lowered to mesh collectives)
   L4  policies     brpc_tpu_torch.policy.tpu_std (the framed protocol,
-                   request context on the wire, the server's gates),
-                   load_balancers (LALB, timed exclusions), limiters
+                   request context and the stream handshake on the wire,
+                   the server's gates), load_balancers (every strategy
+                   of create_load_balancer), naming (list://, file://,
+                   mesh://), limiters
   L3  core runtime brpc_tpu_torch.rpc.* Socket, InputMessenger, SocketMap,
                    the mem:// loopback transport;
                    brpc_tpu_torch.ici.* mesh of logical ranks, ici://
@@ -27,9 +33,10 @@ to an NVIDIA Hopper card.  It imports nothing of JAX and nothing of
                    Ulysses attention, the ring_all_reduce and
                    ring_all_gather kernels
   L2  scheduling   brpc_tpu_torch.bthread.* tasklets, butex, correlation
-                   ids, timer thread, CUDA-event completion waits
+                   ids, timer thread, CUDA-event completion waits,
+                   ExecutionQueue
   L1  base         brpc_tpu_torch.butil.* IOBuf (device-block capable),
-                   ResourcePool, EndPoint, flags, logging;
+                   ResourcePool, EndPoint, flags, logging, fast_rand;
                    brpc_tpu_torch.bvar (Adder, IntRecorder,
                    LatencyRecorder)
 """

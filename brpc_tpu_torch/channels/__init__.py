@@ -1,7 +1,16 @@
-"""Combo channels lowered to mesh collectives (reference: the combo
-channels of src/brpc/parallel_channel.h).  Only the collective lowering is
-ported so far; the host-side ParallelChannel and the compiled fan-out wait
-for the multi-process slice."""
+"""Combo channels (reference: the combo channels of
+src/brpc/parallel_channel.h, partition_channel.h and selective_channel.h):
+the host-side ParallelChannel, PartitionChannel, DynamicPartitionChannel
+and SelectiveChannel, whose sub-calls take the RPC loop (a DEVICE
+attachment crosses an ``ici://`` member on the device plane), and
+CollectiveChannel, the same fan-out semantics lowered to mesh collectives.
+The compiled fan-out route of the JAX package (``collective_fanout``) is
+not ported yet."""
+from .parallel_channel import (ParallelChannel, CallMapper, ResponseMerger,
+                               SubCall)
+from .partition_channel import (PartitionChannel, DynamicPartitionChannel,
+                                PartitionParser)
+from .selective_channel import SelectiveChannel
 from .collective_lowering import (CollectiveChannel, MERGE_SUM, MERGE_GATHER,
                                   MERGE_CONCAT, MERGE_NONE, MAP_REPLICATE,
                                   MAP_SHARD)

@@ -327,7 +327,7 @@ class IciSocket(CreditWindow, OrderedDelivery, Socket):
             avail = len(self._inbox)
             if avail == 0:
                 return 0 if self._peer_closed else -1
-            n = min(avail, max_count)
+            n = _device_block_end(self._inbox, min(avail, max_count))
             self._inbox.cutn(portal, n)
         # consumed-bytes feedback: replenish the writer's window
         peer = self.peer
@@ -383,6 +383,22 @@ class _PlaneDesc:
     def __init__(self, transfer, length: int):
         self.transfer = transfer
         self.length = length
+
+
+def _device_block_end(buf: IOBuf, n: int) -> int:
+    """``n``, moved forward to the end of the DEVICE block it would cut:
+    a read never ends inside a device block, so a received payload stays
+    one view of its tensor however the reads fall."""
+    if n >= len(buf):
+        return n
+    at = 0
+    for i in range(buf.backing_block_num()):
+        r = buf.backing_block(i)
+        if at + r.length > n:
+            return at + r.length if r.block.kind == DEVICE and at < n \
+                else n
+        at += r.length
+    return n
 
 
 def _all_ready(tensors) -> bool:

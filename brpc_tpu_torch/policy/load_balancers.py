@@ -1,24 +1,30 @@
-"""Load balancers: the locality-aware balancer (LALB) the serving router
-picks decode workers with.
+"""Load balancers (reference: src/brpc/policy/*_load_balancer.cpp,
+registered in global.cpp:141-150; interface load_balancer.h).
 
-Reference: src/brpc/policy/locality_aware_load_balancer.{h,cpp} and
-docs/cn/lalb.md, ported from :mod:`brpc_tpu.policy.load_balancers` (its
-``LocalityAwareLB`` and the ``_ListLB`` membership base, with its
-timed exclusions).  Every balancer joins a weak registry,
-:func:`live_load_balancers`, through which the lame-duck registry pulls a
-draining endpoint from all of them at once.  The other strategies there
-have no caller in the port yet.
+Ported from :mod:`brpc_tpu.policy.load_balancers`: round robin, weighted
+round robin, randomized, weighted randomized, consistent hashing (murmur3,
+md5, ketama), locality-aware (LALB, which the serving router picks decode
+workers with) and dynpart, built by name with
+:func:`create_load_balancer`.  They share the ``_ListLB`` membership base
+with its timed exclusions.  The random strategies draw from
+:mod:`..butil.misc`'s xorshift generator: over one server list and one
+seed they pick the same sequence as the JAX package's.  Every balancer
+joins a weak registry, :func:`live_load_balancers`, through which the
+lame-duck registry pulls a draining endpoint from all of them at once.
 """
 from __future__ import annotations
 
+import bisect
 import collections
+import hashlib
 import random
 import threading
 import time
 import weakref
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 from ..butil.endpoint import EndPoint
+from ..butil.misc import FastRand, fast_rand_less_than
 
 
 class ServerEntry:
@@ -69,8 +75,21 @@ class _ListLB:
             self._list = kept
             return True
 
+    def reset_servers(self, entries: List[ServerEntry]) -> None:
+        """Replace the membership (the naming watcher's interface)."""
+        with self._list_lock:
+            self._list = [ServerEntry(e.endpoint, e.weight, e.tag)
+                          for e in entries]
+
+    def server_count(self) -> int:
+        return len(self._list)
+
     def servers(self) -> List[ServerEntry]:
         return list(self._list)
+
+    def feedback(self, ep: EndPoint, error_code: int,
+                 latency_us: int) -> None:
+        pass
 
     def exclude(self, ep: EndPoint, until_ts: float) -> None:
         """Keep ``ep`` out of selection until ``until_ts``: ``inf`` for a
@@ -81,13 +100,17 @@ class _ListLB:
             else:
                 self._excluded.pop(ep, None)
 
-    def _usable(self) -> List[ServerEntry]:
+    def _usable(self, cntl=None) -> List[ServerEntry]:
         lst = self._list
-        if not self._excluded:       # the common case: no lock taken
+        per_call = getattr(cntl, "_excluded_servers", None) \
+            if cntl is not None else None
+        if not self._excluded and not per_call:   # no lock taken
             return lst
         now = time.monotonic()
         with self._excl_lock:
             excl = {ep for ep, ts in self._excluded.items() if ts > now}
+        if per_call:
+            excl |= set(per_call)
         if not excl:
             return lst
         out = [e for e in lst if e.endpoint not in excl]
@@ -141,6 +164,7 @@ class LocalityAwareLB(_ListLB):
     traffic it needs to recover.  ``rng`` draws the selections; pass a
     seeded ``random.Random`` for a reproducible sequence."""
 
+    name = "la"
     WEIGHT_SCALE = 1e7
     INITIAL_WEIGHT = 1000.0     # until the first sample lands
     MIN_WEIGHT = 1.0
@@ -179,8 +203,8 @@ class LocalityAwareLB(_ListLB):
                 base = base * avg / elapsed         # the divided weight
         return max(base, self.MIN_WEIGHT)
 
-    def select_server(self) -> Optional[EndPoint]:
-        usable = self._usable()
+    def select_server(self, cntl=None) -> Optional[EndPoint]:
+        usable = self._usable(cntl)
         if not usable:
             return None
         now_us = time.monotonic() * 1e6
@@ -238,3 +262,232 @@ class LocalityAwareLB(_ListLB):
         with self._w_lock:
             return self._effective_weight(self._weight_for(ep),
                                           time.monotonic() * 1e6)
+
+
+class RoundRobinLB(_ListLB):
+    name = "rr"
+
+    def __init__(self):
+        super().__init__()
+        self._index = 0
+        self._ilock = threading.Lock()
+
+    def select_server(self, cntl=None) -> Optional[EndPoint]:
+        usable = self._usable(cntl)
+        if not usable:
+            return None
+        with self._ilock:
+            self._index = (self._index + 1) % len(usable)
+            return usable[self._index].endpoint
+
+
+class WeightedRoundRobinLB(_ListLB):
+    """Smooth weighted round robin (the distribution contract of
+    weighted_round_robin_load_balancer.cpp)."""
+
+    name = "wrr"
+
+    def __init__(self):
+        super().__init__()
+        self._lock = threading.Lock()
+        self._current: Dict[EndPoint, int] = {}
+
+    def select_server(self, cntl=None) -> Optional[EndPoint]:
+        usable = self._usable(cntl)
+        if not usable:
+            return None
+        with self._lock:
+            total = 0
+            best = None
+            for e in usable:
+                cur = self._current.get(e.endpoint, 0) + e.weight
+                self._current[e.endpoint] = cur
+                total += e.weight
+                if best is None or cur > self._current[best.endpoint]:
+                    best = e
+            self._current[best.endpoint] -= total
+            return best.endpoint
+
+
+class RandomizedLB(_ListLB):
+    """Uniform over the usable members.  ``rng`` draws the picks (the
+    calling thread's generator when None)."""
+
+    name = "random"
+
+    def __init__(self, rng: Optional[FastRand] = None):
+        super().__init__()
+        self._rng = rng
+
+    def select_server(self, cntl=None) -> Optional[EndPoint]:
+        usable = self._usable(cntl)
+        if not usable:
+            return None
+        return usable[fast_rand_less_than(len(usable), self._rng)].endpoint
+
+
+def _weighted_pick(usable: List[ServerEntry],
+                   rng: Optional[FastRand]) -> EndPoint:
+    total = sum(e.weight for e in usable)
+    r = fast_rand_less_than(max(total, 1), rng)
+    acc = 0
+    for e in usable:
+        acc += e.weight
+        if r < acc:
+            return e.endpoint
+    return usable[-1].endpoint
+
+
+class WeightedRandomizedLB(RandomizedLB):
+    name = "wr"
+
+    def select_server(self, cntl=None) -> Optional[EndPoint]:
+        usable = self._usable(cntl)
+        if not usable:
+            return None
+        return _weighted_pick(usable, self._rng)
+
+
+def _murmur32(data: bytes, seed: int = 0) -> int:
+    """MurmurHash3 x86_32 (the reference's murmurhash3 third_party lib)."""
+    c1, c2 = 0xCC9E2D51, 0x1B873593
+    h = seed
+    rounded = len(data) & ~3
+    for i in range(0, rounded, 4):
+        k = int.from_bytes(data[i:i + 4], "little")
+        k = (k * c1) & 0xFFFFFFFF
+        k = ((k << 15) | (k >> 17)) & 0xFFFFFFFF
+        k = (k * c2) & 0xFFFFFFFF
+        h ^= k
+        h = ((h << 13) | (h >> 19)) & 0xFFFFFFFF
+        h = (h * 5 + 0xE6546B64) & 0xFFFFFFFF
+    k = 0
+    tail = data[rounded:]
+    if len(tail) >= 3:
+        k ^= tail[2] << 16
+    if len(tail) >= 2:
+        k ^= tail[1] << 8
+    if len(tail) >= 1:
+        k ^= tail[0]
+        k = (k * c1) & 0xFFFFFFFF
+        k = ((k << 15) | (k >> 17)) & 0xFFFFFFFF
+        k = (k * c2) & 0xFFFFFFFF
+        h ^= k
+    h ^= len(data)
+    h ^= h >> 16
+    h = (h * 0x85EBCA6B) & 0xFFFFFFFF
+    h ^= h >> 13
+    h = (h * 0xC2B2AE35) & 0xFFFFFFFF
+    h ^= h >> 16
+    return h
+
+
+def _md5_32(data: bytes) -> int:
+    return int.from_bytes(hashlib.md5(data).digest()[:4], "little")
+
+
+class ConsistentHashingLB(_ListLB):
+    """Ketama-style ring with virtual nodes
+    (consistent_hashing_load_balancer.cpp + hasher.cpp).  ``kind`` selects
+    the hash: murmur | md5 | ketama (md5-based, four points per digest).
+    A call's ``cntl.request_code`` is its key; without one the key is a
+    random draw."""
+
+    def __init__(self, kind: str = "murmur", vnodes: int = 64):
+        super().__init__()
+        self.kind = kind
+        self.name = "c_" + kind + "hash"
+        self._vnodes = vnodes
+        self._ring_lock = threading.Lock()
+        self._ring: List[Tuple[int, EndPoint]] = []
+
+    def _hash(self, data: bytes) -> int:
+        if self.kind == "murmur":
+            return _murmur32(data)
+        return _md5_32(data)
+
+    def _rebuild(self) -> None:
+        ring = []
+        for e in self._list:
+            base = str(e.endpoint).encode()
+            if self.kind == "ketama":
+                for i in range((self._vnodes + 3) // 4):
+                    d = hashlib.md5(base + b"-%d" % i).digest()
+                    for j in range(4):
+                        ring.append((int.from_bytes(d[j * 4:j * 4 + 4],
+                                                    "little"), e.endpoint))
+            else:
+                for i in range(self._vnodes):
+                    ring.append((self._hash(base + b"-%d" % i), e.endpoint))
+        ring.sort()
+        with self._ring_lock:
+            self._ring = ring
+
+    def add_server(self, ep, weight=100, tag="") -> bool:
+        ok = super().add_server(ep, weight, tag)
+        if ok:
+            self._rebuild()
+        return ok
+
+    def remove_server(self, ep) -> bool:
+        ok = super().remove_server(ep)
+        if ok:
+            self._rebuild()
+        return ok
+
+    def reset_servers(self, entries) -> None:
+        super().reset_servers(entries)
+        self._rebuild()
+
+    def select_server(self, cntl=None) -> Optional[EndPoint]:
+        code = getattr(cntl, "request_code", None) \
+            if cntl is not None else None
+        if code is None:
+            code = fast_rand_less_than(1 << 32)
+        h = self._hash(code if isinstance(code, bytes)
+                       else str(code).encode())
+        with self._ring_lock:
+            ring = self._ring
+        if not ring:
+            return None
+        i = bisect.bisect_left(ring, (h,))
+        return ring[i % len(ring)][1]
+
+
+class DynPartLB(RandomizedLB):
+    """dynpart (dynpart_load_balancer.cpp): selection proportional to each
+    member's weight, the capacity a DynamicPartitionChannel scheme
+    announces."""
+
+    name = "dynpart"
+
+    def select_server(self, cntl=None) -> Optional[EndPoint]:
+        usable = self._usable(cntl)
+        if not usable:
+            return None
+        return _weighted_pick(usable, self._rng)
+
+
+_factories = {
+    "rr": RoundRobinLB,
+    "wrr": WeightedRoundRobinLB,
+    "random": RandomizedLB,
+    "wr": WeightedRandomizedLB,
+    "c_murmurhash": lambda: ConsistentHashingLB("murmur"),
+    "c_md5": lambda: ConsistentHashingLB("md5"),
+    "c_ketama": lambda: ConsistentHashingLB("ketama"),
+    "la": LocalityAwareLB,
+    "dynpart": DynPartLB,
+}
+
+
+def create_load_balancer(name: str) -> _ListLB:
+    try:
+        return _factories[name]()
+    except KeyError:
+        raise ValueError(f"unknown load balancer {name!r}; "
+                         f"have {sorted(_factories)}")
+
+
+def list_load_balancers() -> List[str]:
+    return sorted(_factories)

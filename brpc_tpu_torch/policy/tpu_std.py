@@ -6,6 +6,11 @@ response path SendRpcResponse (:139), client path ProcessRpcResponse
 (:557).  The frame is magic "TRPC" + u32 meta_size + u32 body_size, then
 the RpcMeta (proto/rpc_meta.proto) and the body.  The wire bytes are those
 of the JAX package's tpu_std: the two interoperate frame for frame.
+Streaming RPC rides it: the handshake in the request's
+``stream_settings`` (``frame_type`` 4), the accepted id echoed on the
+response, and stream frames (``correlation_id`` 0, no method) consumed in
+reader order from both the server and the client parse paths
+(:mod:`..rpc.stream`).
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ from ..rpc import admission, errors
 from ..rpc.controller import Controller, server_controller_pool
 from ..rpc.protocol import (Protocol, ParseResult, find_protocol,
                             register_protocol)
+from ..rpc.stream import FRAME_HANDSHAKE
 
 MAGIC = b"TRPC"
 HEADER_SIZE = 12
@@ -99,6 +105,10 @@ def pack_request(payload: IOBuf, cid: int, cntl: Controller,
     service, _, method_name = method_full_name.rpartition(".")
     meta.request.service_name = service
     meta.request.method_name = method_name
+    if cntl.stream_creator is not None:     # stream handshake rides the RPC
+        meta.stream_settings.stream_id = cntl.stream_creator.sid
+        meta.stream_settings.frame_type = FRAME_HANDSHAKE
+        meta.stream_settings.need_feedback = True
     meta.request.log_id = cntl.log_id
     meta.correlation_id = cid
     if cntl.timeout_ms:
@@ -123,14 +133,33 @@ def pack_request(payload: IOBuf, cid: int, cntl: Controller,
     return pack_frame(meta, body)
 
 
+def process_inline(msg: StdMessage, socket) -> bool:
+    """Reader-order consumption of stream frames (data, feedback, close):
+    their relative order is the stream's byte order, so they never go
+    through the concurrent per-message dispatch."""
+    meta = msg.meta
+    if (meta.correlation_id == 0 and not meta.request.service_name
+            and meta.HasField("stream_settings")):
+        from ..rpc.stream import on_stream_frame
+        on_stream_frame(meta, msg.body, socket)
+        return True
+    return False
+
+
 def process_response(msg: StdMessage, socket) -> None:
     """ProcessRpcResponse: lock the correlation id; stale versions fail to
-    lock and the response is dropped (the retry-race resolution)."""
+    lock and the response is dropped (the retry-race resolution).  A
+    response that echoes stream ids completes the caller's handshake."""
     cid = msg.meta.correlation_id
     rc, cntl = bthread_id.lock(cid)
     if rc != 0 or cntl is None:
         return                      # stale/duplicate/cancelled — ignore
     cntl.remote_side = socket.remote_side
+    if (msg.meta.HasField("stream_settings")
+            and cntl.stream_creator is not None):
+        # handshake completion: the server accepted our stream
+        cntl.stream_creator.mark_connected(
+            msg.meta.stream_settings.remote_stream_id, socket)
     cntl.handle_response(cid, msg.meta, msg.body)
 
 
@@ -179,6 +208,16 @@ def process_request(msg: StdMessage, socket, server) -> None:
         if cntl.retry_after_ms:
             # shed hint: how long the client should back off
             rmeta.response.retry_after_ms = cntl.retry_after_ms
+        if cntl.accepted_stream_id and not cntl.failed():
+            # complete the stream handshake: echo the ids both ways
+            from ..rpc.stream import find_stream
+            srv_stream = find_stream(cntl.accepted_stream_id)
+            client_sid = meta.stream_settings.stream_id
+            if srv_stream is not None:
+                rmeta.stream_settings.stream_id = client_sid
+                rmeta.stream_settings.remote_stream_id = \
+                    cntl.accepted_stream_id
+                srv_stream.mark_connected(client_sid, socket)
         payload = IOBuf()
         if resp is not None and not cntl.failed():
             payload.append(resp.SerializeToString())
@@ -298,6 +337,7 @@ PROTOCOL = Protocol(
     process_response=process_response,
     serialize_request=serialize_request,
     pack_request=pack_request,
+    process_inline=process_inline,
 )
 
 

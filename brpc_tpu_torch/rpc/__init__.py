@@ -12,3 +12,11 @@ from .channel import Channel, ChannelOptions
 from .socket_map import SocketMap
 from .admission import AdmissionController, AdmissionOptions
 from .method_status import MethodStatus
+from .stream import (Stream, StreamOptions, StreamInputHandler, stream_create,
+                     stream_accept, find_stream, live_streams)
+from .circuit_breaker import (CircuitBreaker, ClusterRecoverPolicy,
+                              BreakerRegistry)
+from .health_check import start_health_check
+from .progressive import (ProgressiveReader, ProgressiveAttachment,
+                          response_will_be_read_progressively,
+                          create_progressive_attachment)

@@ -84,6 +84,15 @@ class Controller:
     _request_buf: Optional[IOBuf] = None
     _start_us: int = 0
     _ended_ev: Optional[threading.Event] = None
+    _selected_endpoint: Optional[EndPoint] = None   # the try's endpoint
+    # consistent-hashing key of the call (balanced channels)
+    request_code: Any = None
+    # streaming RPC (rpc/stream.py): the client's stream, set by
+    # stream_create before the call, whose id rides the request as the
+    # handshake; the server's accepted stream id, set by stream_accept
+    # inside the handler, which the response echoes back
+    stream_creator: Any = None
+    accepted_stream_id: int = 0
 
     def _peek_response_attachment(self) -> Optional[IOBuf]:
         """The response attachment if one was touched (reading the field

@@ -5,9 +5,11 @@ OnNewMessages at :317, QueueMessage at :169).  Reads the transport until
 EAGAIN, tries registered protocols to cut complete messages (remembering the
 first protocol that succeeds per socket), then dispatches every message in
 its own tasklet — the request-isolation doctrine: a slow handler only slows
-its own request.  A server with ``usercode_in_pthread`` hands requests to
-its backup thread pool instead, counted from submission so the lame-duck
-drain sees a request still queued behind a busy pool.
+its own request.  A protocol's order-sensitive messages (stream frames) are
+consumed in the reader instead, in cut order (``Protocol.process_inline``).
+A server with ``usercode_in_pthread`` hands requests to its backup thread
+pool instead, counted from submission so the lame-duck drain sees a request
+still queued behind a busy pool.
 """
 from __future__ import annotations
 
@@ -94,6 +96,11 @@ class InputMessenger:
             if result.type == ParseResultType.ERROR:
                 return None
             socket.stat.in_num_messages += 1
+            # order-sensitive messages (stream frames) are consumed here,
+            # in cut order, before per-message dispatch could reorder them
+            if proto.process_inline is not None and proto.process_inline(
+                    result.message, socket):
+                continue
             out.append((proto, result.message))
         return out
 

@@ -59,6 +59,10 @@ class Protocol:
     serialize_request: Optional[Callable[..., IOBuf]] = None
     # pack_request(payload: IOBuf, cid, controller, method) -> IOBuf
     pack_request: Optional[Callable[..., IOBuf]] = None
+    # process_inline(msg, socket) -> bool: consume an order-sensitive
+    # message (a stream frame) in the reader, in cut order; True when it
+    # was consumed and must not be dispatched
+    process_inline: Optional[Callable[[Any, Any], bool]] = None
 
 
 _protocols: List[Protocol] = []

@@ -16,8 +16,9 @@ registered services through tpu_std.  Around that:
     (``usercode_in_pthread``, :mod:`.usercode_pool`);
   * ``stop(grace_s)``: the lame-duck drain — new requests bounce with
     retryable ELOGOFF, peers get GOODBYE, in-flight handlers, queued
-    usercode and posted device-plane transfers finish inside the grace
-    window, and only stragglers are failed.
+    usercode, open streams and posted device-plane transfers finish
+    inside the grace window, and only stragglers are failed: a stream
+    past the window gets an orderly CLOSE, not a reset.
 """
 from __future__ import annotations
 
@@ -273,12 +274,15 @@ class Server:
              listener stays open through the window, marked draining, so
              a caller that reconnects gets the same bounce (both of the
              port's planes are in-process front doors);
-          2. in-flight handlers, queued usercode and device-plane
-             transfers complete inside the grace window (a transfer
-             counts until the completion poller saw its copy's event);
-          3. only stragglers past the window are failed: connections with
+          2. in-flight handlers, queued usercode, streams open on the
+             server's connections and device-plane transfers complete
+             inside the grace window (a transfer counts until the
+             completion poller saw its copy's event);
+          3. only stragglers past the window are failed: streams get an
+             orderly CLOSE (after every frame they wrote) instead of the
+             reset a failed connection would mean, connections fail with
              ELOGOFF, and sends posted before the drain and still
-             unmatched, so their source pins release.
+             unmatched are failed, so their source pins release.
 
         A stop from a thread the drain itself runs returns at once; a
         second concurrent stop waits for the first."""
@@ -337,8 +341,10 @@ class Server:
         self._close_listener()
         with self._conn_lock:
             conns, self._connections = self._connections, []
-        if grace_s > 0 and not drained:
-            self._fail_pending_device_transfers(drain_start_ns)
+        if grace_s > 0:
+            self._close_server_streams(conns)
+            if not drained:
+                self._fail_pending_device_transfers(drain_start_ns)
         for s in conns:
             s.set_failed(errors.ELOGOFF, "server stopping")
         pool, self.usercode_pool = self.usercode_pool, None
@@ -366,16 +372,37 @@ class Server:
                               exc_info=True)
 
     def _drain_until(self, deadline: float) -> bool:
-        """Block until in-flight handlers, queued usercode and device-plane
-        transfers are all done, or the deadline passes.  True when fully
-        drained."""
+        """Block until in-flight handlers, queued usercode, open server
+        streams and device-plane transfers are all done, or the deadline
+        passes.  True when fully drained."""
         while True:
             if (self.inflight_requests() == 0
+                    and not self._open_server_streams()
                     and self._device_plane_active() == 0):
                 return True
             if _time.monotonic() >= deadline:
                 return False
             _time.sleep(0.005)
+
+    def _open_server_streams(self) -> List[Any]:
+        """Streams not yet closed that ride this server's connections."""
+        from .stream import live_streams
+        with self._conn_lock:
+            conns = {id(s) for s in self._connections if not s.failed}
+        return [st for st in live_streams()
+                if not st.closed and st.socket is not None
+                and id(st.socket) in conns]
+
+    @staticmethod
+    def _close_server_streams(conns: List[Any]) -> None:
+        """Past the grace window: an orderly CLOSE on every stream still
+        open on a live connection, written before the connection fails."""
+        from .stream import live_streams
+        conn_ids = {id(s) for s in conns if not s.failed}
+        for st in live_streams():
+            if not st.closed and st.socket is not None \
+                    and id(st.socket) in conn_ids:
+                st.close()
 
     @staticmethod
     def _device_plane_active() -> int:

@@ -95,6 +95,9 @@ class Socket:
         # the error a peer's close maps to once the queued input drained
         # (ELOGOFF for a server's lame-duck stop; 0 = plain EOF)
         self._eof_error_code = 0
+        # called with the socket once it failed: a stream riding the
+        # connection closes with it (rpc/stream.py)
+        self.on_failed_callbacks: List[Callable[["Socket"], None]] = []
 
     # ---- failure -----------------------------------------------------
     def set_failed(self, error_code: int = errors.EFAILEDSOCKET,
@@ -110,6 +113,12 @@ class Socket:
         _socket_pool.return_resource(self.id)
         for req in pending:
             self._complete_write(req, error_code)
+        for cb in list(self.on_failed_callbacks):
+            try:
+                cb(self)
+            except Exception:
+                from ..butil import logging as log
+                log.error("on_failed callback raised", exc_info=True)
         # complete every call still awaiting a response on this socket:
         # its reply can never arrive now
         with self._cid_lock:

@@ -147,7 +147,8 @@ def main(argv=None) -> int:
         print("profile_echo: server start on ici://0 failed", file=sys.stderr)
         return 1
     ch = rpc.Channel()
-    ch.init("ici://0", rpc.ChannelOptions(timeout_ms=30000, max_retry=0))
+    ch.init("ici://0", options=rpc.ChannelOptions(
+        timeout_ms=30000, max_retry=0))
     payload = mesh.device_put(
         torch.randint(0, 256, (SIZE,), dtype=torch.uint8,
                       generator=torch.Generator().manual_seed(1)), 1)

@@ -101,7 +101,8 @@ def main(argv=None) -> int:
 
     def channel(target):
         ch = rpc.Channel()
-        ch.init(target, rpc.ChannelOptions(timeout_ms=120000, max_retry=0))
+        ch.init(target, options=rpc.ChannelOptions(
+            timeout_ms=120000, max_retry=0))
         chans.append(ch)
         return ch
 

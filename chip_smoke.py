@@ -140,6 +140,37 @@ Phases, each fatal on failure:
                 with nothing in flight, launches = transfers = LoadKv +
                 MigrateIn received
 
+ 11. streaming  on IciMesh(ranks=8), the socket window raised to 256 MiB:
+                (a) bench_streaming_mbps's leg (bench.py:697-768) at its
+                own shape, 64 KiB host chunks for 1.5 s through an 8 MiB
+                stream window to ici://6, MB/s received against sent;
+                (b) 256 DEVICE chunks of 4 MiB (1 GiB of seeded bytes on
+                rank 4) to a server on ici://3 through a 64 MiB window:
+                the server holds every chunk equal, byte for byte on the
+                card, to its slice of the source; launches = plane
+                transfers = DATA frames with a device block = 256; device
+                memory is back to its level after the close; MB/s and the
+                p50 of a chunk's one-way time (write call to handler);
+                (c) a stop(grace 0.5 s) of ici://2 with a 4 MiB-chunk
+                stream open, 8 chunks written before the flip and 8 inside
+                the window: past the window the server closes the stream
+                with an orderly CLOSE, the client's stream ends by it, and
+                every byte written was received, equal
+ 12. fan-out    8 echo servers on ici://0-7 (usercode_inline), one Channel
+                each: (a) bench_parallel_fanout_us's shape, a
+                ParallelChannel over the 8, 60 calls after 10 warm-ups,
+                echo p50 µs; (b) 64 MiB of float32 on rank 0, a CallMapper
+                giving each member one 8 MiB DEVICE shard, each member
+                returning its shard times its rank and a merger
+                concatenating them by index: the result equals the plain
+                product on the card; the member on rank 0 takes its shard
+                by reference, so launches = transfers = 7 shards out + 8
+                answers back; (c) a PartitionChannel of 4 partitions from
+                a list:// url with i/4 tags (ici://4-7), 16 MiB shards the
+                same way, equal, launches = transfers = 8; (d) a
+                SelectiveChannel over ici://5-7 with ici://6 stopped: 30
+                calls all succeed, retries counted
+
 Launch counts are zeroed just before each path and read just after it:
 during phases 3-4 and during phase 8 p2p_copy's launches must equal the
 plane's transfers (in phase 8 also the LoadKv calls the servers
@@ -147,7 +178,10 @@ received); during phase 9 they must equal the transfers and the LoadKv
 plus MigrateIn calls the servers received; during phase 10 they must
 equal the transfers and, in (a) and (b), the requests the server received
 plus the attachments it returned, in (c) the LoadKv and MigrateIn calls
-the servers received (bounced ones included); during phase 6 each ring
+the servers received (bounced ones included); during phases 11 and 12
+they must equal the transfers (in 11 (b) also the DATA frames with a
+device block, in 12 (b)-(c) the sub-calls' legs that crossed); during
+phase 6 each ring
 kernel's launches must equal the calls of its entry point.  The line
 before the last is the ``kernels`` JSON; the last line is the device
 JSON.
@@ -220,6 +254,16 @@ DRAIN_CALLS, DRAIN_LATE_CALLS, DRAIN_SERVICE_MS, DRAIN_GRACE_S = \
     8, 4, 50.0, 5.0
 ELASTIC_HELD, ELASTIC_DOWN_AT, ELASTIC_UP_AT, ELASTIC_AFTER = 64, 5, 15, 4
 ELASTIC_LOAD_STEPS, ELASTIC_GRACE_S, ELASTIC_REVIVE_S = 1024, 5.0, 15.0
+# phase 11: bench_streaming_mbps's leg (64 KiB host chunks for 1.5 s), the
+# stream of tensors (256 chunks of 4 MiB, 1 GiB in all, through a 64 MiB
+# stream window) and the stop with a stream open (16 chunks, half of them
+# written inside the grace window)
+STREAM_HOST_CHUNK, STREAM_HOST_S = 64 * 1024, 1.5
+STREAM_CHUNKS, STREAM_CHUNK, STREAM_WINDOW = 256, 4 << 20, 64 << 20
+STOP_CHUNKS, STOP_GRACE_S = 16, 0.5
+# phase 12: bench_parallel_fanout_us's iterations, the sharded tensor and
+# the selective channel's calls
+FANOUT_ITERS, FANOUT_BYTES, SELECTIVE_CALLS = 60, 64 << 20, 30
 
 
 def fail(msg: str) -> None:
@@ -325,7 +369,8 @@ def phase_plane_echo(rpc, mesh, plane, p2p_copy, EchoRequest, EchoResponse):
     server.add_service(Sink())
     check(server.start("ici://0") == 0, "server start on ici://0")
     ch = rpc.Channel()
-    ch.init("ici://0", rpc.ChannelOptions(timeout_ms=30000, max_retry=0))
+    ch.init("ici://0", options=rpc.ChannelOptions(
+        timeout_ms=30000, max_retry=0))
 
     def drive(payload, n, warm):
         lat = []
@@ -389,7 +434,8 @@ def phase_default_echo(rpc, mesh, plane, p2p_copy, EchoRequest,
     server.add_service(Echo())
     check(server.start("ici://0") == 0, "server start on ici://0")
     ch = rpc.Channel()
-    ch.init("ici://0", rpc.ChannelOptions(timeout_ms=30000, max_retry=0))
+    ch.init("ici://0", options=rpc.ChannelOptions(
+        timeout_ms=30000, max_retry=0))
     out = {}
     launches0 = p2p_copy.launches
     try:
@@ -794,7 +840,8 @@ def phase_serving(mesh, plane, p2p_copy) -> dict:
 
     def channel(target):
         ch = rpc.Channel()
-        ch.init(target, rpc.ChannelOptions(timeout_ms=120000, max_retry=0))
+        ch.init(target, options=rpc.ChannelOptions(
+            timeout_ms=120000, max_retry=0))
         channels.append(ch)
         return ch
 
@@ -1086,7 +1133,8 @@ def phase_tiers_migration(mesh, plane, p2p_copy) -> dict:
 
     def channel(target):
         ch = rpc.Channel()
-        ch.init(target, rpc.ChannelOptions(timeout_ms=120000, max_retry=0))
+        ch.init(target, options=rpc.ChannelOptions(
+            timeout_ms=120000, max_retry=0))
         channels.append(ch)
         return ch
 
@@ -1427,7 +1475,7 @@ def phase_admission(mesh, plane, p2p_copy) -> dict:
 
         def worker(pri, tenant, rate, rank, wid):
             ch = rpc.Channel()
-            ch.init("ici://5", rpc.ChannelOptions(timeout_ms=2000,
+            ch.init("ici://5", options=rpc.ChannelOptions(timeout_ms=2000,
                                                   max_retry=0))
             chans.append(ch)
             interval = 1.0 / rate
@@ -1617,7 +1665,8 @@ def phase_drain(mesh, plane, p2p_copy) -> dict:
     server.add_service(Echo())
     check(server.start("ici://5") == 0, "drain server start on ici://5")
     ch = rpc.Channel()
-    ch.init("ici://5", rpc.ChannelOptions(timeout_ms=30000, max_retry=0))
+    ch.init("ici://5", options=rpc.ChannelOptions(
+        timeout_ms=30000, max_retry=0))
     out = {}
     try:
         transfers0 = plane.stats()["transfers"]
@@ -1768,7 +1817,8 @@ def phase_elastic(mesh, plane, p2p_copy) -> dict:
 
     def channel(target):
         ch = rpc.Channel()
-        ch.init(target, rpc.ChannelOptions(timeout_ms=120000, max_retry=0))
+        ch.init(target, options=rpc.ChannelOptions(
+            timeout_ms=120000, max_retry=0))
         channels.append(ch)
         return ch
 
@@ -2027,6 +2077,458 @@ def phase_elastic(mesh, plane, p2p_copy) -> dict:
     return out
 
 
+def phase_streaming(mesh, plane, p2p_copy) -> dict:
+    """Streaming RPC on ici:// (see the module docstring, phase 11)."""
+    import gc
+    import brpc_tpu_torch.policy  # noqa: F401
+    from brpc_tpu_torch import rpc
+    from brpc_tpu_torch.butil.iobuf import DEVICE, IOBuf
+    from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
+
+    t_phase = time.monotonic()
+    dev = mesh.device(0)
+    out = {"transfers0": plane.stats()["transfers"]}
+
+    class Sink(rpc.Service):
+        """Accepts a stream whose handler the test sets."""
+
+        def __init__(self):
+            self.handler = None
+            self.max_buf = 0
+            self.streams = []
+
+        @rpc.method(EchoRequest, EchoResponse)
+        def Open(self, cntl, request, response, done):
+            self.streams.append(rpc.stream_accept(cntl, rpc.StreamOptions(
+                handler=self.handler, max_buf_size=self.max_buf)))
+            response.message = "ok"
+            done()
+
+    def open_stream(svc, target, handler, max_buf, opts=None):
+        server = rpc.Server(opts)
+        server.add_service(svc)
+        check(server.start(target) == 0, f"stream server on {target}")
+        svc.handler, svc.max_buf = handler, max_buf
+        ch = rpc.Channel()
+        ch.init(target, options=rpc.ChannelOptions(timeout_ms=30000))
+        cntl = rpc.Controller()
+        st = rpc.stream_create(cntl, rpc.StreamOptions(max_buf_size=max_buf))
+        ch.call_method("Sink.Open", cntl, EchoRequest(message="s"),
+                       EchoResponse)
+        check(not cntl.failed() and st.wait_connected(10),
+              f"stream handshake to {target}: {cntl.error_text}")
+        return server, ch, st
+
+    # (a) bench_streaming_mbps's leg: 64 KiB host chunks for 1.5 s
+    class Count(rpc.StreamInputHandler):
+        def __init__(self):
+            self.bytes = 0
+            self.closed = threading.Event()
+
+        def on_received_messages(self, sid, msgs):
+            self.bytes += sum(len(m) for m in msgs)
+
+        def on_closed(self, sid):
+            self.closed.set()
+
+    count = Count()
+    server, ch, st = open_stream(Sink(), "ici://6", count, 8 << 20)
+    try:
+        data = IOBuf(b"x" * STREAM_HOST_CHUNK)
+        sent, t0 = 0, time.monotonic()
+        stop = t0 + STREAM_HOST_S
+        while time.monotonic() < stop:
+            check(st.write(data, timeout=5) == 0, "host stream write")
+            sent += STREAM_HOST_CHUNK
+        deadline = time.monotonic() + 10
+        while count.bytes < sent and time.monotonic() < deadline:
+            time.sleep(0.002)
+        dt = time.monotonic() - t0
+        check(count.bytes == sent,
+              f"host stream delivered {count.bytes} of {sent} B")
+        out["host"] = {"chunk": STREAM_HOST_CHUNK, "sent": sent,
+                       "received": count.bytes, "mbps": sent / dt / 1e6}
+        st.close()
+    finally:
+        ch.close()
+        server.stop()
+
+    # (b) 256 DEVICE chunks of 4 MiB, rank 4 -> ici://3
+    n, size = STREAM_CHUNKS, STREAM_CHUNK
+    gen = torch.Generator(device=dev).manual_seed(1111)
+    src = mesh.own(torch.randint(0, 256, (n * size,), dtype=torch.uint8,
+                                 device=dev, generator=gen), 4)
+    sent_at = [0.0] * n
+
+    class Verify(rpc.StreamInputHandler):
+        def __init__(self):
+            self.seen = 0
+            self.equal = 0
+            self.device_frames = 0
+            self.one_way = []
+            self.last_at = 0.0
+            self.closed = threading.Event()
+
+        def on_received_messages(self, sid, msgs):
+            for m in msgs:
+                i = self.seen
+                self.seen += 1
+                ref = m.backing_block(0)
+                dev_block = (m.backing_block_num() == 1
+                             and ref.block.kind == DEVICE)
+                self.device_frames += dev_block
+                if dev_block and torch.equal(
+                        ref.block.data[ref.offset:ref.offset + ref.length],
+                        src[i * size:(i + 1) * size]):
+                    self.equal += 1
+                self.last_at = time.perf_counter()
+                self.one_way.append((self.last_at - sent_at[i]) * 1e6)
+
+        def on_closed(self, sid):
+            self.closed.set()
+
+    torch.cuda.synchronize()
+    gc.collect()
+    base = torch.cuda.memory_allocated(dev)
+    verify = Verify()
+    svc = Sink()
+    launches0 = p2p_copy.launches
+    transfers0 = plane.stats()["transfers"]
+    server, ch, st = open_stream(svc, "ici://3", verify, STREAM_WINDOW)
+    try:
+        t0 = time.perf_counter()
+        for i in range(n):
+            buf = IOBuf()
+            buf.append_device_array(src[i * size:(i + 1) * size])
+            sent_at[i] = time.perf_counter()
+            check(st.write(buf, timeout=30) == 0, f"device chunk {i}")
+        del buf
+        st.close()
+        check(verify.closed.wait(60), "the device stream never closed")
+        wall = verify.last_at - t0
+        torch.cuda.synchronize()
+        out["device"] = {
+            "chunks": n, "chunk": size, "received": verify.seen,
+            "equal": verify.equal, "device_frames": verify.device_frames,
+            "launches": p2p_copy.launches - launches0,
+            "transfers": plane.stats()["transfers"] - transfers0,
+            "mbps": n * size / wall / 1e6, "wall_s": wall,
+            "one_way_p50_us": _pct(verify.one_way, 0.5),
+            "one_way_p99_us": _pct(verify.one_way, 0.99),
+            "server_close_reason": svc.streams[0].close_reason}
+    finally:
+        ch.close()
+        server.stop()
+    d = out["device"]
+    check(d["received"] == d["equal"] == n,
+          f"device stream: {d['equal']} of {n} chunks equal, "
+          f"{d['received']} received")
+    check(d["launches"] == d["transfers"] == d["device_frames"] == n,
+          f"device stream: launches {d['launches']}, transfers "
+          f"{d['transfers']}, DATA frames with a device block "
+          f"{d['device_frames']}, chunks {n}")
+    verify = None
+    deadline = time.monotonic() + 10
+    while True:
+        gc.collect()
+        torch.cuda.synchronize()
+        left = torch.cuda.memory_allocated(dev) - base
+        if left < (1 << 20) or time.monotonic() > deadline:
+            break
+        time.sleep(0.01)
+    d["memory_left"] = left
+    check(left < (1 << 20), f"device stream left {left} B allocated")
+    del src
+
+    # (c) a lame-duck stop with a 4 MiB-chunk stream open
+    stop_src = mesh.own(torch.randint(
+        0, 256, (STOP_CHUNKS * size,), dtype=torch.uint8, device=dev,
+        generator=gen), 4)
+    kept = []
+
+    class Keep(rpc.StreamInputHandler):
+        def __init__(self):
+            self.closed = threading.Event()
+            self.bytes = 0
+            self.equal = 0
+
+        def on_received_messages(self, sid, msgs):
+            for m in msgs:
+                i = len(kept)
+                kept.append(len(m))
+                self.bytes += len(m)
+                ref = m.backing_block(0)
+                self.equal += torch.equal(
+                    ref.block.data[ref.offset:ref.offset + ref.length],
+                    stop_src[i * size:(i + 1) * size])
+
+        def on_closed(self, sid):
+            self.closed.set()
+
+    keep = Keep()
+    svc = Sink()
+    server, ch, st = open_stream(svc, "ici://2", keep, STREAM_WINDOW)
+    try:
+        written = 0
+
+        def write(i):
+            buf = IOBuf()
+            buf.append_device_array(stop_src[i * size:(i + 1) * size])
+            check(st.write(buf, timeout=30) == 0, f"stop stream chunk {i}")
+            return size
+
+        for i in range(STOP_CHUNKS // 2):
+            written += write(i)
+        stop_s = {}
+
+        def stopper():
+            t0 = time.monotonic()
+            server.stop(STOP_GRACE_S)
+            stop_s["s"] = time.monotonic() - t0
+
+        stop_thread = threading.Thread(target=stopper)
+        stop_thread.start()
+        deadline = time.monotonic() + 5
+        while not server.is_draining() and time.monotonic() < deadline:
+            time.sleep(0.0005)
+        check(server.is_draining(), "the stream server never drained")
+        for i in range(STOP_CHUNKS // 2, STOP_CHUNKS):
+            written += write(i)         # the stream stays open in the drain
+        stop_thread.join(STOP_GRACE_S + 10)
+        check(not stop_thread.is_alive(), "stop() did not return")
+        check(keep.closed.wait(10), "the server's stream never closed")
+        deadline = time.monotonic() + 5
+        while not st.closed and time.monotonic() < deadline:
+            time.sleep(0.001)
+        out["stop"] = {
+            "chunks": STOP_CHUNKS, "written": written,
+            "received": keep.bytes, "equal": keep.equal,
+            "client_close_reason": st.close_reason,
+            "drained": server.last_drain["drained"],
+            "stop_s": stop_s["s"],
+            "write_after_close": st.append_if_not_full(IOBuf(b"x"))}
+    finally:
+        ch.close()
+        server.stop()
+    s = out["stop"]
+    check(s["received"] == s["written"] and s["equal"] == STOP_CHUNKS,
+          f"stop: {s['received']} of {s['written']} B received, "
+          f"{s['equal']} chunks equal")
+    check(s["client_close_reason"] == "close" and not s["drained"]
+          and s["write_after_close"] == rpc.errors.EINVAL,
+          f"stop: the client's stream ended by {s['client_close_reason']!r}"
+          f" (drained {s['drained']})")
+    del stop_src
+    out["launches"] = p2p_copy.launches
+    out["transfers"] = plane.stats()["transfers"] - out.pop("transfers0")
+    out["wall_s"] = time.monotonic() - t_phase
+    print(f"streaming: (a) {out['host']['mbps']:.1f} MB/s of "
+          f"{STREAM_HOST_CHUNK} B host chunks, {out['host']['received']} of "
+          f"{out['host']['sent']} B received; (b) {n} x {size} B DEVICE "
+          f"chunks {d['mbps']:.1f} MB/s, one-way p50 "
+          f"{d['one_way_p50_us']:.1f} us, all equal, launches = transfers "
+          f"= DATA frames with a device block = {d['launches']}, memory "
+          f"left {d['memory_left']} B; (c) stop with the stream open: "
+          f"{s['received']} of {s['written']} B received, client saw "
+          f"{s['client_close_reason']!r}, stop {s['stop_s']:.2f} s; phase "
+          f"{out['wall_s']:.1f} s", flush=True)
+    return out
+
+
+def phase_fanout(mesh, plane, p2p_copy) -> dict:
+    """The host combo channels on ici:// (see the module docstring,
+    phase 12)."""
+    import brpc_tpu_torch.policy  # noqa: F401
+    from brpc_tpu_torch import channels, rpc
+    from brpc_tpu_torch.butil.iobuf import IOBuf
+    from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
+
+    t_phase = time.monotonic()
+    dev = mesh.device(0)
+    transfers0 = plane.stats()["transfers"]
+
+    class Echo(rpc.Service):
+        """Echoes the message; a request attachment, a float32 shard,
+        comes back times the server's rank, owned by it."""
+
+        SERVICE_NAME = "EchoService"
+
+        def __init__(self, rank):
+            self.rank = rank
+
+        @rpc.method(EchoRequest, EchoResponse)
+        def Echo(self, cntl, request, response, done):
+            response.message = request.message
+            if len(cntl.request_attachment):
+                x = _tensor_of(cntl.request_attachment).view(torch.float32)
+                cntl.response_attachment.append_device_array(mesh.own(
+                    (x * self.rank).view(torch.uint8), self.rank))
+            done()
+
+    class Shards(channels.CallMapper):
+        def __init__(self, rows):
+            self.rows = rows
+
+        def map(self, i, method, request):
+            att = IOBuf()
+            att.append_device_array(self.rows[i])
+            return channels.SubCall(request, attachment=att)
+
+    class Concat(channels.ResponseMerger):
+        """Keeps each answer by its sub-call's index; the whole fan-out
+        ends in one concatenation."""
+
+        def __init__(self, n):
+            self.n = n
+            self.parts = {}
+            self.result = None
+
+        def merge_sub(self, parent_cntl, index, sub_cntl, response):
+            self.parts[index] = _tensor_of(
+                sub_cntl.response_attachment).view(torch.float32)
+            return self.MERGED
+
+        def finalize_fanout(self, parent_cntl):
+            self.result = torch.cat([self.parts[i] for i in range(self.n)])
+
+    ranks = list(range(mesh.size))
+    servers, subs = {}, {}
+    out = {}
+    try:
+        for r in ranks:
+            s = rpc.Server(rpc.ServerOptions(usercode_inline=True))
+            s.add_service(Echo(r))
+            check(s.start(f"ici://{r}") == 0, f"fan-out server ici://{r}")
+            servers[r] = s
+            ch = rpc.Channel()
+            ch.init(f"ici://{r}", options=rpc.ChannelOptions(
+                timeout_ms=30000, max_retry=0))
+            subs[r] = ch
+
+        # (a) bench_parallel_fanout_us's shape: 8 members, echo p50
+        pc = channels.ParallelChannel()
+        for r in ranks:
+            pc.add_channel(subs[r])
+        lat = []
+        for i in range(FANOUT_ITERS + 10):
+            cntl = rpc.Controller()
+            t0 = time.perf_counter_ns()
+            pc.call_method("EchoService.Echo", cntl,
+                           EchoRequest(message="p"), EchoResponse())
+            t1 = time.perf_counter_ns()
+            check(not cntl.failed(), f"fan-out echo: {cntl.error_text}")
+            if i >= 10:
+                lat.append((t1 - t0) / 1000.0)
+        out["echo"] = {"subs": len(ranks), "iters": FANOUT_ITERS,
+                       "p50_us": _pct(lat, 0.5), "p99_us": _pct(lat, 0.99),
+                       "transfers": plane.stats()["transfers"] - transfers0}
+
+        # (b) 64 MiB of float32 on rank 0, one 8 MiB shard per member
+        gen = torch.Generator(device=dev).manual_seed(1212)
+        x = torch.randn(FANOUT_BYTES // 4, device=dev, generator=gen)
+        rows = [mesh.own(r_.contiguous().view(torch.uint8), 0)
+                for r_ in x.view(len(ranks), -1)]
+        merger = Concat(len(ranks))
+        pc = channels.ParallelChannel()
+        for r in ranks:
+            pc.add_channel(subs[r], mapper=Shards(rows), merger=merger)
+        scale = torch.tensor(ranks, dtype=torch.float32, device=dev)
+        want = (x.view(len(ranks), -1) * scale[:, None]).view(-1)
+        launches0, t0 = p2p_copy.launches, plane.stats()["transfers"]
+        cntl = rpc.Controller()
+        w0 = time.perf_counter()
+        pc.call_method("EchoService.Echo", cntl, EchoRequest(message="x"),
+                       EchoResponse())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - w0
+        check(not cntl.failed(), f"sharded fan-out: {cntl.error_text}")
+        # a member on the shards' own rank takes its shard by reference;
+        # every answer crosses back to its channel's rank
+        out_legs = sum(1 for r in ranks if r != 0)
+        back_legs = len(ranks)
+        out["sharded"] = {
+            "bytes": FANOUT_BYTES, "shard": FANOUT_BYTES // len(ranks),
+            "equal": bool(torch.equal(merger.result, want)),
+            "launches": p2p_copy.launches - launches0,
+            "transfers": plane.stats()["transfers"] - t0,
+            "out_legs": out_legs, "back_legs": back_legs,
+            "ms": wall * 1e3}
+        sh = out["sharded"]
+        check(sh["equal"], "the merged fan-out differs from the plain "
+                           "product")
+        check(sh["launches"] == sh["transfers"] == out_legs + back_legs,
+              f"sharded fan-out: launches {sh['launches']}, transfers "
+              f"{sh['transfers']}, legs {out_legs} out + {back_legs} back")
+
+        # (c) a PartitionChannel of 4 from a list:// url with i/4 tags
+        part_ranks = ranks[4:]
+        url = "list://" + ",".join(f"ici://{r} 100 {i}/4"
+                                   for i, r in enumerate(part_ranks))
+        prow = [mesh.own(r_.contiguous().view(torch.uint8), 0)
+                for r_ in x.view(4, -1)]
+        pmerger = Concat(4)
+        pch = channels.PartitionChannel()
+        check(pch.init(4, url, mapper=Shards(prow), merger=pmerger,
+                       options=rpc.ChannelOptions(timeout_ms=30000,
+                                                  max_retry=0)) == 0
+              and pch.partitions_ready(), "partition channel init")
+        pscale = torch.tensor(part_ranks, dtype=torch.float32, device=dev)
+        pwant = (x.view(4, -1) * pscale[:, None]).view(-1)
+        launches0, t0 = p2p_copy.launches, plane.stats()["transfers"]
+        cntl = rpc.Controller()
+        pch.call_method("EchoService.Echo", cntl, EchoRequest(message="p"),
+                        EchoResponse())
+        torch.cuda.synchronize()
+        check(not cntl.failed(), f"partition fan-out: {cntl.error_text}")
+        out["partition"] = {
+            "partitions": 4, "url": url,
+            "equal": bool(torch.equal(pmerger.result, pwant)),
+            "launches": p2p_copy.launches - launches0,
+            "transfers": plane.stats()["transfers"] - t0}
+        pa = out["partition"]
+        check(pa["equal"], "the partitioned result differs from the plain "
+                           "product")
+        check(pa["launches"] == pa["transfers"] == 2 * 4,
+              f"partition: launches {pa['launches']}, transfers "
+              f"{pa['transfers']}, 4 sub-calls out and back")
+
+        # (d) a SelectiveChannel over 3 members, one of them stopped
+        sel = channels.SelectiveChannel()
+        for r in (5, 6, 7):
+            sel.add_channel(subs[r])
+        servers[6].stop()
+        oks, retried = 0, 0
+        for i in range(SELECTIVE_CALLS):
+            cntl = rpc.Controller()
+            resp = sel.call_method("EchoService.Echo", cntl,
+                                   EchoRequest(message=f"s{i}"),
+                                   EchoResponse)
+            oks += not cntl.failed() and resp.message == f"s{i}"
+            retried += cntl.retried_count
+        out["selective"] = {"calls": SELECTIVE_CALLS, "ok": oks,
+                            "retries": retried}
+        check(oks == SELECTIVE_CALLS,
+              f"selective: {oks} of {SELECTIVE_CALLS} calls succeeded")
+        check(retried > 0, "selective: no call retried on another member")
+    finally:
+        for ch in subs.values():
+            ch.close()
+        for s in servers.values():
+            s.stop()
+    out["launches"] = p2p_copy.launches
+    out["transfers"] = plane.stats()["transfers"] - transfers0
+    out["wall_s"] = time.monotonic() - t_phase
+    print(f"fan-out: (a) {len(ranks)} members echo p50 "
+          f"{out['echo']['p50_us']:.1f} us; (b) {FANOUT_BYTES} B in "
+          f"{len(ranks)} shards {sh['ms']:.2f} ms, equal, launches = "
+          f"transfers = {sh['launches']} ({out_legs} out, the member on the "
+          f"shards' rank by reference, + {back_legs} back); (c) 4 "
+          f"partitions equal, launches {pa['launches']}; (d) "
+          f"{oks}/{SELECTIVE_CALLS} OK with {retried} retries; phase "
+          f"{out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
@@ -2156,6 +2658,28 @@ def main() -> int:
     print("admission, drain, elastic: " + json.dumps(
         {name: res for name, (_, res) in paths.items()}), flush=True)
 
+    # 11-12. streaming and the host combo channels, each with the counts
+    # zeroed just before it; the socket window is raised so a 4 MiB chunk
+    # or an 8 MiB shard is one write (a cut device block would ride as two
+    # transfers)
+    flags.set_flag("ici_socket_window_bytes", ADM_WINDOW_BYTES)
+    slice6 = {}
+    for name, phase in (("stream", phase_streaming),
+                        ("fanout", phase_fanout)):
+        zero_counts()
+        res = phase(mesh, plane, p2p_copy)
+        launches = {k.name: k.launches for k in kernels_all}
+        check(launches["p2p_copy"] == res["launches"] == res["transfers"]
+              > 0, f"the {name} path launched p2p_copy "
+                   f"{launches['p2p_copy']} times for {res['transfers']} "
+                   f"plane transfers")
+        check(launches["ring_all_reduce"] == 0
+              and launches["ring_all_gather"] == 0,
+              f"a ring kernel launched on the {name} path")
+        slice6[name] = res
+    flags.set_flag("ici_socket_window_bytes", window)
+    print("streaming, fan-out: " + json.dumps(slice6), flush=True)
+
     head = next(r for r in rows if r["label"] == "4 MiB")
     red = ring_rows["ring_all_reduce"]
     gat = ring_rows["ring_all_gather"]
@@ -2169,10 +2693,13 @@ def main() -> int:
         "tpu_counterpart": "DevicePlane._pallas_body.kern "
                            "(brpc_tpu/ici/device_plane.py:395-444)",
         "launches": (main_launches + serve["launches"] + tiers["launches"]
-                     + sum(phase10.values())),
+                     + sum(phase10.values())
+                     + sum(r["launches"] for r in slice6.values())),
         "launches_by_path": {"echo": main_launches,
                              "serving": serve["launches"],
-                             "migration": tiers["launches"], **phase10},
+                             "migration": tiers["launches"], **phase10,
+                             **{k: r["launches"]
+                                for k, r in slice6.items()}},
         "migration_path_split": {
             "migrate_in": tiers["migrate_in_calls"],
             "loadkv": tiers["calls_received"] - tiers["migrate_in_calls"]},

@@ -666,7 +666,7 @@ def _saturate(ch, entered, n=2):
 
 def _channel(target, timeout_ms=4000, max_retry=0):
     ch = rpc.Channel()
-    ch.init(target, rpc.ChannelOptions(timeout_ms=timeout_ms,
+    ch.init(target, options=rpc.ChannelOptions(timeout_ms=timeout_ms,
                                        max_retry=max_retry))
     return ch
 

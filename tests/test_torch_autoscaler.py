@@ -277,13 +277,15 @@ def test_scale_down_by_migration_then_lame_duck_stop():
     rsvc = _svc(router)
     live = dict(decodes)               # the fleet as the router sees it
     front = rpc.Channel()
-    front.init(ROUTER, rpc.ChannelOptions(timeout_ms=60000, max_retry=0))
+    front.init(ROUTER, options=rpc.ChannelOptions(
+        timeout_ms=60000, max_retry=0))
     chans = {}
 
     def channel(url):
         if url not in chans:
             ch = rpc.Channel()
-            ch.init(url, rpc.ChannelOptions(timeout_ms=60000, max_retry=0))
+            ch.init(url, options=rpc.ChannelOptions(
+                timeout_ms=60000, max_retry=0))
             chans[url] = ch
         return chans[url]
 

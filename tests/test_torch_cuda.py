@@ -379,7 +379,8 @@ def test_migration_between_two_ranks_launches_once_per_migrate_in(
     b = start_decode_worker("ici://3", mesh=mesh)
     src, dst = (next(iter(w.services().values())) for w in (a, b))
     ch = rpc.Channel()
-    ch.init("ici://2", rpc.ChannelOptions(timeout_ms=60000, max_retry=0))
+    ch.init("ici://2", options=rpc.ChannelOptions(
+        timeout_ms=60000, max_retry=0))
     try:
         tokens = [(7 * j + 1) % 997 for j in range(512)]
         rows = model.toy_kv_blocks(tokens, cuda_device).view(
@@ -516,7 +517,8 @@ def test_a_shed_request_frees_its_received_attachment(cuda_device):
         max_concurrency=1, admission=rpc.AdmissionOptions(max_queue_ms=10)),
         block=block)
     ch = rpc.Channel()
-    ch.init("ici://5", rpc.ChannelOptions(timeout_ms=30000, max_retry=0))
+    ch.init("ici://5", options=rpc.ChannelOptions(
+        timeout_ms=30000, max_retry=0))
     plane = dp.plane()
     try:
         blocker = rpc.Controller()
@@ -555,5 +557,166 @@ def test_a_shed_request_frees_its_received_attachment(cuda_device):
         block.set()
         ch.close()
         server.stop()
+        flags.set_flag("ici_socket_window_bytes", window)
+        IciMesh.set_default(None)
+
+
+@pytest.mark.cuda
+def test_a_consumed_device_stream_chunk_is_freed(cuda_device):
+    """A stream of 8 DEVICE chunks of 16 MiB from rank 4 to a server on
+    ici://3: every chunk lands byte-equal, one p2p_copy launch a chunk,
+    and once the handler dropped them and the stream closed, device
+    memory is back to its level: neither the delivery queue, its worker,
+    the socket nor the poller holds a received chunk."""
+    import gc
+    import time
+    import brpc_tpu_torch.policy  # noqa: F401
+    from brpc_tpu_torch import rpc
+    from brpc_tpu_torch.butil import flags
+    from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
+    chunk = 16 << 20
+    mesh = IciMesh(ranks=8, device="cuda")
+    IciMesh.set_default(mesh)
+    window = flags.get_flag("ici_socket_window_bytes")
+    flags.set_flag("ici_socket_window_bytes", 256 << 20)
+    src = torch.from_numpy(_seeded(chunk)).to(cuda_device)
+    same, closed = [], threading.Event()
+
+    class Check(rpc.StreamInputHandler):
+        def on_received_messages(self, sid, msgs):
+            for m in msgs:
+                ref = m.backing_block(0)
+                same.append(m.backing_block_num() == 1 and torch.equal(
+                    ref.block.data[ref.offset:ref.offset + ref.length], src))
+
+        def on_closed(self, sid):
+            closed.set()
+
+    class Sink(rpc.Service):
+        @rpc.method(EchoRequest, EchoResponse)
+        def Open(self, cntl, request, response, done):
+            rpc.stream_accept(cntl, rpc.StreamOptions(
+                handler=Check(), max_buf_size=64 << 20))
+            done()
+
+    server = rpc.Server()
+    server.add_service(Sink())
+    assert server.start("ici://3") == 0
+    ch = rpc.Channel()
+    ch.init("ici://3", options=rpc.ChannelOptions(timeout_ms=30000))
+    try:
+        cntl = rpc.Controller()
+        st = rpc.stream_create(cntl, rpc.StreamOptions(max_buf_size=64 << 20))
+        ch.call_method("Sink.Open", cntl, EchoRequest(message="o"),
+                       EchoResponse)
+        assert not cntl.failed(), cntl.error_text
+        assert st.wait_connected(10)
+        torch.cuda.synchronize()
+        gc.collect()
+        base = torch.cuda.memory_allocated(cuda_device)
+        launches0 = p2p_copy.launches
+        for _ in range(8):
+            buf = IOBuf()
+            buf.append_device_array(mesh.own(src.clone(), 4))
+            assert st.write(buf, timeout=30) == 0
+            del buf
+        st.close()
+        assert closed.wait(30)
+        assert same == [True] * 8
+        assert p2p_copy.launches - launches0 == 8
+        deadline = time.monotonic() + 10
+        while time.monotonic() < deadline:
+            gc.collect()
+            torch.cuda.synchronize()
+            if torch.cuda.memory_allocated(cuda_device) - base < (1 << 20):
+                break
+            time.sleep(0.01)
+        assert torch.cuda.memory_allocated(cuda_device) - base < (1 << 20)
+    finally:
+        ch.close()
+        server.stop()
+        flags.set_flag("ici_socket_window_bytes", window)
+        IciMesh.set_default(None)
+
+
+@pytest.mark.cuda
+def test_a_parallel_fanout_of_device_shards_merges_to_the_plain_result(
+        cuda_device):
+    """A (4, 2 Mi) float32 tensor on rank 0, one row per sub-call to the
+    servers on ici://1-4, each returning its row times its rank; the
+    merged rows equal the plain product on the card, with two p2p_copy
+    launches per sub-call (out and back)."""
+    import brpc_tpu_torch.policy  # noqa: F401
+    from brpc_tpu_torch import channels, rpc
+    from brpc_tpu_torch.butil import flags
+    from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
+    mesh = IciMesh(ranks=8, device="cuda")
+    IciMesh.set_default(mesh)
+    window = flags.get_flag("ici_socket_window_bytes")
+    flags.set_flag("ici_socket_window_bytes", 256 << 20)
+    ranks = [1, 2, 3, 4]
+
+    class Scale(rpc.Service):
+        SERVICE_NAME = "Shard"
+
+        def __init__(self, rank):
+            self.rank = rank
+
+        @rpc.method(EchoRequest, EchoResponse)
+        def Scale(self, cntl, request, response, done):
+            ref = cntl.request_attachment.backing_block(0)
+            x = ref.block.data[ref.offset:ref.offset + ref.length]
+            y = (x.view(torch.float32) * self.rank).view(torch.uint8)
+            cntl.response_attachment.append_device_array(
+                mesh.own(y, self.rank))
+            done()
+
+    class Rows(channels.CallMapper):
+        def map(self, i, method, request):
+            att = IOBuf()
+            att.append_device_array(rows[i])
+            return channels.SubCall(request, attachment=att)
+
+    class ByIndex(channels.ResponseMerger):
+        parts = {}
+
+        def merge_sub(self, parent_cntl, index, sub_cntl, response):
+            ref = sub_cntl.response_attachment.backing_block(0)
+            self.parts[index] = ref.block.data[
+                ref.offset:ref.offset + ref.length].view(torch.float32)
+            return self.MERGED
+
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (4, 2 << 20)).astype(np.float32)).to(cuda_device)
+    rows = [mesh.own(x[i].clone().view(torch.uint8), 0) for i in range(4)]
+    servers, subs = [], []
+    try:
+        pc = channels.ParallelChannel()
+        merger = ByIndex()
+        for r in ranks:
+            s = rpc.Server()
+            s.add_service(Scale(r))
+            assert s.start(f"ici://{r}") == 0
+            servers.append(s)
+            ch = rpc.Channel()
+            ch.init(f"ici://{r}", options=rpc.ChannelOptions(timeout_ms=30000))
+            subs.append(ch)
+            pc.add_channel(ch, mapper=Rows(), merger=merger)
+        launches0 = p2p_copy.launches
+        cntl = rpc.Controller()
+        pc.call_method("Shard.Scale", cntl, EchoRequest(message="x"),
+                       EchoResponse())
+        assert not cntl.failed(), cntl.error_text
+        got = torch.stack([merger.parts[i] for i in range(4)])
+        want = x * torch.tensor(ranks, dtype=torch.float32,
+                                device=cuda_device)[:, None]
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert p2p_copy.launches - launches0 == 2 * len(ranks)
+    finally:
+        for ch in subs:
+            ch.close()
+        for s in servers:
+            s.stop()
         flags.set_flag("ici_socket_window_bytes", window)
         IciMesh.set_default(None)

@@ -55,7 +55,7 @@ def stack():
     decodes = [start_decode_worker("ici://2"), start_decode_worker("ici://3")]
     router = start_router(ROUTER, "ici://1", ["ici://2", "ici://3"])
     ch = rpc.Channel()
-    ch.init(ROUTER, rpc.ChannelOptions(timeout_ms=60000, max_retry=0))
+    ch.init(ROUTER, options=rpc.ChannelOptions(timeout_ms=60000, max_retry=0))
     yield {"mesh": mesh, "prefill": prefill, "decodes": decodes,
            "router": router, "ch": ch}
     ch.close()
@@ -154,7 +154,8 @@ def test_jax_prefill_carried_by_kv_from_numpy_decodes_like_jax(stack):
     want = jmodel.toy_decode(jkv, len(tokens), tokens[-1], 16)
     before = dp.plane().stats()["transfers"]
     ch = rpc.Channel()
-    ch.init("ici://2", rpc.ChannelOptions(timeout_ms=30000, max_retry=0))
+    ch.init("ici://2", options=rpc.ChannelOptions(
+        timeout_ms=30000, max_retry=0))
     try:
         for session, mode in (("carried", None), ("carried-sync", "sync")):
             kv = kv_from_numpy(jkv, mesh, 1)
@@ -193,7 +194,8 @@ def test_loadkv_over_the_plane_lands_the_bytes_sent(stack, n):
     session = f"bytes{n}"
     before = dp.plane().stats()["transfers"]
     ch = rpc.Channel()
-    ch.init("ici://3", rpc.ChannelOptions(timeout_ms=30000, max_retry=0))
+    ch.init("ici://3", options=rpc.ChannelOptions(
+        timeout_ms=30000, max_retry=0))
     pool = _svc(stack["decodes"][1]).pool
     try:
         kv = mesh.own(tmodel.toy_kv_blocks(tokens, mesh.device(1)), 1)
@@ -213,7 +215,8 @@ def test_loadkv_over_the_plane_lands_the_bytes_sent(stack, n):
 def test_loadkv_refuses_a_size_mismatch_and_decode_an_unknown_session(
         stack):
     ch = rpc.Channel()
-    ch.init("ici://3", rpc.ChannelOptions(timeout_ms=30000, max_retry=0))
+    ch.init("ici://3", options=rpc.ChannelOptions(
+        timeout_ms=30000, max_retry=0))
     try:
         cntl = rpc.Controller()
         cntl.request_attachment.append_device_array(
@@ -247,7 +250,8 @@ def test_saturated_pool_sheds_with_a_retry_hint(stack):
         bytes_per_token=tmodel.KV_LAYERS * tmodel.KV_DMODEL, num_blocks=4,
         block_tokens=16))
     ch = rpc.Channel()
-    ch.init("ici://5", rpc.ChannelOptions(timeout_ms=30000, max_retry=0))
+    ch.init("ici://5", options=rpc.ChannelOptions(
+        timeout_ms=30000, max_retry=0))
     try:
         tokens = _prompt(5, 80)                 # 5 blocks > 4
         cntl = rpc.Controller()

@@ -103,7 +103,8 @@ def servers(port_mesh):
     jsrv.add_service(JaxEcho())
     assert jsrv.start("ici://0") == 0
     pch = rpc.Channel()
-    pch.init("ici://0", rpc.ChannelOptions(timeout_ms=30000, max_retry=0))
+    pch.init("ici://0", options=rpc.ChannelOptions(
+        timeout_ms=30000, max_retry=0))
     jch = jrpc.Channel()
     jch.init("ici://0", options=jrpc.ChannelOptions(timeout_ms=30000,
                                                     max_retry=0))

@@ -38,7 +38,7 @@ server = rpc.Server(rpc.ServerOptions(usercode_inline=True))
 server.add_service(Echo())
 server.start("ici://0")
 ch = rpc.Channel()
-ch.init("ici://0", rpc.ChannelOptions(timeout_ms=30000, max_retry=0))
+ch.init("ici://0", options=rpc.ChannelOptions(timeout_ms=30000, max_retry=0))
 cntl = rpc.Controller()
 payload = mesh.device_put(torch.arange(8192).to(torch.uint8), 1)
 cntl.request_attachment.append_device_array(payload)
@@ -145,7 +145,7 @@ svc = next(iter(a.services().values()))
 svc.pool.load("m", torch.zeros(40, svc.pool.options.bytes_per_token,
                                dtype=torch.uint8), last_token=0)
 ch = rpc.Channel()
-ch.init("ici://1", rpc.ChannelOptions(timeout_ms=30000, max_retry=0))
+ch.init("ici://1", options=rpc.ChannelOptions(timeout_ms=30000, max_retry=0))
 cntl = rpc.Controller()
 ch.call_method("Decode.MigrateOut", cntl, EchoRequest(
     message=json.dumps({"session": "m", "dest": "ici://2"})), EchoResponse)
@@ -202,7 +202,7 @@ server = rpc.Server(rpc.ServerOptions(
 server.add_service(Echo())
 server.start("ici://2")
 ch = rpc.Channel()
-ch.init("ici://2", rpc.ChannelOptions(timeout_ms=30000, max_retry=0))
+ch.init("ici://2", options=rpc.ChannelOptions(timeout_ms=30000, max_retry=0))
 blocker = rpc.Controller()
 ch.call_method("Echo.Echo", blocker, EchoRequest(message="block"),
                EchoResponse, done=lambda c: None)
@@ -238,6 +238,30 @@ print(json.dumps({
                parse_endpoint("ici://2")).is_isolated()),
     "transfers": device_plane.plane().stats()["transfers"],
     "active": device_plane.plane().active_transfers(),
+    "jax": sorted(m for m in sys.modules
+                  if m == "jax" or m.startswith(("jax.", "jaxlib"))),
+    "brpc_tpu": sorted(m for m in sys.modules
+                       if m == "brpc_tpu" or m.startswith("brpc_tpu.")),
+}))
+"""
+
+
+_SLICE6 = r"""
+import json, sys
+import brpc_tpu_torch.policy
+from brpc_tpu_torch.examples import (dynamic_partition_echo, parallel_echo,
+                                     partition_echo, selective_echo,
+                                     streaming_echo)
+from brpc_tpu_torch.ici import device_plane
+from brpc_tpu_torch.policy import load_balancers, naming
+
+rcs = [m.main(["--device", "cpu"]) for m in (
+    streaming_echo, parallel_echo, partition_echo, selective_echo,
+    dynamic_partition_echo)]
+print(json.dumps({
+    "ok": rcs == [0] * 5 and len(load_balancers.list_load_balancers()) == 9
+          and len(naming.create_naming_service("mesh://").get_servers()) == 8,
+    "transfers": device_plane.plane().stats()["transfers"],
     "jax": sorted(m for m in sys.modules
                   if m == "jax" or m.startswith(("jax.", "jaxlib"))),
     "brpc_tpu": sorted(m for m in sys.modules
@@ -320,6 +344,19 @@ def test_port_admission_drain_pool_and_autoscaler_load_no_jax():
     assert out["brpc_tpu"] == []
 
 
+def test_port_streaming_and_combo_channels_load_no_jax():
+    """Slice 6 driven alone: the five examples on a CPU mesh (a stream of
+    DEVICE chunks echoed both ways, a sharded fan-out, partition,
+    selective and dynamic-partition channels over list:// urls), the
+    balancers and the mesh:// naming service."""
+    out = _run_alone(_SLICE6)
+    assert out["ok"]
+    # 16 chunks each way, then 4 shards each way
+    assert out["transfers"] == 2 * 16 + 2 * 4
+    assert out["jax"] == []
+    assert out["brpc_tpu"] == []
+
+
 def test_every_port_module_imports_without_jax():
     """Every module of the package, this slice's included, imports with
     neither JAX nor the JAX package loaded."""
@@ -331,7 +368,15 @@ def test_every_port_module_imports_without_jax():
                  "brpc_tpu_torch.rpc.lameduck",
                  "brpc_tpu_torch.rpc.circuit_breaker",
                  "brpc_tpu_torch.rpc.health_check",
-                 "brpc_tpu_torch.serving.autoscaler"):
+                 "brpc_tpu_torch.serving.autoscaler",
+                 "brpc_tpu_torch.bthread.execution_queue",
+                 "brpc_tpu_torch.rpc.stream",
+                 "brpc_tpu_torch.rpc.progressive",
+                 "brpc_tpu_torch.butil.misc",
+                 "brpc_tpu_torch.policy.naming",
+                 "brpc_tpu_torch.channels.parallel_channel",
+                 "brpc_tpu_torch.channels.partition_channel",
+                 "brpc_tpu_torch.channels.selective_channel"):
         assert name in out["modules"], name
     assert out["jax"] == []
     assert out["brpc_tpu"] == []

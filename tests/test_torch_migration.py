@@ -582,8 +582,10 @@ def test_ici_migration_rides_the_plane_once_per_migrate_in(monkeypatch):
     dst_w = start_decode_worker("ici://3")
     src, dst = (next(iter(w.services().values())) for w in (src_w, dst_w))
     ch2, ch3 = rpc.Channel(), rpc.Channel()
-    ch2.init("ici://2", rpc.ChannelOptions(timeout_ms=30000, max_retry=0))
-    ch3.init("ici://3", rpc.ChannelOptions(timeout_ms=30000, max_retry=0))
+    ch2.init("ici://2", options=rpc.ChannelOptions(
+        timeout_ms=30000, max_retry=0))
+    ch3.init("ici://3", options=rpc.ChannelOptions(
+        timeout_ms=30000, max_retry=0))
     tokens = np.random.default_rng(11).integers(0, jmodel.VOCAB,
                                                 256).tolist()
     try:

@@ -494,7 +494,7 @@ def _wait(cond, timeout=20.0):
 
 def _async_generate(tokens, steps, setup, **extra):
     ch = rpc.Channel()
-    ch.init("mem://reqctx-serving", rpc.ChannelOptions(max_retry=0))
+    ch.init("mem://reqctx-serving", options=rpc.ChannelOptions(max_retry=0))
     cntl = rpc.Controller()
     setup(cntl)
     ended = threading.Event()

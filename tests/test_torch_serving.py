@@ -576,7 +576,7 @@ def test_request_context_crosses_the_wire_both_ways():
     server.add_service(_Context())
     assert server.start("mem://ctx-port") == 0
     ch = rpc.Channel()
-    ch.init("mem://ctx-port", rpc.ChannelOptions(timeout_ms=5000,
+    ch.init("mem://ctx-port", options=rpc.ChannelOptions(timeout_ms=5000,
                                                  max_retry=0))
     try:
         cntl = rpc.Controller()

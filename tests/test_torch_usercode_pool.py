@@ -350,7 +350,7 @@ class EchoService(rpc.Service):
 
 def _channel(target, timeout_ms=10000, max_retry=0):
     ch = rpc.Channel()
-    ch.init(target, rpc.ChannelOptions(timeout_ms=timeout_ms,
+    ch.init(target, options=rpc.ChannelOptions(timeout_ms=timeout_ms,
                                        max_retry=max_retry))
     return ch
 
