@@ -2,7 +2,7 @@
 
 The port of :mod:`brpc_tpu` (the JAX package, which stays the reference)
 to an NVIDIA Hopper card.  It imports nothing of JAX and nothing of
-``brpc_tpu``.  Layer map of slices 1-6:
+``brpc_tpu``.  Layer map of slices 1-7:
 
   L6  serving      brpc_tpu_torch.serving: PagedKvPool (KV arenas on the
                    card), ContinuousBatchScheduler (the batched decode
@@ -18,11 +18,15 @@ to an NVIDIA Hopper card.  It imports nothing of JAX and nothing of
                    progressive reader (rpc.stream, rpc.progressive);
                    brpc_tpu_torch.channels: ParallelChannel,
                    PartitionChannel, DynamicPartitionChannel,
-                   SelectiveChannel, and CollectiveChannel (combo
-                   channels lowered to mesh collectives)
+                   SelectiveChannel, the compiled collective fan-out
+                   they try first (Server.register_collective), and
+                   CollectiveChannel (combo channels lowered to mesh
+                   collectives); the builtin admin pages as RPC
+                   services (rpc.builtin) and rpcz spans (rpc.span)
   L4  policies     brpc_tpu_torch.policy.tpu_std (the framed protocol,
-                   request context and the stream handshake on the wire,
-                   the server's gates), load_balancers (every strategy
+                   request context, the stream handshake and trace ids
+                   on the wire, the server's gates and its five stage
+                   recorders), load_balancers (every strategy
                    of create_load_balancer), naming (list://, file://,
                    mesh://), limiters
   L3  core runtime brpc_tpu_torch.rpc.* Socket, InputMessenger, SocketMap,
@@ -37,7 +41,8 @@ to an NVIDIA Hopper card.  It imports nothing of JAX and nothing of
                    ExecutionQueue
   L1  base         brpc_tpu_torch.butil.* IOBuf (device-block capable),
                    ResourcePool, EndPoint, flags, logging, fast_rand;
-                   brpc_tpu_torch.bvar (Adder, IntRecorder,
-                   LatencyRecorder)
+                   brpc_tpu_torch.bvar (the expose registry, reducers,
+                   windows, latency recorders, families, the collector,
+                   the default variables)
 """
 __version__ = "0.1.0"

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import collections
 import threading
-from typing import Callable, Deque, List, Optional
+from typing import Any, Callable, Deque, Dict, List, Optional
 
 from ..butil.resource_pool import ResourcePool
 from ..butil import flags as _flags
@@ -35,7 +35,7 @@ _flags.define_flag("bthread_max_concurrency", 64,
 
 
 class Tasklet:
-    __slots__ = ("fn", "args", "kwargs", "tid", "name")
+    __slots__ = ("fn", "args", "kwargs", "tid", "name", "local_storage")
 
     def __init__(self, fn: Callable, args: tuple, kwargs: dict,
                  name: Optional[str] = None):
@@ -44,6 +44,8 @@ class Tasklet:
         self.kwargs = kwargs
         self.tid = 0
         self.name = name
+        # bthread-locals (key.cpp), made on the first local_set
+        self.local_storage: Optional[Dict[str, Any]] = None
 
 
 _tls = threading.local()
@@ -138,16 +140,19 @@ class TaskControl:
         return None
 
     def _run_task(self, task: Tasklet) -> None:
+        _tls.current = task
         try:
             task.fn(*task.args, **task.kwargs)
         except Exception:
             from ..butil import logging as log
             log.error("tasklet %s raised", task.name, exc_info=True)
         finally:
+            _tls.current = None
             self.pool.return_resource(task.tid)
             # an idle worker still holds its last tasklet: drop what it
             # ran on (a request's frame, and so its device attachment)
             task.fn = task.args = task.kwargs = None
+            task.local_storage = None
 
     # -- submission (signal_task / steal_task of the reference) --------
     def submit(self, task: Tasklet, urgent: bool) -> int:
@@ -198,6 +203,32 @@ def start_background(fn: Callable, *args, name: Optional[str] = None, **kwargs) 
 
 def in_worker() -> bool:
     return getattr(_tls, "group", None) is not None
+
+
+def current_tasklet() -> Optional[Tasklet]:
+    return getattr(_tls, "current", None)
+
+
+def local_set(key: str, value: Any) -> None:
+    """Set a bthread-local: the running tasklet's, or the calling
+    thread's outside a tasklet (bthread_setspecific)."""
+    cur = current_tasklet()
+    if cur is not None:
+        store = cur.local_storage
+        if store is None:
+            store = cur.local_storage = {}
+    else:
+        store = getattr(_tls, "fallback_store", None)
+        if store is None:
+            store = _tls.fallback_store = {}
+    store[key] = value
+
+
+def local_get(key: str, default: Any = None) -> Any:
+    cur = current_tasklet()
+    store = (cur.local_storage if cur is not None
+             else getattr(_tls, "fallback_store", None))
+    return store.get(key, default) if store else default
 
 
 def note_worker_blocked() -> None:

@@ -81,5 +81,17 @@ def set_flag(name: str, value: Any) -> None:
     _registry[name].set(value)
 
 
+def flag_object(name: str) -> Flag:
+    """The Flag itself: a hot path reads ``flag.value`` (one attribute
+    load) instead of a registry lookup per call."""
+    return _registry[name]
+
+
+def list_flags() -> list:
+    """Every defined flag, sorted by name (the /flags page)."""
+    with _registry_lock:
+        return [_registry[k] for k in sorted(_registry)]
+
+
 def positive_integer(v: Any) -> bool:
     return isinstance(v, int) and v > 0

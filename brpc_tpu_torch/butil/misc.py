@@ -53,5 +53,10 @@ def seed_fast_rand(seed: int) -> None:
     _tls.rand = FastRand(seed)
 
 
+def fast_rand(rng: Optional[FastRand] = None) -> int:
+    """One 64-bit draw (span and trace ids)."""
+    return (rng or _thread_rand()).next()
+
+
 def fast_rand_less_than(n: int, rng: Optional[FastRand] = None) -> int:
     return (rng or _thread_rand()).less_than(n)

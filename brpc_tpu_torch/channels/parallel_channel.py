@@ -16,11 +16,14 @@ Reference: src/brpc/parallel_channel.{h,cpp} (CallMethod :551, CallMapper::Map
   * fail_limit: the call fails once that many sub-calls failed
     (ETOOMANYFAILS); success completes when every non-skipped sub-call ends.
 
-Every call takes the RPC loop, a sub-call per member.  The JAX package
-also has a compiled route (``collective_fanout.maybe_call``), which runs
-the whole fan-out and merge as one program when every member registered a
-device handler; the port has no such route yet, so it behaves as the JAX
-package does with no device handler registered.
+A call with ``cntl.fanout_operand`` set first tries the compiled route
+(:func:`.collective_fanout.maybe_call`): when every member is an
+``ici://`` rank whose server registered a device-side body for the method
+and the mappers and mergers lower, the whole fan-out and its merge run on
+the mesh; otherwise, or when that attempt fails mid-call, the call takes
+the RPC loop, a sub-call per member, with the mappers' ``map_fanout``
+carrying the operand.  A PartitionChannel reaches the hook through this
+method too.
 """
 from __future__ import annotations
 
@@ -95,16 +98,29 @@ class ParallelChannel:
             if done:
                 done(cntl)
             return None
+        # the compiled collective route; a failure inside it falls through
+        # to the per-member loop below, the route already marked down
+        from . import collective_fanout as _cf
+        if _cf.maybe_call(self, method_full_name, cntl, request, response,
+                          done):
+            return response if done is None else None
         fail_limit = self.fail_limit if self.fail_limit > 0 else n
         finalizer = next((m for _, _, m in self._subs
                           if hasattr(m, "finalize_fanout")), None)
+        operand = cntl.__dict__.get("fanout_operand") is not None
+        if operand:
+            _cf.note_loop_devices(self._subs, cntl)
         state = _ParallelCallState(cntl, response, n, fail_limit, done,
                                    finalizer=finalizer)
         cntl._start_us = time.monotonic_ns() // 1000
         response_cls = type(response) if response is not None else None
         for i, (chan, mapper, merger) in enumerate(self._subs):
             try:
-                sub = mapper.map(i, method_full_name, request)
+                mf = getattr(mapper, "map_fanout", None) if operand else None
+                if mf is not None:
+                    sub = mf(i, method_full_name, request, cntl)
+                else:
+                    sub = mapper.map(i, method_full_name, request)
             except Exception as e:
                 # a raising mapper fails its sub-call, not the issue loop
                 bad = Controller()

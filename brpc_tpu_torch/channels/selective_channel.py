@@ -101,6 +101,12 @@ class _SelectiveCall:
         sub_cntl = Controller()
         sub_cntl.timeout_ms = self.cntl.timeout_ms
         sub_cntl.log_id = self.cntl.log_id
+        # the compiled fan-out's state flows through the selection: a unit
+        # that is a Parallel/Partition channel lowers the operand itself,
+        # and the caller sees the route the selected unit took
+        op = self.cntl.__dict__.get("fanout_operand")
+        if op is not None:
+            sub_cntl.fanout_operand = op
         unit.channel.call_method(
             self.method, sub_cntl, self.request, self.response_cls,
             done=lambda sc, u=unit: self._on_sub_done(u, sc))
@@ -110,6 +116,9 @@ class _SelectiveCall:
         if not sub_cntl.failed():
             self.cntl.response = sub_cntl.response
             self.cntl.remote_side = sub_cntl.remote_side
+            if sub_cntl.fanout_route:
+                self.cntl.fanout_route = sub_cntl.fanout_route
+                self.cntl.fanout_result = sub_cntl.fanout_result
             self._finish()
             return
         # retry on a different sub-channel

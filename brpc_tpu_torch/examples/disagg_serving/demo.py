@@ -77,6 +77,8 @@ def main(argv=None) -> int:
         print("device plane:", stats)
         for srv in (decode_a, decode_b):
             for svc in srv.services().values():
+                if not hasattr(svc, "describe_serving"):
+                    continue             # the builtin admin services
                 d = svc.describe_serving()
                 print(f"serving[{srv.listen_endpoint}]: "
                       f"steps={d['scheduler']['steps']} "

@@ -24,11 +24,19 @@ import torch
 from .mesh import IciMesh, ShardedTensor
 
 
-def _fold(parts: List[torch.Tensor], device: torch.device) -> torch.Tensor:
+def fold(parts: List[torch.Tensor], device: torch.device) -> torch.Tensor:
+    """The left fold ``parts[0] + parts[1] + ...`` in list order, into a
+    fresh tensor on ``device`` (psum's counterpart)."""
     acc = parts[0].to(device, copy=True)
     for p in parts[1:]:
         acc.add_(p.to(device))
     return acc
+
+
+def gather(parts: List[torch.Tensor], device: torch.device) -> torch.Tensor:
+    """``parts`` stacked in list order on ``device`` (all_gather's
+    counterpart)."""
+    return torch.stack([t.to(device) for t in parts])
 
 
 class Collectives:
@@ -67,14 +75,13 @@ class Collectives:
         """Sum over the mesh axis; in: (n, ...) sharded, out: (...) summed,
         replicated (ParallelChannel response-merge as a reduction)."""
         self._sharded(x, "all_reduce")
-        return _fold(x.rows, self.mesh.device(0))
+        return fold(x.rows, self.mesh.device(0))
 
     def all_gather(self, x: ShardedTensor) -> torch.Tensor:
         """in: (n, ...) sharded → out: (n, ...) fully replicated (every
         rank sees every response)."""
         self._sharded(x, "all_gather")
-        dev = self.mesh.device(0)
-        return torch.stack([t.to(dev) for t in x.rows])
+        return gather(x.rows, self.mesh.device(0))
 
     def reduce_scatter(self, x: ShardedTensor) -> ShardedTensor:
         """in: (n, n, ...) sharded on dim0 → out: (n, 1, ...) sharded: rank
@@ -82,7 +89,7 @@ class Collectives:
         shape; gradient-bucket exchange)."""
         n = self._sharded(x, "reduce_scatter", square=True)
         return ShardedTensor.adopt(
-            [_fold([t[d:d + 1] for t in x.rows], self.mesh.device(d))
+            [fold([t[d:d + 1] for t in x.rows], self.mesh.device(d))
              for d in range(n)], self.mesh)
 
     def ppermute(self, x: ShardedTensor, shift: int = 1) -> ShardedTensor:

@@ -33,9 +33,18 @@ is reaped after ``ici_device_plane_match_timeout_s`` and fails only that
 transfer; a server's lame-duck stop whose grace expired reaps the sends
 posted before its drain began (``fail_pending``).  A failed transfer
 releases its source pin, and nothing falls back to another route.
+
+rpcz: a transfer posted while an RPC span is in scope (the client span
+during a channel's write, the server span in a handler) opens a transfer
+span parented under it, which carries the transfer's ``posted``, ``recv
+enqueued``, ``matched``, ``complete pin_held_us=`` or ``failed``
+annotations, and its timeline joins the /ici page's recent transfers.
+The post reads the rpcz flag once and the transfer keeps the answer
+(``traced``): with rpcz off nothing else is paid.
 """
 from __future__ import annotations
 
+import collections
 import threading
 import time
 from typing import Callable, Dict, List, Optional
@@ -44,6 +53,10 @@ import torch
 
 from ..butil import flags as _flags
 from ..bthread.device_waiter import DeviceCompletion, DeviceEventDispatcher
+from ..rpc import span as _span
+
+# the rpcz flag, read as one attribute load on the transfer path
+_rpcz = _span._rpcz_flag
 from .mesh import IciMesh
 from .p2p_copy import p2p_copy
 
@@ -85,10 +98,12 @@ class DeviceTransfer:
     __slots__ = ("uuid", "src_dev", "dst_dev", "nbytes", "state", "error",
                  "out", "completion", "posted_ns", "matched_ns",
                  "complete_ns", "mesh", "_src_arr", "_posted_event",
-                 "_releases", "_lock")
+                 "_releases", "_lock", "traced", "trace_id", "parent_span_id",
+                 "span")
 
     def __init__(self, uuid: int, src_dev: int, dst_dev: int, nbytes: int,
-                 src_arr: torch.Tensor, mesh: IciMesh):
+                 src_arr: torch.Tensor, mesh: IciMesh, traced: bool = False,
+                 trace_id: int = 0, parent_span_id: int = 0):
         self.uuid = uuid
         self.src_dev = src_dev
         self.dst_dev = dst_dev
@@ -105,6 +120,17 @@ class DeviceTransfer:
         self._posted_event = None
         self._releases: List[Callable[[], None]] = []
         self._lock = threading.Lock()
+        # posted with rpcz on: annotated, and its timeline kept.  With an
+        # RPC span in scope as well, the transfer owns a span of its own
+        # in that trace
+        self.traced = traced
+        self.trace_id = trace_id
+        self.parent_span_id = parent_span_id
+        self.span = None
+        if trace_id:
+            self.span = _span.start_transfer_span(
+                f"device_plane ici://{src_dev}->{dst_dev} {nbytes}B",
+                trace_id, parent_span_id)
 
     # -- source pin ------------------------------------------------------
     def add_source_release(self, cb: Optional[Callable[[], None]]) -> None:
@@ -143,18 +169,31 @@ class DeviceTransfer:
     def add_done_callback(self, cb: Callable[[int], None]) -> None:
         self.completion.add_done_callback(cb)
 
+    def timeline(self) -> tuple:
+        """The fields :meth:`describe` renders, as one tuple (cheap to
+        keep: no tensor, no formatting)."""
+        return (self.uuid, self.src_dev, self.dst_dev, self.nbytes,
+                self.state, self.error, self.posted_ns, self.matched_ns,
+                self.complete_ns)
+
     def describe(self) -> dict:
-        return {
-            "uuid": f"{self.uuid:#x}",
-            "route": f"ici://{self.src_dev} -> ici://{self.dst_dev}",
-            "nbytes": self.nbytes,
-            "state": self.state,
-            "error": self.error,
-            "posted_to_matched_us": ((self.matched_ns - self.posted_ns)
-                                     // 1000 if self.matched_ns else -1),
-            "matched_to_complete_us": ((self.complete_ns - self.matched_ns)
-                                       // 1000 if self.complete_ns else -1),
-        }
+        return _describe(self.timeline())
+
+
+def _describe(timeline: tuple) -> dict:
+    (uuid, src, dst, nbytes, state, error, posted_ns, matched_ns,
+     complete_ns) = timeline
+    return {
+        "uuid": f"{uuid:#x}",
+        "route": f"ici://{src} -> ici://{dst}",
+        "nbytes": nbytes,
+        "state": state,
+        "error": error,
+        "posted_to_matched_us": ((matched_ns - posted_ns) // 1000
+                                 if matched_ns else -1),
+        "matched_to_complete_us": ((complete_ns - matched_ns) // 1000
+                                   if complete_ns else -1),
+    }
 
 
 def platform_allows(mesh: IciMesh) -> bool:
@@ -186,6 +225,9 @@ class DevicePlane:
         self._pending: Dict[int, DeviceTransfer] = {}   # posted sends
         self._active: set = set()      # posted-but-incomplete (drain gate)
         self._streams: Dict[torch.device, "torch.cuda.Stream"] = {}
+        # the last finished traced transfers' timelines (not the
+        # transfers: those hold their tensors)
+        self._recent: "collections.deque" = collections.deque(maxlen=64)
         self._next_uuid = 1
         self.transfers = 0
         self.bytes_sent = 0
@@ -257,8 +299,13 @@ class DevicePlane:
                     raise DevicePlaneError(f"p2p_copy build failed: {e}")
                 with self._lock:
                     self.kernel_builds += 1
+        # trace context at post time: the active client span (a channel's
+        # write) or the server span of the handler posting
+        traced = _rpcz.value
+        tid, psid = (_span.current_trace_context() if traced else (0, 0))
         t = DeviceTransfer(self.next_uuid(), src_dev, dst_dev,
-                           int(arr.shape[0]), arr, mesh)
+                           int(arr.shape[0]), arr, mesh, traced=traced,
+                           trace_id=tid, parent_span_id=psid)
         if arr.is_cuda:
             ev = torch.cuda.Event()
             ev.record(torch.cuda.current_stream(arr.device))
@@ -266,6 +313,8 @@ class DevicePlane:
         with self._lock:
             self._pending[t.uuid] = t
             self._active.add(t)
+        if traced:
+            self._annotate(t, "posted")
         self._sweep_stale()
         return t
 
@@ -278,6 +327,8 @@ class DevicePlane:
             t = self._pending.pop(uuid, None)
         if t is None:
             raise KeyError(f"device plane: no posted send {uuid:#x}")
+        if t.traced:
+            self._annotate(t, "recv enqueued")
         try:
             out, done_event = self._run(t)
         except Exception as e:
@@ -318,6 +369,8 @@ class DevicePlane:
         t.state = MATCHED
         t.matched_ns = time.monotonic_ns()
         t.out = out
+        if t.traced:
+            self._annotate(t, "matched")
         with self._lock:
             self.transfers += 1
             self.bytes_sent += t.nbytes
@@ -329,6 +382,12 @@ class DevicePlane:
                 self.bytes_recv += t.nbytes
             t._release_source()
             self._untrack(t)
+            if t.traced:
+                # how long the source block stayed pinned
+                self._annotate(t, "complete pin_held_us="
+                                  f"{(t.complete_ns - t.posted_ns) // 1000}")
+                self._close_span(t, 0)
+                self._recent.append(t.timeline())
             t.completion.signal(0)
 
         if done_event is None:
@@ -344,6 +403,10 @@ class DevicePlane:
         t.error = reason
         t._release_source()
         self._untrack(t)
+        if t.traced:
+            self._annotate(t, f"failed: {reason}")
+            self._close_span(t, 1)
+            self._recent.append(t.timeline())
         t.completion.signal(1)
 
     # ---- drain barrier -------------------------------------------------
@@ -396,6 +459,28 @@ class DevicePlane:
                           "(match timeout)")
 
     # ---- observability -------------------------------------------------
+    @staticmethod
+    def _annotate(t: DeviceTransfer, what: str) -> None:
+        """Called for a ``traced`` transfer only: onto its own span, else
+        onto the span in scope."""
+        text = (f"device_plane {what} uuid={t.uuid:#x} "
+                f"ici://{t.src_dev}->{t.dst_dev} {t.nbytes}B")
+        if t.span is not None:
+            t.span.annotate(text)
+        else:
+            _span.annotate_current(text)
+
+    @staticmethod
+    def _close_span(t: DeviceTransfer, error_code: int) -> None:
+        span, t.span = t.span, None
+        if span is not None:
+            _span.end_span(span, error_code)
+
+    def recent_transfers(self) -> List[dict]:
+        """The last 64 finished transfers posted with rpcz on, their
+        timelines newest last (the /ici page)."""
+        return [_describe(tl) for tl in list(self._recent)]
+
     def pending_sends(self) -> int:
         with self._lock:
             return len(self._pending)

@@ -47,6 +47,27 @@ _flags.define_flag("ici_socket_window_bytes", 4 * 1024 * 1024,
                    "per-ici-socket send window (unconsumed bytes at peer)",
                    _flags.positive_integer)
 
+# the byte totals of ici:// sockets already closed; a live socket keeps its
+# own (stat.out_size, device_out_size), summed at read time, so the write
+# path takes no process-wide lock
+_retired_lock = threading.Lock()
+_retired_moved = [0, 0]
+
+
+def ici_transport_stats() -> Tuple[int, int]:
+    """``(bytes moved, device bytes moved)`` over every ici:// socket of
+    the process, read from the sockets' own counters (the /ici page and
+    the default variables).  Bytes of a write racing its socket's close
+    may be missed."""
+    from ..rpc.socket import list_sockets
+    with _retired_lock:
+        moved, device_moved = _retired_moved
+    for s in list_sockets():
+        if isinstance(s, IciSocket):
+            moved += s.stat.out_size
+            device_moved += s.device_out_size
+    return moved, device_moved
+
 
 class CreditWindow:
     """Mixin: explicit-ACK sliding window (reference rdma_endpoint.cpp:771
@@ -193,6 +214,8 @@ class IciSocket(CreditWindow, OrderedDelivery, Socket):
         super().__init__(remote_side=self.mesh.endpoint(remote_dev))
         self.local_dev = local_dev
         self.remote_dev = remote_dev
+        # of stat.out_size, the bytes that rode DEVICE blocks
+        self.device_out_size = 0
         self.local_side = self.mesh.endpoint(local_dev)
         self.peer: Optional["IciSocket"] = None
         self._inbox = IOBuf()
@@ -222,10 +245,12 @@ class IciSocket(CreditWindow, OrderedDelivery, Socket):
         if n < 0:
             return -1                     # window full: not writable now
         frame = data.cut(n)
-        self._deliver(peer, self._relocate(frame))
+        chunks, device_n = self._relocate(frame)
+        self.device_out_size += device_n
+        self._deliver(peer, chunks)
         return n
 
-    def _relocate(self, frame: IOBuf) -> List:
+    def _relocate(self, frame: IOBuf) -> Tuple[List, int]:
         """Move DEVICE refs to the peer's rank; host refs pass through as
         bytes.  A tensor the peer's rank already owns passes by reference.
         Payloads at/above ``ici_device_plane_threshold`` post a send WR on
@@ -234,9 +259,11 @@ class IciSocket(CreditWindow, OrderedDelivery, Socket):
         Smaller ones are copied with ``mesh.device_put``, the counterpart
         of the JAX package's ``jax.device_put``.  Either copy lands in a
         fresh tensor, so a host buffer the caller may reuse is never
-        aliased (the detach rule)."""
+        aliased (the detach rule).  Returns the chunks and the bytes that
+        rode DEVICE blocks."""
         chunks: List = []
         pending_host: List[bytes] = []
+        device_n = 0
         for i in range(frame.backing_block_num()):
             r = frame.backing_block(i)
             if r.block.kind != DEVICE:
@@ -246,6 +273,7 @@ class IciSocket(CreditWindow, OrderedDelivery, Socket):
             if pending_host:
                 chunks.append(b"".join(pending_host))
                 pending_host = []
+            device_n += r.length
             arr = r.block.data
             if r.offset or r.length != arr.shape[0]:
                 arr = arr[r.offset:r.offset + r.length]
@@ -267,7 +295,7 @@ class IciSocket(CreditWindow, OrderedDelivery, Socket):
             chunks.append((moved, r.length))
         if pending_host:
             chunks.append(b"".join(pending_host))
-        return chunks
+        return chunks, device_n
 
     def _deliver(self, peer: "IciSocket", chunks: List) -> None:
         waits: List = []
@@ -356,6 +384,10 @@ class IciSocket(CreditWindow, OrderedDelivery, Socket):
         lameduck.notify_peer_draining(self.remote_side)
 
     def _transport_close(self) -> None:
+        # once per socket (set_failed), after it left list_sockets()
+        with _retired_lock:
+            _retired_moved[0] += self.stat.out_size
+            _retired_moved[1] += self.device_out_size
         peer = self.peer
         if peer is not None and not peer.failed:
             if self.failed_error == errors.ELOGOFF:

@@ -11,6 +11,22 @@ Streaming RPC rides it: the handshake in the request's
 response, and stream frames (``correlation_id`` 0, no method) consumed in
 reader order from both the server and the client parse paths
 (:mod:`..rpc.stream`).
+
+rpcz: a sampled call's trace, span and parent ids ride ``RpcMeta.request``
+and the server opens its span in the caller's trace.  The server path is
+split in five stages, each a LatencyRecorder ``tpu_std_server_<stage>``
+and an annotation on the request's span:
+
+  queue    frame cut on the read loop → process_request (dispatch, and
+           the admission queue's wait when there is one)
+  parse    the request's ParseFromString
+  handler  md.invoke → done()
+  encode   the response's meta, payload and frame
+  write    socket.write
+
+``tpu_std_stage_metrics`` picks how much: ``sampled`` (default) annotates
+rpcz-sampled requests only, ``on`` also feeds the five recorders on every
+request (a measurement run's mode), ``off`` records nothing.
 """
 from __future__ import annotations
 
@@ -18,7 +34,9 @@ import threading
 import time
 from typing import Any
 
+from .. import bvar
 from ..butil.iobuf import IOBuf
+from ..butil import flags as _flags
 from ..butil import logging as log
 from ..bthread import id as bthread_id
 from ..proto import rpc_meta_pb2 as meta_pb
@@ -26,10 +44,47 @@ from ..rpc import admission, errors
 from ..rpc.controller import Controller, server_controller_pool
 from ..rpc.protocol import (Protocol, ParseResult, find_protocol,
                             register_protocol)
+from ..rpc.span import (start_server_span, end_server_span,
+                        _rpcz_flag as _rpcz)
 from ..rpc.stream import FRAME_HANDSHAKE
 
 MAGIC = b"TRPC"
 HEADER_SIZE = 12
+
+_flags.define_flag("tpu_std_stage_metrics", "sampled",
+                   "per-stage server latency decomposition: 'sampled' "
+                   "(annotations on rpcz-sampled spans), 'on' (every "
+                   "request + bvar recorders), 'off'")
+
+_STAGES = ("queue", "parse", "handler", "encode", "write")
+_stage_recorders = {s: bvar.LatencyRecorder(f"tpu_std_server_{s}")
+                    for s in _STAGES}
+# the Flag object: one attribute load a request
+_stage_flag = _flags.flag_object("tpu_std_stage_metrics")
+
+
+def _stages_active(cntl: Controller) -> bool:
+    """With rpcz on: 'on' times every request, 'sampled' the sampled
+    ones, 'off' none."""
+    mode = _stage_flag.value
+    if mode == "sampled":
+        return cntl.span is not None
+    return mode == "on"
+
+
+def _record_stage(stage: str, us: int, span) -> None:
+    if _stage_flag.value == "on":
+        _stage_recorders[stage] << us
+    if span is not None:
+        span.annotate(f"{stage}_us={us}")
+
+
+def stage_p50s_us() -> dict:
+    """Per-stage p50s (µs) of the tpu_std_server_* recorders, read from
+    their lifetime reservoirs (a short run ends before the window's first
+    tick); meaningful after a run with ``tpu_std_stage_metrics=on``."""
+    return {s: _stage_recorders[s]._percentile.get_value().get_number(0.5)
+            for s in _STAGES}
 
 
 class StdMessage:
@@ -124,6 +179,11 @@ def pack_request(payload: IOBuf, cid: int, cntl: Controller,
         meta.request.priority = cntl.priority + 1
     if cntl.tenant:
         meta.request.tenant = cntl.tenant
+    span = cntl.span
+    if span is not None:
+        meta.request.trace_id = span.trace_id
+        meta.request.span_id = span.span_id
+        meta.request.parent_span_id = span.parent_span_id
     body = IOBuf()
     body.append(payload)
     att_size = len(cntl.request_attachment)
@@ -185,6 +245,7 @@ def process_request(msg: StdMessage, socket, server) -> None:
     start_us = time.monotonic_ns() // 1000
 
     cntl = server_controller_pool.acquire()
+    cntl.server = server
     cntl.log_id = req_meta.log_id
     cntl.remote_side = socket.remote_side
     # request context (offset-decoded priority; handlers may read)
@@ -194,13 +255,28 @@ def process_request(msg: StdMessage, socket, server) -> None:
         cntl.tenant = req_meta.tenant
     if req_meta.deadline_left_ms:
         cntl.deadline_left_ms = req_meta.deadline_left_ms
+    if _rpcz.value:
+        start_server_span(cntl, full_name, req_meta.trace_id,
+                          req_meta.span_id)
+        stages = _stages_active(cntl)
+    else:
+        # rpcz off: only the measurement mode times the stages
+        stages = _stage_flag.value == "on"
+    if stages and msg.recv_ns:
+        _record_stage("queue", (time.monotonic_ns() - msg.recv_ns) // 1000,
+                      cntl.span)
     md = server.find_method(full_name)
     status = server.method_status(full_name) if md is not None else None
     if status is not None:
         status.received << 1
     server_counted = False
+    handler_t0 = 0
 
     def send_response(resp: Any = None) -> None:
+        t_enc0 = time.monotonic_ns() if stages else 0
+        if stages and handler_t0:
+            _record_stage("handler", (t_enc0 - handler_t0) // 1000,
+                          cntl.span)
         rmeta = meta_pb.RpcMeta()
         rmeta.correlation_id = cid
         rmeta.response.error_code = cntl.error_code_
@@ -226,7 +302,17 @@ def process_request(msg: StdMessage, socket, server) -> None:
         if att_size:
             rmeta.attachment_size = att_size
             payload.append(resp_att)
-        socket.write(pack_frame(rmeta, payload))
+        frame = pack_frame(rmeta, payload)
+        if stages:
+            t_wr0 = time.monotonic_ns()
+            _record_stage("encode", (t_wr0 - t_enc0) // 1000, cntl.span)
+            socket.write(frame)
+            _record_stage("write", (time.monotonic_ns() - t_wr0) // 1000,
+                          cntl.span)
+        else:
+            socket.write(frame)
+        if cntl.span is not None:
+            end_server_span(cntl)
         if status is not None:
             status.on_responded(cntl.error_code_,
                                 time.monotonic_ns() // 1000 - start_us)
@@ -251,6 +337,8 @@ def process_request(msg: StdMessage, socket, server) -> None:
 
     def parse_and_invoke() -> None:
         # the gates are held; send_response accounts for them
+        nonlocal handler_t0
+        t_parse0 = time.monotonic_ns() if stages else 0
         try:
             body = msg.body
             if meta.attachment_size:
@@ -265,6 +353,9 @@ def process_request(msg: StdMessage, socket, server) -> None:
             send_response()
             cntl._maybe_recycle()
             return
+        if stages:
+            _record_stage("parse", (time.monotonic_ns() - t_parse0) // 1000,
+                          cntl.span)
 
         response = md.response_cls()
         # taken by the one caller that responds: a handler may hand
@@ -282,6 +373,7 @@ def process_request(msg: StdMessage, socket, server) -> None:
             if responding.acquire(blocking=False):
                 respond()
 
+        handler_t0 = time.monotonic_ns() if stages else 0
         try:
             md.invoke(cntl, request, response, done)
         except Exception as e:   # uncaught user exception → EINTERNAL
@@ -318,9 +410,12 @@ def process_request(msg: StdMessage, socket, server) -> None:
         no_method()
         return
 
-    def admitted(_queued_us: int) -> None:
+    def admitted(queued_us: int) -> None:
         nonlocal server_counted
         server_counted = True
+        if stages and queued_us:
+            # the admission queue's wait is part of the queue stage
+            _record_stage("queue", queued_us, cntl.span)
         parse_and_invoke()
 
     adm.submit(priority=cntl.priority, tenant=cntl.tenant,

@@ -29,6 +29,9 @@ from .controller import Controller
 from .input_messenger import InputMessenger
 from .protocol import find_protocol
 from .socket_map import SocketMap
+from .span import (maybe_start_client_span, set_client_span_local,
+                   _rpcz_flag as _rpcz)
+from ..bthread import scheduler as _sched
 
 
 @dataclass
@@ -118,6 +121,8 @@ class Channel:
         if not cntl.tenant and self.options.tenant:
             cntl.tenant = self.options.tenant
         payload = self._protocol.serialize_request(request, cntl)
+        if _rpcz.value and cntl.span is None:
+            maybe_start_client_span(cntl, method_full_name)
         cntl._start_call(self, method_full_name, payload, response_cls, done)
         if done is None:
             timeout = ((cntl.timeout_ms or 0) / 1000.0 + 35.0)
@@ -143,7 +148,22 @@ class Channel:
         cid = cntl.current_cid()
         packet = self._protocol.pack_request(
             cntl._request_buf, cid, cntl, cntl._method_full_name)
-        rc = sock.write(packet, notify_cid=cid)
+        span = cntl.span
+        if span is None:
+            rc = sock.write(packet, notify_cid=cid)
+        else:
+            # the client span is the active one while this thread writes:
+            # the device plane's events of the request land in its trace.
+            # Decided before the write: an inline completion ends the call
+            # (and clears cntl.span) inside it
+            span.annotate(f"issue try={cntl.current_try} to "
+                          f"{sock.remote_side}")
+            prev = _sched.local_get("rpcz_client_span")
+            set_client_span_local(span)
+            try:
+                rc = sock.write(packet, notify_cid=cid)
+            finally:
+                set_client_span_local(prev)
         if rc != 0:
             raise ConnectionError(f"write failed: {rc}")
 

@@ -93,6 +93,22 @@ class Controller:
     # inside the handler, which the response echoes back
     stream_creator: Any = None
     accepted_stream_id: int = 0
+    # compiled fan-out call state (channels/collective_fanout.py): the
+    # typed operand the caller scatters across a Parallel/Partition
+    # fan-out, the merged result, and which route carried the call
+    # ("collective" = the compiled plane, "rpc" = the per-member loop, ""
+    # = not an operand fan-out)
+    fanout_operand: Any = None
+    fanout_result: Any = None
+    fanout_route: str = ""
+    # rpcz (rpc/span.py): the call's span while it runs, and the ids a
+    # sampled call carried
+    span: Any = None
+    trace_id: int = 0
+    span_id: int = 0
+    parent_span_id: int = 0
+    # server side: the Server whose handler runs the request
+    server: Any = None
 
     def _peek_response_attachment(self) -> Optional[IOBuf]:
         """The response attachment if one was touched (reading the field
@@ -296,6 +312,9 @@ class Controller:
             TimerThread.instance().unschedule(self._timeout_timer)
         self.latency_us = time.monotonic_ns() // 1000 - self._start_us
         self._channel._on_call_end(self)
+        if self.span is not None:
+            from .span import end_client_span
+            end_client_span(self)
         done = self._done
         bthread_id.unlock_and_destroy(cid)   # wakes sync joiner
         self._ended.set()

@@ -18,7 +18,13 @@ registered services through tpu_std.  Around that:
     retryable ELOGOFF, peers get GOODBYE, in-flight handlers, queued
     usercode, open streams and posted device-plane transfers finish
     inside the grace window, and only stragglers are failed: a stream
-    past the window gets an orderly CLOSE, not a reset.
+    past the window gets an orderly CLOSE, not a reset;
+  * the builtin admin pages as RPC services (``brpc_tpu.Builtin``,
+    ``brpc_tpu.Trace``), mounted at start unless
+    ``enable_builtin_services`` is off (:mod:`.builtin`);
+  * ``register_collective``: a device-side body for a served method, run
+    by the compiled collective fan-out while the server serves its
+    ``ici://`` rank (:mod:`..channels.collective_fanout`).
 """
 from __future__ import annotations
 
@@ -68,6 +74,11 @@ class ServerOptions:
     # AdmissionOptions defaults, an AdmissionOptions tunes bands, queue
     # bound and tenant weights; None/False keeps reject-at-gate.
     admission: Any = None
+    # mount the builtin admin services (brpc_tpu.Builtin, brpc_tpu.Trace)
+    # at start
+    enable_builtin_services: bool = True
+    # display name on the /status page
+    server_info_name: str = ""
 
 
 class Server:
@@ -96,6 +107,11 @@ class Server:
         # drained means in-flight work and plane transfers reached zero
         # inside the window
         self.last_drain: Optional[dict] = None
+        self._builtin = None             # BuiltinDispatcher once started
+        # methods with a device-side body, and the ranks this server
+        # marked as serving them in the collective registry
+        self._collective_regs: List[str] = []
+        self._collective_served: List[int] = []
 
     # ---- registry -----------------------------------------------------
     def add_service(self, svc: Service) -> int:
@@ -125,6 +141,34 @@ class Server:
             return limiters.ConstantConcurrencyLimiter(
                 self.options.max_concurrency)
         return None
+
+    def register_collective(self, method_full_name: str, handler,
+                            merge: str = "gather", mapping: str = "shard",
+                            takes_index: bool = False) -> None:
+        """Attach a DEVICE-SIDE body to a served method: the compiled
+        fan-out plane runs it on the rank's row when a Parallel or
+        Partition call over ``ici://`` members lowers, with ``merge`` and
+        ``mapping`` the contract the client's merger and mapper must
+        match.  The wire method stays the body of the per-member RPC loop
+        that any degrade completes on.  While this server serves
+        ``ici://k``, rank k advertises the capability."""
+        from ..channels import collective_fanout as _cf
+        _cf.register_device_handler(method_full_name, handler,
+                                    merge=merge, mapping=mapping,
+                                    takes_index=takes_index)
+        self._collective_regs.append(method_full_name)
+        if self._started:
+            self._serve_collective()
+
+    def _serve_collective(self) -> None:
+        ep = self.listen_endpoint
+        if (self._collective_regs and ep is not None
+                and ep.scheme == SCHEME_ICI
+                and ep.device_id not in self._collective_served):
+            # an epoch bump: a route degraded for a dead member re-probes
+            from ..channels import collective_fanout as _cf
+            _cf.registry().serve(ep.device_id)
+            self._collective_served.append(ep.device_id)
 
     def find_method(self, full_name: str) -> Optional[MethodDescriptor]:
         return self._methods.get(full_name)
@@ -197,6 +241,9 @@ class Server:
         if ep.scheme not in (SCHEME_ICI, SCHEME_MEM):
             raise ValueError(f"cannot listen on scheme {ep.scheme}: the "
                              "port serves ici:// and mem:// only")
+        if self.options.enable_builtin_services:
+            from .builtin import register_builtin_services
+            register_builtin_services(self)
         # a fresh event per run: stop() callers of the previous run hold
         # their own (set) event
         self._stopped = threading.Event()
@@ -226,6 +273,7 @@ class Server:
         self._started = True
         from . import lameduck
         lameduck.clear_local_draining(ep)   # restart lifts the drain mark
+        self._serve_collective()
         if self.options.graceful_quit_on_sigterm:
             if not lameduck.enable_graceful_quit(self):
                 log.warning(
@@ -354,6 +402,11 @@ class Server:
         self._started = False
         self._draining = False
         lameduck.clear_local_draining(ep)
+        if self._collective_served:
+            from ..channels import collective_fanout as _cf
+            served, self._collective_served = self._collective_served, []
+            for dev in served:
+                _cf.registry().withdraw(dev)
 
     # ---- drain machinery ----------------------------------------------
     def _send_goodbyes(self) -> None:

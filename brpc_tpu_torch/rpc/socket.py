@@ -80,6 +80,7 @@ class Socket:
         self._read_portal = IOPortal()
         self._selected_protocol_index = -1  # protocol memory per socket
         self.stat = SocketStat()
+        self.create_time = time.time()
         # correlation ids written on this socket and possibly awaiting a
         # response: failed with the socket so a connection death completes
         # in-flight calls NOW instead of letting them burn their full
@@ -98,6 +99,14 @@ class Socket:
         # called with the socket once it failed: a stream riding the
         # connection closes with it (rpc/stream.py)
         self.on_failed_callbacks: List[Callable[["Socket"], None]] = []
+
+    def description(self) -> str:
+        """One line for the /sockets page."""
+        st = self.stat
+        return (f"Socket{{id={self.id} remote={self.remote_side} "
+                f"failed={self.failed} server_side={self.is_server_side} "
+                f"in={st.in_size}B/{st.in_num_messages} "
+                f"out={st.out_size}B/{st.out_num_messages}}}")
 
     # ---- failure -----------------------------------------------------
     def set_failed(self, error_code: int = errors.EFAILEDSOCKET,

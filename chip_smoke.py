@@ -170,6 +170,41 @@ Phases, each fatal on failure:
                 same way, equal, launches = transfers = 8; (d) a
                 SelectiveChannel over ici://5-7 with ici://6 stopped: 30
                 calls all succeed, retries counted
+ 13. collective fan-out  8 servers on ici://0-7, each registering device
+                bodies (Server.register_collective) beside their wire
+                methods: (a) bench_collective_fanout's shape (bench.py:
+                823-954): 512 B uint8 shards, 10 warm-ups and 80 timed
+                calls each of the compiled gather on a pre-sharded operand
+                (shard_operand), the compiled MERGE_NONE and the per-member
+                loop (ici_fanout_collective off, a numpy operand); beside
+                them bench_collective_single's denominator (bench.py:
+                956-1016), 200 single 512 B echoes to ici://0 after 20
+                warm-ups; every call's route is checked (collective or
+                rpc as meant).  (b) 64 MiB of float32 in 8 shards of 8 MiB,
+                a shard-and-gather method (x2) and a replicate-and-sum
+                method on a 64 MiB operand, each compiled and degraded, 1 +
+                10 calls each: compiled and degraded results equal (bit-
+                exact gather; sum within rtol = atol = 1e-6), the compiled
+                leg launches neither p2p_copy nor a ring kernel, the
+                degraded leg's p2p_copy launches equal its plane transfers
+                and are > 0.  (c) FabricFaultPlan(collective_kill_device=4):
+                the calls degrade in-call with no failure, the route stays
+                down after the plan is cleared, and comes back when ici://4's
+                server restarts; degraded_member_killed and
+                revived_member_killed each +1, the sequencer's assigned ==
+                executed
+ 14. rpcz       phase 3's echo (Sink.Push on ici://0, 4 KiB owned by rank
+                1, threshold 1): 150 calls after 10 warm-ups in each of
+                three modes, rpcz off, rpcz on, rpcz on with
+                tpu_std_stage_metrics=on, in turns there and back; the five
+                tpu_std_server_<stage> p50s; then, in a fresh sampling
+                second, 20 calls each with one client and one server span
+                in one trace (the server's parented under the client's)
+                and a transfer span under the client span carrying posted,
+                recv enqueued, matched and complete; Builtin.Call over
+                ici:// for vars, status and ici, whose device-plane counters
+                equal plane.stats() and whose route events show phase 13's
+                selected fan-outs
 
 Launch counts are zeroed just before each path and read just after it:
 during phases 3-4 and during phase 8 p2p_copy's launches must equal the
@@ -181,7 +216,9 @@ plus the attachments it returned, in (c) the LoadKv and MigrateIn calls
 the servers received (bounced ones included); during phases 11 and 12
 they must equal the transfers (in 11 (b) also the DATA frames with a
 device block, in 12 (b)-(c) the sub-calls' legs that crossed); during
-phase 6 each ring
+phases 13 and 14 they must equal the transfers (in 13 the degraded
+leg's; the compiled leg launches none), and no ring kernel may launch
+there; during phase 6 each ring
 kernel's launches must equal the calls of its entry point.  The line
 before the last is the ``kernels`` JSON; the last line is the device
 JSON.
@@ -264,6 +301,13 @@ STOP_CHUNKS, STOP_GRACE_S = 16, 0.5
 # phase 12: bench_parallel_fanout_us's iterations, the sharded tensor and
 # the selective channel's calls
 FANOUT_ITERS, FANOUT_BYTES, SELECTIVE_CALLS = 60, 64 << 20, 30
+# phase 13: bench_collective_fanout's shard and timed calls,
+# bench_collective_single's calls, and the calls a 64 MiB leg is timed over
+FANOUT_SHARD, FANOUT_COLL_ITERS, FANOUT_SINGLE_ITERS = 512, 80, 200
+FANOUT_BIG_ITERS = 10
+# phase 14: echo calls per mode and turn, and the calls whose spans are
+# checked one by one
+RPCZ_CALLS, RPCZ_TRACED = 150, 20
 
 
 def fail(msg: str) -> None:
@@ -2529,6 +2573,449 @@ def phase_fanout(mesh, plane, p2p_copy) -> dict:
     return out
 
 
+def phase_collective_fanout(mesh, plane, p2p_copy, ring_kernels) -> dict:
+    """The compiled collective fan-out on ici://0-7 (see the module
+    docstring, phase 13)."""
+    import brpc_tpu_torch.policy  # noqa: F401
+    from brpc_tpu_torch import channels, rpc
+    from brpc_tpu_torch.butil import flags
+    from brpc_tpu_torch.channels import collective_fanout as cf
+    from brpc_tpu_torch.ici import route
+    from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
+    from brpc_tpu_torch.rpc import fault_injection as fi
+
+    t_phase = time.monotonic()
+    dev = mesh.device(0)
+    ranks = list(range(mesh.size))
+    out = {}
+
+    class Fan(rpc.Service):
+        """The wire bodies, the per-member loop's half of each method:
+        the same function as the registered device body."""
+
+        SERVICE_NAME = "Fan"
+
+        def __init__(self, rank):
+            self.rank = rank
+
+        def _reply(self, cntl, fn):
+            att = cntl.request_attachment
+            if att.device_refs():
+                x = _tensor_of(att)
+                cntl.response_attachment.append_device_array(mesh.own(
+                    fn(x.view(torch.float32)).view(torch.uint8)
+                    if fn is not None else x, self.rank))
+            else:
+                cntl.response_attachment.append(att.to_bytes())
+
+        @rpc.method(EchoRequest, EchoResponse)
+        def Echo(self, cntl, request, response, done):
+            self._reply(cntl, None)
+            done()
+
+        @rpc.method(EchoRequest, EchoResponse)
+        def EchoSharded(self, cntl, request, response, done):
+            self._reply(cntl, None)
+            done()
+
+        @rpc.method(EchoRequest, EchoResponse)
+        def Scale(self, cntl, request, response, done):
+            self._reply(cntl, lambda x: x * 2.0)
+            done()
+
+        @rpc.method(EchoRequest, EchoResponse)
+        def Sum(self, cntl, request, response, done):
+            self._reply(cntl, lambda x: x * 0.5)
+            done()
+
+    def start(r):
+        s = rpc.Server(rpc.ServerOptions(usercode_inline=True))
+        s.add_service(Fan(r))
+        s.register_collective("Fan.Echo", lambda x: x, merge="gather",
+                              mapping="shard")
+        s.register_collective("Fan.EchoSharded", lambda x: x, merge="none",
+                              mapping="shard")
+        s.register_collective("Fan.Scale", lambda x: x * 2.0,
+                              merge="gather", mapping="shard")
+        s.register_collective("Fan.Sum", lambda x: x * 0.5, merge="sum",
+                              mapping="replicate")
+        check(s.start(f"ici://{r}") == 0, f"fan-out server ici://{r}")
+        return s
+
+    def mk_pc(merge, dtype, shard_shape, mapper=None):
+        pc = channels.ParallelChannel()
+        mapper = mapper or channels.ShardingCallMapper()
+        merger = channels.CollectiveMerger(merge=merge, dtype=dtype,
+                                           shard_shape=shard_shape)
+        for r in ranks:
+            ch = rpc.Channel()
+            ch.init(f"ici://{r}", options=rpc.ChannelOptions(
+                timeout_ms=30000, max_retry=0))
+            pc.add_channel(ch, mapper=mapper, merger=merger)
+            chans.append(ch)
+        return pc
+
+    def call(pc, op, method, want_route):
+        cntl = rpc.Controller()
+        cntl.fanout_operand = op
+        t0 = time.perf_counter_ns()
+        pc.call_method(method, cntl, EchoRequest(message="f"),
+                       EchoResponse())
+        torch.cuda.synchronize()
+        t1 = time.perf_counter_ns()
+        check(not cntl.failed(), f"{method}: {cntl.error_text}")
+        check(cntl.fanout_route == want_route,
+              f"{method}: route {cntl.fanout_route!r}, meant to take "
+              f"{want_route!r}")
+        return cntl.fanout_result, (t1 - t0) / 1000.0
+
+    def measure(pc, op, method, want_route, n, warm):
+        lat = []
+        for i in range(n + warm):
+            _, us = call(pc, op, method, want_route)
+            if i >= warm:
+                lat.append(us)
+        return {"p50_us": _pct(lat, 0.5), "p99_us": _pct(lat, 0.99),
+                "calls": n, "routes": {want_route: n + warm}}
+
+    def launches():
+        return (p2p_copy.launches, plane.stats()["transfers"],
+                sum(k.launches for k in ring_kernels))
+
+    servers = {r: start(r) for r in ranks}
+    # phase 12 stopped ici://6 and phase 11 ici://2: their breakers may
+    # still isolate them until the health check's next probe; probe now,
+    # so the per-member loop reaches the restarted servers
+    from brpc_tpu_torch.rpc import health_check
+    from brpc_tpu_torch.rpc.circuit_breaker import BreakerRegistry
+    for r in ranks:
+        ep = mesh.endpoint(r)
+        if BreakerRegistry.instance().breaker(ep).is_isolated():
+            check(health_check.start_health_check(ep).probe_now(),
+                  f"ici://{r} did not revive on a probe")
+    chans = []
+    selected0 = route.collective_stats().get("collective_selected", 0)
+    try:
+        # (a) bench_collective_fanout's shape and its single-call
+        # denominator
+        pc_gather = mk_pc("gather", "uint8", (FANOUT_SHARD,))
+        pc_none = mk_pc("none", "uint8", (FANOUT_SHARD,))
+        op_host = np.arange(len(ranks) * FANOUT_SHARD,
+                            dtype=np.uint8).reshape(len(ranks),
+                                                    FANOUT_SHARD)
+        op_dev = cf.shard_operand(ranks, torch.from_numpy(op_host), mesh=mesh)
+        res, _ = call(pc_gather, op_dev, "Fan.Echo", "collective")
+        check(torch.equal(res.cpu(), torch.from_numpy(op_host)),
+              "the compiled gather differs from the operand")
+        a = {"members": len(ranks), "shard_bytes": FANOUT_SHARD}
+        a["collective"] = measure(pc_gather, op_dev, "Fan.Echo",
+                                  "collective", FANOUT_COLL_ITERS, 10)
+        a["collective_sharded"] = measure(pc_none, op_dev,
+                                          "Fan.EchoSharded", "collective",
+                                          FANOUT_COLL_ITERS, 10)
+        flags.set_flag("ici_fanout_collective", False)
+        try:
+            res, _ = call(pc_gather, op_host, "Fan.Echo", "rpc")
+            check(torch.equal(res.cpu(), torch.from_numpy(op_host)),
+                  "the per-member loop's gather differs from the operand")
+            a["fallback"] = measure(pc_gather, op_host, "Fan.Echo", "rpc",
+                                    FANOUT_COLL_ITERS, 10)
+        finally:
+            flags.set_flag("ici_fanout_collective", True)
+        ch = rpc.Channel()
+        ch.init("ici://0", options=rpc.ChannelOptions(timeout_ms=30000,
+                                                      max_retry=0))
+        chans.append(ch)
+        row = op_host[0].tobytes()
+        lat = []
+        for i in range(FANOUT_SINGLE_ITERS + 20):
+            cntl = rpc.Controller()
+            cntl.request_attachment.append(row)
+            t0 = time.perf_counter_ns()
+            ch.call_method("Fan.Echo", cntl, EchoRequest(message="s"),
+                           EchoResponse)
+            t1 = time.perf_counter_ns()
+            check(not cntl.failed(), f"single echo: {cntl.error_text}")
+            check(cntl.response_attachment.to_bytes() == row,
+                  "single echo returned other bytes")
+            if i >= 20:
+                lat.append((t1 - t0) / 1000.0)
+        a["single"] = {"p50_us": _pct(lat, 0.5), "p99_us": _pct(lat, 0.99),
+                       "calls": FANOUT_SINGLE_ITERS}
+        out["a"] = a
+
+        # (b) 64 MiB of float32 in 8 shards of 8 MiB, compiled and
+        # degraded; and a replicate-and-sum of a 64 MiB operand
+        gen = torch.Generator(device=dev).manual_seed(1313)
+        x = torch.randn(len(ranks), FANOUT_BYTES // 4 // len(ranks),
+                        device=dev, generator=gen)
+        x_rows = cf.shard_operand(ranks, x, mesh=mesh)
+        rep = torch.randn(FANOUT_BYTES // 4, device=dev, generator=gen)
+        b = {"bytes": FANOUT_BYTES, "shard": FANOUT_BYTES // len(ranks)}
+        pc_scale = mk_pc("gather", "float32", (x.shape[1],))
+        pc_sum = mk_pc("sum", "float32", None,
+                       mapper=channels.ReplicateFanoutMapper())
+        for name, pc, op, method in (("gather", pc_scale, x_rows,
+                                      "Fan.Scale"),
+                                     ("sum", pc_sum, rep, "Fan.Sum")):
+            legs = {}
+            for leg, route_name in (("compiled", "collective"),
+                                    ("degraded", "rpc")):
+                flags.set_flag("ici_fanout_collective", leg == "compiled")
+                try:
+                    l0, t0, r0 = launches()
+                    first, _ = call(pc, op, method, route_name)
+                    first = first.clone()
+                    stats = measure(pc, op, method, route_name,
+                                    FANOUT_BIG_ITERS, 0)
+                    l1, t1, r1 = launches()
+                finally:
+                    flags.set_flag("ici_fanout_collective", True)
+                stats["ms_p50"] = stats.pop("p50_us") / 1e3
+                stats["ms_p99"] = stats.pop("p99_us") / 1e3
+                stats["launches"] = l1 - l0
+                stats["transfers"] = t1 - t0
+                stats["ring_launches"] = r1 - r0
+                legs[leg] = (first, stats)
+            (c_res, c_st), (d_res, d_st) = legs["compiled"], legs["degraded"]
+            if name == "gather":
+                want = x * 2.0
+                check(torch.equal(c_res, want), "compiled gather differs "
+                                                "from the plain product")
+                check(torch.equal(c_res, d_res), "compiled and degraded "
+                                                 "gathers differ")
+                err = 0.0
+            else:
+                want = rep * 0.5 * len(ranks)
+                err = float((c_res - d_res).abs().max())
+                check(torch.allclose(c_res, d_res, rtol=1e-6, atol=1e-6),
+                      f"compiled and degraded sums differ by {err}")
+                check(torch.allclose(c_res, want, rtol=1e-6, atol=1e-6),
+                      "the compiled sum differs from the plain sum")
+            check(c_st["launches"] == c_st["transfers"] == 0
+                  and c_st["ring_launches"] == 0,
+                  f"{name}: the compiled leg launched {c_st['launches']} "
+                  f"p2p_copy and {c_st['ring_launches']} ring kernels")
+            check(d_st["launches"] == d_st["transfers"] > 0
+                  and d_st["ring_launches"] == 0,
+                  f"{name}: the degraded leg launched {d_st['launches']} "
+                  f"p2p_copy for {d_st['transfers']} plane transfers")
+            b[name] = {"compiled": c_st, "degraded": d_st,
+                       "max_abs_diff": err}
+        out["b"] = b
+        del x, x_rows, rep
+
+        # (c) a member killed mid-fan-out, then its server restarted
+        base = route.collective_stats()
+        victim = 4
+        plan = fi.FabricFaultPlan(collective_kill_device=victim)
+        routes = []
+        with fi.inject_fabric(plan):
+            for _ in range(2):
+                res, _ = call(pc_gather, op_dev, "Fan.Echo", "rpc")
+                check(torch.equal(res.cpu(), torch.from_numpy(op_host)),
+                      "a degraded call's result differs")
+                routes.append("rpc")
+        check(plan.injected["collective"] == 1,
+              f"the kill fired {plan.injected['collective']} times")
+        call(pc_gather, op_dev, "Fan.Echo", "rpc")   # still down
+        routes.append("rpc")
+        servers[victim].stop()
+        servers[victim] = start(victim)
+        res, _ = call(pc_gather, op_dev, "Fan.Echo", "collective")
+        routes.append("collective")
+        delta = {k: v - base.get(k, 0)
+                 for k, v in route.collective_stats().items()
+                 if v != base.get(k, 0)}
+        seq = cf.CollectiveFanoutPlane.instance().sequencer.describe()
+        check(delta.get("collective_degraded_member_killed") == 1
+              and delta.get("collective_revived_member_killed") == 1,
+              f"chaos counter deltas {delta}")
+        check(seq["assigned"] == seq["executed"],
+              f"sequencer {seq}: a slot did not retire")
+        out["c"] = {"routes": routes, "delta": delta, "sequencer": seq,
+                    "failed_calls": 0}
+    finally:
+        for ch in chans:
+            ch.close()
+        for s in servers.values():
+            s.stop()
+    torch.cuda.synchronize()
+    out["selected"] = (route.collective_stats().get("collective_selected", 0)
+                       - selected0)
+    out["launches"] = sum(out["b"][k]["degraded"]["launches"]
+                          for k in ("gather", "sum"))
+    out["transfers"] = sum(out["b"][k]["degraded"]["transfers"]
+                           for k in ("gather", "sum"))
+    out["wall_s"] = time.monotonic() - t_phase
+    a, b = out["a"], out["b"]
+    print(f"collective fan-out: (a) {len(ranks)} members x {FANOUT_SHARD} B"
+          f" compiled p50 {a['collective']['p50_us']:.1f} us, sharded "
+          f"{a['collective_sharded']['p50_us']:.1f}, fallback "
+          f"{a['fallback']['p50_us']:.1f}, single echo "
+          f"{a['single']['p50_us']:.1f}; (b) 64 MiB gather "
+          f"{b['gather']['compiled']['ms_p50']:.2f} ms compiled / "
+          f"{b['gather']['degraded']['ms_p50']:.2f} degraded, sum "
+          f"{b['sum']['compiled']['ms_p50']:.2f} / "
+          f"{b['sum']['degraded']['ms_p50']:.2f}, degraded launches = "
+          f"transfers = {out['launches']}; (c) routes {out['c']['routes']};"
+          f" phase {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
+def phase_rpcz(mesh, plane, p2p_copy) -> dict:
+    """rpcz, the tpu_std stages and the builtin pages (see the module
+    docstring, phase 14)."""
+    import brpc_tpu_torch.policy  # noqa: F401
+    from brpc_tpu_torch import rpc
+    from brpc_tpu_torch.butil import flags
+    from brpc_tpu_torch.ici import route
+    from brpc_tpu_torch.policy import tpu_std
+    from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
+    from brpc_tpu_torch.rpc import span
+    from brpc_tpu_torch.rpc.builtin.rpc_service import JsonMsg
+
+    t_phase = time.monotonic()
+
+    class Sink(rpc.Service):
+        @rpc.method(EchoRequest, EchoResponse)
+        def Push(self, cntl, request, response, done):
+            response.message = str(len(cntl.request_attachment))
+            done()
+
+    threshold = flags.get_flag("ici_device_plane_threshold")
+    flags.set_flag("ici_device_plane_threshold", 1)
+    server = rpc.Server(rpc.ServerOptions(usercode_inline=True))
+    server.add_service(Sink())
+    check(server.start("ici://0") == 0, "server start on ici://0")
+    ch = rpc.Channel()
+    ch.init("ici://0", options=rpc.ChannelOptions(timeout_ms=30000,
+                                                  max_retry=0))
+    _, payload = make_payload(mesh, 4096, 1, seed=14)
+    modes = {"off": (False, "sampled"), "rpcz": (True, "sampled"),
+             "rpcz_stages": (True, "on")}
+
+    def push():
+        cntl = rpc.Controller()
+        cntl.request_attachment.append_device_array(payload)
+        t0 = time.perf_counter_ns()
+        resp = ch.call_method("Sink.Push", cntl, EchoRequest(message="d"),
+                              EchoResponse)
+        t1 = time.perf_counter_ns()
+        check(not cntl.failed(), f"Sink.Push failed: {cntl.error_text}")
+        check(resp.message == "4096", "server saw another attachment")
+        return cntl, (t1 - t0) / 1000.0
+
+    def set_mode(name):
+        on, stages = modes[name]
+        flags.set_flag("rpcz_enabled", on)
+        flags.set_flag("tpu_std_stage_metrics", stages)
+
+    out = {}
+    l0, t0 = p2p_copy.launches, plane.stats()["transfers"]
+    try:
+        # the echo p50 three ways, in turns: off, on, on+stages, and back
+        lat = {m: [] for m in modes}
+        for name in list(modes) + list(reversed(modes)):
+            set_mode(name)
+            for i in range(RPCZ_CALLS + 10):
+                _, us = push()
+                if i >= 10:
+                    lat[name].append(us)
+        out["echo"] = {m: {"p50_us": _pct(v, 0.5), "p99_us": _pct(v, 0.99),
+                           "calls": len(v)} for m, v in lat.items()}
+        base = out["echo"]["off"]["p50_us"]
+        out["echo"]["rpcz_cost"] = out["echo"]["rpcz"]["p50_us"] / base - 1
+        out["echo"]["rpcz_stages_cost"] = \
+            out["echo"]["rpcz_stages"]["p50_us"] / base - 1
+        out["stage_p50s_us"] = tpu_std.stage_p50s_us()
+        out["stage_counts"] = {s_: r.count() for s_, r in
+                               tpu_std._stage_recorders.items()}
+        check(all(n >= 2 * RPCZ_CALLS for n in out["stage_counts"].values()),
+              f"stage recorders {out['stage_counts']}: the 'on' mode did "
+              f"not record every request")
+
+        # linked spans, on calls inside one sampling second
+        set_mode("rpcz")
+        time.sleep(1.05)
+        checked = 0
+        for _ in range(RPCZ_TRACED):
+            cntl, _ = push()
+            deadline = time.monotonic() + 5
+            while True:
+                spans = span.find_trace(cntl.trace_id)
+                kinds = {s.kind for s in spans if s.end_us}
+                if {"client", "server", "transfer"} <= kinds \
+                        or time.monotonic() > deadline:
+                    break
+                time.sleep(0.002)
+            client = [s for s in spans if s.kind == "client"]
+            srv = [s for s in spans if s.kind == "server"]
+            xfer = [s for s in spans if s.kind == "transfer"]
+            check(cntl.trace_id and len(client) == 1 and len(srv) == 1,
+                  f"trace {cntl.trace_id:x}: {sorted(kinds)}")
+            check(srv[0].parent_span_id == client[0].span_id,
+                  "the server span is not parented under the client span")
+            check(xfer and all(x.parent_span_id == client[0].span_id
+                               for x in xfer),
+                  "no transfer span under the client span")
+            ann = " | ".join(a for x in xfer for _, a in x.annotations)
+            for word in ("posted", "recv enqueued", "matched", "complete"):
+                check(word in ann, f"transfer annotations lack {word!r}")
+            checked += 1
+        out["traced_calls"] = checked
+        out["example_trace"] = [s.describe() for s in spans]
+
+        # the builtin pages over ici://
+        set_mode("off")
+        pages = {}
+        for page in ("vars", "status", "ici"):
+            cntl = rpc.Controller()
+            r = ch.call_method("brpc_tpu.Builtin.Call", cntl,
+                               JsonMsg(page=page), JsonMsg)
+            check(not cntl.failed() and r["status"] == 200,
+                  f"Builtin.Call {page}: {cntl.error_text}")
+            pages[page] = r["body"]
+        stats = plane.stats()
+        ici = json.loads(pages["ici"])
+        status = json.loads(pages["status"])
+        check({"server", "state", "methods", "services"} <= set(status),
+              f"status keys {sorted(status)}")
+        check("tpu_std_server_handler_count" in pages["vars"]
+              and "process_pid" in pages["vars"], "vars lacks its keys")
+        check(ici["device_plane"]["transfers"] == stats["transfers"],
+              f"ici page transfers {ici['device_plane']['transfers']} != "
+              f"plane {stats['transfers']}")
+        sel = ici["collective_route_events"]["collective_selected"]
+        check(sel == route.collective_stats()["collective_selected"],
+              "ici page's selected count differs from the route counters")
+        out["pages"] = {"vars_lines": len(pages["vars"].splitlines()),
+                        "status_keys": sorted(status),
+                        "ici_keys": sorted(ici),
+                        "ici_device_plane": ici["device_plane"],
+                        "ici_selected": sel,
+                        "ici_collective_fanout": ici["collective_fanout"]}
+    finally:
+        flags.set_flag("rpcz_enabled", False)
+        flags.set_flag("tpu_std_stage_metrics", "sampled")
+        flags.set_flag("ici_device_plane_threshold", threshold)
+        ch.close()
+        server.stop()
+    torch.cuda.synchronize()
+    out["launches"] = p2p_copy.launches - l0
+    out["transfers"] = plane.stats()["transfers"] - t0
+    out["wall_s"] = time.monotonic() - t_phase
+    e = out["echo"]
+    print(f"rpcz: echo p50 off {e['off']['p50_us']:.1f} us, rpcz on "
+          f"{e['rpcz']['p50_us']:.1f} ({e['rpcz_cost'] * 100:+.1f} %), "
+          f"with stages {e['rpcz_stages']['p50_us']:.1f} "
+          f"({e['rpcz_stages_cost'] * 100:+.1f} %); stage p50s "
+          f"{json.dumps(out['stage_p50s_us'])}; {out['traced_calls']} "
+          f"traced calls linked; pages vars/status/ici OK; phase "
+          f"{out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
@@ -2677,8 +3164,33 @@ def main() -> int:
               and launches["ring_all_gather"] == 0,
               f"a ring kernel launched on the {name} path")
         slice6[name] = res
-    flags.set_flag("ici_socket_window_bytes", window)
     print("streaming, fan-out: " + json.dumps(slice6), flush=True)
+
+    # 13. the compiled collective fan-out (its 64 MiB degrade leg moves 8
+    # MiB shards: the socket window stays raised), then 14. rpcz, the
+    # stages and the builtin pages; each with the counts zeroed just
+    # before it
+    rings = [pr.ring_all_reduce_kernel, pr.ring_all_gather_kernel]
+    slice7 = {}
+    for name, phase in (("fanout_collective", lambda: phase_collective_fanout(
+            mesh, plane, p2p_copy, rings)),
+                        ("rpcz", lambda: phase_rpcz(mesh, plane, p2p_copy))):
+        zero_counts()
+        res = phase()
+        launches = {k.name: k.launches for k in kernels_all}
+        check(launches["p2p_copy"] == res["launches"] == res["transfers"]
+              > 0, f"the {name} path launched p2p_copy "
+                   f"{launches['p2p_copy']} times for {res['transfers']} "
+                   f"plane transfers")
+        check(launches["ring_all_reduce"] == 0
+              and launches["ring_all_gather"] == 0,
+              f"a ring kernel launched on the {name} path")
+        slice7[name] = res
+    flags.set_flag("ici_socket_window_bytes", window)
+    check(slice7["rpcz"]["pages"]["ici_selected"]
+          >= slice7["fanout_collective"]["selected"] > 0,
+          "the ici page does not show phase 13's selected fan-outs")
+    print("collective fan-out, rpcz: " + json.dumps(slice7), flush=True)
 
     head = next(r for r in rows if r["label"] == "4 MiB")
     red = ring_rows["ring_all_reduce"]
@@ -2694,12 +3206,15 @@ def main() -> int:
                            "(brpc_tpu/ici/device_plane.py:395-444)",
         "launches": (main_launches + serve["launches"] + tiers["launches"]
                      + sum(phase10.values())
-                     + sum(r["launches"] for r in slice6.values())),
+                     + sum(r["launches"] for r in slice6.values())
+                     + sum(r["launches"] for r in slice7.values())),
         "launches_by_path": {"echo": main_launches,
                              "serving": serve["launches"],
                              "migration": tiers["launches"], **phase10,
                              **{k: r["launches"]
-                                for k, r in slice6.items()}},
+                                for k, r in slice6.items()},
+                             **{k: r["launches"]
+                                for k, r in slice7.items()}},
         "migration_path_split": {
             "migrate_in": tiers["migrate_in_calls"],
             "loadkv": tiers["calls_received"] - tiers["migrate_in_calls"]},

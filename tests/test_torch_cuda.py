@@ -720,3 +720,143 @@ def test_a_parallel_fanout_of_device_shards_merges_to_the_plain_result(
             s.stop()
         flags.set_flag("ici_socket_window_bytes", window)
         IciMesh.set_default(None)
+
+
+@pytest.mark.cuda
+def test_a_compiled_fanout_on_the_card_equals_its_degrade_leg(cuda_device):
+    """Four servers on ici://2-5 registering a device body: the compiled
+    fan-out of a (4, 1 Mi) float32 operand sharded over them launches no
+    p2p_copy and equals the per-member loop, whose answers cross back on
+    p2p_copy (one launch per member, equal to the plane's transfers)."""
+    import brpc_tpu_torch.policy  # noqa: F401
+    from brpc_tpu_torch import channels, rpc
+    from brpc_tpu_torch.butil import flags
+    from brpc_tpu_torch.channels import collective_fanout as cf
+    from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
+    mesh = IciMesh(ranks=8, device="cuda")
+    IciMesh.set_default(mesh)
+    window = flags.get_flag("ici_socket_window_bytes")
+    flags.set_flag("ici_socket_window_bytes", 256 << 20)
+    ranks = [2, 3, 4, 5]
+
+    class Scale(rpc.Service):
+        SERVICE_NAME = "CudaFan"
+
+        def __init__(self, rank):
+            self.rank = rank
+
+        @rpc.method(EchoRequest, EchoResponse)
+        def Scale(self, cntl, request, response, done):
+            ref = cntl.request_attachment.backing_block(0)
+            x = ref.block.data[ref.offset:ref.offset + ref.length]
+            y = (x.view(torch.float32) * 3.0).view(torch.uint8)
+            cntl.response_attachment.append_device_array(
+                mesh.own(y, self.rank))
+            done()
+
+    x = torch.from_numpy(np.random.default_rng(13).standard_normal(
+        (4, 1 << 20)).astype(np.float32)).to(cuda_device)
+    servers, subs = [], []
+    plane = dp.plane()
+    try:
+        pc = channels.ParallelChannel()
+        merger = channels.CollectiveMerger("gather", "float32", (1 << 20,))
+        for r in ranks:
+            s = rpc.Server()
+            s.add_service(Scale(r))
+            s.register_collective("CudaFan.Scale", lambda t: t * 3.0)
+            assert s.start(f"ici://{r}") == 0
+            servers.append(s)
+            ch = rpc.Channel()
+            ch.init(f"ici://{r}", options=rpc.ChannelOptions(timeout_ms=30000))
+            subs.append(ch)
+            pc.add_channel(ch, mapper=channels.ShardingCallMapper(),
+                           merger=merger)
+        op = cf.shard_operand(ranks, x, mesh=mesh)
+        results = {}
+        for on in (True, False):
+            flags.set_flag("ici_fanout_collective", on)
+            launches0 = p2p_copy.launches
+            t0 = plane.stats()["transfers"]
+            cntl = rpc.Controller()
+            cntl.fanout_operand = op
+            pc.call_method("CudaFan.Scale", cntl, EchoRequest(message="x"),
+                           EchoResponse())
+            torch.cuda.synchronize()
+            assert not cntl.failed(), cntl.error_text
+            assert cntl.fanout_route == ("collective" if on else "rpc")
+            assert cntl.fanout_result.is_cuda
+            results[on] = (cntl.fanout_result,
+                           p2p_copy.launches - launches0,
+                           plane.stats()["transfers"] - t0)
+        (c_res, c_l, c_t), (d_res, d_l, d_t) = results[True], results[False]
+        assert torch.equal(c_res, x * 3.0)
+        assert torch.equal(c_res, d_res)
+        assert c_l == c_t == 0
+        assert d_l == d_t == len(ranks)
+    finally:
+        flags.set_flag("ici_fanout_collective", True)
+        for ch in subs:
+            ch.close()
+        for s in servers:
+            s.stop()
+        flags.set_flag("ici_socket_window_bytes", window)
+        IciMesh.set_default(None)
+
+
+@pytest.mark.cuda
+def test_a_transfer_span_appears_on_the_card(cuda_device):
+    """rpcz on: a 64 KiB attachment owned by rank 1 crossing to ici://0
+    on p2p_copy opens a transfer span under the client span, closed by
+    the completion poller with the pin's hold time."""
+    import time
+    import brpc_tpu_torch.policy  # noqa: F401
+    from brpc_tpu_torch import rpc
+    from brpc_tpu_torch.butil import flags
+    from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
+    from brpc_tpu_torch.rpc import span
+    mesh = IciMesh(ranks=8, device="cuda")
+    IciMesh.set_default(mesh)
+
+    class Sink(rpc.Service):
+        @rpc.method(EchoRequest, EchoResponse)
+        def Push(self, cntl, request, response, done):
+            response.message = str(len(cntl.request_attachment))
+            done()
+
+    server = rpc.Server()
+    server.add_service(Sink())
+    assert server.start("ici://0") == 0
+    ch = rpc.Channel()
+    ch.init("ici://0", options=rpc.ChannelOptions(timeout_ms=30000))
+    flags.set_flag("rpcz_enabled", True)
+    try:
+        payload = mesh.device_put(
+            torch.from_numpy(_seeded(64 << 10)).to(cuda_device), 1)
+        launches0 = p2p_copy.launches
+        cntl = rpc.Controller()
+        cntl.request_attachment.append_device_array(payload)
+        resp = ch.call_method("Sink.Push", cntl, EchoRequest(message="p"),
+                              EchoResponse)
+        assert not cntl.failed(), cntl.error_text
+        assert resp.message == str(64 << 10)
+        assert p2p_copy.launches - launches0 == 1
+        deadline = time.monotonic() + 10
+        xfer = []
+        while not xfer and time.monotonic() < deadline:
+            xfer = [s for s in span.find_trace(cntl.trace_id)
+                    if s.kind == "transfer" and s.end_us]
+            time.sleep(0.01)
+        client = [s for s in span.find_trace(cntl.trace_id)
+                  if s.kind == "client"]
+        assert xfer and client
+        assert xfer[0].parent_span_id == client[0].span_id
+        ann = " | ".join(a for _, a in xfer[0].annotations)
+        for word in ("posted", "recv enqueued", "matched", "complete",
+                     "pin_held_us="):
+            assert word in ann, (word, ann)
+    finally:
+        flags.set_flag("rpcz_enabled", False)
+        ch.close()
+        server.stop()
+        IciMesh.set_default(None)

@@ -270,6 +270,72 @@ print(json.dumps({
 """
 
 
+_SLICE7 = r"""
+import json, sys
+import torch
+import brpc_tpu_torch.policy
+from brpc_tpu_torch import bvar, channels, rpc
+from brpc_tpu_torch.butil import flags
+from brpc_tpu_torch.examples import allreduce_performance, param_server
+from brpc_tpu_torch.ici import device_plane
+from brpc_tpu_torch.ici.mesh import IciMesh
+from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
+from brpc_tpu_torch.rpc import span
+from brpc_tpu_torch.rpc.builtin.rpc_service import JsonMsg
+
+rcs = [param_server.main(["--device", "cpu"]),
+       allreduce_performance.main(["--device", "cpu", "--size-mb", "1"])]
+mesh = IciMesh.default()
+flags.set_flag("rpcz_enabled", True)
+
+class Fan(rpc.Service):
+    @rpc.method(EchoRequest, EchoResponse)
+    def Scale(self, cntl, request, response, done):
+        done()
+
+servers = []
+for d in range(4):
+    s = rpc.Server()
+    s.add_service(Fan())
+    s.register_collective("Fan.Scale", lambda x: x * 2.0)
+    s.start(f"ici://{d}")
+    servers.append(s)
+pc = channels.ParallelChannel()
+merger = channels.CollectiveMerger("gather", "float32", (16,))
+chans = []
+for d in range(4):
+    ch = rpc.Channel()
+    ch.init(f"ici://{d}")
+    pc.add_channel(ch, mapper=channels.ShardingCallMapper(), merger=merger)
+    chans.append(ch)
+cntl = rpc.Controller()
+cntl.fanout_operand = channels.shard_operand(range(4), torch.ones(4, 16))
+pc.call_method("Fan.Scale", cntl, EchoRequest(message="x"), EchoResponse())
+c2 = rpc.Controller()
+page = chans[0].call_method("brpc_tpu.Builtin.Call", c2,
+                            JsonMsg(page="ici"), JsonMsg)
+ok = (rcs == [0, 0] and not cntl.failed()
+      and cntl.fanout_route == "collective"
+      and torch.equal(cntl.fanout_result, torch.full((4, 16), 2.0))
+      and not c2.failed() and page["status"] == 200
+      and "collective_fanout" in json.loads(page["body"])
+      and len(span.find_trace(c2.trace_id)) >= 1
+      and "tpu_std_server_handler_count" in bvar.list_exposed())
+for ch in chans:
+    ch.close()
+for s in servers:
+    s.stop()
+print(json.dumps({
+    "ok": ok,
+    "transfers": device_plane.plane().stats()["transfers"],
+    "jax": sorted(m for m in sys.modules
+                  if m == "jax" or m.startswith(("jax.", "jaxlib"))),
+    "brpc_tpu": sorted(m for m in sys.modules
+                       if m == "brpc_tpu" or m.startswith("brpc_tpu.")),
+}))
+"""
+
+
 _EVERY_MODULE = r"""
 import importlib, json, pkgutil, sys
 import brpc_tpu_torch
@@ -355,6 +421,34 @@ def test_port_streaming_and_combo_channels_load_no_jax():
     assert out["transfers"] == 2 * 16 + 2 * 4
     assert out["jax"] == []
     assert out["brpc_tpu"] == []
+
+
+def test_port_fanout_and_observability_load_no_jax():
+    """Slice 7 driven alone: the two examples on a CPU mesh, a compiled
+    fan-out over four ici:// servers, a builtin page over RPC with rpcz
+    on, and the bvar registry; among the package's modules, this slice's
+    own."""
+    out = _run_alone(_SLICE7)
+    assert out["ok"]
+    assert out["transfers"] == 0          # nothing crossed the plane
+    assert out["jax"] == []
+    assert out["brpc_tpu"] == []
+    mods = _run_alone(_EVERY_MODULE)["modules"]
+    for name in ("brpc_tpu_torch.channels.collective_fanout",
+                 "brpc_tpu_torch.rpc.fault_injection",
+                 "brpc_tpu_torch.rpc.span",
+                 "brpc_tpu_torch.rpc.builtin.services",
+                 "brpc_tpu_torch.rpc.builtin.rpc_service",
+                 "brpc_tpu_torch.bvar.variable",
+                 "brpc_tpu_torch.bvar.reducer",
+                 "brpc_tpu_torch.bvar.window",
+                 "brpc_tpu_torch.bvar.latency_recorder",
+                 "brpc_tpu_torch.bvar.multi_dimension",
+                 "brpc_tpu_torch.bvar.collector",
+                 "brpc_tpu_torch.bvar.default_variables",
+                 "brpc_tpu_torch.examples.param_server",
+                 "brpc_tpu_torch.examples.allreduce_performance"):
+        assert name in mods, name
 
 
 def test_every_port_module_imports_without_jax():

@@ -148,3 +148,84 @@ def test_register_plane_takes_the_planes_own_lock():
     assert rec._lock is lock
     with pytest.raises(TypeError):
         tph.register_plane("tmx_bad")          # the timer latch needs retry_s
+
+
+class _Epoch:
+    """A membership epoch both engines read (the fan-out's registry)."""
+
+    def __init__(self):
+        self.value = 0
+
+    def __call__(self):
+        return self.value
+
+
+def _hooked_pair(name, **policy):
+    """A pair whose ``events`` hook logs into one list per engine: the
+    hook must fire alike too."""
+    logs = {"jax": [], "port": []}
+    pair = _Pair.__new__(_Pair)
+    pair.name = name
+    pair.recs = {}
+    for side, eng in (("jax", jph), ("port", tph)):
+        log = logs[side]
+        pair.recs[side] = eng.register_plane(
+            name, events=lambda ev, why, log=log: log.append((ev, why)),
+            **policy)
+    pair.before = {"jax": jroute.plane_stats(),
+                   "port": troute.plane_stats()}
+    return pair, logs
+
+
+def test_epoch_policy_membership_reason_waits_for_the_epoch():
+    """The collective fan-out's policy: a membership reason stays down
+    however long it waits, and revives when the epoch moves past the one
+    recorded at the degrade — on both engines, events alike."""
+    epoch = _Epoch()
+    p, logs = _hooked_pair("tmx_epoch", epoch_fn=epoch,
+                           transient_reasons=("exec_failed",),
+                           reprobe_s=lambda: 0.01)
+    epoch.value = 7
+    assert p.do(lambda r: r.mark_down("member_killed")) is True
+    assert p.do(lambda r: _row(r)["down_epoch"]) == 7
+    assert p.do(lambda r: r.mark_down("member_killed")) is False
+    time.sleep(0.05)                      # past reprobe_s: not transient
+    assert p.do(lambda r: r.usable()) is False
+    epoch.value = 8
+    assert p.do(lambda r: r.usable()) is True
+    assert p.do(lambda r: r.usable()) is True        # the ramp
+    assert p.delta("port") == {"down": 1, "reprobe": 1, "revived": 1,
+                               "ramp": 1}
+    assert logs["port"] == logs["jax"] == [
+        ("degraded", "member_killed"), ("revived", "member_killed")]
+
+
+def test_epoch_policy_transient_reason_reprobes_on_its_timer():
+    """A transient reason (one bad execution) comes back after
+    ``reprobe_s`` with no epoch move; the row shows the countdown while
+    it waits."""
+    epoch = _Epoch()
+    p, logs = _hooked_pair("tmx_epoch_t", epoch_fn=epoch,
+                           transient_reasons=("exec_failed",),
+                           reprobe_s=lambda: 0.2)
+    assert p.do(lambda r: r.mark_down("exec_failed")) is True
+    assert p.do(lambda r: r.usable()) is False
+    assert all("reprobe_in" in r.snapshot() for r in p.recs.values())
+    time.sleep(0.3)
+    assert p.do(lambda r: r.usable()) is True
+    assert p.delta("port") == {"down": 1, "reprobe": 1, "revived": 1,
+                               "ramp": 0}
+    assert logs["port"] == logs["jax"]
+    assert logs["port"] == [("degraded", "exec_failed"),
+                            ("revived", "exec_failed")]
+
+
+def test_reported_revival_fires_the_revived_event():
+    """``revived()`` on a down record fires ``revived`` with the reason it
+    clears, on both engines."""
+    p, logs = _hooked_pair("tmx_hs", retry_s=lambda: 30.0)
+    assert p.do(lambda r: r.mark_down("demote_io")) is True
+    assert p.do(lambda r: r.revived()) is True
+    assert logs["port"] == logs["jax"]
+    assert logs["port"] == [("degraded", "demote_io"),
+                            ("revived", "demote_io")]
