@@ -38,9 +38,10 @@ rpcz: a transfer posted while an RPC span is in scope (the client span
 during a channel's write, the server span in a handler) opens a transfer
 span parented under it, which carries the transfer's ``posted``, ``recv
 enqueued``, ``matched``, ``complete pin_held_us=`` or ``failed``
-annotations, and its timeline joins the /ici page's recent transfers.
-The post reads the rpcz flag once and the transfer keeps the answer
-(``traced``): with rpcz off nothing else is paid.
+annotations.  The post reads the rpcz flag once and the transfer keeps
+the answer (``traced``): with rpcz off no annotation is paid.  Traced or
+not, every finished transfer leaves one tuple of its timestamps in the
+64-deep ring the /ici page reads (``recent_transfers``).
 """
 from __future__ import annotations
 
@@ -225,7 +226,7 @@ class DevicePlane:
         self._pending: Dict[int, DeviceTransfer] = {}   # posted sends
         self._active: set = set()      # posted-but-incomplete (drain gate)
         self._streams: Dict[torch.device, "torch.cuda.Stream"] = {}
-        # the last finished traced transfers' timelines (not the
+        # the last finished transfers' timelines, traced or not (not the
         # transfers: those hold their tensors)
         self._recent: "collections.deque" = collections.deque(maxlen=64)
         self._next_uuid = 1
@@ -387,7 +388,7 @@ class DevicePlane:
                 self._annotate(t, "complete pin_held_us="
                                   f"{(t.complete_ns - t.posted_ns) // 1000}")
                 self._close_span(t, 0)
-                self._recent.append(t.timeline())
+            self._recent.append(t.timeline())
             t.completion.signal(0)
 
         if done_event is None:
@@ -406,7 +407,7 @@ class DevicePlane:
         if t.traced:
             self._annotate(t, f"failed: {reason}")
             self._close_span(t, 1)
-            self._recent.append(t.timeline())
+        self._recent.append(t.timeline())
         t.completion.signal(1)
 
     # ---- drain barrier -------------------------------------------------
@@ -477,8 +478,8 @@ class DevicePlane:
             _span.end_span(span, error_code)
 
     def recent_transfers(self) -> List[dict]:
-        """The last 64 finished transfers posted with rpcz on, their
-        timelines newest last (the /ici page)."""
+        """The last 64 finished transfers, their timelines newest last
+        (the /ici page)."""
         return [_describe(tl) for tl in list(self._recent)]
 
     def pending_sends(self) -> int:

@@ -47,23 +47,24 @@ _flags.define_flag("ici_socket_window_bytes", 4 * 1024 * 1024,
                    "per-ici-socket send window (unconsumed bytes at peer)",
                    _flags.positive_integer)
 
-# the byte totals of ici:// sockets already closed; a live socket keeps its
-# own (stat.out_size, device_out_size), summed at read time, so the write
-# path takes no process-wide lock
+# the byte totals of ici:// sockets already closed.  A live socket counts
+# its own (stat.out_size, device_out_size) under its write lock, so the
+# write path takes no process-wide lock; its close folds them in here
+# under that same lock, and a write that finishes after the fold counts
+# here directly: no write is lost to a close
 _retired_lock = threading.Lock()
 _retired_moved = [0, 0]
 
 
 def ici_transport_stats() -> Tuple[int, int]:
     """``(bytes moved, device bytes moved)`` over every ici:// socket of
-    the process, read from the sockets' own counters (the /ici page and
-    the default variables).  Bytes of a write racing its socket's close
-    may be missed."""
+    the process (the /ici page and the default variables): the closed
+    sockets' folded totals plus the live sockets' own counters."""
     from ..rpc.socket import list_sockets
     with _retired_lock:
         moved, device_moved = _retired_moved
     for s in list_sockets():
-        if isinstance(s, IciSocket):
+        if isinstance(s, IciSocket) and not s._counters_folded:
             moved += s.stat.out_size
             device_moved += s.device_out_size
     return moved, device_moved
@@ -216,6 +217,7 @@ class IciSocket(CreditWindow, OrderedDelivery, Socket):
         self.remote_dev = remote_dev
         # of stat.out_size, the bytes that rode DEVICE blocks
         self.device_out_size = 0
+        self._counters_folded = False     # set at close, under _write_lock
         self.local_side = self.mesh.endpoint(local_dev)
         self.peer: Optional["IciSocket"] = None
         self._inbox = IOBuf()
@@ -246,9 +248,28 @@ class IciSocket(CreditWindow, OrderedDelivery, Socket):
             return -1                     # window full: not writable now
         frame = data.cut(n)
         chunks, device_n = self._relocate(frame)
-        self.device_out_size += device_n
+        if device_n:
+            with self._write_lock:
+                self._count_out_locked(0, device_n)
         self._deliver(peer, chunks)
         return n
+
+    def _count_out_locked(self, nbytes: int, device_nbytes: int) -> None:
+        if self._counters_folded:
+            # the socket closed while this write ran: its totals are the
+            # process's now
+            with _retired_lock:
+                _retired_moved[0] += nbytes
+                _retired_moved[1] += device_nbytes
+            return
+        self.stat.out_size += nbytes
+        self.device_out_size += device_nbytes
+
+    def _fold_counters_locked(self) -> None:
+        with _retired_lock:
+            _retired_moved[0] += self.stat.out_size
+            _retired_moved[1] += self.device_out_size
+        self._counters_folded = True
 
     def _relocate(self, frame: IOBuf) -> Tuple[List, int]:
         """Move DEVICE refs to the peer's rank; host refs pass through as
@@ -385,9 +406,6 @@ class IciSocket(CreditWindow, OrderedDelivery, Socket):
 
     def _transport_close(self) -> None:
         # once per socket (set_failed), after it left list_sockets()
-        with _retired_lock:
-            _retired_moved[0] += self.stat.out_size
-            _retired_moved[1] += self.device_out_size
         peer = self.peer
         if peer is not None and not peer.failed:
             if self.failed_error == errors.ELOGOFF:

@@ -102,7 +102,9 @@ class _ListLB:
 
     def _usable(self, cntl=None) -> List[ServerEntry]:
         lst = self._list
-        per_call = getattr(cntl, "_excluded_servers", None) \
+        # the call's own exclusions, peeked (reading the field would
+        # materialize an empty set)
+        per_call = cntl.__dict__.get("_excluded_servers") \
             if cntl is not None else None
         if not self._excluded and not per_call:   # no lock taken
             return lst

@@ -27,6 +27,11 @@ and an annotation on the request's span:
 ``tpu_std_stage_metrics`` picks how much: ``sampled`` (default) annotates
 rpcz-sampled requests only, ``on`` also feeds the five recorders on every
 request (a measurement run's mode), ``off`` records nothing.
+
+With ``rpc_dump`` on, each request's frame goes to :mod:`..rpc.rpc_dump`
+as it arrives.  A method registered isolated (``Server.register_isolated``)
+runs on the usercode pool's isolation workers: its payload crosses as
+bytes, its answer comes back as the response payload.
 """
 from __future__ import annotations
 
@@ -40,7 +45,7 @@ from ..butil import flags as _flags
 from ..butil import logging as log
 from ..bthread import id as bthread_id
 from ..proto import rpc_meta_pb2 as meta_pb
-from ..rpc import admission, errors
+from ..rpc import admission, errors, rpc_dump
 from ..rpc.controller import Controller, server_controller_pool
 from ..rpc.protocol import (Protocol, ParseResult, find_protocol,
                             register_protocol)
@@ -59,8 +64,20 @@ _flags.define_flag("tpu_std_stage_metrics", "sampled",
 _STAGES = ("queue", "parse", "handler", "encode", "write")
 _stage_recorders = {s: bvar.LatencyRecorder(f"tpu_std_server_{s}")
                     for s in _STAGES}
-# the Flag object: one attribute load a request
+# the Flag objects: one attribute load a request
 _stage_flag = _flags.flag_object("tpu_std_stage_metrics")
+_dump_flag = rpc_dump.dump_flag
+
+
+class _RawPayload:
+    """An isolated handler's answer: payload bytes already serialized."""
+    __slots__ = ("data",)
+
+    def __init__(self, data: bytes):
+        self.data = data
+
+    def SerializeToString(self) -> bytes:
+        return self.data
 
 
 def _stages_active(cntl: Controller) -> bool:
@@ -243,6 +260,8 @@ def process_request(msg: StdMessage, socket, server) -> None:
     full_name = f"{req_meta.service_name}.{req_meta.method_name}"
     cid = meta.correlation_id
     start_us = time.monotonic_ns() // 1000
+    if _dump_flag.value:
+        rpc_dump.maybe_dump_request(pack_frame(meta, msg.body))
 
     cntl = server_controller_pool.acquire()
     cntl.server = server
@@ -319,6 +338,13 @@ def process_request(msg: StdMessage, socket, server) -> None:
         if server_counted:
             server.on_request_out()
 
+    def finish(resp: Any = None) -> None:
+        # respond, then give back what the request held: its session data
+        # and its pooled Controller
+        send_response(resp)
+        cntl._release_session_data()
+        cntl._maybe_recycle()
+
     def reject(code: int, text: str, retry_after_ms: int = 0) -> None:
         # turned away before the method's gate: nothing to account
         nonlocal status
@@ -326,8 +352,7 @@ def process_request(msg: StdMessage, socket, server) -> None:
         cntl.set_failed(code, text)
         if retry_after_ms:
             cntl.retry_after_ms = retry_after_ms
-        send_response()
-        cntl._maybe_recycle()
+        finish()
 
     if server.is_draining():
         # lame duck: NEW requests bounce with retryable ELOGOFF so callers
@@ -350,8 +375,7 @@ def process_request(msg: StdMessage, socket, server) -> None:
             request.ParseFromString(body.to_bytes())
         except Exception as e:
             cntl.set_failed(errors.EREQUEST, f"fail to parse request: {e}")
-            send_response()
-            cntl._maybe_recycle()
+            finish()
             return
         if stages:
             _record_stage("parse", (time.monotonic_ns() - t_parse0) // 1000,
@@ -366,8 +390,7 @@ def process_request(msg: StdMessage, socket, server) -> None:
         responding = threading.Lock()
 
         def respond() -> None:
-            send_response(response)
-            cntl._maybe_recycle()
+            finish(response)
 
         def done() -> None:
             if responding.acquire(blocking=False):
@@ -387,6 +410,57 @@ def process_request(msg: StdMessage, socket, server) -> None:
         reject(errors.ENOMETHOD if req_meta.service_name in
                server.services() else errors.ENOSERVICE,
                f"no method {full_name}")
+
+    iso = server.isolated_method(full_name) if md is None else None
+    if iso is not None:
+        # a method served by the isolation workers (no MethodDescriptor)
+        def run_isolated(deadline_left_ms: int) -> None:
+            body = msg.body
+            if meta.attachment_size:
+                payload_part = body.cut(len(body) - meta.attachment_size)
+                body.cutn(cntl.request_attachment, meta.attachment_size)
+                body = payload_part
+            pool = server.usercode_pool
+            resp = None
+            try:
+                if pool is None:
+                    raise RuntimeError("usercode pool stopped")
+                # the wait on the worker is bounded by the request's own
+                # budget when it carried one
+                resp = _RawPayload(pool.call_isolated(
+                    full_name, body.to_bytes(),
+                    timeout=(deadline_left_ms / 1000.0
+                             if deadline_left_ms else None)))
+            except TimeoutError:
+                cntl.set_failed(errors.ERPCTIMEDOUT,
+                                f"isolated handler exceeded deadline "
+                                f"({deadline_left_ms}ms)")
+            except Exception as e:
+                cntl.set_failed(errors.EINTERNAL, f"{type(e).__name__}: {e}")
+            if resp is not None and iso[1] == "echo":
+                cntl.response_attachment.append(cntl.request_attachment)
+            finish(resp)
+
+        def admitted_isolated(queued_us: int) -> None:
+            nonlocal server_counted
+            server_counted = True
+            ddl = cntl.deadline_left_ms
+            run_isolated(max(ddl - queued_us // 1000, 1) if ddl else 0)
+
+        if server.admission is not None:
+            server.admission.submit(
+                priority=cntl.priority, tenant=cntl.tenant,
+                deadline_left_ms=cntl.deadline_left_ms or None,
+                recv_us=msg.recv_ns // 1000 if msg.recv_ns else start_us,
+                try_enter=admission.server_method_gate(server, None),
+                run=admitted_isolated, shed=reject)
+            return
+        if not server.on_request_in():
+            reject(errors.ELIMIT, "server max_concurrency reached")
+            return
+        server_counted = True
+        run_isolated(cntl.deadline_left_ms)
+        return
 
     adm = server.admission
     if adm is None:

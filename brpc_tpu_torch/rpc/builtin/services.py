@@ -6,8 +6,8 @@ Every page is served as an RPC method (``brpc_tpu.Builtin.Call``,
 :mod:`.rpc_service`) over any transport the port speaks, ``ici://``
 included, so an admin can read a rank's runtime through the mesh.  Pages
 return JSON, or text in the Prometheus format for /vars and
-/brpc_metrics.  The port carries the pages that exist in one process;
-``hotspots``, ``contention`` and ``pprof/*`` wait for the profiler, and the
+/brpc_metrics.  The port carries the pages that exist in one process,
+the profiler's (``hotspots``, ``contention``, ``pprof/*``) among them; the
 pod scope of ``vars``, ``rpcz`` and ``brpc_metrics`` waits for the pod.
 """
 from __future__ import annotations
@@ -56,7 +56,12 @@ class BuiltinDispatcher:
                          ("index", _index), ("version", _version),
                          ("threads", _threads),
                          ("list_services", _list_services), ("ici", _ici),
-                         ("vlog", _vlog), ("dir", _dir)):
+                         ("vlog", _vlog), ("dir", _dir),
+                         ("hotspots", _hotspots),
+                         ("contention", _contention),
+                         ("pprof/cmdline", _pprof_cmdline),
+                         ("pprof/profile", _pprof_profile),
+                         ("pprof/symbol", _pprof_symbol)):
             self.add(path, fn)
 
 
@@ -262,6 +267,51 @@ def _ici(server, q):
     if _cf.registry().method_names() or inst is not None:
         out["collective_fanout"] = _cf.describe()
     return "application/json", json.dumps(out, indent=1)
+
+
+def _hotspots(server, q):
+    """CPU profile for ?seconds=N, at most 30 (the gperftools/pprof
+    stand-in of hotspots_service.cpp)."""
+    from ..profiler import profile_for
+    seconds = min(float(q.get("seconds", "1")), 30.0)
+    return "text/plain", profile_for(seconds, top=int(q.get("top", "40")))
+
+
+def _contention(server, q):
+    """The lock contention profile; ?enable=1 / ?enable=0 switch it."""
+    from ..profiler import (contention_enabled, contention_profile,
+                            enable_contention_profiler)
+    if q.get("enable") == "1":
+        enable_contention_profiler(True)
+        return "text/plain", "contention profiler enabled"
+    if q.get("enable") == "0":
+        enable_contention_profiler(False)
+        return "text/plain", "contention profiler disabled"
+    lines = [f"enabled: {contention_enabled()}",
+             f"{'total_wait_s':>12}  {'samples':>8}  site"]
+    for site, n, total in contention_profile()[:50]:
+        lines.append(f"{total:12.4f}  {n:8d}  {site}")
+    return "text/plain", "\n".join(lines) + "\n"
+
+
+def _pprof_cmdline(server, q):
+    """pprof's remote protocol: the profiled program's command line
+    (builtin/pprof_service.cpp)."""
+    import sys
+    return "text/plain", "\x00".join([sys.executable] + sys.argv)
+
+
+def _pprof_profile(server, q):
+    """pprof's remote protocol: a CPU profile for ?seconds=N, from the
+    /hotspots engine."""
+    return _hotspots(server, {"seconds": q.get("seconds", "2"),
+                              "top": q.get("top", "60")})
+
+
+def _pprof_symbol(server, q):
+    """pprof's symbol endpoint: Python frames are symbolic already; the
+    answer to pprof's probe."""
+    return "text/plain", "num_symbols: 1\n"
 
 
 def _vlog(server, q):

@@ -14,6 +14,14 @@ from its balancer instead), and the health checker's probe lifts the
 isolation (:mod:`.circuit_breaker`, :mod:`.health_check`).  A streaming
 call (``cntl.stream_creator`` set) rides one connection: it takes no
 retry, and a balanced channel refuses it.
+
+The options pick the connection (``connection_type``: the shared single
+one, a pooled one a call holds alone, or a short one closed after the
+call), hedging (``backup_request_ms``, ``retry_on_timeout``), the spacing
+of connection-class retries (``retry_backoff_ms``) and a filter of the
+naming service's members (``ns_filter``).  A Controller's own
+``backup_request_ms``, ``retry_on_timeout`` and ``retry_backoff_ms`` win
+over the channel's.
 """
 from __future__ import annotations
 
@@ -23,6 +31,8 @@ from typing import Any, Callable, Optional
 from . import errors
 from . import request_context as _reqctx
 from .circuit_breaker import BreakerRegistry
+from .protocol import (CONNECTION_TYPE_POOLED, CONNECTION_TYPE_SHORT,
+                       CONNECTION_TYPE_SINGLE)
 from ..butil.endpoint import (EndPoint, parse_endpoint, SCHEME_ICI,
                                SCHEME_MEM)
 from .controller import Controller
@@ -34,10 +44,33 @@ from .span import (maybe_start_client_span, set_client_span_local,
 from ..bthread import scheduler as _sched
 
 
+_CONNECTION_TYPES = {"single": CONNECTION_TYPE_SINGLE,
+                     "pooled": CONNECTION_TYPE_POOLED,
+                     "short": CONNECTION_TYPE_SHORT}
+
+
 @dataclass
 class ChannelOptions:
+    # "" = single; an explicit value must be one the protocol supports
+    connection_type: str = ""           # "" | single | pooled | short
     timeout_ms: int = 1000
     max_retry: int = 3
+    # hedging: a backup try when no answer came within this many ms; the
+    # first answer wins (0 = off)
+    backup_request_ms: int = 0
+    # opt-in hedging on silence: timeout_ms is split evenly over the
+    # max_retry + 1 tries, and a try whose share elapses with no reply
+    # gets a fresh try beside it (a dropped request is recovered).  Off
+    # by default: a hedge may run a non-idempotent request twice, as a
+    # backup request may.  Ignored when backup_request_ms is set
+    retry_on_timeout: bool = False
+    # base delay of a retry after a connection-class failure, doubling per
+    # retry with seeded jitter (0 = retry at once): spaced retries let a
+    # call issued during an outage live until the health check revives
+    # the peer
+    retry_backoff_ms: int = 0
+    # membership filter of a naming url's servers: fn(ServerEntry) -> bool
+    ns_filter: Optional[Callable[[Any], bool]] = None
     # admission defaults for every call on the channel: a call's own
     # Controller values win, then the inbound request's, then these
     priority: Optional[int] = None
@@ -50,6 +83,7 @@ class Channel:
         self._endpoint: Optional[EndPoint] = None
         self._lb = None                  # balancer over a naming url
         self._ns_thread = None
+        self._ns_watcher = None          # the balancer, or its filter
         self._protocol = None
         self.messenger = InputMessenger(server=None)
 
@@ -65,13 +99,26 @@ class Channel:
         if self._protocol is None:
             raise ValueError("tpu_std is not registered: import "
                              "brpc_tpu_torch.policy")
+        ctype = self.options.connection_type
+        if ctype and ctype not in _CONNECTION_TYPES:
+            raise ValueError(f"unknown connection_type {ctype!r}")
+        if ctype and not (self._protocol.supported_connection_type
+                          & _CONNECTION_TYPES[ctype]):
+            # the reference fails Channel::Init on an unsupported explicit
+            # type rather than changing it
+            raise ValueError(f"protocol {self._protocol.name!r} does not "
+                             f"support connection_type={ctype!r}")
         from ..policy.naming import is_naming_url
         if isinstance(target, str) and is_naming_url(target):
             from ..policy.load_balancers import create_load_balancer
             from ..policy.naming import get_naming_service_thread
             self._lb = create_load_balancer(lb_name or "rr")
             self._ns_thread = get_naming_service_thread(target)
-            self._ns_thread.add_watcher(self._lb)
+            self._ns_watcher = self._lb
+            if self.options.ns_filter is not None:
+                self._ns_watcher = _FilteredWatcher(self._lb,
+                                                    self.options.ns_filter)
+            self._ns_thread.add_watcher(self._ns_watcher)
             return 0
         ep = parse_endpoint(target) if isinstance(target, str) else target
         if ep.scheme not in (SCHEME_ICI, SCHEME_MEM):
@@ -142,8 +189,7 @@ class Channel:
         if self._lb is None and \
                 BreakerRegistry.instance().breaker(ep).is_isolated():
             raise ConnectionError(f"{ep} isolated by circuit breaker")
-        sock = SocketMap.instance().get_socket(
-            ep, self.messenger, group=self._protocol.name)
+        sock = self._select_socket(cntl, ep)
         cntl.remote_side = sock.remote_side
         cid = cntl.current_cid()
         packet = self._protocol.pack_request(
@@ -167,13 +213,38 @@ class Channel:
         if rc != 0:
             raise ConnectionError(f"write failed: {rc}")
 
+    def _select_socket(self, cntl: Controller, ep: EndPoint):
+        """The try's connection by ``connection_type``: a pooled or short
+        one is remembered on the Controller, to be returned or closed when
+        the call ends (every try's: a hedged try may still answer)."""
+        smap = SocketMap.instance()
+        ctype = self.options.connection_type
+        if ctype == "pooled":
+            sock = smap.get_pooled_socket(ep, self.messenger,
+                                          group=self._protocol.name)
+            cntl._pooled_sockets.append((ep, sock))
+        elif ctype == "short":
+            sock = smap.get_short_socket(ep, self.messenger)
+            cntl._short_sockets.append(sock)
+        else:
+            sock = smap.get_socket(ep, self.messenger,
+                                   group=self._protocol.name)
+        return sock
+
     def _on_call_end(self, cntl: Controller) -> None:
-        """Feed the endpoint's breaker; a trip hands the endpoint to the
+        """Return the call's pooled connections and close its short ones.
+        Then feed the endpoint's breaker; a trip hands the endpoint to the
         health checker, whose successful probe resets the breaker.  An
         admission shed (ELIMIT with a retry_after_ms hint) is a healthy
         server saying "not now": it counts as a success here, or an
         overload would isolate the server still serving its protected
         band."""
+        d = cntl.__dict__
+        for ep, sock in d.get("_pooled_sockets", ()):
+            SocketMap.instance().return_pooled_socket(
+                ep, sock, group=self._protocol.name)
+        for sock in d.get("_short_sockets", ()):
+            sock.set_failed(errors.ECLOSE, "short connection done")
         sel = cntl._selected_endpoint
         if sel is None:
             return                       # no try was issued
@@ -210,6 +281,19 @@ class Channel:
         lb = self._lb
         if lb is not None:
             if self._ns_thread is not None:
-                self._ns_thread.remove_watcher(lb)
+                self._ns_thread.remove_watcher(self._ns_watcher)
             for e in lb.servers():
                 smap.close_endpoint(e.endpoint, self._protocol.name)
+
+
+class _FilteredWatcher:
+    """A channel's filter over its naming service's members (reference
+    naming_service_filter.h): the balancer sees only the entries the
+    filter keeps."""
+
+    def __init__(self, lb, filter_fn):
+        self._lb = lb
+        self._filter = filter_fn
+
+    def reset_servers(self, entries):
+        self._lb.reset_servers([e for e in entries if self._filter(e)])

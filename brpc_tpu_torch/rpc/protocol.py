@@ -46,6 +46,14 @@ class ParseResult:
         return ParseResult(ParseResultType.ERROR, error=msg)
 
 
+# connection types a protocol supports (reference
+# connection_type.h): a bit each, or-ed in ``supported_connection_type``
+CONNECTION_TYPE_SINGLE = 1
+CONNECTION_TYPE_POOLED = 2
+CONNECTION_TYPE_SHORT = 4
+CONNECTION_TYPE_ALL = 7
+
+
 @dataclass
 class Protocol:
     name: str
@@ -63,6 +71,8 @@ class Protocol:
     # message (a stream frame) in the reader, in cut order; True when it
     # was consumed and must not be dispatched
     process_inline: Optional[Callable[[Any, Any], bool]] = None
+    # the connection types a channel may ask for with this protocol
+    supported_connection_type: int = CONNECTION_TYPE_ALL
 
 
 _protocols: List[Protocol] = []

@@ -24,7 +24,14 @@ registered services through tpu_std.  Around that:
     ``enable_builtin_services`` is off (:mod:`.builtin`);
   * ``register_collective``: a device-side body for a served method, run
     by the compiled collective fan-out while the server serves its
-    ``ici://`` rank (:mod:`..channels.collective_fanout`).
+    ``ici://`` rank (:mod:`..channels.collective_fanout`);
+  * ``register_isolated``: a method whose handler is SOURCE, run on the
+    usercode pool's isolation workers (payload bytes in, response payload
+    bytes out);
+  * per-request session data from a pool
+    (``session_local_data_factory``, read with
+    ``Controller.session_local_data()``) and per-thread data
+    (``thread_local_data_factory``, read with ``thread_local_data()``).
 """
 from __future__ import annotations
 
@@ -79,6 +86,13 @@ class ServerOptions:
     enable_builtin_services: bool = True
     # display name on the /status page
     server_info_name: str = ""
+    # per-request session data: factory() -> object, pooled across
+    # requests (reference server.h session_local_data_factory; a handler
+    # reads it with Controller.session_local_data())
+    session_local_data_factory: Any = None
+    # per-worker-thread data: factory() -> object (reference
+    # thread_local_data_factory; read with Server.thread_local_data())
+    thread_local_data_factory: Any = None
 
 
 class Server:
@@ -112,6 +126,10 @@ class Server:
         # marked as serving them in the collective registry
         self._collective_regs: List[str] = []
         self._collective_served: List[int] = []
+        self._isolated: Dict[str, tuple] = {}   # full -> (src, att_mode)
+        self._session_data_pool: List[Any] = []
+        self._session_data_lock = threading.Lock()
+        self._thread_local = threading.local()
 
     # ---- registry -----------------------------------------------------
     def add_service(self, svc: Service) -> int:
@@ -159,6 +177,31 @@ class Server:
         self._collective_regs.append(method_full_name)
         if self._started:
             self._serve_collective()
+
+    def register_isolated(self, method_full_name: str, src: str,
+                          att: str = "echo") -> None:
+        """Serve a method from the usercode pool's isolation workers:
+        ``src`` is handler SOURCE defining ``handle(payload: bytes) ->
+        bytes``.  The request payload crosses as bytes and the return
+        value is the serialized response payload; nothing else crosses
+        (the share-nothing contract).  ``att`` says what happens to the
+        request's attachment: "echo" returns it as the response's, "drop"
+        releases it.  Needs ``usercode_in_pthread=True``; without
+        isolation support the handler still runs, on the backup
+        threads."""
+        if att not in ("echo", "drop"):
+            raise ValueError(f"unknown isolated att mode {att!r}")
+        if self._started and not self.options.usercode_in_pthread:
+            raise ValueError(
+                "register_isolated requires usercode_in_pthread=True "
+                "(isolated methods dispatch through the usercode pool)")
+        self._isolated[method_full_name] = (src, att)
+        if self.usercode_pool is not None:
+            self.usercode_pool.register(method_full_name, src)
+
+    def isolated_method(self, full_name: str) -> Optional[tuple]:
+        """``(src, att_mode)`` of a method registered isolated, or None."""
+        return self._isolated.get(full_name) if self._isolated else None
 
     def _serve_collective(self) -> None:
         ep = self.listen_endpoint
@@ -231,6 +274,33 @@ class Server:
                        for ms in self._method_status.values())
         return max(server_n, method_n, queued_n)
 
+    # ---- per-request / per-thread user data (server.h:126-150) --------
+    def _get_session_data(self) -> Any:
+        if self.options.session_local_data_factory is None:
+            return None
+        with self._session_data_lock:
+            if self._session_data_pool:
+                return self._session_data_pool.pop()
+        return self.options.session_local_data_factory()
+
+    def _return_session_data(self, data: Any) -> None:
+        if data is None:
+            return
+        with self._session_data_lock:
+            if len(self._session_data_pool) < 1024:
+                self._session_data_pool.append(data)
+
+    def thread_local_data(self) -> Any:
+        """Data of the calling worker thread, made on first use by
+        ``options.thread_local_data_factory`` (None without one)."""
+        factory = self.options.thread_local_data_factory
+        if factory is None:
+            return None
+        data = getattr(self._thread_local, "data", None)
+        if data is None:
+            data = self._thread_local.data = factory()
+        return data
+
     # ---- lifecycle ----------------------------------------------------
     def start(self, addr: Any) -> int:
         """Listen on ``ici://k`` or ``mem://name`` (a string or an
@@ -250,11 +320,19 @@ class Server:
         self._draining = False
         with self._conn_lock:
             self._connections = []
+        if self._isolated and not self.options.usercode_in_pthread:
+            # without the pool an isolated method has no dispatch route,
+            # and its callers would get a misleading ENOMETHOD
+            raise ValueError(
+                "register_isolated requires usercode_in_pthread=True "
+                "(isolated methods dispatch through the usercode pool)")
         if self.options.usercode_in_pthread and self.usercode_pool is None:
             from .usercode_pool import UsercodePool
             self.usercode_pool = UsercodePool(
                 kind=self.options.usercode_pool_kind,
                 workers=max(self.options.usercode_backup_threads, 1))
+            for full, (src, _att) in self._isolated.items():
+                self.usercode_pool.register(full, src)
         if self.options.admission:
             from .admission import AdmissionController, AdmissionOptions
             if self.admission is None:

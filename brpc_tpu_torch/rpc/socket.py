@@ -14,6 +14,9 @@ capabilities:
   * Input events are deduped by a counter so exactly one reader tasklet
     runs per socket no matter how many readiness events fire
     (StartInputEvent, socket.cpp:2046-2090).
+  * An installed :class:`~.fault_injection.FaultInjector` decides each
+    write ahead of the queue: a drop returns 0 and writes nothing, an
+    error severs the socket.
 
 Transport specifics live in subclasses implementing
 ``_do_write``/``_do_read``.
@@ -30,6 +33,7 @@ from ..butil.resource_pool import ResourcePool
 from ..butil.endpoint import EndPoint
 from ..bthread import scheduler
 from . import errors
+from . import fault_injection as _fi
 
 _socket_pool: ResourcePool = ResourcePool()
 
@@ -119,6 +123,7 @@ class Socket:
             pending = self._write_queue
             self._write_queue = []
             self._unwritten = 0
+            self._fold_counters_locked()
         _socket_pool.return_resource(self.id)
         for req in pending:
             self._complete_write(req, error_code)
@@ -148,6 +153,14 @@ class Socket:
               on_done: Optional[Callable[[int], None]] = None) -> int:
         """Enqueue data; returns 0 or an error code immediately (completion
         is reported through on_done / correlation error)."""
+        injector = _fi._active
+        if injector is not None:
+            action = injector.decide(self)
+            if action == _fi.DROP:
+                return 0                 # the bytes vanish: a lossy link
+            if action == _fi.ERROR:
+                self.set_failed(errors.EFAILEDSOCKET, "injected fault")
+                return errors.EFAILEDSOCKET
         req = WriteRequest(data, notify_cid, on_done)
         if notify_cid:
             with self._cid_lock:
@@ -210,10 +223,12 @@ class Socket:
                 return True
             if n < 0:           # transport not writable now
                 return False
-            self.stat.out_size += n
             if n > 0:
+                # counted under the lock set_failed folds the counters
+                # under: a write racing the close is counted once
                 with self._write_lock:
                     self._unwritten = max(0, self._unwritten - n)
+                    self._count_out_locked(n, 0)
             if len(req.data) == 0:
                 with self._write_lock:
                     if self._write_queue and self._write_queue[0] is req:
@@ -291,6 +306,16 @@ class Socket:
             # own tasklet and loop back to read
             if last is not None and self.messenger is not None:
                 self.messenger._queue_message(*last, self)
+
+    # ---- byte accounting (under _write_lock) -----------------------------
+    def _count_out_locked(self, nbytes: int, device_nbytes: int) -> None:
+        """Count written bytes; ``device_nbytes`` of them rode DEVICE
+        blocks.  Called with ``_write_lock`` held."""
+        self.stat.out_size += nbytes
+
+    def _fold_counters_locked(self) -> None:
+        """The socket is failing: a transport whose totals outlive its
+        sockets folds the counters here, with ``_write_lock`` held."""
 
     # ---- transport hooks ----------------------------------------------
     def _do_write(self, data: IOBuf) -> int:

@@ -57,7 +57,10 @@ class LoadAwareRouter:
 
     def remove_target(self, url: str) -> bool:
         """Take a decode worker out of selection and close its channel
-        (the autoscaler's scale-down); calls already issued complete."""
+        (the autoscaler's scale-down).  Every channel to the endpoint
+        shares one connection, so the close fails the calls already
+        issued to it with ECLOSE, and their callers retry them elsewhere;
+        they do not complete on the removed worker."""
         ep = parse_endpoint(url)
         ok = self._lb.remove_server(ep)
         with self._lock:

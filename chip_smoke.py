@@ -201,10 +201,38 @@ Phases, each fatal on failure:
                 second, 20 calls each with one client and one server span
                 in one trace (the server's parented under the client's)
                 and a transfer span under the client span carrying posted,
-                recv enqueued, matched and complete; Builtin.Call over
-                ici:// for vars, status and ici, whose device-plane counters
-                equal plane.stats() and whose route events show phase 13's
-                selected fan-outs
+                recv enqueued, matched and complete; the profiler
+                (rpc/profiler.py) over 200 calls with rpcz off and 200 with
+                it on, on the caller's thread: host µs per call and the ten
+                functions rpcz adds the most to; its device trace
+                (torch.profiler) around 4 calls, which must show the copy
+                kernel; Builtin.Call over ici:// for vars, status and ici
+                (rpcz off), whose device-plane counters equal plane.stats(),
+                whose route events show phase 13's selected fan-outs, which
+                keeps the last 64 transfers' timelines, and whose device
+                byte total equals the transport's
+ 15. call features  4 MiB DEVICE attachments owned by rank 1, echoed by
+                servers on ici://3 and ici://4 (handlers on the backup
+                pool), the socket window raised to 256 MiB: (a) 16 plain
+                calls, 8 whose every try stalls 40 ms without a backup,
+                and 32 with backup_request_ms=10 whose first try stalls
+                40 ms: both tries of each cross on p2p_copy, the answers
+                are bit-exact, the late ones dropped; hedged p50 against
+                unhedged, the backup tries' share; (b) 8 calls into a
+                200 ms handler, each cancelled once its attachment crossed:
+                ECANCELED, cancel-to-callback µs, the late answers cross
+                back and are dropped; (c) FaultInjector(drop_ratio=0.3,
+                seed=15) on every write with retry_on_timeout, 10 tries of
+                a 1 s deadline: 16 calls all answer, drops > 0, and the
+                plane's transfers equal the writes that passed (a dropped
+                frame posts nothing); (d) 8 pooled calls hold one
+                connection (SocketMap.stats() and the server's), 8 short
+                ones close theirs; (e) rpc_dump on for 16 calls, then
+                rpc_replay of the files against a fresh server on ici://5:
+                the replayed frames equal the dumped ones but for their
+                correlation ids, and the answers equal the calls'.  Every
+                path: launches = plane transfers > 0, device memory back
+                within 64 MiB, no transfer left active
 
 Launch counts are zeroed just before each path and read just after it:
 during phases 3-4 and during phase 8 p2p_copy's launches must equal the
@@ -216,9 +244,9 @@ plus the attachments it returned, in (c) the LoadKv and MigrateIn calls
 the servers received (bounced ones included); during phases 11 and 12
 they must equal the transfers (in 11 (b) also the DATA frames with a
 device block, in 12 (b)-(c) the sub-calls' legs that crossed); during
-phases 13 and 14 they must equal the transfers (in 13 the degraded
-leg's; the compiled leg launches none), and no ring kernel may launch
-there; during phase 6 each ring
+phases 13, 14 and 15 they must equal the transfers (in 13 the degraded
+leg's; the compiled leg launches none; in 15 on each of its paths), and
+no ring kernel may launch there; during phase 6 each ring
 kernel's launches must equal the calls of its entry point.  The line
 before the last is the ``kernels`` JSON; the last line is the device
 JSON.
@@ -305,9 +333,21 @@ FANOUT_ITERS, FANOUT_BYTES, SELECTIVE_CALLS = 60, 64 << 20, 30
 # bench_collective_single's calls, and the calls a 64 MiB leg is timed over
 FANOUT_SHARD, FANOUT_COLL_ITERS, FANOUT_SINGLE_ITERS = 512, 80, 200
 FANOUT_BIG_ITERS = 10
-# phase 14: echo calls per mode and turn, and the calls whose spans are
-# checked one by one
+# phase 14: echo calls per mode and turn, the calls whose spans are
+# checked one by one, and the echo calls profiled in each rpcz mode
 RPCZ_CALLS, RPCZ_TRACED = 150, 20
+RPCZ_PROFILED = 200
+# phase 15: the attachment, the hedged calls and the first try's stall,
+# the backup delay, the cancelled calls and their handler's sleep, the
+# calls through seeded drops (drop ratio, seed, tries a call and the
+# deadline they split), the calls per connection type, the dumped calls,
+# and the device memory a path may leave behind
+CF_PAYLOAD, CF_HEDGED, CF_STALL_MS, CF_BACKUP_MS = 4 << 20, 32, 40, 10
+CF_CANCELS, CF_CANCEL_SLEEP_MS = 8, 200
+CF_DROP_CALLS, CF_DROP_RATIO, CF_DROP_SEED = 16, 0.3, 15
+CF_DROP_TRIES, CF_DROP_TIMEOUT_MS = 10, 1000
+CF_CONN_CALLS, CF_DUMP_CALLS = 8, 16
+CF_MEMORY_SLACK = 64 << 20
 
 
 def fail(msg: str) -> None:
@@ -1644,8 +1684,9 @@ def phase_admission(mesh, plane, p2p_copy) -> dict:
           f"({out['offered_rps']:.0f} paced); priority-0 p99 "
           f"{out['hi_p99_unloaded_us']:.1f} us unloaded, "
           f"{out['hi_p99_overload_us']:.1f} us at overload (ratio "
-          f"{out['hi_p99_ratio']:.3f}; bench.py bounds it at 2, not gated "
-          f"here); served p0 by tenant {json.dumps(hi_by_tenant)}, low "
+          f"{out['hi_p99_ratio']:.3f}; bench.py bounds it at 2; not gated "
+          f"here: at this shape the JAX package misses alike on one host, "
+          f"sweeps/overload_ab.py); served p0 by tenant {json.dumps(hi_by_tenant)}, low "
           f"{low_ok}; shed {shed} ({hinted} with a hint); errors {errs} "
           f"{sorted(set(codes))}; per stream class {json.dumps(streams)}; "
           f"describe {json.dumps(describe)}", flush=True)
@@ -2872,7 +2913,8 @@ def phase_rpcz(mesh, plane, p2p_copy) -> dict:
     from brpc_tpu_torch.ici import route
     from brpc_tpu_torch.policy import tpu_std
     from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
-    from brpc_tpu_torch.rpc import span
+    from brpc_tpu_torch.ici.transport import ici_transport_stats
+    from brpc_tpu_torch.rpc import profiler, span
     from brpc_tpu_torch.rpc.builtin.rpc_service import JsonMsg
 
     t_phase = time.monotonic()
@@ -2966,6 +3008,49 @@ def phase_rpcz(mesh, plane, p2p_copy) -> dict:
         out["traced_calls"] = checked
         out["example_trace"] = [s.describe() for s in spans]
 
+        # the profiler on the same echo, rpcz off and on: the host time a
+        # call's thread spends per function, and what rpcz adds to each
+        prof = {}
+        for name in ("off", "rpcz"):
+            set_mode(name)
+            time.sleep(1.05)              # a fresh sampling second
+            _, prof[name] = profiler.profile_stats(
+                lambda: [push() for _ in range(RPCZ_PROFILED)])
+        added = []
+        for key in set(prof["off"].stats) | set(prof["rpcz"].stats):
+            tt = [prof[m].stats[key][2] if key in prof[m].stats else 0.0
+                  for m in ("off", "rpcz")]
+            added.append(((tt[1] - tt[0]) / RPCZ_PROFILED * 1e6,
+                          f"{Path(key[0]).name}:{key[1]} {key[2]}"))
+        added.sort(reverse=True)
+        out["profile"] = {
+            "calls": RPCZ_PROFILED,
+            "total_us_per_call": {m: prof[m].total_tt / RPCZ_PROFILED * 1e6
+                                  for m in prof},
+            "rpcz_added_us_per_call": [(f, round(us, 2))
+                                       for us, f in added[:10]]}
+        # the card's trace around a few calls: torch.profiler sees the
+        # copy kernel
+        trace_dir = ROOT / "brpc_tpu_torch" / "_build" / "device_trace"
+        set_mode("off")
+        check(profiler.start_device_trace(str(trace_dir)),
+              "torch.profiler did not start")
+        for _ in range(4):
+            push()
+        torch.cuda.synchronize()
+        check(profiler.stop_device_trace(), "the device trace was not kept")
+        traces = sorted(trace_dir.glob("trace.*.json"))
+        check(traces, "no device trace written")
+        with open(traces[-1]) as f:
+            kernels = [e for e in json.load(f)["traceEvents"]
+                       if e.get("cat") == "kernel"]
+        out["profile"]["trace_kernels"] = sorted({e["name"] for e in kernels})
+        check(any("copy_kernel" in e["name"] for e in kernels),
+              f"the device trace shows no copy kernel: "
+              f"{out['profile']['trace_kernels']}")
+        for t in traces:
+            t.unlink()
+
         # the builtin pages over ici://
         set_mode("off")
         pages = {}
@@ -2986,6 +3071,15 @@ def phase_rpcz(mesh, plane, p2p_copy) -> dict:
         check(ici["device_plane"]["transfers"] == stats["transfers"],
               f"ici page transfers {ici['device_plane']['transfers']} != "
               f"plane {stats['transfers']}")
+        # with rpcz off the page still keeps the last transfers' timelines,
+        # and its byte totals count every device byte the plane moved
+        recent = ici["device_plane_recent"]
+        check(len(recent) == 64 and recent[-1]["state"] == "complete",
+              f"the ici page kept {len(recent)} timelines with rpcz off")
+        check(ici["transport"]["device_bytes_moved"]
+              == ici_transport_stats()[1] >= stats["bytes_sent"],
+              f"ici page device bytes {ici['transport']} against the "
+              f"plane's {stats['bytes_sent']}")
         sel = ici["collective_route_events"]["collective_selected"]
         check(sel == route.collective_stats()["collective_selected"],
               "ici page's selected count differs from the route counters")
@@ -3006,6 +3100,11 @@ def phase_rpcz(mesh, plane, p2p_copy) -> dict:
     out["transfers"] = plane.stats()["transfers"] - t0
     out["wall_s"] = time.monotonic() - t_phase
     e = out["echo"]
+    print(f"rpcz: profiler, host us per call on the caller's thread "
+          f"{json.dumps(out['profile']['total_us_per_call'])}; rpcz adds "
+          f"most to {json.dumps(out['profile']['rpcz_added_us_per_call'])}; "
+          f"device trace kernels {out['profile']['trace_kernels']}",
+          flush=True)
     print(f"rpcz: echo p50 off {e['off']['p50_us']:.1f} us, rpcz on "
           f"{e['rpcz']['p50_us']:.1f} ({e['rpcz_cost'] * 100:+.1f} %), "
           f"with stages {e['rpcz_stages']['p50_us']:.1f} "
@@ -3013,6 +3112,326 @@ def phase_rpcz(mesh, plane, p2p_copy) -> dict:
           f"{json.dumps(out['stage_p50s_us'])}; {out['traced_calls']} "
           f"traced calls linked; pages vars/status/ici OK; phase "
           f"{out['wall_s']:.1f} s", flush=True)
+    return out
+
+
+def phase_call_features(mesh, plane, p2p_copy) -> dict:
+    """The client's call features with 4 MiB DEVICE attachments owned by
+    rank 1 (see the module docstring, phase 15).  Every path gates
+    p2p_copy's launches against the plane's transfers, the device memory
+    against its level, and an empty active set."""
+    import gc
+    import shutil
+    import tempfile
+    import brpc_tpu_torch.policy  # noqa: F401
+    from brpc_tpu_torch import rpc
+    from brpc_tpu_torch.butil import flags
+    from brpc_tpu_torch.butil.endpoint import parse_endpoint
+    from brpc_tpu_torch.proto import rpc_meta_pb2 as meta_pb
+    from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
+    from brpc_tpu_torch.rpc import errors
+    from brpc_tpu_torch.rpc import fault_injection as fi
+    from brpc_tpu_torch.rpc import rpc_dump
+    from brpc_tpu_torch.rpc.socket_map import SocketMap
+    from brpc_tpu_torch.tools import rpc_replay
+
+    t_phase = time.monotonic()
+    dev = mesh.device(0)
+    payload = mesh.own(torch.from_numpy(np.random.default_rng(15).integers(
+        0, 256, CF_PAYLOAD, dtype=np.uint8)).to(dev), 1)
+    payload_bytes = payload.cpu().numpy().tobytes()
+    lock = threading.Lock()
+    events = {}
+
+    class Echo(rpc.Service):
+        """Echoes message and attachment; "hedge:k" stalls the first try
+        of call k, "stall:k" every try, "slow:k" sleeps longer after
+        saying it entered."""
+        SERVICE_NAME = "EchoService"
+
+        def __init__(self):
+            self.seen = set()
+            self.counts = {}
+
+        @rpc.method(EchoRequest, EchoResponse)
+        def Echo(self, cntl, request, response, done):
+            kind, _, key = request.message.partition(":")
+            with lock:
+                first = request.message not in self.seen
+                self.seen.add(request.message)
+                self.counts[kind] = self.counts.get(kind, 0) + 1
+            if (kind == "hedge" and first) or kind == "stall":
+                time.sleep(CF_STALL_MS / 1000.0)
+            elif kind == "slow":
+                events[key].set()
+                time.sleep(CF_CANCEL_SLEEP_MS / 1000.0)
+            response.message = request.message
+            cntl.response_attachment.append(cntl.request_attachment)
+            done()
+
+    def start(addr):
+        svc = Echo()
+        server = rpc.Server(rpc.ServerOptions(
+            usercode_in_pthread=True, usercode_backup_threads=CF_CANCELS + 4))
+        server.add_service(svc)
+        check(server.start(addr) == 0, f"call-features server on {addr}")
+        return server, svc
+
+    def channel(addr, **kw):
+        ch = rpc.Channel()
+        ch.init(addr, options=rpc.ChannelOptions(**kw))
+        return ch
+
+    def echo(ch, msg, cntl=None):
+        cntl = cntl or rpc.Controller()
+        cntl.request_attachment.append_device_array(payload)
+        t0 = time.perf_counter_ns()
+        resp = ch.call_method("EchoService.Echo", cntl,
+                              EchoRequest(message=msg), EchoResponse)
+        us = (time.perf_counter_ns() - t0) / 1000.0
+        check(not cntl.failed(), f"{msg}: {cntl.error_text}")
+        check(resp.message == msg, f"{msg}: answered {resp.message!r}")
+        check(torch.equal(_tensor_of(cntl.response_attachment), payload),
+              f"{msg}: the attachment came back changed")
+        return cntl, us
+
+    def settle():
+        deadline = time.monotonic() + 10
+        while plane.active_transfers() and time.monotonic() < deadline:
+            time.sleep(0.002)
+        torch.cuda.synchronize()
+        gc.collect()
+
+    out = {}
+
+    def path(name, fn):
+        settle()
+        mem0 = torch.cuda.memory_allocated(dev)
+        l0, t0 = p2p_copy.launches, plane.stats()["transfers"]
+        res = fn()
+        settle()
+        res["launches"] = p2p_copy.launches - l0
+        res["transfers"] = plane.stats()["transfers"] - t0
+        res["memory_delta_bytes"] = torch.cuda.memory_allocated(dev) - mem0
+        check(res["launches"] == res["transfers"] > 0,
+              f"{name}: p2p_copy launched {res['launches']} times for "
+              f"{res['transfers']} plane transfers")
+        check(abs(res["memory_delta_bytes"]) <= CF_MEMORY_SLACK,
+              f"{name}: device memory {res['memory_delta_bytes']} B off "
+              f"its level")
+        check(not plane._active and not plane._pending,
+              f"{name}: {len(plane._active)} transfers still active")
+        out[name] = res
+
+    server, svc = start("ici://3")
+    server4, _ = start("ici://4")
+    plain = channel("ici://3", timeout_ms=10000, max_retry=0)
+    build = ROOT / "brpc_tpu_torch" / "_build"
+    build.mkdir(parents=True, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="rpc_dump.", dir=str(build))
+    try:
+        def hedging():
+            hedged = channel("ici://3", timeout_ms=10000, max_retry=1,
+                             backup_request_ms=CF_BACKUP_MS)
+            lat = {"plain": [], "unhedged": [], "hedged": []}
+            backups = 0
+            for i in range(CF_HEDGED // 2):
+                lat["plain"].append(echo(plain, f"plain:{i}")[1])
+            for i in range(CF_HEDGED // 4):
+                lat["unhedged"].append(echo(plain, f"stall:{i}")[1])
+            for i in range(CF_HEDGED):
+                cntl, us = echo(hedged, f"hedge:{i}")
+                lat["hedged"].append(us)
+                backups += cntl.retried_count
+            # the stalled first tries answer late, and are dropped
+            time.sleep(2 * CF_STALL_MS / 1000.0)
+            hedged.close()
+            check(svc.counts.get("hedge") == 2 * CF_HEDGED,
+                  f"{svc.counts.get('hedge')} hedged tries reached the "
+                  f"server for {CF_HEDGED} calls")
+            return {"p50_us": {k: _pct(v, 0.5) for k, v in lat.items()},
+                    "calls": {k: len(v) for k, v in lat.items()},
+                    "backup_share": backups / CF_HEDGED,
+                    "stall_ms": CF_STALL_MS, "backup_ms": CF_BACKUP_MS}
+
+        def cancelling():
+            ch = channel("ici://3", timeout_ms=10000, max_retry=0)
+            cntls, ended, cancel_at, cb_at = [], [], [], [0.0] * CF_CANCELS
+            for i in range(CF_CANCELS):
+                events[str(i)] = threading.Event()
+                ev = threading.Event()
+
+                def cb(c, i=i, ev=ev):
+                    cb_at[i] = time.perf_counter()
+                    ev.set()
+                cntl = rpc.Controller()
+                cntl.request_attachment.append_device_array(payload)
+                ch.call_method("EchoService.Echo", cntl,
+                               EchoRequest(message=f"slow:{i}"),
+                               EchoResponse, cb)
+                cntls.append(cntl)
+                ended.append(ev)
+            for i in range(CF_CANCELS):
+                # the attachment crossed: the handler runs
+                check(events[str(i)].wait(10), f"slow:{i} never entered")
+            for cntl in cntls:
+                cancel_at.append(time.perf_counter())
+                cntl.cancel()
+            for ev in ended:
+                check(ev.wait(10), "a cancelled call never ended")
+            codes = sorted({c.error_code for c in cntls})
+            check(codes == [errors.ECANCELED],
+                  f"cancelled calls ended with {codes}")
+            time.sleep(1.5 * CF_CANCEL_SLEEP_MS / 1000.0)
+            check(all(c.response is None
+                      and c._peek_response_attachment() is None
+                      for c in cntls), "a late answer reached a cancelled "
+                                       "call")
+            ch.close()
+            us = [(b - a) * 1e6 for a, b in zip(cancel_at, cb_at)]
+            return {"calls": CF_CANCELS, "cancel_to_callback_us": {
+                "p50": _pct(us, 0.5), "max": max(us)}}
+
+        def dropping():
+            passed = [0]
+
+            class Counting(fi.FaultInjector):
+                def decide(self, socket):
+                    d = super().decide(socket)
+                    if d == fi.PASS:
+                        with lock:
+                            passed[0] += 1
+                    return d
+
+            ch = channel("ici://3", timeout_ms=CF_DROP_TIMEOUT_MS,
+                         max_retry=CF_DROP_TRIES - 1, retry_on_timeout=True)
+            tries = 0
+            with fi.inject(Counting(drop_ratio=CF_DROP_RATIO,
+                                    seed=CF_DROP_SEED)) as inj:
+                for i in range(CF_DROP_CALLS):
+                    cntl, _ = echo(ch, f"drop:{i}")
+                    tries += cntl.retried_count + 1
+                settle()
+            ch.close()
+            check(inj.injected["drop"] > 0, "no write was dropped")
+            return {"calls": CF_DROP_CALLS, "tries": tries,
+                    "dropped_writes": inj.injected["drop"],
+                    "passed_writes": passed[0]}
+
+        def connections():
+            ep = parse_endpoint("ici://4")
+            smap = SocketMap.instance()
+            pooled = channel("ici://4", timeout_ms=10000,
+                             connection_type="pooled")
+            for i in range(CF_CONN_CALLS):
+                echo(pooled, f"pooled:{i}")
+            after_pooled = (smap.stats().get(ep, 0),
+                            len(server4.connections()))
+            short = channel("ici://4", timeout_ms=10000,
+                            connection_type="short")
+            for i in range(CF_CONN_CALLS):
+                echo(short, f"short:{i}")
+            deadline = time.monotonic() + 2
+            while len(server4.connections()) > 1 and \
+                    time.monotonic() < deadline:
+                time.sleep(0.005)
+            after_short = (smap.stats().get(ep, 0),
+                           len(server4.connections()))
+            pooled.close()
+            short.close()
+            check(after_pooled == (1, 1),
+                  f"pooled calls hold {after_pooled} (map, server) "
+                  f"connections, not one reused")
+            check(after_short == (1, 1),
+                  f"short calls left {after_short} connections open")
+            return {"calls": CF_CONN_CALLS, "pooled_held": after_pooled,
+                    "after_short": after_short}
+
+        def dumping():
+            first, again = f"{tmp}/first", f"{tmp}/replayed"
+            flags.set_flag("rpc_dump_dir", first)
+            flags.set_flag("rpc_dump", True)
+            answers = []
+            for i in range(CF_DUMP_CALLS):
+                cntl, _ = echo(plain, f"dump:{i}")
+                answers.append((0, EchoResponse(
+                    message=f"dump:{i}").SerializeToString(),
+                    payload_bytes))
+            flags.set_flag("rpc_dump", False)
+            files = rpc_dump.list_dump_files(first)
+            dumped = [f for p in files for f in rpc_dump.load_dumped_frames(p)]
+            check(len(dumped) == CF_DUMP_CALLS,
+                  f"{len(dumped)} frames dumped for {CF_DUMP_CALLS} calls")
+            fresh, _ = start("ici://5")
+            try:
+                flags.set_flag("rpc_dump_dir", again)
+                flags.set_flag("rpc_dump", True)
+                result = rpc_replay.run_replay("ici://5", first, out=sys.stderr,
+                                               collect=True)
+                flags.set_flag("rpc_dump", False)
+            finally:
+                flags.set_flag("rpc_dump", False)
+                fresh.stop()
+            check(result["sent"] == result["ok"] == CF_DUMP_CALLS,
+                  f"replay: {result['ok']} of {result['sent']} answered")
+            check(result["responses"] == answers,
+                  "the replay's answers differ from the calls'")
+            replayed = [f for p in rpc_dump.list_dump_files(again)
+                        for f in rpc_dump.load_dumped_frames(p)]
+
+            def strip(fr):
+                size = int.from_bytes(fr[4:8], "big")
+                meta = meta_pb.RpcMeta()
+                meta.ParseFromString(fr[12:12 + size])
+                meta.correlation_id = 0
+                meta.request.ClearField("timeout_ms")
+                meta.request.ClearField("deadline_left_ms")
+                return meta.SerializeToString(), fr[12 + size:]
+
+            check(sorted(map(strip, replayed)) == sorted(map(strip, dumped)),
+                  "the replayed frames differ from the dumped ones")
+            return {"calls": CF_DUMP_CALLS, "files": len(files),
+                    "dump_bytes": sum(len(f) for f in dumped),
+                    "replayed_frames": len(replayed)}
+
+        for name, fn in (("hedging", hedging), ("cancel", cancelling),
+                         ("drops", dropping), ("connections", connections),
+                         ("dump", dumping)):
+            path(name, fn)
+        # each write that passed carried one attachment: a dropped one
+        # posted nothing
+        drops = out["drops"]
+        check(drops["transfers"] == drops["passed_writes"],
+              f"drops: {drops['transfers']} plane transfers for "
+              f"{drops['passed_writes']} writes that passed (a dropped "
+              f"frame posted a transfer)")
+    finally:
+        flags.set_flag("rpc_dump", False)
+        plain.close()
+        server.stop()
+        server4.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = sum(r["launches"] for r in out.values()
+                          if isinstance(r, dict))
+    out["transfers"] = sum(r["transfers"] for r in out.values()
+                           if isinstance(r, dict) and "transfers" in r)
+    out["wall_s"] = time.monotonic() - t_phase
+    h, c, d = out["hedging"], out["cancel"], out["drops"]
+    print(f"call features: hedged p50 {h['p50_us']['hedged']:.1f} us "
+          f"against unhedged {h['p50_us']['unhedged']:.1f} us with the "
+          f"first try stalled {CF_STALL_MS} ms (plain echo "
+          f"{h['p50_us']['plain']:.1f} us); backup tries' share "
+          f"{h['backup_share']:.3f}; cancel to callback p50 "
+          f"{c['cancel_to_callback_us']['p50']:.1f} us (max "
+          f"{c['cancel_to_callback_us']['max']:.1f}); drops: "
+          f"{d['calls']} calls in {d['tries']} tries, "
+          f"{d['dropped_writes']} writes dropped, all answered; pooled "
+          f"held {out['connections']['pooled_held']}, after short "
+          f"{out['connections']['after_short']}; dump "
+          f"{out['dump']['dump_bytes']} B in {out['dump']['files']} "
+          f"file(s), replayed equal; launches = transfers "
+          f"{ {k: out[k]['launches'] for k in ('hedging', 'cancel', 'drops', 'connections', 'dump')} }; "
+          f"phase {out['wall_s']:.1f} s", flush=True)
     return out
 
 
@@ -3186,7 +3605,22 @@ def main() -> int:
               and launches["ring_all_gather"] == 0,
               f"a ring kernel launched on the {name} path")
         slice7[name] = res
+
+    # 15. the call features (backup requests, cancel, drops, connection
+    # types, rpc_dump and rpc_replay), with the counts zeroed just before
+    # them; 4 MiB attachments, the socket window still raised
+    zero_counts()
+    calls = phase_call_features(mesh, plane, p2p_copy)
+    launches = {k.name: k.launches for k in kernels_all}
+    check(launches["p2p_copy"] == calls["launches"] == calls["transfers"]
+          > 0, f"the call-features path launched p2p_copy "
+               f"{launches['p2p_copy']} times for {calls['transfers']} "
+               f"plane transfers")
+    check(launches["ring_all_reduce"] == 0
+          and launches["ring_all_gather"] == 0,
+          "a ring kernel launched on the call-features path")
     flags.set_flag("ici_socket_window_bytes", window)
+    print("call features: " + json.dumps(calls), flush=True)
     check(slice7["rpcz"]["pages"]["ici_selected"]
           >= slice7["fanout_collective"]["selected"] > 0,
           "the ici page does not show phase 13's selected fan-outs")
@@ -3207,14 +3641,16 @@ def main() -> int:
         "launches": (main_launches + serve["launches"] + tiers["launches"]
                      + sum(phase10.values())
                      + sum(r["launches"] for r in slice6.values())
-                     + sum(r["launches"] for r in slice7.values())),
+                     + sum(r["launches"] for r in slice7.values())
+                     + calls["launches"]),
         "launches_by_path": {"echo": main_launches,
                              "serving": serve["launches"],
                              "migration": tiers["launches"], **phase10,
                              **{k: r["launches"]
                                 for k, r in slice6.items()},
                              **{k: r["launches"]
-                                for k, r in slice7.items()}},
+                                for k, r in slice7.items()},
+                             "call_features": calls["launches"]},
         "migration_path_split": {
             "migrate_in": tiers["migrate_in_calls"],
             "loadkv": tiers["calls_received"] - tiers["migrate_in_calls"]},

@@ -860,3 +860,138 @@ def test_a_transfer_span_appears_on_the_card(cuda_device):
         ch.close()
         server.stop()
         IciMesh.set_default(None)
+
+
+def _stalling_echo_server(addr, stall):
+    import brpc_tpu_torch.policy  # noqa: F401
+    from brpc_tpu_torch import rpc
+    from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
+
+    class Echo(rpc.Service):
+        SERVICE_NAME = "EchoService"
+
+        @rpc.method(EchoRequest, EchoResponse)
+        def Echo(self, cntl, request, response, done):
+            stall()
+            response.message = request.message
+            cntl.response_attachment.append(cntl.request_attachment)
+            done()
+
+    server = rpc.Server(rpc.ServerOptions(usercode_in_pthread=True,
+                                          usercode_backup_threads=4))
+    server.add_service(Echo())
+    assert server.start(addr) == 0
+    return server
+
+
+@pytest.mark.cuda
+def test_a_backup_request_carries_its_attachment_on_the_card(cuda_device):
+    """A 4 MiB DEVICE attachment owned by rank 1, the first try stalled at
+    the server: the backup try answers, both tries and both answers cross
+    on p2p_copy (launches = plane transfers = 4), the bytes come back
+    exact, and the memory comes back to its level."""
+    import time
+    from brpc_tpu_torch import rpc
+    from brpc_tpu_torch.butil import flags
+    from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
+    mesh = IciMesh(ranks=8, device="cuda")
+    IciMesh.set_default(mesh)
+    window = flags.get_flag("ici_socket_window_bytes")
+    flags.set_flag("ici_socket_window_bytes", 64 << 20)
+    tries = []
+
+    def stall():
+        tries.append(1)
+        if len(tries) == 1:
+            time.sleep(0.3)
+
+    server = _stalling_echo_server("ici://0", stall)
+    ch = rpc.Channel()
+    ch.init("ici://0", options=rpc.ChannelOptions(
+        timeout_ms=10000, max_retry=1, backup_request_ms=30))
+    plane = dp.plane()
+    try:
+        payload = mesh.device_put(
+            torch.from_numpy(_seeded(4 << 20)).to(cuda_device), 1)
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated(cuda_device)
+        launches0 = p2p_copy.launches
+        transfers0 = plane.stats()["transfers"]
+        cntl = rpc.Controller()
+        cntl.request_attachment.append_device_array(payload)
+        ch.call_method("EchoService.Echo", cntl, EchoRequest(message="b"),
+                       EchoResponse)
+        assert not cntl.failed(), cntl.error_text
+        assert cntl.retried_count == 1
+        back = cntl.response_attachment.device_refs()[0].block.data
+        assert torch.equal(back, payload)
+        del back, cntl
+        time.sleep(0.5)                  # the stalled try answers late
+        torch.cuda.synchronize()
+        assert len(tries) == 2
+        assert p2p_copy.launches - launches0 == \
+            plane.stats()["transfers"] - transfers0 == 4
+        assert plane.active_transfers() == 0
+        assert torch.cuda.memory_allocated(cuda_device) - mem0 <= 16 << 20
+    finally:
+        flags.set_flag("ici_socket_window_bytes", window)
+        ch.close()
+        server.stop()
+        IciMesh.set_default(None)
+
+
+@pytest.mark.cuda
+def test_a_cancelled_call_drops_its_late_answer_on_the_card(cuda_device):
+    """A 4 MiB DEVICE attachment crosses to a slow handler, the call is
+    cancelled (ECANCELED), and the handler's late answer crosses back on
+    p2p_copy and is dropped: launches = plane transfers = 2, nothing stays
+    active and the memory comes back to its level."""
+    import time
+    from brpc_tpu_torch import rpc
+    from brpc_tpu_torch.butil import flags
+    from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
+    from brpc_tpu_torch.rpc import errors
+    mesh = IciMesh(ranks=8, device="cuda")
+    IciMesh.set_default(mesh)
+    window = flags.get_flag("ici_socket_window_bytes")
+    flags.set_flag("ici_socket_window_bytes", 64 << 20)
+    entered = threading.Event()
+
+    def stall():
+        entered.set()
+        time.sleep(0.3)
+
+    server = _stalling_echo_server("ici://0", stall)
+    ch = rpc.Channel()
+    ch.init("ici://0", options=rpc.ChannelOptions(timeout_ms=10000,
+                                                  max_retry=0))
+    plane = dp.plane()
+    try:
+        payload = mesh.device_put(
+            torch.from_numpy(_seeded(4 << 20)).to(cuda_device), 1)
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated(cuda_device)
+        launches0 = p2p_copy.launches
+        transfers0 = plane.stats()["transfers"]
+        cntl = rpc.Controller()
+        cntl.request_attachment.append_device_array(payload)
+        ended = threading.Event()
+        ch.call_method("EchoService.Echo", cntl, EchoRequest(message="c"),
+                       EchoResponse, lambda c: ended.set())
+        assert entered.wait(10)
+        cntl.cancel()
+        assert ended.wait(10)
+        assert cntl.error_code == errors.ECANCELED
+        time.sleep(0.5)
+        torch.cuda.synchronize()
+        assert cntl._peek_response_attachment() is None
+        assert p2p_copy.launches - launches0 == \
+            plane.stats()["transfers"] - transfers0 == 2
+        assert plane.active_transfers() == 0
+        del cntl
+        assert torch.cuda.memory_allocated(cuda_device) - mem0 <= 16 << 20
+    finally:
+        flags.set_flag("ici_socket_window_bytes", window)
+        ch.close()
+        server.stop()
+        IciMesh.set_default(None)

@@ -336,6 +336,78 @@ print(json.dumps({
 """
 
 
+_SLICE8 = r"""
+import io, json, sys, tempfile
+import torch
+import brpc_tpu_torch.policy
+from brpc_tpu_torch import rpc
+from brpc_tpu_torch.butil import flags
+from brpc_tpu_torch.butil.endpoint import parse_endpoint
+from brpc_tpu_torch.examples import (backup_request, cancel_rpc,
+                                     session_data_and_thread_local)
+from brpc_tpu_torch.ici import device_plane
+from brpc_tpu_torch.ici.mesh import IciMesh
+from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
+from brpc_tpu_torch.rpc import fault_injection, profiler, rpc_dump
+from brpc_tpu_torch.rpc.socket_map import SocketMap
+from brpc_tpu_torch.tools import rpc_replay
+
+rcs = [m.main(["--device", "cpu"]) for m in (
+    backup_request, cancel_rpc, session_data_and_thread_local)]
+mesh = IciMesh.default()
+
+class Echo(rpc.Service):
+    SERVICE_NAME = "EchoService"
+
+    @rpc.method(EchoRequest, EchoResponse)
+    def Echo(self, cntl, request, response, done):
+        response.message = request.message
+        cntl.response_attachment.append(cntl.request_attachment)
+        done()
+
+server = rpc.Server(rpc.ServerOptions(usercode_in_pthread=True))
+server.add_service(Echo())
+server.register_isolated("Iso.Rev",
+                         "def handle(p):\n    return p[::-1]\n")
+server.start("ici://3")
+ch = rpc.Channel()
+ch.init("ici://3", options=rpc.ChannelOptions(
+    connection_type="pooled", timeout_ms=3000, max_retry=9,
+    retry_on_timeout=True))
+d = tempfile.mkdtemp()
+flags.set_flag("rpc_dump_dir", d)
+flags.set_flag("rpc_dump", True)
+answered = 0
+with fault_injection.inject(fault_injection.FaultInjector(
+        drop_ratio=0.3, seed=4)) as inj:
+    for i in range(6):
+        cntl = rpc.Controller()
+        cntl.request_attachment.append_device_array(
+            mesh.device_put(torch.full((8192,), i, dtype=torch.uint8), 1))
+        resp = ch.call_method("EchoService.Echo", cntl,
+                              EchoRequest(message=str(i)), EchoResponse)
+        answered += (not cntl.failed() and resp.message == str(i))
+flags.set_flag("rpc_dump", False)
+cntl = rpc.Controller()
+iso = ch.call_method("Iso.Rev", cntl, b"abc")
+pooled = SocketMap.instance().stats().get(parse_endpoint("ici://3"), 0)
+replayed = rpc_replay.run_replay("ici://3", d, out=io.StringIO())
+ch.close()
+server.stop()
+ok = (rcs == [0, 0, 0] and answered == 6 and inj.injected["drop"] > 0
+      and iso == b"cba" and pooled >= 1 and replayed["ok"] >= 6
+      and "function calls" in profiler.profile_for(0.01, top=3))
+print(json.dumps({
+    "ok": ok,
+    "active": device_plane.plane().active_transfers(),
+    "jax": sorted(m for m in sys.modules
+                  if m == "jax" or m.startswith(("jax.", "jaxlib"))),
+    "brpc_tpu": sorted(m for m in sys.modules
+                       if m == "brpc_tpu" or m.startswith("brpc_tpu.")),
+}))
+"""
+
+
 _EVERY_MODULE = r"""
 import importlib, json, pkgutil, sys
 import brpc_tpu_torch
@@ -503,3 +575,23 @@ def test_default_mesh_is_the_card():
     assert IciMesh(ranks=2, device="cpu").device_type == "cpu"
     with pytest.raises(ValueError):
         IciMesh(ranks=2, device="meta")
+
+
+def test_port_call_features_dump_and_profiler_load_no_jax():
+    """Slice 8 driven alone: the three examples on a CPU mesh, seeded
+    drops hedged on a pooled ici:// channel with DEVICE attachments and
+    rpc_dump on, an isolated handler, the replay of the dump and the
+    profiler; among the package's modules, this slice's own."""
+    out = _run_alone(_SLICE8)
+    assert out["ok"]
+    assert out["active"] == 0
+    assert out["jax"] == []
+    assert out["brpc_tpu"] == []
+    mods = _run_alone(_EVERY_MODULE)["modules"]
+    for name in ("brpc_tpu_torch.rpc.rpc_dump",
+                 "brpc_tpu_torch.rpc.profiler",
+                 "brpc_tpu_torch.tools.rpc_replay",
+                 "brpc_tpu_torch.examples.backup_request",
+                 "brpc_tpu_torch.examples.cancel_rpc",
+                 "brpc_tpu_torch.examples.session_data_and_thread_local"):
+        assert name in mods, name

@@ -19,6 +19,7 @@ Mirrors ``tests/test_auth_rpcz.py``'s TestRpcz and the in-process legs of
 from __future__ import annotations
 
 import json
+import threading
 import time
 import types
 
@@ -471,8 +472,8 @@ def test_rpcz_page_scope_pod_without_pod():
 
 def test_ici_page_counts_agree_with_the_plane():
     """The /ici page's plane and transport counters agree with the plane
-    and the sockets; a transfer's timeline is kept only while rpcz is
-    on."""
+    and the sockets; a transfer's timeline is kept with rpcz off too, as
+    the JAX plane keeps it."""
     server = _server(PORT, "ici://4")
     ch = _channel(PORT, "ici://4")
 
@@ -491,8 +492,13 @@ def test_ici_page_counts_agree_with_the_plane():
         tflags.set_flag("rpcz_enabled", False)
         moved0, dev0 = ici_transport.ici_transport_stats()
         recent0 = len(dp.plane().recent_transfers())
+        transfers0 = dp.plane().stats()["transfers"]
         echo_8k()
-        assert len(dp.plane().recent_transfers()) == recent0
+        recent = dp.plane().recent_transfers()
+        made = dp.plane().stats()["transfers"] - transfers0
+        assert made >= 1
+        assert len(recent) == min(64, recent0 + made)
+        assert recent[-1]["state"] == "complete"
         moved1, dev1 = ici_transport.ici_transport_stats()
         assert dev1 - dev0 == 8192          # the request's attachment
         assert moved1 - moved0 > dev1 - dev0
@@ -506,4 +512,101 @@ def test_ici_page_counts_agree_with_the_plane():
     finally:
         tflags.set_flag("rpcz_enabled", old)
         ch.close()
+        server.stop()
+
+
+def test_ici_page_keeps_untraced_timelines_on_both_packages():
+    """With rpcz off, both packages' /ici pages keep the finished
+    transfers' timelines (the last 64), and their byte totals grow by the
+    attachment each call carried."""
+    import jax
+    from brpc_tpu.ici import device_plane as jdp
+    from brpc_tpu.ici import transport as jtransport
+    from brpc_tpu.ici.mesh import IciMesh as JaxMesh
+    import numpy as np
+    jsaved = {n: jflags.get_flag(n) for n in _FLAGS}
+    tsaved = {n: tflags.get_flag(n) for n in _FLAGS}
+    for f in (jflags, tflags):
+        f.set_flag("rpcz_enabled", False)
+        f.set_flag("ici_device_plane", True)
+        f.set_flag("ici_device_plane_host_mesh", True)
+        f.set_flag("ici_device_plane_threshold", 4096)
+    data = np.arange(8192, dtype=np.uint8)
+    got = {}
+    try:
+        for pkg, plane, stats in ((JAX, jdp.plane(),
+                                   jtransport.ici_transport_stats),
+                                  (PORT, dp.plane(),
+                                   ici_transport.ici_transport_stats)):
+            server = _server(pkg, "ici://6")
+            ch = _channel(pkg, "ici://6")
+            try:
+                _, dev0 = stats()
+                t0 = plane.stats()["transfers"]
+                for i in range(3):
+                    cntl = pkg.rpc.Controller()
+                    if pkg is JAX:
+                        arr = jax.device_put(data, JaxMesh.default().device(5))
+                    else:
+                        arr = IciMesh.default().device_put(
+                            torch.from_numpy(data), 5)
+                    cntl.request_attachment.append_device_array(arr)
+                    ch.call_method("EchoService.Echo", cntl,
+                                   pkg.Req(message="u"), pkg.Resp)
+                    assert not cntl.failed(), cntl.error_text
+                page = json.loads(_builtin(pkg, ch, "ici")["body"])
+                made = plane.stats()["transfers"] - t0
+                recent = page["device_plane_recent"]
+                got[pkg.name] = (made, stats()[1] - dev0,
+                                 [(r["nbytes"], r["state"])
+                                  for r in recent[-made:]])
+            finally:
+                ch.close()
+                server.stop()
+    finally:
+        for n, v in jsaved.items():
+            jflags.set_flag(n, v)
+        for n, v in tsaved.items():
+            tflags.set_flag(n, v)
+    assert got["jax"] == got["torch"] == (3, 3 * 8192,
+                                          [(8192, "complete")] * 3)
+
+
+def test_ici_byte_totals_count_a_write_racing_its_close():
+    """A write that finishes after its socket began to close is counted:
+    the close folds the socket's counters under its write lock, and the
+    late write adds to the folded totals."""
+    server = _server(PORT, "ici://7")
+    from brpc_tpu_torch.butil.endpoint import parse_endpoint
+    from brpc_tpu_torch.butil.iobuf import IOBuf
+    sock = ici_transport.ici_connect(parse_endpoint("ici://7"))
+    try:
+        moved0, dev0 = ici_transport.ici_transport_stats()
+        relocate = sock._relocate
+
+        def relocate_then_close(frame):
+            out = relocate(frame)
+            # the close lands while this write is still in _do_write
+            threading.Thread(target=sock.set_failed).start()
+            deadline = time.monotonic() + 5
+            while not sock._counters_folded and \
+                    time.monotonic() < deadline:
+                time.sleep(0.001)
+            return out
+
+        sock._relocate = relocate_then_close
+        buf = IOBuf()
+        buf.append(b"h" * 100)
+        buf.append_device_array(IciMesh.default().device_put(
+            torch.zeros(8192, dtype=torch.uint8), 0))
+        sock.write(buf)
+        deadline = time.monotonic() + 5
+        while ici_transport.ici_transport_stats()[0] - moved0 < 8292 and \
+                time.monotonic() < deadline:
+            time.sleep(0.005)
+        moved, dev = ici_transport.ici_transport_stats()
+        assert sock._counters_folded
+        assert (moved - moved0, dev - dev0) == (8292, 8192)
+    finally:
+        sock.set_failed()
         server.stop()

@@ -289,6 +289,7 @@ def test_drain_waits_for_usercode_pool_backlog(addr):
     drain gate: the started one completes, the queued one is answered
     with retryable ELOGOFF, and the stop waits for both."""
     release = threading.Event()
+    entered = threading.Event()
     done_msgs = []
 
     class Echo(rpc.Service):
@@ -296,6 +297,7 @@ def test_drain_waits_for_usercode_pool_backlog(addr):
 
         @rpc.method(EchoRequest, EchoResponse)
         def Echo(self, cntl, request, response, done):
+            entered.set()
             release.wait(5)
             done_msgs.append(request.message)
             response.message = "srv:" + request.message
@@ -310,6 +312,9 @@ def test_drain_waits_for_usercode_pool_backlog(addr):
     try:
         evts = [_async(ch, f"m{i}", out) for i in range(2)]
         assert _wait(lambda: server._usercode_queued >= 2, 2.0)
+        # the one backup thread runs m0's handler before the drain starts
+        # (under load it may not have picked m0 up yet)
+        assert entered.wait(5)
         assert done_msgs == [] and server.inflight_requests() == 2
         threading.Timer(0.3, release.set).start()
         server.stop(5.0)
