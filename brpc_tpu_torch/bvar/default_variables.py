@@ -70,6 +70,13 @@ def _ici_device_bytes_moved() -> int:
     return ici_transport_stats()[1]
 
 
+def _ici_refs_in_custody() -> int:
+    """Device refs held for the native ici plane (0 unless a call is in
+    flight: a steady nonzero value is a custody leak)."""
+    from ..ici import native_plane
+    return native_plane.registry().live()
+
+
 def expose_default_variables() -> None:
     with _lock:
         if _exposed:
@@ -86,4 +93,5 @@ def expose_default_variables() -> None:
             PassiveStatus(_cuda_memory_bytes, "cuda_memory_bytes_in_use"),
             PassiveStatus(_ici_bytes_moved, "ici_bytes_moved"),
             PassiveStatus(_ici_device_bytes_moved, "ici_device_bytes_moved"),
+            PassiveStatus(_ici_refs_in_custody, "ici_refs_in_custody"),
         ])

@@ -139,6 +139,16 @@ class ParallelChannel:
             sub_cntl.timeout_ms = cntl.timeout_ms
             sub_cntl.max_retry = cntl.max_retry
             sub_cntl.log_id = cntl.log_id
+            # against a listener that answers inline on the native plane,
+            # a tasklet per sub-call buys no concurrency (the handler runs
+            # in the caller's stack either way): issue it here
+            check = getattr(chan, "inline_fast_call_ok", None)
+            if done is None and check is not None and check(
+                    sub_cntl, sub.request, method_full_name):
+                chan.call_method(method_full_name, sub_cntl, sub.request,
+                                 response_cls)
+                state.on_sub_done(i, merger, sub_cntl)
+                continue
             chan.call_method(
                 method_full_name, sub_cntl, sub.request, response_cls,
                 done=lambda sc, idx=i, m=merger: state.on_sub_done(idx, m, sc))

@@ -30,7 +30,10 @@ SLEEP_US = 400_000
 def main(argv=None) -> int:
     device = parse_device(argv, __doc__)
     mesh = setup_mesh(device)
-    server = rpc.Server(rpc.ServerOptions(usercode_in_pthread=True))
+    # the Python plane: a cancel reaches a call there (and on the mem://
+    # loopback plane); a call on the native plane runs to its end in C
+    server = rpc.Server(rpc.ServerOptions(usercode_in_pthread=True,
+                                          native_ici=False))
     server.add_service(EchoService())
     assert server.start("ici://1") == 0
     ch = rpc.Channel()

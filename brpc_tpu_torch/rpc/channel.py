@@ -25,10 +25,13 @@ over the channel's.
 """
 from __future__ import annotations
 
+import threading
+import time as _time
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
 from . import errors
+from . import loopback as _loopback
 from . import request_context as _reqctx
 from .circuit_breaker import BreakerRegistry
 from .protocol import (CONNECTION_TYPE_POOLED, CONNECTION_TYPE_SHORT,
@@ -39,8 +42,8 @@ from .controller import Controller
 from .input_messenger import InputMessenger
 from .protocol import find_protocol
 from .socket_map import SocketMap
-from .span import (maybe_start_client_span, set_client_span_local,
-                   _rpcz_flag as _rpcz)
+from .span import (end_client_span, maybe_start_client_span,
+                   set_client_span_local, _rpcz_flag as _rpcz)
 from ..bthread import scheduler as _sched
 
 
@@ -75,6 +78,26 @@ class ChannelOptions:
     # Controller values win, then the inbound request's, then these
     priority: Optional[int] = None
     tenant: str = ""
+    # the rank this channel's caller lives on, for ici:// targets on the
+    # native plane: response device refs relocate toward it.  None takes
+    # the target's neighbour, (remote + 1) % mesh.size; a caller on the
+    # server's own rank passes that rank for the pure ref-pass round trip
+    ici_local_device: Optional[int] = None
+
+
+# the loopback screen's modules, resolved at first call (the policy <-> rpc
+# import cycle)
+_loopback_screen = None
+
+
+def _loopback_screen_modules():
+    global _loopback_screen
+    if _loopback_screen is None:
+        from . import fault_injection as _fi
+        from . import rpc_dump as _dump
+        from ..policy.tpu_std import _stage_flag
+        _loopback_screen = (_fi, _dump, _stage_flag)
+    return _loopback_screen
 
 
 class Channel:
@@ -86,6 +109,10 @@ class Channel:
         self._ns_watcher = None          # the balancer, or its filter
         self._protocol = None
         self.messenger = InputMessenger(server=None)
+        self._native_ici = None          # native_plane.ChannelBinding
+        self._native_ici_lock = threading.Lock()
+        self._loopback_name: Optional[str] = None
+        self._loopback_breaker = None
 
     # ---- init ---------------------------------------------------------
     def init(self, target: Any, lb_name: str = "",
@@ -125,6 +152,14 @@ class Channel:
             raise ValueError(f"unsupported scheme {ep.scheme}: the port "
                              "connects ici:// and mem:// only")
         self._endpoint = ep
+        if ep.scheme == SCHEME_MEM and self.options.backup_request_ms <= 0:
+            # the loopback plane's channel-level screen (the per-call ones
+            # are in call_method): unary tpu_std to an in-process mem://
+            # server, no hedging.  The breaker gates it too: an isolated
+            # endpoint fails fast in process (loopback calls themselves
+            # never trip or reset a breaker)
+            self._loopback_name = ep.host
+            self._loopback_breaker = BreakerRegistry.instance().breaker(ep)
         return 0
 
     # ---- calls ----------------------------------------------------------
@@ -132,6 +167,19 @@ class Channel:
                     request: Any, response_cls: Any = None,
                     done: Optional[Callable[[Controller], None]] = None):
         """Sync when done is None (returns the response); async otherwise."""
+        # the fused native path: a cached in-process ici:// binding serves
+        # sync calls in one place (context, screens, call, error tails).
+        # What it cannot carry (oversize frames, hedging, a dead
+        # connection's one re-route) falls through to the body below
+        nch0 = self._native_ici
+        skip_native = False
+        if (nch0 is not None and done is None and nch0._fused
+                and cntl.stream_creator is None):
+            result = nch0.call_fused(method_full_name, cntl, request,
+                                     response_cls, self)
+            if result is not nch0.FUSED_FALLTHROUGH:
+                return result
+            skip_native = True
         if cntl.stream_creator is not None:
             # the stream is bound to the connection its handshake rode: a
             # retry would leave an accepted stream orphaned on the first
@@ -167,6 +215,87 @@ class Channel:
             cntl.priority = self.options.priority
         if not cntl.tenant and self.options.tenant:
             cntl.tenant = self.options.tenant
+        # the native plane: when the target rank has a native listener in
+        # this process, the unary hot path (framing, window, dispatch,
+        # correlation) runs in the C++ core, and Python only relocates
+        # device refs.  Streaming, hedging and frames too large for the
+        # native window take the Python plane
+        nch = None
+        if not skip_native:
+            nch = self._native_ici
+            if nch is None:
+                nch = self._native_ici_binding(cntl)
+            elif cntl.stream_creator is not None:
+                nch = None
+        if nch is not None and not self._fast_call_fits(nch, cntl, request):
+            nch = None
+        if nch is not None:
+            if cntl.timeout_ms is None:
+                cntl.timeout_ms = self.options.timeout_ms
+            if done is None:
+                result = self._native_ici_call(nch, method_full_name, cntl,
+                                               request, response_cls)
+                result = self._native_shed_retry(nch, method_full_name,
+                                                 cntl, request,
+                                                 response_cls, result)
+                if not self._native_ici_fallback(cntl):
+                    if cntl.span is not None:
+                        end_client_span(cntl)
+                    return result
+            else:
+                def _run():
+                    try:
+                        self._native_ici_call(nch, method_full_name, cntl,
+                                              request, response_cls)
+                    except Exception as e:   # done() always fires
+                        if not cntl.failed():
+                            cntl.set_failed(errors.EINTERNAL,
+                                            f"{type(e).__name__}: {e}")
+                        cntl._ended.set()
+                        done(cntl)
+                        return
+                    if self._native_ici_fallback(cntl):
+                        # a dead native connection or an oversize frame:
+                        # the Python plane carries the call
+                        self.call_method(method_full_name, cntl, request,
+                                         response_cls, done=done)
+                    else:
+                        if cntl.span is not None:
+                            end_client_span(cntl)
+                        cntl._ended.set()        # Controller.join returns
+                        done(cntl)
+
+                # a thread of its own, not a scheduler worker: the call
+                # parks in the core until its answer
+                from ..ici import native_plane
+                native_plane.run_async(_run)
+                return None
+        # the mem:// loopback plane (loopback.py).  Per-call screens: what
+        # the wire plane implements and loopback does not (streaming, fault
+        # injection, rpc_dump sampling) and what exists to observe the
+        # wire plane (rpcz-sampled calls, the stage-metrics mode) take the
+        # wire
+        lb_name = self._loopback_name
+        if (lb_name is not None and cntl.stream_creator is None
+                and _loopback.enabled()):
+            _fi, _dump, _stage_flag = _loopback_screen_modules()
+            if cntl.span is None:
+                maybe_start_client_span(cntl, method_full_name)
+            srv = _loopback.server_for(lb_name)
+            # a method served by the isolation workers has no method
+            # descriptor: it takes the wire path, which dispatches it
+            if (srv is not None and cntl.span is None
+                    and srv.isolated_method(method_full_name) is None
+                    and not self._loopback_breaker.is_isolated()
+                    and _stage_flag.value != "on"
+                    and _fi.active() is None
+                    and not _dump.dump_enabled()):
+                if cntl.timeout_ms is None:
+                    cntl.timeout_ms = self.options.timeout_ms
+                return _loopback.call(srv, method_full_name, cntl,
+                                      request, response_cls, done)
+        # a Controller reused after a loopback call joins this call's id
+        cntl.__dict__.pop("_loopback_state", None)
         payload = self._protocol.serialize_request(request, cntl)
         if _rpcz.value and cntl.span is None:
             maybe_start_client_span(cntl, method_full_name)
@@ -176,6 +305,148 @@ class Channel:
             cntl.join(timeout)
             return cntl.response
         return None
+
+    # ---- the native plane ---------------------------------------------
+    def _fast_call_fits(self, nch, cntl: Controller, request) -> bool:
+        """The native plane's per-call screen: the frame (payload,
+        attachment and 64 KiB of headroom) fits the native send window,
+        and the channel does not hedge with backup requests."""
+        try:                            # a non-proto request has no size
+            req_sz = request.ByteSize()
+        except Exception:
+            req_sz = 0
+        att = cntl._peek_request_attachment()
+        att_len = len(att) if att is not None else 0
+        return (att_len + req_sz + 65536 <= nch.window_bytes
+                and self.options.backup_request_ms <= 0)
+
+    def inline_fast_call_ok(self, cntl: Controller, request,
+                            method_full_name: str) -> bool:
+        """True when this call would take the native plane and the
+        listener answers it inline on the caller's thread, so issuing it
+        synchronously from a fan-out loop costs nothing over a tasklet.
+        Mirrors call_method's routing screens."""
+        nch = self._native_ici
+        if nch is None or cntl.stream_creator is not None:
+            return False
+        if not self._fast_call_fits(nch, cntl, request):
+            return False
+        from ..ici import native_plane
+        return native_plane.listener_dispatch_inline(
+            nch.remote_dev, method_full_name) is True
+
+    def _native_ici_call(self, nch, method_full_name: str,
+                         cntl: Controller, request, response_cls):
+        """One native call with the client span.  No retry loop: the one
+        retryable error of an in-process transport is EFAILEDSOCKET (the
+        connection died with its server), which _native_ici_fallback
+        re-routes; every other failure would repeat on a retry."""
+        if cntl.span is None:
+            maybe_start_client_span(cntl, method_full_name)
+        return nch.call(method_full_name, cntl, request, response_cls)
+
+    def _native_shed_retry(self, nch, method_full_name: str,
+                           cntl: Controller, request, response_cls,
+                           result):
+        """A shed's retry_after_ms on the native plane (sync calls): sleep
+        the hint (plus jitter above it, never below) and reissue, within
+        the retry budget and one overall deadline.  The wire plane does
+        the same through the Controller's retry machinery."""
+        from .admission import shed_backoff_s
+        max_retry = cntl.max_retry if cntl.max_retry is not None \
+            else self.options.max_retry
+        attempt = 0
+        orig_tms = cntl.timeout_ms
+        # the budget started with the first attempt
+        t0 = _time.monotonic() - (cntl.latency_us / 1e6)
+        try:
+            while (cntl.error_code_ == errors.ELIMIT
+                   and cntl.retry_after_ms > 0 and attempt < max_retry):
+                attempt += 1
+                delay_s = shed_backoff_s(cntl.retry_after_ms)
+                if orig_tms and orig_tms > 0:
+                    remaining = orig_tms / 1000.0 \
+                        - (_time.monotonic() - t0)
+                    if delay_s >= remaining:
+                        cntl.set_failed(
+                            errors.ERPCTIMEDOUT,
+                            f"reached timeout={orig_tms}ms backing "
+                            "off from admission shed")
+                        return None
+                _sched.note_worker_blocked()
+                try:
+                    _time.sleep(delay_s)
+                finally:
+                    _sched.note_worker_unblocked()
+                cntl.error_code_ = 0
+                cntl.error_text_ = ""
+                cntl.retry_after_ms = 0
+                cntl.retried_count += 1
+                if orig_tms and orig_tms > 0:
+                    # the reissue gets what is left of the budget
+                    left_ms = int((orig_tms / 1000.0
+                                   - (_time.monotonic() - t0)) * 1000)
+                    if left_ms <= 0:
+                        cntl.set_failed(errors.ERPCTIMEDOUT,
+                                        f"reached timeout={orig_tms}ms")
+                        return None
+                    cntl.timeout_ms = left_ms
+                result = self._native_ici_call(nch, method_full_name,
+                                               cntl, request, response_cls)
+        finally:
+            cntl.timeout_ms = orig_tms
+        return result
+
+    def _native_ici_fallback(self, cntl: Controller) -> bool:
+        """After a native failure, whether the call re-routes through the
+        Python plane (once per call): on EFAILEDSOCKET (the cached
+        connection died with its server; the cache is dropped) and on the
+        oversize fast-fail (the Python plane drains the frame through
+        its window)."""
+        code = cntl.error_code_
+        if code == errors.EFAILEDSOCKET:
+            drop_cache = True
+        elif code == errors.EOVERCROWDED and \
+                cntl.error_text_.startswith("frame larger"):
+            drop_cache = False
+        else:
+            return False
+        if cntl.__dict__.get("_ici_rerouted"):
+            return False               # one re-route per call
+        cntl._ici_rerouted = True
+        if drop_cache:
+            with self._native_ici_lock:
+                stale, self._native_ici = self._native_ici, None
+            if stale is not None:
+                stale.close()
+        cntl.error_code_ = 0
+        cntl.error_text_ = ""
+        return True
+
+    def _native_ici_binding(self, cntl: Controller):
+        """The native in-process connection to the target rank, or None
+        (the Python plane): no native listener, a balanced channel, a
+        streaming call."""
+        ep = self._endpoint
+        if (ep is None or ep.scheme != SCHEME_ICI
+                or cntl.stream_creator is not None):
+            return None
+        cached = self._native_ici
+        if cached is not None:
+            return cached
+        try:
+            from ..ici import native_plane
+            if not (native_plane.available()
+                    and native_plane.has_listener(ep.device_id)):
+                return None
+            with self._native_ici_lock:
+                if self._native_ici is None:
+                    self._native_ici = native_plane.ChannelBinding(
+                        ep.device_id,
+                        local_dev=self.options.ici_local_device)
+                return self._native_ici
+        except Exception:
+            return None
 
     # IssueRPC: runs once per try -----------------------------------------
     def _issue_rpc(self, cntl: Controller) -> None:
@@ -276,6 +547,10 @@ class Channel:
         if self._protocol is None:
             return
         smap = SocketMap.instance()
+        with self._native_ici_lock:
+            nch, self._native_ici = self._native_ici, None
+        if nch is not None:
+            nch.close()
         if self._endpoint is not None:
             smap.close_endpoint(self._endpoint, self._protocol.name)
         lb = self._lb

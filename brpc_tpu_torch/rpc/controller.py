@@ -94,7 +94,6 @@ class Controller:
     _cid: int = 0
     _timeout_timer = None
     _backup_timer = None
-    _shed_wait: bool = False        # a shed retry waits out its hint
     _channel = None                 # issuing channel (for re-issues)
     _method_full_name: str = ""
     _request_buf: Optional[IOBuf] = None
@@ -195,6 +194,18 @@ class Controller:
         # every field is a class default: clearing the instance dict
         # restores pristine state in one C-level op
         self.__dict__.clear()
+
+    # ---- server side: respond outside the handler's done --------------
+    def set_server_done(self, fn: Callable[[], None]) -> None:
+        self._server_done = fn
+
+    def send_response(self) -> None:
+        """Send the response now, as the handler's ``done`` would (once:
+        a later ``done`` is a no-op)."""
+        fn = self.__dict__.get("_server_done")
+        if fn is not None:
+            self._server_done = None
+            fn()
 
     def _maybe_recycle(self) -> None:
         """Return a pool-acquired server-side Controller to its pool once
@@ -301,8 +312,10 @@ class Controller:
             return
         if error_code == errors.EBACKUPREQUEST:
             # hedge: one more try; older versions stay valid so the first
-            # response wins.  Not while a shed waits out its hint
-            if self.current_try < self.max_retry and not self._shed_wait:
+            # response wins.  The timer stays armed across a shed, so a
+            # backup may go out before the shed's hint has passed, as in
+            # the reference
+            if self.current_try < self.max_retry:
                 self.current_try += 1
                 self.retried_count += 1
                 # the deadline timer is version-bound: re-armed at the new
@@ -412,11 +425,7 @@ class Controller:
                 if shed_retry:
                     # issued from the timer thread after the hint plus
                     # jitter above it; a delay past the overall deadline
-                    # loses to ERPCTIMEDOUT, which is the right bound.  No
-                    # backup try goes out ahead of it
-                    self._shed_wait = True
-                    if self._backup_timer is not None:
-                        TimerThread.instance().unschedule(self._backup_timer)
+                    # loses to ERPCTIMEDOUT, which is the right bound
                     delay_s = shed_backoff_s(
                         hint_ms, seed=(self._cid << 8) ^ self.retried_count)
                     TimerThread.instance().schedule_after(
@@ -450,8 +459,8 @@ class Controller:
 
     def _start_shed_retry(self) -> None:
         """Timer callback: re-issue a shed call off the timer thread,
-        unless the deadline already ended it."""
-        self._shed_wait = False
+        unless the call already ended (its deadline, a cancel, or a backup
+        try's answer)."""
         self._start_delayed_retry()
 
     def _start_delayed_retry(self) -> None:
@@ -485,6 +494,19 @@ class Controller:
         scheduler tasklet, compensate the blocked worker so server-side
         processing can't be starved by sync callers."""
         from ..bthread import scheduler
+        state = self.__dict__.get("_loopback_state")
+        if state is not None:
+            # a loopback call completes through its claim, not the id
+            ev = state.wait_begin()
+            if ev is None:
+                return
+            scheduler.note_worker_blocked()
+            try:
+                if not ev.wait(timeout):
+                    raise TimeoutError("RPC join timed out")
+            finally:
+                scheduler.note_worker_unblocked()
+            return
         scheduler.note_worker_blocked()
         try:
             if not self._ended.wait(timeout):
@@ -496,6 +518,10 @@ class Controller:
         """Cancel the in-flight call (reference StartCancel): it completes
         with ECANCELED, and a late response is dropped by the correlation
         id, which the completion destroyed."""
+        if self.__dict__.get("_loopback_state") is not None:
+            from . import loopback
+            loopback.cancel(self)
+            return
         if self._cid and not self._ended.is_set():
             bthread_id.error(
                 bthread_id.with_version(self._cid, self.current_try),
@@ -529,6 +555,14 @@ class ControllerPool:
         rid = c.__dict__.get("_pool_rid", 0)
         if not rid or not self._ids.return_resource(rid):
             return                   # not ours / already released: drop
+        # a native attachment view whose handle never left custody (the
+        # handler ignored it, or the response failed before passing it
+        # back) is disposed here; plain IOBufs have no such hook
+        d = c.__dict__
+        for name in ("request_attachment", "response_attachment"):
+            fn = getattr(d.get(name), "_dispose_native", None)
+            if fn is not None:
+                fn()
         c.reset()
         with self._lock:
             if len(self._free) < self.capacity:

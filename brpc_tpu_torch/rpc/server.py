@@ -93,6 +93,11 @@ class ServerOptions:
     # per-worker-thread data: factory() -> object (reference
     # thread_local_data_factory; read with Server.thread_local_data())
     thread_local_data_factory: Any = None
+    # an ici:// server also opens the native front door (the C++ datapath
+    # of csrc/ici_native.cpp); in-process channels prefer it for the
+    # calls it can carry.  The Python listener stays open beside it.
+    # False serves every call on the Python plane
+    native_ici: bool = True
 
 
 class Server:
@@ -103,6 +108,7 @@ class Server:
         self._method_status: Dict[str, MethodStatus] = {}
         self._started = False
         self._listener = None            # IciListener or MemListener
+        self._native_ici = None          # native_plane.ServerBinding
         self.listen_endpoint = None
         self.messenger = InputMessenger(server=self)
         self._connections: List[Any] = []
@@ -344,9 +350,23 @@ class Server:
         if ep.scheme == SCHEME_ICI:
             from ..ici.transport import ici_listen
             self._listener = ici_listen(ep.device_id, self._on_accept)
+            if self.options.native_ici:
+                from ..ici import native_plane
+                try:
+                    self._native_ici = native_plane.ServerBinding(
+                        self, ep.device_id)
+                except Exception as e:
+                    # the native door is an accelerator, not a
+                    # requirement: the Python plane serves every call
+                    log.warning("native ici plane unavailable (%s); "
+                                "Python datapath only", e)
         else:
             from .mem_transport import mem_listen
             self._listener = mem_listen(ep.host, self._on_accept)
+            # the loopback plane: in-process channels dispatch straight
+            # into this server's method table (loopback.py)
+            from . import loopback
+            loopback.register_server(ep.host, self)
         self.listen_endpoint = ep
         self._started = True
         from . import lameduck
@@ -378,6 +398,9 @@ class Server:
         return self._draining
 
     def _close_listener(self) -> None:
+        native, self._native_ici = self._native_ici, None
+        if native is not None:
+            native.stop()
         listener, self._listener = self._listener, None
         if listener is None:
             return
@@ -386,7 +409,9 @@ class Server:
             ici_unlisten(listener.device_id)
         else:
             from .mem_transport import mem_unlisten
+            from . import loopback
             mem_unlisten(listener.name)
+            loopback.unregister_server(listener.name, self)
 
     def stop(self, grace_s: Optional[float] = None) -> int:
         """Stop the server.  ``grace_s > 0`` (default: ``ServerOptions.
@@ -397,9 +422,10 @@ class Server:
              its waiting entries with ELOGOFF, ici:// sockets send
              GOODBYE so peers pull the endpoint from their balancers,
              and NEW requests bounce with retryable ELOGOFF.  The
-             listener stays open through the window, marked draining, so
-             a caller that reconnects gets the same bounce (both of the
-             port's planes are in-process front doors);
+             listener, the native door and the loopback name stay open
+             through the window, marked draining, so a caller that
+             reconnects gets the same bounce (all are in-process front
+             doors);
           2. in-flight handlers, queued usercode, streams open on the
              server's connections and device-plane transfers complete
              inside the grace window (a transfer counts until the
@@ -471,6 +497,11 @@ class Server:
             self._close_server_streams(conns)
             if not drained:
                 self._fail_pending_device_transfers(drain_start_ns)
+        # loopback stragglers (past the grace window, or any in flight on
+        # an immediate stop) fail as the wire connections below do: claimed
+        # with retryable ELOGOFF, the running handler's late done() dropped
+        from . import loopback
+        loopback.fail_inflight(self, errors.ELOGOFF, "server stopping")
         for s in conns:
             s.set_failed(errors.ELOGOFF, "server stopping")
         pool, self.usercode_pool = self.usercode_pool, None

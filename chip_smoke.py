@@ -9,7 +9,10 @@ Phases, each fatal on failure:
   1. build      compile csrc/p2p_copy.cu, csrc/ring_all_reduce.cu,
                 csrc/ring_all_gather.cu and an empty kernel with nvcc
                 (sm_90a), one nvcc each, all started together, and load
-                them
+                them; beside them g++ builds the native ici:// core
+                (csrc/ici_native.cpp, butil/native.py) and it is loaded:
+                a build or load failure is fatal here, so the run never
+                falls back to the Python plane quietly
   2. kernel     p2p_copy against its plain version at 4 KiB, 65,537 B
                 (misaligned source), 512 KiB and 2 MiB (phase 8's KV
                 handoffs), 4 MiB, 4 MiB (source and destination
@@ -39,7 +42,14 @@ Phases, each fatal on failure:
                 bench_device_plane: IciMesh(ranks=8) on the card, server on
                 ici://0 answering inline, payload owned by rank 1,
                 threshold 1 so every attachment rides the plane; 300 calls
-                at 4 KiB (p50/p99 µs), 16 at 4 MiB (GB/s)
+                at 4 KiB (p50/p99 µs), 16 at 4 MiB (GB/s).  Phases 3 and 4
+                run on both front doors in turns (native, Python, Python,
+                native): native_ici=True, the default and bench.py's, and
+                native_ici=False, the Python plane.  On the native door
+                the 4 KiB calls are its requests, one each
+                (ServerBinding.requests()); a 4 MiB frame is over the
+                native window (4 MiB with 64 KiB of headroom) and rides
+                the Python plane, so the native count does not move
   4. echo       the default 64 KiB threshold with an Echo service that
                 returns the attachment: 64 KiB and 4 MiB ride the plane,
                 4 KiB takes mesh.device_put; returned bytes must match
@@ -80,7 +90,9 @@ Phases, each fatal on failure:
                 64; every loaded session's pool rows (materialize) equal,
                 byte for byte, the token-major permute of the KV sent; the
                 step's wall and device µs at roster 64; (c) the card's prefill
-                bytes against the CPU's on the same prompts (printed)
+                bytes against the CPU's on the same prompts (printed).
+                The router's mem:// calls take the loopback plane (the
+                reference's default): the calls it served are printed
   9. tiers      phase 8's layout, each decode pool also holding 65,536
                 host blocks (a 1 GiB pinned arena), after 2 Generates:
                 (a) 576 sessions of 2,048 tokens loaded on rank 2 with
@@ -233,6 +245,24 @@ Phases, each fatal on failure:
                 correlation ids, and the answers equal the calls'.  Every
                 path: launches = plane transfers > 0, device memory back
                 within 64 MiB, no transfer left active
+ 16. native     the native front door at full width, threshold 1: (a)
+                phase 3's Sink echo on ici://0 from rank 1, 300 calls at 4
+                KiB after 20 warm-ups: native requests = calls, p2p_copy
+                launches = relocations that crossed ranks = plane
+                transfers, and after the last completion no transfer is
+                active and no device ref is left in native custody; (b) an
+                Echo returning the attachment, 64 calls at 4 KiB: the bytes
+                come back equal on the card, owned by rank 1, 2 launches a
+                call; (c) a stop of ici://2 with 8 native calls parked in
+                their handler, each with a 64 KiB attachment that crossed:
+                each fails with the dead-peer code, no key and no transfer
+                outlives it; (d) the C++ echo loop's p50
+                (brpc_tpu_ici_echo_p50_ns), host frame and a resident
+                device ref; (e) phase 10's overload leg with the server on
+                the native door, its attachments cut to 4 MiB - 128 KiB so
+                a frame fits the native window; every request is a native
+                request, launches = transfers = requests received +
+                attachments returned; the priority-0 p99 ratio is printed
 
 Launch counts are zeroed just before each path and read just after it:
 during phases 3-4 and during phase 8 p2p_copy's launches must equal the
@@ -246,13 +276,16 @@ they must equal the transfers (in 11 (b) also the DATA frames with a
 device block, in 12 (b)-(c) the sub-calls' legs that crossed); during
 phases 13, 14 and 15 they must equal the transfers (in 13 the degraded
 leg's; the compiled leg launches none; in 15 on each of its paths), and
-no ring kernel may launch there; during phase 6 each ring
-kernel's launches must equal the calls of its entry point.  The line
-before the last is the ``kernels`` JSON; the last line is the device
-JSON.
+no ring kernel may launch there; during phase 16 they must equal the
+transfers and the relocations that crossed ranks on the device plane (in
+(e) also the requests received plus the attachments returned); during
+phase 6 each ring kernel's launches must equal the calls of its entry
+point.  The line before the last is the ``kernels`` JSON; the last line
+is the device JSON.
 """
 from __future__ import annotations
 
+import gc
 import json
 import random
 import statistics
@@ -348,6 +381,12 @@ CF_DROP_CALLS, CF_DROP_RATIO, CF_DROP_SEED = 16, 0.3, 15
 CF_DROP_TRIES, CF_DROP_TIMEOUT_MS = 10, 1000
 CF_CONN_CALLS, CF_DUMP_CALLS = 8, 16
 CF_MEMORY_SLACK = 64 << 20
+# phase 16: the native front door
+NATIVE_CALLS, NATIVE_ECHO_CALLS, NATIVE_STOP_CALLS = 300, 64, 8
+NATIVE_LOOP_ITERS = 3000
+# phase 10's overload leg on the native door: the attachment is cut so a
+# frame fits the native window (4 MiB, with 64 KiB of headroom)
+NATIVE_ADM_PAYLOAD = (4 << 20) - (128 << 10)
 
 
 def fail(msg: str) -> None:
@@ -437,7 +476,8 @@ def make_payload(mesh, nbytes: int, rank: int, seed: int):
     return data, mesh.device_put(torch.from_numpy(data), rank)
 
 
-def phase_plane_echo(rpc, mesh, plane, p2p_copy, EchoRequest, EchoResponse):
+def phase_plane_echo(rpc, mesh, plane, p2p_copy, EchoRequest, EchoResponse,
+                     native=True):
     from brpc_tpu_torch.butil import flags
 
     class Sink(rpc.Service):
@@ -449,9 +489,17 @@ def phase_plane_echo(rpc, mesh, plane, p2p_copy, EchoRequest, EchoResponse):
             done()
 
     flags.set_flag("ici_device_plane_threshold", 1)
-    server = rpc.Server(rpc.ServerOptions(usercode_inline=True))
+    server = rpc.Server(rpc.ServerOptions(usercode_inline=True,
+                                          native_ici=native))
     server.add_service(Sink())
     check(server.start("ici://0") == 0, "server start on ici://0")
+    binding = server._native_ici
+    check((binding is not None) == native,
+          f"native door {'closed' if native else 'open'} on ici://0")
+
+    def native_requests():
+        return binding.requests() if binding is not None else 0
+
     ch = rpc.Channel()
     ch.init("ici://0", options=rpc.ChannelOptions(
         timeout_ms=30000, max_retry=0))
@@ -478,14 +526,24 @@ def phase_plane_echo(rpc, mesh, plane, p2p_copy, EchoRequest, EchoResponse):
         before = plane.stats()
         launches0 = p2p_copy.launches
         _, small = make_payload(mesh, 4096, 1, seed=1)
+        n0 = native_requests()
         lat = drive(small, 300, warm=20)
         calls += 320
+        out["native_requests_4k"] = native_requests() - n0
+        check(out["native_requests_4k"] == (320 if native else 0),
+              f"{out['native_requests_4k']} native requests for 320 calls "
+              f"at 4 KiB ({'native' if native else 'Python'} door)")
         out["p50_us_4k"] = lat[len(lat) // 2]
         out["p99_us_4k"] = lat[int(len(lat) * 0.99)]
         big = 4 << 20
         _, payload = make_payload(mesh, big, 1, seed=2)
+        n0 = native_requests()
         lat = drive(payload, 16, warm=4)
         calls += 20
+        out["native_requests_4m"] = native_requests() - n0
+        check(out["native_requests_4m"] == 0,
+              f"{out['native_requests_4m']} native requests at 4 MiB: a "
+              f"frame over the native window must ride the Python plane")
         out["gbps_4m"] = 16 * big / (sum(lat) / 1e6) / 1e9
         out["p50_us_4m"] = lat[len(lat) // 2]
         torch.cuda.synchronize()
@@ -506,7 +564,7 @@ def phase_plane_echo(rpc, mesh, plane, p2p_copy, EchoRequest, EchoResponse):
 
 
 def phase_default_echo(rpc, mesh, plane, p2p_copy, EchoRequest,
-                       EchoResponse):
+                       EchoResponse, native=True):
     class Echo(rpc.Service):
         @rpc.method(EchoRequest, EchoResponse)
         def Echo(self, cntl, request, response, done):
@@ -514,9 +572,11 @@ def phase_default_echo(rpc, mesh, plane, p2p_copy, EchoRequest,
             cntl.response_attachment.append(cntl.request_attachment)
             done()
 
-    server = rpc.Server(rpc.ServerOptions(usercode_inline=True))
+    server = rpc.Server(rpc.ServerOptions(usercode_inline=True,
+                                          native_ici=native))
     server.add_service(Echo())
     check(server.start("ici://0") == 0, "server start on ici://0")
+    binding = server._native_ici
     ch = rpc.Channel()
     ch.init("ici://0", options=rpc.ChannelOptions(
         timeout_ms=30000, max_retry=0))
@@ -527,11 +587,17 @@ def phase_default_echo(rpc, mesh, plane, p2p_copy, EchoRequest,
                                  (4 << 20, True)):
             data, payload = make_payload(mesh, nbytes, 1, seed=nbytes)
             t0 = plane.stats()["transfers"]
+            n0 = binding.requests() if binding is not None else 0
             cntl = rpc.Controller()
             cntl.request_attachment.append_device_array(payload)
             resp = ch.call_method("Echo.Echo", cntl,
                                   EchoRequest(message=f"m{nbytes}"),
                                   EchoResponse)
+            took = (binding.requests() - n0) if binding is not None else 0
+            # a frame over the native window rides the Python plane
+            want = int(native and nbytes + 65536 <= 4 << 20)
+            check(took == want, f"Echo {nbytes} B: {took} native requests, "
+                                f"expected {want}")
             check(not cntl.failed(), f"Echo {nbytes} B: {cntl.error_text}")
             check(resp.message == f"m{nbytes}", "echoed message differs")
             got = cntl.response_attachment.to_bytes()
@@ -899,7 +965,10 @@ def phase_serving(mesh, plane, p2p_copy) -> dict:
                                         KvPoolOptions, StepRequest)
     from brpc_tpu_torch.tools.profile_echo import device_busy_share
 
+    from brpc_tpu_torch.rpc import loopback
+
     t_phase = time.monotonic()
+    loopback0 = loopback.calls
     dev = mesh.device(0)
     flags.set_flag("ici_device_plane_threshold", 64 * 1024)
     rng = np.random.default_rng(8)
@@ -1126,6 +1195,12 @@ def phase_serving(mesh, plane, p2p_copy) -> dict:
               f"serving: p2p_copy launches {out['launches']}, plane "
               f"transfers {out['plane_transfers']}, LoadKv calls "
               f"{out['loadkv_calls']}")
+        # the router's mem:// calls: the loopback plane served them
+        out["loopback_calls"] = loopback.calls - loopback0
+        check(out["loopback_calls"] > 0,
+              "no Generate took the mem:// loopback plane")
+        print(f"serving: the loopback plane served "
+              f"{out['loopback_calls']} calls to the router", flush=True)
 
         # (c) the card's prefill bytes against the CPU's
         diff_bytes, max_diff = 0, 0
@@ -1506,9 +1581,12 @@ def _tensor_of(att) -> torch.Tensor:
     return segs[0] if len(segs) == 1 else torch.cat(segs)
 
 
-def phase_admission(mesh, plane, p2p_copy) -> dict:
+def phase_admission(mesh, plane, p2p_copy, payload=ADM_PAYLOAD,
+                    door="python") -> dict:
     """(a) bench.py's overload leg (_overload_one_plane) on ici:// with
-    4 MiB DEVICE attachments (see the module docstring, phase 10)."""
+    4 MiB DEVICE attachments (see the module docstring, phase 10), or
+    (``door="native"``) on the native door with ``payload`` bytes that
+    fit its window (phase 16 (e))."""
     import brpc_tpu_torch.policy  # noqa: F401
     from brpc_tpu_torch import rpc
     from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
@@ -1518,8 +1596,11 @@ def phase_admission(mesh, plane, p2p_copy) -> dict:
     # one attachment bank per client rank: request i of a stream carries
     # pattern i % ADM_PATTERNS, seeded bytes, owned by the stream's rank
     bank = {rank: [mesh.own(torch.from_numpy(np.random.default_rng(
-        100 * rank + k).integers(0, 256, ADM_PAYLOAD, dtype=np.uint8)).to(
+        100 * rank + k).integers(0, 256, payload, dtype=np.uint8)).to(
         dev), rank) for k in range(ADM_PATTERNS)] for rank in (6, 7)}
+    # earlier phases' garbage is collected before the baseline (as phases
+    # 11 and 15 do): a collection inside this phase would move the level
+    gc.collect()
     torch.cuda.synchronize()
     mem0 = torch.cuda.memory_allocated(dev)
     lock = threading.Lock()
@@ -1631,14 +1712,28 @@ def phase_admission(mesh, plane, p2p_copy) -> dict:
             spec.append((3, t, per_tenant * 0.375, rank))
         over = run_phase(spec, ADM_OVERLOAD_S)
         received = server.method_status("Echo.Echo").received.get_value()
+        binding = server._native_ici
+        native_requests = binding.requests() if binding is not None else 0
         describe = server.admission.describe()
         server.stop()
         torch.cuda.synchronize()
+        # the copies are done on the card; their completions reach the
+        # plane through the poller thread, which on the native door (the
+        # upcall orders the consumer on the device and does not wait for
+        # the completion) can trail the last call by the backlog an
+        # overload built up
+        t_settle = time.monotonic()
+        out["active_at_stop"] = plane.active_transfers()
+        while plane.active_transfers() and \
+                time.monotonic() - t_settle < 30.0:
+            time.sleep(0.005)
+        out["completions_settle_ms"] = (time.monotonic() - t_settle) * 1e3
         out["active_after_stop"] = plane.active_transfers()
         out["transfers"] = plane.stats()["transfers"] - transfers0
         out["launches"] = p2p_copy.launches
         out["requests_received"] = received
         out["attachments_returned"] = served["returned"]
+        out["native_requests"] = native_requests
     finally:
         server.stop()
     hi, hi_by_tenant = [], {}
@@ -1672,14 +1767,15 @@ def phase_admission(mesh, plane, p2p_copy) -> dict:
         "shed": shed, "shed_with_retry_after": hinted, "errors": errs,
         "tenant_min_share_ratio": (min(hi_by_tenant.values()) / mean_share
                                    if mean_share else -1.0),
-        "payload_bytes": ADM_PAYLOAD, "describe": describe,
+        "payload_bytes": payload, "door": door, "describe": describe,
         "streams": streams,
         "wall_s": time.monotonic() - t_phase})
     out["hi_p99_ratio"] = (out["hi_p99_overload_us"]
                            / out["hi_p99_unloaded_us"])
+    gc.collect()
     torch.cuda.synchronize()
     out["memory_delta_bytes"] = torch.cuda.memory_allocated(dev) - mem0
-    print(f"admission: capacity {capacity:.0f} rps, offered "
+    print(f"admission ({door} door): capacity {capacity:.0f} rps, offered "
           f"{out['offered_rps_measured']:.1f} rps measured "
           f"({out['offered_rps']:.0f} paced); priority-0 p99 "
           f"{out['hi_p99_unloaded_us']:.1f} us unloaded, "
@@ -1707,13 +1803,23 @@ def phase_admission(mesh, plane, p2p_copy) -> dict:
           f"{out['attachments_returned']}")
     check(out["active_after_stop"] == 0,
           f"{out['active_after_stop']} transfers active after the stop")
+    if door == "native":
+        check(out["native_requests"] == out["requests_received"] > 0,
+              f"native door: {out['native_requests']} native requests of "
+              f"{out['requests_received']} received")
+    else:
+        check(out["native_requests"] == 0,
+              f"{out['native_requests']} requests took the native door "
+              f"with {payload} B attachments")
     check(abs(out["memory_delta_bytes"]) <= ADM_MEMORY_SLACK,
           f"device memory {out['memory_delta_bytes']} B off its level "
           f"after the overload")
     print(f"admission: p2p_copy launches {out['launches']} = plane transfers "
           f"{out['transfers']} = requests received "
           f"{out['requests_received']} + attachments returned "
-          f"{out['attachments_returned']}; memory delta "
+          f"{out['attachments_returned']}; {out['active_at_stop']} "
+          f"completions pending at the stop, settled in "
+          f"{out['completions_settle_ms']:.1f} ms; memory delta "
           f"{out['memory_delta_bytes']} B; phase {out['wall_s']:.1f} s",
           flush=True)
     return out
@@ -2164,7 +2270,6 @@ def phase_elastic(mesh, plane, p2p_copy) -> dict:
 
 def phase_streaming(mesh, plane, p2p_copy) -> dict:
     """Streaming RPC on ici:// (see the module docstring, phase 11)."""
-    import gc
     import brpc_tpu_torch.policy  # noqa: F401
     from brpc_tpu_torch import rpc
     from brpc_tpu_torch.butil.iobuf import DEVICE, IOBuf
@@ -2927,7 +3032,11 @@ def phase_rpcz(mesh, plane, p2p_copy) -> dict:
 
     threshold = flags.get_flag("ici_device_plane_threshold")
     flags.set_flag("ici_device_plane_threshold", 1)
-    server = rpc.Server(rpc.ServerOptions(usercode_inline=True))
+    # the Python plane: the server span, the five stages and the transfer
+    # span under the client span are its measurements (the native door
+    # carries none of them, as the reference's does not)
+    server = rpc.Server(rpc.ServerOptions(usercode_inline=True,
+                                          native_ici=False))
     server.add_service(Sink())
     check(server.start("ici://0") == 0, "server start on ici://0")
     ch = rpc.Channel()
@@ -3120,7 +3229,6 @@ def phase_call_features(mesh, plane, p2p_copy) -> dict:
     rank 1 (see the module docstring, phase 15).  Every path gates
     p2p_copy's launches against the plane's transfers, the device memory
     against its level, and an empty active set."""
-    import gc
     import shutil
     import tempfile
     import brpc_tpu_torch.policy  # noqa: F401
@@ -3435,6 +3543,234 @@ def phase_call_features(mesh, plane, p2p_copy) -> dict:
     return out
 
 
+def phase_native(mesh, plane, p2p_copy) -> dict:
+    """The native front door (see the module docstring, phase 16 (a)-(d))."""
+    import brpc_tpu_torch.policy  # noqa: F401
+    from brpc_tpu_torch import rpc
+    from brpc_tpu_torch.butil import flags
+    from brpc_tpu_torch.ici import native_plane
+    from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
+
+    t_phase = time.monotonic()
+    reg = native_plane.registry()
+    threshold = flags.get_flag("ici_device_plane_threshold")
+    flags.set_flag("ici_device_plane_threshold", 1)
+
+    class Sink(rpc.Service):
+        @rpc.method(EchoRequest, EchoResponse)
+        def Push(self, cntl, request, response, done):
+            response.message = str(len(cntl.request_attachment))
+            done()
+
+        @rpc.method(EchoRequest, EchoResponse)
+        def Echo(self, cntl, request, response, done):
+            response.message = request.message
+            cntl.response_attachment.append(cntl.request_attachment)
+            done()
+
+    def counts():
+        return (p2p_copy.launches, plane.stats()["transfers"],
+                native_plane.relocation_stats()["plane"])
+
+    def settle(live0):
+        deadline = time.monotonic() + 10
+        while (plane.active_transfers() or reg.live() != live0) \
+                and time.monotonic() < deadline:
+            time.sleep(0.005)
+        return plane.active_transfers(), reg.live() - live0
+
+    out = {}
+    l_start, t_start, _ = counts()
+    live0 = reg.live()
+    server = rpc.Server(rpc.ServerOptions(usercode_inline=True))
+    server.add_service(Sink())
+    check(server.start("ici://0") == 0, "native server start on ici://0")
+    binding = server._native_ici
+    check(binding is not None, "the native door did not open on ici://0")
+    ch = rpc.Channel()
+    ch.init("ici://0", options=rpc.ChannelOptions(timeout_ms=30000,
+                                                  max_retry=0))
+    try:
+        # (a) the Sink echo: one crossing a call, the request's
+        _, small = make_payload(mesh, 4096, 1, seed=16)
+        c0, n0 = counts(), binding.requests()
+        lat = []
+        for i in range(NATIVE_CALLS + 20):
+            cntl = rpc.Controller()
+            cntl.request_attachment.append_device_array(small)
+            t0 = time.perf_counter_ns()
+            resp = ch.call_method("Sink.Push", cntl, EchoRequest(message="d"),
+                                  EchoResponse)
+            t1 = time.perf_counter_ns()
+            check(not cntl.failed(), f"native Sink.Push: {cntl.error_text}")
+            check(resp.message == "4096", "the server saw other bytes")
+            if i >= 20:
+                lat.append((t1 - t0) / 1000.0)
+        torch.cuda.synchronize()
+        active, leaked = settle(live0)
+        c1 = counts()
+        sink = {"calls": NATIVE_CALLS + 20,
+                "native_requests": binding.requests() - n0,
+                "launches": c1[0] - c0[0], "transfers": c1[1] - c0[1],
+                "relocations": c1[2] - c0[2],
+                "p50_us": _pct(lat, 0.5), "p99_us": _pct(lat, 0.99),
+                "active_after": active, "keys_left": leaked}
+        out["sink"] = sink
+        check(sink["native_requests"] == sink["calls"],
+              f"native door: {sink['native_requests']} requests for "
+              f"{sink['calls']} calls at 4 KiB")
+        check(sink["launches"] == sink["transfers"] == sink["relocations"]
+              == sink["calls"],
+              f"native Sink: launches {sink['launches']}, transfers "
+              f"{sink['transfers']}, relocations {sink['relocations']}, "
+              f"calls {sink['calls']}")
+        check(active == 0 and leaked == 0,
+              f"after the Sink echo: {active} transfers active, {leaked} "
+              f"device refs left in native custody")
+
+        # (b) an Echo returning the attachment: two crossings a call
+        c0, n0 = counts(), binding.requests()
+        bad = 0
+        for i in range(NATIVE_ECHO_CALLS):
+            _, payload = make_payload(mesh, 4096, 1, seed=1600 + i)
+            cntl = rpc.Controller()
+            cntl.request_attachment.append_device_array(payload)
+            resp = ch.call_method("Sink.Echo", cntl,
+                                  EchoRequest(message=f"e{i}"), EchoResponse)
+            check(not cntl.failed(), f"native Sink.Echo: {cntl.error_text}")
+            back = _tensor_of(cntl.response_attachment)
+            bad += not (resp.message == f"e{i}"
+                        and mesh.rank_of(back) == 1
+                        and torch.equal(back, payload))
+        torch.cuda.synchronize()
+        active, leaked = settle(live0)
+        c1 = counts()
+        echo = {"calls": NATIVE_ECHO_CALLS,
+                "native_requests": binding.requests() - n0,
+                "launches": c1[0] - c0[0], "transfers": c1[1] - c0[1],
+                "relocations": c1[2] - c0[2], "bad": bad}
+        out["echo"] = echo
+        check(bad == 0, f"{bad} native echoes came back unequal or off "
+                        f"rank 1")
+        check(echo["native_requests"] == NATIVE_ECHO_CALLS,
+              f"native door: {echo['native_requests']} requests for "
+              f"{NATIVE_ECHO_CALLS} echoes")
+        check(echo["launches"] == echo["transfers"] == echo["relocations"]
+              == 2 * NATIVE_ECHO_CALLS,
+              f"native echo: launches {echo['launches']}, transfers "
+              f"{echo['transfers']}, relocations {echo['relocations']} for "
+              f"{NATIVE_ECHO_CALLS} calls")
+        check(active == 0 and leaked == 0,
+              f"after the native echo: {active} transfers active, {leaked} "
+              f"device refs left")
+    finally:
+        ch.close()
+        server.stop()
+
+    # (c) a stop with native calls parked in their handler
+    gate = threading.Event()
+    entered = []
+
+    class Park(rpc.Service):
+        @rpc.method(EchoRequest, EchoResponse)
+        def Park(self, cntl, request, response, done):
+            entered.append(1)
+            gate.wait(30)
+            cntl.response_attachment.append(cntl.request_attachment)
+            done()
+
+    server = rpc.Server(rpc.ServerOptions(
+        usercode_in_pthread=True, usercode_backup_threads=NATIVE_STOP_CALLS))
+    server.add_service(Park())
+    check(server.start("ici://2") == 0, "native server start on ici://2")
+    ch = rpc.Channel()
+    ch.init("ici://2", options=rpc.ChannelOptions(timeout_ms=30000,
+                                                  max_retry=0))
+    codes = []
+    lock = threading.Lock()
+    try:
+        c0 = counts()
+        ch._native_ici_binding(rpc.Controller())
+        nch = ch._native_ici
+        check(nch is not None, "no native binding to ici://2")
+        parked = [make_payload(mesh, 64 << 10, 1, seed=1700 + i)[1]
+                  for i in range(NATIVE_STOP_CALLS)]
+
+        def one(i):
+            cntl = rpc.Controller()
+            cntl.request_attachment.append_device_array(parked[i])
+            # the binding directly: the stop is final (the channel would
+            # re-route a dead connection's call once)
+            nch.call("Park.Park", cntl, EchoRequest(message=str(i)),
+                     EchoResponse)
+            with lock:
+                codes.append(cntl.error_code_)
+
+        ts = [threading.Thread(target=one, args=(i,))
+              for i in range(NATIVE_STOP_CALLS)]
+        for t in ts:
+            t.start()
+        deadline = time.monotonic() + 10
+        while len(entered) < NATIVE_STOP_CALLS \
+                and time.monotonic() < deadline:
+            time.sleep(0.005)
+        check(len(entered) == NATIVE_STOP_CALLS,
+              f"{len(entered)} of {NATIVE_STOP_CALLS} calls parked")
+        t_stop = time.perf_counter()
+        server.stop()
+        stop_ms = (time.perf_counter() - t_stop) * 1e3
+        for t in ts:
+            t.join(10)
+        gate.set()
+        server.join(10)
+        torch.cuda.synchronize()
+        active, leaked = settle(live0)
+        c1 = counts()
+        out["stop"] = {"calls": NATIVE_STOP_CALLS, "codes": sorted(codes),
+                       "stop_ms": stop_ms, "launches": c1[0] - c0[0],
+                       "transfers": c1[1] - c0[1],
+                       "relocations": c1[2] - c0[2], "active_after": active,
+                       "keys_left": leaked}
+        check(codes == [rpc.errors.EFAILEDSOCKET] * NATIVE_STOP_CALLS,
+              f"calls in flight through the stop ended {sorted(codes)}")
+        check(active == 0 and leaked == 0,
+              f"after the stop: {active} transfers active, {leaked} device "
+              f"refs left in native custody")
+        check(out["stop"]["launches"] == out["stop"]["transfers"]
+              == out["stop"]["relocations"] >= NATIVE_STOP_CALLS,
+              f"native stop: {json.dumps(out['stop'])}")
+    finally:
+        gate.set()
+        ch.close()
+        server.stop()
+        flags.set_flag("ici_device_plane_threshold", threshold)
+
+    # (d) the C++ echo loop: the whole native datapath with no Python
+    host = native_plane.native_ici_echo_p50_us(NATIVE_LOOP_ITERS, 128)
+    _, resident = make_payload(mesh, 4096, 3, seed=18)
+    dev_ref = native_plane.native_ici_echo_p50_us(NATIVE_LOOP_ITERS, 128,
+                                                  device_array=resident)
+    check(host > 0 and dev_ref > 0,
+          f"the C++ echo loop failed: {host} us, {dev_ref} us")
+    out["cpp_loop_p50_us"] = {"host_128B": host,
+                              "device_ref_4KiB_resident": dev_ref}
+    out["launches"] = p2p_copy.launches - l_start
+    out["transfers"] = plane.stats()["transfers"] - t_start
+    out["keys_left"] = reg.live() - live0
+    check(out["keys_left"] == 0, f"{out['keys_left']} device refs left")
+    out["wall_s"] = time.monotonic() - t_phase
+    print(f"native: Sink 4 KiB p50 {sink['p50_us']:.1f} us p99 "
+          f"{sink['p99_us']:.1f} us over {sink['calls']} calls = "
+          f"{sink['native_requests']} native requests, launches "
+          f"{sink['launches']} = transfers = relocations; echo "
+          f"{NATIVE_ECHO_CALLS} calls, {echo['launches']} launches; stop "
+          f"with {NATIVE_STOP_CALLS} in flight: {out['stop']['stop_ms']:.1f}"
+          f" ms, codes {sorted(set(codes))}; C++ loop p50 {host:.2f} us "
+          f"(host frame), {dev_ref:.2f} us (resident device ref); phase "
+          f"{out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
@@ -3463,9 +3799,29 @@ def main() -> int:
         for k in kernels_all:
             k.launches = 0
 
-    # 1. build (the empty kernel is phase 2's floor)
+    # 1. build (the empty kernel is phase 2's floor), the native ici core
+    # with g++ beside the nvcc builds
+    from brpc_tpu_torch.butil import native as native_core
+    core = {}
+
+    def build_core():
+        t0 = time.monotonic()
+        try:
+            core["path"] = str(native_core.build())
+        except Exception as e:
+            core["error"] = f"{type(e).__name__}: {e}"
+        core["s"] = time.monotonic() - t0
+
+    core_thread = threading.Thread(target=build_core)
+    core_thread.start()
     empty = empty_kernel()
     builds = build_all(kernels_all + [empty])
+    core_thread.join()
+    check("error" not in core, f"native ici core build failed: "
+                               f"{core.get('error')}")
+    check(native_core.load() is not None,
+          f"native ici core did not load: {native_core.load_error()}")
+    builds["ici_native (g++)"] = core["s"]
     print("build: " + ", ".join(f"{k} {v:.2f} s" for k, v in builds.items()),
           flush=True)
 
@@ -3479,14 +3835,31 @@ def main() -> int:
     IciMesh.set_default(mesh)
     plane = device_plane.plane()
     zero_counts()
-    bench = phase_plane_echo(rpc, mesh, plane, p2p_copy, EchoRequest,
-                             EchoResponse)
-    print("plane echo: " + json.dumps(bench), flush=True)
-    echo = phase_default_echo(rpc, mesh, plane, p2p_copy, EchoRequest,
-                              EchoResponse)
-    print("default-threshold echo: " + json.dumps(echo), flush=True)
+    # both front doors in turns: the native door (the default) and the
+    # Python plane
+    doors = {"native": [], "python": []}
+    echo_launches = 0
+    for native in (True, False, False, True):
+        door = "native" if native else "python"
+        bench = phase_plane_echo(rpc, mesh, plane, p2p_copy, EchoRequest,
+                                 EchoResponse, native=native)
+        echo = phase_default_echo(rpc, mesh, plane, p2p_copy, EchoRequest,
+                                  EchoResponse, native=native)
+        doors[door].append({"plane_echo": bench, "default_echo": echo})
+        echo_launches += bench["launches"] + echo["launches"]
+        print(f"plane echo ({door} door): " + json.dumps(bench), flush=True)
+        print(f"default-threshold echo ({door} door): " + json.dumps(echo),
+              flush=True)
+    for door, runs in doors.items():
+        echoes = [r["plane_echo"] for r in runs]
+        print(f"echo by door: {door}: 4 KiB p50 "
+              f"{[round(e['p50_us_4k'], 1) for e in echoes]} us, p99 "
+              f"{[round(e['p99_us_4k'], 1) for e in echoes]} us; 4 MiB "
+              f"{[round(e['gbps_4m'], 3) for e in echoes]} GB/s (the "
+              f"Python plane on both doors: over the native window)",
+              flush=True)
     main_launches = p2p_copy.launches
-    check(main_launches == bench["launches"] + echo["launches"],
+    check(main_launches == echo_launches,
           "launch count moved outside the main path")
     check(main_launches > 0, "the main path never launched p2p_copy")
     print("plane stats: " + json.dumps(plane.stats()), flush=True)
@@ -3621,6 +3994,44 @@ def main() -> int:
           "a ring kernel launched on the call-features path")
     flags.set_flag("ici_socket_window_bytes", window)
     print("call features: " + json.dumps(calls), flush=True)
+
+    # 16. the native front door, then phase 10's overload leg on it; each
+    # with the counts zeroed just before it
+    zero_counts()
+    native = phase_native(mesh, plane, p2p_copy)
+    launches = {k.name: k.launches for k in kernels_all}
+    check(launches["p2p_copy"] == native["launches"] == native["transfers"]
+          > 0, f"the native path launched p2p_copy {launches['p2p_copy']} "
+               f"times for {native['transfers']} plane transfers")
+    check(launches["ring_all_reduce"] == 0
+          and launches["ring_all_gather"] == 0,
+          "a ring kernel launched on the native path")
+    flags.set_flag("ici_device_plane_threshold", 64 * 1024)
+    zero_counts()
+    native_adm = phase_admission(mesh, plane, p2p_copy,
+                                 payload=NATIVE_ADM_PAYLOAD, door="native")
+    launches = {k.name: k.launches for k in kernels_all}
+    check(launches["p2p_copy"] == native_adm["launches"] > 0,
+          f"the native overload path launched p2p_copy "
+          f"{launches['p2p_copy']} times, its own count "
+          f"{native_adm['launches']}")
+    check(launches["ring_all_reduce"] == 0
+          and launches["ring_all_gather"] == 0,
+          "a ring kernel launched on the native overload path")
+    native["overload"] = {k: native_adm[k] for k in (
+        "hi_p99_unloaded_us", "hi_p99_overload_us", "hi_p99_ratio",
+        "native_requests", "requests_received", "attachments_returned",
+        "launches", "transfers", "shed", "offered_rps_measured",
+        "payload_bytes", "active_at_stop", "completions_settle_ms")}
+    native["overload"]["python_door_ratio"] = \
+        paths["admission"][1]["hi_p99_ratio"]
+    print(f"native overload: priority-0 p99 ratio "
+          f"{native_adm['hi_p99_ratio']:.3f} on the native door "
+          f"({NATIVE_ADM_PAYLOAD} B attachments) against "
+          f"{paths['admission'][1]['hi_p99_ratio']:.3f} on the Python plane "
+          f"(phase 10, 4 MiB); bench.py bounds it at 2; printed, not "
+          f"gated (PERF.md section 7)", flush=True)
+    print("native: " + json.dumps(native), flush=True)
     check(slice7["rpcz"]["pages"]["ici_selected"]
           >= slice7["fanout_collective"]["selected"] > 0,
           "the ici page does not show phase 13's selected fan-outs")
@@ -3642,7 +4053,8 @@ def main() -> int:
                      + sum(phase10.values())
                      + sum(r["launches"] for r in slice6.values())
                      + sum(r["launches"] for r in slice7.values())
-                     + calls["launches"]),
+                     + calls["launches"] + native["launches"]
+                     + native_adm["launches"]),
         "launches_by_path": {"echo": main_launches,
                              "serving": serve["launches"],
                              "migration": tiers["launches"], **phase10,
@@ -3650,7 +4062,9 @@ def main() -> int:
                                 for k, r in slice6.items()},
                              **{k: r["launches"]
                                 for k, r in slice7.items()},
-                             "call_features": calls["launches"]},
+                             "call_features": calls["launches"],
+                             "native": native["launches"],
+                             "native_overload": native_adm["launches"]},
         "migration_path_split": {
             "migrate_in": tiers["migrate_in_calls"],
             "loadkv": tiers["calls_received"] - tiers["migrate_in_calls"]},

@@ -910,7 +910,18 @@ def test_method_limited_server_release_does_not_recurse(plane):
 
 
 def test_client_retry_waits_for_hint_then_succeeds(plane):
-    # service_rate_override=10 -> retry_after = 1000 * (0 + 1) / 10 ms
+    # service_rate_override=10 -> retry_after = 1000 * (0 + 1) / 10 ms.
+    # The mem leg rides the socket plane: the loopback plane completes a
+    # shed in place, with no retry, as the JAX package's does
+    saved = tflags.get_flag("mem_loopback_fast")
+    tflags.set_flag("mem_loopback_fast", False)
+    try:
+        _client_retry_waits_for_hint(plane)
+    finally:
+        tflags.set_flag("mem_loopback_fast", saved)
+
+
+def _client_retry_waits_for_hint(plane):
     addr = plane.name("retry")
     server, gate, entered = _overloadable_server(addr, rate=10.0)
     ch = _channel(addr, max_retry=3)

@@ -95,12 +95,15 @@ def port_idle_after():
 
 @pytest.fixture()
 def no_loopback():
-    """The JAX package's mem:// loopback fast plane off, so its calls ride
-    sockets as the port's do (restored after)."""
-    old = jfl.get_flag("mem_loopback_fast")
+    """Both packages' mem:// loopback planes off, so the calls ride
+    sockets (restored after)."""
+    old = (jfl.get_flag("mem_loopback_fast"),
+           tfl.get_flag("mem_loopback_fast"))
     jfl.set_flag("mem_loopback_fast", False)
+    tfl.set_flag("mem_loopback_fast", False)
     yield
-    jfl.set_flag("mem_loopback_fast", old)
+    jfl.set_flag("mem_loopback_fast", old[0])
+    tfl.set_flag("mem_loopback_fast", old[1])
 
 
 def _echo_service(pkg, tag):
@@ -590,7 +593,7 @@ def test_pooled_and_short_connection_counts_agree(no_loopback):
     assert counts[("port", "short")] == (0, 0)
 
 
-def test_pooled_concurrent_calls_hold_separate_connections():
+def test_pooled_concurrent_calls_hold_separate_connections(no_loopback):
     """Concurrent pooled calls each hold a connection of their own, and
     all of them return to the pool."""
     gate = threading.Event()
@@ -822,14 +825,54 @@ def test_hedging_does_not_amplify_into_retry_storm(pkg):
         time.sleep(0.3)          # straggler re-issues land in the window
         shed_delta = server.admission.shed_total.get_value() - shed_before
         assert 1 <= shed_delta <= 4, shed_delta
-        if pkg is PORT:
-            # the port disarms the backup at the shed: only the hinted
-            # retries reach the server
-            assert shed_delta <= 3
     finally:
         gate.set()
         for t in threads:
             t.join(5)
+        ch.close()
+        server.stop()
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+def test_shed_leaves_the_backup_timer_armed(pkg):
+    """A shed whose hint outlasts backup_request_ms: the backup timer
+    stays armed through the shed, so a backup try reaches the server
+    before the hint has passed and answers the call, at the same try
+    version on both packages.  Tries are counted on the server."""
+    hint_ms = 1000
+    arrivals = []
+
+    class Echo(pkg.rpc.Service):
+        SERVICE_NAME = "EchoService"
+
+        @pkg.rpc.method(pkg.Req, pkg.Resp)
+        def Echo(self, cntl, request, response, done):
+            arrivals.append(time.monotonic())
+            if len(arrivals) == 1:
+                cntl.set_failed(pkg.errors.ELIMIT, "shed")
+                cntl.retry_after_ms = hint_ms
+            else:
+                response.message = request.message
+            done()
+
+    server = pkg.rpc.Server()
+    server.add_service(Echo())
+    target = f"mem://{unique('shedbk')}"
+    assert server.start(target) == 0
+    ch = channel(pkg, target, timeout_ms=5000, max_retry=3,
+                 backup_request_ms=30)
+    try:
+        t0 = time.monotonic()
+        cntl, resp = call(pkg, ch, "bk")
+        dt = time.monotonic() - t0
+        assert not cntl.failed(), cntl.error_text
+        assert resp.message == "bk"
+        # the shed's retry and the backup each took one version
+        assert (cntl.current_try, cntl.retried_count) == (2, 2)
+        assert dt < hint_ms / 1000.0, dt
+        early = [a for a in arrivals if a - arrivals[0] < hint_ms / 1000.0]
+        assert len(early) == 2, arrivals
+    finally:
         ch.close()
         server.stop()
 
@@ -982,7 +1025,7 @@ def cpu_mesh():
     IciMesh.set_default(None)
 
 
-def _plane_echo_server(rank, stall=None):
+def _plane_echo_server(rank, stall=None, native_ici=True):
     class Echo(rpc.Service):
         SERVICE_NAME = "EchoService"
 
@@ -994,8 +1037,12 @@ def _plane_echo_server(rank, stall=None):
             cntl.response_attachment.append(cntl.request_attachment)
             done()
 
+    # native_ici=False: the cancel and drop legs test the Python plane's
+    # correlation-id semantics (the native plane runs a call to its end in
+    # C and takes an injected drop as a spent deadline, as the reference's)
     server = rpc.Server(rpc.ServerOptions(usercode_in_pthread=True,
-                                          usercode_backup_threads=4))
+                                          usercode_backup_threads=4,
+                                          native_ici=native_ici))
     server.add_service(Echo())
     assert server.start(f"ici://{rank}") == 0
     return server
@@ -1052,7 +1099,7 @@ def test_cancel_with_device_attachment(cpu_mesh):
         entered.set()
         time.sleep(0.3)
 
-    server = _plane_echo_server(4, stall)
+    server = _plane_echo_server(4, stall, native_ici=False)
     plane = dp.plane()
     payload = _payload(cpu_mesh, 8192, 1, seed=6)
     try:
@@ -1082,7 +1129,7 @@ def test_dropped_device_frame_posts_no_transfer(cpu_mesh):
     """A dropped request frame never reaches the transport: the plane's
     posted sends and active set stay as they were.  With seeded drops and
     timeout hedging every call answers, each crossing on the plane."""
-    server = _plane_echo_server(5)
+    server = _plane_echo_server(5, native_ici=False)
     plane = dp.plane()
     payload = _payload(cpu_mesh, 4096, 1, seed=7)
     try:

@@ -824,7 +824,10 @@ def test_a_transfer_span_appears_on_the_card(cuda_device):
             response.message = str(len(cntl.request_attachment))
             done()
 
-    server = rpc.Server()
+    # the Python plane: its write publishes the client span that the
+    # transfer span hangs under (the native door does not, as the
+    # reference's does not)
+    server = rpc.Server(rpc.ServerOptions(native_ici=False))
     server.add_service(Sink())
     assert server.start("ici://0") == 0
     ch = rpc.Channel()
@@ -992,6 +995,158 @@ def test_a_cancelled_call_drops_its_late_answer_on_the_card(cuda_device):
         assert torch.cuda.memory_allocated(cuda_device) - mem0 <= 16 << 20
     finally:
         flags.set_flag("ici_socket_window_bytes", window)
+        ch.close()
+        server.stop()
+        IciMesh.set_default(None)
+
+
+@pytest.mark.cuda
+def test_a_native_echo_crosses_ranks_on_p2p_copy(cuda_device):
+    """Through the native door, a 4 KiB DEVICE attachment owned by rank 1
+    crosses to ici://0 and back on p2p_copy (launches = plane transfers =
+    relocations = 2 a call).  The handler compares the bytes on the device
+    with no host sync ahead of its read: the relocation ordered the
+    default stream after the copy."""
+    import brpc_tpu_torch.policy  # noqa: F401
+    from brpc_tpu_torch import rpc
+    from brpc_tpu_torch.butil import flags
+    from brpc_tpu_torch.ici import native_plane
+    from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
+    mesh = IciMesh(ranks=8, device="cuda")
+    IciMesh.set_default(mesh)
+    threshold = flags.get_flag("ici_device_plane_threshold")
+    flags.set_flag("ici_device_plane_threshold", 1)
+    want = torch.from_numpy(_seeded(4096)).to(cuda_device)
+    checks = []
+    syncs = []
+    real_sync = torch.cuda.synchronize
+
+    class Echo(rpc.Service):
+        @rpc.method(EchoRequest, EchoResponse)
+        def Echo(self, cntl, request, response, done):
+            got = cntl.request_attachment.device_refs()[0].block.data
+            checks.append((mesh.rank_of(got), torch.eq(got, want).all()))
+            cntl.response_attachment.append(cntl.request_attachment)
+            done()
+
+    server = rpc.Server()
+    server.add_service(Echo())
+    assert server.start("ici://0") == 0
+    ch = rpc.Channel()
+    ch.init("ici://0", options=rpc.ChannelOptions(timeout_ms=30000))
+    plane = dp.plane()
+    try:
+        binding = server._native_ici
+        assert binding is not None
+        payload = mesh.device_put(want.clone(), 1)
+        p2p_copy.record(cuda_device.index)
+        real_sync()
+        launches0 = p2p_copy.launches
+        transfers0 = plane.stats()["transfers"]
+        reloc0 = native_plane.relocation_stats()["plane"]
+        requests0 = binding.requests()
+        torch.cuda.synchronize = lambda *a: syncs.append(1)
+        try:
+            for _ in range(8):
+                cntl = rpc.Controller()
+                cntl.request_attachment.append_device_array(payload)
+                ch.call_method("Echo.Echo", cntl, EchoRequest(message="n"),
+                               EchoResponse)
+                assert not cntl.failed(), cntl.error_text
+                back = cntl.response_attachment.device_refs()[0].block.data
+                checks.append((mesh.rank_of(back),
+                               torch.eq(back, want).all()))
+        finally:
+            torch.cuda.synchronize = real_sync
+        assert syncs == []
+        real_sync()
+        assert [r for r, _ in checks] == [0, 1] * 8
+        assert all(bool(ok) for _, ok in checks)
+        assert binding.requests() - requests0 == 8
+        assert p2p_copy.launches - launches0 == \
+            plane.stats()["transfers"] - transfers0 == \
+            native_plane.relocation_stats()["plane"] - reloc0 == 16
+        assert plane.active_transfers() == 0
+    finally:
+        torch.cuda.synchronize = real_sync
+        flags.set_flag("ici_device_plane_threshold", threshold)
+        ch.close()
+        server.stop()
+        IciMesh.set_default(None)
+
+
+@pytest.mark.cuda
+def test_a_stop_with_native_calls_in_flight_leaves_no_transfer(
+        cuda_device):
+    """Eight native calls parked in their handler, each with a 64 KiB
+    attachment that crossed on p2p_copy; the server stops under them.
+    Every call fails cleanly, no device ref stays in native custody and
+    no plane transfer stays active."""
+    import time
+    import brpc_tpu_torch.policy  # noqa: F401
+    from brpc_tpu_torch import rpc
+    from brpc_tpu_torch.ici import native_plane
+    from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
+    mesh = IciMesh(ranks=8, device="cuda")
+    IciMesh.set_default(mesh)
+    gate = threading.Event()
+    entered = []
+
+    class Park(rpc.Service):
+        @rpc.method(EchoRequest, EchoResponse)
+        def Park(self, cntl, request, response, done):
+            entered.append(1)
+            gate.wait(10)
+            cntl.response_attachment.append(cntl.request_attachment)
+            done()
+
+    server = rpc.Server(rpc.ServerOptions(usercode_in_pthread=True,
+                                          usercode_backup_threads=8))
+    server.add_service(Park())
+    assert server.start("ici://0") == 0
+    ch = rpc.Channel()
+    ch.init("ici://0", options=rpc.ChannelOptions(timeout_ms=30000,
+                                                  max_retry=0))
+    plane = dp.plane()
+    codes = []
+    try:
+        live0 = native_plane.registry().live()
+        transfers0 = plane.stats()["transfers"]
+        ch._native_ici_binding(rpc.Controller())
+        nch = ch._native_ici
+
+        def one(i):
+            cntl = rpc.Controller()
+            cntl.request_attachment.append_device_array(mesh.device_put(
+                torch.from_numpy(_seeded(65536 + i)[:65536]).to(
+                    cuda_device), 1))
+            nch.call("Park.Park", cntl, EchoRequest(message=str(i)),
+                     EchoResponse)
+            codes.append(cntl.error_code)
+
+        ts = [threading.Thread(target=one, args=(i,)) for i in range(8)]
+        for t in ts:
+            t.start()
+        deadline = time.monotonic() + 10
+        while len(entered) < 8 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert len(entered) == 8
+        assert plane.stats()["transfers"] - transfers0 == 8
+        server.stop()
+        for t in ts:
+            t.join(10)
+        gate.set()
+        server.join(10)
+        torch.cuda.synchronize()
+        assert codes == [rpc.errors.EFAILEDSOCKET] * 8, codes
+        deadline = time.monotonic() + 5
+        while (native_plane.registry().live() != live0
+               or plane.active_transfers()) and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert native_plane.registry().live() == live0
+        assert plane.active_transfers() == 0
+    finally:
+        gate.set()
         ch.close()
         server.stop()
         IciMesh.set_default(None)

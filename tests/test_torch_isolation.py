@@ -196,9 +196,10 @@ class Echo(rpc.Service):
         cntl.response_attachment.append(cntl.request_attachment)
         done()
 
+# the Python plane: the lame-duck GOODBYE rides its socket
 server = rpc.Server(rpc.ServerOptions(
     max_concurrency=1, usercode_in_pthread=True, usercode_backup_threads=2,
-    admission=rpc.AdmissionOptions(max_queue_ms=10)))
+    admission=rpc.AdmissionOptions(max_queue_ms=10), native_ici=False))
 server.add_service(Echo())
 server.start("ici://2")
 ch = rpc.Channel()
@@ -365,7 +366,10 @@ class Echo(rpc.Service):
         cntl.response_attachment.append(cntl.request_attachment)
         done()
 
-server = rpc.Server(rpc.ServerOptions(usercode_in_pthread=True))
+# the Python plane: injected drops, timeout hedging, pooled sockets and
+# rpc_dump are its features
+server = rpc.Server(rpc.ServerOptions(usercode_in_pthread=True,
+                                      native_ici=False))
 server.add_service(Echo())
 server.register_isolated("Iso.Rev",
                          "def handle(p):\n    return p[::-1]\n")
@@ -400,6 +404,77 @@ ok = (rcs == [0, 0, 0] and answered == 6 and inj.injected["drop"] > 0
 print(json.dumps({
     "ok": ok,
     "active": device_plane.plane().active_transfers(),
+    "jax": sorted(m for m in sys.modules
+                  if m == "jax" or m.startswith(("jax.", "jaxlib"))),
+    "brpc_tpu": sorted(m for m in sys.modules
+                       if m == "brpc_tpu" or m.startswith("brpc_tpu.")),
+}))
+"""
+
+
+_SLICE9 = r"""
+import json, os, sys
+opened = []
+
+def _audit(event, args):
+    if event == "open" and args and isinstance(args[0], (str, bytes)):
+        opened.append(os.fsdecode(args[0]))
+    elif event == "ctypes.dlopen" and args and args[0]:
+        opened.append(os.fsdecode(args[0]))
+
+sys.addaudithook(_audit)
+import torch
+import brpc_tpu_torch.policy
+from brpc_tpu_torch import rpc
+from brpc_tpu_torch.butil import flags, native
+from brpc_tpu_torch.ici import device_plane, native_plane
+from brpc_tpu_torch.ici.mesh import IciMesh
+from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
+from brpc_tpu_torch.rpc import loopback
+
+mesh = IciMesh(ranks=8, device="cpu")
+IciMesh.set_default(mesh)
+flags.set_flag("ici_device_plane_host_mesh", True)
+flags.set_flag("ici_device_plane_threshold", 1024)
+
+class Echo(rpc.Service):
+    @rpc.method(EchoRequest, EchoResponse)
+    def Echo(self, cntl, request, response, done):
+        response.message = request.message
+        cntl.response_attachment.append(cntl.request_attachment)
+        done()
+
+ok = True
+for target in ("ici://0", "mem://iso9"):
+    server = rpc.Server()
+    server.add_service(Echo())
+    server.start(target)
+    ch = rpc.Channel()
+    ch.init(target, options=rpc.ChannelOptions(timeout_ms=30000,
+                                               max_retry=0))
+    cntl = rpc.Controller()
+    payload = mesh.device_put(torch.arange(4096).to(torch.uint8), 1)
+    cntl.request_attachment.append_device_array(payload)
+    resp = ch.call_method("Echo.Echo", cntl, EchoRequest(message="n"),
+                          EchoResponse)
+    ok = ok and (not cntl.failed() and resp.message == "n"
+                 and cntl.response_attachment.to_bytes()
+                 == bytes(payload.numpy()))
+    if target.startswith("ici"):
+        ok = ok and server._native_ici.requests() == 1
+    ch.close()
+    server.stop()
+repo = os.path.dirname(os.path.dirname(os.path.abspath(
+    native_plane.__file__)))
+native_dir = os.path.join(repo, "native") + os.sep
+print(json.dumps({
+    "ok": ok,
+    "loopback_calls": loopback.calls,
+    "transfers": device_plane.plane().stats()["transfers"],
+    "live": native_plane.registry().live(),
+    "under_native": sorted({p for p in opened
+                            if os.path.abspath(p).startswith(native_dir)}),
+    "core": [p for p in opened if "libici_native" in p],
     "jax": sorted(m for m in sys.modules
                   if m == "jax" or m.startswith(("jax.", "jaxlib"))),
     "brpc_tpu": sorted(m for m in sys.modules
@@ -594,4 +669,25 @@ def test_port_call_features_dump_and_profiler_load_no_jax():
                  "brpc_tpu_torch.examples.backup_request",
                  "brpc_tpu_torch.examples.cancel_rpc",
                  "brpc_tpu_torch.examples.session_data_and_thread_local"):
+        assert name in mods, name
+
+
+def test_port_native_door_and_loopback_load_no_jax_and_no_native_dir():
+    """Slice 9 driven alone: a DEVICE echo through the native door on
+    ici:// (its core built from the package's own sources) and one through
+    the mem:// loopback plane.  Neither JAX, the JAX package nor any path
+    under the reference's native/ directory is loaded or opened."""
+    out = _run_alone(_SLICE9)
+    assert out["ok"]
+    assert out["loopback_calls"] == 1
+    assert out["transfers"] == 2          # the native echo's two legs
+    assert out["live"] == 0
+    assert out["under_native"] == []
+    assert out["core"] and all("brpc_tpu_torch" in p for p in out["core"])
+    assert out["jax"] == []
+    assert out["brpc_tpu"] == []
+    mods = _run_alone(_EVERY_MODULE)["modules"]
+    for name in ("brpc_tpu_torch.ici.native_plane",
+                 "brpc_tpu_torch.butil.native",
+                 "brpc_tpu_torch.rpc.loopback"):
         assert name in mods, name

@@ -115,8 +115,10 @@ def _server(pkg, addr, svc=None, **opts):
     o = pkg.rpc.ServerOptions()
     for k, v in opts.items():
         setattr(o, k, v)
-    if pkg is JAX and addr.startswith("ici://"):
-        o.native_ici = False          # the Python ici plane, as the port's
+    if addr.startswith("ici://"):
+        # both packages on the Python ici plane: it carries the server
+        # spans and the stage annotations these tests read
+        o.native_ici = False
     s = pkg.rpc.Server(o)
     s.add_service(svc or _echo_service(pkg))
     assert s.start(addr) == 0

@@ -367,7 +367,19 @@ def _shedding_server(pkg, name, hint_ms):
     return server, f"mem://{name}", gate, arrivals
 
 
-def test_retry_waits_for_hint_then_succeeds():
+@pytest.fixture()
+def port_wire_plane():
+    """The port's mem:// calls ride its socket plane, as the JAX legs ride
+    a localhost port: both packages' loopback planes complete a shed in
+    place, with no retry (restored after)."""
+    from brpc_tpu_torch.butil import flags as tflags
+    old = tflags.get_flag("mem_loopback_fast")
+    tflags.set_flag("mem_loopback_fast", False)
+    yield
+    tflags.set_flag("mem_loopback_fast", old)
+
+
+def test_retry_waits_for_hint_then_succeeds(port_wire_plane):
     """A shed call is not re-dispatched before the server's hint: the
     retry lands at least retry_after_ms after the shed and succeeds once
     the server takes it (the gate opens well BEFORE the hint elapses, so
@@ -400,7 +412,7 @@ def test_retry_waits_for_hint_then_succeeds():
     assert out["jax"] == out["port"] == (1, 2)
 
 
-def test_retry_bounded_by_overall_deadline():
+def test_retry_bounded_by_overall_deadline(port_wire_plane):
     """A hint longer than the remaining budget loses to ERPCTIMEDOUT: the
     deadline, not the hint, bounds the call, and no retry is sent."""
     for pkg in (JAX, PORT):

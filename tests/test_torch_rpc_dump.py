@@ -346,7 +346,9 @@ def test_device_calls_dump_and_replay_against_a_fresh_server(dump_flags):
     tfl.set_flag("ici_device_plane_threshold", 1024)
     rng = np.random.default_rng(3)
     try:
-        server = _start(rpc, PortEcho(), "ici://3")
+        # the Python plane: rpc_dump samples in its tpu_std server path,
+        # and the native door dumps nothing, as the reference's does not
+        server = _start(rpc, PortEcho(), "ici://3", native_ici=False)
         ch = rpc.Channel()
         ch.init("ici://3", options=rpc.ChannelOptions(timeout_ms=10000))
         answers = []
@@ -370,7 +372,7 @@ def test_device_calls_dump_and_replay_against_a_fresh_server(dump_flags):
         first = tdump.list_dump_files(str(dump_flags / "first"))
         dumped = [fr for p in first for fr in tdump.load_dumped_frames(p)]
         assert len(dumped) == 16
-        fresh = _start(rpc, PortEcho(), "ici://4")
+        fresh = _start(rpc, PortEcho(), "ici://4", native_ici=False)
         try:
             _set_dump(tfl, dump_flags / "replayed")
             result = treplay.run_replay("ici://4", str(dump_flags / "first"),

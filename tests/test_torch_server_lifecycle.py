@@ -213,7 +213,10 @@ def test_drain_completes_inflight_and_rejects_new_with_elogoff(addr):
 
 def test_post_grace_straggler_fails_elogoff(addr):
     finished = threading.Event()
-    server = rpc.Server()
+    # the ici leg is the Python plane's: its stop fails the connections
+    # with ELOGOFF (the native door fails a straggler with the dead-peer
+    # code, as the reference's does: test_torch_native_ici.py)
+    server = rpc.Server(rpc.ServerOptions(native_ici=False))
     server.add_service(_echo_service(slow_messages=("veryslow",),
                                      slow_s=1.0, finished=finished))
     assert server.start(addr) == 0
@@ -310,7 +313,12 @@ def test_drain_waits_for_usercode_pool_backlog(addr):
     ch = _channel(addr, timeout_ms=8000)
     out = {}
     try:
-        evts = [_async(ch, f"m{i}", out) for i in range(2)]
+        # m1 goes out once m0 reached the pool: an async call on the
+        # native plane is issued from a caller thread of its own, so two
+        # issued back to back may arrive in either order
+        evts = [_async(ch, "m0", out)]
+        assert _wait(lambda: server._usercode_queued >= 1, 2.0)
+        evts.append(_async(ch, "m1", out))
         assert _wait(lambda: server._usercode_queued >= 2, 2.0)
         # the one backup thread runs m0's handler before the drain starts
         # (under load it may not have picked m0 up yet)
@@ -342,7 +350,8 @@ def test_goodbye_pulls_endpoint_before_first_probe(mesh):
         lb.add_server(ep)
     try:
         for dev, tag in ((4, "a"), (5, "b")):
-            s = rpc.Server()
+            # GOODBYE rides the Python plane's sockets, as in the JAX test
+            s = rpc.Server(rpc.ServerOptions(native_ici=False))
             s.add_service(_echo_service(tag=tag))
             assert s.start(f"ici://{dev}") == 0
             servers.append(s)
@@ -381,7 +390,8 @@ def test_drained_restart_revived_by_health_checker(mesh):
     lb = LocalityAwareLB()
     lb.add_server(ep)
     lb.add_server(parse_endpoint("ici://7"))
-    server = rpc.Server()
+    # GOODBYE rides the Python plane's sockets, as in the JAX test
+    server = rpc.Server(rpc.ServerOptions(native_ici=False))
     server.add_service(_echo_service(tag="v1"))
     assert server.start("ici://6") == 0
     ch = _channel("ici://6", max_retry=1)
@@ -396,7 +406,7 @@ def test_drained_restart_revived_by_health_checker(mesh):
         assert not task.probe_now()
         assert lameduck.is_draining(ep)
         assert all(lb.select_server() != ep for _ in range(32))
-        server2 = rpc.Server()
+        server2 = rpc.Server(rpc.ServerOptions(native_ici=False))
         server2.add_service(_echo_service(tag="v2"))
         assert server2.start("ici://6") == 0
         assert task.probe_now(), "revival never fired"
