@@ -16,14 +16,34 @@ delays the later callback, never fires it early.
 
 CPU tensors complete when the call that produced them returns, so their
 callbacks run at once on the caller's thread.
+
+At exit the pollers drain their queues and end (an ``atexit`` hook): a
+daemon thread still inside ``Event.synchronize`` when the interpreter
+finalizes is ended by the runtime in the middle of torch's C++ frames,
+which aborts the process ("terminate called without an active
+exception", SIGABRT) whatever exit code it was leaving with.
 """
 from __future__ import annotations
 
+import atexit
 import collections
 import threading
 from typing import Callable, Deque, Dict, Optional, Sequence, Tuple
 
 from .butex import Butex
+
+
+def _complete(event, on_ready: Callable[[], None]) -> None:
+    try:
+        event.synchronize()      # releases the GIL while it waits
+    except Exception:
+        from ..butil import logging as log
+        log.error("device event synchronize failed", exc_info=True)
+    try:
+        on_ready()
+    except Exception:
+        from ..butil import logging as log
+        log.error("device completion callback raised", exc_info=True)
 
 
 class _DevicePoller:
@@ -32,6 +52,7 @@ class _DevicePoller:
         self.queue: Deque[Tuple[object, Callable[[], None]]] = \
             collections.deque()
         self.cv = threading.Condition()
+        self.closing = False
         # daemon: a process-lifetime poller parked on its condvar must not
         # hold the interpreter open at exit
         self.thread = threading.Thread(
@@ -40,25 +61,30 @@ class _DevicePoller:
 
     def submit(self, event, on_ready: Callable[[], None]) -> None:
         with self.cv:
-            self.queue.append((event, on_ready))
-            self.cv.notify()
+            if not self.closing:
+                self.queue.append((event, on_ready))
+                self.cv.notify()
+                return
+        _complete(event, on_ready)   # the poller has ended: wait here
+
+    def close(self, timeout: float) -> bool:
+        """Let the poller finish what is queued, then end; True when it
+        ended within ``timeout``."""
+        with self.cv:
+            self.closing = True
+            self.cv.notify_all()
+        self.thread.join(timeout)
+        return not self.thread.is_alive()
 
     def _run(self) -> None:
         while True:
             with self.cv:
                 while not self.queue:
+                    if self.closing:
+                        return
                     self.cv.wait()
                 event, on_ready = self.queue.popleft()
-            try:
-                event.synchronize()      # releases the GIL while it waits
-            except Exception:
-                from ..butil import logging as log
-                log.error("device event synchronize failed", exc_info=True)
-            try:
-                on_ready()
-            except Exception:
-                from ..butil import logging as log
-                log.error("device completion callback raised", exc_info=True)
+            _complete(event, on_ready)
             # parked on the condvar, the loop must not keep the last
             # completion alive (its transfer holds the delivered tensor)
             event = on_ready = None
@@ -80,7 +106,19 @@ class DeviceEventDispatcher:
         with cls._lock:
             if cls._instance is None:
                 cls._instance = DeviceEventDispatcher()
+                atexit.register(cls._instance.shutdown)
             return cls._instance
+
+    def shutdown(self, timeout: float = 10.0) -> bool:
+        """Drain and end every poller (run at exit); True when all ended
+        within ``timeout``.  A completion submitted afterwards runs on
+        its submitter's thread."""
+        with self._plock:
+            pollers = list(self._pollers.values())
+        ok = True
+        for p in pollers:
+            ok = p.close(timeout) and ok
+        return ok
 
     def _poller_for(self, device) -> _DevicePoller:
         key = str(device)

@@ -120,9 +120,11 @@ class IciRespC(ctypes.Structure):
                 ("att_handle", ctypes.c_uint64)]
 
 
-# relocation upcall: (key, target_dev) -> new key (0 = failure)
+# relocation upcall: (key, target_dev, err, err_cap) -> new key; 0 is a
+# failure, its reason written NUL-terminated into err (err_cap bytes)
 _ICI_RELOCATE_FN = ctypes.CFUNCTYPE(ctypes.c_uint64, ctypes.c_uint64,
-                                    ctypes.c_int32)
+                                    ctypes.c_int32, ctypes.c_void_p,
+                                    ctypes.c_uint32)
 # release upcall: native custody of a key ends on a drop path
 _ICI_RELEASE_FN = ctypes.CFUNCTYPE(None, ctypes.c_uint64)
 # batched request upcall: (reqs, n)
@@ -251,9 +253,6 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.brpc_tpu_ici_set_att_handles.argtypes = [u64, ctypes.c_int]
     lib.brpc_tpu_ici_listen_batch.restype = u64
     lib.brpc_tpu_ici_listen_batch.argtypes = [ctypes.c_int32, _ICI_BATCH_FN]
-    lib.brpc_tpu_ici_set_batch_params.restype = ctypes.c_int
-    lib.brpc_tpu_ici_set_batch_params.argtypes = [u64, ctypes.c_int64,
-                                                  ctypes.c_int64]
     lib.brpc_tpu_ici_batch_stats.restype = ctypes.c_int
     lib.brpc_tpu_ici_batch_stats.argtypes = [
         u64, ctypes.POINTER(u64), ctypes.POINTER(u64), ctypes.POINTER(u64)]

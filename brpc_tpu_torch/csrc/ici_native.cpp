@@ -336,7 +336,10 @@ struct IciSegC {
   int32_t is_dev;    // 1 = device ref, 0 = host bytes (span of att_host)
 };
 
-typedef uint64_t (*py_relocate_fn)(uint64_t key, int32_t target_dev);
+// (key, target_dev, err, err_cap) -> new key; 0 = failure, with the
+// reason written NUL-terminated into err (at most err_cap bytes)
+typedef uint64_t (*py_relocate_fn)(uint64_t key, int32_t target_dev,
+                                   char* err, uint32_t err_cap);
 typedef void (*py_release_fn)(uint64_t key);
 // (token, method, payload, len, att_host, att_host_len, segs, nsegs,
 //  log_id, peer_dev): the unbatched handler slot (null for the C++ echo
@@ -473,19 +476,34 @@ static IciAttEntry* ici_att_pop(uint64_t h) {
   return e;
 }
 
-// Move every non-resident device ref to target_dev via the Python/JAX
-// upcall (jax.device_put = the ICI transfer).  Returns false when the
-// device plane can't relocate (caller fails the RPC).  The replaced key
-// is released — its custody ends here.
+// A refused relocation fails its call with its own code, not 1009: it is
+// no dead connection, so the channel keeps its binding and does not
+// re-send the call on the Python plane (EINTERNAL, errors.py)
+static constexpr uint64_t kERelocate = 2001;
+
+// Move every non-resident device ref to target_dev via the Python
+// upcall (the device plane's copy).  Returns false when the device
+// plane can't relocate (caller fails the RPC with *why, the call's own
+// error text).  The replaced key is released — its custody ends here.
 static bool ici_relocate_segs(std::vector<IciSegC>& segs,
-                              int32_t target_dev) {
+                              int32_t target_dev, std::string* why) {
   py_relocate_fn rf = g_ici_relocate.load(std::memory_order_acquire);
   py_release_fn rel = g_ici_release.load(std::memory_order_acquire);
   for (auto& s : segs) {
     if (!s.is_dev || s.dev == target_dev) continue;
-    if (rf == nullptr) return false;
-    uint64_t nk = rf(s.key, target_dev);
-    if (nk == 0) return false;
+    if (rf == nullptr) {
+      *why = "ici relocation failed: no relocation hook";
+      return false;
+    }
+    char err[256];
+    err[0] = '\0';
+    uint64_t nk = rf(s.key, target_dev, err, sizeof(err));
+    if (nk == 0) {
+      err[sizeof(err) - 1] = '\0';
+      *why = "ici relocation failed";
+      if (err[0] != '\0') *why += std::string(": ") + err;
+      return false;
+    }
     if (nk != s.key && rel != nullptr) rel(s.key);
     s.key = nk;
     s.dev = target_dev;
@@ -715,13 +733,6 @@ class IciServer : public std::enable_shared_from_this<IciServer> {
     batch_handler_.store(fn, std::memory_order_release);
   }
 
-  void set_batch_params(uint64_t max_batch, int64_t age_us) {
-    if (max_batch > 0)
-      batch_max_.store(max_batch, std::memory_order_relaxed);
-    if (age_us >= 0)
-      batch_age_ns_.store(age_us * 1000, std::memory_order_relaxed);
-  }
-
   // Opt the batched upcall into native att custody (IciReqC.att_handle):
   // OFF by default so an older Python tier on a newer .so keeps the
   // take-during-upcall semantics byte-for-byte.
@@ -813,9 +824,10 @@ class IciServer : public std::enable_shared_from_this<IciServer> {
     if (is_echo) {
       // native echo tier: refs pass through toward the client (resident
       // refs = zero upcalls, the pure-HBM round trip)
-      if (!ici_relocate_segs(msg.segs, msg.conn->client_dev)) {
+      std::string why;
+      if (!ici_relocate_segs(msg.segs, msg.conn->client_dev, &why)) {
         ici_release_segs(msg.segs);
-        reply_error(msg, cid, 1009, "ici relocation failed");
+        reply_error(msg, cid, kERelocate, why);
         return true;
       }
       if (auto ch = msg.conn->client.lock()) {
@@ -834,9 +846,10 @@ class IciServer : public std::enable_shared_from_this<IciServer> {
       // user-code tier: refs land resident on the SERVER device before
       // the handler sees them (the test contract: a handler observes its
       // attachment in local HBM)
-      if (!ici_relocate_segs(msg.segs, dev_)) {
+      std::string why;
+      if (!ici_relocate_segs(msg.segs, dev_, &why)) {
         ici_release_segs(msg.segs);
-        reply_error(msg, cid, 1009, "ici relocation failed");
+        reply_error(msg, cid, kERelocate, why);
         return true;
       }
       uint64_t token = register_token(msg.conn, cid);
@@ -879,7 +892,7 @@ class IciServer : public std::enable_shared_from_this<IciServer> {
   // delivering batches until the queue is empty; later arrivals just
   // enqueue (their requests ride the drainer's next batch — that is the
   // amortization) unless the oldest queued request has aged past
-  // batch_age_ns_, in which case the arrival STEALS the whole queue and
+  // kBatchAgeNs, in which case the arrival STEALS the whole queue and
   // delivers it concurrently — p99 never pays more than the age bound
   // for batching, even with a drainer stuck in a slow inline handler.
   // An idle arrival is a batch of 1 delivered immediately: p50 pays no
@@ -895,8 +908,7 @@ class IciServer : public std::enable_shared_from_this<IciServer> {
           bq_draining_ = true;
           owner = true;
           take_batch_locked(&batch);
-        } else if (ici_now_ns() - bq_.front().enq_ns >=
-                   batch_age_ns_.load(std::memory_order_relaxed)) {
+        } else if (ici_now_ns() - bq_.front().enq_ns >= kBatchAgeNs) {
           take_batch_locked(&batch);   // steal: concurrent delivery
         } else {
           return;                      // the active drainer will take it
@@ -925,7 +937,7 @@ class IciServer : public std::enable_shared_from_this<IciServer> {
 
   // fablint: lock-held(bq_mu_)
   void take_batch_locked(std::vector<IciBatchItem>* out) {
-    uint64_t max_n = batch_max_.load(std::memory_order_relaxed);
+    uint64_t max_n = kBatchMax;
     while (!bq_.empty() && out->size() < max_n) {
       out->push_back(std::move(bq_.front()));
       bq_.pop_front();
@@ -1025,8 +1037,11 @@ class IciServer : public std::enable_shared_from_this<IciServer> {
   std::deque<IciBatchItem> bq_;
   bool bq_draining_ = false;
   bool bq_stopped_ = false;
-  std::atomic<uint64_t> batch_max_{64};
-  std::atomic<int64_t> batch_age_ns_{50 * 1000};   // ~50 us steal bound
+  // requests per batched upcall (one GIL crossing), and the age of a
+  // queued request past which an arrival steals the queue from a busy
+  // drainer (bounds batching's p99 cost)
+  static constexpr uint64_t kBatchMax = 64;
+  static constexpr int64_t kBatchAgeNs = 50 * 1000;
   std::atomic<bool> att_handles_{false};   // native att custody opt-in
   std::atomic<uint64_t> upcalls_{0};
   std::atomic<uint64_t> upcall_reqs_{0};
@@ -1040,12 +1055,11 @@ struct IciPending {
 };
 
 static std::mutex g_ici_mu;
-// Leaked on purpose: these registries own IciServer/IciChannel objects
-// whose destructors join (or abort on) live dispatcher threads — running
-// them from static teardown races whatever threads exit() left alive
-// (the abort-at-exit flake in the cross-process streaming test).  See
-// fabric.cpp's g_conns note; brpc_tpu_fab_quiesce / Python's atexit
-// quiesce provide the DETERMINISTIC shutdown path instead.
+// Leaked on purpose: these registries own IciServer/IciChannel objects,
+// and destroying them from static teardown would race whatever threads
+// exit() left inside them.  The deterministic shutdown path is Python's
+// atexit quiesce (ici/native_plane.py quiesce: every listener unlistened,
+// every channel closed, while the interpreter still runs its threads).
 static auto& g_ici_listeners =
     *new std::unordered_map<int32_t, IciServerPtr>();
 static auto& g_ici_servers =
@@ -1168,12 +1182,11 @@ static uint64_t ici_do_call(const IciChannelPtr& ch, const IciConnPtr& conn,
   }
   // ---- relocate toward the server's device (HBM→HBM; resident = noop),
   // then hand the frame to the server queue ----
-  if (!ici_relocate_segs(segs, srv->dev())) {
+  if (!ici_relocate_segs(segs, srv->dev(), err_text)) {
     ch->erase_slot(cid);
     ici_release_segs(segs);
     conn->return_credits(wire);
-    *err_text = "ici relocation failed";
-    return 1009;
+    return nrpc::kERelocate;
   }
   IciMsg msg;
   msg.conn = conn;
@@ -1274,19 +1287,6 @@ uint64_t brpc_tpu_ici_listen_batch(int32_t dev, nrpc::py_ici_batch_fn fn) {
   auto it = nrpc::g_ici_servers.find(h);
   if (it != nrpc::g_ici_servers.end()) it->second->set_batch_handler(fn);
   return h;
-}
-
-// max_batch <= 0 keeps the current cap; age_us < 0 keeps the current
-// steal bound (age_us == 0 means steal-always: every arrival delivers
-// concurrently, i.e. batching effectively off past the first drainer).
-int brpc_tpu_ici_set_batch_params(uint64_t h, int64_t max_batch,
-                                  int64_t age_us) {
-  std::lock_guard<std::mutex> g(nrpc::g_ici_mu);
-  auto it = nrpc::g_ici_servers.find(h);
-  if (it == nrpc::g_ici_servers.end()) return -1;
-  it->second->set_batch_params(max_batch > 0 ? (uint64_t)max_batch : 0,
-                               age_us);
-  return 0;
 }
 
 int brpc_tpu_ici_batch_stats(uint64_t h, uint64_t* upcalls,
@@ -1587,10 +1587,11 @@ int brpc_tpu_ici_respond_batch(const nrpc::IciRespC* rs, uint64_t n) {
       nrpc::ici_release_segs(seg_vec);
       continue;
     }
-    if (!nrpc::ici_relocate_segs(seg_vec, conn->client_dev)) {
+    std::string why;
+    if (!nrpc::ici_relocate_segs(seg_vec, conn->client_dev, &why)) {
       nrpc::ici_release_segs(seg_vec);
       if (auto ch = conn->client.lock())
-        ch->deliver(pr.cid, 1009, "ici relocation failed", "", "", {});
+        ch->deliver(pr.cid, nrpc::kERelocate, std::move(why), "", "", {});
       continue;
     }
     auto ch = conn->client.lock();

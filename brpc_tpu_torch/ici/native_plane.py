@@ -35,11 +35,13 @@ until then.
 """
 from __future__ import annotations
 
+import atexit
 import ctypes
 import itertools
 import queue
 import threading
 import time as _time
+import weakref
 from typing import Any, Dict, List, Optional, Tuple
 
 from ..butil import flags as _flags
@@ -61,21 +63,10 @@ _string_at = ctypes._string_at
 # from None, a failed call's result
 FUSED_FALLTHROUGH = object()
 
-_flags.define_flag("ici_upcall_max_batch", 64,
-                   "max Python-handler requests delivered per batched "
-                   "upcall (one GIL crossing) on the native ici plane")
-_flags.define_flag("ici_upcall_batch_age_us", 50,
-                   "age bound (us) before a queued ici request is taken "
-                   "from a busy drainer and delivered concurrently: bounds "
-                   "the p99 cost of batching")
 _flags.define_flag("ici_native_att_custody", True,
                    "park ici attachment seg lists natively: handlers get a "
                    "lazily materialized zero-copy view instead of a "
                    "per-seg registry walk")
-_flags.define_flag("ici_fused_dispatch", True,
-                   "serve inline native-ici requests and sync calls "
-                   "through one flat code path each; off takes the "
-                   "unfused chain")
 
 _hot = None
 
@@ -153,7 +144,9 @@ _stats_lock = threading.Lock()
 # relocations that crossed ranks on the device plane (one p2p_copy each),
 # those that took mesh.device_put, and those that failed
 _reloc = {"plane": 0, "device_put": 0, "failed": 0}
-_last_relocate_error = ""
+# the plane's relocations whose copy has not completed: a listener's stop
+# waits for them (see wait_relocations)
+_reloc_live: set = set()
 
 
 def relocation_stats() -> Dict[str, int]:
@@ -161,13 +154,34 @@ def relocation_stats() -> Dict[str, int]:
         return dict(_reloc)
 
 
-def _relocate(key: int, target_dev: int) -> int:
+def _reloc_done(t) -> None:
+    with _stats_lock:
+        _reloc_live.discard(t)
+
+
+def wait_relocations(timeout: float = 10.0) -> int:
+    """Block until every relocation copy launched so far has completed
+    (its source pin released, the plane no longer counting it), or the
+    timeout passes; returns how many are still running.  The upcall
+    orders the consumer on the device and returns without waiting, so
+    the completion trails the call: a listener's stop waits here."""
+    with _stats_lock:
+        live = list(_reloc_live)
+    deadline = _time.monotonic() + timeout
+    for t in live:
+        t.wait(max(deadline - _time.monotonic(), 0.0))
+    with _stats_lock:
+        return sum(1 for t in live if t in _reloc_live)
+
+
+def _relocate(key: int, target_dev: int, err: Optional[int] = None,
+              err_cap: int = 0) -> int:
     """Move the tensor behind ``key`` to rank ``target_dev``; returns a NEW
     key for the moved tensor (native releases the old one), the same key
-    when the rank already owns it, or 0 on failure (native fails the
-    call with 1009).  Never raises across ctypes: an error is logged and
-    kept for the caller's error text."""
-    global _last_relocate_error
+    when the rank already owns it, or 0 on failure: native fails the
+    call with EINTERNAL and the reason this writes into ``err`` (a
+    buffer of ``err_cap`` bytes), so the text belongs to that call.
+    Never raises across ctypes: an error is logged."""
     try:
         from . import device_plane as _dp
         from .mesh import IciMesh
@@ -191,17 +205,23 @@ def _relocate(key: int, target_dev: int) -> int:
                 plane.order_after_copies(out.device)
             with _stats_lock:
                 _reloc["plane"] += 1
+                _reloc_live.add(t)
+            # fires at once when the copy is already complete (a CPU mesh)
+            t.add_done_callback(lambda _err, t=t: _reloc_done(t))
             return _registry.put(out)
         moved = mesh.device_put(arr, target_dev)
         with _stats_lock:
             _reloc["device_put"] += 1
         return _registry.put(moved)
     except Exception as e:
-        _last_relocate_error = f"{type(e).__name__}: {e}"
         with _stats_lock:
             _reloc["failed"] += 1
         log.error("ici relocate(key=%d, dev=%d) failed: %s", key,
                   target_dev, e)
+        if err and err_cap > 1:
+            text = f"{type(e).__name__}: {e}".encode(
+                "utf-8", "replace")[:err_cap - 1]
+            ctypes.memmove(err, text + b"\0", len(text) + 1)
         return 0
 
 
@@ -218,7 +238,8 @@ _att_fns = None
 
 
 def ensure_hooks() -> bool:
-    """Install the relocate and release upcalls once per process."""
+    """Install the relocate and release upcalls once per process, and the
+    exit-time quiesce."""
     global _hooks_installed, _relocate_cb, _release_cb, _att_fns
     lib = native.load()
     if lib is None:
@@ -230,8 +251,26 @@ def ensure_hooks() -> bool:
             lib.brpc_tpu_ici_set_hooks(_relocate_cb, _release_cb)
             _att_fns = (lib.brpc_tpu_ici_att_take,
                         lib.brpc_tpu_ici_att_dispose)
+            atexit.register(quiesce)
             _hooks_installed = True
     return True
+
+
+# open client connections, closed by quiesce
+_channel_bindings: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def quiesce() -> None:
+    """Stop every native listener and close every native connection of
+    this process: parked calls fail and their threads return to Python.
+    Run at exit, while the interpreter still runs threads (the core's
+    registries are never torn down, so nothing else ends them)."""
+    with _server_bindings_lock:
+        servers = list(_server_bindings.values())
+    for b in servers:
+        b.stop()
+    for c in list(_channel_bindings):
+        c.close()
 
 
 def available() -> bool:
@@ -647,9 +686,8 @@ class ServerBinding:
         self.device_id = device_id
         self._echo_methods: set = set()
         self._peer_eps: Dict[int, Any] = {}
-        self._method_names: Dict[bytes, str] = {}
         self._tenant_names: Dict[bytes, str] = {}
-        self._mdcache: Dict[str, tuple] = {}
+        self._methods: Dict[bytes, tuple] = {}
         self._tls = threading.local()
         self._upcall = _BatchUpcall(self, lib)
         cb = _ICI_BATCH_FN(self._upcall)
@@ -661,21 +699,11 @@ class ServerBinding:
             raise OSError(errors.EINVAL,
                           f"ici://{device_id} already listening (native)")
         self._handle = h
-        lib.brpc_tpu_ici_set_batch_params(
-            h, int(_flags.get_flag("ici_upcall_max_batch")),
-            int(_flags.get_flag("ici_upcall_batch_age_us")))
-        # both flags are read once, at bind
+        # read once, at bind
         self._att_custody = bool(_flags.get_flag("ici_native_att_custody"))
         lib.brpc_tpu_ici_set_att_handles(h, 1 if self._att_custody else 0)
-        self._fused = bool(_flags.get_flag("ici_fused_dispatch"))
-        self._fused_inline1 = self._fused and bool(
-            server.options.usercode_inline)
-        self._fcache: Dict[bytes, tuple] = {}
         self._stage_flag, self._record_stage = _stage_modules()
         self._pool = _controller_pool()
-        # which body served each request
-        self.fused_dispatched = 0
-        self.legacy_dispatched = 0
         with _server_bindings_lock:
             _server_bindings[device_id] = self
 
@@ -685,6 +713,9 @@ class ServerBinding:
         self._echo_methods.add(full_method)
 
     def stop(self) -> None:
+        """Close the listener (its pending calls fail), then wait for the
+        relocation copies launched so far: the stop returns with no
+        source pinned by a copy of this door's calls."""
         if self._handle:
             self._lib.brpc_tpu_ici_unlisten(self._handle)
             self._handle = 0
@@ -692,6 +723,10 @@ class ServerBinding:
             with _server_bindings_lock:
                 if _server_bindings.get(self.device_id) is self:
                     del _server_bindings[self.device_id]
+            left = wait_relocations()
+            if left:
+                log.error("ici://%d stopped with %d relocation copies "
+                          "still running", self.device_id, left)
 
     def requests(self) -> int:
         """Requests this listener received (native count)."""
@@ -711,21 +746,12 @@ class ServerBinding:
 
     # ---- the batched upcall ------------------------------------------
     def _on_batch(self, reqs, n):
-        """One crossing for up to ``ici_upcall_max_batch`` requests.
+        """One crossing for up to 64 requests (the core's kBatchMax).
         Inline servers serve each here and flush the responses in one
         crossing; other modes fan out to tasklets or the usercode pool,
         where each request of the batch counts queued on its own."""
-        if n == 1 and self._fused_inline1:
-            try:
-                self._process_fused(reqs[0], None)
-            except Exception as e:
-                self._batch_request_failed(reqs[0], e)
-            return
         try:
-            server = self._server
-            inline = bool(server.options.usercode_inline)
-            pool = server.usercode_pool
-            fused = self._fused and inline
+            inline = bool(self._server.options.usercode_inline)
             collector = _RespondCollector(self) if inline and n > 1 \
                 else None
             try:
@@ -735,11 +761,7 @@ class ServerBinding:
                     # the batch is served
                     r = reqs[i]
                     try:
-                        if fused:
-                            self._process_fused(r, collector)
-                        else:
-                            self._dispatch_unfused(r, inline, pool,
-                                                   collector)
+                        self._dispatch(r, inline, collector)
                     except Exception as e:
                         self._batch_request_failed(r, e)
             finally:
@@ -748,38 +770,67 @@ class ServerBinding:
         except Exception as e:       # never raise across ctypes
             log.error("ici batch upcall failed: %s", e, exc_info=True)
 
-    def _dispatch_unfused(self, r, inline, pool, collector) -> None:
-        server = self._server
+    def _method(self, mkey: bytes):
+        """The dispatch tuple ``(full, fn, request_cls, response_cls,
+        status)`` of the method named ``mkey``, resolved once per listener
+        (services are fixed once the server started); None when the
+        server has no descriptor for it (a miss is not cached)."""
+        full = mkey.decode()
+        md = self._server.find_method(full)
+        if md is None:
+            return None
+        ent = self._methods[mkey] = (full, md.fn, md.request_cls,
+                                     md.response_cls,
+                                     self._server.method_status(full))
+        return ent
+
+    def _dispatch(self, r, inline, collector) -> None:
+        """Take one delivered request out of the upcall's structs (native
+        clears them when the upcall returns), then serve it here (an
+        inline server), on the usercode pool or on a tasklet."""
         token = r.token
         mkey = r.method
-        full = self._method_names.get(mkey)
-        if full is None:
-            full = self._method_names[mkey] = mkey.decode()
-        payload = _string_at(r.payload, r.payload_len) \
-            if r.payload_len else b""
-        att_host = _string_at(r.att_host, r.att_host_len) \
-            if r.att_host_len else b""
+        ent = self._methods.get(mkey)
+        if ent is None:
+            ent = self._method(mkey)
         nsegs = r.nsegs
+        ahl = r.att_host_len
         attachment = None
-        if nsegs or att_host:
+        if nsegs or ahl:
             ah = r.att_handle
             if ah:
-                meta, total = _seg_meta_from_req(r, nsegs)
-                attachment = NativeAttachment(ah, total, meta)
+                if nsegs == 1:          # the dominant shape, inline
+                    total = r.seg0_nbytes
+                    attachment = NativeAttachment(
+                        ah, total, ((r.seg0_key, total, r.seg0_dev),))
+                else:
+                    meta, total = _seg_meta_from_req(r, nsegs)
+                    attachment = NativeAttachment(ah, total, meta)
             else:
-                # the registry takes happen here, inside the upcall:
-                # native clears its seg lists when it returns
+                # the registry takes happen here, inside the upcall
+                att_host = _string_at(r.att_host, ahl) if ahl else b""
                 try:
                     attachment = build_attachment_from_c(att_host, r.segs,
                                                          nsegs)
                 except KeyError as e:
-                    self._respond_one(token, errors.EINTERNAL, str(e))
+                    self._respond_one(token, errors.EINTERNAL, str(e),
+                                      collector)
                     return
-        adm_meta = (r.priority, self._tenant(r.tenant), r.deadline_left_ms)
+        tb = r.tenant
+        # decoded before any gate or pool acquire: a malformed tenant fails
+        # where nothing needs rolling back
+        adm_meta = (r.priority, self._tenant(tb) if tb else "",
+                    r.deadline_left_ms)
+        payload = _string_at(r.payload, r.payload_len) \
+            if r.payload_len else b""
         if inline:
-            self._process(token, full, payload, attachment, r.log_id,
+            self._process(token, mkey, ent, payload, attachment, r.log_id,
                           r.peer_dev, r.recv_ns, collector, adm_meta)
-        elif pool is not None:
+            return
+        server = self._server
+        pool = server.usercode_pool
+        full = ent[0] if ent is not None else mkey.decode()
+        if pool is not None:
             server.on_usercode_queued()
             reg = server._isolated.get(full) if server._isolated else None
             try:
@@ -787,8 +838,8 @@ class ServerBinding:
                     pool.submit(self._run_isolated, token, full, payload,
                                 attachment, reg, adm_meta, r.recv_ns)
                 else:
-                    pool.submit(self._run_usercode, token, full, payload,
-                                attachment, r.log_id, r.peer_dev,
+                    pool.submit(self._run_usercode, token, mkey, ent,
+                                payload, attachment, r.log_id, r.peer_dev,
                                 r.recv_ns, adm_meta)
             except RuntimeError:
                 server.on_usercode_done()
@@ -800,14 +851,14 @@ class ServerBinding:
                                       "server stopping")
                 else:
                     # the pool shut down mid-stop: serve here
-                    self._process(token, full, payload, attachment,
+                    self._process(token, mkey, ent, payload, attachment,
                                   r.log_id, r.peer_dev, r.recv_ns, None,
                                   adm_meta)
         else:
             from ..bthread import scheduler
             scheduler.start_background(
-                self._process, token, full, payload, attachment, r.log_id,
-                r.peer_dev, r.recv_ns, None, adm_meta,
+                self._process, token, mkey, ent, payload, attachment,
+                r.log_id, r.peer_dev, r.recv_ns, None, adm_meta,
                 name=f"ici-req:{full}")
 
     def _tenant(self, tb: Optional[bytes]) -> str:
@@ -836,10 +887,10 @@ class ServerBinding:
         except Exception:
             pass
 
-    def _run_usercode(self, token, full, payload, attachment, log_id,
-                      peer_dev, recv_ns, adm_meta=None) -> None:
+    def _run_usercode(self, token, mkey, ent, payload, attachment, log_id,
+                      peer_dev, recv_ns, adm_meta) -> None:
         try:
-            self._process(token, full, payload, attachment, log_id,
+            self._process(token, mkey, ent, payload, attachment, log_id,
                           peer_dev, recv_ns, None, adm_meta)
         finally:
             self._server.on_usercode_done()
@@ -934,55 +985,19 @@ class ServerBinding:
         self._respond_item((token, 0, b"", resp, att_host, segs,
                             (None, 0, latency_us, server), 0, pass_h))
 
-    # ---- the fused body ------------------------------------------------
-    def _fused_entry(self, mkey: bytes):
-        """The per-method dispatch tuple ``(full, fn, request_cls,
-        response_cls, status)``, resolved once per listener (services are
-        fixed once the server started).  A miss is not cached."""
-        full = mkey.decode()
-        md = self._server.find_method(full)
-        if md is None:
-            return None
-        ent = (full, md.fn, md.request_cls, md.response_cls,
-               self._server.method_status(full))
-        self._fcache[mkey] = ent
-        return ent
-
-    def _process_fused(self, r, collector) -> None:
-        """The whole inline request path in one code path: extraction,
-        gates, controller setup, parse and invoke (the completion is
-        :class:`_FusedDone`).  Its semantics are the unfused chain's; an
-        admission-controlled server hands the request to that chain."""
+    # ---- the gates and the handler ---------------------------------
+    def _process(self, token, mkey, ent, payload, attachment, log_id,
+                 peer_dev, recv_ns, collector, adm_meta) -> None:
+        """The gates (the lame duck, the method, then admission or the
+        concurrency limits), then the handler."""
         server = self._server
-        token = r.token
-        mkey = r.method
-        ent = self._fcache.get(mkey)
-        if ent is None:
-            ent = self._fused_entry(mkey)
-        nsegs = r.nsegs
-        ahl = r.att_host_len
-        attachment = None
-        if nsegs or ahl:
-            ah = r.att_handle
-            if ah:
-                if nsegs == 1:          # the dominant shape, inline
-                    total = r.seg0_nbytes
-                    attachment = NativeAttachment(
-                        ah, total, ((r.seg0_key, total, r.seg0_dev),))
-                else:
-                    meta, total = _seg_meta_from_req(r, nsegs)
-                    attachment = NativeAttachment(ah, total, meta)
-            else:
-                att_host = _string_at(r.att_host, ahl) if ahl else b""
-                try:
-                    attachment = build_attachment_from_c(att_host, r.segs,
-                                                         nsegs)
-                except KeyError as e:
-                    self._respond_one(token, errors.EINTERNAL, str(e),
-                                      collector)
-                    return
+        stages = self._stage_flag.value == "on"
+        if stages and recv_ns:
+            q_us = (_time.monotonic_ns() - recv_ns) // 1000
+            self._record_stage("queue", max(q_us, 0), None)
         if server._draining:
-            # the lame-duck bounce comes before the method lookup
+            # the native door stays open through the grace window so calls
+            # in flight finish; new ones bounce with retryable ELOGOFF
             _dispose_view(attachment)
             self._respond_one(token, errors.ELOGOFF,
                               "server is draining (lame duck)", collector)
@@ -992,27 +1007,34 @@ class ServerBinding:
             self._respond_one(token, errors.ENOMETHOD,
                               f"no method {mkey.decode()}", collector)
             return
-        full, fn, request_cls, response_cls, status = ent
-        pri_wire = r.priority
-        tb = r.tenant
-        ddl = r.deadline_left_ms
-        # decoded before any gate or pool acquire: a malformed tenant fails
-        # where nothing needs rolling back
-        tenant = self._tenant(tb) if tb else ""
-        payload = _string_at(r.payload, r.payload_len) \
-            if r.payload_len else b""
+        status = ent[4]
         if status is not None:
             status.received << 1
-        if server.admission is not None:
-            self._process(token, full, payload, attachment, r.log_id,
-                          r.peer_dev, r.recv_ns, collector,
-                          (pri_wire, tenant, ddl), counted=True)
+        adm = server.admission
+        if adm is not None:
+            # the wire and loopback planes' decision, in front of the same
+            # gates
+            pri_wire, tenant, deadline_left = adm_meta
+            from ..rpc import admission as admission_mod
+
+            def _admitted(queued_us: int) -> None:
+                if stages and queued_us:
+                    self._record_stage("queue", queued_us, None)
+                self._execute(token, ent, payload, attachment, log_id,
+                              peer_dev, collector, adm_meta)
+
+            def _shed(code: int, text: str, retry_after: int) -> None:
+                _dispose_view(attachment)
+                self._respond_one(token, code, text, collector,
+                                  retry_after=retry_after)
+
+            adm.submit(
+                priority=(pri_wire - 1) if pri_wire else None,
+                tenant=tenant, deadline_left_ms=deadline_left or None,
+                recv_us=(recv_ns // 1000) if recv_ns else 0,
+                try_enter=admission_mod.server_method_gate(server, status),
+                run=_admitted, shed=_shed)
             return
-        self.fused_dispatched += 1
-        stages = self._stage_flag.value == "on"
-        if stages and r.recv_ns:
-            q_us = (_time.monotonic_ns() - r.recv_ns) // 1000
-            self._record_stage("queue", max(q_us, 0), None)
         if not server.on_request_in():
             _dispose_view(attachment)
             self._respond_one(token, errors.ELIMIT,
@@ -1022,21 +1044,32 @@ class ServerBinding:
             server.on_request_out()
             _dispose_view(attachment)
             self._respond_one(token, errors.ELIMIT,
-                              f"{full} concurrency limit", collector)
+                              f"{ent[0]} concurrency limit", collector)
             return
+        self._execute(token, ent, payload, attachment, log_id, peer_dev,
+                      collector, adm_meta)
+
+    def _execute(self, token, ent, payload, attachment, log_id, peer_dev,
+                 collector, adm_meta) -> None:
+        """The gates are held: controller setup, parse and invoke (the
+        completion is :class:`_Done`)."""
+        full, fn, request_cls, response_cls, status = ent
+        server = self._server
+        stages = self._stage_flag.value == "on"
         cntl = self._pool.acquire()
         d = cntl.__dict__
-        if r.log_id:
-            d["log_id"] = r.log_id
+        if log_id:
+            d["log_id"] = log_id
         d["server"] = server
-        ep = self._peer_eps.get(r.peer_dev)
+        ep = self._peer_eps.get(peer_dev)
         d["remote_side"] = ep if ep is not None \
-            else self._peer_endpoint(r.peer_dev)
+            else self._peer_endpoint(peer_dev)
+        pri_wire, tenant, ddl = adm_meta
         has_meta = False
         if pri_wire:
             d["priority"] = pri_wire - 1
             has_meta = True
-        if tb:
+        if tenant:
             d["tenant"] = tenant
             has_meta = True
         if ddl:
@@ -1060,13 +1093,14 @@ class ServerBinding:
             self._record_stage(
                 "parse", (_time.monotonic_ns() - start_ns) // 1000, None)
         response = response_cls()
-        fd = _FusedDone(self, token, cntl, response, status, start_ns,
-                        collector, stages)
+        fd = _Done(self, token, cntl, response, status, start_ns, collector,
+                   stages)
         d["_server_done"] = fd         # Controller.send_response
         try:
-            # the request context installs only where it matters: the
-            # request carries admission meta, or an outer inline context
-            # must be masked for this handler's own calls
+            # the handler runs under its request's context (request_context
+            # .scope's): installed only where it matters, when the request
+            # carries admission meta or an outer inline context must be
+            # masked for this handler's own calls
             prev_ctx = getattr(_reqctx_tls, "ctx", None)
             if has_meta or prev_ctx is not None:
                 _reqctx_tls.ctx = _reqctx.InboundContext(
@@ -1084,159 +1118,6 @@ class ServerBinding:
                 cntl.set_failed(errors.EINTERNAL,
                                 f"{type(e).__name__}: {e}")
                 fd()
-
-    # ---- the unfused chain ---------------------------------------------
-    def _process(self, token, full, payload, attachment, log_id, peer_dev,
-                 recv_ns, collector, adm_meta=None,
-                 counted: bool = False) -> None:
-        self.legacy_dispatched += 1
-        server = self._server
-        stage_flag, record_stage = _stage_modules()
-        stages = stage_flag.value == "on"
-        if stages and recv_ns:
-            q_us = (_time.monotonic_ns() - recv_ns) // 1000
-            record_stage("queue", max(q_us, 0), None)
-        if server._draining:
-            # the native door stays open through the grace window so calls
-            # in flight finish; new ones bounce with retryable ELOGOFF
-            _dispose_view(attachment)
-            self._respond_one(token, errors.ELOGOFF,
-                              "server is draining (lame duck)", collector)
-            return
-        hit = self._mdcache.get(full)
-        if hit is None:
-            md = server.find_method(full)
-            if md is None:
-                _dispose_view(attachment)
-                self._respond_one(token, errors.ENOMETHOD,
-                                  f"no method {full}", collector)
-                return
-            hit = self._mdcache[full] = (md, server.method_status(full))
-        md, status = hit
-        if status is not None and not counted:
-            status.received << 1
-        adm = server.admission
-        if adm is not None:
-            # the wire and loopback planes' decision, in front of the same
-            # gates
-            pri_wire, tenant, deadline_left = adm_meta or (0, "", 0)
-            from ..rpc import admission as admission_mod
-
-            def _admitted(queued_us: int) -> None:
-                if stages and queued_us:
-                    record_stage("queue", queued_us, None)
-                self._execute(token, full, payload, attachment, log_id,
-                              peer_dev, collector, md, status, adm_meta)
-
-            def _shed(code: int, text: str, retry_after: int) -> None:
-                _dispose_view(attachment)
-                self._respond_one(token, code, text, collector,
-                                  retry_after=retry_after)
-
-            adm.submit(
-                priority=(pri_wire - 1) if pri_wire else None,
-                tenant=tenant, deadline_left_ms=deadline_left or None,
-                recv_us=(recv_ns // 1000) if recv_ns else 0,
-                try_enter=admission_mod.server_method_gate(server, status),
-                run=_admitted, shed=_shed)
-            return
-        if not server.on_request_in():
-            _dispose_view(attachment)
-            self._respond_one(token, errors.ELIMIT,
-                              "server max_concurrency reached", collector)
-            return
-        if status is not None and not status.on_requested():
-            server.on_request_out()
-            _dispose_view(attachment)
-            self._respond_one(token, errors.ELIMIT,
-                              f"{full} concurrency limit", collector)
-            return
-        self._execute(token, full, payload, attachment, log_id, peer_dev,
-                      collector, md, status, adm_meta)
-
-    def _execute(self, token, full, payload, attachment, log_id,
-                 peer_dev, collector, md, status, adm_meta=None) -> None:
-        """The gates are held: parse, invoke, batched write-back."""
-        server = self._server
-        stage_flag, record_stage = _stage_modules()
-        stages = stage_flag.value == "on"
-        cntl = _controller_pool().acquire()
-        if log_id:
-            cntl.log_id = log_id
-        cntl.server = server
-        cntl.remote_side = self._peer_endpoint(peer_dev)
-        if adm_meta is not None:
-            pri_wire, tenant, deadline_left = adm_meta
-            if pri_wire:
-                cntl.priority = pri_wire - 1
-            if tenant:
-                cntl.tenant = tenant
-            if deadline_left:
-                cntl.deadline_left_ms = deadline_left
-        if attachment is not None:
-            cntl.request_attachment = attachment
-        start_ns = _time.monotonic_ns()
-        try:
-            request = md.request_cls()
-            request.ParseFromString(payload)
-        except Exception as e:
-            cntl._maybe_recycle()
-            self._respond_one(token, errors.EREQUEST,
-                              f"fail to parse request: {e}", collector,
-                              post=(status, errors.EREQUEST, 0, server))
-            return
-        if stages:
-            record_stage("parse",
-                         (_time.monotonic_ns() - start_ns) // 1000, None)
-        response = md.response_cls()
-        done_called = [False]
-
-        def done() -> None:
-            if done_called[0]:
-                return
-            done_called[0] = True
-            t_done = _time.monotonic_ns()
-            latency_us = (t_done - start_ns) // 1000
-            if stages:
-                record_stage("handler", latency_us, None)
-            cntl._release_session_data()
-            err = cntl.error_code_
-            post = (status, err, latency_us, server)
-            if err:
-                # a handler's shed hint rides the item as admission's do
-                self._respond_one(token, err, cntl.error_text_, collector,
-                                  post=post,
-                                  retry_after=cntl.retry_after_ms or 0)
-            else:
-                resp_att = cntl._peek_response_attachment()
-                pass_h = 0
-                att_host, segs = b"", ()
-                if resp_att is not None:
-                    if isinstance(resp_att, NativeAttachment):
-                        # the echo pass-through (a materialized view holds
-                        # no handle and takes the split)
-                        pass_h = resp_att._surrender_native()
-                    if not pass_h and resp_att.backing_block_num():
-                        att_host, segs = split_attachment(resp_att)
-                item = (token, 0, b"", response.SerializeToString(),
-                        att_host, segs, post, 0, pass_h)
-                if stages:
-                    record_stage("encode",
-                                 (_time.monotonic_ns() - t_done) // 1000,
-                                 None)
-                if collector is None or not collector.add(item):
-                    self._respond_item(item)
-            cntl._maybe_recycle()
-
-        cntl.set_server_done(done)
-        try:
-            md.invoke(cntl, request, response, done)
-        except Exception as e:
-            log.error("ici method %s raised: %s", full, e, exc_info=True)
-            if not done_called[0]:
-                cntl.set_failed(errors.EINTERNAL,
-                                f"{type(e).__name__}: {e}")
-                done()
 
     def _peer_endpoint(self, peer_dev: int):
         ep = self._peer_eps.get(peer_dev)
@@ -1349,8 +1230,8 @@ class ServerBinding:
             self._run_post(it[6])
 
 
-class _FusedDone:
-    """The fused completion: response encode, attachment custody exit
+class _Done:
+    """A request's completion: response encode, attachment custody exit
     (pass-through or split), the write-back and the pool recycle, with the
     drain gate's accounting packed into the item so it runs after the
     crossing.  Idempotent."""
@@ -1462,7 +1343,10 @@ class ChannelBinding:
         self._call = lib.brpc_tpu_ici_call4 if self._att_custody \
             else lib.brpc_tpu_ici_call3
         self._free = lib.brpc_tpu_buf_free
-        self._fused = bool(_flags.get_flag("ici_fused_dispatch"))
+        # sync calls take call_fused (one code path: context, screens,
+        # call, error tails); async calls the unfused chain in Channel.
+        # Off only to hold the two against each other
+        self._fused = True
         self._hot = None
         from ..rpc import span as _span_mod
         self._rpcz_flag = _span_mod._rpcz_flag
@@ -1473,6 +1357,7 @@ class ChannelBinding:
             raise ConnectionRefusedError(
                 f"no native listener at ici://{remote_dev}")
         self._handle = h
+        _channel_bindings.add(self)
 
     def close(self) -> None:
         if self._handle:
@@ -1611,8 +1496,6 @@ class ChannelBinding:
                             _registry.release(out.segs[i].key)
                 text = _string_at(err_p, -1).decode() \
                     if err_p else errors.berror(int(rc))
-                if text == "ici relocation failed" and _last_relocate_error:
-                    text = f"{text}: {_last_relocate_error}"
                 cntl.set_failed(int(rc), text)
                 if out.retry_after_ms:
                     cntl.retry_after_ms = int(out.retry_after_ms)
@@ -1752,27 +1635,45 @@ class _Callers:
     whole wait, and as many parked calls as ``bthread_max_concurrency``
     would starve the handlers of this process's own servers (which run on
     those workers).  So an async call gets a thread of its own here: one
-    more starts whenever none is idle, and an idle one waits for the
-    next."""
+    more starts whenever none is idle, an idle one takes the next, and
+    one idle for ``idle_s`` exits, so the pool shrinks back after a
+    burst.  It is not capped: a cap would park a call behind calls that
+    may wait on it (a handler's nested async call)."""
 
-    def __init__(self):
+    def __init__(self, idle_s: float = 2.0):
+        self.idle_s = idle_s
         self._q: "queue.SimpleQueue" = queue.SimpleQueue()
-        self._idle = 0
+        self._idle = 0          # idle threads less the queued calls
+        self._threads = 0
         self._lock = threading.Lock()
+
+    def threads(self) -> int:
+        with self._lock:
+            return self._threads
 
     def submit(self, fn) -> None:
         with self._lock:
-            spawn = self._idle == 0
-            if not spawn:
+            # queued under the lock: an idle thread that times out sees
+            # it and stays
+            self._q.put(fn)
+            if self._idle:
                 self._idle -= 1
-        self._q.put(fn)
-        if spawn:
-            threading.Thread(target=self._run, name="ici_native_caller",
-                             daemon=True).start()
+                return
+            self._threads += 1
+        threading.Thread(target=self._run, name="ici_native_caller",
+                         daemon=True).start()
 
     def _run(self) -> None:
         while True:
-            fn = self._q.get()
+            try:
+                fn = self._q.get(timeout=self.idle_s)
+            except queue.Empty:
+                with self._lock:
+                    if self._q.empty():
+                        self._idle -= 1
+                        self._threads -= 1
+                        return
+                continue
             try:
                 fn()
             except Exception as e:       # the call's own path reports it

@@ -1,4 +1,4 @@
-"""The native ici:// door's fused dispatch against its unfused chain.
+"""The native ici:// door's fused client path against its unfused chain.
 
     python3 -m brpc_tpu_torch.tools.fused_ab [--pairs 10] [--calls 400]
                                              [--device cpu]
@@ -6,16 +6,16 @@
 Drives phase 3's Sink echo of ``chip_smoke.py`` (IciMesh(ranks=8), server
 on ici://0, a 4 KiB attachment owned by rank 1 and relocated on the device
 plane, threshold 1) on two servers: one answering inline
-(``usercode_inline=True``, where both the client's ``call_fused`` and the
-server's ``_process_fused`` apply) and one with the default dispatch (a
-tasklet per request, where only the client's ``call_fused`` applies).
+(``usercode_inline=True``) and one with the default dispatch (a tasklet
+per request).  A sync call takes ``ChannelBinding.call_fused``; the
+unfused chain is ``Channel.call_method``'s body, which async calls take.
 For each server it runs ``--pairs`` pairs of ``--calls`` timed calls
-(after 30 warm-up calls), the fused path and the unfused chain in turns,
-each pair in the other order from the last, switching both bindings'
-private switches in place.  Prints the card's ``nvidia-smi`` name and
-power limit, then one JSON object: per server, each path's per-run p50
-(µs), their median and quartiles, the median of the paired differences
-(fused minus unfused), and the requests each server body took.
+(after 30 warm-up calls), the two in turns, each pair in the other order
+from the last, switching the channel binding's private switch in place.
+Prints the card's ``nvidia-smi`` name and power limit, then one JSON
+object: per server, each path's per-run p50 (µs), their median and
+quartiles, the median of the paired differences (fused minus unfused)
+and the pairs the fused path won.
 """
 from __future__ import annotations
 
@@ -41,12 +41,9 @@ def _quartiles(xs):
     return {"q1": q[0], "median": q[1], "q3": q[2]}
 
 
-def set_fused(server, ch, on: bool) -> None:
-    """Switch both halves of the native door between the fused path and
-    the unfused chain."""
-    b = server._native_ici
-    b._fused = on
-    b._fused_inline1 = on and bool(server.options.usercode_inline)
+def set_fused(ch, on: bool) -> None:
+    """Switch the channel's sync calls between the fused path and the
+    unfused chain."""
     ch._native_ici._fused = on
 
 
@@ -109,10 +106,10 @@ def main(argv=None) -> int:
             binding = server._native_ici
             if binding is None or ch._native_ici is None:
                 raise RuntimeError("the call did not take the native door")
-            f0, l0 = binding.fused_dispatched, binding.legacy_dispatched
+            n0 = binding.requests()
             for i in range(args.pairs):
                 for on in ((True, False) if i % 2 == 0 else (False, True)):
-                    set_fused(server, ch, on)
+                    set_fused(ch, on)
                     for _ in range(WARMUP):
                         one()
                     lat = []
@@ -121,8 +118,7 @@ def main(argv=None) -> int:
                         one()
                         lat.append((time.perf_counter_ns() - t0) / 1e3)
                     runs[on].append(_p50(lat))
-            fused_n = binding.fused_dispatched - f0
-            legacy_n = binding.legacy_dispatched - l0
+            native_n = binding.requests() - n0
         finally:
             ch.close()
             server.stop()
@@ -132,8 +128,7 @@ def main(argv=None) -> int:
                 "unfused": _quartiles(runs[False]),
                 "paired_diff_median_us": statistics.median(diffs),
                 "pairs_fused_faster": sum(d < 0 for d in diffs),
-                "server_fused_requests": fused_n,
-                "server_unfused_requests": legacy_n}
+                "native_requests": native_n}
 
     res = {"bytes": SIZE, "pairs": args.pairs, "calls": args.calls,
            "device": args.device,

@@ -1715,19 +1715,12 @@ def phase_admission(mesh, plane, p2p_copy, payload=ADM_PAYLOAD,
         binding = server._native_ici
         native_requests = binding.requests() if binding is not None else 0
         describe = server.admission.describe()
+        # on the native door the stop waits for the relocation copies
+        # its calls launched (their completions trail the calls)
+        t_stop = time.monotonic()
         server.stop()
+        out["stop_ms"] = (time.monotonic() - t_stop) * 1e3
         torch.cuda.synchronize()
-        # the copies are done on the card; their completions reach the
-        # plane through the poller thread, which on the native door (the
-        # upcall orders the consumer on the device and does not wait for
-        # the completion) can trail the last call by the backlog an
-        # overload built up
-        t_settle = time.monotonic()
-        out["active_at_stop"] = plane.active_transfers()
-        while plane.active_transfers() and \
-                time.monotonic() - t_settle < 30.0:
-            time.sleep(0.005)
-        out["completions_settle_ms"] = (time.monotonic() - t_settle) * 1e3
         out["active_after_stop"] = plane.active_transfers()
         out["transfers"] = plane.stats()["transfers"] - transfers0
         out["launches"] = p2p_copy.launches
@@ -1817,9 +1810,8 @@ def phase_admission(mesh, plane, p2p_copy, payload=ADM_PAYLOAD,
     print(f"admission: p2p_copy launches {out['launches']} = plane transfers "
           f"{out['transfers']} = requests received "
           f"{out['requests_received']} + attachments returned "
-          f"{out['attachments_returned']}; {out['active_at_stop']} "
-          f"completions pending at the stop, settled in "
-          f"{out['completions_settle_ms']:.1f} ms; memory delta "
+          f"{out['attachments_returned']}; the stop took "
+          f"{out['stop_ms']:.1f} ms, none active after it; memory delta "
           f"{out['memory_delta_bytes']} B; phase {out['wall_s']:.1f} s",
           flush=True)
     return out
@@ -4022,7 +4014,7 @@ def main() -> int:
         "hi_p99_unloaded_us", "hi_p99_overload_us", "hi_p99_ratio",
         "native_requests", "requests_received", "attachments_returned",
         "launches", "transfers", "shed", "offered_rps_measured",
-        "payload_bytes", "active_at_stop", "completions_settle_ms")}
+        "payload_bytes", "stop_ms")}
     native["overload"]["python_door_ratio"] = \
         paths["admission"][1]["hi_p99_ratio"]
     print(f"native overload: priority-0 p99 ratio "

@@ -108,6 +108,20 @@ class _Jax:
     def host_bytes(self, arr):
         return bytes(np.asarray(arr))
 
+    def with_fused(self, fused, make):
+        """``make()`` -> (server, channel) with fused dispatch on or off:
+        the flag, read at bind and connect, switches both halves."""
+        prev = jflags.get_flag("ici_fused_dispatch")
+        jflags.set_flag("ici_fused_dispatch", fused)
+        try:
+            return make()
+        finally:
+            jflags.set_flag("ici_fused_dispatch", prev)
+
+    def server_bodies(self, binding):
+        """(fused, unfused) requests the listener's server bodies took."""
+        return binding.fused_dispatched, binding.legacy_dispatched
+
 
 class _Port:
     name = "port"
@@ -142,6 +156,17 @@ class _Port:
 
     def host_bytes(self, arr):
         return bytes(arr.cpu().numpy())
+
+    def with_fused(self, fused, make):
+        """``make()`` -> (server, channel) with the client's fused path on
+        or off (the port's server has one chain)."""
+        server, ch = make()
+        ch._native_ici_binding(trpc.Controller())._fused = fused
+        return server, ch
+
+    def server_bodies(self, binding):
+        """The port's server has one chain: no split to report."""
+        return None
 
 
 _PKGS = {}
@@ -1039,16 +1064,14 @@ class TestBuildAttachmentExceptionSafety:
 
 class TestFusedDispatch:
     def _server_channel(self, pkg, dev, fused, service=None, **opts):
-        prev = pkg.flags.get_flag("ici_fused_dispatch")
-        pkg.flags.set_flag("ici_fused_dispatch", fused)
-        try:
-            opts.setdefault("usercode_inline", True)
+        opts.setdefault("usercode_inline", True)
+
+        def make():
             server = _server(pkg, dev, service, **opts)
-            ch = _channel(pkg, dev, timeout_ms=10000, max_retry=0,
-                          ici_local_device=dev)
-        finally:
-            pkg.flags.set_flag("ici_fused_dispatch", prev)
-        return server, ch
+            return server, _channel(pkg, dev, timeout_ms=10000,
+                                    max_retry=0, ici_local_device=dev)
+
+        return pkg.with_fused(fused, make)
 
     def _echo(self, pkg, ch, msg="m", n=512):
         cntl = pkg.rpc.Controller()
@@ -1067,12 +1090,10 @@ class TestFusedDispatch:
                 results[fused] = (resp.message,
                                   cntl.response_attachment.to_bytes())
                 binding = server._native_ici
-                if fused:
-                    assert binding.fused_dispatched >= 1
-                    assert binding.legacy_dispatched == 0
-                else:
-                    assert binding.legacy_dispatched >= 1
-                    assert binding.fused_dispatched == 0
+                assert binding.requests() == 1
+                bodies = pkg.server_bodies(binding)
+                if bodies is not None:
+                    assert bodies == ((1, 0) if fused else (0, 1))
                 ch.close()
             finally:
                 server.stop()
@@ -1137,8 +1158,10 @@ class TestFusedDispatch:
             assert not cntl.failed(), cntl.error_text
             assert resp.message == "adm"
             binding = server._native_ici
-            assert binding.fused_dispatched == 0
-            assert binding.legacy_dispatched >= 1
+            assert binding.requests() == 1
+            bodies = pkg.server_bodies(binding)
+            if bodies is not None:
+                assert bodies == (0, 1)
             ch.close()
         finally:
             server.stop()
@@ -1349,8 +1372,9 @@ def test_plane_launches_equal_relocations():
 
 
 def test_refused_relocation_fails_the_call_with_its_text(monkeypatch):
-    """A refused post fails the call (no library copy stands in), and the
-    plane's reason reaches the caller's error text."""
+    """A refused post fails the call with EINTERNAL (no library copy
+    stands in, and it is no dead connection), and the plane's reason
+    reaches the caller's error text."""
     p = _PKGS["port"]
     p.activate()
     server = _server(p, 2)
@@ -1366,8 +1390,72 @@ def test_refused_relocation_fails_the_call_with_its_text(monkeypatch):
         ch._native_ici_binding(cntl)
         ch._native_ici.call("EchoService.Echo", cntl, TReq(message="x"),
                             TResp)
-        assert cntl.error_code_ == trpc.errors.EFAILEDSOCKET
-        assert "refused for the test" in cntl.error_text
+        assert cntl.error_code_ == trpc.errors.EINTERNAL
+        assert cntl.error_text == ("ici relocation failed: "
+                                   "DevicePlaneError: refused for the test")
+        ch.close()
+    finally:
+        server.stop()
+    assert _drained(p)
+
+
+@pytest.mark.parametrize("leg", ["request", "response"])
+def test_refused_relocation_fails_call_method_without_a_python_try(
+        monkeypatch, leg):
+    """Through ``Channel.call_method`` (retries allowed), a refused
+    relocation of the request or of the response fails the call with the
+    plane's text: one post, no retry, no re-send on the Python plane, and
+    the channel keeps its native binding, which serves the next call."""
+    p = _PKGS["port"]
+    p.activate()
+    server = _server(p, 2)
+    posts = []
+    real = tdp.DevicePlane.post_send
+
+    def refuse_one(self, arr, src, dst, mesh=None):
+        posts.append((src, dst))
+        # the request crosses rank 1 -> 2, the echoed answer 2 -> 3
+        if (src, dst) == ((1, 2) if leg == "request" else (2, 3)):
+            raise tdp.DevicePlaneError(f"refused {leg} for the test")
+        return real(self, arr, src, dst, mesh=mesh)
+
+    try:
+        ch = _channel(p, 2, max_retry=3, ici_local_device=3)
+        cntl = trpc.Controller()
+        ch.call_method("EchoService.Echo", cntl, TReq(message="warm"),
+                       TResp)
+        assert not cntl.failed(), cntl.error_text
+        binding = ch._native_ici
+        assert binding is not None
+        before = server._native_ici.requests()
+        received = server.method_status("EchoService.Echo") \
+            .received.get_value()
+        monkeypatch.setattr(tdp.DevicePlane, "post_send", refuse_one)
+        cntl = trpc.Controller()
+        cntl.request_attachment.append_device_array(p.payload(1))
+        ch.call_method("EchoService.Echo", cntl, TReq(message="x"), TResp)
+        assert cntl.error_code_ == trpc.errors.EINTERNAL
+        assert cntl.error_text == ("ici relocation failed: DevicePlaneError: "
+                                   f"refused {leg} for the test")
+        assert cntl.retried_count == 0
+        assert posts == ([(1, 2)] if leg == "request"
+                         else [(1, 2), (2, 3)])
+        assert ch._native_ici is binding
+        # the request reached the server only when its own leg passed,
+        # and only through the native door
+        served = 1 if leg == "response" else 0
+        assert server._native_ici.requests() == before + served
+        assert server.method_status("EchoService.Echo") \
+            .received.get_value() == received + served
+        monkeypatch.setattr(tdp.DevicePlane, "post_send", real)
+        cntl = trpc.Controller()
+        cntl.request_attachment.append_device_array(p.payload(1))
+        resp = ch.call_method("EchoService.Echo", cntl, TReq(message="y"),
+                              TResp)
+        assert not cntl.failed(), cntl.error_text
+        assert resp.message == "y"
+        assert cntl.response_attachment.to_bytes() == bytes(_data(4096))
+        assert server._native_ici.requests() == before + served + 1
         ch.close()
     finally:
         server.stop()
@@ -1587,3 +1675,105 @@ def test_async_calls_past_the_worker_cap_leave_workers_to_handlers():
         ch.close()
     finally:
         server.stop()
+
+
+def test_async_caller_threads_exit_after_a_burst(monkeypatch):
+    """The threads that carry async native calls grow with a burst of
+    parked calls and, idle past their timeout, exit again."""
+    p = _PKGS["port"]
+    p.activate()
+    callers = tnp_plane._callers
+    monkeypatch.setattr(callers, "idle_s", 0.2)
+    n = 24
+    parked = []
+    lock = threading.Lock()
+    everyone = threading.Event()
+
+    def hold(cntl, request, response, done):
+        response.message = request.message
+        with lock:
+            parked.append(done)
+            if len(parked) == n:
+                everyone.set()
+
+    server = _server(p, 5, _service(p, "Hold", hold))
+    ch = _channel(p, 5, timeout_ms=20000, max_retry=0)
+    answered = []
+    finished = threading.Event()
+
+    def on_done(c):
+        with lock:
+            answered.append(c.error_code_)
+            if len(answered) == n:
+                finished.set()
+
+    try:
+        for i in range(n):
+            ch.call_method("Hold.M", trpc.Controller(),
+                           TReq(message=str(i)), TResp, done=on_done)
+        assert everyone.wait(15), f"{len(parked)} of {n} handlers ran"
+        peak = callers.threads()
+        assert peak >= n
+        for d in parked:
+            d()
+        assert finished.wait(15)
+        assert answered == [0] * n
+        deadline = time.monotonic() + 5
+        while callers.threads() and time.monotonic() < deadline:
+            time.sleep(0.02)
+        assert callers.threads() == 0
+        assert not [t for t in threading.enumerate()
+                    if t.name == "ici_native_caller"]
+        # the pool starts again for the next call
+        cntl = trpc.Controller()
+        done = threading.Event()
+        ch.call_method("Hold.M", cntl, TReq(message="again"), TResp,
+                       done=lambda c: done.set())
+        deadline = time.monotonic() + 5
+        while len(parked) <= n and time.monotonic() < deadline:
+            time.sleep(0.01)
+        parked[-1]()
+        assert done.wait(10) and not cntl.failed()
+        ch.close()
+    finally:
+        server.stop()
+
+
+_BUSY_POLLER_AT_EXIT = """
+import sys, time, torch
+from brpc_tpu_torch.bthread.device_waiter import DeviceEventDispatcher
+
+a = torch.randn(400, 400)
+
+
+class BusyEvent:
+    # stands in for a CUDA event: its synchronize is a torch call that
+    # releases the GIL, as Event.synchronize does
+    def synchronize(self):
+        t0 = time.monotonic()
+        while time.monotonic() - t0 < 0.3:
+            torch.mm(a, a)
+
+
+done = []
+for i in range(4):
+    DeviceEventDispatcher.instance().on_event(
+        BusyEvent(), "cuda:0", lambda i=i: done.append(i))
+time.sleep(0.1)
+print("exiting", flush=True)
+sys.exit(3)
+"""
+
+
+def test_exit_with_a_busy_poller_does_not_abort():
+    """A process that exits while the device poller waits inside a torch
+    call leaves with its own exit code after the poller drained: the
+    runtime does not end the poller inside torch's C++ frames, which
+    aborts (SIGABRT, "terminate called without an active exception")."""
+    import subprocess
+    r = subprocess.run([sys.executable, "-c", _BUSY_POLLER_AT_EXIT],
+                       capture_output=True, text=True, timeout=60,
+                       cwd=str(tnative.CSRC.parent.parent))
+    assert r.returncode == 3, (r.returncode, r.stderr[-2000:])
+    assert "terminate called" not in r.stderr
+    assert r.stdout.strip() == "exiting"
