@@ -36,6 +36,10 @@ class Butex:
         with self._cond:
             return self._value
 
+    def set_value(self, value: int) -> None:
+        with self._cond:
+            self._value = value
+
     def fetch_add(self, delta: int) -> int:
         with self._cond:
             old = self._value

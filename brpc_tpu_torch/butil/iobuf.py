@@ -22,6 +22,7 @@ the reference.
 """
 from __future__ import annotations
 
+import os
 import threading
 from typing import Any, Callable, List, Optional, Union
 
@@ -65,7 +66,10 @@ class Block:
 
     def host_view(self, offset: int, length: int) -> memoryview:
         """A memoryview of [offset, offset+length).  DEVICE blocks copy to
-        the host here — the only place a device->host copy can happen."""
+        the host here — the only place a device->host copy can happen.  A
+        ``tcp://`` socket (the DCN path, not the device plane) and a
+        fabric frame below the plane's threshold send DEVICE bytes this
+        way, as the JAX package's do."""
         if self.kind == DEVICE:
             part = self.data[offset:offset + length]
             return memoryview(part.cpu().numpy().tobytes())
@@ -259,7 +263,42 @@ class IOBuf:
     def device_refs(self) -> List[BlockRef]:
         return [r for r in self._refs if r.block.kind == DEVICE]
 
+    # ---- fd IO (reference cut_into_file_descriptor iobuf.h:160) ------
+    def cut_into_file_descriptor(self, fd: int,
+                                 size_hint: int = 1 << 20) -> int:
+        """``writev`` the leading refs into ``fd`` and pop what was
+        written.  A DEVICE ref reaches the fd through :meth:`Block.
+        host_view`, its one device-to-host copy."""
+        views = []
+        total = 0
+        for r in self._refs:
+            if total >= size_hint or len(views) >= 64:    # IOV_MAX safety
+                break
+            views.append(r.block.host_view(r.offset, r.length))
+            total += r.length
+        if not views:
+            return 0
+        written = os.writev(fd, views)
+        if written > 0:
+            self.pop_front(written)
+        return written
+
 
 class IOPortal(IOBuf):
     """The read-side buffer a socket's transport fills (reference
-    IOPortal); inbox-backed transports cut already-resident refs into it."""
+    IOPortal); inbox-backed transports cut already-resident refs into it,
+    a TCP socket reads into it (:meth:`append_from_socket`)."""
+
+    def append_from_socket(self, sock, max_count: int = 1 << 16) -> int:
+        """``recv_into`` a fresh host block: the bytes read, 0 at EOF, -1
+        when nothing is ready (EAGAIN)."""
+        blk = new_host_block(max(max_count, DEFAULT_BLOCK_SIZE))
+        try:
+            nr = sock.recv_into(memoryview(blk.data)[:max_count], max_count)
+        except (BlockingIOError, InterruptedError):
+            return -1
+        if nr > 0:
+            blk.size = nr
+            self._refs.append(BlockRef(blk, 0, nr))
+            self._size += nr
+        return nr

@@ -100,11 +100,12 @@ class DeviceTransfer:
                  "out", "completion", "posted_ns", "matched_ns",
                  "complete_ns", "mesh", "_src_arr", "_posted_event",
                  "_releases", "_lock", "traced", "trace_id", "parent_span_id",
-                 "span")
+                 "span", "remote")
 
     def __init__(self, uuid: int, src_dev: int, dst_dev: int, nbytes: int,
-                 src_arr: torch.Tensor, mesh: IciMesh, traced: bool = False,
-                 trace_id: int = 0, parent_span_id: int = 0):
+                 src_arr: Optional[torch.Tensor], mesh: IciMesh,
+                 traced: bool = False, trace_id: int = 0,
+                 parent_span_id: int = 0):
         self.uuid = uuid
         self.src_dev = src_dev
         self.dst_dev = dst_dev
@@ -128,6 +129,9 @@ class DeviceTransfer:
         self.trace_id = trace_id
         self.parent_span_id = parent_span_id
         self.span = None
+        # the cross-process leg's record: the sender's export (held until
+        # PULLED) or the receiver's parsed descriptor extension
+        self.remote = None
         if trace_id:
             self.span = _span.start_transfer_span(
                 f"device_plane ici://{src_dev}->{dst_dev} {nbytes}B",
@@ -239,6 +243,10 @@ class DevicePlane:
         self.kernel_builds = 0
         self.build_failures = 0      # posts refused; the write fails
         self.match_timeouts = 0
+        # receiver halves of cross-process transfers whose pull launched
+        # (each is one launch of the copy kernel; not in stats(), whose
+        # keys are the JAX plane's and the build counters)
+        self.remote_received = 0
 
     @classmethod
     def instance(cls) -> "DevicePlane":
@@ -265,6 +273,14 @@ class DevicePlane:
         if stream is not None:
             torch.cuda.current_stream(device).wait_stream(stream)
 
+    def sync_copies(self, device: torch.device) -> None:
+        """Block until every copy the plane launched on ``device`` has
+        finished (before a mapping those copies read is closed)."""
+        with self._lock:
+            stream = self._streams.get(device)
+        if stream is not None:
+            stream.synchronize()
+
     # ---- QP interface --------------------------------------------------
     def next_uuid(self) -> int:
         with self._lock:
@@ -273,17 +289,24 @@ class DevicePlane:
             return u
 
     def post_send(self, arr: torch.Tensor, src_dev: int, dst_dev: int,
-                  mesh: Optional[IciMesh] = None) -> DeviceTransfer:
+                  mesh: Optional[IciMesh] = None, uuid: Optional[int] = None,
+                  remote: bool = False) -> DeviceTransfer:
         """Post one send WR.  ``arr``: flat uint8 tensor owned by rank
         ``src_dev`` of ``mesh`` (default: the default mesh).  Raises
-        DevicePlaneError (before any descriptor exists) when refused."""
+        DevicePlaneError (before any descriptor exists) when refused.
+
+        ``remote=True`` is the sender half of a cross-process transfer
+        (``dst_dev`` lives in another process; ``uuid`` is the fabric's):
+        it is not matched in this process, the fabric exports the source
+        for the receiver's pull and completes it at the peer's PULLED
+        (:meth:`finish_remote`)."""
         if src_dev == dst_dev:
             raise DevicePlaneError("device plane is point-to-point; "
                                    "same-rank payloads are ref passes")
         mesh = mesh or IciMesh.default()
         if arr.dtype != torch.uint8 or arr.dim() != 1:
             raise DevicePlaneError("device plane moves flat uint8 tensors")
-        if mesh.device(src_dev) != mesh.device(dst_dev):
+        if not remote and mesh.device(src_dev) != mesh.device(dst_dev):
             raise DevicePlaneError(
                 f"ranks {src_dev} and {dst_dev} live on {mesh.device(src_dev)}"
                 f" and {mesh.device(dst_dev)}; the cross-card leg is not "
@@ -304,15 +327,17 @@ class DevicePlane:
         # write) or the server span of the handler posting
         traced = _rpcz.value
         tid, psid = (_span.current_trace_context() if traced else (0, 0))
-        t = DeviceTransfer(self.next_uuid(), src_dev, dst_dev,
-                           int(arr.shape[0]), arr, mesh, traced=traced,
-                           trace_id=tid, parent_span_id=psid)
-        if arr.is_cuda:
+        t = DeviceTransfer(self.next_uuid() if uuid is None else uuid,
+                           src_dev, dst_dev, int(arr.shape[0]), arr, mesh,
+                           traced=traced, trace_id=tid, parent_span_id=psid)
+        if arr.is_cuda and not remote:
+            # (a remote send's exporter records an interprocess event)
             ev = torch.cuda.Event()
             ev.record(torch.cuda.current_stream(arr.device))
             t._posted_event = ev
         with self._lock:
-            self._pending[t.uuid] = t
+            if not remote:
+                self._pending[t.uuid] = t
             self._active.add(t)
         if traced:
             self._annotate(t, "posted")
@@ -337,6 +362,78 @@ class DevicePlane:
             raise
         self._matched(t, out, done_event)
         return t
+
+    # ---- fabric (cross-process) halves ---------------------------------
+    def post_recv_remote(self, uuid: int, nbytes: int, src_dev: int,
+                         dst_dev: int, mesh: Optional[IciMesh] = None,
+                         trace_id: int = 0,
+                         parent_span_id: int = 0) -> DeviceTransfer:
+        """Receiver half of a cross-process transfer: the kind-4
+        descriptor arrived on the fabric's control channel; register the
+        recv WR.  The pull itself runs at the transfer's slot in the
+        sequencer's total order (:meth:`execute_remote`).  The trace
+        context comes off the descriptor, so this half joins the
+        sender's trace."""
+        mesh = mesh or IciMesh.default()
+        traced = bool(trace_id) or _rpcz.value
+        t = DeviceTransfer(uuid, src_dev, dst_dev, nbytes, None, mesh,
+                           traced=traced, trace_id=trace_id,
+                           parent_span_id=parent_span_id)
+        with self._lock:
+            self._active.add(t)
+        if traced:
+            self._annotate(t, "recv enqueued")
+        return t
+
+    def execute_remote(self, t: DeviceTransfer, src: torch.Tensor,
+                       ready_event=None) -> None:
+        """The receiver's pull: one launch of the copy kernel from
+        ``src`` (the sender's row, mapped into this process) into a fresh
+        tensor of the dst rank, on the plane stream after ``ready_event``
+        (the sender's interprocess event, recorded after its producer).
+        Completion fires when the copy's own event did.  A failure
+        raises and leaves the transfer to the caller, which tells the
+        sender before it fails it (:meth:`fail_transfer`); no other byte
+        mover stands in."""
+        try:
+            dst_device = t.mesh.device(t.dst_dev)
+            out = torch.empty(t.nbytes, dtype=torch.uint8, device=dst_device)
+            if not out.is_cuda:
+                p2p_copy(src, out)
+                done_event = None
+            else:
+                caller = torch.cuda.current_stream(dst_device)
+                stream = self._stream(dst_device)
+                if ready_event is not None:
+                    stream.wait_event(ready_event)
+                stream.wait_stream(caller)
+                with torch.cuda.stream(stream):
+                    p2p_copy(src, out)
+                    done_event = torch.cuda.Event()
+                    done_event.record(stream)
+                out.record_stream(stream)
+            out = t.mesh.register(out, t.dst_dev)
+        except Exception as e:
+            raise RuntimeError(f"remote execution failed: {e}") from None
+        self._matched(t, out, done_event)
+
+    def finish_remote(self, t: DeviceTransfer) -> None:
+        """Complete the sender half of a cross-process transfer: the
+        receiver's PULLED says its copy finished, so the source pin
+        releases now (the rdma_endpoint.cpp:926 discipline)."""
+        self._matched(t, None, None)
+
+    def fail_transfer(self, t: DeviceTransfer, reason: str) -> None:
+        """Fail a transfer that can never execute (its socket died, its
+        pull was refused): completion fires with an error and the source
+        pin releases."""
+        self._fail(t, reason)
+
+    def annotate_transfer(self, t: DeviceTransfer, what: str) -> None:
+        """An annotation from outside the plane (the fabric's sequencer)
+        onto a traced transfer."""
+        if t.traced:
+            self._annotate(t, what)
 
     # ---- execution -----------------------------------------------------
     def _run(self, t: DeviceTransfer):
@@ -365,22 +462,30 @@ class DevicePlane:
         out.record_stream(stream)
         return t.mesh.register(out, t.dst_dev), done_event
 
-    def _matched(self, t: DeviceTransfer, out: torch.Tensor,
+    def _matched(self, t: DeviceTransfer, out: Optional[torch.Tensor],
                  done_event) -> None:
         t.state = MATCHED
         t.matched_ns = time.monotonic_ns()
         t.out = out
         if t.traced:
             self._annotate(t, "matched")
+        # bytes_sent is a sender counter: the receiver half of a
+        # cross-process transfer holds no source (an in-process transfer
+        # is both halves and counts both directions)
+        sender = t.source_array() is not None
         with self._lock:
             self.transfers += 1
-            self.bytes_sent += t.nbytes
+            if sender:
+                self.bytes_sent += t.nbytes
+            if out is not None and not sender:
+                self.remote_received += 1
 
         def done() -> None:
             t.state = COMPLETE
             t.complete_ns = time.monotonic_ns()
-            with self._lock:
-                self.bytes_recv += t.nbytes
+            if out is not None:
+                with self._lock:
+                    self.bytes_recv += t.nbytes
             t._release_source()
             self._untrack(t)
             if t.traced:

@@ -87,6 +87,18 @@ class IciMesh:
     def device(self, rank: int) -> torch.device:
         return self.devices[rank % self.size]
 
+    def process_block(self, process_id: int, num_processes: int) -> range:
+        """The ranks process ``process_id`` of ``num_processes`` owns in a
+        multi-process fabric by default: a contiguous block, the same
+        answer in every process (the JAX package's ``devices[k].
+        process_index``).  The fabric publishes the block it serves."""
+        if not 0 <= process_id < num_processes:
+            raise ValueError(f"process {process_id} outside "
+                             f"{num_processes}")
+        per = -(-self.size // num_processes)
+        return range(min(process_id * per, self.size),
+                     min((process_id + 1) * per, self.size))
+
     # ---- topology ------------------------------------------------------
     def ring_perm(self, shift: int = 1) -> List[Tuple[int, int]]:
         """Source→dest pairs rotating the ring by ``shift`` hops."""

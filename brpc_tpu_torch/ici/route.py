@@ -16,19 +16,65 @@ The collective route (:mod:`..channels.collective_fanout`) is not a byte
 mover, so it is no row of a route table: what this module keeps for it is
 its event counters, ``collective_<event>[_<reason>]`` (``selected``,
 ``ineligible_<reason>``, ``degraded_<reason>``, ``revived_<reason>``,
-``slot_timeout``), exposed as ``rpc_fabric_route_collective_...``.  The
-route and payload-class names, the route table (``candidates``) and its
-per-route byte counters wait for the fabric's planes, which are not
-ported.
+``slot_timeout``), exposed as ``rpc_fabric_route_collective_...``.
+
+The socket half, trimmed to the fabric's two routes: ``device`` (the
+sequenced device plane, kind 4: the receiver pulls the row) and ``inline``
+(bytes in the control frame, kind 0).  :func:`candidates` orders them for
+one payload and :func:`record` counts each frame in
+``rpc_fabric_route_<route>_frames`` / ``_bytes``.  The JAX package's
+``shm``, ``bulk`` and ``xfer`` rows wait for those planes.
 """
 from __future__ import annotations
 
 import threading
-from typing import Dict
+from typing import Dict, List
 
 from .. import bvar
 
 _lock = threading.Lock()
+
+DEVICE = "device"      # a route, and the class of DEVICE-block payloads
+INLINE = "inline"
+
+
+def candidates(sock, cls: str, nbytes: int) -> List[str]:
+    """Ordered routes for one payload on fabric socket ``sock``.  A DEVICE
+    payload the device plane must carry gets that route alone: a refused
+    post fails the write, nothing falls through to inline.  Anything else
+    rides inline."""
+    if cls == DEVICE and sock.dplane_eligible(nbytes):
+        return [DEVICE]
+    return [INLINE]
+
+
+_route_counters: Dict[str, tuple] = {}
+
+
+def record(sock, route: str, nbytes: int, frames: int = 1) -> None:
+    """Count ``frames`` frame(s) of ``nbytes`` on ``route``."""
+    pair = _route_counters.get(route)
+    if pair is None:
+        with _lock:
+            pair = _route_counters.get(route)
+            if pair is None:
+                pair = _route_counters[route] = (
+                    bvar.Adder(f"rpc_fabric_route_{route}_frames"),
+                    bvar.Adder(f"rpc_fabric_route_{route}_bytes"))
+    pair[0] << frames
+    pair[1] << nbytes
+
+
+def route_stats() -> Dict[str, int]:
+    """``{"<route>_frames": n, "<route>_bytes": n}`` so far."""
+    with _lock:
+        items = list(_route_counters.items())
+    out: Dict[str, int] = {}
+    for route, (frames, nbytes) in items:
+        out[f"{route}_frames"] = frames.get_value()
+        out[f"{route}_bytes"] = nbytes.get_value()
+    return out
+
 _plane_events: Dict[str, bvar.Adder] = {}
 
 

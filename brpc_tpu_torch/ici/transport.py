@@ -280,8 +280,11 @@ class IciSocket(CreditWindow, OrderedDelivery, Socket):
         Smaller ones are copied with ``mesh.device_put``, the counterpart
         of the JAX package's ``jax.device_put``.  Either copy lands in a
         fresh tensor, so a host buffer the caller may reuse is never
-        aliased (the detach rule).  Returns the chunks and the bytes that
-        rode DEVICE blocks."""
+        aliased (the detach rule).  A payload the fabric delivered from
+        another process and a handler forwards here is a tensor owned by
+        the receiving rank like any other (the JAX package's branch for a
+        host-delivered fabric view has no counterpart).  Returns the
+        chunks and the bytes that rode DEVICE blocks."""
         chunks: List = []
         pending_host: List[bytes] = []
         device_n = 0

@@ -240,10 +240,13 @@ def _list_services(server, q):
 def _ici(server, q):
     """The ici:// fabric's planes: transport byte totals, the device plane
     (counters and the last transfers' timelines), plane health and its
-    event counters, and the compiled collective fan-out."""
+    event counters, the multi-process fabric (per peer process, and per
+    socket its device plane's health, sequencer and IPC cache; the route
+    counters) and the compiled collective fan-out."""
+    from ...ici import fabric as _fabric
     from ...ici.transport import ici_transport_stats
     from ...ici.device_plane import DevicePlane
-    from ...ici.route import collective_stats, plane_stats
+    from ...ici.route import collective_stats, plane_stats, route_stats
     from ...channels import collective_fanout as _cf
     moved, device_moved = ici_transport_stats()
     out = {"transport": {"bytes_moved": moved,
@@ -252,6 +255,16 @@ def _ici(server, q):
     out["device_plane"] = plane.stats() if plane is not None else {}
     out["device_plane_recent"] = (plane.recent_transfers()
                                   if plane is not None else [])
+    fab = _fabric.describe()
+    if fab is not None:
+        out["fabric"] = fab
+        out["pair_planes"] = {str(pid): st for pid, st in
+                              fab["pairs"].items()}
+        seqs = {s["remote"]: s["sequencer"] for s in fab["sockets"]
+                if s["sequencer"] is not None}
+        if seqs:
+            out["dplane_sequencers"] = seqs
+        out["routes"] = route_stats()
     cs = collective_stats()
     if cs:
         out["collective_route_events"] = cs

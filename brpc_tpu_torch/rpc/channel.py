@@ -2,7 +2,7 @@
 
 Reference: src/brpc/channel.{h,cpp} (Init :236-393, CallMethod :407-592) and
 Controller::IssueRPC (controller.cpp:985-1144).  A channel targets one
-``ici://k`` or ``mem://name`` endpoint, or a naming url (``list://``,
+``ici://k``, ``mem://name`` or ``host:port`` endpoint, or a naming url (``list://``,
 ``file://``, ``mesh://``) whose members a load balancer picks from per
 try, over tpu_std; per-call state lives in the Controller.  ``init`` takes
 the reference's signature, ``init(target, lb_name="", options=None)``.  A
@@ -37,7 +37,7 @@ from .circuit_breaker import BreakerRegistry
 from .protocol import (CONNECTION_TYPE_POOLED, CONNECTION_TYPE_SHORT,
                        CONNECTION_TYPE_SINGLE)
 from ..butil.endpoint import (EndPoint, parse_endpoint, SCHEME_ICI,
-                               SCHEME_MEM)
+                               SCHEME_MEM, SCHEME_TCP)
 from .controller import Controller
 from .input_messenger import InputMessenger
 from .protocol import find_protocol
@@ -57,6 +57,9 @@ class ChannelOptions:
     # "" = single; an explicit value must be one the protocol supports
     connection_type: str = ""           # "" | single | pooled | short
     timeout_ms: int = 1000
+    # a TCP connect's limit: < 0 waits as long as the kernel does, 0 takes
+    # the default (1 s)
+    connect_timeout_ms: int = 1000
     max_retry: int = 3
     # hedging: a backup try when no answer came within this many ms; the
     # first answer wins (0 = off)
@@ -148,9 +151,8 @@ class Channel:
             self._ns_thread.add_watcher(self._ns_watcher)
             return 0
         ep = parse_endpoint(target) if isinstance(target, str) else target
-        if ep.scheme not in (SCHEME_ICI, SCHEME_MEM):
-            raise ValueError(f"unsupported scheme {ep.scheme}: the port "
-                             "connects ici:// and mem:// only")
+        if ep.scheme not in (SCHEME_ICI, SCHEME_MEM, SCHEME_TCP):
+            raise ValueError(f"unsupported scheme {ep.scheme}")
         self._endpoint = ep
         if ep.scheme == SCHEME_MEM and self.options.backup_request_ms <= 0:
             # the loopback plane's channel-level screen (the per-call ones
@@ -462,6 +464,9 @@ class Channel:
             raise ConnectionError(f"{ep} isolated by circuit breaker")
         sock = self._select_socket(cntl, ep)
         cntl.remote_side = sock.remote_side
+        # a socket that fails EINTERNAL (a refused device payload) names
+        # the refusal; the call's text is that reason (Controller)
+        cntl._try_socket = sock
         cid = cntl.current_cid()
         packet = self._protocol.pack_request(
             cntl._request_buf, cid, cntl, cntl._method_full_name)
@@ -490,16 +495,21 @@ class Channel:
         the call ends (every try's: a hedged try may still answer)."""
         smap = SocketMap.instance()
         ctype = self.options.connection_type
+        cto_ms = self.options.connect_timeout_ms
+        cto = None if cto_ms < 0 else (cto_ms or 1000) / 1000.0
         if ctype == "pooled":
             sock = smap.get_pooled_socket(ep, self.messenger,
-                                          group=self._protocol.name)
+                                          group=self._protocol.name,
+                                          connect_timeout=cto)
             cntl._pooled_sockets.append((ep, sock))
         elif ctype == "short":
-            sock = smap.get_short_socket(ep, self.messenger)
+            sock = smap.get_short_socket(ep, self.messenger,
+                                         connect_timeout=cto)
             cntl._short_sockets.append(sock)
         else:
             sock = smap.get_socket(ep, self.messenger,
-                                   group=self._protocol.name)
+                                   group=self._protocol.name,
+                                   connect_timeout=cto)
         return sock
 
     def _on_call_end(self, cntl: Controller) -> None:

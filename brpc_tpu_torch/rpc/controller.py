@@ -370,7 +370,12 @@ class Controller:
                 self._issue_rpc()
             bthread_id.unlock(cid)
             return
-        self.set_failed(error_code)
+        sock = self.__dict__.get("_try_socket")
+        text = ""
+        if (error_code == errors.EINTERNAL and sock is not None
+                and sock.failed_error == errors.EINTERNAL):
+            text = sock.failed_reason
+        self.set_failed(error_code, text)
         self._end_rpc(cid)
 
     def _retry_backoff_s(self) -> float:

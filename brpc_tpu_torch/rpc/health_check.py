@@ -5,7 +5,9 @@ src/brpc/details/health_check.{h,cpp} :42-237): failed or draining
 endpoints are probed periodically (is a server listening there); on
 success the endpoint returns to service and its circuit breaker is
 reset.  Probing runs on the shared TimerThread.
-The port probes ``ici://`` and ``mem://`` endpoints, both in-process.
+The port probes ``mem://`` and ``ici://`` endpoints in process, an
+``ici://`` rank another process owns with the fabric's connectionless
+PING, and a TCP endpoint with a connect.
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ import random
 import threading
 from typing import Any, Callable, Dict, Optional
 
-from ..butil.endpoint import EndPoint, SCHEME_MEM, SCHEME_ICI
+from ..butil.endpoint import EndPoint, SCHEME_ICI, SCHEME_MEM, SCHEME_TCP
 from ..butil import flags as _flags
 from ..butil import logging as log
 from ..bthread.timer_thread import TimerThread
@@ -42,6 +44,20 @@ def probe_endpoint(ep: EndPoint) -> bool:
         from ..ici.transport import _listeners, _listeners_lock
         with _listeners_lock:
             listener = _listeners.get(ep.device_id)
+        if listener is None:
+            # a rank another process owns: ask its fabric control
+            # listener (no fabric socket is made for the probe)
+            from ..ici.fabric import FabricNode
+            node = FabricNode.instance()
+            if node is not None and not node.owns(ep.device_id):
+                return node.ping(ep.device_id, timeout=1.0)
+    elif ep.scheme == SCHEME_TCP:
+        import socket
+        try:
+            with socket.create_connection((ep.host, ep.port), timeout=1.0):
+                return True
+        except OSError:
+            return False
     else:
         return False
     return listener is not None and not listener.draining

@@ -131,6 +131,17 @@ class InputMessenger:
                                 socket) -> None:
         try:
             if self.server is not None and proto.process_request is not None:
+                # the admin port (ServerOptions.internal_port) serves only
+                # the HTTP builtin pages: any other protocol there would
+                # bypass the service/admin split, so it is refused at the
+                # one dispatch point every server protocol passes
+                if getattr(socket, "internal_only", False) and \
+                        proto.name != "http":
+                    socket.set_failed(
+                        errors.EREQUEST,
+                        f"protocol {proto.name!r} refused on the "
+                        "internal admin port")
+                    return
                 proto.process_request(msg, socket, self.server)
             elif proto.process_response is not None:
                 proto.process_response(msg, socket)

@@ -1,11 +1,19 @@
 """Server: service registry, admission and lame-duck lifecycle over the
-ici:// and mem:// transports.
+ici://, mem:// and tcp:// transports.
 
 Reference: src/brpc/server.{h,cpp} (StartInternal :741, AddService :1477,
 Stop(closewait_ms)/Join), ported from :mod:`brpc_tpu.rpc.server`.  A
-server listens on one ``ici://k`` endpoint (a rank of the mesh) or one
-``mem://name`` endpoint (the in-process loopback) and exposes its
-registered services through tpu_std.  Around that:
+server listens on one ``ici://k`` endpoint (a rank of the mesh, reached
+from other processes through :mod:`..ici.fabric`), one ``mem://name``
+endpoint (the in-process loopback) or one ``host:port`` TCP endpoint
+(``listen_port`` reads the bound port), and exposes its registered
+services through tpu_std.  Around that:
+
+  * ``internal_port``: an extra TCP listener on which the builtin admin
+    pages alone are served; tpu_std is refused there (the HTTP pages wait
+    for ``policy/http.py``);
+  * ``idle_timeout_s``: a reaper closes connections with no read or write
+    for that long;
 
   * per-method :class:`MethodStatus` with an optional concurrency limiter
     (``method_max_concurrency`` / ``concurrency_limiter``) and a
@@ -40,7 +48,8 @@ import time as _time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
-from ..butil.endpoint import parse_endpoint, SCHEME_ICI, SCHEME_MEM
+from ..butil.endpoint import (EndPoint, parse_endpoint, SCHEME_ICI,
+                               SCHEME_MEM, SCHEME_TCP)
 from ..butil import logging as log
 from . import errors
 from .input_messenger import InputMessenger
@@ -86,6 +95,15 @@ class ServerOptions:
     enable_builtin_services: bool = True
     # display name on the /status page
     server_info_name: str = ""
+    # close connections with no read or write for this many seconds
+    # (reference server.h idle_timeout_sec: a handler still computing
+    # counts as idle, so size it above the slowest handler); -1 = never
+    idle_timeout_s: int = -1
+    # when >= 0: an extra TCP listener on this port (0 = ephemeral) that
+    # serves the builtin admin pages only; tpu_std is refused there
+    # (reference server.h internal_port keeps the admin pages off the
+    # service address)
+    internal_port: int = -1
     # per-request session data: factory() -> object, pooled across
     # requests (reference server.h session_local_data_factory; a handler
     # reads it with Controller.session_local_data())
@@ -107,7 +125,10 @@ class Server:
         self._methods: Dict[str, MethodDescriptor] = {}
         self._method_status: Dict[str, MethodStatus] = {}
         self._started = False
-        self._listener = None            # IciListener or MemListener
+        self._listener = None    # IciListener, MemListener or Acceptor
+        self._internal_acceptor = None   # the internal_port listener
+        self._internal_port = -1
+        self._reaper_thread: Optional[threading.Thread] = None
         self._native_ici = None          # native_plane.ServerBinding
         self.listen_endpoint = None
         self.messenger = InputMessenger(server=self)
@@ -309,14 +330,14 @@ class Server:
 
     # ---- lifecycle ----------------------------------------------------
     def start(self, addr: Any) -> int:
-        """Listen on ``ici://k`` or ``mem://name`` (a string or an
-        EndPoint).  A stopped server may start again."""
+        """Listen on ``ici://k``, ``mem://name`` or ``host:port`` (also
+        ``tcp://host:port``; port 0 binds an ephemeral one), a string or an
+        EndPoint.  A stopped server may start again."""
         if self._started:
             return errors.EINVAL
         ep = parse_endpoint(addr) if isinstance(addr, str) else addr
-        if ep.scheme not in (SCHEME_ICI, SCHEME_MEM):
-            raise ValueError(f"cannot listen on scheme {ep.scheme}: the "
-                             "port serves ici:// and mem:// only")
+        if ep.scheme not in (SCHEME_ICI, SCHEME_MEM, SCHEME_TCP):
+            raise ValueError(f"cannot listen on scheme {ep.scheme}")
         if self.options.enable_builtin_services:
             from .builtin import register_builtin_services
             register_builtin_services(self)
@@ -360,6 +381,13 @@ class Server:
                     # requirement: the Python plane serves every call
                     log.warning("native ici plane unavailable (%s); "
                                 "Python datapath only", e)
+        elif ep.scheme == SCHEME_TCP:
+            from .tcp_transport import Acceptor
+            acceptor = Acceptor(self._on_accept)
+            port = acceptor.start(ep.host or "0.0.0.0", ep.port)
+            self._listener = acceptor
+            ep = EndPoint(scheme=SCHEME_TCP, host=ep.host or "0.0.0.0",
+                          port=port)
         else:
             from .mem_transport import mem_listen
             self._listener = mem_listen(ep.host, self._on_accept)
@@ -368,6 +396,24 @@ class Server:
             from . import loopback
             loopback.register_server(ep.host, self)
         self.listen_endpoint = ep
+        try:
+            if self.options.internal_port >= 0:
+                from .tcp_transport import Acceptor
+                # the main listener's bind host when it is TCP; a mem://
+                # or ici:// server keeps its admin port on loopback, never
+                # a surprise 0.0.0.0 listener
+                host = ep.host if ep.scheme == SCHEME_TCP and ep.host \
+                    else "127.0.0.1"
+                self._internal_acceptor = Acceptor(self._on_accept_internal)
+                self._internal_port = self._internal_acceptor.start(
+                    host, self.options.internal_port)
+            if self.options.idle_timeout_s > 0:
+                self._start_idle_reaper()
+        except Exception:
+            # a half-started server must not leak its live listeners: a
+            # retry of start() would otherwise double-bind
+            self._close_listener()
+            raise
         self._started = True
         from . import lameduck
         lameduck.clear_local_draining(ep)   # restart lifts the drain mark
@@ -389,6 +435,42 @@ class Server:
             self._connections = [s for s in self._connections if not s.failed]
             self._connections.append(sock)
 
+    def _on_accept_internal(self, sock) -> None:
+        sock.internal_only = True      # admin pages only (input_messenger)
+        self._on_accept(sock)
+
+    @property
+    def listen_port(self) -> int:
+        """The bound TCP port of a ``host:port`` server, else -1."""
+        ep = self.listen_endpoint
+        return ep.port if ep is not None and ep.scheme == SCHEME_TCP else -1
+
+    @property
+    def internal_port(self) -> int:
+        """The bound admin port (``ServerOptions.internal_port``), else
+        -1."""
+        return self._internal_port
+
+    def _start_idle_reaper(self) -> None:
+        # this run's stop event: a reaper of an earlier run sees its own
+        # (set) event and exits even when a new run is already up
+        stopped = self._stopped
+        idle_s = self.options.idle_timeout_s
+
+        def reap() -> None:
+            period = max(0.5, idle_s / 2.0)
+            while not stopped.wait(period):
+                cutoff = _time.monotonic() - idle_s
+                with self._conn_lock:
+                    conns = list(self._connections)
+                for s in conns:
+                    if s.last_active <= cutoff:
+                        s.set_failed(errors.ECLOSE, f"idle > {idle_s}s")
+
+        t = threading.Thread(target=reap, name="idle_reaper", daemon=True)
+        self._reaper_thread = t
+        t.start()
+
     def is_running(self) -> bool:
         return self._started and not self._stopped.is_set()
 
@@ -401,10 +483,16 @@ class Server:
         native, self._native_ici = self._native_ici, None
         if native is not None:
             native.stop()
+        internal, self._internal_acceptor = self._internal_acceptor, None
+        if internal is not None:
+            internal.stop()
+            self._internal_port = -1
         listener, self._listener = self._listener, None
         if listener is None:
             return
-        if self.listen_endpoint.scheme == SCHEME_ICI:
+        if self.listen_endpoint.scheme == SCHEME_TCP:
+            listener.stop()
+        elif self.listen_endpoint.scheme == SCHEME_ICI:
             from ..ici.transport import ici_unlisten
             ici_unlisten(listener.device_id)
         else:
@@ -427,9 +515,10 @@ class Server:
              reconnects gets the same bounce (all are in-process front
              doors);
           2. in-flight handlers, queued usercode, streams open on the
-             server's connections and device-plane transfers complete
-             inside the grace window (a transfer counts until the
-             completion poller saw its copy's event);
+             server's connections, responses still queued on them and
+             device-plane transfers complete inside the grace window (a
+             transfer counts until the completion poller saw its copy's
+             event, or, sent to another process, until its PULLED);
           3. only stragglers past the window are failed: streams get an
              orderly CLOSE (after every frame they wrote) instead of the
              reset a failed connection would mean, connections fail with
@@ -508,6 +597,9 @@ class Server:
         if pool is not None:
             pool.shutdown(wait=False)
         self._stopped.set()
+        reaper, self._reaper_thread = self._reaper_thread, None
+        if reaper is not None and reaper is not threading.current_thread():
+            reaper.join(2.0)
         self._started = False
         self._draining = False
         lameduck.clear_local_draining(ep)
@@ -535,16 +627,28 @@ class Server:
 
     def _drain_until(self, deadline: float) -> bool:
         """Block until in-flight handlers, queued usercode, open server
-        streams and device-plane transfers are all done, or the deadline
-        passes.  True when fully drained."""
+        streams, responses still queued on a connection and device-plane
+        transfers are all done, or the deadline passes.  True when fully
+        drained.  (A response leaves its connection's queue only after
+        its device payload was posted, so checking the queues before the
+        plane misses neither.)"""
         while True:
             if (self.inflight_requests() == 0
                     and not self._open_server_streams()
+                    and not self._unwritten_connections()
                     and self._device_plane_active() == 0):
                 return True
             if _time.monotonic() >= deadline:
                 return False
             _time.sleep(0.005)
+
+    def _unwritten_connections(self) -> bool:
+        """A live connection still holds a queued or half-written
+        response: its handler finished, but closing now would fail an
+        answered call."""
+        with self._conn_lock:
+            conns = [s for s in self._connections if not s.failed]
+        return any(s._write_queue or s._writing for s in conns)
 
     def _open_server_streams(self) -> List[Any]:
         """Streams not yet closed that ride this server's connections."""

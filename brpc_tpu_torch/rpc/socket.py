@@ -74,6 +74,7 @@ class Socket:
         self.local_side: Optional[EndPoint] = None
         self.failed = False
         self.failed_error = 0
+        self.failed_reason = ""
         self._write_queue: List[WriteRequest] = []
         self._unwritten = 0          # queued-but-unwritten bytes (EOVERCROWDED)
         self._write_lock = threading.Lock()
@@ -85,6 +86,9 @@ class Socket:
         self._selected_protocol_index = -1  # protocol memory per socket
         self.stat = SocketStat()
         self.create_time = time.time()
+        # the last write or input event: a server's idle reaper closes a
+        # connection quiet for longer than ``idle_timeout_s``
+        self.last_active = time.monotonic()
         # correlation ids written on this socket and possibly awaiting a
         # response: failed with the socket so a connection death completes
         # in-flight calls NOW instead of letting them burn their full
@@ -104,6 +108,12 @@ class Socket:
         # connection closes with it (rpc/stream.py)
         self.on_failed_callbacks: List[Callable[["Socket"], None]] = []
 
+    @staticmethod
+    def address(sid: int) -> Optional["Socket"]:
+        """The live socket with id ``sid``, or None once it failed."""
+        s = _socket_pool.address(sid)
+        return s if s is not None and not s.failed else None
+
     def description(self) -> str:
         """One line for the /sockets page."""
         st = self.stat
@@ -120,6 +130,7 @@ class Socket:
                 return False
             self.failed = True
             self.failed_error = error_code
+            self.failed_reason = reason
             pending = self._write_queue
             self._write_queue = []
             self._unwritten = 0
@@ -162,6 +173,7 @@ class Socket:
                 self.set_failed(errors.EFAILEDSOCKET, "injected fault")
                 return errors.EFAILEDSOCKET
         req = WriteRequest(data, notify_cid, on_done)
+        self.last_active = time.monotonic()
         if notify_cid:
             with self._cid_lock:
                 self._inflight_cids.add(notify_cid)
@@ -219,7 +231,10 @@ class Socket:
             except Exception as e:
                 from ..butil import logging as log
                 log.error("write failed on %s: %s", self.remote_side, e)
-                self.set_failed(errors.EFAILEDSOCKET, str(e))
+                # a transport refusal may name its own code (a device
+                # payload the fabric's plane refused fails EINTERNAL)
+                self.set_failed(getattr(e, "error_code",
+                                        errors.EFAILEDSOCKET), str(e))
                 return True
             if n < 0:           # transport not writable now
                 return False
@@ -271,6 +286,7 @@ class Socket:
         tasklet — zero scheduling hops on the latency path
         (socket.cpp:2084), while the released-readership discipline in
         _process_event keeps slow handlers from blocking the connection."""
+        self.last_active = time.monotonic()
         with self._nevent_lock:
             self._nevent += 1
             if self._nevent > 1:

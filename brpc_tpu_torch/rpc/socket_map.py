@@ -7,14 +7,16 @@ GOODBYE, is replaced on next use.  Pooled connections hang off the same
 entry: a call takes one for itself and returns it when it ends, and a
 short connection serves one call and closes.  A connect that fails hands
 the endpoint to the health checker before the error propagates.  The port
-connects ``ici://`` and ``mem://`` endpoints.
+connects ``ici://`` (a rank another process owns through the fabric,
+:func:`..ici.fabric.connect_any`), ``mem://`` and TCP endpoints; a TCP
+connect waits at most the channel's ``connect_timeout_ms``.
 """
 from __future__ import annotations
 
 import threading
 from typing import Any, Dict, List, Optional
 
-from ..butil.endpoint import EndPoint, SCHEME_ICI, SCHEME_MEM
+from ..butil.endpoint import EndPoint, SCHEME_ICI, SCHEME_MEM, SCHEME_TCP
 from . import errors
 from .socket import Socket
 
@@ -53,21 +55,22 @@ class SocketMap:
                 self._map[key] = e
             return e
 
-    def get_socket(self, ep: EndPoint, messenger=None,
-                   group: Any = "") -> Socket:
+    def get_socket(self, ep: EndPoint, messenger=None, group: Any = "",
+                   connect_timeout: Optional[float] = 5.0) -> Socket:
         """The shared 'single' connection to ep (creates/replaces lazily)."""
         e = self._entry(ep, group)
         with e.lock:
             if e.socket is not None and not e.socket.failed \
                     and not e.socket.logoff:
                 return e.socket
-            s = self._checked_connect(ep)
+            s = self._checked_connect(ep, connect_timeout)
             s.messenger = messenger
             e.socket = s
             return s
 
     def get_pooled_socket(self, ep: EndPoint, messenger=None,
-                          group: Any = "") -> Socket:
+                          group: Any = "",
+                          connect_timeout: Optional[float] = 5.0) -> Socket:
         """A connection for one call alone, from the pool or new
         (reference GetPooledSocket); the call gives it back with
         :meth:`return_pooled_socket`."""
@@ -77,7 +80,7 @@ class SocketMap:
                 s = e.pooled.pop()
                 if not s.failed and not s.logoff:
                     return s
-        s = self._checked_connect(ep)
+        s = self._checked_connect(ep, connect_timeout)
         s.messenger = messenger
         return s
 
@@ -96,21 +99,23 @@ class SocketMap:
         with e.lock:
             e.pooled.append(s)
 
-    def get_short_socket(self, ep: EndPoint, messenger=None) -> Socket:
+    def get_short_socket(self, ep: EndPoint, messenger=None,
+                         connect_timeout: Optional[float] = 5.0) -> Socket:
         """A new connection for one call, closed when the call ends."""
-        s = self._checked_connect(ep)
+        s = self._checked_connect(ep, connect_timeout)
         s.messenger = messenger
         return s
 
     @classmethod
-    def _checked_connect(cls, ep: EndPoint) -> Socket:
+    def _checked_connect(cls, ep: EndPoint,
+                         connect_timeout: Optional[float] = 5.0) -> Socket:
         """``_connect``, but an endpoint that refuses is handed to the
         health checker before the error propagates (the reference starts
         a health check whenever a connect fails): a failed connect makes
         no socket, so the socket-failure hand-off alone would miss the
         retries issued while the peer is down."""
         try:
-            return cls._connect(ep)
+            return cls._connect(ep, connect_timeout)
         except Exception:
             try:
                 from .health_check import start_health_check
@@ -120,13 +125,19 @@ class SocketMap:
             raise
 
     @staticmethod
-    def _connect(ep: EndPoint) -> Socket:
+    def _connect(ep: EndPoint,
+                 connect_timeout: Optional[float] = 5.0) -> Socket:
         if ep.scheme == SCHEME_ICI:
-            from ..ici.transport import ici_connect
-            return ici_connect(ep)
+            # an in-process rank rides the IciSocket, one another process
+            # owns the fabric
+            from ..ici.fabric import connect_any
+            return connect_any(ep)
         if ep.scheme == SCHEME_MEM:
             from .mem_transport import mem_connect
             return mem_connect(ep.host)
+        if ep.scheme == SCHEME_TCP:
+            from .tcp_transport import tcp_connect
+            return tcp_connect(ep, timeout=connect_timeout)
         raise ValueError(f"unsupported scheme {ep.scheme}")
 
     def remove(self, ep: EndPoint, group: Any = "") -> None:

@@ -7,9 +7,9 @@ Needs one CUDA device; exits non-zero (and prints no result) without one.
 Phases, each fatal on failure:
 
   1. build      compile csrc/p2p_copy.cu, csrc/ring_all_reduce.cu,
-                csrc/ring_all_gather.cu and an empty kernel with nvcc
-                (sm_90a), one nvcc each, all started together, and load
-                them; beside them g++ builds the native ici:// core
+                csrc/ring_all_gather.cu, csrc/cuda_ipc.cu (phase 17's IPC
+                calls, no kernel) and an empty kernel with nvcc (sm_90a),
+                one nvcc each, all started together, and load them; beside them g++ builds the native ici:// core
                 (csrc/ici_native.cpp, butil/native.py) and it is loaded:
                 a build or load failure is fatal here, so the run never
                 falls back to the Python plane quietly
@@ -263,6 +263,31 @@ Phases, each fatal on failure:
                 a frame fits the native window; every request is a native
                 request, launches = transfers = requests received +
                 attachments returned; the priority-0 p99 ratio is printed
+ 17. fabric     two processes on the card: a peer started as a fresh
+                interpreter (brpc_tpu_torch.tools.fabric_peer) owns ranks
+                0-3 and serves ici://0 and a TCP port; this process hosts
+                the fabric's store and owns ranks 4-7; threshold 4 KiB,
+                window 64 MiB.  (a) 300 Sink.Push echoes at 4 KiB and 64 at
+                4 MiB over ici://0 from rank 4, each payload written by a
+                kernel just before its call and compared on the card with
+                what came back; p50/p99; in each process p2p_copy launches
+                = cross-process transfers received = attachments received
+                (the peer reports its counts over RPC), and IPC opens
+                against mapping-cache hits; (b) 300 TCP echoes of 4 KiB
+                (a DEVICE attachment as host bytes), bench_streaming_mbps's
+                tcp leg for 1 s, the peer's idle reap (idle_timeout_s=1)
+                and its internal port refusing tpu_std; (e) phase 10's
+                overload leg with its 12 paced clients (and the unloaded
+                one) in the peer and the server on ici://5 here: the
+                priority-0 p99 ratio is gated at bench.py's bound of 2
+                (pass_p99_bound), the offered rps printed; (c) the peer
+                is killed with 8 calls in flight: each
+                fails with the JAX package's code, nothing stays active,
+                mapped or in /dev/shm, and a restarted peer serves again
+                once the health check revives it; (d) the peer stops with
+                8 calls in flight: GOODBYE reaches this side, the calls
+                drain, nothing is active or mapped on either side.  Over the
+                phase, p2p_copy launches = cross-process transfers received
 
 Launch counts are zeroed just before each path and read just after it:
 during phases 3-4 and during phase 8 p2p_copy's launches must equal the
@@ -279,6 +304,9 @@ leg's; the compiled leg launches none; in 15 on each of its paths), and
 no ring kernel may launch there; during phase 16 they must equal the
 transfers and the relocations that crossed ranks on the device plane (in
 (e) also the requests received plus the attachments returned); during
+phase 17 they must equal the cross-process transfers this process
+received (and, in (a), the attachments received, in both processes);
+during
 phase 6 each ring kernel's launches must equal the calls of its entry
 point.  The line before the last is the ``kernels`` JSON; the last line
 is the device JSON.
@@ -387,6 +415,17 @@ NATIVE_LOOP_ITERS = 3000
 # phase 10's overload leg on the native door: the attachment is cut so a
 # frame fits the native window (4 MiB, with 64 KiB of headroom)
 NATIVE_ADM_PAYLOAD = (4 << 20) - (128 << 10)
+# phase 17: the two-process fabric (threshold 4 KiB, so both echo sizes
+# ride the device plane; the window holds a 4 MiB frame whole)
+FABRIC_SMALL, FABRIC_BIG = 4 << 10, 4 << 20
+FABRIC_SMALL_CALLS, FABRIC_BIG_CALLS, FABRIC_TCP_CALLS = 300, 64, 300
+FABRIC_STREAM_S, FABRIC_STREAM_CHUNK = 1.0, 64 << 10
+FABRIC_INFLIGHT = 8
+FABRIC_WINDOW = 64 << 20
+FABRIC_PEER_START_S = 120.0
+# what calls in flight get when their peer process dies: the EOF code, as
+# in the JAX package (tests/test_torch_fabric.py holds the two equal)
+FABRIC_KILL_CODE = 1014
 
 
 def fail(msg: str) -> None:
@@ -3763,6 +3802,467 @@ def phase_native(mesh, plane, p2p_copy) -> dict:
     return out
 
 
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class _Peer:
+    """A ``brpc_tpu_torch.tools.fabric_peer`` process: a fresh interpreter
+    (never a fork of this CUDA process), its output in a temporary file."""
+
+    def __init__(self, coord: str, token: str, kv, device: str):
+        import tempfile
+        self.log = tempfile.TemporaryFile(mode="w+")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "brpc_tpu_torch.tools.fabric_peer", coord,
+             token, "--device", device, "--threshold", str(FABRIC_SMALL),
+             "--window", str(FABRIC_WINDOW)],
+            cwd=str(ROOT), stdout=self.log, stderr=subprocess.STDOUT)
+        key = f"fabric_peer/{token}"
+        deadline = time.monotonic() + FABRIC_PEER_START_S
+        while not kv.check([key]):
+            if self.proc.poll() is not None or time.monotonic() > deadline:
+                self.kill()
+                fail(f"fabric peer {token} did not come up "
+                     f"(rc {self.proc.returncode}):\n{self.output()[-4000:]}")
+            time.sleep(0.05)
+        self.info = json.loads(kv.get(key))
+
+    def output(self) -> str:
+        self.log.seek(0)
+        return self.log.read()
+
+    def final(self) -> dict:
+        """The peer's last JSON line (its counts as it stopped)."""
+        for line in reversed(self.output().splitlines()):
+            if line.startswith("{"):
+                return json.loads(line)
+        return {}
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+
+
+def phase_fabric(mesh, plane, p2p_copy, device: str = "cuda",
+                 launches=None, overload: bool = True) -> dict:
+    """The two-process fabric (see the module docstring, phase 17).
+    ``launches`` reads this process's copy launches (default the kernel's
+    counter; a CPU rehearsal passes its plain-version count); a rehearsal
+    on a shared CPU host leaves out (e), whose p99 gate is the card's."""
+    import brpc_tpu_torch.policy  # noqa: F401
+    from datetime import timedelta
+    from torch.distributed import TCPStore
+    from brpc_tpu_torch import rpc
+    from brpc_tpu_torch.butil import flags
+    from brpc_tpu_torch.ici import fabric, ipc_pull
+    from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
+    from brpc_tpu_torch.rpc.socket import list_sockets
+    from brpc_tpu_torch.rpc.tcp_transport import TcpSocket
+
+    count = launches or (lambda: p2p_copy.launches)
+    t_phase = time.monotonic()
+    dev = mesh.device(4)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    saved = {k: flags.get_flag(k) for k in (
+        "ici_device_plane_threshold", "ici_socket_window_bytes")}
+    flags.set_flag("ici_device_plane_threshold", FABRIC_SMALL)
+    flags.set_flag("ici_socket_window_bytes", FABRIC_WINDOW)
+    port = _free_port()
+    coord = f"127.0.0.1:{port}"
+    node = fabric.FabricNode.initialize(coord, 2, 0, ranks=range(4, 8),
+                                        mesh=mesh)
+    kv = TCPStore("127.0.0.1", port, is_master=False,
+                  timeout=timedelta(seconds=60))
+    peers = []
+    chans = []
+    out = {"device": device}
+
+    def start_peer(token):
+        p = _Peer(coord, token, kv, device)
+        peers.append(p)
+        return p
+
+    def channel(target, **kw):
+        ch = rpc.Channel()
+        ch.init(target, options=rpc.ChannelOptions(max_retry=0, **kw))
+        chans.append(ch)
+        return ch
+
+    def call(ch, method, msg="", att=None):
+        cntl = rpc.Controller()
+        if att is not None:
+            cntl.request_attachment.append_device_array(att)
+        resp = ch.call_method(method, cntl, EchoRequest(message=msg),
+                              EchoResponse)
+        return cntl, resp
+
+    def peer_stats(ch, reset=False):
+        cntl, resp = call(ch, "Sink.Stats", "reset" if reset else "")
+        check(not cntl.failed(), f"Sink.Stats: {cntl.error_text}")
+        return json.loads(resp.message)
+
+    def fabric_socks():
+        return [s for s in list_sockets()
+                if isinstance(s, fabric.FabricSocket) and not s.failed]
+
+    def wait_for(cond, secs, what):
+        deadline = time.monotonic() + secs
+        while not cond():
+            if time.monotonic() > deadline:
+                fail(f"fabric: {what} within {secs} s")
+            time.sleep(0.01)
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+
+    def fresh(nbytes):
+        # written by a kernel on this stream just before its send: the
+        # receiver's copy must wait for it (the interprocess event)
+        return mesh.own(torch.randint(0, 256, (nbytes,), dtype=torch.uint8,
+                                      device=dev, generator=gen), 4)
+
+    l_all = count()
+    r_all = plane.remote_received
+    try:
+        peer = start_peer("a")
+        ch = channel("ici://0", timeout_ms=30000)
+        # (a) the echo over ici://0 from rank 4
+        peer_stats(ch, reset=True)
+        l0 = count()
+        r0 = plane.remote_received
+        returned = 0
+        lat = {}
+        for size, calls in ((FABRIC_SMALL, FABRIC_SMALL_CALLS),
+                            (FABRIC_BIG, FABRIC_BIG_CALLS)):
+            lats = lat[size] = []
+            for i in range(calls):
+                src = fresh(size)
+                t0 = time.perf_counter_ns()
+                cntl, resp = call(ch, "Sink.Push", f"{size}:{i}", src)
+                lats.append((time.perf_counter_ns() - t0) / 1000.0)
+                check(not cntl.failed(), f"fabric echo {size} B #{i}: "
+                                         f"{cntl.error_code_} "
+                                         f"{cntl.error_text}")
+                back = _tensor_of(cntl.response_attachment)
+                check(mesh.rank_of(back) == 4,
+                      f"echo came back owned by rank {mesh.rank_of(back)}")
+                check(torch.equal(back, src),
+                      f"fabric echo {size} B #{i}: bytes differ")
+                returned += len(cntl.response_attachment.device_refs())
+        sync()
+        mine = {"launches": count() - l0,
+                "received": plane.remote_received - r0,
+                "attachments": returned}
+        theirs = peer_stats(ch)
+        sock = fabric_socks()
+        ipc_here = {k: sum(s.ipc_stats()[k] for s in sock)
+                    for k in ("opens", "hits", "mapped")}
+        out["echo"] = {
+            "calls": {str(k): len(v) for k, v in lat.items()},
+            "p50_us_4k": _pct(lat[FABRIC_SMALL], 0.5),
+            "p99_us_4k": _pct(lat[FABRIC_SMALL], 0.99),
+            "p50_us_4m": _pct(lat[FABRIC_BIG], 0.5),
+            "p99_us_4m": _pct(lat[FABRIC_BIG], 0.99),
+            "gbps_4m": FABRIC_BIG * 2 / (statistics.median(lat[FABRIC_BIG])
+                                         * 1e-6) / 1e9,
+            "this_process": mine, "peer": theirs, "ipc_here": ipc_here}
+        want = FABRIC_SMALL_CALLS + FABRIC_BIG_CALLS
+        for who, c in (("this process", mine), ("the peer", theirs)):
+            check(c["launches"] == c["received"] == c["attachments"] == want,
+                  f"fabric echo, {who}: p2p_copy launches {c['launches']}, "
+                  f"cross-process transfers received {c['received']}, "
+                  f"attachments received {c['attachments']}, calls {want}")
+        print(f"fabric echo: 4 KiB p50 {out['echo']['p50_us_4k']:.1f} us "
+              f"p99 {out['echo']['p99_us_4k']:.1f} us; 4 MiB p50 "
+              f"{out['echo']['p50_us_4m']:.1f} us p99 "
+              f"{out['echo']['p99_us_4m']:.1f} us; launches = received = "
+              f"attachments: here {mine}, peer "
+              f"{ {k: theirs[k] for k in ('launches', 'received', 'attachments')} }; "
+              f"IPC opens/hits here {ipc_here['opens']}/{ipc_here['hits']}, "
+              f"peer {theirs['ipc_opens']}/{theirs['ipc_hits']}", flush=True)
+
+        # (b) TCP: echoes, the stream, the idle reap, the internal port
+        tcp_target = f"127.0.0.1:{peer.info['tcp_port']}"
+        tch = channel(tcp_target, timeout_ms=10000)
+        small = fresh(FABRIC_SMALL)
+        want_bytes = bytes(small.cpu().numpy())
+        tlat = []
+        for i in range(FABRIC_TCP_CALLS):
+            t0 = time.perf_counter_ns()
+            cntl, resp = call(tch, "Sink.Push", str(i), small)
+            tlat.append((time.perf_counter_ns() - t0) / 1000.0)
+            check(not cntl.failed(), f"tcp echo #{i}: {cntl.error_text}")
+            check(cntl.response_attachment.to_bytes() == want_bytes,
+                  f"tcp echo #{i}: bytes differ")
+        cntl = rpc.Controller()
+        stream = rpc.stream_create(cntl, rpc.StreamOptions(
+            max_buf_size=8 << 20))
+        tch.call_method("Stream.Start", cntl, EchoRequest(message="s"),
+                        EchoResponse)
+        check(not cntl.failed() and stream.wait_connected(5),
+              f"tcp stream: {cntl.error_text}")
+        from brpc_tpu_torch.butil.iobuf import IOBuf
+        chunk = IOBuf(b"x" * FABRIC_STREAM_CHUNK)
+        sent = 0
+        t0 = time.monotonic()
+        while time.monotonic() < t0 + FABRIC_STREAM_S:
+            if stream.write(chunk, timeout=5) == 0:
+                sent += FABRIC_STREAM_CHUNK
+        wait_for(lambda: peer_stats(ch)["stream_bytes"] >= sent, 20,
+                 "the streamed bytes did not all arrive")
+        stream_s = time.monotonic() - t0
+        stream.close()
+        tcp_sock = [s for s in list_sockets() if isinstance(s, TcpSocket)
+                    and s.remote_side.port == peer.info["tcp_port"]]
+        t_idle = time.monotonic()
+        wait_for(lambda: all(s.failed for s in tcp_sock), 10,
+                 "the idle TCP connection was not reaped")
+        reap_s = time.monotonic() - t_idle
+        cntl, resp = call(tch, "Sink.Push", "after-reap")
+        check(not cntl.failed(), f"tcp call after the reap: "
+                                 f"{cntl.error_text}")
+        ich = channel(f"127.0.0.1:{peer.info['internal_port']}",
+                      timeout_ms=3000)
+        cntl, _ = call(ich, "Sink.Push", "x")
+        check(cntl.failed(), "tpu_std was served on the internal port")
+        out["tcp"] = {"calls": FABRIC_TCP_CALLS,
+                      "p50_us_4k": _pct(tlat, 0.5),
+                      "p99_us_4k": _pct(tlat, 0.99),
+                      "stream_mbps": sent / stream_s / 1e6,
+                      "stream_bytes": sent, "reap_s": reap_s,
+                      "internal_port_code": cntl.error_code_}
+        print(f"tcp: 4 KiB p50 {out['tcp']['p50_us_4k']:.1f} us p99 "
+              f"{out['tcp']['p99_us_4k']:.1f} us; stream "
+              f"{out['tcp']['stream_mbps']:.1f} MB/s; idle reap after "
+              f"{reap_s:.2f} s of watching; internal port refused tpu_std "
+              f"with {cntl.error_code_}", flush=True)
+
+        # (e) phase 10's overload leg, its 12 paced clients in the peer
+        if overload:
+            out["overload"] = _fabric_overload(rpc, mesh, plane, ch, count,
+                                               peer_stats, EchoRequest,
+                                               EchoResponse, sync)
+
+        # (c) the peer is killed with calls in flight
+        before = fabric_socks()
+        peer_stats(ch, reset=True)
+        done_codes = []
+        done_evt = threading.Event()
+
+        def on_done(c):
+            done_codes.append(c.error_code_)
+            if len(done_codes) == FABRIC_INFLIGHT:
+                done_evt.set()
+
+        cntls = []
+        for i in range(FABRIC_INFLIGHT):
+            cntl = rpc.Controller()
+            cntl.request_attachment.append_device_array(fresh(FABRIC_SMALL))
+            ch.call_method("Sink.Push", cntl, EchoRequest(message="sleep:60"),
+                           EchoResponse, done=on_done)
+            cntls.append(cntl)
+        wait_for(lambda: peer_stats(ch)["attachments"] >= FABRIC_INFLIGHT,
+                 20, "the in-flight calls did not reach the peer")
+        t_kill = time.monotonic()
+        peer.kill()
+        check(done_evt.wait(20), f"{FABRIC_INFLIGHT - len(done_codes)} "
+                                 "calls still pending after the kill")
+        fail_ms = (time.monotonic() - t_kill) * 1e3
+        wait_for(lambda: plane.active_transfers() == 0, 10,
+                 "transfers stayed active after the kill")
+        mapped = sum(s.ipc_stats()["mapped"] for s in before)
+        segs = ipc_pull.segments_on_disk()
+        check(mapped == 0, f"{mapped} IPC mappings left after the kill")
+        check(not segs, f"shared-memory segments left: {segs}")
+        check(len(set(done_codes)) == 1 and done_codes[0] == FABRIC_KILL_CODE,
+              f"in-flight calls failed with {done_codes} after the kill, "
+              f"expected {FABRIC_KILL_CODE}")
+        peer = start_peer("b")
+        t_rev = time.monotonic()
+        tries = 0
+        while True:
+            tries += 1
+            cntl, _ = call(ch, "Sink.Push", "revived", fresh(FABRIC_SMALL))
+            if not cntl.failed():
+                break
+            check(time.monotonic() - t_rev < 30,
+                  f"the restarted peer did not serve: {cntl.error_text}")
+            time.sleep(0.1)
+        out["kill"] = {"inflight": FABRIC_INFLIGHT,
+                       "codes": list(done_codes),
+                       "fail_ms": fail_ms, "revive_s":
+                       time.monotonic() - t_rev, "revive_tries": tries}
+        print(f"kill: {FABRIC_INFLIGHT} in-flight calls failed with "
+              f"{sorted(set(done_codes))} {fail_ms:.1f} ms after the kill; "
+              f"none active, mapped or left in /dev/shm; the restarted peer "
+              f"served after {out['kill']['revive_s']:.2f} s "
+              f"({tries} tries)", flush=True)
+
+        # (d) a stop with calls in flight: GOODBYE, then the drain
+        before = fabric_socks()
+        peer_stats(ch, reset=True)
+        done_codes.clear()
+        done_evt.clear()
+        for i in range(FABRIC_INFLIGHT):
+            cntl = rpc.Controller()
+            cntl.request_attachment.append_device_array(fresh(FABRIC_SMALL))
+            ch.call_method("Sink.Push", cntl,
+                           EchoRequest(message="sleep:0.5"), EchoResponse,
+                           done=on_done)
+        wait_for(lambda: peer_stats(ch)["attachments"] >= FABRIC_INFLIGHT,
+                 20, "the in-flight calls did not reach the peer")
+        cntl, _ = call(ch, "Sink.Stop", json.dumps({"grace_s": 5.0}))
+        check(not cntl.failed(), f"Sink.Stop: {cntl.error_text}")
+        check(done_evt.wait(20), "calls still pending after the stop")
+        check(peer.proc.wait(30) == 0, f"the peer's stop failed:\n"
+                                       f"{peer.output()[-4000:]}")
+        wait_for(lambda: plane.active_transfers() == 0, 10,
+                 "transfers stayed active after the stop")
+        final = peer.final()
+        mapped = sum(s.ipc_stats()["mapped"] for s in before)
+        check(all(c == 0 for c in done_codes),
+              f"calls in flight at the stop failed: {done_codes}")
+        check(any(s.logoff for s in before), "no GOODBYE reached this side")
+        check(mapped == 0 and final.get("mapped") == 0
+              and final.get("active") == 0,
+              f"after the stop: mapped here {mapped}, peer {final}")
+        check(not ipc_pull.segments_on_disk(), "segments left after stop")
+        out["stop"] = {"inflight": FABRIC_INFLIGHT,
+                       "codes": list(done_codes),
+                       "goodbye": True, "peer_final": final}
+        print(f"stop: {FABRIC_INFLIGHT} in-flight calls drained, GOODBYE "
+              f"seen, nothing active or mapped on either side", flush=True)
+    except BaseException:
+        for p in peers:
+            p.kill()
+            print(f"fabric peer output:\n{p.output()[-6000:]}",
+                  file=sys.stderr, flush=True)
+        raise
+    finally:
+        for c in chans:
+            c.close()
+        for p in peers:
+            p.kill()
+        node.quiesce()
+        for k, v in saved.items():
+            flags.set_flag(k, v)
+    sync()
+    out["launches"] = count() - l_all
+    out["received"] = plane.remote_received - r_all
+    check(out["launches"] == out["received"] > 0,
+          f"fabric phase: p2p_copy launches {out['launches']} != "
+          f"cross-process transfers received {out['received']}")
+    out["wall_s"] = time.monotonic() - t_phase
+    print(f"fabric phase: {out['launches']} launches = transfers received "
+          f"in this process; {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
+def _fabric_overload(rpc, mesh, plane, ch, count, peer_stats, EchoRequest,
+                     EchoResponse, sync) -> dict:
+    """Phase 10's overload leg across processes: the server on ici://5
+    here, the paced clients (ranks 2 and 3) in the peer."""
+    dev = mesh.device(5)
+    bank = {r: [torch.from_numpy(np.random.default_rng(
+        100 * r + k).integers(0, 256, ADM_PAYLOAD, dtype=np.uint8)).to(dev)
+        for k in range(ADM_PATTERNS)] for r in (2, 3)}
+    lock = threading.Lock()
+    served = {"returned": 0, "bad": 0}
+
+    class Echo(rpc.Service):
+        @rpc.method(EchoRequest, EchoResponse)
+        def Echo(self, cntl, request, response, done):
+            time.sleep(ADM_SERVICE_MS / 1000.0)
+            rank, k = map(int, request.message.split(":"))
+            ok = torch.equal(_tensor_of(cntl.request_attachment),
+                             bank[rank][k])
+            cntl.response_attachment.append(cntl.request_attachment)
+            with lock:
+                served["returned"] += 1
+                served["bad"] += not ok
+            done()
+
+    server = rpc.Server(rpc.ServerOptions(
+        max_concurrency=ADM_MAX_CONC, usercode_in_pthread=True,
+        usercode_backup_threads=ADM_MAX_CONC + 2, native_ici=False,
+        admission=rpc.AdmissionOptions(max_queue_ms=ADM_SERVICE_MS / 2.0,
+                                       queue_capacity=64)))
+    server.add_service(Echo())
+    check(server.start("ici://5") == 0, "overload server on ici://5")
+    capacity = ADM_MAX_CONC / (ADM_SERVICE_MS / 1000.0)
+    per_tenant = ADM_FACTOR * capacity / len(ADM_TENANTS)
+    over = []
+    for j, t in enumerate(ADM_TENANTS):
+        rank = 2 + j % 2
+        over += [(0, t, per_tenant * 0.25, rank),
+                 (3, t, per_tenant * 0.375, rank),
+                 (3, t, per_tenant * 0.375, rank)]
+    spec = {"target": "ici://5", "ranks": [2, 3], "payload": ADM_PAYLOAD,
+            "patterns": ADM_PATTERNS, "unloaded_s": ADM_UNLOADED_S,
+            "overload_s": ADM_OVERLOAD_S,
+            "base": [(0, "t0", capacity / 2.0, 2)], "over": over}
+    peer_stats(ch, reset=True)
+    l0 = count()
+    r0 = plane.remote_received
+    try:
+        cntl = rpc.Controller()
+        cntl.timeout_ms = 120000
+        resp = ch.call_method("Sink.Overload", cntl,
+                              EchoRequest(message=json.dumps(spec)),
+                              EchoResponse)
+        check(not cntl.failed(), f"Sink.Overload: {cntl.error_text}")
+        res = json.loads(resp.message)
+        received = server.method_status("Echo.Echo").received.get_value()
+    finally:
+        server.stop()
+    sync()
+    mine = {"launches": count() - l0,
+            "received": plane.remote_received - r0,
+            "requests": received}
+    theirs = peer_stats(ch)
+    hi = [x for k, c in res["over"].items() if k.startswith("0/")
+          for x in c["lats"]]
+    base = res["base"]["0/t0"]["lats"]
+    issued = sum(c["issued"] for c in res["over"].values())
+    shed = sum(c["shed"] for c in res["over"].values())
+    errs = sum(c["err"] for c in res["over"].values())
+    bad = served["bad"] + sum(c["bad"] for ph in res.values()
+                              for c in ph.values())
+    ok_back = sum(c["ok"] for ph in res.values() for c in ph.values())
+    out = {"hi_p99_unloaded_us": _pct(base, 0.99),
+           "hi_p99_overload_us": _pct(hi, 0.99) if hi else -1.0,
+           "offered_rps": ADM_FACTOR * capacity,
+           "offered_rps_measured": issued / ADM_OVERLOAD_S,
+           "shed": shed, "errors": errs, "launches": mine["launches"],
+           "this_process": mine,
+           "peer": {k: theirs[k] for k in ("launches", "received")},
+           "attachments_back": ok_back}
+    out["hi_p99_ratio"] = out["hi_p99_overload_us"] / out["hi_p99_unloaded_us"]
+    out["pass_p99_bound"] = out["hi_p99_ratio"] <= 2.0
+    check(bad == 0, f"overload: {bad} payloads differ")
+    check(errs == 0, f"overload: {errs} calls failed other than by a shed")
+    check(mine["launches"] == mine["received"] == mine["requests"] > 0,
+          f"overload, this process: launches {mine['launches']}, received "
+          f"{mine['received']}, requests {mine['requests']}")
+    check(theirs["launches"] == theirs["received"] == ok_back,
+          f"overload, the peer: launches {theirs['launches']}, received "
+          f"{theirs['received']}, attachments back {ok_back}")
+    print(f"fabric overload: clients in the peer process; priority-0 p99 "
+          f"{out['hi_p99_unloaded_us']:.1f} us unloaded, "
+          f"{out['hi_p99_overload_us']:.1f} us at overload (ratio "
+          f"{out['hi_p99_ratio']:.3f}; bench.py's bound 2); offered "
+          f"{out['offered_rps_measured']:.1f} rps measured; shed {shed}",
+          flush=True)
+    check(out["pass_p99_bound"],
+          f"overload with the clients in another process: priority-0 p99 "
+          f"ratio {out['hi_p99_ratio']:.3f} over bench.py's bound of 2")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
@@ -3807,7 +4307,8 @@ def main() -> int:
     core_thread = threading.Thread(target=build_core)
     core_thread.start()
     empty = empty_kernel()
-    builds = build_all(kernels_all + [empty])
+    from brpc_tpu_torch.ici import ipc_pull
+    builds = build_all(kernels_all + [empty, ipc_pull.ipc_lib])
     core_thread.join()
     check("error" not in core, f"native ici core build failed: "
                                f"{core.get('error')}")
@@ -4029,6 +4530,19 @@ def main() -> int:
           "the ici page does not show phase 13's selected fan-outs")
     print("collective fan-out, rpcz: " + json.dumps(slice7), flush=True)
 
+    # 17. the two-process fabric and TCP, with the counts zeroed just
+    # before them
+    zero_counts()
+    fab = phase_fabric(mesh, plane, p2p_copy)
+    launches = {k.name: k.launches for k in kernels_all}
+    check(launches["p2p_copy"] == fab["launches"] > 0,
+          f"the fabric path launched p2p_copy {launches['p2p_copy']} times, "
+          f"its own count {fab['launches']}")
+    check(launches["ring_all_reduce"] == 0
+          and launches["ring_all_gather"] == 0,
+          "a ring kernel launched on the fabric path")
+    print("fabric: " + json.dumps(fab), flush=True)
+
     head = next(r for r in rows if r["label"] == "4 MiB")
     red = ring_rows["ring_all_reduce"]
     gat = ring_rows["ring_all_gather"]
@@ -4046,7 +4560,7 @@ def main() -> int:
                      + sum(r["launches"] for r in slice6.values())
                      + sum(r["launches"] for r in slice7.values())
                      + calls["launches"] + native["launches"]
-                     + native_adm["launches"]),
+                     + native_adm["launches"] + fab["launches"]),
         "launches_by_path": {"echo": main_launches,
                              "serving": serve["launches"],
                              "migration": tiers["launches"], **phase10,
@@ -4056,7 +4570,8 @@ def main() -> int:
                                 for k, r in slice7.items()},
                              "call_features": calls["launches"],
                              "native": native["launches"],
-                             "native_overload": native_adm["launches"]},
+                             "native_overload": native_adm["launches"],
+                             "fabric": fab["launches"]},
         "migration_path_split": {
             "migrate_in": tiers["migrate_in_calls"],
             "loadkv": tiers["calls_received"] - tiers["migrate_in_calls"]},

@@ -12,6 +12,7 @@ only PyTorch is installed.  On the card, without the repository's conftest
 """
 import sys
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -1066,6 +1067,11 @@ def test_a_native_echo_crosses_ranks_on_p2p_copy(cuda_device):
         assert p2p_copy.launches - launches0 == \
             plane.stats()["transfers"] - transfers0 == \
             native_plane.relocation_stats()["plane"] - reloc0 == 16
+        # a copy's completion is the poller's: it trails the sync by the
+        # poller's next look, as in the stop test below
+        deadline = time.monotonic() + 5
+        while plane.active_transfers() and time.monotonic() < deadline:
+            time.sleep(0.01)
         assert plane.active_transfers() == 0
     finally:
         torch.cuda.synchronize = real_sync

@@ -483,6 +483,72 @@ print(json.dumps({
 """
 
 
+_SLICE10 = r"""
+import json, socket, sys
+import torch
+import brpc_tpu_torch.policy
+from brpc_tpu_torch import rpc
+from brpc_tpu_torch.butil import flags
+from brpc_tpu_torch.ici import device_plane, fabric, ipc_pull
+from brpc_tpu_torch.ici.mesh import IciMesh
+from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
+
+mesh = IciMesh(ranks=8, device="cpu")
+IciMesh.set_default(mesh)
+flags.set_flag("ici_device_plane_host_mesh", True)
+
+class Echo(rpc.Service):
+    @rpc.method(EchoRequest, EchoResponse)
+    def Echo(self, cntl, request, response, done):
+        response.message = request.message
+        cntl.response_attachment.append(cntl.request_attachment)
+        done()
+
+# TCP, with the idle reaper and the internal port
+tcp = rpc.Server(rpc.ServerOptions(idle_timeout_s=5, internal_port=0))
+tcp.add_service(Echo())
+tcp.start("127.0.0.1:0")
+ch = rpc.Channel()
+ch.init(f"127.0.0.1:{tcp.listen_port}",
+        options=rpc.ChannelOptions(timeout_ms=10000))
+cntl = rpc.Controller()
+payload = mesh.device_put(torch.arange(8192).to(torch.uint8), 1)
+cntl.request_attachment.append_device_array(payload)
+resp = ch.call_method("Echo.Echo", cntl, EchoRequest(message="tcp"),
+                      EchoResponse)
+ok = (not cntl.failed()
+      and cntl.response_attachment.to_bytes() == bytes(payload.numpy()))
+ch.close()
+tcp.stop()
+# a one-process fabric: its store, its listener, an owned rank in process
+with socket.socket() as s:
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+node = fabric.FabricNode.initialize(f"127.0.0.1:{port}", 1, 0, mesh=mesh)
+srv = rpc.Server(rpc.ServerOptions(native_ici=False))
+srv.add_service(Echo())
+srv.start("ici://0")
+ch = rpc.Channel()
+ch.init("ici://0", options=rpc.ChannelOptions(timeout_ms=10000))
+cntl = rpc.Controller()
+cntl.request_attachment.append_device_array(payload)
+ch.call_method("Echo.Echo", cntl, EchoRequest(message="ici"), EchoResponse)
+ok = ok and not cntl.failed() and node.ping(0)
+ch.close()
+srv.stop()
+node.quiesce()
+print(json.dumps({
+    "ok": ok,
+    "ranks": node.devices,
+    "segments": ipc_pull.segments_on_disk(),
+    "jax": sorted(m for m in sys.modules
+                  if m == "jax" or m.startswith(("jax.", "jaxlib"))),
+    "brpc_tpu": sorted(m for m in sys.modules
+                       if m == "brpc_tpu" or m.startswith("brpc_tpu.")),
+}))
+"""
+
+
 _EVERY_MODULE = r"""
 import importlib, json, pkgutil, sys
 import brpc_tpu_torch
@@ -690,4 +756,25 @@ def test_port_native_door_and_loopback_load_no_jax_and_no_native_dir():
     for name in ("brpc_tpu_torch.ici.native_plane",
                  "brpc_tpu_torch.butil.native",
                  "brpc_tpu_torch.rpc.loopback"):
+        assert name in mods, name
+
+
+def test_port_tcp_and_fabric_load_no_jax():
+    """Slice 10 driven alone: a TCP echo of a DEVICE attachment (host bytes
+    on the wire) with the reaper and the internal port, then a one-process
+    fabric (store, listener, PING) serving an owned rank in process.  The
+    two-process legs check their children the same way
+    (``tests/test_torch_fabric.py``)."""
+    out = _run_alone(_SLICE10)
+    assert out["ok"]
+    assert out["ranks"] == list(range(8))
+    assert out["segments"] == []
+    assert out["jax"] == []
+    assert out["brpc_tpu"] == []
+    mods = _run_alone(_EVERY_MODULE)["modules"]
+    for name in ("brpc_tpu_torch.rpc.event_dispatcher",
+                 "brpc_tpu_torch.rpc.tcp_transport",
+                 "brpc_tpu_torch.ici.fabric",
+                 "brpc_tpu_torch.ici.ipc_pull",
+                 "brpc_tpu_torch.tools.fabric_peer"):
         assert name in mods, name

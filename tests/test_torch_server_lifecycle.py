@@ -719,3 +719,23 @@ def test_sigterm_drains_inflight_then_process_exits_cleanly():
         raise
     assert proc.returncode == 0, out
     assert "DRAINED" in out, out
+
+
+def test_drain_waits_for_a_response_still_queued_on_its_connection():
+    """A handler answered, but its response still sits in the connection's
+    write queue (behind another writer): the drain must not close the
+    connection yet, or an answered call fails ELOGOFF (seen on the card
+    with 8 calls in flight over the fabric)."""
+    server = rpc.Server()
+    conn = types.SimpleNamespace(failed=False, _write_queue=[object()],
+                                 _writing=True)
+    server._connections = [conn]
+    t0 = time.monotonic()
+    assert server._drain_until(time.monotonic() + 0.2) is False
+    assert time.monotonic() - t0 >= 0.2
+    released = threading.Timer(0.1, lambda: (conn._write_queue.clear(),
+                                             setattr(conn, "_writing",
+                                                     False)))
+    released.start()
+    assert server._drain_until(time.monotonic() + 5.0) is True
+    released.join()
