@@ -65,7 +65,16 @@ def main(argv=None) -> int:
             return 1
         same = cntl.response_attachment.to_bytes() == bytes(data.numpy())
         time.sleep(STALL_S)              # the stalled try answers, dropped
-        transfers = device_plane.plane().stats()["transfers"] - transfers0
+
+        def transfers_now() -> int:
+            return device_plane.plane().stats()["transfers"] - transfers0
+
+        # on a loaded host its answer may trail the stall by more than the
+        # sleep: wait for it a while longer before counting
+        deadline = time.monotonic() + 5.0
+        while transfers_now() < 4 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        transfers = transfers_now()
         print(f"got {resp.message!r} in {ms:.0f} ms after "
               f"{cntl.retried_count + 1} tries (server saw {svc.calls}); "
               f"attachment byte-equal {same}; {transfers} plane transfers")

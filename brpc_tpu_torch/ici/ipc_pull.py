@@ -310,9 +310,10 @@ def live_segments() -> List[str]:
         return sorted(_live_segments)
 
 
-def segments_on_disk(pid: Optional[int] = None) -> List[str]:
-    """The port's segments in ``/dev/shm`` (of one pid, or all)."""
-    prefix = SEGMENT_PREFIX + (f"{pid}." if pid is not None else "")
+def segments_on_disk(pid: int) -> List[str]:
+    """Process ``pid``'s segments in ``/dev/shm`` (a check looks at its
+    own run's processes: other runs of the port may share the host)."""
+    prefix = f"{SEGMENT_PREFIX}{pid}."
     try:
         return sorted(n for n in os.listdir(SHM_DIR)
                       if n.startswith(prefix))

@@ -1,7 +1,7 @@
 """A peer process of the multi-process fabric: serves ranks of the mesh.
 
     python -m brpc_tpu_torch.tools.fabric_peer HOST:PORT TOKEN \\
-        [--device cuda|cpu] [--threshold 4096] [--window 67108864]
+        [--device cuda|cpu]
 
 Joins as process 1 of 2 the fabric whose store process 0 hosts at
 ``HOST:PORT``, owns ranks 0-3 of an 8-rank mesh and serves, on ``ici://0``
@@ -15,11 +15,13 @@ Joins as process 1 of 2 the fabric whose store process 0 hosts at
     received, IPC opens and cache hits, live mappings and segments;
   * ``Sink.Stop``: ``{"grace_s": g}`` drains and stops the servers, then
     the process exits;
-  * ``Sink.Overload``: runs the paced clients of ``chip_smoke.py`` phase
-    10's overload leg against a target in another process and returns
-    their per-stream results;
+  * ``Sink.Overload``: runs phase 10's paced overload clients
+    (:mod:`.overload_clients`) against a target in another process and
+    returns their per-stream results;
   * ``Stream.Start``: accepts a stream and counts the bytes it receives.
 
+Its device-plane threshold and socket window are :data:`DEVICE_THRESHOLD`
+and :data:`SOCKET_WINDOW`, which the process that drives it sets too.
 It publishes ``{"tcp_port", "internal_port", "os_pid"}`` under
 ``fabric_peer/<TOKEN>`` in the store once it serves, and prints its final
 counts as one JSON line when it stops; it exits when the process that
@@ -38,8 +40,13 @@ import threading
 import time
 from datetime import timedelta
 
-import numpy as np
 import torch
+
+# the device-plane threshold (so a 4 KiB payload rides the device leg) and
+# the socket window (a 4 MiB frame fits whole) of both processes: the
+# driving process reads the same pair
+DEVICE_THRESHOLD = 4 << 10
+SOCKET_WINDOW = 64 << 20
 
 
 def _exit_with_parent() -> None:
@@ -63,8 +70,6 @@ def main(argv=None) -> int:
     ap.add_argument("coord")
     ap.add_argument("token")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    ap.add_argument("--threshold", type=int, default=4096)
-    ap.add_argument("--window", type=int, default=64 << 20)
     args = ap.parse_args(argv)
 
     import brpc_tpu_torch.policy  # noqa: F401  (registers tpu_std)
@@ -74,6 +79,7 @@ def main(argv=None) -> int:
     from brpc_tpu_torch.ici import device_plane, fabric, ipc_pull
     from brpc_tpu_torch.ici.mesh import IciMesh
     from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
+    from brpc_tpu_torch.tools import overload_clients
 
     copy_mod = importlib.import_module("brpc_tpu_torch.ici.p2p_copy")
     plain = [0]
@@ -93,8 +99,8 @@ def main(argv=None) -> int:
 
     mesh = IciMesh(ranks=8, device=args.device)
     IciMesh.set_default(mesh)
-    flags.set_flag("ici_device_plane_threshold", args.threshold)
-    flags.set_flag("ici_socket_window_bytes", args.window)
+    flags.set_flag("ici_device_plane_threshold", DEVICE_THRESHOLD)
+    flags.set_flag("ici_socket_window_bytes", SOCKET_WINDOW)
     node = fabric.FabricNode.initialize(args.coord, 2, 1, ranks=range(4),
                                         mesh=mesh)
     host, _, port = args.coord.rpartition(":")
@@ -165,9 +171,13 @@ def main(argv=None) -> int:
         @rpc.method(EchoRequest, EchoResponse)
         def Overload(self, cntl, request, response, done):
             spec = json.loads(request.message)
-            response.message = json.dumps(
-                _overload_clients(rpc, mesh, spec, EchoRequest,
-                                  EchoResponse))
+            bank = overload_clients.attachment_bank(
+                mesh, spec["ranks"], spec["payload"], spec["patterns"],
+                mesh.device(spec["ranks"][0]))
+            response.message = json.dumps(overload_clients.run_overload(
+                rpc, spec["target"], spec["base"], spec["over"],
+                spec["unloaded_s"], spec["overload_s"], bank,
+                overload_clients.attachment_tensor))
             done()
 
     class Stream(rpc.Service):
@@ -213,86 +223,6 @@ def _live_fabric_sockets(fabric):
     from brpc_tpu_torch.rpc.socket import list_sockets
     return [s for s in list_sockets()
             if isinstance(s, fabric.FabricSocket) and not s.failed]
-
-
-def _overload_clients(rpc, mesh, spec: dict, EchoRequest, EchoResponse
-                      ) -> dict:
-    """Paced client threads, one per (priority, tenant, rps, rank, id),
-    each on its own Channel to ``spec["target"]`` with max_retry 0; the
-    attachment of request i is pattern ``i % patterns`` of its rank, seeded
-    bytes the server checks.  Returns ``{phase: {"p<pri>/<tenant>":
-    stats}}`` for the unloaded and the overload phase."""
-    dev = mesh.device(spec["ranks"][0])
-    bank = {r: [mesh.own(torch.from_numpy(np.random.default_rng(
-        100 * r + k).integers(0, 256, spec["payload"], dtype=np.uint8)).to(
-        dev), r) for k in range(spec["patterns"])] for r in spec["ranks"]}
-    out = {}
-    for name, streams, duration in (("base", spec["base"],
-                                     spec["unloaded_s"]),
-                                    ("over", spec["over"],
-                                     spec["overload_s"])):
-        stats = {}
-        lock = threading.Lock()
-        chans = []
-        stop = time.monotonic() + duration
-
-        def worker(pri, tenant, rate, rank, wid):
-            ch = rpc.Channel()
-            ch.init(spec["target"], options=rpc.ChannelOptions(
-                timeout_ms=2000, max_retry=0))
-            chans.append(ch)
-            interval = 1.0 / rate
-            next_fire = time.monotonic() + (wid % 7) * 0.003
-            i = 0
-            while time.monotonic() < stop:
-                now = time.monotonic()
-                if now < next_fire:
-                    time.sleep(min(next_fire - now, 0.02))
-                    continue
-                next_fire += interval
-                k = i % spec["patterns"]
-                i += 1
-                cntl = rpc.Controller()
-                cntl.priority = pri
-                cntl.tenant = tenant
-                cntl.request_attachment.append_device_array(bank[rank][k])
-                t0 = time.perf_counter_ns()
-                ch.call_method("Echo.Echo", cntl,
-                               EchoRequest(message=f"{rank}:{k}"),
-                               EchoResponse)
-                lat_us = (time.perf_counter_ns() - t0) / 1000.0
-                back = None
-                if not cntl.failed():
-                    got = cntl.response_attachment.device_refs()
-                    back = (len(got) == 1 and torch.equal(
-                        got[0].block.data[got[0].offset:got[0].offset
-                                          + got[0].length], bank[rank][k]))
-                with lock:
-                    c = stats.setdefault(f"{pri}/{tenant}", {
-                        "ok": 0, "shed": 0, "shed_with_hint": 0, "err": 0,
-                        "issued": 0, "bad": 0, "lats": [], "codes": []})
-                    c["issued"] += 1
-                    if back is not None:
-                        c["ok"] += 1
-                        c["bad"] += not back
-                        c["lats"].append(lat_us)
-                    elif cntl.error_code_ == rpc.errors.ELIMIT:
-                        c["shed"] += 1
-                        c["shed_with_hint"] += cntl.retry_after_ms > 0
-                    else:
-                        c["err"] += 1
-                        c["codes"].append(cntl.error_code_)
-
-        threads = [threading.Thread(target=worker, args=(*s, i), daemon=True)
-                   for i, s in enumerate(streams)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(duration + 30)
-        for ch in chans:
-            ch.close()
-        out[name] = stats
-    return out
 
 
 if __name__ == "__main__":

@@ -9,12 +9,13 @@ GOODBYE give calls in flight — all equal.
 
 Across processes (fresh interpreters, the store on ``127.0.0.1:0``), the
 port alone: ``chip_smoke.py`` phase 17 at a small size on the CPU (its
-overload leg, gated on the card's p99, left out), whose
+overload leg, whose p99s read the card's host, left out), whose
 device leg is the plain version (the row in a shared-memory segment,
 ``p2p_copy_plain`` reading it): echo bytes, plain launches = transfers
 received = attachments received in both processes, zero transfers active
-after a kill and a stop, no segment left, revival of a restarted peer,
-GOODBYE; and a forced failure of the device leg's open failing the call
+after a kill and a stop, no segment of the run's processes left, revival
+of a restarted peer, GOODBYE, and its leg (f), a peer whose open of the
+device leg refuses; and the same forced failure alone, failing the call
 with EINTERNAL and no host route.  Children load no JAX and nothing of
 the JAX package (``tests/test_fabric.py:188-260``'s pattern).
 """
@@ -340,7 +341,7 @@ def test_kill_code_in_chip_smoke_is_jax_code():
 # ---- two processes ---------------------------------------------------------
 
 _PHASE17_CPU = r"""
-import importlib, json, sys
+import importlib, json, os, sys
 sys.path.insert(0, %(repo)r)
 import torch
 import chip_smoke as cs
@@ -363,7 +364,8 @@ cs.FABRIC_STREAM_S = 0.3
 out = cs.phase_fabric(mesh, device_plane.plane(), cm.p2p_copy,
                       device="cpu", launches=lambda: plain[0],
                       overload=False)
-out["segments_left"] = ipc_pull.segments_on_disk()
+out["segments_left"] = [n for pid in [os.getpid(), *out["pids"]]
+                        for n in ipc_pull.segments_on_disk(pid)]
 out["foreign"] = sorted(m for m in sys.modules if m in ("jax", "brpc_tpu")
                         or m.startswith(("jax.", "jaxlib", "brpc_tpu.")))
 print("RESULT " + json.dumps(out), flush=True)
@@ -398,6 +400,12 @@ def test_two_process_fabric_on_the_plain_leg():
     final = out["stop"]["peer_final"]
     assert final["active"] == final["mapped"] == final["segments"] == 0
     assert out["segments_left"] == []
+    forced = out["forced"]
+    assert forced["first"][0] == terrors.EINTERNAL
+    assert "forced" in forced["first"][1]
+    assert forced["latched"][0] == terrors.EINTERNAL
+    assert forced["peer"]["attachments"] == forced["peer"]["launches"] == 0
+    assert forced["inline_bytes"] < 256 << 10
     assert out["foreign"] == []
     assert final["foreign"] == []
 
@@ -414,9 +422,11 @@ from brpc_tpu_torch.butil import flags
 from brpc_tpu_torch.ici import fabric, ipc_pull
 from brpc_tpu_torch.ici.mesh import IciMesh
 from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
+from brpc_tpu_torch.tools.fabric_peer import DEVICE_THRESHOLD
+from chip_smoke import _REFUSING_PEER
 
 flags.set_flag("ici_device_plane_host_mesh", True)
-flags.set_flag("ici_device_plane_threshold", 4096)
+flags.set_flag("ici_device_plane_threshold", DEVICE_THRESHOLD)
 mesh = IciMesh(ranks=8, device="cpu")
 IciMesh.set_default(mesh)
 import socket
@@ -427,17 +437,7 @@ coord = f"127.0.0.1:{port}"
 node = fabric.FabricNode.initialize(coord, 2, 0, ranks=range(4, 8))
 kv = TCPStore("127.0.0.1", port, is_master=False,
               timeout=timedelta(seconds=60))
-peer_src = '''
-import sys
-from brpc_tpu_torch.ici import ipc_pull
-def refuse(*args):
-    raise ipc_pull.IpcPullError("IPC open failed (forced)")
-ipc_pull.open_segment = refuse
-ipc_pull.open_mapping = refuse
-from brpc_tpu_torch.tools import fabric_peer
-sys.exit(fabric_peer.main(sys.argv[1:]))
-'''
-peer = subprocess.Popen([sys.executable, "-c", peer_src, coord, "x",
+peer = subprocess.Popen([sys.executable, "-c", _REFUSING_PEER, coord, "x",
                          "--device", "cpu"], cwd=%(repo)r,
                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                         text=True)
@@ -465,7 +465,9 @@ peer.wait()
 print("RESULT " + json.dumps({
     "first": [first.error_code, first.error_text],
     "latched": [latched.error_code, latched.error_text],
-    "peer": stats, "segments": ipc_pull.segments_on_disk(),
+    "peer": stats,
+    "segments": ipc_pull.segments_on_disk(os.getpid())
+    + (ipc_pull.segments_on_disk(stats["os_pid"]) if stats else []),
     "routes": __import__("brpc_tpu_torch.ici.route",
                          fromlist=["x"]).route_stats()}), flush=True)
 node.quiesce()

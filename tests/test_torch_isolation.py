@@ -484,7 +484,7 @@ print(json.dumps({
 
 
 _SLICE10 = r"""
-import json, socket, sys
+import json, os, socket, sys
 import torch
 import brpc_tpu_torch.policy
 from brpc_tpu_torch import rpc
@@ -540,7 +540,7 @@ node.quiesce()
 print(json.dumps({
     "ok": ok,
     "ranks": node.devices,
-    "segments": ipc_pull.segments_on_disk(),
+    "segments": ipc_pull.segments_on_disk(os.getpid()),
     "jax": sorted(m for m in sys.modules
                   if m == "jax" or m.startswith(("jax.", "jaxlib"))),
     "brpc_tpu": sorted(m for m in sys.modules
