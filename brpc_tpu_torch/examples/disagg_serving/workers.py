@@ -45,7 +45,7 @@ import json
 import random
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Union
 
 import torch
 
@@ -465,16 +465,21 @@ class RouterService(rpc.Service):
     MAX_DECODE_ATTEMPTS = 3
 
     def __init__(self, prefill_target: str,
-                 decode_targets: List[str],
+                 decode_targets: Union[List[str], str],
                  channel_options: Optional[rpc.ChannelOptions] = None,
                  rng: Optional[random.Random] = None):
-        """``prefill_target``: the prefill worker's url.
-        ``decode_targets``: the decode workers' urls; the LALB balancer
-        picks one per Generate and every outcome feeds back."""
+        """``prefill_target``: the prefill worker's url, or a naming url
+        balanced round-robin.  ``decode_targets``: the decode workers'
+        urls, or a naming url (``pod://name``) whose membership the router
+        follows; either way the LALB balancer picks one per Generate and
+        every outcome feeds back."""
+        from ...policy.naming import is_naming_url
         opts = channel_options or rpc.ChannelOptions(timeout_ms=60000,
                                                      max_retry=2)
         self._prefill = rpc.Channel()
-        self._prefill.init(prefill_target, options=opts)
+        self._prefill.init(prefill_target,
+                           "rr" if is_naming_url(prefill_target) else "",
+                           options=opts)
         self._router = LoadAwareRouter(decode_targets,
                                        channel_options=opts, rng=rng)
         self._lock = threading.Lock()
@@ -626,8 +631,10 @@ def start_decode_worker(addr: str, rank: Optional[int] = None,
 
 
 def start_router(addr: str, prefill_target: str,
-                 decode_targets: List[str],
+                 decode_targets: Union[List[str], str],
                  rng: Optional[random.Random] = None) -> rpc.Server:
+    """A router server on ``addr``; ``decode_targets`` is a list of urls
+    or a naming url such as ``pod://name`` (see :class:`RouterService`)."""
     server = rpc.Server()
     server.add_service(RouterService(prefill_target, decode_targets,
                                      rng=rng))

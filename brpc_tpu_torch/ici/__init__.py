@@ -10,3 +10,4 @@ from .collective import Collectives, default_collectives
 from .ring import ring_all_reduce, RingStream
 from . import pallas_ring
 from . import ring_attention
+from .pod import Pod, PodMember

@@ -247,6 +247,10 @@ class DevicePlane:
         # (each is one launch of the copy kernel; not in stats(), whose
         # keys are the JAX plane's and the build counters)
         self.remote_received = 0
+        # sender halves of cross-process transfers completed at PULLED
+        # (no launch here: the receiver pulled), so a process's launches
+        # are ``transfers - remote_sent``
+        self.remote_sent = 0
 
     @classmethod
     def instance(cls) -> "DevicePlane":
@@ -479,6 +483,8 @@ class DevicePlane:
                 self.bytes_sent += t.nbytes
             if out is not None and not sender:
                 self.remote_received += 1
+            elif out is None and sender:
+                self.remote_sent += 1
 
         def done() -> None:
             t.state = COMPLETE

@@ -32,11 +32,17 @@ buffers freed only on CQ completion).  What the port keeps:
     package when no bulk plane is attached.
   * **Flow control** is the in-process IciSocket's credit window.
 
-Left out, with the planes they feed: the transfer server (kind 1), the
-native bulk listener and the shm ring (kinds 2, 3, 5, 6 and their
-revival frames), the fan-out's cross-process frames (21-24) and the pod.
-The handshake advertises no ``xfer``, ``bulk``, ``bulk_uds`` or ``shm``
-key, so a peer never routes there.
+  * **Clock alignment.**  The HELLO carries the client's wall clock and
+    the HELLO_OK echoes it beside the server's: the client records the
+    peer's offset, bounded by half the round trip (:mod:`.clock`), which
+    the pod-scope ``/rpcz`` stitcher aligns remote spans with.
+
+Pod membership (:mod:`.pod`) lives on the same store.  Left out, with the
+planes they feed: the transfer server (kind 1), the native bulk listener
+and the shm ring (kinds 2, 3, 5, 6 and their revival frames) and the
+fan-out's cross-process frames (21-24).  The handshake advertises no
+``xfer``, ``bulk``, ``bulk_uds`` or ``shm`` key, so a peer never routes
+there.
 
 Addressing: :class:`~.mesh.IciMesh` is the same in every process, and
 process p of P owns a contiguous block of its ranks
@@ -300,10 +306,20 @@ class FabricNode:
         if info is not None:
             return info
         key = _KV_PREFIX + str(pid)
+        deadline = time.monotonic() + timeout_ms / 1000.0
         try:
-            with self._store_lock:
-                self._store.wait([key], timedelta(milliseconds=timeout_ms))
-                raw = self._store.get(key)
+            # poll rather than block in the store's wait: the store lock
+            # is shared with the pod's reads and writes, which must not
+            # stall behind a peer that has not published yet
+            while True:
+                with self._store_lock:
+                    if self._store.check([key]):
+                        raw = self._store.get(key)
+                        break
+                if time.monotonic() >= deadline:
+                    raise TimeoutError(f"not published within "
+                                       f"{timeout_ms} ms")
+                time.sleep(0.01)
         except Exception as e:
             raise ConnectionRefusedError(
                 f"fabric: no contact info for process {pid}: {e}") from None
@@ -450,7 +466,11 @@ class FabricNode:
         conn.setsockopt(_pysocket.IPPROTO_TCP, _pysocket.TCP_NODELAY, 1)
         hello = {"target_dev": target_dev, "client_dev": client_dev,
                  "pid": self.process_id,
+                 # clock alignment: our wall at HELLO send; the HELLO_OK
+                 # echo and the server's wall bound the peer's offset by
+                 # this round trip (±RTT/2, clock.py)
                  "wall_us": time.time_ns() // 1000}
+        t0_mono = time.monotonic_ns()
         try:
             _send_frame(conn, _F_HELLO, json.dumps(hello).encode())
             fr = _recv_frame(conn)
@@ -462,11 +482,30 @@ class FabricNode:
             msg = fr[1].decode() if fr else "connection closed"
             conn.close()
             raise ConnectionRefusedError(f"fabric: {msg}")
+        self._record_clock(owner, fr[1], t0_mono)
         conn.settimeout(None)
         sock = FabricSocket(conn, local_dev=client_dev,
                             remote_dev=target_dev, peer_pid=owner, node=self)
         sock.start_io()
         return sock
+
+    @staticmethod
+    def _record_clock(owner: int, body: bytes, t0_mono: int) -> None:
+        """The HELLO_OK echo's offset sample for ``owner``: the peer's
+        wall minus our wall at the round trip's midpoint, bounded by half
+        the round trip (+1 µs: a 0 bound would claim a perfection no
+        measurement can prove)."""
+        try:
+            echo = json.loads(body) if body else {}
+            if "wall_us" not in echo:
+                return
+            rtt_us = max(0, (time.monotonic_ns() - t0_mono) // 1000)
+            from . import clock as _clock
+            _clock.record(owner,
+                          echo["wall_us"] - (echo["t0"] + rtt_us / 2.0),
+                          rtt_us / 2.0 + 1.0)
+        except (ValueError, KeyError, TypeError):
+            pass          # a malformed echo: no estimate
 
 
 class CollectiveSequencer:
@@ -485,8 +524,7 @@ class CollectiveSequencer:
         the receiver pulls in the master's order.
 
     The assignment stream is valid for one socket incarnation; ``epoch``
-    is the pod epoch at creation, 0 until the pod is ported (as in the
-    JAX package when no pod is current)."""
+    is the pod epoch at creation (0 when no pod is joined)."""
 
     def __init__(self, sock, master: bool, epoch: int = 0):
         self.sock = sock
@@ -680,8 +718,11 @@ class FabricSocket(CreditWindow, OrderedDelivery, Socket):
             if self._dplane_closed:
                 return None
             if self._dplane_seq is None:
+                from .pod import Pod
+                pod = Pod.current()
+                epoch = pod.epoch() if pod is not None else 0
                 self._dplane_seq = CollectiveSequencer(
-                    self, master=self.is_server_side, epoch=0)
+                    self, master=self.is_server_side, epoch=epoch)
             return self._dplane_seq
 
     def _device_plane_down(self, reason: str) -> None:
@@ -692,7 +733,8 @@ class FabricSocket(CreditWindow, OrderedDelivery, Socket):
 
     def _post_device(self, arr, block) -> bytes:
         """Post, export and sequence one DEVICE payload; returns its
-        kind-4 chunk.  Raises IpcPullError (EINTERNAL) when refused."""
+        kind-4 chunk.  Raises IpcPullError (EINTERNAL) when refused, and
+        ConnectionError when the connection is already over."""
         plane = _dp.plane()
         if not self._plane_device.usable():
             raise _ipc.IpcPullError(
@@ -719,8 +761,12 @@ class FabricSocket(CreditWindow, OrderedDelivery, Socket):
         seqr = self._dplane_sequencer()
         seq = seqr.submit_local(t) if seqr is not None else None
         if seq is None:
+            # the sequencer closes only when the connection is over: the
+            # write fails as on any dead connection (EFAILEDSOCKET, which
+            # a channel retries), not as a refusal of the device leg
             self._unstage(t.uuid, "device-plane sequencer closed")
-            raise _ipc.IpcPullError("device-plane sequencer closed")
+            raise ConnectionError("device-plane sequencer closed: the "
+                                  "connection is over")
         return encode_device_descriptor(t.uuid, t.nbytes, src, seq,
                                         t.trace_id, t.parent_span_id,
                                         t.remote.ext)

@@ -11,12 +11,16 @@ naming_service_thread.h (one shared polling thread per url), ported from
                                 parses (partition_channel.h:46-52)
   * ``mesh://``                 every rank of the default mesh, minus the
                                 ones draining (:mod:`..rpc.lameduck`)
+  * ``pod://<name>``            pod membership (:mod:`..ici.pod`): every
+                                serving, non-draining rank of every up
+                                member; join, leave and drain transitions
+                                move the pod epoch and show at the next
+                                poll
 
 A NamingServiceThread polls its source and pushes full server lists to
 watchers (load balancers implement the watcher interface via
 ``reset_servers``).  The remote schemes (``dns://``, ``consul://``,
-``nacos://``, ``discovery://``, remote file) and ``pod://`` are not
-ported yet: they wait for the multi-process fabric.
+``nacos://``, ``discovery://``, remote file) are not ported yet.
 """
 from __future__ import annotations
 
@@ -72,7 +76,8 @@ def _split_list(body: str) -> List[str]:
 
 def is_naming_url(target: str) -> bool:
     """True when ``target`` is a naming-service url (``list://``,
-    ``file://``, ``mesh://``, ...) rather than a direct endpoint."""
+    ``file://``, ``mesh://``, ``pod://``, ...) rather than a direct
+    endpoint."""
     return "://" in target and not target.startswith(
         ("mem://", "ici://", "tcp://"))
 
@@ -121,6 +126,37 @@ class MeshNamingService(NamingService):
         return out
 
 
+class PodNamingService(NamingService):
+    """``pod://<name>``: the pod's member table as a server list — every
+    serving, non-draining rank of every up member, tagged ``pid=<pid>``.
+    Membership is the record; liveness stays with the health checker and
+    circuit breakers.  A process that has not joined the pod gets an empty
+    list (and one warning) rather than an error: membership may begin
+    later."""
+
+    def __init__(self, name: str):
+        self.pod_name = name or "default"
+        self._warned = False
+
+    def get_servers(self) -> List[ServerEntry]:
+        from ..ici.pod import Pod
+        pod = Pod.current()
+        if pod is None or pod.name != self.pod_name:
+            if not self._warned:
+                self._warned = True
+                log.warning("pod://%s: this process has not joined the "
+                            "pod; membership is empty until Pod.join",
+                            self.pod_name)
+            return []
+        from ..rpc import lameduck
+        out = []
+        for ep, pid in pod.serving_endpoints():
+            if lameduck.is_draining(ep):
+                continue            # GOODBYE beat the membership record
+            out.append(ServerEntry(ep, 100, tag=f"pid={pid}"))
+        return out
+
+
 def create_naming_service(url: str) -> NamingService:
     scheme, _, rest = url.partition("://")
     if scheme == "list":
@@ -129,8 +165,10 @@ def create_naming_service(url: str) -> NamingService:
         return FileNamingService(rest)
     if scheme == "mesh":
         return MeshNamingService()
+    if scheme == "pod":
+        return PodNamingService(rest)
     raise ValueError(f"unknown naming service scheme {scheme!r}: the port "
-                     "resolves list://, file:// and mesh://")
+                     "resolves list://, file://, mesh:// and pod://")
 
 
 class NamingServiceThread:

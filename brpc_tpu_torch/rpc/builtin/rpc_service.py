@@ -6,7 +6,8 @@ Two services are mounted on every server with builtin services enabled
 
   * ``brpc_tpu.Trace`` — ``FindTrace``/``ListRecent`` answer from this
     process's span store (:mod:`..span`) with the responder's process id
-    and wall clock;
+    and wall clock, so a peer can stitch the spans into its own timeline
+    (:mod:`.pod_scope`);
   * ``brpc_tpu.Builtin`` — ``Call(page, query)`` dispatches any builtin
     page through the server's :class:`~.services.BuiltinDispatcher`.
 
@@ -51,9 +52,14 @@ class JsonMsg:
 
 
 def local_pid() -> int:
-    """This process's pod id; -1 while no pod is joined (the port has no
-    pod yet)."""
-    return -1
+    """This process's fabric process id (the pod's member id); -1 in a
+    process with no fabric node."""
+    try:
+        from ...ici.fabric import FabricNode
+        node = FabricNode.instance()
+        return node.process_id if node is not None else -1
+    except Exception:
+        return -1
 
 
 class TraceService(Service):

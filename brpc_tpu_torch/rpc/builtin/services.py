@@ -6,9 +6,11 @@ Every page is served as an RPC method (``brpc_tpu.Builtin.Call``,
 :mod:`.rpc_service`) over any transport the port speaks, ``ici://``
 included, so an admin can read a rank's runtime through the mesh.  Pages
 return JSON, or text in the Prometheus format for /vars and
-/brpc_metrics.  The port carries the pages that exist in one process,
-the profiler's (``hotspots``, ``contention``, ``pprof/*``) among them; the
-pod scope of ``vars``, ``rpcz`` and ``brpc_metrics`` waits for the pod.
+/brpc_metrics; the profiler's (``hotspots``, ``contention``, ``pprof/*``)
+are among them.  On a joined pod member ``vars?scope=pod``,
+``rpcz?trace_id=`` (or ``?scope=pod``) and ``brpc_metrics?scope=pod``
+answer for the whole pod (:mod:`.pod_scope`); ``?scope=local`` keeps a
+trace query to this process.
 """
 from __future__ import annotations
 
@@ -114,6 +116,11 @@ def _status(server, q):
 
 
 def _vars(server, q):
+    if q.get("scope") == "pod":
+        # every member's exposed variables over brpc_tpu.Builtin.Call,
+        # grouped per process
+        from .pod_scope import vars_pod
+        return vars_pod(server, q)
     bvar.expose_default_variables()
     wildcard = q.get("filter", "")
     lines = [f"{name} : {value}"
@@ -149,10 +156,16 @@ def _connections(server, q):
 
 def _rpcz(server, q):
     from ..span import recent_spans, find_trace, rpcz_enabled
-    if q.get("scope") == "pod":
-        return "text/plain", ("rpcz scope=pod requires a joined pod; this "
-                              "process has none\n")
     tid = q.get("trace_id")
+    scope = q.get("scope")
+    if scope != "local" and (scope == "pod" or tid):
+        # pod-scope stitching: a trace_id query on a joined member fans
+        # out over the pod and answers with the merged tree; a process
+        # with no pod falls through to its own spans
+        from ...ici.pod import Pod
+        if Pod.current() is not None or scope == "pod":
+            from .pod_scope import rpcz_pod
+            return rpcz_pod(server, q)
     if tid:
         spans = find_trace(int(tid, 16))
     else:
@@ -165,6 +178,10 @@ def _rpcz(server, q):
 
 def _metrics(server, q):
     """The Prometheus exposition (prometheus_metrics_service.cpp)."""
+    if q.get("scope") == "pod":
+        # process-labelled exposition pulled from every pod member
+        from .pod_scope import metrics_pod
+        return metrics_pod(server, q)
     bvar.expose_default_variables()
     lines = []
     for name, value in bvar.dump_exposed():
@@ -240,9 +257,10 @@ def _list_services(server, q):
 def _ici(server, q):
     """The ici:// fabric's planes: transport byte totals, the device plane
     (counters and the last transfers' timelines), plane health and its
-    event counters, the multi-process fabric (per peer process, and per
-    socket its device plane's health, sequencer and IPC cache; the route
-    counters) and the compiled collective fan-out."""
+    event counters, the pod's membership, the multi-process fabric (per
+    peer process, and per socket its device plane's health, sequencer and
+    IPC cache; the route counters) and the compiled collective
+    fan-out."""
     from ...ici import fabric as _fabric
     from ...ici.transport import ici_transport_stats
     from ...ici.device_plane import DevicePlane
@@ -255,6 +273,10 @@ def _ici(server, q):
     out["device_plane"] = plane.stats() if plane is not None else {}
     out["device_plane_recent"] = (plane.recent_transfers()
                                   if plane is not None else [])
+    from ...ici.pod import Pod
+    pod = Pod.current()
+    if pod is not None:
+        out["pod"] = pod.describe()
     fab = _fabric.describe()
     if fab is not None:
         out["fabric"] = fab

@@ -417,6 +417,10 @@ class Server:
         self._started = True
         from . import lameduck
         lameduck.clear_local_draining(ep)   # restart lifts the drain mark
+        # pod membership: a joined pod advertises the serving rank (epoch
+        # bump); a no-op for a non-ici server or with no pod
+        from ..ici import pod as _pod
+        _pod.on_server_started(ep)
         self._serve_collective()
         if self.options.graceful_quit_on_sigterm:
             if not lameduck.enable_graceful_quit(self):
@@ -565,6 +569,10 @@ class Server:
             self._draining = True
             drain_start_ns = _time.monotonic_ns()
             lameduck.mark_local_draining(ep)
+            # the pod's drain mark: pod:// drops the rank even for
+            # processes holding no socket to this one
+            from ..ici import pod as _pod
+            _pod.on_server_draining(ep)
             if self._listener is not None:
                 self._listener.draining = True
             if self.admission is not None:
@@ -603,6 +611,8 @@ class Server:
         self._started = False
         self._draining = False
         lameduck.clear_local_draining(ep)
+        from ..ici import pod as _pod
+        _pod.on_server_stopped(ep)
         if self._collective_served:
             from ..channels import collective_fanout as _cf
             served, self._collective_served = self._collective_served, []

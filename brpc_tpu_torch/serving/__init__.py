@@ -20,8 +20,7 @@ prefill/decode path runs:
     load signal firing scale-up / drain + scale-down callbacks.
 
 The pool's host tier (spill/restore) and ``write_rows`` live in
-:mod:`.kv_pool`.  Not ported yet: the autoscaler's pod attach, the
-``pod://`` router and the shm/native KV routes.
+:mod:`.kv_pool`.  Not ported yet: the shm and native KV routes.
 """
 from .autoscaler import AutoscalerOptions, LoadThresholdAutoscaler
 from .kv_pool import (KvPoolOptions, PagedKvPool, PoolSaturated,

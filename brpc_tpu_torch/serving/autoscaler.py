@@ -10,8 +10,12 @@ callbacks do the actual work (start a decode worker and register it with
 the router; for a scale-down, deregister one and stop it with a
 lame-duck drain), so the policy here stays mechanism-free.  ``drain``
 runs before every scale-down: the operator moves the doomed worker's
-live sessions away first.  The pod attach of the reference waits for the
-port's pod membership.
+live sessions away first.
+
+Attached to a :class:`~brpc_tpu_torch.ici.pod.Pod` (``pod=``), the
+autoscaler also publishes each sampled load into the local member record
+(``Pod.publish_load``: no epoch bump, load is telemetry, not membership)
+and appears in the pod's ``/ici`` block.
 """
 from __future__ import annotations
 
@@ -39,12 +43,12 @@ class LoadThresholdAutoscaler:
     """Sample → hysteresis → scale callback.  One per serving pod
     member (usually the one hosting the router)."""
 
-
     def __init__(self, load_fn: Callable[[], float],
                  size_fn: Callable[[], int],
                  scale_up: Callable[[], bool],
                  scale_down: Callable[[], bool],
                  options: Optional[AutoscalerOptions] = None,
+                 pod=None,
                  drain: Optional[Callable[[], None]] = None):
         """``drain``: invoked before every ``scale_down``
         so the operator rebalances the doomed worker's live sessions
@@ -58,6 +62,7 @@ class LoadThresholdAutoscaler:
         self._scale_up = scale_up
         self._scale_down = scale_down
         self._drain = drain
+        self._pod = pod
         self._lock = threading.Lock()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
@@ -70,6 +75,8 @@ class LoadThresholdAutoscaler:
         self.samples = bvar.Adder("serving_autoscaler_samples")
         self.scale_ups = bvar.Adder("serving_autoscaler_scale_ups")
         self.scale_downs = bvar.Adder("serving_autoscaler_scale_downs")
+        if pod is not None:
+            pod.attach_autoscaler(self)
 
     # ---- lifecycle ------------------------------------------------------
     def start(self) -> None:
@@ -109,6 +116,11 @@ class LoadThresholdAutoscaler:
         load = float(self._load_fn())
         size = int(self._size_fn())
         self.samples << 1
+        if self._pod is not None:
+            try:
+                self._pod.publish_load(load)
+            except Exception:
+                pass
         action = None
         fire = None
         with self._lock:

@@ -1,20 +1,21 @@
 """Load-aware prefill→decode routing over the LALB divided-weight balancer.
 
-Port of :mod:`brpc_tpu.serving.router` with explicit targets, added and
-removed by the caller (``add_target`` / ``remove_target``, the
-autoscaler's registration surface).  The router
-must KNOW which decode worker it chose (the prefill worker pushes the KV
-to that endpoint) and feed the decode call's outcome back so a slow or
-failing worker's weight collapses within one request time:
+Port of :mod:`brpc_tpu.serving.router`.  The router must KNOW which
+decode worker it chose (the prefill worker pushes the KV to that
+endpoint) and feed the decode call's outcome back so a slow or failing
+worker's weight collapses within one request time:
 
+  * membership — an explicit target list, added to and removed from by
+    the caller (``add_target`` / ``remove_target``, the autoscaler's
+    registration surface), or a naming url (``pod://``, ``mesh://``,
+    ``list://``) re-resolved on a poll thread, so a pod's advertise and
+    withdraw transitions reach the balancer within one refresh interval;
   * selection — ``pick()`` = LALB ``select_server`` + a per-call exclusion
     list, so a retry after a dead worker never re-picks it;
   * feedback — ``feedback(url, error_code, latency_us)`` closes the loop;
   * session affinity — ``bind_session`` / ``session_url`` / ``rebind`` /
     ``unbind``: a live session routes by session, and ``rebind`` is a
     migration's cutover, one dict write under the lock.
-
-Membership from a naming url (``pod://``) waits for the fabric slice.
 """
 from __future__ import annotations
 
@@ -34,8 +35,12 @@ class LoadAwareRouter:
     # session-affinity cardinality cap: session ids are wire input
     MAX_BOUND_SESSIONS = 8192
 
-    def __init__(self, targets: List[str], channel_options=None,
-                 rng: Optional[random.Random] = None):
+    def __init__(self, targets, channel_options=None,
+                 rng: Optional[random.Random] = None,
+                 refresh_interval_s: float = 0.5):
+        """``targets``: a list of decode worker urls, a comma-separated
+        string of them, or a naming url whose membership a refresher
+        thread re-reads every ``refresh_interval_s``."""
         from .. import rpc
         self._copts = channel_options or rpc.ChannelOptions(
             timeout_ms=60000)
@@ -48,6 +53,22 @@ class LoadAwareRouter:
         self._affinity: Dict[str, str] = {}
         self._rebinds = 0
         self._closed = False
+        self._refresher: Optional[threading.Thread] = None
+        self._stop = threading.Event()
+        self._naming_url: Optional[str] = None
+        from ..policy.naming import is_naming_url
+        if isinstance(targets, str) and is_naming_url(targets):
+            self._naming_url = targets
+            self._refresh_interval_s = refresh_interval_s
+            self._refresh_once()
+            t = threading.Thread(target=self._refresh_loop,
+                                 name="serving_router_refresh", daemon=True)
+            with self._lock:
+                self._refresher = t
+            t.start()
+            return
+        if isinstance(targets, str):
+            targets = [t for t in targets.split(",") if t]
         for url in targets:
             self.add_target(url)
 
@@ -71,6 +92,24 @@ class LoadAwareRouter:
 
     def targets(self) -> List[str]:
         return [str(e.endpoint) for e in self._lb.servers()]
+
+    def _refresh_once(self) -> None:
+        """Make the balancer's members the naming url's servers."""
+        from ..policy.naming import create_naming_service
+        try:
+            entries = create_naming_service(self._naming_url).get_servers()
+        except Exception:
+            return
+        fresh = {e.endpoint for e in entries}
+        have = {e.endpoint for e in self._lb.servers()}
+        for ep in fresh - have:
+            self._lb.add_server(ep)
+        for ep in have - fresh:
+            self.remove_target(str(ep))
+
+    def _refresh_loop(self) -> None:
+        while not self._stop.wait(self._refresh_interval_s):
+            self._refresh_once()
 
     # ---- selection / feedback ------------------------------------------
     def pick(self, exclude: Optional[set] = None) -> Optional[str]:
@@ -152,9 +191,13 @@ class LoadAwareRouter:
 
     # ---- lifecycle / observability --------------------------------------
     def close(self) -> None:
+        self._stop.set()
         with self._lock:
+            t, self._refresher = self._refresher, None
             self._closed = True
             chans, self._channels = list(self._channels.values()), {}
+        if t is not None and t is not threading.current_thread():
+            t.join(2.0)
         for ch in chans:
             ch.close()
 
@@ -169,4 +212,4 @@ class LoadAwareRouter:
                    for e in self._lb.servers()}
         return {"balancer": "la", "weights": weights, "picks": picks,
                 "sessions_bound": bound, "rebinds": rebinds,
-                "naming": "static"}
+                "naming": self._naming_url or "static"}

@@ -300,6 +300,43 @@ Phases, each fatal on failure:
                 attachment and launched no copy, fewer than 4 MiB rode
                 inline, nothing is active or mapped.  Over the
                 phase, p2p_copy launches = cross-process transfers received
+ 18. pod        member processes started together as fresh interpreters
+                (brpc_tpu_torch.tools.pod_peer), each on the same 8-rank
+                mesh owning ranks 2p and 2p+1 and serving ici://2p on the
+                Python plane, all joined to one pod.  (a) the JAX
+                package's bench_pod_prefill_decode shape over 3 processes:
+                the router (p0, the store's host) on ici://0, the prefill
+                (p1) on ici://2, the decode (p2) on ici://4; 2 warm-ups,
+                then 20 Router.Generate of 512 tokens x 64 steps from 2
+                client threads, each equal to reference_generate; the
+                handoff bytes equal 22 x kv_nbytes(512) (512 KiB, over the
+                64 KiB threshold); in the decode process p2p_copy launches
+                = kind-4 transfers received = LoadKv attachments, IPC opens
+                against hits printed; tokens/s and the handoff GB/s over
+                the timed prompts' LoadKv round trips.  (b) rpcz turned on
+                in the three processes over brpc_tpu.Builtin.Call (the
+                flags page), one Generate, and one /rpcz?trace_id= on p0:
+                one tree holding the eight client and server spans of the
+                three processes, the transfer pair under the LoadKv client
+                span, one client root, every child within the summed clock
+                bounds of its parent (tests/test_observability.py:520-590's
+                checks); each peer's clock_bound_us printed;
+                /vars?scope=pod and /brpc_metrics?scope=pod list processes
+                0-2.  (c) the decode drains (stop, grace 1 s) and
+                restarts: pod://pd drops ici://4 and lists it again, one
+                more Generate answers on its one try (no retry), every
+                member reads epoch 9.  Then
+                tests/test_pod.py's membership contract over 4 processes,
+                each serving an Echo that returns a 64 KiB DEVICE
+                attachment (it crosses on p2p_copy both ways): every
+                process calls through an rr channel on pod://chaos; p2's
+                endpoint is killed (listener gone, its server-side
+                connections cut, no drain, no withdraw) and revived, p3
+                drains (stop, grace 5 s) and restarts; no call fails, the
+                pre-kill socket id stops resolving, every process reads
+                epoch 12; the ms from p3's drain mark until no process's
+                pod:// lists ici://6 is printed.  Every member ends with
+                nothing active, mapped or in /dev/shm
 
 Launch counts are zeroed just before each path and read just after it:
 during phases 3-4 and during phase 8 p2p_copy's launches must equal the
@@ -318,7 +355,11 @@ transfers and the relocations that crossed ranks on the device plane (in
 (e) also the requests received plus the attachments returned); during
 phase 17 they must equal the cross-process transfers this process
 received (and, in (a), the attachments received, in both processes);
-during
+during phase 18 the members count their own launches from just before
+their traffic: in the decode process they equal the kind-4 transfers it
+received and the LoadKv attachments, in each membership-contract process
+the transfers whose copy ran there (in process or pulled from a peer), and
+the driving process launches none; during
 phase 6 each ring kernel's launches must equal the calls of its entry
 point.  The line before the last is the ``kernels`` JSON; the last line
 is the device JSON.
@@ -439,6 +480,12 @@ FABRIC_PEER_START_S = 120.0
 # what calls in flight get when their peer process dies: the EOF code, as
 # in the JAX package (tests/test_torch_fabric.py holds the two equal)
 FABRIC_KILL_CODE = 1014
+# phase 18: the pod (bench_pod_prefill_decode's shape: 512-token prompts x
+# 64 steps, 2 warm-ups then 20 prompts from 2 client threads; the chaos
+# contract of tests/test_pod.py with 4 processes and a 64 KiB attachment)
+POD_SEQ, POD_STEPS, POD_PROMPTS, POD_WARMUP = 512, 64, 20, 2
+POD_CHAOS_PROCS, POD_ATTACH = 4, 64 << 10
+POD_TIMEOUT_S = 300.0
 
 
 def fail(msg: str) -> None:
@@ -4163,6 +4210,142 @@ def phase_fabric(mesh, plane, p2p_copy, device: str = "cuda",
     return out
 
 
+def phase_pod(device: str = "cuda") -> dict:
+    """The pod (see the module docstring, phase 18): the disaggregated
+    Generate over three member processes, then the membership contract over
+    four, each member a fresh interpreter (``tools/pod_peer.py``) started
+    with the others at once.  The members count their own copy launches
+    from just before their traffic and report them."""
+    from brpc_tpu_torch.examples.disagg_serving.model import kv_nbytes
+    from brpc_tpu_torch.ici import ipc_pull
+    from brpc_tpu_torch.tools import pod_peer
+    t_phase = time.monotonic()
+    out = {"device": device}
+
+    def members(scenario, nproc, extra):
+        t0 = time.monotonic()
+        res = pod_peer.run_members(scenario, nproc, device, extra,
+                                   timeout=POD_TIMEOUT_S, cwd=str(ROOT))
+        wall = time.monotonic() - t0
+        for pid, (rc, r, text) in enumerate(res):
+            if rc != 0 or r is None:
+                for q, (_, _, t) in enumerate(res):
+                    print(f"pod member {q} ({scenario}) output:\n"
+                          f"{t[-6000:]}", file=sys.stderr, flush=True)
+                fail(f"pod {scenario}: member {pid} ended rc {rc}")
+        rs = [r for _, r, _ in res]
+        for r in rs:
+            check(r["foreign"] == [],
+                  f"pod member {r['pid']} loaded {r['foreign']}")
+            check(r["leaks"] == {"active": 0, "mapped": 0, "segments": 0},
+                  f"pod member {r['pid']} left {r['leaks']}")
+            left = ipc_pull.segments_on_disk(r["os_pid"])
+            check(not left, f"pod member {r['pid']}'s segments left: {left}")
+        return rs, wall
+
+    # (a)-(c): router (p0), prefill (p1, ici://2), decode (p2, ici://4)
+    gen, wall = members("generate", 3, [
+        "--seq", POD_SEQ, "--steps", POD_STEPS, "--prompts", POD_PROMPTS,
+        "--warmup", POD_WARMUP])
+    a, b, c = gen[0]["a"], gen[0]["b"], gen[0]["c"]
+    n_gen = POD_WARMUP + POD_PROMPTS
+    check(not gen[0]["errors"] and not a["errors"],
+          f"pod Generate errors: {gen[0]['errors'] or a['errors']}")
+    check(a["generates"] == n_gen, f"pod Generates: {a['generates']}")
+    check(a["handoff_bytes"] == a["handoff_expected"]
+          == n_gen * kv_nbytes(POD_SEQ),
+          f"handoff bytes {a['handoff_bytes']}, expected "
+          f"{n_gen * kv_nbytes(POD_SEQ)}")
+    dec = a["decode"]
+    check(dec["launches"] == dec["received"] == dec["attachments"] == n_gen,
+          f"decode process: p2p_copy launches {dec['launches']}, kind-4 "
+          f"transfers received {dec['received']}, attachments "
+          f"{dec['attachments']}, Generates {n_gen}")
+    check(a["router"]["launches"] == a["prefill"]["launches"] == 0,
+          f"a copy launched outside the decode: {a['router']}, "
+          f"{a['prefill']}")
+    check(gen[0]["pod_list"] == ["ici://0", "ici://2", "ici://4"],
+          f"pod://pd listed {gen[0]['pod_list']}")
+    check(not b["problems"], f"stitched trace: {b['problems']}")
+    check(b["vars_processes"] == [0, 1, 2] and not b["vars_unreachable"],
+          f"/vars?scope=pod listed {b['vars_processes']}")
+    check(b["metrics_processes"] == [0, 1, 2] and b["metrics_typed"],
+          f"/brpc_metrics?scope=pod listed {b['metrics_processes']}")
+    check(c["dropped_s"] is not None and c["relisted_s"] is not None,
+          f"pod://pd through the decode's drain: {c}")
+    check(c["generate_after_restart_ok"],
+          f"the Generate after the decode's restart failed: "
+          f"{gen[0]['errors']}")
+    epochs = [r["epoch"] for r in gen]
+    check(len(set(epochs)) == 1 and epochs[0] == 9,
+          f"pod pd epochs {epochs}, expected 9 in every member")
+    out["generate"] = {"wall_s": wall, "a": a, "b": b, "c": c,
+                       "epochs": epochs}
+    print(f"pod generate: {n_gen} Generates equal to reference_generate, "
+          f"{a['tokens_per_s']:.1f} tokens/s from 2 clients, handoff "
+          f"{a['handoff_bytes']} B = {n_gen} x {kv_nbytes(POD_SEQ)}, "
+          f"{a['handoff_gbps']:.3f} GB/s over the timed prompts' LoadKv "
+          f"round trips; "
+          f"decode process: launches = "
+          f"kind-4 received = attachments = {dec['launches']}, IPC opens "
+          f"{dec['ipc']['opens']} against hits {dec['ipc']['hits']}; "
+          f"stitched trace of {b['span_count']} spans, clock bounds "
+          f"{b['clock_bound_us']} us; drain: pod://pd dropped ici://4 "
+          f"after {c['dropped_s'] * 1e3:.1f} ms, relisted after "
+          f"{c['relisted_s'] * 1e3:.1f} ms, the next Generate passed on "
+          f"its one try; epochs {epochs}; "
+          f"{wall:.1f} s", flush=True)
+
+    # the membership contract: a kill and a drain under traffic
+    chaos, wall = members("chaos", POD_CHAOS_PROCS, ["--attach", POD_ATTACH])
+    want_epoch = 2 * POD_CHAOS_PROCS + 4
+    for r in chaos:
+        check(r["failed"] == 0, f"pod chaos member {r['pid']}: "
+                                f"{r['failed']} calls failed: "
+                                f"{r['failures']}")
+        check(r["epoch"] == want_epoch,
+              f"pod chaos member {r['pid']} read epoch {r['epoch']}, "
+              f"expected {want_epoch}")
+        d = r["counts"]
+        check(d["launches"] == d["copies"] and d["remote_received"] > 0,
+              f"pod chaos member {r['pid']}: p2p_copy launches "
+              f"{d['launches']}, transfers received {d['copies']} "
+              f"({d['remote_received']} from other processes)")
+    check(chaos[0].get("old_socket_revoked") is True,
+          "the pre-kill socket id was not revoked")
+    mark = chaos[0]["drain_mark"]
+    unlisted = [r["unlisted_at"] for r in chaos]
+    check(all(u is not None for u in unlisted),
+          f"ici://6 never left some member's pod://: {unlisted}")
+    drain_ms = (max(unlisted) - mark) * 1e3
+    out["chaos"] = {
+        "wall_s": wall, "epochs": [r["epoch"] for r in chaos],
+        "calls": [r["calls"] for r in chaos],
+        "counts": [r["counts"] for r in chaos],
+        "ipc": [r["ipc"] for r in chaos],
+        "drain_s": chaos[3].get("drain_s"),
+        "drain_to_unlisted_ms": drain_ms}
+    print(f"pod chaos: {POD_CHAOS_PROCS} members, calls "
+          f"{out['chaos']['calls']}, none failed through p2's kill and "
+          f"p3's drain; epochs {out['chaos']['epochs']} = {want_epoch}; "
+          f"ici://6 left every member's pod:// {drain_ms:.1f} ms after the "
+          f"drain mark; launches = transfers received "
+          f"{[d['launches'] for d in out['chaos']['counts']]} "
+          f"({[d['remote_received'] for d in out['chaos']['counts']]} "
+          f"from other processes); the pre-kill socket id revoked; "
+          f"{wall:.1f} s", flush=True)
+    out["launches"] = sum(r["a"]["launches"] for r in gen[1:]) \
+        + a["router"]["launches"] \
+        + sum(r["counts"]["launches"] for r in chaos)
+    out["launches_by_scenario"] = {
+        "generate": out["launches"]
+        - sum(r["counts"]["launches"] for r in chaos),
+        "chaos": sum(r["counts"]["launches"] for r in chaos)}
+    out["wall_s"] = time.monotonic() - t_phase
+    out["members"] = {"generate": gen, "chaos": chaos}
+    return out
+
+
 def _fabric_overload(rpc, mesh, plane, ch, count, peer_stats, sync) -> dict:
     """Phase 10's overload leg across processes: the server on ici://5
     here (phase 10's, on the Python plane), the paced clients (ranks 2
@@ -4509,6 +4692,18 @@ def main() -> int:
           "a ring kernel launched on the fabric path")
     print("fabric: " + json.dumps(fab), flush=True)
 
+    # 18. the pod: its members count their own launches from just before
+    # their traffic; this process launches nothing
+    zero_counts()
+    pod = phase_pod()
+    launches = {k.name: k.launches for k in kernels_all}
+    check(all(v == 0 for v in launches.values()),
+          f"a kernel launched in the driving process during the pod "
+          f"phase: {launches}")
+    check(pod["launches"] > 0, "the pod path never launched p2p_copy")
+    print("pod: " + json.dumps({k: v for k, v in pod.items()
+                                if k != "members"}), flush=True)
+
     head = next(r for r in rows if r["label"] == "4 MiB")
     red = ring_rows["ring_all_reduce"]
     gat = ring_rows["ring_all_gather"]
@@ -4526,7 +4721,8 @@ def main() -> int:
                      + sum(r["launches"] for r in slice6.values())
                      + sum(r["launches"] for r in slice7.values())
                      + calls["launches"] + native["launches"]
-                     + native_adm["launches"] + fab["launches"]),
+                     + native_adm["launches"] + fab["launches"]
+                     + pod["launches"]),
         "launches_by_path": {"echo": main_launches,
                              "serving": serve["launches"],
                              "migration": tiers["launches"], **phase10,
@@ -4537,7 +4733,9 @@ def main() -> int:
                              "call_features": calls["launches"],
                              "native": native["launches"],
                              "native_overload": native_adm["launches"],
-                             "fabric": fab["launches"]},
+                             "fabric": fab["launches"],
+                             **{f"pod_{k}": v for k, v in
+                                pod["launches_by_scenario"].items()}},
         "migration_path_split": {
             "migrate_in": tiers["migrate_in_calls"],
             "loadkv": tiers["calls_received"] - tiers["migrate_in_calls"]},

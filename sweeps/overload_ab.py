@@ -15,7 +15,23 @@ served priority-0 p99 under overload within 2x its unloaded p99.
 6 or 7 (by stream), which the server returns, as chip_smoke.py's phase 10
 does; both packages move it on their device planes.
 
-    python3 sweeps/overload_ab.py [--rounds 3] [--attach 4194304]
+``--stages`` warms the connection with 16 untimed calls, turns rpcz on
+in both packages and splits every served priority-0 call of both windows
+into its stages, read off its client and server spans (one process, one
+monotonic clock): the client's stack up to the write (``client_send``),
+the request's way into the server's input (``request_wire``), the server's
+``tpu_std_server_<stage>`` points up to its write (the input queue, the
+admission queue's wait, parse, handler and encode; ``server_other`` is
+the gaps between them), the answer's way back from the server's write
+until the client span ends (``response``), and the caller's work outside
+its span, its wake-up after the answer among it (``client_rest``).  They
+sum to the call's latency; the server's ``write`` call is read beside
+them.  Each leg then also
+prints, per window, the p50 and p99 of each stage and the mean split of
+the slowest tenth of the calls, and the summary gives each stage's range
+over the rounds.
+
+    python3 sweeps/overload_ab.py [--rounds 3] [--attach 4194304] [--stages]
     python3 sweeps/overload_ab.py --leg port         # one leg, one line
 
 This script imports both packages (the port and the reference), so it
@@ -36,6 +52,7 @@ SERVICE_MS, MAX_CONC, FACTOR = 20.0, 2, 10
 UNLOADED_S, OVERLOAD_S = 1.2, 3.0
 TENANTS = ("t0", "t1", "t2", "t3")
 WARM_CALLS = 5
+STAGE_WARM_CALLS = 16
 
 
 def _p99(lats):
@@ -43,6 +60,77 @@ def _p99(lats):
         return -1.0
     lats = sorted(lats)
     return lats[min(int(len(lats) * 0.99), len(lats) - 1)]
+
+
+# a call's latency, from the caller's clock to its answer: the client's
+# stack up to the write, the request's way into the server's input, the
+# server's stages up to its write, the answer's way back (the server's
+# write call and the delivery) until the client span ends, and the
+# caller's own work outside its span (its wake-up after the answer).  They
+# sum to the latency; the server's ``write`` is read beside them: the
+# client can take the answer before that call returns
+_SERVER = ("input_queue", "admission_wait", "parse", "handler", "encode")
+_STAGES = ("client_send", "request_wire", *_SERVER, "server_other",
+           "response", "client_rest")
+_READ = (*_STAGES, "write", "latency")
+
+
+def _stage_row(spans, lat: float):
+    """One traced call's split (µs) from its client and server spans (one
+    process, one monotonic clock), or None when a span or stamp is
+    missing."""
+    cli = [s for s in spans if s.kind == "client"]
+    srv = [s for s in spans if s.kind == "server"]
+    if not cli or not srv or not cli[0].end_us:
+        return None
+    cli, srv = cli[0], srv[0]
+    issued = [t for t, a in cli.annotations if a.startswith("issue ")]
+    row = dict.fromkeys(_READ, 0.0)
+    recv = write_start = None
+    for t, ann in srv.annotations:
+        name, _, val = ann.partition("_us=")
+        if not val.isdigit():
+            continue
+        if name == "queue":
+            # the input queue first, then (if it queued) admission's; the
+            # first one's stamp less its wait is when the request was cut
+            if recv is None:
+                recv = t - int(val)
+                row["input_queue"] += float(val)
+            else:
+                row["admission_wait"] += float(val)
+        elif name in row:
+            row[name] += float(val)
+            if name == "write":
+                write_start = t - int(val)
+    if not issued or recv is None or write_start is None:
+        return None
+    row["client_send"] = float(issued[0] - cli.start_us)
+    row["request_wire"] = float(recv - issued[0])
+    row["server_other"] = (write_start - recv) - sum(row[k]
+                                                     for k in _SERVER)
+    row["response"] = float(cli.end_us - write_start)
+    row["client_rest"] = lat - (cli.end_us - cli.start_us)
+    row["latency"] = lat
+    return row
+
+
+def _stage_split(find_trace, traced) -> dict:
+    """{stage: p50, p99} and the slowest tenth's mean split over the
+    traced priority-0 calls ``[(trace_id, client_latency_us)]``."""
+    rows = [r for r in (_stage_row(find_trace(tid), lat)
+                        for tid, lat in traced) if r is not None]
+    if not rows:
+        return {"traced": 0}
+    out = {"traced": len(rows)}
+    for k in _READ:
+        vals = sorted(r[k] for r in rows)
+        out[k] = {"p50": vals[len(vals) // 2], "p99": _p99(vals)}
+    tail = sorted(rows, key=lambda r: r["latency"])[-max(len(rows) // 10,
+                                                         1):]
+    out["slowest_tenth_mean"] = {k: sum(r[k] for r in tail) / len(tail)
+                                 for k in _READ}
+    return out
 
 
 def _packages(which: str):
@@ -62,7 +150,8 @@ def _packages(which: str):
     from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
     from brpc_tpu_torch.rpc.admission import AdmissionOptions
     IciMesh.set_default(IciMesh(ranks=8, device="cpu"))
-    return rpc, AdmissionOptions, EchoRequest, EchoResponse, {}
+    return rpc, AdmissionOptions, EchoRequest, EchoResponse, \
+        {"native_ici": False}
 
 
 def _attachments(which: str, nbytes: int) -> dict:
@@ -87,10 +176,19 @@ def _attachments(which: str, nbytes: int) -> dict:
     return {rank: put(a, rank) for rank, a in data.items()}
 
 
-def run_leg(which: str, attach: int = 0) -> dict:
+def run_leg(which: str, attach: int = 0, stages: bool = False) -> dict:
     rpc, AdmissionOptions, EchoRequest, EchoResponse, extra = \
         _packages(which)
     bank = _attachments(which, attach) if attach else {}
+    if stages:
+        if which == "jax":
+            from brpc_tpu.butil import flags
+            from brpc_tpu.rpc.span import find_trace
+        else:
+            from brpc_tpu_torch.butil import flags
+            from brpc_tpu_torch.rpc.span import find_trace
+        flags.set_flag("rpcz_enabled", True)
+        flags.set_flag("rpcz_keep", 1 << 20)
 
     class Echo(rpc.Service):
         @rpc.method(EchoRequest, EchoResponse)
@@ -116,6 +214,7 @@ def run_leg(which: str, attach: int = 0) -> dict:
 
     def run_phase(spec, duration):
         stats, lock = {}, threading.Lock()
+        traced = []
         stop = time.monotonic() + duration
 
         def worker(pri, tenant, rate, wid):
@@ -147,6 +246,8 @@ def run_leg(which: str, attach: int = 0) -> dict:
                     if not cntl.failed():
                         c["ok"] += 1
                         c["lats"].append(lat_us)
+                        if stages and pri == 0 and cntl.trace_id:
+                            traced.append((cntl.trace_id, lat_us))
                     else:
                         c["shed"] += 1
 
@@ -156,8 +257,22 @@ def run_leg(which: str, attach: int = 0) -> dict:
             t.start()
         for t in threads:
             t.join()
+        stats["traced"] = traced
         return stats
 
+    if stages:
+        # a warm connection, as chip_smoke.py's phase 17 (e) has: the
+        # split then reads no connection set-up or first dispatch
+        ch = rpc.Channel()
+        ch.init("ici://5", options=rpc.ChannelOptions(timeout_ms=2000,
+                                                      max_retry=0))
+        for _ in range(STAGE_WARM_CALLS):
+            cntl = rpc.Controller()
+            if attach:
+                cntl.request_attachment.append_device_array(bank[6])
+            ch.call_method("Echo.Echo", cntl, EchoRequest(message="o"),
+                           EchoResponse)
+            assert not cntl.failed(), cntl.error_text
     base = run_phase([(0, "t0", capacity / 2.0)], UNLOADED_S)
     spec = []
     per_tenant = FACTOR * capacity / len(TENANTS)
@@ -166,6 +281,13 @@ def run_leg(which: str, attach: int = 0) -> dict:
                  (3, t, per_tenant * 0.375)]
     over = run_phase(spec, OVERLOAD_S)
     server.stop()
+    split = {}
+    if stages:
+        split = {"unloaded": _stage_split(find_trace, base.pop("traced")),
+                 "overload": _stage_split(find_trace, over.pop("traced"))}
+    else:
+        base.pop("traced")
+        over.pop("traced")
     hi = [x for (p, _), c in over.items() if p == 0 for x in c["lats"]]
     base_lats = base[(0, "t0")]["lats"]
     unloaded = _p99(base_lats)
@@ -183,7 +305,29 @@ def run_leg(which: str, attach: int = 0) -> dict:
             "pass_p99_bound": unloaded > 0 and loaded <= 2.0 * unloaded,
             "offered_rps_measured": issued / OVERLOAD_S,
             "hi_served": len(hi),
-            "shed": sum(c["shed"] for c in over.values())}
+            "shed": sum(c["shed"] for c in over.values()),
+            **({"stages": split} if stages else {})}
+
+
+def _stage_ranges(rows, which: str) -> dict:
+    """Each stage's [min, max] over one package's rounds, in ms: the p50
+    and p99 of both windows and the unloaded slowest tenth's mean."""
+    out = {}
+    for window in ("unloaded", "overload"):
+        splits = [r["stages"][window] for r in rows
+                  if r["package"] == which and r["stages"][window]["traced"]]
+        if not splits:
+            continue
+        for k in _READ:
+            reads = {"p50": [sp[k]["p50"] for sp in splits],
+                     "p99": [sp[k]["p99"] for sp in splits]}
+            if window == "unloaded":
+                reads["slowest_tenth"] = [sp["slowest_tenth_mean"][k]
+                                          for sp in splits]
+            for stat, vals in reads.items():
+                out[f"{window}.{k}.{stat}"] = [round(min(vals) / 1e3, 2),
+                                               round(max(vals) / 1e3, 2)]
+    return out
 
 
 def main(argv=None) -> int:
@@ -191,9 +335,11 @@ def main(argv=None) -> int:
     ap.add_argument("--leg", choices=("port", "jax"))
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--attach", type=int, default=0)
+    ap.add_argument("--stages", action="store_true")
     args = ap.parse_args(argv)
     if args.leg:
-        print(json.dumps(run_leg(args.leg, args.attach)), flush=True)
+        print(json.dumps(run_leg(args.leg, args.attach, args.stages)),
+              flush=True)
         return 0
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=8")
@@ -203,7 +349,8 @@ def main(argv=None) -> int:
         for which in order:
             proc = subprocess.run(
                 [sys.executable, os.path.abspath(__file__), "--leg", which,
-                 "--attach", str(args.attach)],
+                 "--attach", str(args.attach)]
+                + (["--stages"] if args.stages else []),
                 cwd=ROOT, env=env, capture_output=True, text=True,
                 timeout=300)
             if proc.returncode != 0:
@@ -221,6 +368,9 @@ def main(argv=None) -> int:
               f"{WARM_CALLS} unloaded calls {warm}, passes "
               f"{sum(r['pass_p99_bound'] for r in rows if r['package'] == which)}"
               f"/{len(ratios)}", flush=True)
+        if args.stages:
+            print(f"{which}: stages, ms over the rounds "
+                  f"{json.dumps(_stage_ranges(rows, which))}", flush=True)
     return 0
 
 

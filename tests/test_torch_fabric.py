@@ -250,6 +250,36 @@ def test_data_frame_descriptors_equal_jax(monkeypatch, host_plane):
         s.set_failed(terrors.ECLOSE, "test done")
 
 
+def test_write_on_an_ended_connection_fails_as_a_dead_socket(
+        monkeypatch, host_plane):
+    """A DEVICE payload written while the connection ends (its sequencer
+    already closed by the EOF) fails the write as a dead connection,
+    EFAILEDSOCKET, which a channel retries, not EINTERNAL, the device
+    leg's refusal, which it does not; the payload is unstaged and its
+    transfer fails, and no byte of it goes out another way."""
+    from brpc_tpu_torch.rpc.controller import Controller
+    a, b = socket.socketpair()
+    ts = _sock(PORT, a)
+    ts._dplane_execute = lambda t: None
+    monkeypatch.setattr(tipc, "export_row", lambda arr: tipc.Export(b""))
+    frame = TBuf(b"head")
+    frame.append_device_array(ts.mesh.device_put(
+        torch.arange(8192, dtype=torch.int32).to(torch.uint8), 1))
+    ts._close_dplane()                   # as _on_connection_over does
+    active = tdp.plane().active_transfers()
+    with pytest.raises(ConnectionError) as info:
+        ts._encode_data(frame)
+    code = getattr(info.value, "error_code", terrors.EFAILEDSOCKET)
+    assert code == terrors.EFAILEDSOCKET
+    assert Controller._retryable(code)
+    assert ts.inflight_send_blocks() == 0
+    assert tdp.plane().active_transfers() == active
+    ts.set_failed(code, str(info.value))
+    a.close()
+    assert [f for f in _read_frames(b, 1.0) if f[0] == tfab._F_DATA] == []
+    b.close()
+
+
 def _sequence(pkg, master: bool, ops):
     mesh = TMesh(ranks=8, device="cpu") if pkg is PORT else None
     sent = []

@@ -549,6 +549,67 @@ print(json.dumps({
 """
 
 
+_SLICE11 = r"""
+import json, os, socket, sys
+import torch
+import brpc_tpu_torch.policy
+from brpc_tpu_torch import rpc
+from brpc_tpu_torch.butil import flags
+from brpc_tpu_torch.ici import clock, fabric, ipc_pull
+from brpc_tpu_torch.ici.mesh import IciMesh
+from brpc_tpu_torch.ici.pod import Pod
+from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
+from brpc_tpu_torch.rpc.builtin import pod_scope
+from brpc_tpu_torch.tools import pod_peer
+
+mesh = IciMesh(ranks=8, device="cpu")
+IciMesh.set_default(mesh)
+flags.set_flag("ici_device_plane_host_mesh", True)
+flags.set_flag("rpcz_enabled", True)
+
+class Echo(rpc.Service):
+    @rpc.method(EchoRequest, EchoResponse)
+    def Echo(self, cntl, request, response, done):
+        response.message = request.message
+        done()
+
+# a one-process pod: join, serve, resolve pod://, a trace query of pod
+# scope, a drain, leave
+with socket.socket() as s:
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+node = fabric.FabricNode.initialize(f"127.0.0.1:{port}", 1, 0, mesh=mesh)
+pod = Pod.join("iso")
+srv = rpc.Server(rpc.ServerOptions(native_ici=False))
+srv.add_service(Echo())
+srv.start("ici://3")
+pod.wait_epoch(2, timeout=10)     # the watch's view holds the advertise
+ch = rpc.Channel()
+ch.init("pod://iso", "rr", options=rpc.ChannelOptions(timeout_ms=10000))
+cntl = rpc.Controller()
+ch.call_method("Echo.Echo", cntl, EchoRequest(message="pod"), EchoResponse)
+_, body = srv._builtin.dispatch("rpcz", {"trace_id": "%x" % cntl.trace_id})
+tree = json.loads(body)["tree"]
+ok = (not cntl.failed() and pod.epoch(refresh=True) == 2
+      and {n["side"] for n in tree} == {"client"} and tree[0]["children"])
+ch.close()
+srv.stop(0.5)
+epoch = pod.epoch(refresh=True)
+pod.leave()
+pod_scope.close_channels_for_test()
+node.quiesce()
+print(json.dumps({
+    "ok": ok,
+    "epoch": epoch,
+    "segments": ipc_pull.segments_on_disk(os.getpid()),
+    "jax": sorted(m for m in sys.modules
+                  if m == "jax" or m.startswith(("jax.", "jaxlib"))),
+    "brpc_tpu": sorted(m for m in sys.modules
+                       if m == "brpc_tpu" or m.startswith("brpc_tpu.")),
+}))
+"""
+
+
 _EVERY_MODULE = r"""
 import importlib, json, pkgutil, sys
 import brpc_tpu_torch
@@ -777,4 +838,24 @@ def test_port_tcp_and_fabric_load_no_jax():
                  "brpc_tpu_torch.ici.fabric",
                  "brpc_tpu_torch.ici.ipc_pull",
                  "brpc_tpu_torch.tools.fabric_peer"):
+        assert name in mods, name
+
+
+def test_port_pod_loads_no_jax():
+    """Slice 11 driven alone: a one-process pod (join, an ici:// server
+    advertised, a call through ``pod://``, a pod-scope trace query, a
+    drain, leave); the many-process legs check their children the same
+    way (``tests/test_torch_pod.py``).  Among the package's modules, this
+    slice's own."""
+    out = _run_alone(_SLICE11)
+    assert out["ok"]
+    assert out["epoch"] == 4        # join, advertise, drain mark, withdraw
+    assert out["segments"] == []
+    assert out["jax"] == []
+    assert out["brpc_tpu"] == []
+    mods = _run_alone(_EVERY_MODULE)["modules"]
+    for name in ("brpc_tpu_torch.ici.pod",
+                 "brpc_tpu_torch.ici.clock",
+                 "brpc_tpu_torch.rpc.builtin.pod_scope",
+                 "brpc_tpu_torch.tools.pod_peer"):
         assert name in mods, name
