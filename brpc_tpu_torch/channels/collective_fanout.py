@@ -1,16 +1,20 @@
-"""The compiled collective fan-out, local leg: a Parallel/Partition call as
-one scatter → N device-side bodies → one merge.
+"""The compiled collective fan-out: a Parallel/Partition call as one
+scatter → N device-side bodies → one merge, in one process or across the
+pod's processes.
 
-Port of the local leg of :mod:`brpc_tpu.channels.collective_fanout`.  The
-same ``ParallelChannel.call_method`` that fans out N socket RPCs runs the
-whole fan-out and its merge on the mesh instead when every sub-channel
-targets an ``ici://`` rank whose server registered a **device-side
-handler** for the method (``Server.register_collective``), and degrades IN
-THE CALL to the per-member RPC loop, with no failure the caller sees, when
-a screen fails or a member dies mid-fan-out.
+Port of :mod:`brpc_tpu.channels.collective_fanout`.  The same
+``ParallelChannel.call_method`` that fans out N socket RPCs runs the whole
+fan-out and its merge on the mesh instead when every sub-channel targets
+an ``ici://`` rank whose server registered a **device-side handler** for
+the method (``Server.register_collective``), and degrades IN THE CALL to
+the per-member RPC loop, with no failure the caller sees, when a screen
+fails or a member dies mid-fan-out.
 
 What the JAX package compiles into one ``shard_map`` program over a
-submesh of the fan-out's devices, the port runs eagerly, in fan-out order:
+submesh of the fan-out's devices, the port runs eagerly, in fan-out order.
+Two legs, split by where the fan-out's ranks live:
+
+**Local** — every rank is this process's:
 
   * scatter: MAP_SHARD row i belongs to the fan-out's i-th device.  An
     operand already laid out so (:func:`shard_operand`, or a
@@ -28,9 +32,65 @@ submesh of the fan-out's devices, the port runs eagerly, in fan-out order:
     is one tensor on ``mesh.device(0)``, as JAX's is replicated.
     MERGE_NONE keeps each result with its rank (:class:`FanoutRows`).
 
+**Cross-process** — some ranks are served by other members of the pod
+(:mod:`..ici.pod`; the screen finds each rank's owner, an UP member
+serving it, not draining it and advertising the method in ``coll``).
+Every member must run the same fan-out in the same order, so the client
+announces it (frame 21: method, seq, devices, mapping, merge, shape,
+dtype, uuid, cpid) to every remote owner over the fabric's control
+channel; each member validates it, PARKS the entry and accepts (22) or
+refuses (23); only once every member accepted does the client commit
+(24, in sorted pid order), and a member enters in commit order through one
+entry runner that takes a slot in its own process's
+:class:`FanoutSequencer`.  Two-phase, because a member that entered on its
+accept alone would run a fan-out a degraded client never collects.  The
+JAX program then broadcasts the request from the client's row by
+``psum`` and merges by a collective; the port moves those bytes with the
+device leg of :mod:`..ici.ipc_pull` instead, ``p2p_copy`` the only byte
+mover:
+
+  * scatter: the client exports the operand's allocation ONCE, and the
+    announce carries one export per fan-out index, each with its row's
+    offset (an IPC handle names a whole allocation); each member pulls
+    every row it owns with one ``p2p_copy`` launch (the whole operand
+    under MAP_REPLICATE), whatever its size — this is the collective's
+    counterpart, not a socket payload, so ``ici_device_plane_threshold``
+    does not apply.  The client holds the pin until every member has
+    pulled;
+  * bodies: member ``idx`` runs its body on row ``idx`` (``takes_index``
+    passes ``idx``), the client on its own rows in place;
+  * gather: each member exports its results (COLL_RESULT, 41, also its
+    word that its pulls are done) and the client pulls each with one
+    launch, then merges exactly as the local leg does; the members' pins
+    release at the client's COLL_RELEASE (43), as a kind-4 send releases
+    at PULLED.  MERGE_NONE keeps each row with its rank: the client's
+    :class:`FanoutRows` holds its own rows, reading a remote one raises
+    with its owner's pid, and the members throw theirs away (as the JAX
+    members do the merged value).
+
+Any failure — a refused export, open or launch, a member's failure
+(COLL_FAIL, 42) or silence past ``ici_fanout_xproc_timeout_s``, its
+death — raises :class:`CollectiveExecError` and the call degrades in-call
+with the reason counted; a member that dies after accepting hangs neither
+the client nor another member's runner.  The leg runs where
+``device_plane.xproc_compiled_ok()`` says so (a CUDA mesh; on a CPU mesh
+only when forced, through shared-memory segments and the copy's plain
+version); elsewhere the screen declines it (``xproc_uncompiled``), and a
+member that cannot run it refuses the announce.
+
+KNOWN LIMIT (as in the JAX package): the sequencer totally orders ONE
+process's entries, and the announce totally orders ONE client's groups per
+member, but two clients that fan out over members that include EACH OTHER
+have no agreed order between their groups: each can hold its own slot
+while the other's committed member entry waits behind it.  In the port
+the wait is bounded: the client gives up after
+``ici_fanout_xproc_timeout_s`` and degrades.  Deploy cross-process fan-out
+with disjoint client and member roles, or one client per overlapping
+member set.
+
 Eager PyTorch compiles nothing, so there is no program cache:
 ``describe()["cache"]`` reads zero programs (a CUDA graph per key is the
-compiled half's work, ROADMAP item 11).
+compiled half's work, ROADMAP queue 1 item 6).
 
 The degrade leg is the per-member RPC loop with the same bytes: a row of a
 tensor operand rides its sub-call as a DEVICE block owned by the member's
@@ -41,18 +101,18 @@ leg does, so both legs give equal results.
 
 Degradation and revival ride the epoch policy of :mod:`..ici.plane_health`:
 a failed attempt marks the route down with a reason and the call completes
-on the RPC loop; the route re-probes once the registry's epoch moved past
-the one it died under (a member's server restarting), or, for a transient
-reason (an execution that raised), after ``ici_fanout_reprobe_s``.
-Executions are serialized in :class:`FanoutSequencer` order, the total
-order every fan-out of the process enters under.
-
-The cross-process leg (announce, member entry runner, pod ownership) waits
-for the multi-process fabric: with no pod, a device this process does not
-serve screens ``member_down``.
+on the RPC loop; the route re-probes once the epoch (this process's
+registry transitions plus the pod's) moved past the one it died under (a
+member's server restarting), or, for a transient reason (an execution that
+raised, a refused announce), after ``ici_fanout_reprobe_s``.
 """
 from __future__ import annotations
 
+import atexit
+import base64
+import collections
+import itertools
+import json
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -64,6 +124,9 @@ from ..butil import flags as _flags
 from ..butil import logging as log
 from ..butil.endpoint import SCHEME_ICI
 from ..ici import collective as _coll
+from ..ici import device_plane as _dp
+from ..ici import fabric as _fab
+from ..ici import ipc_pull as _ipc
 from ..ici import plane_health as _ph
 from ..ici import route as _route
 from ..ici.mesh import IciMesh, ShardedTensor
@@ -74,24 +137,31 @@ _flags.define_flag("ici_fanout_collective", True,
                    "lower eligible Parallel/Partition fan-outs to the "
                    "compiled collective plane (off: always the per-member "
                    "RPC loop)")
+_flags.define_flag("ici_fanout_xproc_timeout_s", 10.0,
+                   "seconds the client waits for every remote member to "
+                   "accept a collective fan-out announce, and then for "
+                   "their results, before degrading to per-member RPCs")
 _flags.define_flag("ici_fanout_reprobe_s", 5.0,
                    "seconds before a route downed by a TRANSIENT reason "
-                   "(exec_failed) re-probes without an epoch move; "
-                   "membership reasons stay epoch-gated")
+                   "(exec_failed / announce_refused) re-probes without "
+                   "an epoch move; membership reasons stay epoch-gated")
 
 # screen and degrade reasons (route counter labels)
+R_XPROC = "xproc_uncompiled"      # remote member, no cross-process leg
 R_MEMBER = "member_down"          # target device not serving the method
 R_EXEC = "exec_failed"            # the execution raised mid-fan-out
 R_KILLED = "member_killed"        # fault-plan kill fired mid-fan-out
+R_ANNOUNCE = "announce_refused"   # a remote member refused/failed entry
 R_TARGET = "target_not_ici"       # a sub-channel is not a fixed ici:// peer
 R_MAPPER = "mapper"               # CallMapper not lowerable
 R_MERGE = "merge_mismatch"        # client merge mode != registered mode
 R_SHAPE = "shape"                 # sharded operand rows != fan-out width
 R_UNREGISTERED = "unregistered"   # no device handler for the method
+R_NO_CARRIER = "no_local_carrier"  # cross-process, no client-owned row
 
 # transient reasons re-probe on a timer; membership reasons wait for the
 # epoch to move
-_TRANSIENT_REASONS = (R_EXEC,)
+_TRANSIENT_REASONS = (R_EXEC, R_ANNOUNCE)
 
 
 class CollectiveMethodDef:
@@ -131,6 +201,7 @@ class CollectiveRegistry:
         with self._lock:
             self._methods[name] = md
             self._epoch += 1
+        self._publish_pod()
 
     def method(self, name: str) -> Optional[CollectiveMethodDef]:
         with self._lock:
@@ -166,6 +237,14 @@ class CollectiveRegistry:
     def local_epoch(self) -> int:
         with self._lock:
             return self._epoch
+
+    def _publish_pod(self) -> None:
+        """Advertise the registered method names in this process's pod
+        record (the capability the screen of another member reads)."""
+        from ..ici.pod import Pod
+        pod = Pod.current()
+        if pod is not None:
+            pod.publish_collective(self.method_names())
 
 
 _registry = CollectiveRegistry()
@@ -264,36 +343,57 @@ class FanoutRows:
     """An ``(n, *chunk)`` value held one row per fan-out member: row i is a
     tensor owned by ``devices[i]`` (the layout of a JAX array sharded over
     the fan-out's submesh).  The mesh-wide :class:`ShardedTensor` is the
-    special case ``devices == (0, ..., n-1)``."""
+    special case ``devices == (0, ..., n-1)``.
 
-    __slots__ = ("rows", "devices", "mesh")
+    A cross-process MERGE_NONE result holds only this process's rows:
+    ``remote`` maps the index of each row another process keeps to that
+    process's pid (its entry in ``rows`` is None), and reading such a row
+    raises, as a remote shard of a JAX array is not addressable."""
 
-    def __init__(self, rows, devices, mesh: IciMesh):
+    __slots__ = ("rows", "devices", "mesh", "remote")
+
+    def __init__(self, rows, devices, mesh: IciMesh,
+                 remote: Optional[Dict[int, int]] = None):
         rows = list(rows)
+        remote = dict(remote or {})
         if len(rows) != len(devices):
             raise ValueError(f"FanoutRows: {len(rows)} rows for "
                              f"{len(devices)} devices")
         for i, (row, dev) in enumerate(zip(rows, devices)):
+            if i in remote:
+                continue
             if mesh.rank_of(row) != dev:
                 raise ValueError(f"FanoutRows: row {i} is owned by rank "
                                  f"{mesh.rank_of(row)}, not {dev}")
         self.rows: List[torch.Tensor] = rows
         self.devices = tuple(devices)
         self.mesh = mesh
+        self.remote = remote
+
+    def _local_row(self) -> torch.Tensor:
+        return next(r for i, r in enumerate(self.rows)
+                    if i not in self.remote)
 
     @property
     def shape(self) -> torch.Size:
-        return torch.Size((len(self.rows),) + tuple(self.rows[0].shape))
+        return torch.Size((len(self.rows),) + tuple(self._local_row().shape))
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.rows[0].dtype
+        return self._local_row().dtype
 
     def __getitem__(self, i: int) -> torch.Tensor:
+        pid = self.remote.get(i)
+        if pid is not None:
+            raise LookupError(f"FanoutRows: row {i} (ici://{self.devices[i]}"
+                              f") is held by process {pid}")
         return self.rows[i]
 
     def stack(self) -> torch.Tensor:
         """One ``(n, *chunk)`` tensor on ``mesh.device(0)``."""
+        if self.remote:
+            i = min(self.remote)
+            self[i]                       # raises, naming the owner
         return _coll.gather(self.rows, self.mesh.device(0))
 
 
@@ -426,6 +526,22 @@ class ReplicateFanoutMapper:
         return SubCall(request)
 
 
+def _device_bytes(refs) -> torch.Tensor:
+    """The bytes of DEVICE refs as one flat tensor: a view where they are
+    adjacent slices of one block, else their concatenation on the
+    device."""
+    segs = []
+    for r in refs:
+        last = segs[-1] if segs else None
+        if last is not None and last[0] is r.block \
+                and last[1] + last[2] == r.offset:
+            last[2] += r.length
+        else:
+            segs.append([r.block, r.offset, r.length])
+    views = [b.data[o:o + n] for b, o, n in segs]
+    return views[0] if len(views) == 1 else torch.cat(views)
+
+
 class CollectiveMerger:
     """A ResponseMerger whose merge is the compiled leg's, on the RPC
     loop: each sub-response attachment (a DEVICE block or bytes) is read
@@ -451,9 +567,11 @@ class CollectiveMerger:
     def _part(self, att) -> torch.Tensor:
         dt = _torch_dtype(self.dtype)
         refs = att.device_refs() if att is not None else []
-        if att is not None and len(refs) == 1 and refs[0].length == len(att):
-            r = refs[0]
-            t = r.block.data[r.offset:r.offset + r.length].view(dt)
+        if refs and sum(r.length for r in refs) == len(att):
+            # all on the device: an answer the read cut into several refs
+            # of one block (a frame over the read's 64 MiB) is still one
+            # view of it, never a round trip through the host
+            t = _device_bytes(refs).view(dt)
         else:
             data = att.to_bytes() if att is not None else b""
             t = torch.from_numpy(np.frombuffer(data, dtype=np.uint8).copy()
@@ -482,20 +600,30 @@ class CollectiveMerger:
 # ---------------------------------------------------------------------------
 
 class _Lowering:
-    """One screened fan-out: everything ``execute`` needs."""
-    __slots__ = ("method", "md", "devices", "operand", "mapping")
+    """One screened fan-out: everything ``execute`` needs.  ``leg`` is
+    "local" or "xproc"; ``remote_owners`` maps each remote member's pid to
+    the first of its ranks in the fan-out (where its announce goes).
+    ``operand_shape``/``operand_dtype`` carry the announced shape on the
+    member side, where no operand object exists."""
+    __slots__ = ("method", "md", "devices", "operand", "mapping", "leg",
+                 "remote_owners", "operand_shape", "operand_dtype")
 
-    def __init__(self, method, md, devices, operand, mapping):
+    def __init__(self, method, md, devices, operand, mapping, leg="local",
+                 remote_owners=None, operand_shape=(), operand_dtype="uint8"):
         self.method = method
         self.md = md
         self.devices = devices
         self.operand = operand
         self.mapping = mapping
+        self.leg = leg
+        self.remote_owners = remote_owners or {}
+        self.operand_shape = operand_shape
+        self.operand_dtype = operand_dtype
 
 
 class CollectiveFanoutPlane:
     """The process's fan-out plane: the screen, the degrade/revive state
-    machine and the local leg."""
+    machine and the two legs."""
 
     _instance: Optional["CollectiveFanoutPlane"] = None
     _ilock = threading.Lock()
@@ -503,7 +631,7 @@ class CollectiveFanoutPlane:
     def __init__(self) -> None:
         self._health = _ph.register_plane(
             "collective", threading.Lock(),
-            epoch_fn=_registry.local_epoch,
+            epoch_fn=self._epoch,
             transient_reasons=_TRANSIENT_REASONS,
             reprobe_s=lambda: _flags.get_flag("ici_fanout_reprobe_s"),
             events=self._on_event)
@@ -522,6 +650,18 @@ class CollectiveFanoutPlane:
             return cls._instance
 
     # ---- health ----------------------------------------------------------
+    @staticmethod
+    def _epoch() -> int:
+        """The revival clock: this process's registry transitions plus the
+        pod's epoch when one is joined (a member re-advertising moves
+        it)."""
+        from ..ici.pod import Pod
+        e = _registry.local_epoch()
+        pod = Pod.current()
+        if pod is not None:
+            e += pod.epoch()
+        return e
+
     @staticmethod
     def _on_event(event: str, reason: str) -> None:
         _route.record_collective(event, reason)
@@ -617,14 +757,29 @@ class CollectiveFanoutPlane:
         mesh = IciMesh.default()
         if any(d >= mesh.size for d in devices):
             return None, R_TARGET
-        # every rank of the mesh is this process's; with no pod, a rank
-        # no server here serves is a member that is down
-        if not _registry.serving_all(devices):
+        # member liveness covers this process's ranks; another process's
+        # rank is live when the pod lists an owner serving the method
+        local = _local_devices()
+        if not _registry.serving_all(d for d in devices if d in local):
             return None, R_MEMBER
+        remote_owners: Dict[int, int] = {}
+        remote = [d for d in devices if d not in local]
+        if remote:
+            for dev in remote:
+                owner = _pod_owner(dev, method_full_name)
+                if owner is None:
+                    return None, R_MEMBER
+                remote_owners.setdefault(owner, dev)
+            if not _dp.xproc_compiled_ok(mesh):
+                return None, R_XPROC
+            if len(remote) == len(devices):
+                # the merged result lives on a client-owned row's rank
+                return None, R_NO_CARRIER
         if not self.route_usable():
             return None, "route_down"
-        return _Lowering(method_full_name, md, devices, operand,
-                         mapping), ""
+        return _Lowering(method_full_name, md, devices, operand, mapping,
+                         "xproc" if remote_owners else "local",
+                         remote_owners), ""
 
     def cache_stats(self) -> dict:
         return {"programs": 0, "building": 0}
@@ -633,7 +788,8 @@ class CollectiveFanoutPlane:
     def execute(self, low: _Lowering, cntl) -> Any:
         """Run one screened fan-out at its slot in the total order.
         Raises on any failure; the caller marks the route down and
-        completes the call on the per-member loop."""
+        completes the call on the per-member loop.  Everything after the
+        submit runs inside the slot, whose ``run`` always retires it."""
         seq = self.sequencer.submit()
         deadline = None
         if cntl.timeout_ms is not None and cntl.timeout_ms > 0:
@@ -647,14 +803,27 @@ class CollectiveFanoutPlane:
                 refusal = plan.on_collective_execute(low.devices)
                 if refusal is not None:
                     raise CollectiveExecError(R_KILLED, refusal)
-            return self._enter(low, cntl)
+            if low.leg != "xproc":
+                return self._enter(low, cntl)
+            _sweep_orphans()
+            call = _XprocCall(low)
+            try:
+                self._announce_xproc(low, seq, call)
+                return self._enter(low, cntl, call)
+            finally:
+                call.finish()
 
         return self.sequencer.run(seq, entry, deadline=deadline)
 
-    def _enter(self, low: _Lowering, cntl) -> Any:
+    def _enter(self, low: _Lowering, cntl, call=None) -> Any:
         try:
-            out = self._run_local(low)
-            last = out.rows[-1] if isinstance(out, FanoutRows) else out
+            out = self._run_local(low) if call is None \
+                else self._run_xproc(low, call)
+            if isinstance(out, FanoutRows):
+                last = out.rows[max(i for i in range(len(out.rows))
+                                    if i not in out.remote)]
+            else:
+                last = out
             if last.is_cuda:
                 # the JAX leg's block_until_ready: a failure surfaces in
                 # this call, not in the caller's next op
@@ -681,22 +850,676 @@ class CollectiveFanoutPlane:
         for i, (dev, arg) in enumerate(zip(low.devices, args)):
             r = md.handler(i, arg) if md.takes_index else md.handler(arg)
             results.append(torch.as_tensor(r, device=mesh.device(dev)))
-        dev0 = mesh.device(0)
-        if md.merge == MERGE_SUM:
-            return _coll.fold(results, dev0)
-        if md.merge == MERGE_GATHER:
-            return _coll.gather(results, dev0)
-        if md.merge == MERGE_CONCAT:
-            return torch.cat([r.to(dev0) for r in results], dim=0)
-        # MERGE_NONE: each result stays with its rank; a result that is
-        # the operand's own row is copied, never claimed
-        held = {a.untyped_storage().data_ptr() for a in args}
-        rows = []
-        for dev, r in zip(low.devices, results):
-            if r.untyped_storage().data_ptr() in held:
-                r = r.clone()
-            rows.append(mesh.own(r, dev))
-        return FanoutRows(rows, low.devices, mesh)
+        return _merge(md.merge, results, low.devices, mesh,
+                      mesh.device(0), args)
+
+    # -- cross-process leg: the client's half ---------------------------------
+    def _run_xproc(self, low: _Lowering, call: "_XprocCall"):
+        """The counterpart of the JAX ``_prepare_xproc`` program: the
+        client's bodies on its own rows while the members run theirs,
+        then one pull per remote result and the local leg's merge."""
+        mesh = IciMesh.default()
+        md = low.md
+        local = _local_devices()
+        shard = low.mapping == MAP_SHARD
+        results: List[Optional[torch.Tensor]] = [None] * len(low.devices)
+        for i, dev in enumerate(low.devices):
+            if dev in local:
+                arg = call.full[i] if shard else call.full
+                r = md.handler(i, arg) if md.takes_index else md.handler(arg)
+                results[i] = torch.as_tensor(r, device=mesh.device(dev))
+        deadline = time.monotonic() + _flags.get_flag(
+            "ici_fanout_xproc_timeout_s")
+        carrier = mesh.device(call.carrier)
+        for pid in sorted(call.committed):
+            sock, rows = call.wait_result(pid, deadline)
+            for row in rows:
+                idx = int(row["idx"])
+                if not 0 <= idx < len(results) or results[idx] is not None \
+                        or low.devices[idx] in local:
+                    raise CollectiveExecError(
+                        R_EXEC, f"member pid {pid} returned row {idx}")
+                out = _pull(sock, row["ext"], int(row["nbytes"]), carrier)
+                results[idx] = out.view(_torch_dtype(row["dtype"])).reshape(
+                    tuple(row["shape"]))
+        if md.merge == MERGE_NONE:
+            remote = {i: pid for pid, dev in call.owner_of.items()
+                      for i in dev}
+            return _merge(md.merge, results, low.devices, mesh, carrier,
+                          [call.full], remote)
+        missing = [i for i, r in enumerate(results) if r is None]
+        if missing:
+            raise CollectiveExecError(
+                R_EXEC, f"no result for fan-out rows {missing}")
+        return _merge(md.merge, results, low.devices, mesh, carrier)
+
+    def _announce_xproc(self, low: _Lowering, seq: int,
+                        call: "_XprocCall") -> None:
+        """Tell every remote member process to enter this fan-out at
+        ``seq``; wait for every accept, then COMMIT (two-phase: see
+        :func:`on_remote_announce`).  A refusal or a timeout raises
+        (R_ANNOUNCE) and the caller degrades in-call.  All accept waits
+        share ONE deadline from the first announce, and a member parks
+        for TWICE the timeout, so a GO that follows a full accept phase
+        still lands inside every member's park window."""
+        from ..rpc import fault_injection as _fi
+        body = json.dumps(announce_body(low, seq, call)).encode()
+        deadline = time.monotonic() + _flags.get_flag(
+            "ici_fanout_xproc_timeout_s")
+        waiters = []
+        socks = {}
+        try:
+            for pid, dev in sorted(low.remote_owners.items()):
+                sock = _member_sock(dev)
+                if sock is None:
+                    raise CollectiveExecError(
+                        R_ANNOUNCE, f"no fabric route to member pid {pid}")
+                socks[pid] = sock
+                w = _AnnounceWaiter()
+                with _announce_lock:
+                    _announce_waiters[(call.uuid, pid)] = w
+                waiters.append((pid, w))
+                plan = _fi.fabric_active()
+                if plan is not None:
+                    plan.on_plane_op(sock, "collective")
+                    if plan.on_collective_announce():
+                        # a black hole: the member never sees the announce
+                        continue
+                try:
+                    sock._ctrl_send(_fab._F_COLL_CALL, body)
+                except OSError as e:
+                    raise CollectiveExecError(
+                        R_ANNOUNCE, f"announce to pid {pid} failed: {e}")
+            for pid, w in waiters:
+                if not w.event.wait(max(deadline - time.monotonic(), 0.001)):
+                    raise CollectiveExecError(
+                        R_ANNOUNCE, f"member pid {pid} never acknowledged "
+                                    f"the fan-out announce")
+                if not w.ok:
+                    raise CollectiveExecError(
+                        R_ANNOUNCE,
+                        f"member pid {pid} refused entry: {w.reason}")
+        finally:
+            # an abandoned announce leaves no waiter behind (a late reply
+            # then finds none)
+            with _announce_lock:
+                for pid in low.remote_owners:
+                    _announce_waiters.pop((call.uuid, pid), None)
+        # every member accepted: COMMIT, in sorted pid order
+        go = json.dumps({"uuid": call.uuid, "cpid": call.cpid}).encode()
+        for pid in sorted(socks):
+            sock = socks[pid]
+            call.commit(pid, sock, [i for i, d in enumerate(low.devices)
+                                    if _pod_owner(d, low.method) == pid])
+            try:
+                sock._ctrl_send(_fab._F_COLL_GO, go)
+            except OSError as e:
+                raise CollectiveExecError(
+                    R_ANNOUNCE, f"commit to pid {pid} failed: {e}")
+
+
+def announce_body(low: _Lowering, seq: int, call: "_XprocCall") -> dict:
+    """Frame 21's body: the JAX keys, then the port's ``xrows`` (the
+    operand's export, one per fan-out index) and ``xrow_bytes``.  The
+    announced shape is the stacked ``(n, ...)`` one under MAP_REPLICATE
+    too, as the JAX program's."""
+    shape = tuple(call.full.shape)
+    if low.mapping == MAP_REPLICATE:
+        shape = (len(low.devices),) + shape
+    return {"method": low.method, "seq": seq,
+            "devices": list(low.devices), "mapping": low.mapping,
+            "merge": low.md.merge, "shape": list(shape),
+            "dtype": _dtype_name(call.full.dtype),
+            "uuid": call.uuid, "cpid": call.cpid,
+            "xrows": call.xrows, "xrow_bytes": call.row_bytes}
+
+
+def _merge(merge: str, results, devices, mesh: IciMesh, dev0,
+           args=(), remote=None):
+    """The merge both legs share: a left fold in fan-out order, a stack or
+    a concatenation on ``dev0``; under MERGE_NONE each result stays with
+    its rank (a result that is an operand row is copied, never claimed)."""
+    if merge == MERGE_SUM:
+        return _coll.fold(results, dev0)
+    if merge == MERGE_GATHER:
+        return _coll.gather(results, dev0)
+    if merge == MERGE_CONCAT:
+        return torch.cat([r.to(dev0) for r in results], dim=0)
+    held = {a.untyped_storage().data_ptr() for a in args}
+    remote = remote or {}
+    rows = []
+    for i, (dev, r) in enumerate(zip(devices, results)):
+        if i in remote:
+            rows.append(None)
+            continue
+        if r.untyped_storage().data_ptr() in held:
+            r = r.clone()
+        rows.append(mesh.own(r, dev))
+    return FanoutRows(rows, devices, mesh, remote)
+
+
+# ---------------------------------------------------------------------------
+# The cross-process leg: shared pieces.
+# ---------------------------------------------------------------------------
+
+def _dtype_name(dt) -> str:
+    """A dtype as the wire names it (the JAX package's numpy names)."""
+    return str(dt).replace("torch.", "")
+
+
+_stats_lock = threading.Lock()
+_xstats = {"client_calls": 0, "member_entries_run": 0, "rows_pulled": 0,
+           "rows_exported": 0}
+
+
+def _count(key: str, n: int = 1) -> None:
+    with _stats_lock:
+        _xstats[key] += n
+
+
+def _pull(sock, ext_b64: str, nbytes: int, device: torch.device):
+    """One row of a peer's export into a fresh flat uint8 tensor on
+    ``device``: one ``p2p_copy`` launch through the socket's importer
+    (the IPC mapping, cached per allocation), ordered before the caller's
+    next op on the device."""
+    ext, _ = _ipc.parse_ext(base64.b64decode(ext_b64), 0)
+    row, ev, release = sock._importer.source(ext, nbytes)
+    try:
+        out, done = _dp.plane().pull(row, ev, device)
+    finally:
+        del row
+        if release is not None:
+            release()
+    if done is not None:
+        torch.cuda.current_stream(device).wait_event(done)
+    _count("rows_pulled")
+    return out
+
+
+def _send(sock, ftype: int, msg: dict) -> bool:
+    try:
+        sock._ctrl_send(ftype, json.dumps(msg).encode())
+        return True
+    except OSError:
+        return False
+
+
+def _sock_dead(sock) -> bool:
+    return sock.failed or sock._peer_gone()
+
+
+class _AnnounceWaiter:
+    __slots__ = ("event", "ok", "reason")
+
+    def __init__(self):
+        self.event = threading.Event()
+        self.ok = False
+        self.reason = ""
+
+
+_announce_lock = threading.Lock()
+_announce_waiters: Dict[Tuple[int, int], _AnnounceWaiter] = {}
+# announce group ids: a counter, never id()-derived
+_announce_counter = itertools.count(1)
+# the client's calls in flight, uuid -> _XprocCall
+_xproc_calls: Dict[int, "_XprocCall"] = {}
+# scatter pins of calls that ended before every committed member reported:
+# uuid -> (export, tensor, {pid: sock} still unreported, expiry)
+_orphans: Dict[int, tuple] = {}
+
+
+class _XprocCall:
+    """One cross-process fan-out on the client: the operand's export (the
+    scatter, pinned until every committed member has pulled), the
+    committed members, and their results as they arrive."""
+
+    def __init__(self, low: _Lowering):
+        mesh = IciMesh.default()
+        local = _local_devices()
+        n = len(low.devices)
+        self.uuid = next(_announce_counter)
+        self.cpid = _own_pid()
+        self.carrier = next(d for d in low.devices if d in local)
+        self.committed: Dict[int, Any] = {}      # pid -> sock
+        self.owner_of: Dict[int, List[int]] = {}  # pid -> fan-out indices
+        self.results: Dict[int, tuple] = {}      # pid -> (sock, ok, msg)
+        self._cv = threading.Condition(threading.Lock())
+        self.export = None
+        try:
+            x = _as_tensor(low.operand)
+            dev = mesh.device(self.carrier)
+            if x.device != dev:
+                # placement, as the local leg's device_put of a host operand
+                x = x.to(dev)
+            self.full = x.contiguous()
+            flat = self.full.reshape(-1).view(torch.uint8)
+            if low.mapping == MAP_SHARD:
+                rb = flat.numel() // n
+                slices = [(i * rb, rb) for i in range(n)]
+            else:
+                rb = flat.numel()
+                slices = [(0, rb)] * n
+            self.row_bytes = rb
+            self.export, exts = _ipc.export_slices(flat, slices)
+        except Exception as e:
+            raise CollectiveExecError(
+                R_EXEC, f"scatter export failed: {type(e).__name__}: {e}")
+        self.xrows = [base64.b64encode(e).decode() for e in exts]
+        with _announce_lock:
+            _xproc_calls[self.uuid] = self
+        _count("client_calls")
+
+    def commit(self, pid: int, sock, indices: List[int]) -> None:
+        with self._cv:
+            self.committed[pid] = sock
+            self.owner_of[pid] = indices
+
+    def on_result(self, pid: int, sock, ok: bool, msg: dict) -> None:
+        with self._cv:
+            self.results[pid] = (sock, ok, msg)
+            self._cv.notify_all()
+
+    def wait_result(self, pid: int, deadline: float):
+        """``(sock, rows)`` of member ``pid``'s COLL_RESULT; raises
+        CollectiveExecError on its COLL_FAIL, its death or its silence
+        past ``deadline``."""
+        with self._cv:
+            sock = self.committed[pid]
+            while pid not in self.results:
+                if _sock_dead(sock):
+                    raise CollectiveExecError(
+                        R_EXEC, f"member pid {pid} died before its result")
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    raise CollectiveExecError(
+                        R_EXEC, f"member pid {pid} sent no result in time")
+                self._cv.wait(min(left, 0.05))
+            rsock, ok, msg = self.results[pid]
+        if not ok:
+            raise CollectiveExecError(
+                R_EXEC, f"member pid {pid} failed: {msg.get('reason', '')}")
+        return rsock, msg.get("rows", [])
+
+    def finish(self) -> None:
+        """The call is over: every committed member may release its
+        results, and the scatter pin releases once every one of them has
+        reported (a member that has not yet may still be pulling: its pin
+        waits for its report, its death or twice the timeout)."""
+        with _announce_lock:
+            _xproc_calls.pop(self.uuid, None)
+        rel = {"uuid": self.uuid, "cpid": self.cpid}
+        with self._cv:
+            committed = dict(self.committed)
+            pending = {p: s for p, s in committed.items()
+                       if p not in self.results}
+        for sock in committed.values():
+            _send(sock, _fab._F_COLL_RELEASE, rel)
+        if self.export is None:
+            return
+        if not pending:
+            self.export.release()
+            return
+        expiry = time.monotonic() + 2 * _flags.get_flag(
+            "ici_fanout_xproc_timeout_s")
+        with _announce_lock:
+            _orphans[self.uuid] = (self.export, self.full, pending, expiry)
+
+
+def _sweep_orphans(uuid: Optional[int] = None, pid: Optional[int] = None) \
+        -> None:
+    """Release the scatter pins whose last unreported member reported
+    late (``uuid``/``pid``), died, or outlived twice the timeout."""
+    now = time.monotonic()
+    done = []
+    with _announce_lock:
+        for u, (exp, full, pending, expiry) in list(_orphans.items()):
+            if u == uuid:
+                pending.pop(pid, None)
+            for p, s in list(pending.items()):
+                if _sock_dead(s):
+                    pending.pop(p)
+            if not pending or expiry < now:
+                done.append(_orphans.pop(u)[0])
+    for exp in done:
+        exp.release()
+
+
+# ---------------------------------------------------------------------------
+# The cross-process leg: the member's half.
+# ---------------------------------------------------------------------------
+
+_entry_lock = threading.Lock()
+_entry_queue: "collections.deque" = collections.deque()
+# (client pid, uuid) -> (sock, low, msg, expiry): accepted, not committed
+_pending_entries: Dict[Tuple[int, int], tuple] = {}
+# (client pid, uuid) -> (sock, [(export, tensor)], expiry): results the
+# client has not released yet
+_held_results: Dict[Tuple[int, int], tuple] = {}
+_entry_wake = threading.Event()
+_entry_stop = threading.Event()
+_entry_thread: Optional[threading.Thread] = None
+
+
+def on_frame(sock, ftype: int, msg: dict) -> None:
+    """The fabric reader's dispatch of frames 21-24 and 41-43."""
+    fab = _fab
+    if ftype == fab._F_COLL_CALL:
+        on_remote_announce(sock, msg)
+    elif ftype in (fab._F_COLL_OK, fab._F_COLL_ERR):
+        on_remote_reply(sock, msg, ok=ftype == fab._F_COLL_OK)
+    elif ftype == fab._F_COLL_GO:
+        on_remote_go(sock, msg)
+    elif ftype in (fab._F_COLL_RESULT, fab._F_COLL_FAIL):
+        on_remote_result(sock, msg, ok=ftype == fab._F_COLL_RESULT)
+    elif ftype == fab._F_COLL_RELEASE:
+        on_remote_release(sock, msg)
+
+
+def on_remote_reply(sock, msg: dict, ok: bool) -> None:
+    """Client side: a member's accept or refusal of one announce."""
+    key = (int(msg.get("uuid", 0)), int(msg.get("pid", -1)))
+    with _announce_lock:
+        w = _announce_waiters.pop(key, None)
+    if w is not None:
+        w.ok = ok
+        w.reason = msg.get("reason", "")
+        w.event.set()
+
+
+def on_remote_result(sock, msg: dict, ok: bool) -> None:
+    """Client side: a member's results (or its failure) for one call.  A
+    call that already gave up releases the member at once."""
+    uuid, pid = int(msg.get("uuid", 0)), int(msg.get("pid", -1))
+    with _announce_lock:
+        call = _xproc_calls.get(uuid)
+    if call is not None:
+        call.on_result(pid, sock, ok, msg)
+        return
+    _send(sock, _fab._F_COLL_RELEASE, {"uuid": uuid, "cpid": _own_pid()})
+    _sweep_orphans(uuid, pid)
+
+
+def on_remote_announce(sock, msg: dict) -> None:
+    """Member side, phase 1: a client proposed a fan-out.  Validate it and
+    reply accept or refuse, PARKING the entry until the client's commit
+    (two-phase: see :meth:`CollectiveFanoutPlane._announce_xproc`).  A
+    parked entry expires after twice the announce timeout."""
+    fab = _fab
+    method = msg.get("method", "")
+    reply = {"uuid": msg.get("uuid", 0), "pid": _own_pid()}
+    md = _registry.method(method)
+    refuse = reason = ""
+    if md is None:
+        refuse, reason = "method has no device handler here", R_UNREGISTERED
+    elif not _dp.xproc_compiled_ok() or "xrows" not in msg:
+        refuse, reason = ("no cross-process fan-out leg on this member",
+                          R_XPROC)
+    elif msg.get("merge") != md.merge or msg.get("mapping") != md.mapping:
+        # a contract divergence (the two sides registered different
+        # merge/mapping) refuses: the member would run another function
+        refuse, reason = (
+            f"collective contract mismatch: member has "
+            f"{md.merge}/{md.mapping}, announce says "
+            f"{msg.get('merge')}/{msg.get('mapping')}", R_MERGE)
+    if refuse:
+        reply["reason"] = refuse
+        _route.record_collective("announce_refused", reason)
+        _send(sock, fab._F_COLL_ERR, reply)
+        return
+    low = _Lowering(method, md, tuple(msg.get("devices", ())), None,
+                    msg.get("mapping", MAP_SHARD), "xproc", {},
+                    operand_shape=tuple(msg.get("shape", ())),
+                    operand_dtype=msg.get("dtype", "uint8"))
+    # parked for TWICE the timeout: the client's accept phase may take up
+    # to one whole timeout before its GO goes out
+    now = time.monotonic()
+    expiry = now + 2 * _flags.get_flag("ici_fanout_xproc_timeout_s")
+    key = (int(msg.get("cpid", -1)), int(msg.get("uuid", 0)))
+    with _entry_lock:
+        _sweep_pending_locked(now)
+        _pending_entries[key] = (sock, low, msg, expiry)
+        _ensure_runner_locked()          # it also expires the parked
+    if not _send(sock, fab._F_COLL_OK, reply):
+        with _entry_lock:
+            _pending_entries.pop(key, None)
+
+
+def on_remote_go(sock, msg: dict) -> None:
+    """Member side, phase 2: the client committed.  The parked entry joins
+    the entry runner's queue (runner order = GO arrival order, the
+    client's commit order on this control channel)."""
+    key = (int(msg.get("cpid", -1)), int(msg.get("uuid", 0)))
+    with _entry_lock:
+        _sweep_pending_locked(time.monotonic())
+        parked = _pending_entries.pop(key, None)
+        if parked is None:
+            return                       # expired or never announced
+        _entry_queue.append((key,) + parked[:3])
+        _ensure_runner_locked()
+    _route.record_collective("member_entries")
+    _entry_wake.set()
+
+
+def _ensure_runner_locked() -> None:
+    """Start the entry runner if it is not running.  Caller holds
+    ``_entry_lock``."""
+    global _entry_thread
+    if _entry_thread is None or not _entry_thread.is_alive():
+        _entry_stop.clear()
+        _entry_thread = threading.Thread(
+            target=_entry_loop, name="collective_fanout_entry", daemon=True)
+        _entry_thread.start()
+
+
+def on_remote_release(sock, msg: dict) -> None:
+    """Member side: the client pulled this call's results (or gave up):
+    their pins release."""
+    key = (int(msg.get("cpid", -1)), int(msg.get("uuid", 0)))
+    with _entry_lock:
+        held = _held_results.pop(key, None)
+    if held is not None:
+        _release_held(held[1])
+
+
+def _release_held(held) -> None:
+    for exp, _t in held:
+        exp.release()
+
+
+def _sweep_pending_locked(now: float) -> None:
+    """Drop parked entries whose commit never came (the client degraded
+    after this member's accept), and held results whose client died or
+    never released them.  Caller holds ``_entry_lock``."""
+    stale = [k for k, v in _pending_entries.items() if v[3] < now]
+    for k in stale:
+        _pending_entries.pop(k, None)
+    if stale:
+        _route.record_collective("member_entry_expired", n=len(stale))
+    gone = [k for k, (s, _h, exp) in _held_results.items()
+            if exp < now or _sock_dead(s)]
+    for k in gone:
+        _release_held(_held_results.pop(k)[1])
+
+
+def _entry_loop() -> None:
+    """The member's one entry runner: committed entries in GO order, each
+    at a slot of this process's sequencer (a process that is both a
+    client and a member never runs two fan-outs at once).  Also sweeps
+    the parked and held tables once a second."""
+    plane = CollectiveFanoutPlane.instance()
+    while not _entry_stop.is_set():
+        _entry_wake.wait(1.0)
+        with _entry_lock:
+            _sweep_pending_locked(time.monotonic())
+            if not _entry_queue:
+                _entry_wake.clear()
+                continue
+            key, sock, low, msg = _entry_queue.popleft()
+        seq = plane.sequencer.submit()
+        try:
+            plane.sequencer.run(
+                seq, lambda: _member_enter(key, sock, low, msg))
+        except Exception as e:
+            _route.record_collective("member_entry_failed", R_EXEC)
+            log.warning("collective fan-out member entry failed: %s", e)
+            _send(sock, _fab._F_COLL_FAIL,
+                  {"uuid": key[1], "pid": _own_pid(),
+                   "reason": f"{type(e).__name__}: {e}"})
+
+
+def _member_enter(key, sock, low: _Lowering, msg: dict) -> None:
+    """One member entry: compute, hold the results until the client's
+    release, and report (COLL_RESULT)."""
+    rows, held = member_compute(sock, low, msg, _local_devices())
+    expiry = time.monotonic() + 2 * _flags.get_flag(
+        "ici_fanout_xproc_timeout_s")
+    with _entry_lock:
+        _held_results[key] = (sock, held, expiry)
+    _count("member_entries_run")
+    _send(sock, _fab._F_COLL_RESULT,
+          {"uuid": key[1], "pid": _own_pid(), "rows": rows})
+
+
+def member_compute(sock, low: _Lowering, msg: dict, local) -> tuple:
+    """A member's work for one fan-out: pull each row of ``local`` ranks
+    from the client's export (one launch each, through ``sock``'s
+    importer), run the body on it, export each result.  Returns ``(the
+    COLL_RESULT rows, [(export, result)] to hold until the client's
+    release)``, once this process's work on the card is done: the report
+    says its pulls are, so the client may release its operand."""
+    mesh = IciMesh.default()
+    md = low.md
+    xrows = msg["xrows"]
+    rb = int(msg["xrow_bytes"])
+    dt = _torch_dtype(low.operand_dtype)
+    row_shape = tuple(low.operand_shape[1:])
+    rows, held, synced = [], [], set()
+    try:
+        for i, dev in enumerate(low.devices):
+            if dev not in local:
+                continue
+            device = mesh.device(dev)
+            arg = _pull(sock, xrows[i], rb, device).view(dt).reshape(
+                row_shape)
+            r = md.handler(i, arg) if md.takes_index else md.handler(arg)
+            r = torch.as_tensor(r, device=device)
+            if device.type == "cuda":
+                synced.add(device)
+            if md.merge == MERGE_NONE:
+                continue                 # the member's rows stay here
+            r = r.contiguous()
+            exp = _ipc.export_row(r.reshape(-1).view(torch.uint8))
+            held.append((exp, r))
+            _count("rows_exported")
+            rows.append({"idx": i, "ext": base64.b64encode(exp.ext).decode(),
+                         "nbytes": r.numel() * r.element_size(),
+                         "shape": list(r.shape), "dtype": _dtype_name(r.dtype)})
+        for device in synced:
+            torch.cuda.current_stream(device).synchronize()
+    except Exception:
+        _release_held(held)
+        raise
+    return rows, held
+
+
+@atexit.register
+def _quiesce_entry_runner() -> None:
+    """Stop the entry runner before the interpreter finalizes: a daemon
+    cut off inside a torch call aborts the process."""
+    _entry_stop.set()
+    _entry_wake.set()
+    t = _entry_thread
+    if t is not None and t.is_alive() and t is not threading.current_thread():
+        t.join(5.0)
+
+
+def xproc_stats() -> dict:
+    """The cross-process leg's counts and tables, for the /ici page and
+    the phases' checks."""
+    _sweep_orphans()
+    with _entry_lock:
+        _sweep_pending_locked(time.monotonic())
+        tables = {"parked": len(_pending_entries),
+                  "held": len(_held_results), "queued": len(_entry_queue)}
+    with _announce_lock:
+        tables.update(waiters=len(_announce_waiters),
+                      calls=len(_xproc_calls), orphans=len(_orphans))
+    with _stats_lock:
+        tables.update(_xstats)
+    return tables
+
+
+def _own_pid() -> int:
+    """This process's fabric process id (``local_pid()``'s source); 0
+    with no fabric node, as the JAX package's single process."""
+    node = _fab.FabricNode.instance()
+    return node.process_id if node is not None else 0
+
+
+_announce_socks: Dict[int, Any] = {}
+
+
+def _member_sock(dev: int):
+    """A live fabric control channel to the member serving ``dev``:
+    prefer a live socket to it (the per-member RPC traffic may already
+    have dialed one), else dial one and cache it; a replaced socket is
+    failed with ECLOSE."""
+    from ..rpc.socket import list_sockets
+    for s in list_sockets():
+        if isinstance(s, _fab.FabricSocket) and s.remote_dev == dev \
+                and not _sock_dead(s):
+            return s
+    with _announce_lock:
+        stale = _announce_socks.get(dev)
+    if stale is not None and not _sock_dead(stale):
+        return stale
+    try:
+        s = _fab.connect_any(IciMesh.default().endpoint(dev))
+    except Exception:
+        return None
+    if not isinstance(s, _fab.FabricSocket):
+        return None
+    with _announce_lock:
+        prev = _announce_socks.get(dev)
+        _announce_socks[dev] = s
+    if prev is not None and prev is not s:
+        from ..rpc import errors as _err
+        prev.set_failed(_err.ECLOSE, "announce socket replaced")
+    return s
+
+
+_local_devs_lock = threading.Lock()
+_local_devs_memo: Tuple = (None, None, frozenset())
+
+
+def _local_devices() -> frozenset:
+    """The ranks this process owns: the fabric node's published block, or
+    every rank with no node.  Memoized per mesh generation (and node)."""
+    global _local_devs_memo
+    gen = IciMesh.generation
+    node = _fab.FabricNode.instance()
+    memo = _local_devs_memo
+    if memo[0] == gen and memo[1] is node:
+        return memo[2]
+    local = frozenset(node.devices) if node is not None \
+        else frozenset(range(IciMesh.default().size))
+    with _local_devs_lock:
+        _local_devs_memo = (gen, node, local)
+    return local
+
+
+def _pod_owner(dev: int, method: str) -> Optional[int]:
+    """The pid of the pod member serving ``ici://dev`` (not draining it)
+    with a device handler for ``method`` in its ``coll``, or None."""
+    from ..ici.pod import Pod, UP
+    pod = Pod.current()
+    if pod is None:
+        return None
+    for m in pod.members().values():
+        if m.state == UP and dev in m.serving and dev not in m.draining \
+                and method in m.coll:
+            return m.pid
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -819,4 +1642,5 @@ def describe() -> dict:
         "sequencer": plane.sequencer.describe(),
         "cache": plane.cache_stats(),
         "registered_methods": _registry.method_names(),
+        "xproc": xproc_stats(),
     }

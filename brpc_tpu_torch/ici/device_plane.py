@@ -75,6 +75,9 @@ _flags.define_flag("ici_device_plane_host_mesh", False,
 _flags.define_flag("ici_device_plane_match_timeout_s", 30.0,
                    "seconds a posted send waits for its matching recv "
                    "before failing (peer died post-descriptor)")
+_flags.define_flag("ici_device_plane_xproc_compiled", "auto",
+                   "run the compiled fan-out's cross-process leg: 'auto' "
+                   "(on a CUDA mesh), 'on' or 'off'")
 
 
 class DevicePlaneError(ConnectionError):
@@ -218,6 +221,28 @@ def eligible(nbytes: int, mesh: IciMesh, src: int, dst: int) -> bool:
             and platform_allows(mesh))
 
 
+def xproc_compiled_ok(mesh: Optional[IciMesh] = None) -> bool:
+    """Does this process run the compiled fan-out's cross-process leg
+    (:mod:`..channels.collective_fanout`)?  The flag
+    ``ici_device_plane_xproc_compiled``: "on" and "off" force it; "auto"
+    is true where the leg's bytes move on the card, a CUDA mesh, and false
+    on a CPU mesh, as the JAX package's "auto" is false off the TPU.
+    Forced "on" over a CPU mesh, the leg runs on the plain carrier of
+    :mod:`.ipc_pull` (shared-memory segments, the copy's plain version).
+
+    In the port this flag gates the fan-out only: a kind-4 transfer of
+    the fabric always moves on the IPC pull, whatever it says."""
+    mode = _flags.get_flag("ici_device_plane_xproc_compiled")
+    if mode == "on":
+        return True
+    if mode == "off":
+        return False
+    try:
+        return (mesh or IciMesh.default()).device_type == "cuda"
+    except Exception:
+        return False
+
+
 class DevicePlane:
     """Per-process device plane: the posted-WR table and one copy stream
     per CUDA device."""
@@ -294,16 +319,23 @@ class DevicePlane:
 
     def post_send(self, arr: torch.Tensor, src_dev: int, dst_dev: int,
                   mesh: Optional[IciMesh] = None, uuid: Optional[int] = None,
-                  remote: bool = False) -> DeviceTransfer:
+                  remote: bool = False, socket=None) -> DeviceTransfer:
         """Post one send WR.  ``arr``: flat uint8 tensor owned by rank
         ``src_dev`` of ``mesh`` (default: the default mesh).  Raises
-        DevicePlaneError (before any descriptor exists) when refused.
+        DevicePlaneError (before any descriptor exists) when refused: by
+        the fabric fault plan's ``device_plane_fail_posts`` (``socket``,
+        the posting socket, is what its ``match`` sees), or by a route the
+        plane cannot serve.
 
         ``remote=True`` is the sender half of a cross-process transfer
         (``dst_dev`` lives in another process; ``uuid`` is the fabric's):
         it is not matched in this process, the fabric exports the source
         for the receiver's pull and completes it at the peer's PULLED
         (:meth:`finish_remote`)."""
+        from ..rpc import fault_injection as _fi
+        plan = _fi.fabric_active()
+        if plan is not None and plan.on_device_post(socket):
+            raise DevicePlaneError("injected device-plane post refusal")
         if src_dev == dst_dev:
             raise DevicePlaneError("device plane is point-to-point; "
                                    "same-rank payloads are ref passes")
@@ -400,26 +432,37 @@ class DevicePlane:
         sender before it fails it (:meth:`fail_transfer`); no other byte
         mover stands in."""
         try:
-            dst_device = t.mesh.device(t.dst_dev)
-            out = torch.empty(t.nbytes, dtype=torch.uint8, device=dst_device)
-            if not out.is_cuda:
-                p2p_copy(src, out)
-                done_event = None
-            else:
-                caller = torch.cuda.current_stream(dst_device)
-                stream = self._stream(dst_device)
-                if ready_event is not None:
-                    stream.wait_event(ready_event)
-                stream.wait_stream(caller)
-                with torch.cuda.stream(stream):
-                    p2p_copy(src, out)
-                    done_event = torch.cuda.Event()
-                    done_event.record(stream)
-                out.record_stream(stream)
+            out, done_event = self.pull(src, ready_event,
+                                        t.mesh.device(t.dst_dev))
             out = t.mesh.register(out, t.dst_dev)
         except Exception as e:
             raise RuntimeError(f"remote execution failed: {e}") from None
         self._matched(t, out, done_event)
+
+    def pull(self, src: torch.Tensor, ready_event,
+             device: torch.device):
+        """One launch of the copy kernel from ``src`` (a peer's row,
+        mapped into this process) into a fresh flat uint8 tensor on
+        ``device``, on the plane stream after ``ready_event`` (the peer's
+        interprocess event, recorded after its producer) and after the
+        caller's current stream.  Returns ``(out, event recorded after the
+        launch)``; on the CPU the copy is done on return and the event is
+        None.  Raises on a refused launch: nothing else moves the bytes."""
+        out = torch.empty(src.numel(), dtype=torch.uint8, device=device)
+        if not out.is_cuda:
+            p2p_copy(src, out)
+            return out, None
+        caller = torch.cuda.current_stream(device)
+        stream = self._stream(device)
+        if ready_event is not None:
+            stream.wait_event(ready_event)
+        stream.wait_stream(caller)
+        with torch.cuda.stream(stream):
+            p2p_copy(src, out)
+            done_event = torch.cuda.Event()
+            done_event.record(stream)
+        out.record_stream(stream)
+        return out, done_event
 
     def finish_remote(self, t: DeviceTransfer) -> None:
         """Complete the sender half of a cross-process transfer: the

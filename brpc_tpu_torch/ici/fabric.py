@@ -13,10 +13,13 @@ buffers freed only on CQ completion).  What the port keeps:
     timeouts, so process 0's death fails its peers' lookups instead of
     hanging them.
   * **Control plane.**  One TCP connection per socket pair carries frames
-    1-7 and 12-16 in the JAX layouts (HELLO/HELLO_OK/HELLO_ERR, DATA,
-    CREDIT, PULLED, FIN, PING, GOODBYE, DPLANE_SEQ) and the port's own
-    PULL_ERR (sent only to peers that published :data:`.ipc_pull.
-    HANDSHAKE_KEY`).
+    1-7, 12-16 and 21-24 in the JAX layouts (HELLO/HELLO_OK/HELLO_ERR,
+    DATA, CREDIT, PULLED, FIN, PING, GOODBYE, DPLANE_SEQ, and the compiled
+    fan-out's COLL_CALL/COLL_OK/COLL_ERR/COLL_GO) and the port's own
+    frames 40-43 (sent only to peers that published :data:`.ipc_pull.
+    HANDSHAKE_KEY`): PULL_ERR, and the fan-out's COLL_RESULT, COLL_FAIL
+    and COLL_RELEASE, which carry the bytes the JAX program moves inside
+    XLA (see below).
   * **Data plane: kind 4.**  A DEVICE payload at or above
     ``ici_device_plane_threshold`` crosses as a sequenced device-plane
     transfer (:class:`CollectiveSequencer`: one total order of both
@@ -37,12 +40,37 @@ buffers freed only on CQ completion).  What the port keeps:
     peer's offset, bounded by half the round trip (:mod:`.clock`), which
     the pod-scope ``/rpcz`` stitcher aligns remote spans with.
 
+  * **The compiled fan-out's cross-process leg**
+    (:mod:`..channels.collective_fanout`).  The client announces a fan-out
+    on frame 21 to every member process, a member accepts (22) or refuses
+    (23), and only once all accepted does the client commit (24).  The
+    JSON bodies keep the JAX keys; the announce adds the port's
+    ``xrows``/``xrow_bytes``: one export of the operand (base64 of the
+    :mod:`.ipc_pull` extension) per fan-out index, each with its row's
+    offset, which the member pulls with one ``p2p_copy`` launch per row
+    it owns.  Then, the port's own:
+
+      - COLL_RESULT (41), member to client, json ``{uuid, pid, rows:
+        [{idx, ext, nbytes, shape, dtype}]}``: the member ran its bodies;
+        each result's export, which the client pulls with one launch (no
+        rows under MERGE_NONE).  It also says the member's scatter pulls
+        are done;
+      - COLL_FAIL (42), member to client, json ``{uuid, pid, reason}``:
+        the member's entry failed after the commit;
+      - COLL_RELEASE (43), client to member, json ``{uuid, cpid}``: the
+        client has pulled the results; the member's pins release.
+
+  * **Fault plan.**  The control-channel, handshake and device knobs of
+    :class:`..rpc.fault_injection.FabricFaultPlan` act here: every
+    outbound control frame passes ``on_control_send``, every inbound one
+    ``on_control_recv``, a HELLO ``on_hello``, and a pull at its slot
+    ``on_plane_op(sock, "device")``.
+
 Pod membership (:mod:`.pod`) lives on the same store.  Left out, with the
 planes they feed: the transfer server (kind 1), the native bulk listener
-and the shm ring (kinds 2, 3, 5, 6 and their revival frames) and the
-fan-out's cross-process frames (21-24).  The handshake advertises no
-``xfer``, ``bulk``, ``bulk_uds`` or ``shm`` key, so a peer never routes
-there.
+and the shm ring (kinds 2, 3, 5, 6 and their revival frames 8-11 and
+17-20).  The handshake advertises no ``xfer``, ``bulk``, ``bulk_uds`` or
+``shm`` key, so a peer never routes there.
 
 Addressing: :class:`~.mesh.IciMesh` is the same in every process, and
 process p of P owns a contiguous block of its ranks
@@ -68,6 +96,7 @@ from ..butil import flags as _flags
 from ..butil import logging as log
 from ..butil.iobuf import IOBuf, IOPortal, DEVICE
 from ..rpc import errors
+from ..rpc import fault_injection as _fi
 from ..rpc.socket import Socket
 from . import device_plane as _dp
 from . import ipc_pull as _ipc
@@ -98,9 +127,22 @@ _F_PING_OK = 13
 _F_PING_ERR = 14
 _F_GOODBYE = 15
 _F_DPLANE_SEQ = 16  # u64 uuid, i64 seq
+# the compiled fan-out's announce (brpc_tpu/ici/fabric.py:275-279)
+_F_COLL_CALL = 21   # json: {method, seq, devices, mapping, merge, shape,
+                    #        dtype, uuid, cpid} + the port's xrows/xrow_bytes
+_F_COLL_OK = 22     # json: {uuid, pid}: accepted, the entry parked
+_F_COLL_ERR = 23    # json: {uuid, pid, reason}: refused
+_F_COLL_GO = 24     # json: {uuid, cpid}: commit, the parked entry runs
 # the port's own: the receiver's pull failed (u64 uuid, u32 code, text);
 # only a peer that published the ipc_pull handshake key is sent one
 _F_PULL_ERR = 40
+# the port's own fan-out frames (module docstring), json bodies
+_F_COLL_RESULT = 41
+_F_COLL_FAIL = 42
+_F_COLL_RELEASE = 43
+
+_COLL_FRAMES = (_F_COLL_CALL, _F_COLL_OK, _F_COLL_ERR, _F_COLL_GO,
+                _F_COLL_RESULT, _F_COLL_FAIL, _F_COLL_RELEASE)
 
 _HDR = struct.Struct("<BI")          # type, body length
 
@@ -397,6 +439,11 @@ class FabricNode:
                 return
             hello = json.loads(fr[1])
             target = hello["target_dev"]
+            plan = _fi.fabric_active()
+            if plan is not None and plan.on_hello():
+                _send_frame(conn, _F_HELLO_ERR, b"injected hello refusal")
+                conn.close()
+                return
             with _listeners_lock:
                 listener = _listeners.get(target)
             if listener is None:
@@ -632,6 +679,9 @@ class CollectiveSequencer:
         _dp.plane().annotate_transfer(
             t, "seq admit queue_wait_us="
                f"{(time.monotonic_ns() - t.posted_ns) // 1000}")
+        plan = _fi.fabric_active()
+        if plan is not None:
+            plan.on_plane_op(sock, "device")    # the SLOW injector
         try:
             sock._dplane_execute(t)
             self.executed.append(t.uuid)
@@ -741,11 +791,15 @@ class FabricSocket(CreditWindow, OrderedDelivery, Socket):
                 f"device plane to process {self.peer_pid} is down "
                 f"({self._plane_device.reason})")
         src = self.mesh.rank_of(arr)
-        if src < 0:
-            src = self.local_dev     # unowned: it lives in this process
+        if src < 0 or src == self.remote_dev:
+            # unowned, or placed here for the peer's own rank (a fan-out
+            # mapper's row for its member): it lives in this process,
+            # whose rank sends it
+            src = self.local_dev
         try:
             t = plane.post_send(arr, src, self.remote_dev, mesh=self.mesh,
-                                uuid=self.node.next_uuid(), remote=True)
+                                uuid=self.node.next_uuid(), remote=True,
+                                socket=self)
         except _dp.DevicePlaneError as e:
             self._device_plane_down(str(e))
             raise _ipc.IpcPullError(str(e)) from None
@@ -885,6 +939,22 @@ class FabricSocket(CreditWindow, OrderedDelivery, Socket):
 
     # ---- write path ------------------------------------------------------
     def _ctrl_send(self, ftype: int, body: bytes) -> None:
+        """Every outbound control frame passes here: the one place the
+        fault plan drops a frame or severs the control connection."""
+        plan = _fi.fabric_active()
+        if plan is not None:
+            action = plan.on_control_send(self)
+            if action == _fi.DROP:
+                return
+            if action == _fi.ERROR:
+                # both directions: the read loop sees the reset and runs
+                # the connection-over path, as after a peer's RST
+                try:
+                    self._conn.shutdown(_pysocket.SHUT_RDWR)
+                except OSError:
+                    pass
+                raise ConnectionError("fabric control channel: "
+                                      "injected sever")
         with self._conn_wlock:
             _send_frame(self._conn, ftype, body)
 
@@ -948,6 +1018,9 @@ class FabricSocket(CreditWindow, OrderedDelivery, Socket):
                 fr = _recv_frame(self._conn)
                 if fr is None:
                     break
+                plan = _fi.fabric_active()
+                if plan is not None:
+                    plan.on_control_recv(self)    # the peer-crash fault
                 ftype, body = fr
                 if ftype == _F_DATA:
                     self._on_data(body)
@@ -964,6 +1037,9 @@ class FabricSocket(CreditWindow, OrderedDelivery, Socket):
                     seqr = self._dplane_sequencer()
                     if seqr is not None:
                         seqr.on_assignment(u, s)
+                elif ftype in _COLL_FRAMES:
+                    from ..channels import collective_fanout as _cf
+                    _cf.on_frame(self, ftype, json.loads(body))
                 elif ftype == _F_FIN:
                     if len(body) >= 4:
                         # the peer closed with an explicit code (a

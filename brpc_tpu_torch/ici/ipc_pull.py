@@ -27,6 +27,12 @@ sender unlinks it at PULLED, at the socket's close or at exit; the
 receiver unlinks it too once mapped, and a socket whose peer process died
 sweeps that pid's segments (:func:`sweep_segments`).
 
+The compiled fan-out's scatter exports one tensor once for several
+pullers (:func:`export_slices`): each slice's export names the same
+allocation (or segment) with the slice's own offset.  A slice of a segment
+is not unlinked by its receivers, since others still map it; the sender
+unlinks it when the last one has pulled.
+
 Nothing here moves bytes on the card except the p2p_copy launch, and
 nothing falls back: an export, an open or an event that fails raises
 :class:`IpcPullError` (``EINTERNAL``), and the fabric fails the transfer
@@ -63,6 +69,7 @@ HANDSHAKE_VERSION = 1
 
 MODE_CUDA = 1
 MODE_SHM = 2
+MODE_SHM_SLICE = 3             # a slice of a segment several peers map
 HANDLE_BYTES = 64              # sizeof(cudaIpcMemHandle_t/EventHandle_t)
 SEGMENT_PREFIX = "brpc_tpu_torch."
 SHM_DIR = "/dev/shm"
@@ -229,27 +236,54 @@ def export_row(arr: torch.Tensor) -> Export:
     the CPU: a fresh shared-memory segment holding the row's bytes.
     Raises IpcPullError."""
     if arr.is_cuda:
-        device = arr.get_device()
-        handle, offset = ipc_lib.export(arr.data_ptr(), device)
-        try:
-            ev = _event(device)
-            ev.record(torch.cuda.current_stream(device))
-            ev_handle = ev.ipc_handle()
-        except Exception as e:
-            raise IpcPullError(f"CUDA IPC event failed: {e}") from None
-        ext = (struct.pack("<B", MODE_CUDA) + handle
-               + struct.pack("<Q", offset) + bytes(ev_handle)
-               + struct.pack("<i", device))
-        return Export(ext, event=ev, device=device)
+        exp, (exp.ext,) = export_slices(arr, [(0, arr.numel())])
+        return exp
     name = create_segment(arr)
     raw = name.encode()
     return Export(struct.pack("<BH", MODE_SHM, len(raw)) + raw,
                   segment=name)
 
 
+def _cuda_ext(handle: bytes, offset: int, ev_handle: bytes,
+              device: int) -> bytes:
+    return (struct.pack("<B", MODE_CUDA) + handle
+            + struct.pack("<Q", offset) + bytes(ev_handle)
+            + struct.pack("<i", device))
+
+
+def export_slices(flat: torch.Tensor,
+                  slices: List[Tuple[int, int]]) -> Tuple[Export, List[bytes]]:
+    """Export a flat uint8 tensor ONCE for several pullers: ``(the export,
+    one extension per (offset, length) slice)``.  On the card the
+    allocation's handle is taken once, one interprocess event is recorded
+    on the current stream, and each extension carries its slice's offset
+    in the allocation; on the CPU one segment holds the tensor and each
+    extension names it with the slice's offset.  The caller holds the
+    tensor and the export until every puller has pulled.  Raises
+    IpcPullError."""
+    if flat.is_cuda:
+        device = flat.get_device()
+        handle, base = ipc_lib.export(flat.data_ptr(), device)
+        try:
+            ev = _event(device)
+            ev.record(torch.cuda.current_stream(device))
+            ev_handle = ev.ipc_handle()
+        except Exception as e:
+            raise IpcPullError(f"CUDA IPC event failed: {e}") from None
+        return (Export(b"", event=ev, device=device),
+                [_cuda_ext(handle, base + off, ev_handle, device)
+                 for off, _n in slices])
+    name = create_segment(flat)
+    raw = name.encode()
+    head = struct.pack("<BH", MODE_SHM_SLICE, len(raw)) + raw
+    return (Export(b"", segment=name),
+            [head + struct.pack("<Q", off) for off, _n in slices])
+
+
 def parse_ext(body: bytes, off: int) -> Tuple[tuple, int]:
     """Parse an export at ``body[off:]``: ``((MODE_CUDA, handle, offset,
-    event_handle, device) | (MODE_SHM, name), new offset)``."""
+    event_handle, device) | (MODE_SHM, name) | (MODE_SHM_SLICE, name,
+    offset), new offset)``."""
     (mode,) = struct.unpack_from("<B", body, off)
     off += 1
     if mode == MODE_CUDA:
@@ -261,10 +295,15 @@ def parse_ext(body: bytes, off: int) -> Tuple[tuple, int]:
         off += HANDLE_BYTES
         (device,) = struct.unpack_from("<i", body, off)
         return (MODE_CUDA, handle, offset, ev, device), off + 4
-    if mode == MODE_SHM:
+    if mode in (MODE_SHM, MODE_SHM_SLICE):
         (n,) = struct.unpack_from("<H", body, off)
         off += 2
-        return (MODE_SHM, body[off:off + n].decode()), off + n
+        name = body[off:off + n].decode()
+        off += n
+        if mode == MODE_SHM:
+            return (MODE_SHM, name), off
+        (offset,) = struct.unpack_from("<Q", body, off)
+        return (MODE_SHM_SLICE, name, offset), off + 8
     raise IpcPullError(f"unknown device-leg export mode {mode}")
 
 
@@ -391,6 +430,8 @@ class Importer:
         runs once the copy was launched (CPU: done)."""
         if ext[0] == MODE_SHM:
             return open_segment(ext[1], nbytes)
+        if ext[0] == MODE_SHM_SLICE:
+            return open_segment(ext[1], nbytes, offset=ext[2], unlink=False)
         _, handle, offset, ev_handle, device = ext
         with self._lock:
             if self._closed:
@@ -442,9 +483,11 @@ class Importer:
             self._unmap(list(maps.values()), torch.cuda.current_device())
 
 
-def open_segment(name: str, nbytes: int):
+def open_segment(name: str, nbytes: int, offset: int = 0,
+                 unlink: bool = True):
     """The plain leg's open: map the sender's segment (and unlink its
-    name: the mapping outlives it); the copy reads the mapping, and
+    name unless other receivers still map it: the mapping outlives it);
+    the copy reads ``nbytes`` at ``offset`` of the mapping, and
     ``release`` unmaps it once the copy is done.  (Tests replace this
     function to force a failed open on the CPU.)"""
     path = os.path.join(SHM_DIR, name)
@@ -455,16 +498,18 @@ def open_segment(name: str, nbytes: int):
     try:
         # a private mapping: the row reads the sender's pages, and nothing
         # written here could reach them
-        mm = mmap.mmap(fd, max(nbytes, 1), access=mmap.ACCESS_COPY)
+        mm = mmap.mmap(fd, max(offset + nbytes, 1), access=mmap.ACCESS_COPY)
     except (OSError, ValueError) as e:
         raise IpcPullError(f"shared-memory map failed: {e}") from None
     finally:
         os.close(fd)
-    try:
-        os.unlink(path)
-    except OSError:
-        pass
-    row = torch.frombuffer(mm, dtype=torch.uint8, count=nbytes) \
+    if unlink:
+        try:
+            os.unlink(path)
+        except OSError:
+            pass
+    row = torch.frombuffer(mm, dtype=torch.uint8, count=nbytes,
+                           offset=offset) \
         if nbytes else torch.empty(0, dtype=torch.uint8)
 
     def release():

@@ -316,6 +316,28 @@ class Pod:
             self._gen += 1
         self._publish()
 
+    def evict(self, pid: int) -> bool:
+        """Tombstone another member that cannot leave by itself: its
+        process died.  Its record is republished down, serving nothing,
+        with its gen bumped, so every member's epoch moves and its ranks
+        leave ``pod://`` and the fan-out's screen.  The pod keeps no
+        liveness of its own: the caller (a supervisor, or a member that
+        saw the process exit) decides.  False when there is no such live
+        record."""
+        if pid == self.pid:
+            raise ValueError("a member leaves by itself: Pod.leave()")
+        rec = self._refresh().get(pid)
+        if rec is None or rec.state == DOWN:
+            return False
+        dead = PodMember(pid, rec.gen + 1, DOWN, rec.devices, [], [],
+                         ctrl=rec.ctrl, ts=time.time(), coll=rec.coll,
+                         load=0.0)
+        with self._store_lock:
+            self._store.set(self._key(pid), dead.to_json())
+        log.warning("pod %s: process %d evicted", self.name, pid)
+        self._refresh()
+        return True
+
     # ---- membership view -----------------------------------------------
     def _read_records(self) -> List[str]:
         """Every member record of the pod: a ``check`` per process not yet

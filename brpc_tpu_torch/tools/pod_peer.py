@@ -54,6 +54,12 @@ from .fabric_peer import _exit_with_parent
 
 SOCKET_WINDOW = 64 << 20
 BARRIER_S = 120.0
+# the fanout scenario: a 64 MiB replicated operand rides one kind-4
+# transfer per sub-call on its degraded leg, so the window holds it whole
+FANOUT_WINDOW = 256 << 20
+FANOUT_VICTIM = 1           # the member SIGKILLed mid-fan-out
+FANOUT_RESTART_PID = 2      # the member that restarts ici://4
+FANOUT_CRASH_RPC_MS = 3000  # the sub-call deadline of the SIGKILL leg
 
 
 class _Member:
@@ -670,6 +676,345 @@ def run_chaos(m: _Member) -> dict:
     return out
 
 
+# ---- fanout ------------------------------------------------------------
+
+def run_fanout(m: _Member) -> dict:
+    """The compiled fan-out's cross-process leg over four members (see the
+    module docstring).  Process 0 is the client; the members report their
+    counts at the points the client names in the store."""
+    import signal
+    import numpy as np
+    from brpc_tpu_torch import channels, rpc
+    from brpc_tpu_torch.butil import flags
+    from brpc_tpu_torch.channels import collective_fanout as cf
+    from brpc_tpu_torch.ici import route
+    from brpc_tpu_torch.ici.pod import Pod
+    from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
+    from brpc_tpu_torch.tools.overload_clients import attachment_tensor
+    a = m.args
+    pid, n = m.pid, m.n
+    ranks = list(range(2 * n))
+    flags.set_flag("ici_socket_window_bytes", FANOUT_WINDOW)
+    flags.set_flag("ici_fanout_xproc_timeout_s", a.xproc_timeout)
+    flags.set_flag("ici_fanout_reprobe_s", 1.0)
+    if a.device == "cpu":
+        # the CPU mesh runs the leg only when forced (device_plane)
+        flags.set_flag("ici_device_plane_xproc_compiled", "on")
+
+    def crash(x):
+        if pid == FANOUT_VICTIM:
+            os.kill(os.getpid(), signal.SIGKILL)
+        return x * 2.0
+
+    bodies = {"Scale": (lambda x: x * 2.0, "gather", "shard"),
+              "Sum": (lambda x: x * 0.5, "sum", "replicate"),
+              "Crash": (crash, "gather", "shard")}
+
+    class Fan(rpc.Service):
+        """The wire bodies of the per-member loop: the registered device
+        bodies themselves, on the bytes as they arrived."""
+
+        SERVICE_NAME = "Fan"
+
+        def __init__(self, rank):
+            self.rank = rank
+
+        def _reply(self, cntl, fn):
+            att = cntl.request_attachment
+            if att.device_refs():
+                x = attachment_tensor(att).view(torch.float32)
+                cntl.response_attachment.append_device_array(m.mesh.own(
+                    fn(x).contiguous().view(torch.uint8), self.rank))
+            else:
+                x = torch.from_numpy(np.frombuffer(
+                    att.to_bytes(), np.uint8).copy()).view(torch.float32)
+                cntl.response_attachment.append(fn(x).numpy().tobytes())
+
+        @rpc.method(EchoRequest, EchoResponse)
+        def Scale(self, cntl, request, response, done):
+            self._reply(cntl, bodies["Scale"][0])
+            done()
+
+        @rpc.method(EchoRequest, EchoResponse)
+        def Sum(self, cntl, request, response, done):
+            self._reply(cntl, bodies["Sum"][0])
+            done()
+
+        @rpc.method(EchoRequest, EchoResponse)
+        def Crash(self, cntl, request, response, done):
+            self._reply(cntl, bodies["Crash"][0])
+            done()
+
+    def serve(r):
+        s = rpc.Server(rpc.ServerOptions(native_ici=False))
+        s.add_service(Fan(r))
+        for name, (fn, merge, mapping) in bodies.items():
+            s.register_collective(f"Fan.{name}", fn, merge=merge,
+                                  mapping=mapping)
+        assert s.start(f"ici://{r}") == 0, r
+        return s
+
+    # registered before the join, which publishes them (one gen bump)
+    for name, (fn, merge, mapping) in bodies.items():
+        cf.register_device_handler(f"Fan.{name}", fn, merge=merge,
+                                   mapping=mapping)
+    pod = Pod.join("fan")
+    servers = {r: serve(r) for r in (m.rank, m.rank + 1)}
+    pod.wait_epoch(3 * n, timeout=60)       # a join and two advertises
+    members = pod.members(refresh=True)
+    assert sorted(members) == list(range(n)) and all(
+        sorted(members[p].serving) == [2 * p, 2 * p + 1]
+        and "Fan.Scale" in members[p].coll for p in range(n)), {
+        p: (r.serving, r.coll) for p, r in members.items()}
+    out = {"pid": pid, "os_pid": os.getpid()}
+    m.barrier("up")
+    m.zero()
+
+    def counts():
+        d = m.deltas()
+        x = cf.xproc_stats()
+        d.update(rows_pulled=x["rows_pulled"],
+                 rows_exported=x["rows_exported"],
+                 entries_run=x["member_entries_run"])
+        return d
+
+    if pid == 0:
+        out.update(_fanout_client(m, pod, cf, channels, rpc, route, flags,
+                                  EchoRequest, EchoResponse, counts))
+    else:
+        m.get("ab_done", 600)
+        m.put(f"ab_counts/{pid}", counts())
+        if pid == FANOUT_RESTART_PID:
+            m.get("restart", 300)
+            for s in servers.values():
+                s.stop()
+            servers = {r: serve(r) for r in (m.rank, m.rank + 1)}
+            m.put("restarted", 1)
+        m.get("chaos_done", 600)
+    m.sync()
+    out["counts"] = counts()
+    out["route"] = {k: v for k, v in route.collective_stats().items()
+                    if v}
+    out["ipc"] = m.ipc()
+    out["payload_routes"] = route.route_stats()
+    m.put(f"final/{pid}", 1)
+    m.get("exit", 300)
+    for s in servers.values():
+        s.stop()
+    pod.leave()
+    out["leaks"] = m.leaks()
+    out["xproc"] = cf.xproc_stats()
+    out["foreign"] = _foreign()
+    return out
+
+
+def _fanout_client(m, pod, cf, channels, rpc, route, flags, EchoRequest,
+                   EchoResponse, counts) -> dict:
+    from brpc_tpu_torch.rpc import fault_injection as fi
+    a = m.args
+    n = m.n
+    ranks = list(range(2 * n))
+    dev = m.mesh.device(m.rank)
+    res = {}
+    chans = []
+
+    def mk_pc(merge, shard_shape, devs=ranks, mapper=None, timeout_ms=30000):
+        pc = channels.ParallelChannel()
+        mapper = mapper or channels.ShardingCallMapper()
+        merger = channels.CollectiveMerger(merge=merge, dtype="float32",
+                                           shard_shape=shard_shape)
+        for r in devs:
+            ch = rpc.Channel()
+            ch.init(f"ici://{r}", options=rpc.ChannelOptions(
+                timeout_ms=timeout_ms, max_retry=0))
+            pc.add_channel(ch, mapper=mapper, merger=merger)
+            chans.append(ch)
+        return pc
+
+    def call(pc, op, method, want=None):
+        cntl = rpc.Controller()
+        cntl.fanout_operand = op
+        t0 = time.perf_counter_ns()
+        pc.call_method(method, cntl, EchoRequest(message="f"),
+                       EchoResponse())
+        m.sync()
+        us = (time.perf_counter_ns() - t0) / 1000.0
+        if want is not None:
+            assert not cntl.failed(), (method, cntl.error_code_,
+                                       cntl.error_text)
+            assert cntl.fanout_route == want, (method, cntl.fanout_route,
+                                               want)
+        return cntl, us
+
+    def degrades():
+        return {k: v for k, v in route.collective_stats().items()
+                if k.startswith("collective_degraded")}
+
+    def leg(pc, op, method, compiled, calls, ref):
+        flags.set_flag("ici_fanout_collective", compiled)
+        lat = []
+        try:
+            for _ in range(calls):
+                cntl, us = call(pc, op, method,
+                                "collective" if compiled else "rpc")
+                assert torch.equal(cntl.fanout_result, ref), (
+                    method, compiled, "differs from the first result")
+                lat.append(us)
+        finally:
+            flags.set_flag("ici_fanout_collective", True)
+        return lat
+
+    def pct(xs, q):
+        xs = sorted(xs)
+        return xs[min(len(xs) - 1, int(q * len(xs)))] if xs else -1.0
+
+    deg0 = degrades()
+    # (a) bench.py's shape: 8 x 512 float32, gather, in turns with the loop
+    gen = torch.Generator(device=dev).manual_seed(1919)
+    op = torch.randn(len(ranks), a.shard, device=dev, generator=gen)
+    pc_a = mk_pc("gather", (a.shard,))
+    first, _ = call(pc_a, op, "Fan.Scale", "collective")
+    ref = first.fanout_result.clone()
+    assert torch.equal(ref, op * 2.0), "the compiled gather is not op * 2"
+    lat_c, lat_l = [], []
+    turns = 4
+    for t in range(turns):
+        lat_c += leg(pc_a, op, "Fan.Scale", True, a.calls // turns, ref)
+        lat_l += leg(pc_a, op, "Fan.Scale", False, a.calls // turns, ref)
+    res["a"] = {"members": len(ranks), "shard": a.shard, "calls": len(lat_c),
+                "collective_p50_us": pct(lat_c, 0.5),
+                "collective_p99_us": pct(lat_c, 0.99),
+                "loop_p50_us": pct(lat_l, 0.5),
+                "loop_p99_us": pct(lat_l, 0.99)}
+    compiled_calls = 1 + len(lat_c)
+    # (b) 64 MiB: 8 shards of 8 MiB gathered, a 64 MiB operand replicated
+    # and summed; compiled against degraded, bit for bit
+    x = torch.randn(len(ranks), a.big // 4 // len(ranks), device=dev,
+                    generator=gen)
+    rep = torch.randn(a.big // 4, device=dev, generator=gen)
+    b = {"bytes": a.big}
+    for name, pc, operand, method, want in (
+            ("gather", mk_pc("gather", (x.shape[1],)), x, "Fan.Scale",
+             x * 2.0),
+            ("sum", mk_pc("sum", None,
+                          mapper=channels.ReplicateFanoutMapper()),
+             rep, "Fan.Sum", None)):
+        c1, _ = call(pc, operand, method, "collective")
+        got = c1.fanout_result.clone()
+        if want is not None:
+            assert torch.equal(got, want), f"compiled {name} differs"
+        lat_c = leg(pc, operand, method, True, a.big_calls, got)
+        lat_d = leg(pc, operand, method, False, a.big_calls, got)
+        b[name] = {"compiled_ms_p50": pct(lat_c, 0.5) / 1e3,
+                   "compiled_ms_p99": pct(lat_c, 0.99) / 1e3,
+                   "degraded_ms_p50": pct(lat_d, 0.5) / 1e3,
+                   "degraded_ms_p99": pct(lat_d, 0.99) / 1e3}
+        compiled_calls += 1 + len(lat_c)
+    del x, rep
+    res["b"] = b
+    res["degrades_ab"] = {k: v - deg0.get(k, 0) for k, v in
+                          degrades().items() if v != deg0.get(k, 0)}
+    res["compiled_calls_ab"] = compiled_calls
+    m.sync()
+    res["ab_counts"] = {0: counts()}
+    m.put("ab_done", 1)
+    for q in range(1, n):
+        res["ab_counts"][q] = m.get(f"ab_counts/{q}")
+
+    # (c) chaos
+    c = {}
+    base = route.collective_stats()
+
+    def delta():
+        now = route.collective_stats()
+        return {k: v - base.get(k, 0) for k, v in now.items()
+                if v != base.get(k, 0)}
+
+    # 1. the member serving ici://4 killed mid-fan-out, by the plan
+    plan = fi.FabricFaultPlan(collective_kill_device=4)
+    routes = []
+    with fi.inject_fabric(plan):
+        for _ in range(2):
+            cntl, _ = call(pc_a, op, "Fan.Scale", "rpc")
+            assert torch.equal(cntl.fanout_result, ref)
+            routes.append(cntl.fanout_route)
+    assert plan.injected["collective"] == 1, plan.injected
+    cntl, _ = call(pc_a, op, "Fan.Scale", "rpc")          # stays down
+    routes.append(cntl.fanout_route)
+    e0 = pod.epoch(refresh=True)
+    m.put("restart", 1)
+    m.get("restarted", 120)
+    pod.wait_epoch(e0 + 4, timeout=60)     # 2 withdraws, 2 advertises
+    cntl, _ = call(pc_a, op, "Fan.Scale", "collective")
+    routes.append(cntl.fanout_route)
+    d = delta()
+    assert d.get("collective_degraded_member_killed") == 1 \
+        and d.get("collective_revived_member_killed") == 1, d
+    c["kill"] = {"routes": routes, "failed_calls": 0, "epoch_moved":
+                 [e0, pod.epoch()], "delta": d}
+    # 2. one announce black-holed
+    base = route.collective_stats()
+    plan = fi.FabricFaultPlan(collective_drop_announces=1)
+    with fi.inject_fabric(plan):
+        cntl, us = call(pc_a, op, "Fan.Scale", "rpc")
+    assert torch.equal(cntl.fanout_result, ref)
+    assert us / 1e6 < a.xproc_timeout + 1.0, us
+    d = delta()
+    assert d.get("collective_degraded_announce_refused") == 1, d
+    assert plan.injected["coll_announce_drop"] == 1, plan.injected
+    time.sleep(1.2)                         # the transient reprobe window
+    cntl, _ = call(pc_a, op, "Fan.Scale", "collective")
+    c["drop"] = {"route": "rpc", "call_s": us / 1e6, "failed_calls": 0,
+                 "delta": d, "then": cntl.fanout_route}
+    # 3. a member killed by SIGKILL after accepting, before its result
+    base = route.collective_stats()
+    victim_ranks = [2 * FANOUT_VICTIM, 2 * FANOUT_VICTIM + 1]
+    pc_crash = mk_pc("gather", (a.shard,), timeout_ms=FANOUT_CRASH_RPC_MS)
+    cntl, us = call(pc_crash, op, "Fan.Crash")
+    c["sigkill"] = {"route": cntl.fanout_route, "call_s": us / 1e6,
+                    "failed": cntl.failed(), "error": cntl.error_text}
+    assert cntl.fanout_route == "rpc", cntl.fanout_route
+    assert us / 1e6 < a.xproc_timeout + FANOUT_CRASH_RPC_MS / 1e3 + 2.0, us
+    # the victim is gone: no ping answers; the supervisor's eviction
+    # takes it out of the pod
+    end = time.monotonic() + 30
+    while m.node.ping(victim_ranks[0], timeout=0.5) \
+            and time.monotonic() < end:
+        time.sleep(0.1)
+    e1 = pod.epoch(refresh=True)
+    assert pod.evict(FANOUT_VICTIM)
+    pod.wait_epoch(e1 + 1, timeout=30)
+    pc_all = mk_pc("gather", (a.shard,), timeout_ms=FANOUT_CRASH_RPC_MS)
+    before = route.collective_stats().get(
+        "collective_ineligible_member_down", 0)
+    cntl, _ = call(pc_all, op, "Fan.Scale")
+    c["after_evict"] = {
+        "route": cntl.fanout_route,
+        "member_down": route.collective_stats().get(
+            "collective_ineligible_member_down", 0) - before}
+    assert cntl.fanout_route == "rpc" and c["after_evict"]["member_down"] \
+        == 1, c["after_evict"]
+    # the survivors' ranks still fan out on the cross-process leg
+    live = [r for r in ranks if r not in victim_ranks]
+    pc_live = mk_pc("gather", (a.shard,), devs=live)
+    time.sleep(1.2)                         # exec_failed's reprobe window
+    cntl, _ = call(pc_live, op[:len(live)].contiguous(), "Fan.Scale",
+                   "collective")
+    assert torch.equal(cntl.fanout_result, op[:len(live)] * 2.0)
+    c["survivors"] = {"route": cntl.fanout_route, "ranks": live}
+    c["sigkill"]["delta"] = delta()
+    res["c"] = c
+    m.put("chaos_done", 1)
+    for q in range(1, n):
+        if q != FANOUT_VICTIM:
+            m.get(f"final/{q}", 120)
+    for ch in chans:
+        ch.close()
+    m.put("exit", 1)
+    res["victim_os_pid"] = m.node.peer_info(FANOUT_VICTIM)["os_pid"]
+    return res
+
+
 def run_members(scenario: str, nproc: int, device: str = "cuda",
                 extra=(), timeout: float = 600.0, cwd=None) -> list:
     """Start ``nproc`` members of ``scenario`` as fresh interpreters, all
@@ -714,16 +1059,22 @@ def main(argv=None) -> int:
     ap.add_argument("coord")
     ap.add_argument("pid", type=int)
     ap.add_argument("nproc", type=int)
-    ap.add_argument("scenario", choices=("generate", "chaos"))
+    ap.add_argument("scenario", choices=("generate", "chaos", "fanout"))
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--seq", type=int, default=512)
     ap.add_argument("--steps", type=int, default=64)
     ap.add_argument("--prompts", type=int, default=20)
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--attach", type=int, default=64 << 10)
+    ap.add_argument("--shard", type=int, default=512)
+    ap.add_argument("--calls", type=int, default=80)
+    ap.add_argument("--big", type=int, default=64 << 20)
+    ap.add_argument("--big-calls", type=int, default=10)
+    ap.add_argument("--xproc-timeout", type=float, default=2.0)
     args = ap.parse_args(argv)
     m = _Member(args)
-    run = run_generate if args.scenario == "generate" else run_chaos
+    run = {"generate": run_generate, "chaos": run_chaos,
+           "fanout": run_fanout}[args.scenario]
     out = run(m)
     m.node.quiesce()
     print("RESULT " + json.dumps(out), flush=True)

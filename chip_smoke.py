@@ -337,6 +337,42 @@ Phases, each fatal on failure:
                 epoch 12; the ms from p3's drain mark until no process's
                 pod:// lists ici://6 is printed.  Every member ends with
                 nothing active, mapped or in /dev/shm
+ 19. fanout_xproc  the compiled fan-out's cross-process leg over the pod:
+                four member processes (tools/pod_peer.py fanout), process p
+                owning and serving ici://2p and 2p+1 with a Fan service
+                whose wire bodies are its registered device bodies, process
+                0 the client.  (a) bench.py's shape, 8 x 512 float32,
+                MAP_SHARD/MERGE_GATHER over ranks 0-7: 80 calls on the
+                cross-process leg in turns with 80 on the per-member loop
+                (ici_fanout_collective off) on the same members, every
+                route as meant, every result equal byte for byte to the
+                first (= op x 2), no degrade counter moving; p50/p99 of
+                both beside phase 13's in-process compiled p50; (b) 64 MiB
+                in 8 shards gathered, and a 64 MiB operand replicated and
+                summed, 10 calls each on the leg and 10 degraded, bit-exact;
+                (c) chaos: FabricFaultPlan(collective_kill_device=4) in the
+                client (every call degrades, member_killed, none fails; the
+                route stays down with the plan cleared and returns once
+                process 2 restarts ici://4-5 and the epoch moves); one
+                announce black-holed with ici_fanout_xproc_timeout_s = 2
+                (the call degrades announce_refused within it, none fails,
+                the two members that accepted count member_entry_expired);
+                process 1 SIGKILLed by its own body after accepting and
+                before its result (the call returns within the timeout plus
+                its sub-calls' 3 s deadline, the survivors go on, and after
+                Pod.evict the next fan-out over ranks 0-7 screens
+                member_down while one over the survivors' ranks takes the
+                leg); (d) every survivor ends with nothing active, mapped,
+                parked, held or in /dev/shm, and no module of JAX loaded.
+                The launch count: on the leg a member pulls its two ranks'
+                scatter rows per call (the replicated operand once per
+                rank), and the client pulls one result per remote rank, 6
+                per gather or sum call; so after (a)-(b) a member's
+                rows pulled = 2 x the leg's calls and the client's = 6 x
+                them, and in every process p2p_copy launches = the rows it
+                pulled on the leg + the copies of the per-member loop
+                (kind-4 pulls and in-process transfers).  Its IPC opens
+                against cache hits are printed
 
 Launch counts are zeroed just before each path and read just after it:
 during phases 3-4 and during phase 8 p2p_copy's launches must equal the
@@ -359,7 +395,9 @@ during phase 18 the members count their own launches from just before
 their traffic: in the decode process they equal the kind-4 transfers it
 received and the LoadKv attachments, in each membership-contract process
 the transfers whose copy ran there (in process or pulled from a peer), and
-the driving process launches none; during
+the driving process launches none; during phase 19 the same holds
+of the driving process, and in each member the launches equal the rows it
+pulled on the cross-process leg plus its per-member loop's copies; during
 phase 6 each ring kernel's launches must equal the calls of its entry
 point.  The line before the last is the ``kernels`` JSON; the last line
 is the device JSON.
@@ -486,6 +524,9 @@ FABRIC_KILL_CODE = 1014
 POD_SEQ, POD_STEPS, POD_PROMPTS, POD_WARMUP = 512, 64, 20, 2
 POD_CHAOS_PROCS, POD_ATTACH = 4, 64 << 10
 POD_TIMEOUT_S = 300.0
+# phase 19: bench.py:823's shape, 64 MiB as phase 13's, the chaos timeout
+XPROC_SHARD, XPROC_CALLS, XPROC_BIG, XPROC_BIG_CALLS = 512, 80, 64 << 20, 10
+XPROC_TIMEOUT_S = 2.0
 
 
 def fail(msg: str) -> None:
@@ -4346,6 +4387,108 @@ def phase_pod(device: str = "cuda") -> dict:
     return out
 
 
+def phase_fanout_xproc(device: str = "cuda",
+                       local_p50_us: float = -1.0) -> dict:
+    """The compiled fan-out's cross-process leg (see the module docstring,
+    phase 19): four member processes of ``tools/pod_peer.py fanout``
+    started at once; process 1 dies by SIGKILL in (c).  The members count
+    their own launches from just before their traffic and report them,
+    after (a)-(b) and at the end."""
+    from brpc_tpu_torch.ici import ipc_pull
+    from brpc_tpu_torch.tools import pod_peer
+    t0 = time.monotonic()
+    res = pod_peer.run_members(
+        "fanout", 4, device,
+        ["--shard", XPROC_SHARD, "--calls", XPROC_CALLS, "--big", XPROC_BIG,
+         "--big-calls", XPROC_BIG_CALLS, "--xproc-timeout", XPROC_TIMEOUT_S],
+        timeout=POD_TIMEOUT_S, cwd=str(ROOT))
+    wall = time.monotonic() - t0
+    victim = pod_peer.FANOUT_VICTIM
+    for pid, (rc, r, text) in enumerate(res):
+        ok = (rc == -9 and r is None) if pid == victim \
+            else (rc == 0 and r is not None)
+        if not ok:
+            for q, (_, _, t) in enumerate(res):
+                print(f"fanout member {q} output:\n{t[-6000:]}",
+                      file=sys.stderr, flush=True)
+            fail(f"fanout_xproc: member {pid} ended rc {rc}")
+    survivors = [r for _, r, _ in res if r is not None]
+    cl = res[0][1]
+    empty = {"parked": 0, "held": 0, "queued": 0, "waiters": 0, "calls": 0,
+             "orphans": 0}
+    for r in survivors:
+        check(r["foreign"] == [],
+              f"fanout member {r['pid']} loaded {r['foreign']}")
+        check(r["leaks"] == {"active": 0, "mapped": 0, "segments": 0},
+              f"fanout member {r['pid']} left {r['leaks']}")
+        tables = {k: r["xproc"][k] for k in empty}
+        check(tables == empty, f"fanout member {r['pid']} left {tables}")
+        left = ipc_pull.segments_on_disk(r["os_pid"])
+        check(not left, f"fanout member {r['pid']}'s segments left: {left}")
+        d = r["counts"]
+        check(d["launches"] == d["rows_pulled"] + d["copies"],
+              f"fanout member {r['pid']}: p2p_copy launches {d['launches']}"
+              f", rows pulled on the leg {d['rows_pulled']}, loop copies "
+              f"{d['copies']}")
+    left = ipc_pull.segments_on_disk(cl["victim_os_pid"])
+    check(not left, f"the killed member's segments left: {left}")
+    # (a)-(b): every healthy call on the leg, the count the design predicts
+    calls = cl["compiled_calls_ab"]
+    check(cl["degrades_ab"] == {},
+          f"a degrade counter moved in (a)-(b): {cl['degrades_ab']}")
+    ab = {int(k): v for k, v in cl["ab_counts"].items()}
+    for q, d in sorted(ab.items()):
+        want = 6 * calls if q == 0 else 2 * calls
+        check(d["rows_pulled"] == want,
+              f"fanout process {q}: {d['rows_pulled']} rows pulled in "
+              f"(a)-(b), the design says {want} ({calls} calls)")
+        check(d["launches"] == d["rows_pulled"] + d["copies"],
+              f"fanout process {q} in (a)-(b): launches {d['launches']}, "
+              f"rows pulled {d['rows_pulled']}, loop copies {d['copies']}")
+    c = cl["c"]
+    check(c["kill"]["routes"] == ["rpc", "rpc", "rpc", "collective"],
+          f"kill leg routes {c['kill']['routes']}")
+    check(c["drop"]["call_s"] < XPROC_TIMEOUT_S + 1.0,
+          f"the black-holed call took {c['drop']['call_s']} s")
+    for r in survivors[1:]:
+        check(r["route"].get("collective_member_entry_expired") == 1,
+              f"fanout member {r['pid']}: expired entries "
+              f"{r['route'].get('collective_member_entry_expired')}")
+    check(c["sigkill"]["route"] == "rpc"
+          and c["sigkill"]["call_s"] < XPROC_TIMEOUT_S + 5.0,
+          f"the SIGKILL leg: {c['sigkill']}")
+    check(c["after_evict"]["member_down"] == 1
+          and c["survivors"]["route"] == "collective",
+          f"after the eviction: {c['after_evict']}, {c['survivors']}")
+    a, b = cl["a"], cl["b"]
+    ipc = {r["pid"]: r["ipc"] for r in survivors}
+    launches = sum(r["counts"]["launches"] for r in survivors) \
+        + ab[victim]["launches"]
+    print(f"fanout_xproc: (a) 8 x {XPROC_SHARD} float32 over 4 processes: "
+          f"cross-process leg p50 {a['collective_p50_us']:.1f} us p99 "
+          f"{a['collective_p99_us']:.1f}, per-member loop p50 "
+          f"{a['loop_p50_us']:.1f} p99 {a['loop_p99_us']:.1f}, phase 13's "
+          f"in-process compiled p50 {local_p50_us:.1f}; (b) 64 MiB gather "
+          f"{b['gather']['compiled_ms_p50']:.2f} ms on the leg / "
+          f"{b['gather']['degraded_ms_p50']:.2f} degraded, sum "
+          f"{b['sum']['compiled_ms_p50']:.2f} / "
+          f"{b['sum']['degraded_ms_p50']:.2f}; rows pulled in (a)-(b) "
+          f"{[ab[q]['rows_pulled'] for q in sorted(ab)]} for {calls} calls"
+          f" (6 and 2 a call); launches = rows pulled + loop copies in "
+          f"every process; IPC opens/hits "
+          f"{ {p: (v['opens'], v['hits']) for p, v in ipc.items()} }; "
+          f"(c) kill {c['kill']['routes']}, drop "
+          f"{c['drop']['call_s']:.2f} s, SIGKILL call "
+          f"{c['sigkill']['call_s']:.2f} s then member_down; "
+          f"{wall:.1f} s", flush=True)
+    return {"wall_s": wall, "a": a, "b": b, "c": c, "ab_counts": ab,
+            "compiled_calls_ab": calls, "ipc": ipc,
+            "final_counts": {r["pid"]: r["counts"] for r in survivors},
+            "payload_routes": {r["pid"]: r["payload_routes"]
+                               for r in survivors},
+            "launches": launches}
+
+
 def _fabric_overload(rpc, mesh, plane, ch, count, peer_stats, sync) -> dict:
     """Phase 10's overload leg across processes: the server on ici://5
     here (phase 10's, on the Python plane), the paced clients (ranks 2
@@ -4704,6 +4847,18 @@ def main() -> int:
     print("pod: " + json.dumps({k: v for k, v in pod.items()
                                 if k != "members"}), flush=True)
 
+    # 19. the compiled fan-out's cross-process leg: the members count
+    # their own launches; this process launches nothing
+    zero_counts()
+    xproc = phase_fanout_xproc(
+        local_p50_us=slice7["fanout_collective"]["a"]["collective"]["p50_us"])
+    launches = {k.name: k.launches for k in kernels_all}
+    check(all(v == 0 for v in launches.values()),
+          f"a kernel launched in the driving process during phase 19: "
+          f"{launches}")
+    check(xproc["launches"] > 0, "the fan-out leg never launched p2p_copy")
+    print("fanout_xproc: " + json.dumps(xproc), flush=True)
+
     head = next(r for r in rows if r["label"] == "4 MiB")
     red = ring_rows["ring_all_reduce"]
     gat = ring_rows["ring_all_gather"]
@@ -4722,7 +4877,7 @@ def main() -> int:
                      + sum(r["launches"] for r in slice7.values())
                      + calls["launches"] + native["launches"]
                      + native_adm["launches"] + fab["launches"]
-                     + pod["launches"]),
+                     + pod["launches"] + xproc["launches"]),
         "launches_by_path": {"echo": main_launches,
                              "serving": serve["launches"],
                              "migration": tiers["launches"], **phase10,
@@ -4735,7 +4890,8 @@ def main() -> int:
                              "native_overload": native_adm["launches"],
                              "fabric": fab["launches"],
                              **{f"pod_{k}": v for k, v in
-                                pod["launches_by_scenario"].items()}},
+                                pod["launches_by_scenario"].items()},
+                             "fanout_xproc": xproc["launches"]},
         "migration_path_split": {
             "migrate_in": tiers["migrate_in_calls"],
             "loadkv": tiers["calls_received"] - tiers["migrate_in_calls"]},

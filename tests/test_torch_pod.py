@@ -479,3 +479,98 @@ def test_four_process_kill_and_drain_under_traffic(phase18):
         assert r["unlisted_at"] >= r["drain_mark"]
     assert rs[0]["old_socket_revoked"] is True
     assert rs[3]["drain_s"] < 4.0
+
+
+# ---- kind 4 both ways on one socket pair -------------------------------
+
+_XPROC_BIDIR = r"""
+from brpc_tpu_torch.tools.overload_clients import attachment_tensor
+flags.set_flag("ici_device_plane_threshold", 4096)
+N = 128 * 1024
+K = 6
+MYDEV = 2 * pid
+PEERDEV = 2 * (1 - pid)
+
+class Echo(rpc.Service):
+    SERVICE_NAME = "Echo"
+    @rpc.method(EchoRequest, EchoResponse)
+    def Bounce(self, cntl, request, response, done):
+        data = attachment_tensor(cntl.request_attachment)
+        back = ((data.to(torch.int64) + 1) % 251).to(torch.uint8)
+        # a DEVICE answer: the response rides kind 4 too, both directions
+        # sequenced on ONE socket pair
+        cntl.response_attachment.append_device_array(mesh.own(back, MYDEV))
+        response.message = "ok"
+        done()
+
+server = rpc.Server(rpc.ServerOptions(native_ici=False))
+server.add_service(Echo())
+assert server.start("ici://%d" % MYDEV) == 0
+barrier("up")
+ch = rpc.Channel()
+ch.init("ici://%d" % PEERDEV,
+        options=rpc.ChannelOptions(timeout_ms=60000, max_retry=0))
+errs = []
+
+def fire(i):
+    val = (i * 7 + pid * 3 + 1) % 251
+    payload = mesh.own(torch.full((N,), val, dtype=torch.uint8), MYDEV + 1)
+    cntl = rpc.Controller()
+    cntl.request_attachment.append_device_array(payload)
+    ch.call_method("Echo.Bounce", cntl, EchoRequest(message=str(i)),
+                   EchoResponse)
+    if cntl.failed():
+        errs.append((i, cntl.error_code_, cntl.error_text))
+        return
+    got = attachment_tensor(cntl.response_attachment)
+    if not bool((got == (val + 1) % 251).all()):
+        errs.append((i, "corrupt", int(got[0])))
+
+# both directions at once: two threads of K calls in each process
+threads = [threading.Thread(target=lambda lo=lo: [fire(i) for i in
+                                                  range(lo, lo + K)])
+           for lo in (0, K)]
+for t in threads:
+    t.start()
+for t in threads:
+    t.join()
+socks = fabric_socks()
+clients = [s for s in socks if not s.is_server_side]
+servers = [s for s in socks if s.is_server_side]
+c, s = clients[0], servers[0]
+end = time.time() + 30
+while (len(c._dplane_seq.executed) < 4 * K
+       or len(s._dplane_seq.executed) < 4 * K) and time.time() < end:
+    time.sleep(0.02)
+put("order_s_%d" % pid, list(s._dplane_seq.executed))
+out = {"errs": errs[:5], "clients": len(clients), "servers": len(servers),
+       "c_executed": list(c._dplane_seq.executed),
+       "s_executed": list(s._dplane_seq.executed),
+       "peer_s": get("order_s_%d" % (1 - pid)),
+       "c_master": c._dplane_seq.master, "s_master": s._dplane_seq.master,
+       "c_sent": c.dplane_bytes_sent, "c_recv": c.dplane_bytes_recv,
+       "foreign": foreign()}
+barrier("done")
+ch.close()
+server.stop()
+result(out)
+finish()
+"""
+
+
+def test_xproc_bidirectional_total_order_and_byte_exactness():
+    """``tests/test_pod.py:313-412`` on the port: device payloads both ways
+    on one socket pair at once execute in ONE identical total order in the
+    two processes (each client socket's order equals the peer's server
+    socket's), byte-exact; every request and every answer crossed as kind
+    4 (the IPC pull's plain carrier here)."""
+    from tests.torch_procs import ok, run_procs
+    k, n = 6, 128 * 1024
+    for r in ok(run_procs(_XPROC_BIDIR, 2, timeout=120)):
+        assert r["errs"] == []
+        assert r["clients"] == r["servers"] == 1
+        assert len(r["c_executed"]) == len(r["s_executed"]) == 4 * k
+        assert r["c_master"] is False and r["s_master"] is True
+        assert r["c_sent"] >= 2 * k * n and r["c_recv"] >= 2 * k * n
+        assert r["c_executed"] == r["peer_s"], "the total order diverged"
+        assert r["foreign"] == []

@@ -305,3 +305,90 @@ def test_ici_page_carries_the_pod_block(monkeypatch):
     assert out["pod"] == {"name": "pd", "epoch": 9}
     monkeypatch.setattr(tpod.Pod, "_instance", None)
     assert "pod" not in json.loads(tservices._ici(None, {})[1])
+
+
+# ---- one trace across two processes ------------------------------------
+
+_TRACE_2PROC = r"""
+from brpc_tpu_torch.ici import clock
+from brpc_tpu_torch.ici.pod import Pod
+flags.set_flag("rpcz_enabled", True)
+MYDEV = 2 * pid
+pod = Pod.join("trace2")
+
+class Svc(rpc.Service):
+    SERVICE_NAME = "EchoService"
+    @rpc.method(EchoRequest, EchoResponse)
+    def Echo(self, cntl, request, response, done):
+        time.sleep(0.02)                  # a visible server-side dwell
+        response.message = "p%d" % pid
+        done()
+
+server = rpc.Server(rpc.ServerOptions(native_ici=False))
+server.add_service(Svc())
+assert server.start("ici://%d" % MYDEV) == 0
+pod.wait_epoch(2 * NPROC, timeout=60)
+out = {"foreign": foreign()}
+if pid == 0:
+    ch = rpc.Channel()
+    ch.init("ici://2", options=rpc.ChannelOptions(timeout_ms=30000,
+                                                  max_retry=0))
+    cntl = rpc.Controller()
+    ch.call_method("EchoService.Echo", cntl, EchoRequest(message="x"),
+                   EchoResponse)
+    out["failed"] = cntl.failed()
+    tid = cntl.trace_id
+    out["tid"] = tid
+    out["offset"] = clock.offset(1)
+    end = time.time() + 30
+    while time.time() < end:
+        _ctype, body = server._builtin.dispatch("rpcz",
+                                                {"trace_id": "%x" % tid})
+        res = json.loads(body)
+        if res.get("span_count", 0) >= 2:
+            break
+        time.sleep(0.1)
+    out["rpcz"] = res
+    ch.close()
+    put("done", 1)
+else:
+    get("done")
+barrier("exit")
+server.stop()
+pod.leave()
+result(out)
+finish()
+"""
+
+
+def test_cross_process_trace_continuity_and_clock_bound():
+    """``tests/test_observability.py:468`` on the port: the client span
+    (process 0) and the server span (process 1) share the trace, and one
+    ``/rpcz?trace_id=`` on process 0 returns the stitched tree ordering
+    A-send < B-recv < B-send < A-recv under the fabric's ±RTT/2 clock
+    bound."""
+    from tests.torch_procs import ok, run_procs
+    p0, p1 = ok(run_procs(_TRACE_2PROC, 2, timeout=120))
+    assert p0["failed"] is False and p0["tid"]
+    assert p0["offset"] is not None
+    assert 0 < p0["offset"][1] < 5_000_000, p0["offset"]
+    out = p0["rpcz"]
+    assert out["scope"] == "pod", out
+    tree = out["tree"]
+    assert len(tree) == 1, json.dumps(tree)[:2000]
+    root = tree[0]
+    assert root["side"] == "client" and root["process"] == 0
+    assert len(root["children"]) == 1, root["children"]
+    srv = root["children"][0]
+    assert srv["side"] == "server" and srv["process"] == 1
+    assert srv["method"] == "EchoService.Echo"
+    bound = srv["clock_bound_us"]
+    assert bound >= 0, "the stitcher lost the clock bound"
+    a_send = root["aligned_start_us"]
+    a_recv = a_send + root["latency_us"]
+    b_recv = srv["aligned_start_us"]
+    b_send = b_recv + srv["latency_us"]
+    assert b_recv >= a_send - bound, (a_send, b_recv, bound)
+    assert b_send <= a_recv + bound, (b_send, a_recv, bound)
+    assert b_recv < b_send
+    assert p0["foreign"] == p1["foreign"] == []
