@@ -15,6 +15,11 @@ listener registry and every internal symbol are its own, even in a
 process that has loaded another copy of the same datapath.
 
 Only the ici plane's symbols and ``brpc_tpu_buf_free`` are bound.
+
+The fabric's same-host tiers are a second library of their own,
+``csrc/fabric_native.cpp`` (the bulk conn and the shm ring, symbols
+``brpc_tpu_torch_fab_*`` and ``brpc_tpu_torch_shm_*``), built the same way
+into ``_build/libfabric_native-<digest>.so`` by :func:`load_fabric`.
 """
 from __future__ import annotations
 
@@ -132,16 +137,19 @@ _ICI_BATCH_FN = ctypes.CFUNCTYPE(None, ctypes.POINTER(IciReqC),
                                  ctypes.c_uint64)
 
 
-def source_digest() -> str:
+FABRIC_SOURCES = ("fabric_native.cpp", "flat_map.h", "tsan_compat.h")
+
+
+def source_digest(sources=SOURCES) -> str:
     h = hashlib.sha1()
-    for name in SOURCES:
+    for name in sources:
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(CXX_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
-def library_path() -> Path:
-    return BUILD_DIR / f"libici_native-{source_digest()}.so"
+def library_path(stem: str = "ici_native", sources=SOURCES) -> Path:
+    return BUILD_DIR / f"lib{stem}-{source_digest(sources)}.so"
 
 
 def _compiler() -> str:
@@ -151,25 +159,25 @@ def _compiler() -> str:
     return cxx
 
 
-def build() -> Path:
-    """Build the core when no library of these sources exists; returns its
-    path.  Raises with the compiler's output on failure."""
-    lib_path = library_path()
+def build(stem: str = "ici_native", sources=SOURCES) -> Path:
+    """Build ``csrc/<stem>.cpp`` when no library of these sources exists;
+    returns its path.  Raises with the compiler's output on failure."""
+    lib_path = library_path(stem, sources)
     if lib_path.exists():
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / "ici_native.lock", "w") as lock:
+    with open(BUILD_DIR / f"{stem}.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
             if lib_path.exists():          # another process built it
                 return lib_path
             tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
             cmd = [_compiler(), *CXX_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-                   str(CSRC / "ici_native.cpp")]
+                   str(CSRC / f"{stem}.cpp")]
             proc = subprocess.run(cmd, capture_output=True, text=True,
                                   timeout=300)
             if proc.returncode != 0:
-                raise RuntimeError(f"ici_native: build failed "
+                raise RuntimeError(f"{stem}: build failed "
                                    f"({proc.returncode}):\n{proc.stderr}")
             os.replace(tmp, lib_path)
         finally:
@@ -270,4 +278,86 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.brpc_tpu_ici_codec_unpack.argtypes = [
         ctypes.c_char_p, u64, ctypes.POINTER(u64),
         ctypes.POINTER(ctypes.c_void_p)]
+    return lib
+
+
+_fab_lib: Optional[ctypes.CDLL] = None
+_fab_error = ""
+
+
+def load_fabric() -> Optional[ctypes.CDLL]:
+    """The bound bulk-and-shm library, built on first use; None when it
+    cannot be built or loaded (``fabric_load_error()`` says why)."""
+    global _fab_lib, _fab_error
+    lib = _fab_lib
+    if lib is not None:
+        return lib
+    with _lib_lock:
+        if _fab_lib is not None:
+            return _fab_lib
+        try:
+            _fab_lib = _bind_fabric(ctypes.CDLL(
+                str(build("fabric_native", FABRIC_SOURCES))))
+        except Exception as e:
+            _fab_error = f"{type(e).__name__}: {e}"
+            return None
+        return _fab_lib
+
+
+def fabric_load_error() -> str:
+    return _fab_error
+
+
+def _bind_fabric(lib: ctypes.CDLL) -> ctypes.CDLL:
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    u64, i64, i32, u32 = (ctypes.c_uint64, ctypes.c_int64, ctypes.c_int32,
+                          ctypes.c_uint32)
+    cint, cstr = ctypes.c_int, ctypes.c_char_p
+    vpp, u64p = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(u64)
+    sigs = {
+        # the bulk conn: uuid-tagged frames over one connection per pair
+        "fab_listen": (u64, [cstr, ctypes.POINTER(cint), cstr, cint]),
+        "fab_connect_uds": (u64, [cstr, cstr]),
+        "fab_accept": (u64, [u64, cstr, i64]),
+        "fab_connect": (u64, [cstr, cint, cstr]),
+        "fab_send": (cint, [u64, u64, u8p, u64]),
+        "fab_sendv": (cint, [u64, u64, vpp, u64p, cint]),
+        "fab_recv": (cint, [u64, u64, i64, ctypes.POINTER(u8p), u64p]),
+        "fab_bytes": (u64, [u64, cint]),
+        "fab_buf_release": (None, [u64, u8p, u64]),
+        "fab_conn_close": (None, [u64]),
+        "fab_listener_close": (None, [u64]),
+        "fab_alive": (cint, [u64]),
+        "fab_chaos": (cint, [u64, cint, i64]),
+        "fab_chaos_listener": (cint, [u64, i64]),
+        "fab_quiesce": (None, []),
+        "fab_set_peer": (None, [u64, i32]),
+        "fab_pair_stats": (cint, [i32, u64p, u64p, u64p]),
+        "fab_peer_list": (cint, [ctypes.POINTER(i32), cint]),
+        # the shm ring: one mmap'd segment per pair, futex doorbells,
+        # zero-copy claims retired on release
+        "shm_create": (u64, [cstr, u64]),
+        "shm_create2": (u64, [cstr, u64, u32]),
+        "shm_attach": (u64, [cstr]),
+        "shm_unlink": (cint, [cstr]),
+        "shm_send": (cint, [u64, u64, u8p, u64, i64]),
+        "shm_sendv": (cint, [u64, u64, vpp, u64p, cint, i64]),
+        "shm_send2": (cint, [u64, u32, u64, u8p, u64, i64]),
+        "shm_sendv2": (cint, [u64, u32, u64, vpp, u64p, cint, i64]),
+        "shm_recv": (cint, [u64, u64, i64, ctypes.POINTER(u8p), u64p]),
+        "shm_recv2": (cint, [u64, u32, u64, i64, ctypes.POINTER(u8p),
+                             u64p]),
+        "shm_release": (None, [u64, u8p, u64]),
+        "shm_alive": (cint, [u64]),
+        "shm_mark_dead": (None, [u64]),
+        "shm_close": (None, [u64]),
+        "shm_chaos": (cint, [u64, cint, i64]),
+        "shm_stats": (cint, [u64, u64p, cint]),
+        "shm_stripes": (u32, [u64]),
+        "shm_stripe_stats": (cint, [u64, u32, u64p, cint]),
+    }
+    for name, (restype, argtypes) in sigs.items():
+        fn = getattr(lib, "brpc_tpu_torch_" + name)
+        fn.restype = restype
+        fn.argtypes = argtypes
     return lib

@@ -90,7 +90,7 @@ member set.
 
 Eager PyTorch compiles nothing, so there is no program cache:
 ``describe()["cache"]`` reads zero programs (a CUDA graph per key is the
-compiled half's work, ROADMAP queue 1 item 6).
+compiled half's work, ROADMAP queue 1 item 5).
 
 The degrade leg is the per-member RPC loop with the same bytes: a row of a
 tensor operand rides its sub-call as a DEVICE block owned by the member's
@@ -755,10 +755,9 @@ class CollectiveFanoutPlane:
             if rows != len(devices):
                 return None, R_SHAPE
         mesh = IciMesh.default()
-        if any(d >= mesh.size for d in devices):
-            return None, R_TARGET
-        # member liveness covers this process's ranks; another process's
-        # rank is live when the pod lists an owner serving the method
+        # member liveness covers this process's ranks first; then a remote
+        # rank must lie on the mesh, and is live when the pod lists an
+        # owner serving the method (the JAX package's order)
         local = _local_devices()
         if not _registry.serving_all(d for d in devices if d in local):
             return None, R_MEMBER
@@ -766,6 +765,8 @@ class CollectiveFanoutPlane:
         remote = [d for d in devices if d not in local]
         if remote:
             for dev in remote:
+                if dev >= mesh.size:
+                    return None, R_TARGET
                 owner = _pod_owner(dev, method_full_name)
                 if owner is None:
                     return None, R_MEMBER

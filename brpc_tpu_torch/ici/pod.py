@@ -101,6 +101,12 @@ class PodMember:
                 "load": self.load}
 
 
+def _store_closed(node) -> bool:
+    """The node quiesced: no thread may enter the store (a daemon thread
+    inside a torch call when the interpreter finalizes aborts it)."""
+    return bool(getattr(node, "_store_closed", False))
+
+
 def epoch_of(members: Dict[int, PodMember]) -> int:
     """The convergent pod epoch for a membership snapshot: the sum of
     member generations."""
@@ -237,6 +243,8 @@ class Pod:
                                 ctrl=self.node.ctrl_addr, ts=time.time(),
                                 coll=list(self._coll), load=self._load)
             with self._store_lock:
+                if _store_closed(self.node):
+                    return
                 self._store.set(self._key(self.pid), rec.to_json())
 
     def _key(self, pid: int) -> str:
@@ -333,6 +341,8 @@ class Pod:
                          ctrl=rec.ctrl, ts=time.time(), coll=rec.coll,
                          load=0.0)
         with self._store_lock:
+            if _store_closed(self.node):
+                return False
             self._store.set(self._key(pid), dead.to_json())
         log.warning("pod %s: process %d evicted", self.name, pid)
         self._refresh()
@@ -345,6 +355,8 @@ class Pod:
         state is one round trip)."""
         num = max(int(getattr(self.node, "num_processes", 0)), self.pid + 1)
         with self._store_lock:
+            if _store_closed(self.node):
+                raise ConnectionError("the fabric node is shut down")
             for pid in range(num):
                 if pid not in self._known \
                         and self._store.check([self._key(pid)]):

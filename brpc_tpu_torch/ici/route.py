@@ -18,12 +18,21 @@ its event counters, ``collective_<event>[_<reason>]`` (``selected``,
 ``ineligible_<reason>``, ``degraded_<reason>``, ``revived_<reason>``,
 ``slot_timeout``), exposed as ``rpc_fabric_route_collective_...``.
 
-The socket half, trimmed to the fabric's two routes: ``device`` (the
-sequenced device plane, kind 4: the receiver pulls the row) and ``inline``
-(bytes in the control frame, kind 0).  :func:`candidates` orders them for
-one payload and :func:`record` counts each frame in
-``rpc_fabric_route_<route>_frames`` / ``_bytes``.  The JAX package's
-``shm``, ``bulk`` and ``xfer`` rows wait for those planes.
+The socket half: :func:`candidates` orders the routes for one payload and
+:func:`record` counts each frame in ``rpc_fabric_route_<route>_frames`` /
+``_bytes``, the ``bulk`` row labelled ``uds`` or ``tcp`` by how the
+socket's bulk conn was dialed; :func:`record_shm_stripe` counts a striped
+ring's frames per stripe.  Routes, fastest first for a same-host pair:
+
+  device  the sequenced device plane (kind 4: the receiver pulls the row);
+  shm     the mmap'd ring (kinds 5/6): one sender copy, zero-copy claim;
+  bulk    the pair's dedicated socket conn (kinds 2/3);
+  inline  the bytes in the control frame (kind 0).
+
+The JAX package's ``xfer`` row (the transfer server, kind 1) is not
+ported.  The port differs from the JAX table in one place: a DEVICE
+payload the device plane must carry gets that route alone, so a refused
+post fails the write instead of moving the bytes another way.
 """
 from __future__ import annotations
 
@@ -31,36 +40,74 @@ import threading
 from typing import Dict, List
 
 from .. import bvar
+from ..butil import flags as _flags
 
 _lock = threading.Lock()
 
 DEVICE = "device"      # a route, and the class of DEVICE-block payloads
+SHM = "shm"
+BULK = "bulk"
 INLINE = "inline"
+HOST = "host"          # joined host byte blobs (kinds 0/3/6)
+STREAM = "stream"      # stream DATA frames (frames 5-7)
 
 
 def candidates(sock, cls: str, nbytes: int) -> List[str]:
-    """Ordered routes for one payload on fabric socket ``sock``.  A DEVICE
-    payload the device plane must carry gets that route alone: a refused
-    post fails the write, nothing falls through to inline.  Anything else
-    rides inline."""
+    """Ordered routes for one payload on fabric socket ``sock``; the
+    caller tries them in order, and a route that fails mid-frame degrades
+    its plane and falls through to the next.  A DEVICE payload the device
+    plane must carry gets ``[DEVICE]`` alone.  Otherwise the JAX package's
+    list: below its class threshold a payload rides inline; else the shm
+    ring and the bulk conn where each is usable (a payload too large for
+    the ring skips it without degrading it), then inline."""
     if cls == DEVICE and sock.dplane_eligible(nbytes):
         return [DEVICE]
-    return [INLINE]
+    if cls == HOST:
+        if nbytes < _flags.get_flag("ici_fabric_bulk_host_min"):
+            return [INLINE]
+    elif cls == STREAM:
+        if nbytes < _flags.get_flag("ici_stream_bulk_threshold"):
+            return [INLINE]
+    out: List[str] = []
+    if sock.plane_usable(SHM, nbytes):
+        out.append(SHM)
+    if sock.plane_usable(BULK, nbytes):
+        out.append(BULK)
+    out.append(INLINE)
+    return out
 
 
 _route_counters: Dict[str, tuple] = {}
 
 
-def record(sock, route: str, nbytes: int, frames: int = 1) -> None:
-    """Count ``frames`` frame(s) of ``nbytes`` on ``route``."""
-    pair = _route_counters.get(route)
+def _counter_pair(label: str):
+    pair = _route_counters.get(label)
     if pair is None:
         with _lock:
-            pair = _route_counters.get(route)
+            pair = _route_counters.get(label)
             if pair is None:
-                pair = _route_counters[route] = (
-                    bvar.Adder(f"rpc_fabric_route_{route}_frames"),
-                    bvar.Adder(f"rpc_fabric_route_{route}_bytes"))
+                pair = _route_counters[label] = (
+                    bvar.Adder(f"rpc_fabric_route_{label}_frames"),
+                    bvar.Adder(f"rpc_fabric_route_{label}_bytes"))
+    return pair
+
+
+def record(sock, route: str, nbytes: int, frames: int = 1) -> None:
+    """Count ``frames`` frame(s) of ``nbytes`` on ``route``; the bulk row
+    is labelled by the transport of the socket's bulk conn."""
+    if route == BULK:
+        route = "uds" if getattr(sock, "_bulk_is_uds", False) else "tcp"
+    pair = _counter_pair(route)
+    pair[0] << frames
+    pair[1] << nbytes
+
+
+def record_shm_stripe(stripe: int, nbytes: int, frames: int = 1) -> None:
+    """Count a striped ring's frame on its stripe
+    (``rpc_fabric_route_shm_stripe_<i>_frames``/``_bytes``): the proof
+    that a transfer was striped.  A 1-stripe ring counts on ``shm``
+    only."""
+    pair = _counter_pair(f"shm_stripe_{stripe}")
     pair[0] << frames
     pair[1] << nbytes
 

@@ -17,12 +17,17 @@ given a seed, thread-safe, and gone once uninstalled::
 The fabric half: a :class:`FabricFaultPlan` installed with
 :func:`install_fabric` (or scoped with :class:`inject_fabric`) is consulted
 by the multi-process fabric (:mod:`..ici.fabric`), the device plane and the
-compiled collective fan-out at the JAX package's points, with the JAX
-package's knobs for the planes the port has: the control channel, the
-handshake, the device plane's posts and the collective fan-out.  The bulk
-plane, the shm ring and the transfer server are not ported, and their
-knobs (and ``chaos_plane``, which acts on the first two) with them: the
-constructor refuses them, naming the tier they wait for.
+compiled collective fan-out, with the JAX package's knobs for every plane
+the port has: the control channel, the handshake, the device plane's
+posts, the bulk conn, the shm ring and the collective fan-out.  Each knob
+acts at the JAX package's point.  Of the ``plane_slow_ms`` planes,
+"device" (a pull at its slot) and "shm" (a ring send) are the JAX
+package's points; "bulk" is taken, as the JAX plan takes it, and slows
+nothing (the JAX package has no such point: a slow bulk conn is
+:func:`chaos_plane`'s ``SLOW``); "collective", one sleep per member at the
+fan-out's announce, is the port's own point.  The transfer server is not
+ported, and its knob ``xfer_refuse_stages`` with it: the constructor
+refuses it.
 """
 from __future__ import annotations
 
@@ -101,16 +106,18 @@ class inject:
 
 
 # the JAX plan's knobs for tiers the port does not have yet
-_LATER_TIERS = {
-    "bulk_sever_now": "bulk plane", "bulk_sever_after_bytes": "bulk plane",
-    "bulk_drop_frames": "bulk plane", "bulk_delay_park_ms": "bulk plane",
-    "refuse_bulk_handshakes": "bulk plane", "shm_kill_now": "shm ring",
-    "shm_sever_after_bytes": "shm ring", "shm_drop_frames": "shm ring",
-    "refuse_shm_handshakes": "shm ring",
-    "xfer_refuse_stages": "transfer server",
-}
-# the planes plane_slow_ms may slow here
-SLOW_PLANES = ("device", "collective")
+_LATER_TIERS = {"xfer_refuse_stages": "transfer server"}
+# the planes plane_slow_ms takes here ("bulk" slows nothing, as in the
+# JAX package)
+SLOW_PLANES = ("device", "shm", "bulk", "collective")
+
+# the native chaos modes (csrc/fabric_native.cpp's fab_chaos; the ring's
+# shm_chaos shares the numbering, the delay excepted)
+CHAOS_CLEAR = 0
+CHAOS_SEVER_AFTER_OUT_BYTES = 1
+CHAOS_DROP_FRAMES = 2
+CHAOS_DELAY_PARK_MS = 3
+CHAOS_SEVER_NOW = 4
 
 
 class FabricFaultPlan:
@@ -131,6 +138,19 @@ class FabricFaultPlan:
                                   INBOUND control frames, the "peer
                                   process killed" fault, installed in the
                                   victim; the socket's read loop
+      bulk_sever_now              sever the bulk conn the moment it is
+                                  (re)attached: the plane's death with a
+                                  live control channel
+      bulk_sever_after_bytes      native watermark: the write that crosses
+                                  it is cut mid-writev
+      bulk_drop_frames            native: the next N received bulk frames
+                                  vanish before parking (the descriptor
+                                  arrives, the claim is never met)
+      bulk_delay_park_ms          native: park received bulk frames only
+                                  after this many ms (descriptor/claim
+                                  skew)
+      refuse_bulk_handshakes      refuse the next N bulk (re)establishment
+                                  handshakes
       refuse_hellos               the server refuses the next N control
                                   HELLOs with HELLO_ERR; the handshake
       device_plane_fail_posts     refuse the next N device-plane
@@ -140,6 +160,16 @@ class FabricFaultPlan:
                                   the port has no such tier, so the write
                                   fails with EINTERNAL and the reason and
                                   the peer's device plane latches down
+      shm_kill_now                mark the ring dead the moment it is
+                                  (re)attached, the "segment killed"
+                                  fault: frames fall to the bulk conn
+      shm_sever_after_bytes       native watermark: the ring write that
+                                  crosses it copies a partial slot and
+                                  dies without publishing
+      shm_drop_frames             native: the next N ring frames vanish at
+                                  the receiver's scan
+      refuse_shm_handshakes       refuse the next N ring attaches (at the
+                                  HELLO or a revival)
       collective_kill_device      refuse every compiled fan-out whose
                                   members include this device, the
                                   "member killed mid-fan-out" fault: the
@@ -154,12 +184,15 @@ class FabricFaultPlan:
                                   announces: the member never sees the
                                   call, the client times out and degrades
                                   in-call (``announce_refused``)
-      plane_slow_ms               {plane: ms}: one sleep per operation on
-                                  the "device" plane (a cross-process
-                                  pull, at its slot) or the "collective"
-                                  plane (a fan-out announce), "slow, not
-                                  dead": a correct health machine does
-                                  not degrade it
+      plane_slow_ms               {plane: ms}: one sleep per operation,
+                                  "slow, not dead" (a correct health
+                                  machine does not degrade it), on the
+                                  "device" plane (a cross-process pull, at
+                                  its slot) and the "shm" plane (a ring
+                                  send), the JAX package's points; "bulk"
+                                  is taken and slows nothing, as in the
+                                  JAX package; "collective" (a fan-out
+                                  announce) is the port's own point
 
     ``injected`` counts what fired, under the JAX plan's keys."""
 
@@ -168,8 +201,17 @@ class FabricFaultPlan:
                  control_sever_after_frames: int = 0,
                  control_drop_ratio: float = 0.0,
                  die_after_control_frames: int = 0,
+                 bulk_sever_now: bool = False,
+                 bulk_sever_after_bytes: int = 0,
+                 bulk_drop_frames: int = 0,
+                 bulk_delay_park_ms: int = 0,
+                 refuse_bulk_handshakes: int = 0,
                  refuse_hellos: int = 0,
                  device_plane_fail_posts: int = 0,
+                 shm_kill_now: bool = False,
+                 shm_sever_after_bytes: int = 0,
+                 shm_drop_frames: int = 0,
+                 refuse_shm_handshakes: int = 0,
                  collective_kill_device: Optional[int] = None,
                  collective_fail_execs: int = 0,
                  collective_drop_announces: int = 0,
@@ -185,13 +227,22 @@ class FabricFaultPlan:
             if plane not in SLOW_PLANES:
                 raise ValueError(
                     f"FabricFaultPlan: plane_slow_ms[{plane!r}]: the port "
-                    f"slows only the {' and '.join(SLOW_PLANES)} planes")
+                    f"takes only the {', '.join(SLOW_PLANES)} planes")
         self.match = match
         self.control_sever_after_frames = control_sever_after_frames
         self.control_drop_ratio = control_drop_ratio
         self.die_after_control_frames = die_after_control_frames
+        self.bulk_sever_now = bulk_sever_now
+        self.bulk_sever_after_bytes = bulk_sever_after_bytes
+        self.bulk_drop_frames = bulk_drop_frames
+        self.bulk_delay_park_ms = bulk_delay_park_ms
+        self._refuse_bulk = refuse_bulk_handshakes
         self._refuse_hellos = refuse_hellos
         self._fail_device_posts = device_plane_fail_posts
+        self.shm_kill_now = shm_kill_now
+        self.shm_sever_after_bytes = shm_sever_after_bytes
+        self.shm_drop_frames = shm_drop_frames
+        self._refuse_shm = refuse_shm_handshakes
         self.collective_kill_device = collective_kill_device
         self._fail_coll_execs = collective_fail_execs
         self._drop_announces = collective_drop_announces
@@ -201,8 +252,10 @@ class FabricFaultPlan:
         self._ctrl_out = 0           # outbound control frames seen
         self._ctrl_in = 0            # inbound control frames seen
         self.injected = {"control_sever": 0, "control_drop": 0,
+                         "bulk_chaos": 0, "refuse_bulk": 0,
                          "refuse_hello": 0, "die": 0, "device_plane": 0,
-                         "collective": 0, "coll_announce_drop": 0,
+                         "shm_chaos": 0, "refuse_shm": 0, "collective": 0,
+                         "coll_announce_drop": 0, "xfer": 0,
                          "plane_slow": 0}
 
     def _matches(self, socket) -> bool:
@@ -238,6 +291,67 @@ class FabricFaultPlan:
             self.injected["die"] += 1
         import os
         os._exit(137)
+
+    # -- the bulk conn and the shm ring ----------------------------------
+    def on_bulk_attach(self, socket, lib, handle: int) -> None:
+        """Arm the native knobs on a just-attached bulk conn."""
+        if not handle or lib is None or not self._matches(socket):
+            return
+        fired = False
+        for on, mode, arg in (
+                (self.bulk_sever_after_bytes, CHAOS_SEVER_AFTER_OUT_BYTES,
+                 self.bulk_sever_after_bytes),
+                (self.bulk_drop_frames, CHAOS_DROP_FRAMES,
+                 self.bulk_drop_frames),
+                (self.bulk_delay_park_ms, CHAOS_DELAY_PARK_MS,
+                 self.bulk_delay_park_ms),
+                (self.bulk_sever_now, CHAOS_SEVER_NOW, 0)):
+            if on:
+                lib.brpc_tpu_torch_fab_chaos(handle, mode, arg)
+                fired = True
+        if fired:
+            with self._lock:
+                self.injected["bulk_chaos"] += 1
+
+    def on_shm_attach(self, socket, lib, handle: int) -> None:
+        """Arm the native knobs on a just-attached ring."""
+        if not handle or lib is None or not self._matches(socket):
+            return
+        fired = False
+        for on, mode, arg in (
+                (self.shm_sever_after_bytes, CHAOS_SEVER_AFTER_OUT_BYTES,
+                 self.shm_sever_after_bytes),
+                (self.shm_drop_frames, CHAOS_DROP_FRAMES,
+                 self.shm_drop_frames),
+                (self.shm_kill_now, CHAOS_SEVER_NOW, 0)):
+            if on:
+                lib.brpc_tpu_torch_shm_chaos(handle, mode, arg)
+                fired = True
+        if fired:
+            with self._lock:
+                self.injected["shm_chaos"] += 1
+
+    def on_shm_handshake(self, socket=None) -> bool:
+        """True: refuse this ring attach (at the HELLO or a revival)."""
+        if socket is not None and not self._matches(socket):
+            return False
+        with self._lock:
+            if self._refuse_shm > 0:
+                self._refuse_shm -= 1
+                self.injected["refuse_shm"] += 1
+                return True
+        return False
+
+    def on_bulk_handshake(self, socket=None) -> bool:
+        """True: refuse this bulk (re)establishment."""
+        if socket is not None and not self._matches(socket):
+            return False
+        with self._lock:
+            if self._refuse_bulk > 0:
+                self._refuse_bulk -= 1
+                self.injected["refuse_bulk"] += 1
+                return True
+        return False
 
     # -- handshake and device plane --------------------------------------
     def on_hello(self) -> bool:
@@ -297,6 +411,40 @@ class FabricFaultPlan:
                 self.injected["coll_announce_drop"] += 1
                 return True
         return False
+
+
+# ---- plane-scoped chaos verbs ------------------------------------------
+
+KILL = "kill"            # the plane dies now (sever / mark dead)
+BLACKHOLE = "blackhole"  # received frames vanish silently
+SLOW = "slow"            # ops delayed, not dead: must not degrade
+
+
+def chaos_plane(sock, plane: str, mode: str, value: int = 0) -> bool:
+    """Apply one failure mode to a live plane of one fabric socket, mid-
+    traffic, through the native chaos entry on its current handle; True
+    when armed.  Only "bulk" and "shm" are such planes, and the ring has
+    no native delay (slow it with ``plane_slow_ms`` instead)."""
+    if plane not in ("bulk", "shm"):
+        return False
+    with sock._bulk_lock:
+        h = sock._bulk if plane == "bulk" else sock._shm
+        lib = sock._blib if plane == "bulk" else sock._shmlib
+    if not h or lib is None:
+        return False
+    fn = (lib.brpc_tpu_torch_fab_chaos if plane == "bulk"
+          else lib.brpc_tpu_torch_shm_chaos)
+    if mode == KILL:
+        fn(h, CHAOS_SEVER_NOW, 0)
+    elif mode == BLACKHOLE:
+        fn(h, CHAOS_DROP_FRAMES, value or 1_000_000)
+    elif mode == SLOW:
+        if plane == "shm":
+            return False
+        fn(h, CHAOS_DELAY_PARK_MS, value or 20)
+    else:
+        return False
+    return True
 
 
 _fabric_active: Optional[FabricFaultPlan] = None

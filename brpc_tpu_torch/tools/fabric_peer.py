@@ -1,7 +1,7 @@
 """A peer process of the multi-process fabric: serves ranks of the mesh.
 
     python -m brpc_tpu_torch.tools.fabric_peer HOST:PORT TOKEN \\
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--threshold BYTES]
 
 Joins as process 1 of 2 the fabric whose store process 0 hosts at
 ``HOST:PORT``, owns ranks 0-3 of an 8-rank mesh and serves, on ``ici://0``
@@ -18,10 +18,18 @@ Joins as process 1 of 2 the fabric whose store process 0 hosts at
   * ``Sink.Overload``: runs phase 10's paced overload clients
     (:mod:`.overload_clients`) against a target in another process and
     returns their per-stream results;
-  * ``Stream.Start``: accepts a stream and counts the bytes it receives.
+  * ``Sink.Absorb``: counts its request's attachment bytes and answers
+    with no attachment (a one-way sink for bandwidth legs);
+  * ``Sink.Plan``: installs the ``FabricFaultPlan`` whose keyword
+    arguments are the JSON body in this process (an empty body clears it)
+    and answers with the cleared plan's ``injected`` counts;
+  * ``Stream.Start``: accepts a stream and counts the bytes it receives;
+    with the message ``verify`` it also checks every chunk against its
+    sequence tag (an 8-digit number, then ``seq % 251`` repeated).
 
-Its device-plane threshold and socket window are :data:`DEVICE_THRESHOLD`
-and :data:`SOCKET_WINDOW`, which the process that drives it sets too.
+Its device-plane threshold (``--threshold``, default
+:data:`DEVICE_THRESHOLD`) and socket window (:data:`SOCKET_WINDOW`) are set
+by the process that drives it too.
 It publishes ``{"tcp_port", "internal_port", "os_pid"}`` under
 ``fabric_peer/<TOKEN>`` in the store once it serves, and prints its final
 counts as one JSON line when it stops; it exits when the process that
@@ -70,6 +78,7 @@ def main(argv=None) -> int:
     ap.add_argument("coord")
     ap.add_argument("token")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--threshold", type=int, default=DEVICE_THRESHOLD)
     args = ap.parse_args(argv)
 
     import brpc_tpu_torch.policy  # noqa: F401  (registers tpu_std)
@@ -99,7 +108,7 @@ def main(argv=None) -> int:
 
     mesh = IciMesh(ranks=8, device=args.device)
     IciMesh.set_default(mesh)
-    flags.set_flag("ici_device_plane_threshold", DEVICE_THRESHOLD)
+    flags.set_flag("ici_device_plane_threshold", args.threshold)
     flags.set_flag("ici_socket_window_bytes", SOCKET_WINDOW)
     node = fabric.FabricNode.initialize(args.coord, 2, 1, ranks=range(4),
                                         mesh=mesh)
@@ -108,7 +117,9 @@ def main(argv=None) -> int:
                   timeout=timedelta(seconds=60))
     plane = device_plane.plane()
     lock = threading.Lock()
-    counts = {"attachments": 0, "stream_bytes": 0}
+    counts = {"attachments": 0, "stream_bytes": 0, "stream_chunks": 0,
+              "stream_bad": 0, "absorbed": 0}
+    plan = [None]
     base = {"launches": 0, "received": 0}
     quit_evt = threading.Event()
     servers = []
@@ -120,6 +131,11 @@ def main(argv=None) -> int:
                 - base["received"],
                 "attachments": counts["attachments"],
                 "stream_bytes": counts["stream_bytes"],
+                "stream_chunks": counts["stream_chunks"],
+                "stream_bad": counts["stream_bad"],
+                "absorbed": counts["absorbed"],
+                "shm_claimed": sum(s.shm_bytes_claimed for s in socks),
+                "bulk_claimed": sum(s.bulk_bytes_claimed for s in socks),
                 "ipc_opens": sum(s.ipc_stats()["opens"] for s in socks),
                 "ipc_hits": sum(s.ipc_stats()["hits"] for s in socks),
                 "mapped": sum(s.ipc_stats()["mapped"] for s in socks),
@@ -148,10 +164,30 @@ def main(argv=None) -> int:
         def Stats(self, cntl, request, response, done):
             if request.message == "reset":
                 with lock:
-                    counts["attachments"] = counts["stream_bytes"] = 0
+                    for k in counts:
+                        counts[k] = 0
                 base["launches"] = launches()
                 base["received"] = plane.remote_received
             response.message = json.dumps(snapshot())
+            done()
+
+        @rpc.method(EchoRequest, EchoResponse)
+        def Absorb(self, cntl, request, response, done):
+            with lock:
+                counts["absorbed"] += len(cntl.request_attachment)
+                response.message = str(counts["absorbed"])
+            done()
+
+        @rpc.method(EchoRequest, EchoResponse)
+        def Plan(self, cntl, request, response, done):
+            from brpc_tpu_torch.rpc import fault_injection
+            old = plan[0]
+            kw = json.loads(request.message) if request.message else None
+            plan[0] = fault_injection.FabricFaultPlan(**kw) \
+                if kw is not None else None
+            fault_injection.install_fabric(plan[0])
+            response.message = json.dumps(
+                old.injected if old is not None else {})
             done()
 
         @rpc.method(EchoRequest, EchoResponse)
@@ -183,10 +219,22 @@ def main(argv=None) -> int:
     class Stream(rpc.Service):
         @rpc.method(EchoRequest, EchoResponse)
         def Start(self, cntl, request, response, done):
+            verify = request.message == "verify"
+
             class Handler:
                 def on_received_messages(self, sid, msgs):
+                    bad = 0
+                    if verify:
+                        for m in msgs:
+                            data = m.to_bytes()
+                            seq = int(data[:8])
+                            if data[8:] != bytes([seq % 251]) * (
+                                    len(data) - 8):
+                                bad += 1
                     with lock:
                         counts["stream_bytes"] += sum(len(m) for m in msgs)
+                        counts["stream_chunks"] += len(msgs)
+                        counts["stream_bad"] += bad
 
                 def on_closed(self, sid):
                     pass
@@ -201,6 +249,7 @@ def main(argv=None) -> int:
         native_ici=False, usercode_in_pthread=True,
         usercode_backup_threads=32))
     ici_srv.add_service(Sink())
+    ici_srv.add_service(Stream())
     tcp_srv = rpc.Server(rpc.ServerOptions(idle_timeout_s=1,
                                            internal_port=0))
     tcp_srv.add_service(Sink())

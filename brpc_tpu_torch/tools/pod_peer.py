@@ -873,6 +873,12 @@ def _fanout_client(m, pod, cf, channels, rpc, route, flags, EchoRequest,
     gen = torch.Generator(device=dev).manual_seed(1919)
     op = torch.randn(len(ranks), a.shard, device=dev, generator=gen)
     pc_a = mk_pc("gather", (a.shard,))
+    # dial every member once before the legs: a new fabric socket sets up
+    # its same-host tiers (the shm segment's pages are reserved at its
+    # create), which must not eat the first announce's timeout
+    for r in ranks:
+        if not m.node.owns(r):
+            cf._member_sock(r)
     first, _ = call(pc_a, op, "Fan.Scale", "collective")
     ref = first.fanout_result.clone()
     assert torch.equal(ref, op * 2.0), "the compiled gather is not op * 2"
@@ -952,6 +958,9 @@ def _fanout_client(m, pod, cf, channels, rpc, route, flags, EchoRequest,
         and d.get("collective_revived_member_killed") == 1, d
     c["kill"] = {"routes": routes, "failed_calls": 0, "epoch_moved":
                  [e0, pod.epoch()], "delta": d}
+    # one call on the per-member loop dials the restarted member's new
+    # sockets here, not inside the black-holed call's timeout below
+    leg(pc_a, op, "Fan.Scale", False, 1, ref)
     # 2. one announce black-holed
     base = route.collective_stats()
     plan = fi.FabricFaultPlan(collective_drop_announces=1)

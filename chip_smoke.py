@@ -9,8 +9,10 @@ Phases, each fatal on failure:
   1. build      compile csrc/p2p_copy.cu, csrc/ring_all_reduce.cu,
                 csrc/ring_all_gather.cu, csrc/cuda_ipc.cu (phase 17's IPC
                 calls, no kernel) and an empty kernel with nvcc (sm_90a),
-                one nvcc each, all started together, and load them; beside them g++ builds the native ici:// core
-                (csrc/ici_native.cpp, butil/native.py) and it is loaded:
+                one nvcc each, all started together, and load them; beside
+                them g++ builds the native ici:// core (csrc/ici_native.cpp)
+                and the bulk conn and shm ring (csrc/fabric_native.cpp,
+                both by butil/native.py) and they are loaded:
                 a build or load failure is fatal here, so the run never
                 falls back to the Python plane quietly
   2. kernel     p2p_copy against its plain version at 4 KiB, 65,537 B
@@ -373,6 +375,41 @@ Phases, each fatal on failure:
                 pulled on the leg + the copies of the per-member loop
                 (kind-4 pulls and in-process transfers).  Its IPC opens
                 against cache hits are printed
+ 20. tiers      the fabric's same-host tiers (the bulk conn and the shm
+                ring, csrc/fabric_native.cpp) between two processes on the
+                card: a member process (a fresh interpreter, process 0,
+                ranks 4-7) starts a fabric_peer (process 1, ranks 0-3,
+                ici://0) and drives, with the device-plane threshold at
+                64 KiB:
+                (a) bench_fabric_gbps's leg (bench.py:1424-1488): 8 MiB
+                host attachments, 12 calls a pass at async depth 8 to a
+                one-way sink, best of 3, three ways: auto (one 160 MiB
+                ring), uds (ici_fabric_shm off: the bulk conn) and
+                shm_striped (4 stripes of 48 MiB); GB/s, and the route by
+                the counters (every byte on the ring or every byte on the
+                bulk conn, and on 4 stripes for the striped leg);
+                (b) bench_fabric_streaming_mbps's leg (:1490-1532): 160
+                chunks of 256 KiB a pass, best of 3, every chunk checked by
+                the peer, auto and uds; MB/s and the route;
+                (c) 8 frames each carrying a 4 MiB DEVICE attachment
+                (kind 4, pulled on p2p_copy), a 4 MiB host attachment
+                (kind 6) and a 4 KiB DEVICE one below the threshold (kind
+                5), echoed: every byte equal; in each process p2p_copy
+                launches = kind-4 transfers received = the 8 DEVICE
+                attachments at or above the threshold; the ring carried
+                exactly the host and sub-threshold bytes, the bulk conn
+                none;
+                (d) faults, every call answered: the ring killed
+                mid-transfer (chaos_plane KILL) and killed at its attach
+                (shm_kill_now): frames fall to the bulk conn in the same
+                frame and the prober revives the ring (seconds printed);
+                the peer refusing the ring (refuse_shm_handshakes=1): the
+                bulk conn carries everything; a bulk sever mid-stream
+                (bulk_sever_after_bytes): that stream fails, the socket
+                lives and a new stream runs on the revived conn;
+                plane_slow_ms={"shm": 20}: nothing degrades;
+                (e) no segment this run made is left in /dev/shm, and
+                nothing is mapped or active in either process
 
 Launch counts are zeroed just before each path and read just after it:
 during phases 3-4 and during phase 8 p2p_copy's launches must equal the
@@ -398,7 +435,9 @@ the transfers whose copy ran there (in process or pulled from a peer), and
 the driving process launches none; during phase 19 the same holds
 of the driving process, and in each member the launches equal the rows it
 pulled on the cross-process leg plus its per-member loop's copies; during
-phase 6 each ring kernel's launches must equal the calls of its entry
+phase 20 the driving process launches none, and in the member process and
+its peer the launches equal the kind-4 transfers each received, one per
+frame of (c); during phase 6 each ring kernel's launches must equal the calls of its entry
 point.  The line before the last is the ``kernels`` JSON; the last line
 is the device JSON.
 """
@@ -527,6 +566,20 @@ POD_TIMEOUT_S = 300.0
 # phase 19: bench.py:823's shape, 64 MiB as phase 13's, the chaos timeout
 XPROC_SHARD, XPROC_CALLS, XPROC_BIG, XPROC_BIG_CALLS = 512, 80, 64 << 20, 10
 XPROC_TIMEOUT_S = 2.0
+# phase 20: the same-host tiers.  (a) bench_fabric_gbps's leg: host
+# attachments of 8 MiB, 12 calls a pass (96 MB) at async depth 8, best of
+# 3, the ring 160 MiB for a pass (one ring) or 4 stripes of 48 MiB; (b)
+# bench_fabric_streaming_mbps's: 160 chunks of 256 KiB a pass, best of 3;
+# (c) frames with a 4 MiB DEVICE attachment, a 4 MiB host one and a 4 KiB
+# DEVICE one below the 64 KiB device-plane threshold; (d) the fault legs'
+# calls of 4 MiB host attachments, and the slow ring's delay
+TIER_GB_CHUNK, TIER_GB_CALLS, TIER_GB_DEPTH, TIER_GB_PASSES = \
+    8 << 20, 12, 8, 3
+TIER_GB_RING, TIER_GB_STRIPE_RING = 160 << 20, 48 << 20
+TIER_ST_CHUNK, TIER_ST_N, TIER_ST_PASSES = 256 << 10, 160, 3
+TIER_MIX_CALLS, TIER_MIX_BIG, TIER_MIX_SMALL = 8, 4 << 20, 4 << 10
+TIER_THRESHOLD = 64 << 10
+TIER_FAULT_CALLS, TIER_FAULT_PAYLOAD, TIER_SLOW_MS = 16, 4 << 20, 20
 
 
 def fail(msg: str) -> None:
@@ -2259,10 +2312,16 @@ def phase_elastic(mesh, plane, p2p_copy) -> dict:
         out["active_at_end"] = plane.active_transfers()
         check(out["active_at_end"] == 0,
               f"{out['active_at_end']} transfers active at the end")
+        by_method = {f"{u} {m}": s.method_status(m).received.get_value()
+                     for u, s in decodes.items()
+                     for m in ("Decode.LoadKv", "Decode.MigrateIn")}
         check(out["launches"] == out["transfers"] == out["calls_received"],
               f"elastic: p2p_copy launches {out['launches']}, plane "
               f"transfers {out['transfers']}, LoadKv + MigrateIn received "
-              f"{out['calls_received']}")
+              f"{out['calls_received']} (received by rank and method "
+              f"{by_method}, router retries {router_d['retries']}, "
+              f"migrated {len(timing.get('moved', []))}, refused "
+              f"{timing.get('refused')})")
         lat = [g[4] for g in got[:SERVE_PROMPTS]]
         out.update({
             "generates": len(got), "generate_p50_ms": _pct(lat, 0.5),
@@ -3837,13 +3896,15 @@ class _Peer:
     ``refuse_open`` starts it with the device leg's open refused."""
 
     def __init__(self, coord: str, token: str, kv, device: str,
-                 refuse_open: bool = False):
+                 refuse_open: bool = False, extra=(), log_path=None):
         import tempfile
-        self.log = tempfile.TemporaryFile(mode="w+")
+        self.log = (open(log_path, "w+") if log_path
+                    else tempfile.TemporaryFile(mode="w+"))
         start = (["-c", _REFUSING_PEER] if refuse_open
                  else ["-m", "brpc_tpu_torch.tools.fabric_peer"])
         self.proc = subprocess.Popen(
-            [sys.executable, *start, coord, token, "--device", device],
+            [sys.executable, *start, coord, token, "--device", device,
+             *map(str, extra)],
             cwd=str(ROOT), stdout=self.log, stderr=subprocess.STDOUT)
         key = f"fabric_peer/{token}"
         deadline = time.monotonic() + FABRIC_PEER_START_S
@@ -4489,6 +4550,602 @@ def phase_fanout_xproc(device: str = "cuda",
             "launches": launches}
 
 
+def _tiers_member(device: str, log_dir: str = "") -> dict:
+    """Phase 20's traffic, run in a fresh interpreter of its own (process
+    0 of a two-process fabric, the store's host, owning ranks 4-7) against
+    a ``fabric_peer`` it starts (process 1, ranks 0-3, ``ici://0``).  It
+    counts its own copy launches from just before its traffic and returns
+    what the driving process checks (see the module docstring, phase
+    20)."""
+    import importlib
+    import brpc_tpu_torch.policy  # noqa: F401
+    from datetime import timedelta
+    from torch.distributed import TCPStore
+    from brpc_tpu_torch import rpc
+    from brpc_tpu_torch.butil import flags
+    from brpc_tpu_torch.butil.iobuf import IOBuf
+    from brpc_tpu_torch.ici import device_plane, fabric, ipc_pull, route
+    from brpc_tpu_torch.ici.mesh import IciMesh
+    from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
+    from brpc_tpu_torch.rpc import fault_injection as fi
+    from brpc_tpu_torch.rpc.socket import list_sockets
+    from brpc_tpu_torch.tools.fabric_peer import SOCKET_WINDOW
+
+    import faulthandler
+    # a hang shows where it is before the driving process ends this one
+    faulthandler.dump_traceback_later(POD_TIMEOUT_S - 30, exit=False)
+    copy_mod = importlib.import_module("brpc_tpu_torch.ici.p2p_copy")
+    plain = [0]
+    if device == "cpu":
+        inner = copy_mod.p2p_copy_plain
+
+        def counted(src, dst):
+            plain[0] += 1
+            return inner(src, dst)
+
+        copy_mod.p2p_copy_plain = counted
+        flags.set_flag("ici_device_plane_host_mesh", True)
+
+    def count() -> int:
+        return plain[0] if device == "cpu" else copy_mod.p2p_copy.launches
+
+    def step(what):
+        print(f"tiers member: {what}", file=sys.stderr, flush=True)
+
+    mesh = IciMesh(8, device=device)
+    IciMesh.set_default(mesh)
+    plane = device_plane.plane()
+    dev = mesh.device(4)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    flags.set_flag("ici_device_plane_threshold", TIER_THRESHOLD)
+    flags.set_flag("ici_socket_window_bytes", SOCKET_WINDOW)
+    flags.set_flag("ici_bulk_claim_timeout_s", 5.0)
+    port = _free_port()
+    coord = f"127.0.0.1:{port}"
+    node = fabric.FabricNode.initialize(coord, 2, 0, ranks=range(4, 8),
+                                        mesh=mesh)
+    made = []                           # every ring segment this side made
+    create = node.create_shm_segment
+
+    def recording_create():
+        h, name, lib = create()
+        if name:
+            made.append(name)
+        return h, name, lib
+
+    node.create_shm_segment = recording_create
+    kv = TCPStore("127.0.0.1", port, is_master=False,
+                  timeout=timedelta(seconds=60))
+    out = {"device": device}
+    chans = []
+    peer = None
+
+    def channel():
+        while chans:                    # one connection at a time
+            chans.pop().close()
+        ch = rpc.Channel()
+        ch.init("ici://0", options=rpc.ChannelOptions(timeout_ms=60000,
+                                                      max_retry=0))
+        chans.append(ch)
+        return ch
+
+    def sock():
+        return [s for s in list_sockets() if isinstance(s, fabric.FabricSocket)
+                and not s.failed and not s.is_server_side][-1]
+
+    def call(ch, method, msg="", att=None, host=None, done=None):
+        cntl = rpc.Controller()
+        if att is not None:
+            cntl.request_attachment.append_device_array(att)
+        if host is not None:
+            cntl.request_attachment.append_user_data(host)
+        resp = ch.call_method(method, cntl, EchoRequest(message=msg),
+                              EchoResponse, done=done)
+        return cntl, resp
+
+    def stats(ch, reset=False):
+        cntl, resp = call(ch, "Sink.Stats", "reset" if reset else "")
+        check(not cntl.failed(), f"Sink.Stats: {cntl.error_text}")
+        return json.loads(resp.message)
+
+    def peer_plan(ch, kw):
+        cntl, resp = call(ch, "Sink.Plan", json.dumps(kw) if kw else "")
+        check(not cntl.failed(), f"Sink.Plan: {cntl.error_text}")
+        return json.loads(resp.message)
+
+    def tally():
+        s = sock()
+        rs = route.route_stats()
+        return {"shm": s.shm_bytes_sent, "bulk": s.bulk_bytes_sent,
+                "stripes": {k: v for k, v in rs.items()
+                            if k.startswith("shm_stripe_")
+                            and k.endswith("_bytes")},
+                "uds": rs.get("uds_bytes", 0), "tcp": rs.get("tcp_bytes", 0),
+                "device": rs.get("device_bytes", 0),
+                "inline": rs.get("inline_bytes", 0)}
+
+    def moved(t0, t1):
+        return {"shm": t1["shm"] - t0["shm"], "bulk": t1["bulk"] - t0["bulk"],
+                "uds": t1["uds"] - t0["uds"], "tcp": t1["tcp"] - t0["tcp"],
+                "device": t1["device"] - t0["device"],
+                "stripes": {k: v - t0["stripes"].get(k, 0)
+                            for k, v in t1["stripes"].items()
+                            if v != t0["stripes"].get(k, 0)}}
+
+    def wait_for(cond, secs, what):
+        deadline = time.monotonic() + secs
+        while not cond():
+            if time.monotonic() > deadline:
+                fail(f"tiers: {what} within {secs} s")
+            time.sleep(0.005)
+
+    def pump(ch, method, host, calls, depth, on_done=None):
+        """``calls`` async calls with ``host`` attached, ``depth`` in
+        flight; returns the failures."""
+        errs = []
+        sem = threading.Semaphore(depth)
+
+        def done(c):
+            if c.failed():
+                errs.append((c.error_code_, c.error_text))
+            sem.release()
+            if on_done is not None:
+                on_done()
+        for _ in range(calls):
+            sem.acquire()
+            call(ch, method, "p", host=host, done=done)
+        for _ in range(depth):
+            sem.acquire()
+        for _ in range(depth):
+            sem.release()
+        return errs
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+
+    def fresh(nbytes):
+        return mesh.own(torch.randint(0, 256, (nbytes,), dtype=torch.uint8,
+                                      device=dev, generator=gen), 4)
+
+    layouts = {"auto": {"ici_fabric_shm": True, "ici_shm_stripes": 1,
+                        "ici_shm_ring_bytes": TIER_GB_RING},
+               "uds": {"ici_fabric_shm": False},
+               "shm_striped": {"ici_fabric_shm": True, "ici_shm_stripes": 4,
+                               "ici_shm_ring_bytes": TIER_GB_STRIPE_RING}}
+    defaults = {k: flags.get_flag(k) for k in ("ici_fabric_shm",
+                                               "ici_shm_stripes",
+                                               "ici_shm_ring_bytes")}
+
+    def layout(name):
+        for k, v in {**defaults, **layouts.get(name, {})}.items():
+            flags.set_flag(k, v)
+
+    l0 = r0 = 0
+    try:
+        peer = _Peer(coord, "tiers", kv, device,
+                     extra=("--threshold", TIER_THRESHOLD),
+                     log_path=os.path.join(log_dir, "peer.log")
+                     if log_dir else None)
+        step("peer up")
+        out["pids"] = [os.getpid(), peer.info["os_pid"]]
+        l0, r0 = count(), plane.remote_received
+        # (a) bench_fabric_gbps's leg three ways
+        host = memoryview(bytes(i % 251 for i in range(256)) *
+                          (TIER_GB_CHUNK // 256))
+        out["gbps"] = {}
+        for name in ("auto", "uds", "shm_striped"):
+            step(f"(a) {name}")
+            layout(name)
+            ch = channel()
+            t_dial = time.perf_counter()
+            stats(ch, reset=True)            # dials: handshake, conn, ring
+            dial_ms = (time.perf_counter() - t_dial) * 1e3
+            cntl, _ = call(ch, "Sink.Absorb", "warm", host=host)
+            check(not cntl.failed(), f"gbps {name} warm-up: "
+                                     f"{cntl.error_text}")
+            t0 = tally()
+            best, errs = 0.0, []
+            for _ in range(TIER_GB_PASSES):
+                t = time.perf_counter()
+                errs += pump(ch, "Sink.Absorb", host, TIER_GB_CALLS,
+                             TIER_GB_DEPTH)
+                best = max(best, TIER_GB_CALLS * TIER_GB_CHUNK
+                           / (time.perf_counter() - t) / 1e9)
+            m = moved(t0, tally())
+            theirs = stats(ch)
+            d = sock().describe_shm() or {}
+            out["gbps"][name] = {"gbps": best, "errors": errs[:3],
+                                 "moved": m, "stripes": d.get("stripes", 0),
+                                 "absorbed": theirs["absorbed"],
+                                 "first_call_ms": dial_ms}
+        # (b) bench_fabric_streaming_mbps's leg, each chunk verified
+        out["stream"] = {}
+        for name in ("auto", "uds"):
+            step(f"(b) {name}")
+            layout(name)
+            ch = channel()
+            stats(ch, reset=True)
+            cntl = rpc.Controller()
+            st = rpc.stream_create(cntl, rpc.StreamOptions(
+                max_buf_size=8 << 20))
+            ch.call_method("Stream.Start", cntl, EchoRequest(
+                message="verify"), EchoResponse)
+            check(not cntl.failed() and st.wait_connected(10),
+                  f"stream {name}: {cntl.error_text}")
+            t0 = tally()
+            best, rcs = 0.0, []
+            for p in range(TIER_ST_PASSES):
+                t = time.perf_counter()
+                for seq in range(TIER_ST_N):
+                    body = b"%08d" % seq + bytes([seq % 251]) * (
+                        TIER_ST_CHUNK - 8)
+                    rcs.append(st.write(IOBuf(body), timeout=30))
+                want = (p + 1) * TIER_ST_N * TIER_ST_CHUNK
+                wait_for(lambda: stats(ch)["stream_bytes"] >= want, 60,
+                         f"stream {name} pass {p} did not arrive")
+                best = max(best, TIER_ST_N * TIER_ST_CHUNK
+                           / (time.perf_counter() - t) / 1e6)
+            st.close()
+            theirs = stats(ch)
+            out["stream"][name] = {
+                "mbps": best, "rcs_bad": sum(1 for r in rcs if r),
+                "chunks": theirs["stream_chunks"],
+                "bad": theirs["stream_bad"], "moved": moved(t0, tally())}
+        # (c) one frame, three attachments: kind 4, kind 6 and kind 5
+        step("(c)")
+        layout("default")
+        ch = channel()
+        stats(ch, reset=True)
+        lc, rc = count(), plane.remote_received
+        t0 = tally()
+        bad = []
+        for i in range(TIER_MIX_CALLS):
+            big, small = fresh(TIER_MIX_BIG), fresh(TIER_MIX_SMALL)
+            blob = bytes(torch.randint(0, 256, (TIER_MIX_BIG,),
+                                       dtype=torch.uint8).numpy())
+            cntl = rpc.Controller()
+            cntl.request_attachment.append_device_array(big)
+            cntl.request_attachment.append(blob)
+            cntl.request_attachment.append_device_array(small)
+            ch.call_method("Sink.Push", cntl, EchoRequest(message=str(i)),
+                           EchoResponse)
+            if cntl.failed():
+                bad.append((i, cntl.error_code_, cntl.error_text))
+                continue
+            refs = [cntl.response_attachment.backing_block(j) for j in
+                    range(cntl.response_attachment.backing_block_num())]
+            dev_refs = [r for r in refs if r.block.kind == 2]
+            back_big = dev_refs[0].block.data[
+                dev_refs[0].offset:dev_refs[0].offset + dev_refs[0].length]
+            back_small = dev_refs[-1].block.data[
+                dev_refs[-1].offset:dev_refs[-1].offset + dev_refs[-1].length]
+            host_back = b"".join(bytes(r.block.host_view(r.offset, r.length))
+                                 for r in refs if r.block.kind != 2)
+            if not (len(dev_refs) == 2 and torch.equal(back_big, big)
+                    and mesh.rank_of(back_big) == 4
+                    and back_small.device.type == "cpu"
+                    and torch.equal(back_small, small.cpu())
+                    and host_back == blob):
+                bad.append((i, "bytes differ"))
+        sync()
+        m = moved(t0, tally())
+        theirs = stats(ch)
+        out["mixed"] = {"bad": bad[:3], "moved": m,
+                        "launches": count() - lc,
+                        "received": plane.remote_received - rc,
+                        "peer": {k: theirs[k] for k in (
+                            "launches", "received", "attachments",
+                            "shm_claimed", "bulk_claimed")}}
+        # (d) faults, every call answered
+        step("(d)")
+        fault = {}
+        payload = memoryview(bytes(TIER_FAULT_PAYLOAD))
+        # the ring killed mid-transfer: frames fall to the bulk conn in
+        # the same frame, the prober revives the ring
+        ch = channel()
+        stats(ch)
+        s = sock()
+        t0 = tally()
+        kill_at = {}
+        done_n = [0]
+
+        def kill_mid():
+            done_n[0] += 1
+            if done_n[0] == TIER_FAULT_CALLS // 4 and not kill_at:
+                kill_at["t"] = time.monotonic()
+                kill_at["armed"] = fi.chaos_plane(s, "shm", fi.KILL)
+        errs = pump(ch, "Sink.Absorb", payload, TIER_FAULT_CALLS, 4,
+                    on_done=kill_mid)
+        wait_for(lambda: s.shm_epoch() >= 2, 30, "the killed ring revived")
+        revive_s = time.monotonic() - kill_at["t"]
+        m1 = moved(t0, tally())
+        t1 = tally()
+        errs += pump(ch, "Sink.Absorb", payload, 4, 2)
+        fault["kill"] = {"errors": errs[:3], "armed": kill_at["armed"],
+                         "revive_s": revive_s, "moved": m1,
+                         "after": moved(t1, tally()), "failed": s.failed,
+                         "epoch": s.shm_epoch()}
+        # shm_kill_now: the ring of a fresh connection dies at its attach
+        step("(d) kill_now")
+        plan = fi.FabricFaultPlan(shm_kill_now=True)
+        fi.install_fabric(plan)
+        ch = channel()
+        stats(ch)
+        s = sock()
+        t0 = tally()
+        t_kill = time.monotonic()
+        errs = pump(ch, "Sink.Absorb", payload, 4, 2)
+        fi.install_fabric(None)
+        wait_for(lambda: s.shm_epoch() >= 2, 30, "the ring killed at its "
+                                                  "attach revived")
+        revive_s = time.monotonic() - t_kill
+        m1 = moved(t0, tally())
+        t1 = tally()
+        errs += pump(ch, "Sink.Absorb", payload, 4, 2)
+        fault["kill_now"] = {"errors": errs[:3],
+                             "injected": plan.injected["shm_chaos"],
+                             "revive_s": revive_s, "moved": m1,
+                             "after": moved(t1, tally()), "failed": s.failed}
+        # the peer refuses the ring at the handshake: the bulk conn
+        step("(d) refused")
+        ch = channel()
+        peer_plan(ch, {"refuse_shm_handshakes": 1})
+        ch = channel()
+        stats(ch)
+        s = sock()
+        t0 = tally()
+        errs = pump(ch, "Sink.Absorb", payload, 4, 2)
+        injected = peer_plan(ch, None)
+        fault["refused"] = {"errors": errs[:3], "bound": s.shm_bound(),
+                            "moved": moved(t0, tally()),
+                            "injected": injected.get("refuse_shm", 0)}
+        # a bulk sever mid-stream: that stream fails, the socket lives
+        step("(d) sever")
+        flags.set_flag("ici_fabric_shm", False)
+        plan = fi.FabricFaultPlan(bulk_sever_after_bytes=TIER_ST_CHUNK
+                                  + TIER_ST_CHUNK // 2)
+        fi.install_fabric(plan)
+        ch = channel()
+        stats(ch)
+        s = sock()
+        fi.install_fabric(None)
+        cntl = rpc.Controller()
+        st = rpc.stream_create(cntl, rpc.StreamOptions(max_buf_size=8 << 20))
+        ch.call_method("Stream.Start", cntl, EchoRequest(message="verify"),
+                       EchoResponse)
+        check(not cntl.failed() and st.wait_connected(10),
+              f"sever stream: {cntl.error_text}")
+        rcs, raised = [], False
+        try:
+            for seq in range(6):
+                body = b"%08d" % seq + bytes([seq % 251]) * (
+                    TIER_ST_CHUNK - 8)
+                rcs.append(st.write(IOBuf(body), timeout=10))
+        except (ConnectionError, OSError):
+            raised = True
+        wait_for(lambda: s.bulk_epoch() >= 2, 30, "the severed bulk conn "
+                                                  "revived")
+        cntl, _ = call(ch, "Sink.Absorb", "after", host=payload)
+        st2 = rpc.stream_create(cntl2 := rpc.Controller(),
+                                rpc.StreamOptions(max_buf_size=8 << 20))
+        ch.call_method("Stream.Start", cntl2, EchoRequest(message="verify"),
+                       EchoResponse)
+        rcs2 = [st2.write(IOBuf(b"%08d" % q + bytes([q % 251]) * (
+            TIER_ST_CHUNK - 8)), timeout=10)
+            for q in range(4)] if st2.wait_connected(10) else ["no stream"]
+        st2.close()
+        fault["sever"] = {"injected": plan.injected["bulk_chaos"],
+                          "first_rc": rcs[0] if rcs else None,
+                          "stream_failed": raised or st.closed,
+                          "call_after": [cntl.error_code_, cntl.error_text]
+                          if cntl.failed() else None,
+                          "rcs2": rcs2, "failed": s.failed,
+                          "epoch": s.bulk_epoch()}
+        flags.set_flag("ici_fabric_shm", True)
+        # a slow ring is not a dead one
+        step("(d) slow")
+        ch = channel()
+        stats(ch)
+        s = sock()
+        base = route.plane_stats()
+        plan = fi.FabricFaultPlan(plane_slow_ms={"shm": TIER_SLOW_MS})
+        t0 = tally()
+        tt = time.monotonic()
+        with fi.inject_fabric(plan):
+            errs = pump(ch, "Sink.Absorb", payload, 4, 1)
+        now = route.plane_stats()
+        fault["slow"] = {"errors": errs[:3], "s": time.monotonic() - tt,
+                         "injected": plan.injected["plane_slow"],
+                         "downs": now.get("shm_down", 0)
+                         - base.get("shm_down", 0),
+                         "moved": moved(t0, tally()),
+                         "state": s.describe_planes()["shm"]["state"]}
+        out["faults"] = fault
+        sync()
+        theirs = stats(ch)
+        out["launches"] = count() - l0
+        out["received"] = plane.remote_received - r0
+        out["peer_end"] = {k: theirs[k] for k in ("mapped", "active",
+                                                  "segments")}
+        out["here_end"] = {"mapped": sum(x.ipc_stats()["mapped"] for x in
+                                         list_sockets() if isinstance(
+                                             x, fabric.FabricSocket)),
+                           "active": plane.active_transfers()}
+    except BaseException:
+        if peer is not None:
+            peer.kill()
+            print(f"tiers peer output:\n{peer.output()[-6000:]}",
+                  file=sys.stderr, flush=True)
+        raise
+    finally:
+        while chans:
+            chans.pop().close()
+        if peer is not None:
+            peer.kill()
+        node.quiesce()
+        faulthandler.cancel_dump_traceback_later()
+    out["segments_left"] = [n for n in made
+                            if os.path.exists(f"/dev/shm/{n}")] + [
+        n for pid in out.get("pids", []) for n in
+        ipc_pull.segments_on_disk(pid)]
+    out["segments_made"] = len(made)
+    out["foreign"] = sorted(m for m in sys.modules if m in ("jax", "brpc_tpu")
+                            or m.startswith(("jax.", "jaxlib", "brpc_tpu.")))
+    return out
+
+
+def phase_tiers(device: str = "cuda", **sizes) -> dict:
+    """The fabric's same-host tiers (see the module docstring, phase 20):
+    its traffic runs in a fresh interpreter (:func:`_tiers_member`), which
+    starts the peer; this process checks the result and launches nothing.
+    ``sizes`` overrides ``TIER_*`` constants in both processes (a CPU
+    rehearsal runs it smaller)."""
+    g = globals()
+    saved = {k: g[k] for k in sizes}
+    g.update(sizes)
+    try:
+        return _phase_tiers(device, sizes)
+    finally:
+        g.update(saved)
+
+
+def _phase_tiers(device: str, sizes: dict) -> dict:
+    import tempfile
+    t_phase = time.monotonic()
+    with tempfile.TemporaryDirectory() as logs:
+        member_log = os.path.join(logs, "member.log")
+        with open(member_log, "w+") as log:
+            proc = subprocess.Popen(
+                [sys.executable, "-c", "import sys, json, chip_smoke as cs; "
+                 "vars(cs).update(json.loads(sys.argv[2])); "
+                 "print('TIERS ' + json.dumps(cs._tiers_member("
+                 "sys.argv[1], sys.argv[3])), flush=True)", device,
+                 json.dumps(sizes), logs],
+                cwd=str(ROOT), stdout=log, stderr=subprocess.STDOUT)
+            try:
+                rc = proc.wait(POD_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                rc = proc.wait()
+            log.seek(0)
+            text = log.read()
+        lines = [ln for ln in text.splitlines() if ln.startswith("TIERS ")]
+        if rc != 0 or not lines:
+            peer_log = os.path.join(logs, "peer.log")
+            peer = open(peer_log).read() if os.path.exists(peer_log) else ""
+            print(f"tiers member output:\n{text[-12000:]}\ntiers peer "
+                  f"output:\n{peer[-8000:]}", file=sys.stderr, flush=True)
+            fail(f"tiers: the member process ended rc {rc}")
+    r = json.loads(lines[-1][6:])
+    check(r["foreign"] == [], f"tiers: loaded {r['foreign']}")
+    gb, st, mix, fa = r["gbps"], r["stream"], r["mixed"], r["faults"]
+    volume = TIER_GB_PASSES * TIER_GB_CALLS * TIER_GB_CHUNK
+    # a call's frame header and meta join its attachment in one host blob
+    framing = TIER_GB_PASSES * TIER_GB_CALLS * 512
+
+    def carried(nbytes):
+        return volume <= nbytes <= volume + framing
+
+    for name, g in gb.items():
+        m = g["moved"]
+        check(not g["errors"], f"gbps {name}: calls failed {g['errors']}")
+        check(g["absorbed"] == volume + TIER_GB_CHUNK,
+              f"gbps {name}: the peer absorbed {g['absorbed']} B")
+        if name == "uds":
+            check(m["shm"] == 0 and m["bulk"] == m["uds"]
+                  and carried(m["bulk"]),
+                  f"gbps uds: the route was not the bulk conn: {m}")
+        else:
+            check(m["bulk"] == 0 and carried(m["shm"]),
+                  f"gbps {name}: the route was not the ring: {m}")
+        if name == "shm_striped":
+            check(g["stripes"] == 4 and len(m["stripes"]) == 4
+                  and carried(sum(m["stripes"].values())),
+                  f"gbps shm_striped: stripes {g['stripes']}, {m['stripes']}")
+        if name == "auto":
+            check(g["stripes"] == 1 and not m["stripes"],
+                  f"gbps auto: one ring was asked for: {g['stripes']}, "
+                  f"{m['stripes']}")
+    svol = TIER_ST_PASSES * TIER_ST_N * TIER_ST_CHUNK
+    for name, x in st.items():
+        m = x["moved"]
+        check(x["rcs_bad"] == 0 and x["bad"] == 0
+              and x["chunks"] == TIER_ST_PASSES * TIER_ST_N,
+              f"stream {name}: {x}")
+        if name == "uds":
+            check(m["shm"] == 0 and m["bulk"] == svol,
+                  f"stream uds: the route was not the bulk conn: {m}")
+        else:
+            check(m["bulk"] == 0 and m["shm"] == svol,
+                  f"stream auto: the route was not the ring: {m}")
+    m = mix["moved"]
+    n = TIER_MIX_CALLS
+    check(not mix["bad"], f"mixed frame: {mix['bad']}")
+    check(mix["launches"] == mix["received"] == n
+          and mix["peer"]["launches"] == mix["peer"]["received"] == n,
+          f"mixed frame: launches = kind-4 received = {n} DEVICE "
+          f"attachments at or above the threshold, in each process: "
+          f"here {mix['launches']}/{mix['received']}, peer {mix['peer']}")
+    check(m["shm"] == n * (TIER_MIX_BIG + TIER_MIX_SMALL) and m["bulk"] == 0
+          and m["device"] == n * TIER_MIX_BIG,
+          f"mixed frame: shm bytes must be the host and sub-threshold "
+          f"bytes, device bytes the 4 MiB ones, nothing on bulk: {m}")
+    check(mix["peer"]["shm_claimed"] == n * (TIER_MIX_BIG + TIER_MIX_SMALL)
+          and mix["peer"]["bulk_claimed"] == 0,
+          f"mixed frame, the peer's claims: {mix['peer']}")
+    k = fa["kill"]
+    check(not k["errors"] and k["armed"] and not k["failed"]
+          and k["moved"]["bulk"] >= TIER_FAULT_PAYLOAD
+          and k["after"]["shm"] > 0 and k["after"]["bulk"] == 0,
+          f"the ring killed mid-transfer: {k}")
+    k = fa["kill_now"]
+    check(not k["errors"] and k["injected"] >= 1 and not k["failed"]
+          and k["moved"]["bulk"] >= TIER_FAULT_PAYLOAD
+          and k["after"]["shm"] > 0, f"shm_kill_now: {k}")
+    k = fa["refused"]
+    check(not k["errors"] and not k["bound"] and k["injected"] == 1
+          and k["moved"]["shm"] == 0
+          and 4 * TIER_FAULT_PAYLOAD <= k["moved"]["bulk"]
+          <= 4 * (TIER_FAULT_PAYLOAD + 512),
+          f"the refused ring: {k}")
+    k = fa["sever"]
+    check(k["injected"] >= 1 and k["first_rc"] == 0 and k["stream_failed"]
+          and k["call_after"] is None and k["rcs2"] == [0] * 4
+          and not k["failed"] and k["epoch"] >= 2,
+          f"the bulk sever mid-stream: {k}")
+    k = fa["slow"]
+    check(not k["errors"] and k["injected"] >= 4 and k["downs"] == 0
+          and k["state"] == "up" and k["moved"]["bulk"] == 0,
+          f"the slow ring: {k}")
+    check(r["launches"] == r["received"] == n,
+          f"tiers: launches {r['launches']}, kind-4 received "
+          f"{r['received']}, DEVICE attachments at or above the threshold "
+          f"{n}")
+    check(not r["segments_left"] and r["segments_made"] > 0,
+          f"tiers: segments left in /dev/shm: {r['segments_left']}")
+    check(r["peer_end"] == {"mapped": 0, "active": 0, "segments": 0}
+          and r["here_end"] == {"mapped": 0, "active": 0},
+          f"tiers: held at the end: {r['peer_end']}, {r['here_end']}")
+    r["wall_s"] = time.monotonic() - t_phase
+    print(f"tiers: (a) GB/s auto {gb['auto']['gbps']:.3f} (one ring), uds "
+          f"{gb['uds']['gbps']:.3f}, shm_striped "
+          f"{gb['shm_striped']['gbps']:.3f} (4 stripes "
+          f"{sorted(gb['shm_striped']['moved']['stripes'].values())}); "
+          f"a new connection's first call "
+          f"{ {k: round(v['first_call_ms'], 1) for k, v in gb.items()} } "
+          f"ms; "
+          f"(b) stream MB/s auto {st['auto']['mbps']:.1f}, uds "
+          f"{st['uds']['mbps']:.1f}; (c) {n} frames: launches = kind-4 "
+          f"received = {n} in each process, shm {m['shm']} B, device "
+          f"{m['device']} B, bulk {m['bulk']} B; (d) ring killed "
+          f"mid-transfer revived in {fa['kill']['revive_s']:.3f} s, "
+          f"killed at attach revived in {fa['kill_now']['revive_s']:.3f} s,"
+          f" refused ring rode bulk, bulk sever failed one stream, slow "
+          f"ring {fa['slow']['s']:.3f} s for 4 calls and no degrade; "
+          f"0 failed calls; (e) {r['segments_made']} segments made, none "
+          f"left; {r['wall_s']:.1f} s", flush=True)
+    return r
+
+
 def _fabric_overload(rpc, mesh, plane, ch, count, peer_stats, sync) -> dict:
     """Phase 10's overload leg across processes: the server on ici://5
     here (phase 10's, on the Python plane), the paced clients (ranks 2
@@ -4549,7 +5206,7 @@ def _fabric_overload(rpc, mesh, plane, ch, count, peer_stats, sync) -> dict:
           f"{out['hi_p99_overload_us']:.1f} us at overload (ratio "
           f"{out['hi_p99_ratio']:.3f}; bench.py bounds it at 2; printed, "
           f"not gated: against a warm baseline it did not hold in every "
-          f"run, ROADMAP queue 3 item 1); offered "
+          f"run, PERF.md section 7); offered "
           f"{out['offered_rps_measured']:.1f} rps measured; shed "
           f"{out['shed']}", flush=True)
     return out
@@ -4592,6 +5249,9 @@ def main() -> int:
         t0 = time.monotonic()
         try:
             core["path"] = str(native_core.build())
+            # phase 20's bulk conn and shm ring, the same way
+            core["fabric"] = str(native_core.build(
+                "fabric_native", native_core.FABRIC_SOURCES))
         except Exception as e:
             core["error"] = f"{type(e).__name__}: {e}"
         core["s"] = time.monotonic() - t0
@@ -4606,7 +5266,10 @@ def main() -> int:
                                f"{core.get('error')}")
     check(native_core.load() is not None,
           f"native ici core did not load: {native_core.load_error()}")
-    builds["ici_native (g++)"] = core["s"]
+    check(native_core.load_fabric() is not None,
+          f"the bulk-and-shm library did not load: "
+          f"{native_core.fabric_load_error()}")
+    builds["ici_native + fabric_native (g++)"] = core["s"]
     print("build: " + ", ".join(f"{k} {v:.2f} s" for k, v in builds.items()),
           flush=True)
 
@@ -4859,6 +5522,16 @@ def main() -> int:
     check(xproc["launches"] > 0, "the fan-out leg never launched p2p_copy")
     print("fanout_xproc: " + json.dumps(xproc), flush=True)
 
+    # 20. the same-host tiers: the member process counts its own launches
+    # (and its peer's); this process launches nothing
+    zero_counts()
+    tiers20 = phase_tiers()
+    launches = {k.name: k.launches for k in kernels_all}
+    check(all(v == 0 for v in launches.values()),
+          f"a kernel launched in the driving process during phase 20: "
+          f"{launches}")
+    print("tiers: " + json.dumps(tiers20), flush=True)
+
     head = next(r for r in rows if r["label"] == "4 MiB")
     red = ring_rows["ring_all_reduce"]
     gat = ring_rows["ring_all_gather"]
@@ -4877,7 +5550,8 @@ def main() -> int:
                      + sum(r["launches"] for r in slice7.values())
                      + calls["launches"] + native["launches"]
                      + native_adm["launches"] + fab["launches"]
-                     + pod["launches"] + xproc["launches"]),
+                     + pod["launches"] + xproc["launches"]
+                     + tiers20["launches"]),
         "launches_by_path": {"echo": main_launches,
                              "serving": serve["launches"],
                              "migration": tiers["launches"], **phase10,
@@ -4891,7 +5565,8 @@ def main() -> int:
                              "fabric": fab["launches"],
                              **{f"pod_{k}": v for k, v in
                                 pod["launches_by_scenario"].items()},
-                             "fanout_xproc": xproc["launches"]},
+                             "fanout_xproc": xproc["launches"],
+                             "tiers": tiers20["launches"]},
         "migration_path_split": {
             "migrate_in": tiers["migrate_in_calls"],
             "loadkv": tiers["calls_received"] - tiers["migrate_in_calls"]},

@@ -331,6 +331,8 @@ def test_scale_down_by_migration_then_lame_duck_stop():
         rsvc.add_decode_target("ici://3")
         return True
 
+    step_gate = threading.Event()
+    step_gate.set()
     scaler = tserving.LoadThresholdAutoscaler(
         load_fn, lambda: len(live), scale_up, scale_down, drain=drain,
         options=tserving.AutoscalerOptions(samples_to_scale=2,
@@ -364,7 +366,10 @@ def test_scale_down_by_migration_then_lame_duck_stop():
             {"ici://2"}
         # traffic carries on through the shrunk fleet
         assert {generate(prompt(100)) for _ in range(3)} == {"ici://2"}
-        # load: the migrated sessions decode on rank 2, async, 64 steps
+        # load: the migrated sessions decode on rank 2, async, 64 steps.
+        # A 64-step decode takes milliseconds here, so sessions sent one
+        # by one may finish before the last arrives: the step is held
+        # until all six are queued, the scaler samples, then it runs
         results = {}
         done_all = threading.Event()
 
@@ -373,22 +378,34 @@ def test_scale_down_by_migration_then_lame_duck_stop():
                                 json.loads(c.response.message)["tokens"])
             if len(results) == len(held):
                 done_all.set()
+        sched2 = _svc(decodes["ici://2"]).scheduler
+        step_gate.clear()
+        real_step = sched2.step_once
+
+        def held_step():
+            step_gate.wait(60)
+            return real_step()
+        sched2.step_once = held_step
         for session in held:
             cntl = rpc.Controller()
             channel("ici://2").call_method(
                 "Decode.Decode", cntl, EchoRequest(message=json.dumps(
                     {"session": session, "steps": 64})), EchoResponse,
                 done=lambda c, s=session: on_done(s, c))
-        sched2 = _svc(decodes["ici://2"]).scheduler
         deadline = time.monotonic() + 10
-        while time.monotonic() < deadline:
+        while True:
             d = sched2.describe()
             if d["active"] + sum(d["pending_by_band"]) == len(held):
                 break
+            assert time.monotonic() < deadline, (
+                "the six decodes were not all queued within 10 s", d,
+                results)
             time.sleep(0.001)
-        assert load_fn() >= 0.75
+        assert load_fn() >= 0.75, (sched2.describe(), results)
         assert scaler.tick(now=3.0) is None
         assert scaler.tick(now=3.5) == "up"
+        step_gate.set()
+        del sched2.step_once
         assert done_all.wait(60)
         for session, tokens in held.items():
             assert results[session] == (
@@ -411,6 +428,7 @@ def test_scale_down_by_migration_then_lame_duck_stop():
         serving = rsvc.describe_serving()["router"]
         assert serving["generate_failures"] == 0
     finally:
+        step_gate.set()
         scaler.stop()
         for ch in chans.values():
             ch.close()

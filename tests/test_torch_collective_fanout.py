@@ -366,6 +366,51 @@ def test_screen_declines_alike(case, stacks):
         np.testing.assert_array_equal(tres, jres)
 
 
+@pytest.mark.parametrize("rank0_serving", [False, True],
+                         ids=["rank0_down", "rank0_up"])
+def test_screen_checks_local_liveness_before_a_rank_past_the_mesh(
+        rank0_serving, stacks):
+    """A fan-out over ``[0, 99]`` (rank 99 past the 8-rank mesh): the
+    screen checks this process's members first and the mesh bound only for
+    remote ranks, as ``brpc_tpu/channels/collective_fanout.py:613-628``
+    does.  With rank 0 not serving both packages decline ``member_down``,
+    with it serving ``target_not_ici``, and each counts the same
+    ``collective_ineligible_<reason>``."""
+    from brpc_tpu.butil import endpoint as jep
+    from brpc_tpu_torch.butil import endpoint as tep
+    out = {}
+    for pkg, ep_mod in ((JAX, jep), (PORT, tep)):
+        _healthy(pkg)
+        if not rank0_serving:
+            stacks[(pkg.name, 0)].stop()
+        try:
+            mapper = pkg.channels.ShardingCallMapper()
+            merger = pkg.channels.CollectiveMerger(
+                merge="gather", dtype="float32", shard_shape=(SHARD,))
+            subs = [(types.SimpleNamespace(
+                _endpoint=ep_mod.parse_endpoint(f"ici://{d}")),
+                mapper, merger) for d in (0, 99)]
+            pchan = types.SimpleNamespace(_subs=subs)
+            cntl = pkg.rpc.Controller()
+            cntl.fanout_operand = _to_operand(
+                pkg, np.ones((2, SHARD), np.float32))
+            before = _stats(pkg)
+            plane = pkg.cf.CollectiveFanoutPlane.instance()
+            low, reason = plane.screen(subs, SCALE, cntl, pchan=None)
+            handled = pkg.cf.maybe_call(pchan, SCALE, cntl,
+                                        pkg.Req(message="x"), pkg.Resp(),
+                                        None)
+            out[pkg.name] = (low is None, reason, handled,
+                             cntl.fanout_route, _delta(before, _stats(pkg)))
+        finally:
+            if not rank0_serving:
+                stacks[(pkg.name, 0)] = _start(pkg, 0)
+    want = "target_not_ici" if rank0_serving else "member_down"
+    assert out["torch"] == out["jax"]
+    assert out["jax"][:4] == (True, want, False, "rpc")
+    assert out["jax"][4] == {f"collective_ineligible_{want}": 1}
+
+
 # ---------------------------------------------------------------------------
 # Parity: compiled in the port, degraded in the port, compiled in JAX.
 # ---------------------------------------------------------------------------

@@ -32,6 +32,7 @@ held against the JAX package on the CPU.
 from __future__ import annotations
 
 import json
+import time
 import threading
 
 import numpy as np
@@ -244,6 +245,73 @@ def test_announce_body_and_frame_numbers_equal_jax(monkeypatch):
     assert len(tbody["xrows"]) == 3 and tbody["xrow_bytes"] == 4 * COLS
     assert tcf.xproc_stats()["waiters"] == 0
     assert ipc_pull.live_segments() == []
+
+
+def test_collective_slow_is_the_ports_own_point(monkeypatch):
+    """``plane_slow_ms={"collective": ms}``: the JAX package consults
+    ``on_plane_op`` only for "device" and "shm", so its announce runs
+    unslowed and its plan counts nothing; the port's announce sleeps once
+    per member process (its own point, at the announce)."""
+    name = "XFan.slow"
+    op = _operand("replicate", "int")
+    from brpc_tpu.butil import flags as jflags
+    from brpc_tpu.rpc import fault_injection as jfi
+    from brpc_tpu_torch.rpc import fault_injection as tfi
+
+    class Capture:
+        failed = False
+
+        def _peer_gone(self):
+            return False
+
+        def _ctrl_send(self, ftype, body):
+            pass
+
+    out = {}
+    tflags.set_flag("ici_fanout_xproc_timeout_s", 0.05)
+    jflags.set_flag("ici_fanout_xproc_timeout_s", 0.05)
+    try:
+        for pkg, mod, fi in (("jax", jcf, jfi), ("port", tcf, tfi)):
+            mod.register_device_handler(name, lambda x: x, merge="sum",
+                                        mapping="replicate")
+            md = mod.registry().method(name)
+            low = mod._Lowering(name, md, (0, 1, 2), op, "replicate",
+                                "xproc", {1: 2})
+            monkeypatch.setattr(mod, "_member_sock", lambda dev: Capture())
+            args = (low, 5)
+            if mod is tcf:
+                monkeypatch.setattr(tcf, "_local_devices",
+                                    lambda: frozenset({0, 1}))
+                call = tcf._XprocCall(low)
+                args += (call,)
+            plan = fi.FabricFaultPlan(plane_slow_ms={"collective": 300})
+            asked = []
+            orig = plan.on_plane_op
+            monkeypatch.setattr(plan, "on_plane_op", lambda sock, plane: (
+                asked.append(plane), orig(sock, plane))[1])
+            t0 = time.monotonic()
+            with fi.inject_fabric(plan):
+                with pytest.raises(mod.CollectiveExecError):
+                    mod.CollectiveFanoutPlane.instance()._announce_xproc(
+                        *args)
+            out[pkg] = (time.monotonic() - t0, asked,
+                        plan.injected["plane_slow"])
+            if mod is tcf:
+                call.finish()
+    finally:
+        tflags.set_flag("ici_fanout_xproc_timeout_s", 10.0)
+        jflags.set_flag("ici_fanout_xproc_timeout_s", 10.0)
+    (jt, jasked, jslow), (tt, tasked, tslow) = out["jax"], out["port"]
+    assert jasked == [] and jslow == 0 and jt < 0.3
+    assert tasked == ["collective"] and tslow == 1 and tt >= 0.3
+    # and the port's plan says so: "collective" is recorded as its own
+    # point, not as one of the JAX package's
+    doc = " ".join(tfi.__doc__.split())
+    assert '"collective", one sleep per member at the fan-out\'s ' \
+        "announce, is the port's own point" in doc
+    plan_doc = " ".join(tfi.FabricFaultPlan.__doc__.split())
+    assert "\"collective\" (a fan-out announce) is the port's own " \
+        "point" in plan_doc
 
 
 # ---------------------------------------------------------------------------

@@ -90,6 +90,9 @@ class _TNode:
     def device_health(self, pid):
         return self._health
 
+    def shm_peer_ok(self, pid):
+        return False
+
     def next_uuid(self):
         return UUID
 

@@ -166,18 +166,41 @@ def test_slow_never_degrades_the_ports_planes():
     ("xfer_refuse_stages", 1, "transfer server"),
 ])
 def test_knobs_of_missing_tiers_are_refused(knob, value, tier):
-    jfi.FabricFaultPlan(**{knob: value})          # the JAX plan has it
-    with pytest.raises(ValueError, match=tier):
-        tfi.FabricFaultPlan(**{knob: value})
+    """Only the transfer server's knob is still refused; the bulk plane's
+    and the shm ring's are ported and decide as the JAX plan does (the
+    native mode armed on an attach, the handshake refusals counted)."""
+    jplan = jfi.FabricFaultPlan(**{knob: value})  # the JAX plan has it
+    if tier == "transfer server":
+        with pytest.raises(ValueError, match=tier):
+            tfi.FabricFaultPlan(**{knob: value})
+        return
+    tplan = tfi.FabricFaultPlan(**{knob: value})
+    calls = {}
+    for pkg, plan in (("jax", jplan), ("port", tplan)):
+        seen = []
+
+        class Lib:
+            def __getattr__(self, name, seen=seen):
+                return lambda h, mode, arg: seen.append(
+                    (name.rsplit("_", 2)[-2], h, mode, arg))
+
+        plan.on_bulk_attach(None, Lib(), 7)
+        plan.on_shm_attach(None, Lib(), 9)
+        refusals = (plan.on_bulk_handshake(), plan.on_bulk_handshake(),
+                    plan.on_shm_handshake(), plan.on_shm_handshake())
+        calls[pkg] = (seen, refusals, plan.injected)
+    assert calls["port"] == calls["jax"]
 
 
 def test_slow_planes_and_unknown_knobs_are_refused():
-    with pytest.raises(ValueError, match="shm"):
-        tfi.FabricFaultPlan(plane_slow_ms={"shm": 5})
+    with pytest.raises(ValueError, match="xfer"):
+        tfi.FabricFaultPlan(plane_slow_ms={"xfer": 5})
+    for plane in ("shm", "bulk", "device", "collective"):
+        tfi.FabricFaultPlan(plane_slow_ms={plane: 5})
     with pytest.raises(TypeError):
         tfi.FabricFaultPlan(no_such_knob=1)
     assert set(tfi.FabricFaultPlan().injected) \
-        <= set(jfi.FabricFaultPlan().injected)
+        == set(jfi.FabricFaultPlan().injected)
 
 
 # ---------------------------------------------------------------------------

@@ -534,6 +534,10 @@ for t in threads:
     t.start()
 for t in threads:
     t.join()
+# both processes' calls are done, so both connections exist: a process
+# whose own calls end first must not look for the peer's socket before
+# the peer's handshake (its ring's set-up included) has landed
+barrier("fired", 60)
 socks = fabric_socks()
 clients = [s for s in socks if not s.is_server_side]
 servers = [s for s in socks if s.is_server_side]
@@ -574,3 +578,81 @@ def test_xproc_bidirectional_total_order_and_byte_exactness():
         assert r["c_sent"] >= 2 * k * n and r["c_recv"] >= 2 * k * n
         assert r["c_executed"] == r["peer_s"], "the total order diverged"
         assert r["foreign"] == []
+
+
+# ---- N=4 membership: join, resolve, reach, drain and restart -----------
+
+_POD_MEMBERSHIP = r"""
+from brpc_tpu_torch.ici.pod import Pod, epoch_of
+from brpc_tpu_torch.policy.naming import create_naming_service
+MYDEV = 2 * pid
+pod = Pod.join("dryrun")
+
+class Svc(rpc.Service):
+    SERVICE_NAME = "EchoService"
+    @rpc.method(EchoRequest, EchoResponse)
+    def Echo(self, cntl, request, response, done):
+        response.message = "m%d" % pid
+        done()
+
+server = rpc.Server(); server.add_service(Svc())
+assert server.start("ici://%d" % MYDEV) == 0
+pod.wait_epoch(2 * NPROC, timeout=30)        # join xN + advertise xN
+out = {"foreign": foreign()}
+# pod:// resolves every member's serving rank, the same everywhere
+out["eps"] = sorted(str(e.endpoint) for e in
+                    create_naming_service("pod://dryrun").get_servers())
+# a balanced channel over the pod reaches every member
+ch = rpc.Channel()
+ch.init("pod://dryrun", "rr",
+        options=rpc.ChannelOptions(timeout_ms=10000, max_retry=2))
+seen, fails = set(), []
+deadline = time.time() + 30
+while len(seen) < NPROC and time.time() < deadline:
+    cntl = rpc.Controller()
+    resp = ch.call_method("EchoService.Echo", cntl,
+                          EchoRequest(message="x"), EchoResponse)
+    if cntl.failed():
+        fails.append((cntl.error_code_, cntl.error_text))
+        continue
+    seen.add(resp.message)
+out["seen"], out["fails"] = sorted(seen), fails[:3]
+# one member drains and restarts: every member sees the epoch move
+barrier("pm_resolved", 30)
+if pid == NPROC - 1:
+    server.stop(2.0)                         # drain mark + withdraw
+    server2 = rpc.Server(); server2.add_service(Svc())
+    assert server2.start("ici://%d" % MYDEV) == 0
+    live_server = server2
+else:
+    live_server = server
+FINAL = 2 * NPROC + 3                        # + drain, withdraw, advertise
+out["waited"] = pod.wait_epoch(FINAL, timeout=30)
+final = pod.members(refresh=True)
+out["epoch"] = epoch_of(final)
+out["serving"] = {str(p): final[p].serving for p in sorted(final)}
+barrier("pm_done", 30)
+ch.close()
+live_server.stop()
+pod.leave()
+result(out)
+finish()
+"""
+
+
+def test_pod_membership_join_resolve_drain_restart_n4():
+    """``tests/test_pod.py::test_pod_membership_join_resolve_drain_
+    restart_n4`` on the port: four processes join, ``pod://`` resolves
+    every member's serving rank the same in each, an ``rr`` channel over
+    it reaches all four, and one member's ``stop(2.0)`` and restart move
+    the epoch to 2N+3 everywhere, each member serving its rank again."""
+    from tests.torch_procs import ok, run_procs
+    n = 4
+    rs = ok(run_procs(_POD_MEMBERSHIP, n, timeout=120))
+    want = sorted(f"ici://{2 * p}" for p in range(n))
+    for r in rs:
+        assert r["foreign"] == []
+        assert r["eps"] == want
+        assert r["seen"] == sorted(f"m{p}" for p in range(n)), r["fails"]
+        assert r["epoch"] == 2 * n + 3
+        assert r["serving"] == {str(p): [2 * p] for p in range(n)}

@@ -57,10 +57,10 @@ def get(k, t=120):
     kv.wait([k], timedelta(seconds=t))
     return json.loads(kv.get(k))
 
-def barrier(name):
+def barrier(name, t=120):
     put(name + "/" + str(pid), 1)
     for q in range(NPROC):
-        get(name + "/" + str(q))
+        get(name + "/" + str(q), t)
 
 def fabric_socks():
     return [s for s in list_sockets() if isinstance(s, FabricSocket)]
