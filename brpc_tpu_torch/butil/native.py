@@ -1,10 +1,13 @@
-"""ctypes loader and ABI of the port's native ici:// core.
+"""ctypes loader and ABI of the port's native core.
 
-The core is ``csrc/ici_native.cpp`` (with ``flat_map.h`` and
-``tsan_compat.h`` beside it): host C++, not a kernel.  At first use
-``g++ -O2 -fPIC -shared -pthread`` builds it into ``_build/`` beside the
-package, named by a digest of the three sources and the flags, so an edit
-to any of them builds a fresh library instead of loading a stale one.
+The core is ``csrc/ici_native.cpp`` (the ici:// plane) and
+``csrc/rpc_native.cpp`` (the TCP server, channel and pool with their bench
+entries), one library, with ``trpc_codec.h`` (the one meta codec and TRPC
+framing both use), ``flat_map.h`` and ``tsan_compat.h`` beside them: host
+C++, not a kernel.  At first use ``g++ -O2 -fPIC -shared -pthread`` builds
+it into ``_build/`` beside the package, named by a digest of the sources
+and the flags, so an edit to any of them builds a fresh library instead of
+loading a stale one.
 Concurrent first uses (test workers, several processes) agree through a
 file lock: one builds to a temporary name and renames it into place, the
 others wait and load the result.  Nothing is built or loaded when a module
@@ -14,7 +17,9 @@ The library is built with hidden visibility and ``-Bsymbolic``: its
 listener registry and every internal symbol are its own, even in a
 process that has loaded another copy of the same datapath.
 
-Only the ici plane's symbols and ``brpc_tpu_buf_free`` are bound.
+The ici plane's symbols, the TCP datapath's (``brpc_tpu_nserver_*``,
+``brpc_tpu_nchannel_*``, ``brpc_tpu_npool_*``, the ``brpc_tpu_native_*``
+bench entries) and ``brpc_tpu_buf_free`` are bound.
 
 The fabric's same-host tiers are a second library of their own,
 ``csrc/fabric_native.cpp`` (the bulk conn and the shm ring, symbols
@@ -36,7 +41,8 @@ from typing import Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("ici_native.cpp", "flat_map.h", "tsan_compat.h")
+SOURCES = ("ici_native.cpp", "rpc_native.cpp", "trpc_codec.h", "flat_map.h",
+           "tsan_compat.h")
 CXX_FLAGS = ["-O2", "-fPIC", "-shared", "-pthread", "-std=c++17",
              "-fvisibility=hidden", "-Wl,-Bsymbolic"]
 
@@ -135,6 +141,20 @@ _ICI_RELEASE_FN = ctypes.CFUNCTYPE(None, ctypes.c_uint64)
 # batched request upcall: (reqs, n)
 _ICI_BATCH_FN = ctypes.CFUNCTYPE(None, ctypes.POINTER(IciReqC),
                                  ctypes.c_uint64)
+# TCP server request upcall: (token, method, payload, payload_len, att,
+# att_len, log_id); the token is answered with brpc_tpu_nserver_respond
+_NREQ_FN = ctypes.CFUNCTYPE(None, ctypes.c_uint64, ctypes.c_char_p,
+                            ctypes.POINTER(ctypes.c_uint8), ctypes.c_uint64,
+                            ctypes.POINTER(ctypes.c_uint8), ctypes.c_uint64,
+                            ctypes.c_uint64)
+# TCP channel async completion: (user, error_code, err_text, resp,
+# resp_len, att, att_len); fires once, from the channel's reader thread
+_ASYNC_CB = ctypes.CFUNCTYPE(None, ctypes.c_void_p, ctypes.c_uint64,
+                             ctypes.c_char_p,
+                             ctypes.POINTER(ctypes.c_uint8),
+                             ctypes.c_uint64,
+                             ctypes.POINTER(ctypes.c_uint8),
+                             ctypes.c_uint64)
 
 
 FABRIC_SOURCES = ("fabric_native.cpp", "flat_map.h", "tsan_compat.h")
@@ -160,8 +180,9 @@ def _compiler() -> str:
 
 
 def build(stem: str = "ici_native", sources=SOURCES) -> Path:
-    """Build ``csrc/<stem>.cpp`` when no library of these sources exists;
-    returns its path.  Raises with the compiler's output on failure."""
+    """Build the ``.cpp`` units of ``sources`` into ``lib<stem>`` when no
+    library of these sources exists; returns its path.  Raises with the
+    compiler's output on failure."""
     lib_path = library_path(stem, sources)
     if lib_path.exists():
         return lib_path
@@ -172,8 +193,9 @@ def build(stem: str = "ici_native", sources=SOURCES) -> Path:
             if lib_path.exists():          # another process built it
                 return lib_path
             tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+            units = [CSRC / n for n in sources if n.endswith(".cpp")]
             cmd = [_compiler(), *CXX_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-                   str(CSRC / f"{stem}.cpp")]
+                   *map(str, units)]
             proc = subprocess.run(cmd, capture_output=True, text=True,
                                   timeout=300)
             if proc.returncode != 0:
@@ -278,7 +300,114 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.brpc_tpu_ici_codec_unpack.argtypes = [
         ctypes.c_char_p, u64, ctypes.POINTER(u64),
         ctypes.POINTER(ctypes.c_void_p)]
+    _bind_tcp(lib)
     return lib
+
+
+def _bind_tcp(lib: ctypes.CDLL) -> None:
+    """The TCP datapath of ``csrc/rpc_native.cpp``: the same signatures as
+    the reference core's."""
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    u64, i64, cint, cstr = (ctypes.c_uint64, ctypes.c_int64, ctypes.c_int,
+                            ctypes.c_char_p)
+    u8pp, u64p = ctypes.POINTER(u8p), ctypes.POINTER(u64)
+    call_args = [u64, cstr, u8p, u64, u8p, u64, i64, u8pp, u64p, u8pp,
+                 u64p, ctypes.POINTER(cstr)]
+    sigs = {
+        "nserver_start": (u64, [cint]),
+        "nserver_port": (cint, [u64]),
+        "nserver_register_echo": (cint, [u64, cstr]),
+        "nserver_set_handler": (cint, [u64, _NREQ_FN]),
+        "nserver_requests": (u64, [u64]),
+        "nserver_respond": (cint, [u64, u64, cstr, u8p, u64, u8p, u64]),
+        "nserver_stop": (None, [u64]),
+        "nchannel_connect": (u64, [cstr, cint]),
+        "nchannel_call": (u64, call_args),
+        "nchannel_close": (None, [u64]),
+        "nchannel_call_async": (u64, [u64, cstr, u8p, u64, u8p, u64, i64,
+                                      _ASYNC_CB, ctypes.c_void_p]),
+        "npool_connect": (u64, [cstr, cint, cint]),
+        "npool_call": (u64, call_args),
+        "npool_close": (None, [u64]),
+        "native_echo_p50_ns": (i64, [cint, cint]),
+        "native_rpc_echo_p50_ns": (i64, [cint, cint]),
+        "native_rpc_qps": (ctypes.c_double, [cint, cint, cint]),
+        "native_rpc_throughput_gbps": (ctypes.c_double, [cint, cint, cint]),
+        "native_async_throughput_gbps": (ctypes.c_double,
+                                         [cint, cint, cint]),
+        "native_pooled_throughput_gbps": (ctypes.c_double,
+                                          [cint, cint, cint, cint]),
+    }
+    for name, (restype, argtypes) in sigs.items():
+        fn = getattr(lib, "brpc_tpu_" + name)
+        fn.restype = restype
+        fn.argtypes = argtypes
+
+
+# ---- the TCP datapath's bench entries (bench.py's native legs) ----------
+
+def native_echo_p50_us(iters: int = 2000, payload: int = 4096) -> float:
+    """Raw epoll TCP echo round-trip p50 (µs): bytes in, the same bytes
+    out, no framing; -1 if unavailable."""
+    lib = load()
+    if lib is None:
+        return -1.0
+    ns = lib.brpc_tpu_native_echo_p50_ns(iters, payload)
+    return ns / 1000.0 if ns > 0 else -1.0
+
+
+def native_rpc_echo_p50_us(iters: int = 3000, payload: int = 4096) -> float:
+    """Full native RPC stack echo p50 (µs): channel → TRPC frame → epoll
+    server → dispatch → response → correlation wake, all in
+    ``csrc/rpc_native.cpp``.  -1 if unavailable."""
+    lib = load()
+    if lib is None:
+        return -1.0
+    ns = lib.brpc_tpu_native_rpc_echo_p50_ns(iters, payload)
+    return ns / 1000.0 if ns > 0 else -1.0
+
+
+def native_rpc_qps(threads: int = 16, duration_ms: int = 1500,
+                   payload: int = 128) -> float:
+    """Multi-threaded native RPC echo QPS; -1 if unavailable."""
+    lib = load()
+    if lib is None:
+        return -1.0
+    return lib.brpc_tpu_native_rpc_qps(threads, duration_ms, payload)
+
+
+def native_rpc_throughput_gbps(threads: int = 2, duration_ms: int = 1500,
+                               payload: int = 4 << 20) -> float:
+    """Large-request echo throughput GB/s (request bytes), ``threads``
+    callers on a connection each to one server; -1 if unavailable."""
+    lib = load()
+    if lib is None:
+        return -1.0
+    return lib.brpc_tpu_native_rpc_throughput_gbps(threads, duration_ms,
+                                                   payload)
+
+
+def native_pooled_throughput_gbps(nconns: int = 2, threads: int = 2,
+                                  duration_ms: int = 1500,
+                                  payload: int = 1 << 20) -> float:
+    """``threads`` callers sharing one pool of ``nconns`` connections
+    (round-robin per call); GB/s, -1 if unavailable."""
+    lib = load()
+    if lib is None:
+        return -1.0
+    return lib.brpc_tpu_native_pooled_throughput_gbps(
+        nconns, threads, duration_ms, payload)
+
+
+def native_async_throughput_gbps(depth: int = 4, duration_ms: int = 1500,
+                                 payload: int = 256 << 10) -> float:
+    """Pipelined throughput on one connection, ``depth`` async calls in
+    flight; GB/s, -1 if unavailable."""
+    lib = load()
+    if lib is None:
+        return -1.0
+    return lib.brpc_tpu_native_async_throughput_gbps(depth, duration_ms,
+                                                     payload)
 
 
 _fab_lib: Optional[ctypes.CDLL] = None

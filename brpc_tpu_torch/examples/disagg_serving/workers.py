@@ -57,6 +57,7 @@ from ...serving import (BatchSchedulerOptions, ContinuousBatchScheduler,
                         PoolSaturated, SessionBusy, StepRequest,
                         kv_load_stats, load_token_major_attachment,
                         load_wire_attachment, migrate_out)
+from ...serving import kv_source as _kv_source
 from ...serving import migration as _migration
 from .model import (KV_DMODEL, KV_LAYERS, VOCAB, kv_nbytes, toy_decode,
                     toy_kv_blocks)
@@ -255,15 +256,26 @@ class DecodeService(rpc.Service):
             done()
             return
         try:
-            # the wire bytes scatter DIRECTLY into the reserved pool
-            # blocks; the layer-major → token-major transpose happens
-            # inside that one strided copy
-            load_wire_attachment(
-                self.pool, att, session, seq_len, KV_LAYERS, KV_DMODEL,
-                last_token=req["last_token"],
-                tenant=cntl.tenant or req.get("tenant", ""),
-                priority=cntl.priority)
-            att.clear()
+            if _kv_source.adopt_enabled():
+                # the wire bytes scatter DIRECTLY into the reserved pool
+                # blocks (ring claims read in place, parked native
+                # segments taken), one copy pass; the layer-major →
+                # token-major transpose happens inside that strided copy
+                load_wire_attachment(
+                    self.pool, att, session, seq_len, KV_LAYERS,
+                    KV_DMODEL, last_token=req["last_token"],
+                    tenant=cntl.tenant or req.get("tenant", ""),
+                    priority=cntl.priority)
+                # drop the attachment's refs now: a ring claim's credit
+                # returns on this line, not at the controller's recycle
+                att.clear()
+            else:
+                # the A/B leg: materialize, transpose, fill (three passes)
+                _kv_source.load_materialized(
+                    self.pool, att, session, seq_len, KV_LAYERS,
+                    KV_DMODEL, last_token=req["last_token"],
+                    tenant=cntl.tenant or req.get("tenant", ""),
+                    priority=cntl.priority)
         except PoolSaturated:
             # memory pressure with nothing evictable in an equal-or-
             # less-protected band: a shed, not a failure

@@ -102,12 +102,25 @@ buffers freed only on CQ completion).  What the port keeps:
     knobs (``on_bulk_attach``/``on_shm_attach``) and each plane
     (re)establishment asks ``on_bulk_handshake``/``on_shm_handshake``.
 
-Pod membership (:mod:`.pod`) lives on the same store.  Left out: the
-transfer server (kind 1; the handshake advertises no ``xfer`` key, so a
-peer never routes there) and the JAX package's bulk-carried kind-4 leg
-(``_dplane_execute_bulk``), which moves kind 4 over the bulk conn on
-backends without multi-controller collectives: the port's kind 4 is the
-IPC pull.
+  * **Data plane: kind 1, the unsequenced transfer pull.**  A DEVICE
+    payload that neither the device plane nor the shm ring nor the bulk
+    conn takes, to a peer whose handshake carries the ``xfer`` key, is
+    exported (:func:`.ipc_pull.export_row`) and kept in ``_staged`` until
+    the peer's PULLED or the socket's close; the chunk is the array
+    descriptor with the export after it.  The receiver pulls the row
+    through the socket's ``Importer`` into a fresh tensor on its local
+    rank with one ``p2p_copy`` launch, takes no sequencer slot, orders the
+    frame's delivery after the copy and then sends PULLED.  Only the
+    sender's stage degrades: a refused stage (the fault plan's
+    ``xfer_refuse_stages``) marks the xfer plane down and the payload
+    falls to inline in the same frame; a failed export fails the write
+    with EINTERNAL, and a failed pull fails the receiving socket with
+    EFAILEDSOCKET.  No byte moves on the host in its place.
+
+Pod membership (:mod:`.pod`) lives on the same store.  Left out: the JAX
+package's bulk-carried kind-4 leg (``_dplane_execute_bulk``), which moves
+kind 4 over the bulk conn on backends without multi-controller
+collectives: the port's kind 4 is the IPC pull.
 
 Addressing: :class:`~.mesh.IciMesh` is the same in every process, and
 process p of P owns a contiguous block of its ranks
@@ -134,6 +147,7 @@ from typing import Dict, List, Optional, Tuple
 from ..butil import flags as _flags
 from ..butil import logging as log
 from ..butil import native as _native
+from ..bthread.device_waiter import DeviceEventDispatcher
 from ..butil.iobuf import IOBuf, IOPortal, DEVICE
 from ..rpc import errors
 from ..rpc import fault_injection as _fi
@@ -147,8 +161,63 @@ from .transport import CreditWindow, OrderedDelivery
 _KV_PREFIX = "brpc_tpu/fabric/"
 
 # seconds a down-latched device plane waits before it re-probes (the JAX
-# package's ici_device_plane_retry_s default)
+# package's ici_device_plane_retry_s default); the xfer plane's latch too
 DEVICE_RETRY_S = 2.0
+# the handshake key of kind 1 (the JAX package's transfer-server contact
+# key); the port's value is its ipc_pull extension's version
+XFER_KEY = "xfer"
+
+# kind-1 totals of this process: rows staged (sender), pulled (receiver,
+# one p2p_copy launch each), PULLED acks taken (sender) and stages the
+# fault plan refused (each fell to inline in its frame)
+_xfer_lock = threading.Lock()
+_xfer_counts = {"staged": 0, "pulled": 0, "acked": 0, "refused": 0}
+
+
+def _xfer_count(what: str) -> None:
+    with _xfer_lock:
+        _xfer_counts[what] += 1
+
+
+def xfer_stats() -> Dict[str, int]:
+    """Kind-1 totals of this process (see ``_xfer_counts``)."""
+    with _xfer_lock:
+        return dict(_xfer_counts)
+
+
+class _XferStage:
+    """A kind-1 row pinned until the peer's PULLED: its block (whose
+    ``on_send_complete`` runs at the release), the tensor and its
+    export."""
+
+    __slots__ = ("block", "arr", "export")
+
+    def __init__(self, block, arr, export):
+        self.block, self.arr, self.export = block, arr, export
+
+    def release(self) -> None:
+        self.export.release()
+        cb = getattr(self.block, "on_send_complete", None)
+        self.block = self.arr = None
+        if cb is not None:
+            try:
+                cb()
+            except Exception:
+                pass
+
+
+class _EventGate:
+    """A delivery gate on a CUDA event (``OrderedDelivery`` waits on
+    anything with ``add_done_callback``)."""
+
+    __slots__ = ("event", "device")
+
+    def __init__(self, event, device):
+        self.event, self.device = event, device
+
+    def add_done_callback(self, fn) -> None:
+        DeviceEventDispatcher.instance().on_event(
+            self.event, self.device, fn)
 # seconds a store get or wait may block: process 0's death fails its
 # peers' lookups within this
 STORE_TIMEOUT_S = 30.0
@@ -461,6 +530,9 @@ class FabricNode:
             # package's version-3 advert
             info["dplane3"] = 3
             info[_ipc.HANDSHAKE_KEY] = _ipc.HANDSHAKE_VERSION
+        if _ipc.can_export(self.mesh):
+            # kind 1: this process can export a row for the peer's pull
+            info[XFER_KEY] = _ipc.HANDSHAKE_VERSION
         with self._store_lock:
             self._store.set(_KV_PREFIX + str(self.process_id),
                             json.dumps(info))
@@ -1125,8 +1197,12 @@ class FabricSocket(CreditWindow, OrderedDelivery, Socket):
         self._dplane_seq: Optional[CollectiveSequencer] = None   # lazy
         self._dplane_closed = False
         # sends pinned until the peer's PULLED: uuid -> transfer
-        self._staged: Dict[int, _dp.DeviceTransfer] = {}
+        # (a kind-1 stage is an _XferStage)
+        self._staged: Dict[int, object] = {}
         self._staged_lock = threading.Lock()
+        # kind 1 needs an export on this side and a pull on the peer's
+        self._xfer_usable = (info.get(XFER_KEY) == _ipc.HANDSHAKE_VERSION
+                             and _ipc.can_export(self.mesh))
         self._importer = _ipc.Importer()
         self.dplane_bytes_sent = 0
         self.dplane_bytes_recv = 0
@@ -1183,7 +1259,11 @@ class FabricSocket(CreditWindow, OrderedDelivery, Socket):
             attached=lambda: bool(self._shm),
             dead=gone, thread_name="fabric_shm_revive",
             seed=self.id ^ 0x73686D)
-        self._planes = {"bulk": self._plane_bulk, "shm": self._plane_shm}
+        self._plane_xfer = _ph.register_plane(
+            "xfer", probe=lambda n: self._xfer_usable,
+            retry_s=lambda: DEVICE_RETRY_S)
+        self._planes = {"bulk": self._plane_bulk, "shm": self._plane_shm,
+                        "xfer": self._plane_xfer}
 
     # ---- device plane ------------------------------------------------
     def dplane_eligible(self, nbytes: int) -> bool:
@@ -1212,6 +1292,52 @@ class FabricSocket(CreditWindow, OrderedDelivery, Socket):
             log.warning("fabric %s: device plane down (%s); device "
                         "payloads fail until the re-probe in %.1fs",
                         self.remote_side, reason, DEVICE_RETRY_S)
+
+    def _xfer_plane_down(self, reason: str) -> None:
+        """Degrade the kind-1 route: its record rides the device plane's
+        timer latch, so a refused stage falls through in-frame and the
+        route returns after the re-probe window."""
+        if self._plane_xfer.mark_down(reason):
+            log.warning("fabric %s: xfer plane down (%s); inline until "
+                        "the re-probe in %.1fs", self.remote_side, reason,
+                        DEVICE_RETRY_S)
+
+    def _stage_xfer(self, arr, block) -> Optional[bytes]:
+        """Stage one DEVICE payload for the peer's kind-1 pull; returns
+        its chunk, or None when the fault plan refused the stage (the
+        plane is marked down and the caller falls through in-frame).  A
+        failed export raises IpcPullError (EINTERNAL)."""
+        plan = _fi.fabric_active()
+        if plan is not None and plan.on_xfer_stage(self):
+            self._xfer_plane_down("injected stage refusal")
+            _xfer_count("refused")
+            return None
+        try:
+            exp = _ipc.export_row(arr)
+        except Exception as e:
+            self._xfer_plane_down(f"export failed: {e}")
+            raise _ipc.IpcPullError(f"kind-1 export failed: {e}") from None
+        uuid = self.node.next_uuid()
+        with self._staged_lock:
+            self._staged[uuid] = _XferStage(block, arr, exp)
+        _xfer_count("staged")
+        return encode_array_descriptor(1, uuid, int(arr.shape[0])) + exp.ext
+
+    def _pull_xfer(self, uuid: int, ext: tuple, nbytes: int):
+        """The receiver's kind-1 pull: ``(tensor on the local rank, gate
+        or None)``, one ``p2p_copy`` launch, no sequencer slot.  Raises
+        when the pull cannot run."""
+        row, ev, release = self._importer.source(ext, nbytes)
+        try:
+            out, done = _dp.plane().pull(row, ev,
+                                         self.mesh.device(self.local_dev))
+        finally:
+            del row
+            if release is not None:
+                release()
+        _xfer_count("pulled")
+        out = self.mesh.register(out, self.local_dev)
+        return out, (None if done is None else _EventGate(done, out.device))
 
     def _post_device(self, arr, block) -> bytes:
         """Post, export and sequence one DEVICE payload; returns its
@@ -1297,7 +1423,9 @@ class FabricSocket(CreditWindow, OrderedDelivery, Socket):
     def _unstage(self, uuid: int, reason: str) -> None:
         with self._staged_lock:
             t = self._staged.pop(uuid, None)
-        if t is not None:
+        if isinstance(t, _XferStage):
+            t.release()
+        elif t is not None:
             _dp.plane().fail_transfer(t, reason)
             t.remote.release()
 
@@ -1831,7 +1959,18 @@ class FabricSocket(CreditWindow, OrderedDelivery, Socket):
                 _route.record(self, _route.DEVICE, r.length)
                 continue
             kind = 0
+            desc = b""
             for rt in routes:
+                if rt == _route.XFER:
+                    if arr.device.type != \
+                            self.mesh.device(self.local_dev).type:
+                        break      # a host-delivered tensor: inline
+                    desc = self._stage_xfer(arr, r.block)
+                    if desc is None:
+                        continue                   # refused: in-frame
+                    kind = 1
+                    _route.record(self, rt, r.length)
+                    break
                 if rt not in (_route.SHM, _route.BULK):
                     break                          # INLINE
                 # one device-to-host copy stages the payload (none for a
@@ -1871,7 +2010,7 @@ class FabricSocket(CreditWindow, OrderedDelivery, Socket):
                     bytes(r.block.host_view(r.offset, r.length)))
                 continue
             flush_host()
-            out.append(encode_array_descriptor(kind, uuid, r.length))
+            out.append(desc or encode_array_descriptor(kind, uuid, r.length))
             nchunks += 1
         flush_host()
         out[0] = struct.pack("<I", nchunks)
@@ -2270,6 +2409,9 @@ class FabricSocket(CreditWindow, OrderedDelivery, Socket):
         with self._staged_lock:
             staged, self._staged = self._staged, {}
         for t in staged.values():
+            if isinstance(t, _XferStage):
+                t.release()
+                continue
             _dp.plane().fail_transfer(t, "socket closed before PULLED")
             t.remote.release()
 
@@ -2278,6 +2420,7 @@ class FabricSocket(CreditWindow, OrderedDelivery, Socket):
         off = 4
         parts: List = []
         waits: List = []
+        pulled: List[int] = []          # kind-1 uuids to ack
         plane = _dp.plane()
         for _ in range(nchunks):
             (kind,) = struct.unpack_from("<B", body, off)
@@ -2294,7 +2437,7 @@ class FabricSocket(CreditWindow, OrderedDelivery, Socket):
                 parts.append(self._bulk_claim_bytes(uuid, blen) if kind == 3
                              else self._shm_claim_bytes(uuid, blen))
                 continue
-            if kind not in (2, 4, 5):
+            if kind not in (1, 2, 4, 5):
                 raise ValueError(f"fabric: payload kind {kind} is not "
                                  "served by this port")
             uuid, dtlen = struct.unpack_from("<QH", body, off)
@@ -2303,6 +2446,21 @@ class FabricSocket(CreditWindow, OrderedDelivery, Socket):
             off += 1 + 8 * ndim
             (length,) = struct.unpack_from("<Q", body, off)
             off += 8
+            if kind == 1:
+                try:
+                    ext, off = _ipc.parse_ext(body, off)
+                    arr, gate = self._pull_xfer(uuid, ext, length)
+                except Exception as e:
+                    # the frame can never be delivered: the socket fails
+                    # as on a lost claim; nothing moves the bytes instead
+                    self.set_failed(errors.EFAILEDSOCKET,
+                                    f"kind-1 pull {uuid:#x} failed: {e}")
+                    return
+                pulled.append(uuid)
+                if gate is not None:
+                    waits.append(gate)
+                parts.append(("dev", arr))
+                continue
             if kind != 4:
                 # delivered as the payload's flat bytes, whatever dtype
                 # and shape the descriptor names
@@ -2349,6 +2507,13 @@ class FabricSocket(CreditWindow, OrderedDelivery, Socket):
                     buf.append_device_array(p[1])
                 else:
                     buf.append(p)
+            # the PULLED ack of kind 1: the copy is resident here, the
+            # sender may release its row
+            for u in pulled:
+                try:
+                    self._ctrl_send(_F_PULLED, struct.pack("<Q", u))
+                except OSError:
+                    pass
             with self._inbox_lock:
                 self._inbox.append(buf)
             self.start_input_event(inline=True)
@@ -2360,7 +2525,10 @@ class FabricSocket(CreditWindow, OrderedDelivery, Socket):
         (and export) release — the rdma_endpoint.cpp:926 discipline."""
         with self._staged_lock:
             t = self._staged.pop(uuid, None)
-        if t is not None:
+        if isinstance(t, _XferStage):
+            _xfer_count("acked")
+            t.release()
+        elif t is not None:
             _dp.plane().finish_remote(t)
             t.remote.release()
 

@@ -229,6 +229,15 @@ def _event(device: int):
                             interprocess=True)
 
 
+def can_export(mesh) -> bool:
+    """Whether this process can export a row of ``mesh`` for a peer's
+    pull: a CPU mesh through shared-memory segments, a CUDA mesh through
+    CUDA IPC (``csrc/cuda_ipc.cu``, built at the first export)."""
+    dev = mesh.device(0)
+    return dev.type == "cpu" or (dev.type == "cuda"
+                                 and torch.cuda.is_available())
+
+
 def export_row(arr: torch.Tensor) -> Export:
     """Export a flat uint8 row for the peer's pull.  On the card: the
     allocation's IPC handle, the row's offset and an interprocess event

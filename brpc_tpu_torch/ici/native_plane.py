@@ -142,8 +142,10 @@ def registry() -> _DevRegistry:
 
 _stats_lock = threading.Lock()
 # relocations that crossed ranks on the device plane (one p2p_copy each),
-# those that took mesh.device_put, and those that failed
-_reloc = {"plane": 0, "device_put": 0, "failed": 0}
+# those that took mesh.device_put, those that failed, and the plane
+# relocations of requests a server turned away before counting them
+# received (the lame-duck and no-method bounces): launches no handler saw
+_reloc = {"plane": 0, "device_put": 0, "failed": 0, "dropped": 0}
 # the plane's relocations whose copy has not completed: a listener's stop
 # waits for them (see wait_relocations)
 _reloc_live: set = set()
@@ -201,6 +203,8 @@ def _relocate(key: int, target_dev: int, err: Optional[int] = None,
             t = plane.post_send(arr, src, target_dev, mesh=mesh)
             t = plane.post_recv(t.uuid)
             out = t.out
+            # read at a bounce (_count_bounced): the launch is accounted
+            out._brpc_plane_relocated = True
             if out.is_cuda:
                 plane.order_after_copies(out.device)
             with _stats_lock:
@@ -227,6 +231,25 @@ def _relocate(key: int, target_dev: int, err: Optional[int] = None,
 
 def _release(key: int) -> None:
     _registry.release(key)
+
+
+def _count_bounced(att) -> None:
+    """A request turned away before its method counted it received: count
+    the plane relocations its attachment carries as dropped.  Call it
+    before the attachment's custody is released."""
+    if att is None:
+        return
+    if isinstance(att, NativeAttachment) and att.parked:
+        arrs = [_registry.peek(key) for key, _n, _d in att._seg_meta]
+    elif isinstance(att, NativeAttachment) and not att._mat:
+        return                         # surrendered or disposed
+    else:
+        arrs = [r.block.data for r in att._refs if r.block.kind == DEVICE]
+    n = sum(1 for a in arrs
+            if getattr(a, "_brpc_plane_relocated", False))
+    if n:
+        with _stats_lock:
+            _reloc["dropped"] += n
 
 
 _hooks_installed = False
@@ -846,6 +869,7 @@ class ServerBinding:
                 if reg is not None:
                     # the isolation workers are gone too: bounce
                     # retryable, as the drain does
+                    _count_bounced(attachment)
                     _dispose_view(attachment)
                     self._respond_one(token, errors.ELOGOFF,
                                       "server stopping")
@@ -903,6 +927,7 @@ class ServerBinding:
         server = self._server
         try:
             if server._draining:
+                _count_bounced(attachment)
                 _dispose_view(attachment)
                 self._respond_one(token, errors.ELOGOFF,
                                   "server is draining (lame duck)")
@@ -998,11 +1023,13 @@ class ServerBinding:
         if server._draining:
             # the native door stays open through the grace window so calls
             # in flight finish; new ones bounce with retryable ELOGOFF
+            _count_bounced(attachment)
             _dispose_view(attachment)
             self._respond_one(token, errors.ELOGOFF,
                               "server is draining (lame duck)", collector)
             return
         if ent is None:
+            _count_bounced(attachment)
             _dispose_view(attachment)
             self._respond_one(token, errors.ENOMETHOD,
                               f"no method {mkey.decode()}", collector)

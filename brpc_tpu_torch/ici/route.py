@@ -27,12 +27,15 @@ ring's frames per stripe.  Routes, fastest first for a same-host pair:
   device  the sequenced device plane (kind 4: the receiver pulls the row);
   shm     the mmap'd ring (kinds 5/6): one sender copy, zero-copy claim;
   bulk    the pair's dedicated socket conn (kinds 2/3);
+  xfer    the unsequenced transfer pull (kind 1, DEVICE payloads only):
+          the sender exports the row and keeps it staged until the
+          peer's PULLED; the receiver pulls it with one ``p2p_copy``
+          launch, outside any sequencer slot;
   inline  the bytes in the control frame (kind 0).
 
-The JAX package's ``xfer`` row (the transfer server, kind 1) is not
-ported.  The port differs from the JAX table in one place: a DEVICE
-payload the device plane must carry gets that route alone, so a refused
-post fails the write instead of moving the bytes another way.
+The port differs from the JAX table in one place: a DEVICE payload the
+device plane must carry gets that route alone, so a refused post fails the
+write instead of moving the bytes another way.
 """
 from __future__ import annotations
 
@@ -47,6 +50,7 @@ _lock = threading.Lock()
 DEVICE = "device"      # a route, and the class of DEVICE-block payloads
 SHM = "shm"
 BULK = "bulk"
+XFER = "xfer"
 INLINE = "inline"
 HOST = "host"          # joined host byte blobs (kinds 0/3/6)
 STREAM = "stream"      # stream DATA frames (frames 5-7)
@@ -59,7 +63,8 @@ def candidates(sock, cls: str, nbytes: int) -> List[str]:
     plane must carry gets ``[DEVICE]`` alone.  Otherwise the JAX package's
     list: below its class threshold a payload rides inline; else the shm
     ring and the bulk conn where each is usable (a payload too large for
-    the ring skips it without degrading it), then inline."""
+    the ring skips it without degrading it), then, for a DEVICE payload,
+    the transfer pull where the peer advertised it, then inline."""
     if cls == DEVICE and sock.dplane_eligible(nbytes):
         return [DEVICE]
     if cls == HOST:
@@ -73,6 +78,8 @@ def candidates(sock, cls: str, nbytes: int) -> List[str]:
         out.append(SHM)
     if sock.plane_usable(BULK, nbytes):
         out.append(BULK)
+    if cls == DEVICE and sock.plane_usable(XFER, nbytes):
+        out.append(XFER)
     out.append(INLINE)
     return out
 

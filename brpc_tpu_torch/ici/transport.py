@@ -70,6 +70,29 @@ def ici_transport_stats() -> Tuple[int, int]:
     return moved, device_moved
 
 
+# device-plane transfers whose copy launched for a frame that no reader
+# will parse: delivered to a socket that had failed, or left in its inbox
+# when it failed.  The relocation (post_send + post_recv, one p2p_copy
+# launch) runs before the delivery, and the peer may fail in between; the
+# call itself fails with the peer's code and retries as before, so an
+# accounting of launches against calls received adds these
+_dropped_lock = threading.Lock()
+_dropped_transfers = [0]
+
+
+def dropped_transfers() -> int:
+    """Plane transfers launched for frames a failed ici:// socket
+    dropped unread (see ``IciSocket._deliver``)."""
+    with _dropped_lock:
+        return _dropped_transfers[0]
+
+
+def _count_dropped(n: int) -> None:
+    if n:
+        with _dropped_lock:
+            _dropped_transfers[0] += n
+
+
 class CreditWindow:
     """Mixin: explicit-ACK sliding window (reference rdma_endpoint.cpp:771
     window check; credits return on consume).
@@ -224,6 +247,14 @@ class IciSocket(CreditWindow, OrderedDelivery, Socket):
         self._inbox_lock = threading.Lock()
         self.read_chunk_hint = 1 << 26    # _do_read cuts, never allocates
         self._peer_closed = False
+        # (inbox byte offset just past a plane payload, transfers in it)
+        # for frames not read yet, against the bytes appended and read so
+        # far; once this socket failed its inbox is closed, and what it
+        # held or is handed later counts as dropped (under _inbox_lock)
+        self._inbox_marks: collections.deque = collections.deque()
+        self._inbox_in = 0
+        self._inbox_out = 0
+        self._inbox_closed = False
         self._init_window(window_bytes)
         self._init_delivery()
         # source device blocks pinned until their copy completed
@@ -331,6 +362,8 @@ class IciSocket(CreditWindow, OrderedDelivery, Socket):
             elif isinstance(c, tuple):
                 waits.append(c[0])
 
+        n_plane = sum(1 for c in chunks if isinstance(c, _PlaneDesc))
+
         def commit() -> None:
             buf = IOBuf()
             for c in chunks:
@@ -341,7 +374,15 @@ class IciSocket(CreditWindow, OrderedDelivery, Socket):
                 else:
                     buf.append(c)
             with peer._inbox_lock:
+                if peer._inbox_closed:
+                    # the peer failed after this frame's relocation: its
+                    # copies ran, and no reader parses the frame
+                    _count_dropped(n_plane)
+                    return
                 peer._inbox.append(buf)
+                peer._inbox_in += len(buf)
+                if n_plane:
+                    peer._inbox_marks.append((peer._inbox_in, n_plane))
             ok_inline = (not peer.is_server_side
                          or getattr(peer, "usercode_inline", False))
             peer.start_input_event(inline=ok_inline)
@@ -376,11 +417,17 @@ class IciSocket(CreditWindow, OrderedDelivery, Socket):
 
     def _do_read(self, portal: IOPortal, max_count: int) -> int:
         with self._inbox_lock:
+            if self._inbox_closed:
+                return -1                 # failed: its inbox was dropped
             avail = len(self._inbox)
             if avail == 0:
                 return 0 if self._peer_closed else -1
             n = _device_block_end(self._inbox, min(avail, max_count))
             self._inbox.cutn(portal, n)
+            self._inbox_out += n
+            marks = self._inbox_marks
+            while marks and marks[0][0] <= self._inbox_out:
+                marks.popleft()
         # consumed-bytes feedback: replenish the writer's window
         peer = self.peer
         if peer is not None and not peer.failed:
@@ -409,6 +456,11 @@ class IciSocket(CreditWindow, OrderedDelivery, Socket):
 
     def _transport_close(self) -> None:
         # once per socket (set_failed), after it left list_sockets()
+        with self._inbox_lock:
+            # frames not read by now are never parsed
+            self._inbox_closed = True
+            _count_dropped(sum(n for _, n in self._inbox_marks))
+            self._inbox_marks.clear()
         peer = self.peer
         if peer is not None and not peer.failed:
             if self.failed_error == errors.ELOGOFF:

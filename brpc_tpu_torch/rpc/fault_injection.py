@@ -19,15 +19,13 @@ The fabric half: a :class:`FabricFaultPlan` installed with
 by the multi-process fabric (:mod:`..ici.fabric`), the device plane and the
 compiled collective fan-out, with the JAX package's knobs for every plane
 the port has: the control channel, the handshake, the device plane's
-posts, the bulk conn, the shm ring and the collective fan-out.  Each knob
-acts at the JAX package's point.  Of the ``plane_slow_ms`` planes,
-"device" (a pull at its slot) and "shm" (a ring send) are the JAX
-package's points; "bulk" is taken, as the JAX plan takes it, and slows
-nothing (the JAX package has no such point: a slow bulk conn is
-:func:`chaos_plane`'s ``SLOW``); "collective", one sleep per member at the
-fan-out's announce, is the port's own point.  The transfer server is not
-ported, and its knob ``xfer_refuse_stages`` with it: the constructor
-refuses it.
+posts, the bulk conn, the shm ring, the transfer pull (kind 1) and the
+collective fan-out.  Each knob acts at the JAX package's point.  Of the
+``plane_slow_ms`` planes, "device" (a pull at its slot) and "shm" (a ring
+send) are the JAX package's points; "bulk" and "xfer" are taken, as the
+JAX plan takes them, and slow nothing (the JAX package has no such point:
+a slow bulk conn is :func:`chaos_plane`'s ``SLOW``); "collective", one
+sleep per member at the fan-out's announce, is the port's own point.
 """
 from __future__ import annotations
 
@@ -105,11 +103,9 @@ class inject:
         install(self._prev)
 
 
-# the JAX plan's knobs for tiers the port does not have yet
-_LATER_TIERS = {"xfer_refuse_stages": "transfer server"}
-# the planes plane_slow_ms takes here ("bulk" slows nothing, as in the
-# JAX package)
-SLOW_PLANES = ("device", "shm", "bulk", "collective")
+# the planes plane_slow_ms takes here ("bulk" and "xfer" slow nothing, as
+# in the JAX package)
+SLOW_PLANES = ("device", "shm", "bulk", "xfer", "collective")
 
 # the native chaos modes (csrc/fabric_native.cpp's fab_chaos; the ring's
 # shm_chaos shares the numbering, the delay excepted)
@@ -184,15 +180,20 @@ class FabricFaultPlan:
                                   announces: the member never sees the
                                   call, the client times out and degrades
                                   in-call (``announce_refused``)
+      xfer_refuse_stages          refuse the next N kind-1 stages: the
+                                  xfer route degrades in-frame to inline
+                                  before any descriptor exists
+                                  (``on_xfer_stage``)
       plane_slow_ms               {plane: ms}: one sleep per operation,
                                   "slow, not dead" (a correct health
                                   machine does not degrade it), on the
                                   "device" plane (a cross-process pull, at
                                   its slot) and the "shm" plane (a ring
                                   send), the JAX package's points; "bulk"
-                                  is taken and slows nothing, as in the
-                                  JAX package; "collective" (a fan-out
-                                  announce) is the port's own point
+                                  and "xfer" are taken and slow nothing,
+                                  as in the JAX package; "collective" (a
+                                  fan-out announce) is the port's own
+                                  point
 
     ``injected`` counts what fired, under the JAX plan's keys."""
 
@@ -215,14 +216,8 @@ class FabricFaultPlan:
                  collective_kill_device: Optional[int] = None,
                  collective_fail_execs: int = 0,
                  collective_drop_announces: int = 0,
-                 plane_slow_ms: Optional[dict] = None,
-                 **later_tiers):
-        for knob in later_tiers:
-            tier = _LATER_TIERS.get(knob)
-            if tier is None:
-                raise TypeError(f"FabricFaultPlan: unknown knob {knob!r}")
-            raise ValueError(f"FabricFaultPlan: {knob} acts on the {tier}, "
-                             f"which the port does not have yet")
+                 xfer_refuse_stages: int = 0,
+                 plane_slow_ms: Optional[dict] = None):
         for plane in plane_slow_ms or {}:
             if plane not in SLOW_PLANES:
                 raise ValueError(
@@ -246,6 +241,7 @@ class FabricFaultPlan:
         self.collective_kill_device = collective_kill_device
         self._fail_coll_execs = collective_fail_execs
         self._drop_announces = collective_drop_announces
+        self._refuse_xfer = xfer_refuse_stages
         self.plane_slow_ms = dict(plane_slow_ms or {})
         self._rng = random.Random(seed)
         self._lock = threading.Lock()
@@ -372,6 +368,18 @@ class FabricFaultPlan:
             if self._fail_device_posts > 0:
                 self._fail_device_posts -= 1
                 self.injected["device_plane"] += 1
+                return True
+        return False
+
+    def on_xfer_stage(self, socket=None) -> bool:
+        """True: refuse this kind-1 stage (the xfer route degrades
+        in-frame to inline, before any descriptor exists)."""
+        if socket is not None and not self._matches(socket):
+            return False
+        with self._lock:
+            if self._refuse_xfer > 0:
+                self._refuse_xfer -= 1
+                self.injected["xfer"] += 1
                 return True
         return False
 

@@ -1,27 +1,37 @@
 """The KV handoff's last leg: the prefill attachment's bytes land DIRECTLY
 in :class:`~.kv_pool.PagedKvPool` blocks.
 
-Port of :mod:`brpc_tpu.serving.kv_source` (``wire_source`` and
-``load_wire_attachment``) for DEVICE and HOST blocks.  The wire segments
-are wrapped as views and scattered straight into the blocks
-``PagedKvPool.load_into`` reserves — every payload byte is copied once:
+Port of :mod:`brpc_tpu.serving.kv_source`.  The wire segments are wrapped
+as views and scattered straight into the blocks ``PagedKvPool.load_into``
+reserves — every payload byte is copied once, whatever the plane:
 
-  * **adopted** — host-byte segments (HOST/USER blocks) read in place;
+  * **adopted** — host-byte segments read in place: the shm ring's
+    zero-copy claim (a USER block over the ring slot; the slot retires
+    when the claim's last view dies, which the loader forces right after
+    the fill), a bulk claim, plain HOST bytes;
   * **scattered** — DEVICE segments: the tensor the device plane's
-    ``p2p_copy`` wrote at the decode rank.  The fill is one strided copy
-    per extent of reserved blocks, layer-major wire ``(layers, seq,
-    dmodel)`` to token-major rows, on the device.  It is ordered after the
-    plane's copy by a stream wait (:meth:`DevicePlane.order_after_copies`),
-    never by a host sync.
+    ``p2p_copy`` wrote at the decode rank, or a parked
+    ``NativeAttachment``'s segments taken raw
+    (:meth:`NativeAttachment.take_segments`: no IOBuf inflation, and the
+    native custody's one exit holds).  The fill is one strided copy per
+    extent of reserved blocks, layer-major wire ``(layers, seq, dmodel)``
+    to token-major rows, on the device.  It is ordered after the plane's
+    copy by a stream wait (:meth:`DevicePlane.order_after_copies`), never
+    by a host sync;
+  * **materialized** — behind ``serving_kv_adopt=False``: the attachment
+    is copied to host bytes, transposed, then loaded (three copy passes),
+    kept for A/B against the one-pass routes.
 
+Which label a load gets comes from the shared route table
+(:func:`_load_route`): DEVICE bytes scatter; HOST bytes adopt unless the
+fabric socket that carried them says every descriptor plane has left UP.
 Segment boundaries need not align with pool block, token or layer
 boundaries: the general path walks (extent × layer) destination slices
 through the segment list.  Per-route truth rides
 ``serving_kv_load_{adopted,scattered,materialized}`` Adders plus
 ``serving_kv_load_copy_bytes`` (copy passes × payload bytes).
 :func:`load_token_major_attachment` is the same path for a live
-migration's token-major payload.  The shared-memory ring claims and
-native attachment handles of the reference are not ported yet.
+migration's token-major payload.
 """
 from __future__ import annotations
 
@@ -33,11 +43,24 @@ from typing import Dict, List, Optional
 import torch
 
 from .. import bvar
+from ..butil import flags as _flags
 from ..butil.iobuf import DEVICE, IOBuf
+from ..ici import route as _route
+
+_flags.define_flag(
+    "serving_kv_adopt", True,
+    "land prefill->decode KV attachment bytes directly in PagedKvPool "
+    "blocks (shm claims read in place, native att segments taken "
+    "block-wise; one copy pass).  False materializes the attachment "
+    "first (three passes), for A/B on one run")
 
 ADOPTED = "adopted"
 SCATTERED = "scattered"
 MATERIALIZED = "materialized"
+
+
+def adopt_enabled() -> bool:
+    return bool(_flags.get_flag("serving_kv_adopt"))
 
 
 class _KvLoadStats:
@@ -189,12 +212,46 @@ class WireKvSource:
         self._starts = [0]
 
 
+def _load_route(sock, cls: str, nbytes: int) -> str:
+    """Adopt or scatter, through the shared route table: DEVICE-class
+    bytes scatter (the device crossing is the wire transfer itself, not a
+    host copy pass); HOST-class bytes adopt in place, unless the carrying
+    fabric socket is known and its plane-health records say every
+    descriptor plane (shm, bulk) has left UP: then the load is recorded
+    SCATTERED, so the counters never claim an in-place adoption rode a
+    plane that was down.  Custody is safe under both labels."""
+    if cls == _route.DEVICE:
+        return SCATTERED
+    if sock is not None and _route.SHM not in (
+            planes := _route.candidates(sock, _route.HOST, nbytes)) \
+            and _route.BULK not in planes:
+        return SCATTERED
+    return ADOPTED
+
+
 def wire_source(att: IOBuf, layers: int, seq_len: int,
-                dmodel: int) -> WireKvSource:
-    """Build the scatter source for one LoadKv attachment: one view per
-    backing block — DEVICE blocks as slices of their tensors (route
-    SCATTERED), HOST/USER blocks as tensors over their bytes (route
-    ADOPTED)."""
+                dmodel: int, sock=None) -> WireKvSource:
+    """Build the scatter source for one LoadKv attachment.  The views
+    follow the attachment's custody; the label comes from
+    :func:`_load_route`, which consults ``route.candidates`` and plane
+    health when ``sock`` (the fabric socket that carried the request) is
+    given:
+
+      * an untouched parked ``NativeAttachment`` → ``take_segments()``,
+        DEVICE class;
+      * a plain IOBuf → one view per backing block: DEVICE blocks as
+        slices of their tensors, HOST/USER blocks (ring claims, bulk
+        claims, inline bytes) as tensors over their bytes."""
+    take = getattr(att, "take_segments", None)
+    if take is not None and att.parked:
+        segs = []
+        # tensors leaving native custody are flat uint8 (checked where
+        # they entered), so element counts are byte counts
+        for arr, nbytes in take():
+            segs.append(arr if arr.shape[0] == nbytes else arr[:nbytes])
+        return WireKvSource(
+            segs, _load_route(sock, _route.DEVICE, len(att)),
+            layers, seq_len, dmodel)
     segs = []
     dev = False
     for i in range(att.backing_block_num()):
@@ -213,20 +270,24 @@ def wire_source(att: IOBuf, layers: int, seq_len: int,
                 seg = torch.frombuffer(b.data, dtype=torch.uint8,
                                        offset=r.offset, count=r.length)
         segs.append(seg)
-    return WireKvSource(segs, SCATTERED if dev else ADOPTED,
-                        layers, seq_len, dmodel)
+    return WireKvSource(
+        segs, _load_route(sock, _route.DEVICE if dev else _route.HOST,
+                          len(att)),
+        layers, seq_len, dmodel)
 
 
 def load_wire_attachment(pool, att: IOBuf, session: str, seq_len: int,
                          layers: int, dmodel: int, *, last_token: int,
                          tenant: str = "",
-                         priority: Optional[int] = None):
+                         priority: Optional[int] = None,
+                         sock=None):
     """The whole handoff in one call: build the source, let the pool
     reserve-and-fill (the fill outside the pool lock), record the route,
-    and release the segment views whether the load committed or aborted.
-    Pool refusals (PoolSaturated / SessionBusy) propagate for the RPC
-    layer's shed mapping."""
-    src = wire_source(att, layers, seq_len, dmodel)
+    and release the segment views (ring credit back, device refs dropped)
+    whether the load committed or aborted.  Pool refusals
+    (PoolSaturated / SessionBusy) propagate for the RPC layer's shed
+    mapping."""
+    src = wire_source(att, layers, seq_len, dmodel, sock=sock)
     try:
         want = seq_len * layers * dmodel
         if src.total != want:
@@ -242,10 +303,33 @@ def load_wire_attachment(pool, att: IOBuf, session: str, seq_len: int,
     return s
 
 
+def load_materialized(pool, att: IOBuf, session: str, seq_len: int,
+                      layers: int, dmodel: int, *, last_token: int,
+                      tenant: str = "",
+                      priority: Optional[int] = None):
+    """The ``serving_kv_adopt=False`` leg: the attachment's bytes are
+    copied to the host (pass 1), transposed from layer-major to
+    token-major (pass 2), and loaded into the pool (pass 3), recorded
+    MATERIALIZED with three copy passes."""
+    want = seq_len * layers * dmodel
+    raw = att.to_bytes()
+    if len(raw) != want:
+        raise ValueError(f"kv wire segments hold {len(raw)} bytes, "
+                         f"descriptor said {want}")
+    rows = torch.frombuffer(bytearray(raw), dtype=torch.uint8).view(
+        layers, seq_len, dmodel).permute(1, 0, 2).contiguous().view(
+        seq_len, layers * dmodel)
+    s = pool.load(session, rows, last_token=last_token, tenant=tenant,
+                  priority=priority)
+    stats.record(MATERIALIZED, want, 3)
+    return s
+
+
 def load_token_major_attachment(pool, att: IOBuf, session: str,
                                 seq_len: int, *, last_token: int,
                                 tenant: str = "",
-                                priority: Optional[int] = None):
+                                priority: Optional[int] = None,
+                                sock=None):
     """The KV migration ingest: the payload is already token-major
     ``(seq_len, bytes_per_token)``, the source pool's row layout, so there
     is no layer transpose to undo.  Declaring ``layers=1`` with
@@ -254,4 +338,5 @@ def load_token_major_attachment(pool, att: IOBuf, session: str,
     plane); everything else is :func:`load_wire_attachment`."""
     return load_wire_attachment(
         pool, att, session, seq_len, 1, pool.options.bytes_per_token,
-        last_token=last_token, tenant=tenant, priority=priority)
+        last_token=last_token, tenant=tenant, priority=priority,
+        sock=sock)

@@ -11,8 +11,9 @@ Joins as process 1 of 2 the fabric whose store process 0 hosts at
   * ``Sink.Push``: returns its request's attachment (``sleep:<s>`` first
     sleeps that long);
   * ``Sink.Stats``: this process's counts as JSON (``reset`` zeroes them):
-    copy-kernel launches, cross-process transfers received, attachments
-    received, IPC opens and cache hits, live mappings and segments;
+    copy-kernel launches, cross-process transfers received (kind 4), kind-1
+    rows pulled and rows still staged, attachments received, IPC opens and
+    cache hits, live mappings and segments;
   * ``Sink.Stop``: ``{"grace_s": g}`` drains and stops the servers, then
     the process exits;
   * ``Sink.Overload``: runs phase 10's paced overload clients
@@ -120,7 +121,7 @@ def main(argv=None) -> int:
     counts = {"attachments": 0, "stream_bytes": 0, "stream_chunks": 0,
               "stream_bad": 0, "absorbed": 0}
     plan = [None]
-    base = {"launches": 0, "received": 0}
+    base = {"launches": 0, "received": 0, "xfer_pulled": 0}
     quit_evt = threading.Event()
     servers = []
 
@@ -129,6 +130,11 @@ def main(argv=None) -> int:
         return {"launches": launches() - base["launches"],
                 "received": plane.remote_received
                 - base["received"],
+                # kind 1: rows this process pulled, and its own rows still
+                # staged for the peer's pull
+                "xfer_pulled": fabric.xfer_stats()["pulled"]
+                - base["xfer_pulled"],
+                "staged": sum(len(s._staged) for s in socks),
                 "attachments": counts["attachments"],
                 "stream_bytes": counts["stream_bytes"],
                 "stream_chunks": counts["stream_chunks"],
@@ -168,6 +174,7 @@ def main(argv=None) -> int:
                         counts[k] = 0
                 base["launches"] = launches()
                 base["received"] = plane.remote_received
+                base["xfer_pulled"] = fabric.xfer_stats()["pulled"]
             response.message = json.dumps(snapshot())
             done()
 

@@ -11,8 +11,10 @@ Phases, each fatal on failure:
                 calls, no kernel) and an empty kernel with nvcc (sm_90a),
                 one nvcc each, all started together, and load them; beside
                 them g++ builds the native ici:// core (csrc/ici_native.cpp)
-                and the bulk conn and shm ring (csrc/fabric_native.cpp,
-                both by butil/native.py) and they are loaded:
+                with the TCP datapath (csrc/rpc_native.cpp, the same
+                library) and the bulk conn and shm ring
+                (csrc/fabric_native.cpp, both by butil/native.py) and
+                they are loaded:
                 a build or load failure is fatal here, so the run never
                 falls back to the Python plane quietly
   2. kernel     p2p_copy against its plain version at 4 KiB, 65,537 B
@@ -154,7 +156,9 @@ Phases, each fatal on failure:
                 equals reference_generate, generate_failures is 0,
                 scale_downs and scale_ups are 1, rank 3's stop returned
                 with nothing in flight, launches = transfers = LoadKv +
-                MigrateIn received
+                MigrateIn received + dropped (relocations whose request
+                no handler saw: a failed socket's unread frames and the
+                lame duck's bounces, printed)
 
  11. streaming  on IciMesh(ranks=8), the socket window raised to 256 MiB:
                 (a) bench_streaming_mbps's leg (bench.py:697-768) at its
@@ -410,6 +414,42 @@ Phases, each fatal on failure:
                 plane_slow_ms={"shm": 20}: nothing degrades;
                 (e) no segment this run made is left in /dev/shm, and
                 nothing is mapped or active in either process
+ 21. native TCP, kind 1, KV routes
+                (a) the native TCP datapath (csrc/rpc_native.cpp, host
+                only) with bench.py's arguments (bench.py:3112-3137): the
+                full-stack echo p50 (5,000 calls of 4 KiB), the raw epoll
+                echo p50, QPS (16 threads, 1.5 s, 128 B), the best GB/s
+                of 1 MiB calls on 1, 1 and 2 threads, pooled (2
+                connections, 2 threads) and async (depth 4, 256 KiB);
+                then a tcp:// rpc.Channel to a NativeServer's Python
+                service and a NativeChannel to an rpc.Server (64 calls
+                each, counted by the server), 32 call_method_async
+                futures each of whose done runs once, and a
+                NativeServer.stop() with 8 calls in flight (codes
+                printed, none 0);
+                (b) kind 1, the unsequenced transfer pull, between a
+                member process (process 0, ranks 4-7) and a fabric_peer
+                (process 1, ranks 0-3, ici://0), with the shm ring, the
+                bulk conn and the device plane off for the pair: 200
+                echoes at 4 KiB (below the 64 KiB threshold) and at 64
+                KiB, 16 at 4 MiB (at and above it), each compared on the
+                card, p50/p99 printed beside phase 17's kind-4 p50; in
+                each process p2p_copy launches = kind-1 rows pulled =
+                DEVICE attachments received, no kind-4 transfer, nothing
+                left in _staged; xfer_refuse_stages=2 with a re-probe
+                window between calls: 0 failed calls, exactly 2 stages
+                refused and their payloads inline;
+                (c) the KV loader's routes: on the native ici:// door in
+                this process a LoadKv whose parked handle is taken
+                through take_segments (scattered) and one with
+                serving_kv_adopt off (materialized, three passes), the
+                device-ref registry and the attachment table 0 after;
+                then tests/test_serving.py's two-process shape: 4 LoadKv
+                sessions of 512 tokens as host bytes on the shm ring,
+                adopted into the decode process's pool on the card, and
+                one DEVICE session (kind 4, scattered): materialized 0,
+                copy bytes = (adopted + scattered) x payload, every
+                decode equal to reference_generate
 
 Launch counts are zeroed just before each path and read just after it:
 during phases 3-4 and during phase 8 p2p_copy's launches must equal the
@@ -437,7 +477,10 @@ of the driving process, and in each member the launches equal the rows it
 pulled on the cross-process leg plus its per-member loop's copies; during
 phase 20 the driving process launches none, and in the member process and
 its peer the launches equal the kind-4 transfers each received, one per
-frame of (c); during phase 6 each ring kernel's launches must equal the calls of its entry
+frame of (c); during phase 21 the driving process launches none in (a)
+and (b) and one per LoadKv relocation in (c); in (b)'s member and its
+peer the launches equal the kind-1 rows each pulled, and in (c)'s decode
+process the kind-4 transfer it received; during phase 6 each ring kernel's launches must equal the calls of its entry
 point.  The line before the last is the ``kernels`` JSON; the last line
 is the device JSON.
 """
@@ -580,6 +623,17 @@ TIER_ST_CHUNK, TIER_ST_N, TIER_ST_PASSES = 256 << 10, 160, 3
 TIER_MIX_CALLS, TIER_MIX_BIG, TIER_MIX_SMALL = 8, 4 << 20, 4 << 10
 TIER_THRESHOLD = 64 << 10
 TIER_FAULT_CALLS, TIER_FAULT_PAYLOAD, TIER_SLOW_MS = 16, 4 << 20, 20
+# phase 21: (a) the native TCP datapath with bench.py's arguments
+# (bench.py:3112-3137), then its crossings' calls and the calls in flight
+# through a stop; (b) kind 1 between two processes with the shm ring, the
+# bulk conn and the device plane off for the pair: echoes at 4 KiB (below
+# the 64 KiB device-plane threshold), 64 KiB and 4 MiB (at and above it),
+# and the refusal budget; (c) tests/test_serving.py's two-process KV shape
+NTCP_ECHO_ITERS, NTCP_CALLS, NTCP_ASYNC, NTCP_STOP_CALLS = 5000, 64, 32, 8
+XFER_THRESHOLD = 64 << 10
+XFER_SIZES = ((4 << 10, 200), (64 << 10, 200), (4 << 20, 16))
+XFER_REFUSE = 2
+KV21_SEQ, KV21_STEPS, KV21_HOST_SESSIONS = 512, 7, 4
 
 
 def fail(msg: str) -> None:
@@ -2066,6 +2120,7 @@ def phase_elastic(mesh, plane, p2p_copy) -> dict:
         BYTES_PER_TOKEN, close_services, start_decode_worker,
         start_prefill_worker, start_router)
     from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
+    from brpc_tpu_torch.ici import native_plane, transport
     from brpc_tpu_torch.rpc import lameduck
     from brpc_tpu_torch.serving import (AutoscalerOptions, KvPoolOptions,
                                         LoadThresholdAutoscaler)
@@ -2115,6 +2170,12 @@ def phase_elastic(mesh, plane, p2p_copy) -> dict:
         return sum(s.method_status(m).received.get_value()
                    for s in decodes.values()
                    for m in ("Decode.LoadKv", "Decode.MigrateIn"))
+
+    def dropped():
+        # relocations whose request no handler saw: frames a failed
+        # socket dropped and requests the lame duck bounced
+        return (transport.dropped_transfers()
+                + native_plane.relocation_stats()["dropped"])
 
     def load_fn():
         with wlock:
@@ -2170,6 +2231,7 @@ def phase_elastic(mesh, plane, p2p_copy) -> dict:
     try:
         transfers0 = plane.stats()["transfers"]
         received0 = received()
+        dropped0 = dropped()
         # 1. 64 live sessions on rank 3
         held = {f"e{i}": prompt(SERVE_PROMPT) for i in range(ELASTIC_HELD)}
         for session, tokens in held.items():
@@ -2309,16 +2371,19 @@ def phase_elastic(mesh, plane, p2p_copy) -> dict:
         out["transfers"] = plane.stats()["transfers"] - transfers0
         out["launches"] = p2p_copy.launches
         out["calls_received"] = received() - received0
+        out["dropped"] = dropped() - dropped0
         out["active_at_end"] = plane.active_transfers()
         check(out["active_at_end"] == 0,
               f"{out['active_at_end']} transfers active at the end")
         by_method = {f"{u} {m}": s.method_status(m).received.get_value()
                      for u, s in decodes.items()
                      for m in ("Decode.LoadKv", "Decode.MigrateIn")}
-        check(out["launches"] == out["transfers"] == out["calls_received"],
+        check(out["launches"] == out["transfers"]
+              == out["calls_received"] + out["dropped"],
               f"elastic: p2p_copy launches {out['launches']}, plane "
               f"transfers {out['transfers']}, LoadKv + MigrateIn received "
-              f"{out['calls_received']} (received by rank and method "
+              f"{out['calls_received']} + dropped {out['dropped']} "
+              f"(received by rank and method "
               f"{by_method}, router retries {router_d['retries']}, "
               f"migrated {len(timing.get('moved', []))}, refused "
               f"{timing.get('refused')})")
@@ -2361,7 +2426,8 @@ def phase_elastic(mesh, plane, p2p_copy) -> dict:
           f"{out['elogoff_bounces']}; revived after "
           f"{out['revive_wait_s']:.2f} s; launches {out['launches']} = "
           f"transfers {out['transfers']} = LoadKv + MigrateIn received "
-          f"{out['calls_received']}; phase {out['wall_s']:.1f} s", flush=True)
+          f"{out['calls_received']} + dropped {out['dropped']}; phase "
+          f"{out['wall_s']:.1f} s", flush=True)
     return out
 
 
@@ -4550,6 +4616,51 @@ def phase_fanout_xproc(device: str = "cuda",
             "launches": launches}
 
 
+def _run_member(expr: str, tag: str, device: str, sizes: dict,
+                args=()) -> list:
+    """Run ``expr`` (a call of this module, as ``cs``) in fresh
+    interpreters, one per entry of ``args`` (its extra argv), all at
+    once; returns each one's ``tag`` JSON line.  ``sizes`` overrides
+    module constants in them."""
+    import tempfile
+    procs = []
+    with tempfile.TemporaryDirectory() as logs:
+        for k, extra in enumerate(args or [()]):
+            log = open(os.path.join(logs, f"member{k}.log"), "w+")
+            procs.append((subprocess.Popen(
+                [sys.executable, "-c", "import sys, json, chip_smoke as cs; "
+                 "vars(cs).update(json.loads(sys.argv[2])); "
+                 f"print({tag!r} + ' ' + json.dumps({expr}), flush=True)",
+                 device, json.dumps(sizes), logs, *map(str, extra)],
+                cwd=str(ROOT), stdout=log, stderr=subprocess.STDOUT), log))
+        outs = []
+        for proc, log in procs:
+            try:
+                rc = proc.wait(POD_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                rc = proc.wait()
+            log.seek(0)
+            text = log.read()
+            log.close()
+            lines = [ln for ln in text.splitlines()
+                     if ln.startswith(tag + " ")]
+            outs.append((rc, lines, text))
+        bad = [k for k, (rc, lines, _t) in enumerate(outs)
+               if rc != 0 or not lines]
+        if bad:
+            peer = os.path.join(logs, "peer.log")
+            peer = open(peer).read() if os.path.exists(peer) else ""
+            for k, (rc, _l, text) in enumerate(outs):
+                print(f"{tag} member {k} rc {rc}:\n{text[-10000:]}",
+                      file=sys.stderr, flush=True)
+            if peer:
+                print(f"{tag} peer:\n{peer[-6000:]}", file=sys.stderr,
+                      flush=True)
+            fail(f"{tag}: member processes {bad} failed")
+    return [json.loads(lines[-1][len(tag) + 1:]) for _rc, lines, _t in outs]
+
+
 def _tiers_member(device: str, log_dir: str = "") -> dict:
     """Phase 20's traffic, run in a fresh interpreter of its own (process
     0 of a two-process fabric, the store's host, owning ranks 4-7) against
@@ -5009,33 +5120,9 @@ def phase_tiers(device: str = "cuda", **sizes) -> dict:
 
 
 def _phase_tiers(device: str, sizes: dict) -> dict:
-    import tempfile
     t_phase = time.monotonic()
-    with tempfile.TemporaryDirectory() as logs:
-        member_log = os.path.join(logs, "member.log")
-        with open(member_log, "w+") as log:
-            proc = subprocess.Popen(
-                [sys.executable, "-c", "import sys, json, chip_smoke as cs; "
-                 "vars(cs).update(json.loads(sys.argv[2])); "
-                 "print('TIERS ' + json.dumps(cs._tiers_member("
-                 "sys.argv[1], sys.argv[3])), flush=True)", device,
-                 json.dumps(sizes), logs],
-                cwd=str(ROOT), stdout=log, stderr=subprocess.STDOUT)
-            try:
-                rc = proc.wait(POD_TIMEOUT_S)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                rc = proc.wait()
-            log.seek(0)
-            text = log.read()
-        lines = [ln for ln in text.splitlines() if ln.startswith("TIERS ")]
-        if rc != 0 or not lines:
-            peer_log = os.path.join(logs, "peer.log")
-            peer = open(peer_log).read() if os.path.exists(peer_log) else ""
-            print(f"tiers member output:\n{text[-12000:]}\ntiers peer "
-                  f"output:\n{peer[-8000:]}", file=sys.stderr, flush=True)
-            fail(f"tiers: the member process ended rc {rc}")
-    r = json.loads(lines[-1][6:])
+    (r,) = _run_member("cs._tiers_member(sys.argv[1], sys.argv[3])",
+                       "TIERS", device, sizes)
     check(r["foreign"] == [], f"tiers: loaded {r['foreign']}")
     gb, st, mix, fa = r["gbps"], r["stream"], r["mixed"], r["faults"]
     volume = TIER_GB_PASSES * TIER_GB_CALLS * TIER_GB_CHUNK
@@ -5144,6 +5231,679 @@ def _phase_tiers(device: str, sizes: dict) -> dict:
           f"0 failed calls; (e) {r['segments_made']} segments made, none "
           f"left; {r['wall_s']:.1f} s", flush=True)
     return r
+
+
+def phase_native_tcp() -> dict:
+    """(a) the native TCP datapath (see the module docstring, phase 21):
+    bench.py's entries, then the crossings with their request counts."""
+    import collections
+    import brpc_tpu_torch.policy  # noqa: F401
+    from brpc_tpu_torch import rpc
+    from brpc_tpu_torch.butil import native
+    from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
+    from brpc_tpu_torch.rpc.native_fabric import NativeChannel, NativeServer
+
+    t_phase = time.monotonic()
+    out = {
+        "rpc_echo_p50_us": native.native_rpc_echo_p50_us(
+            iters=NTCP_ECHO_ITERS, payload=4096),
+        "raw_echo_p50_us": native.native_echo_p50_us(),
+        "qps": native.native_rpc_qps(threads=16, duration_ms=1500,
+                                     payload=128),
+        "gbps": max(native.native_rpc_throughput_gbps(
+            threads=t, duration_ms=1200, payload=1 << 20)
+            for t in (1, 1, 2)),
+        "pooled_gbps": native.native_pooled_throughput_gbps(
+            nconns=2, threads=2, duration_ms=1200, payload=1 << 20),
+        "async_gbps": native.native_async_throughput_gbps(
+            depth=4, duration_ms=1200, payload=256 << 10)}
+    bad_bench = {k: v for k, v in out.items() if not v > 0}
+    check(not bad_bench, f"native tcp: a bench entry failed: {bad_bench}")
+    gate = threading.Event()
+
+    class Echo(rpc.Service):
+        @rpc.method(EchoRequest, EchoResponse)
+        def Echo(self, cntl, request, response, done):
+            response.message = request.message
+            if len(cntl.request_attachment):
+                cntl.response_attachment.append(cntl.request_attachment)
+            done()
+
+        @rpc.method(EchoRequest, EchoResponse)
+        def Park(self, cntl, request, response, done):
+            threading.Thread(target=lambda: (gate.wait(10), done()),
+                             daemon=True).start()
+
+    payload = bytes(i % 251 for i in range(4096))
+
+    def run(ch, n, tag):
+        bad = []
+        for i in range(n):
+            cntl = rpc.Controller()
+            cntl.timeout_ms = 5000
+            cntl.request_attachment.append(payload)
+            resp = ch.call_method("Echo.Echo", cntl,
+                                  EchoRequest(message=f"{tag}{i}"),
+                                  EchoResponse)
+            if cntl.failed() or resp.message != f"{tag}{i}" \
+                    or cntl.response_attachment.to_bytes() != payload:
+                bad.append((i, cntl.error_code_, cntl.error_text))
+        return bad
+
+    nsrv = NativeServer()
+    nsrv.add_service(Echo())
+    port = nsrv.start(0)
+    psrv = rpc.Server()
+    psrv.add_service(Echo())
+    check(psrv.start("127.0.0.1:0") == 0, "native tcp: rpc.Server start")
+    nch = None
+    try:
+        # a tcp:// rpc.Channel to the NativeServer's Python service
+        ch = rpc.Channel()
+        ch.init(f"tcp://127.0.0.1:{port}",
+                options=rpc.ChannelOptions(timeout_ms=5000, max_retry=0))
+        bad = run(ch, NTCP_CALLS, "p")
+        ch.close()
+        check(not bad and nsrv.requests() == NTCP_CALLS,
+              f"native tcp: rpc.Channel to NativeServer: {bad[:3]}, "
+              f"served {nsrv.requests()}")
+        # a NativeChannel to an rpc.Server
+        pch = NativeChannel()
+        pch.init(f"127.0.0.1:{psrv.listen_port}")
+        bad = run(pch, NTCP_CALLS, "n")
+        pch.close()
+        got = psrv.method_status("Echo.Echo").received.get_value()
+        check(not bad and got == NTCP_CALLS,
+              f"native tcp: NativeChannel to rpc.Server: {bad[:3]}, "
+              f"received {got}")
+        # call_method_async: each future's done runs once
+        nch = NativeChannel()
+        nch.init(f"127.0.0.1:{port}")
+        runs = collections.Counter()
+        rlock = threading.Lock()
+
+        def done(c, i):
+            with rlock:
+                runs[i] += 1
+        futs = []
+        for i in range(NTCP_ASYNC):
+            c = rpc.Controller()
+            c.timeout_ms = 5000
+            futs.append(nch.call_method_async(
+                "Echo.Echo", c, EchoRequest(message=f"a{i}"), EchoResponse,
+                done=lambda c, i=i: done(c, i)))
+        check(all(f.wait(10) for f in futs), "native tcp: async calls hung")
+        bad = [i for i, f in enumerate(futs)
+               if f.cntl.failed() or f.response.message != f"a{i}"]
+        time.sleep(0.05)
+        check(not bad and dict(runs) == {i: 1 for i in range(NTCP_ASYNC)},
+              f"native tcp: async futures {bad[:3]}, done runs {dict(runs)}")
+        # a stop with calls in flight
+        before = nsrv.requests()
+        parked = []
+        for i in range(NTCP_STOP_CALLS):
+            c = rpc.Controller()
+            c.timeout_ms = 10000
+            parked.append(nch.call_method_async(
+                "Echo.Park", c, EchoRequest(message=f"s{i}"), EchoResponse))
+        deadline = time.monotonic() + 10
+        while nsrv.requests() < before + NTCP_STOP_CALLS \
+                and time.monotonic() < deadline:
+            time.sleep(0.002)
+        t0 = time.monotonic()
+        nsrv.stop()
+        check(all(f.wait(10) for f in parked),
+              "native tcp: a call in flight through the stop never ended")
+        codes = sorted(f.cntl.error_code_ for f in parked)
+        check(all(codes), f"native tcp: calls through the stop answered "
+                          f"OK: {codes}")
+        out.update({"python_to_native": NTCP_CALLS,
+                    "native_to_python": NTCP_CALLS,
+                    "async": NTCP_ASYNC, "stop_codes": codes,
+                    "stop_s": time.monotonic() - t0})
+    finally:
+        gate.set()
+        if nch is not None:
+            nch.close()
+        nsrv.stop()
+        psrv.stop()
+    out["wall_s"] = time.monotonic() - t_phase
+    print(f"native tcp: rpc echo p50 {out['rpc_echo_p50_us']:.2f} us, raw "
+          f"epoll echo p50 {out['raw_echo_p50_us']:.2f} us, qps(16) "
+          f"{out['qps']:.0f}, 1 MiB {out['gbps']:.3f} GB/s (pooled "
+          f"{out['pooled_gbps']:.3f}, async depth 4 at 256 KiB "
+          f"{out['async_gbps']:.3f}); {NTCP_CALLS} calls each way, "
+          f"{NTCP_ASYNC} futures each done once, a stop under "
+          f"{NTCP_STOP_CALLS} calls: codes {codes}; {out['wall_s']:.1f} s",
+          flush=True)
+    return out
+
+
+def _xfer_member(device: str, log_dir: str = "") -> dict:
+    """Phase 21 (b) in a fresh interpreter of its own (process 0, the
+    store's host, ranks 4-7) against a ``fabric_peer`` it starts (process
+    1, ranks 0-3, ``ici://0``), with the shm ring, the bulk conn and the
+    device plane off for the pair: every DEVICE payload crosses as kind
+    1.  It counts its own copy launches from just before its traffic."""
+    import importlib
+    import brpc_tpu_torch.policy  # noqa: F401
+    from datetime import timedelta
+    from torch.distributed import TCPStore
+    from brpc_tpu_torch import rpc
+    from brpc_tpu_torch.butil import flags
+    from brpc_tpu_torch.ici import fabric, route
+    from brpc_tpu_torch.ici.mesh import IciMesh
+    from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
+    from brpc_tpu_torch.rpc import fault_injection as fi
+    from brpc_tpu_torch.rpc.socket import list_sockets
+    from brpc_tpu_torch.tools.fabric_peer import SOCKET_WINDOW
+
+    import faulthandler
+    faulthandler.dump_traceback_later(POD_TIMEOUT_S - 30, exit=False)
+    copy_mod = importlib.import_module("brpc_tpu_torch.ici.p2p_copy")
+    plain = [0]
+    if device == "cpu":
+        inner = copy_mod.p2p_copy_plain
+
+        def counted(src, dst):
+            plain[0] += 1
+            return inner(src, dst)
+
+        copy_mod.p2p_copy_plain = counted
+        flags.set_flag("ici_device_plane_host_mesh", True)
+
+    def count() -> int:
+        return plain[0] if device == "cpu" else copy_mod.p2p_copy.launches
+
+    # off for the pair: no dplane3 advert from here (so the peer's
+    # payloads skip kind 4) and no device plane here; no ring, no bulk
+    # conn dialed
+    for name in ("ici_device_plane", "ici_fabric_shm", "ici_fabric_bulk"):
+        flags.set_flag(name, False)
+    mesh = IciMesh(8, device=device)
+    IciMesh.set_default(mesh)
+    dev = mesh.device(4)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    flags.set_flag("ici_device_plane_threshold", XFER_THRESHOLD)
+    flags.set_flag("ici_socket_window_bytes", SOCKET_WINDOW)
+    port = _free_port()
+    coord = f"127.0.0.1:{port}"
+    node = fabric.FabricNode.initialize(coord, 2, 0, ranks=range(4, 8),
+                                        mesh=mesh)
+    kv = TCPStore("127.0.0.1", port, is_master=False,
+                  timeout=timedelta(seconds=60))
+    out = {"device": device}
+    peer = None
+    ch = None
+    gen = torch.Generator(device=dev).manual_seed(21)
+
+    def call(msg, att=None):
+        cntl = rpc.Controller()
+        if att is not None:
+            cntl.request_attachment.append_device_array(att)
+        resp = ch.call_method("Sink.Push", cntl, EchoRequest(message=msg),
+                              EchoResponse)
+        return cntl, resp
+
+    def stats(reset=False):
+        c = rpc.Controller()
+        r = ch.call_method("Sink.Stats", c, EchoRequest(
+            message="reset" if reset else ""), EchoResponse)
+        check(not c.failed(), f"Sink.Stats: {c.error_text}")
+        return json.loads(r.message)
+
+    def sock():
+        return [s for s in list_sockets() if isinstance(s, fabric.FabricSocket)
+                and not s.failed and not s.is_server_side][-1]
+
+    dev_back = [0]
+
+    def echo(nbytes, i):
+        data = mesh.own(torch.randint(0, 256, (nbytes,), dtype=torch.uint8,
+                                      device=dev, generator=gen), 4)
+        t0 = time.perf_counter()
+        cntl, resp = call(str(i), data)
+        us = (time.perf_counter() - t0) * 1e6
+        if cntl.failed():
+            return us, (i, cntl.error_code_, cntl.error_text)
+        att = cntl.response_attachment
+        dev_back[0] += len(att.device_refs())
+        back = _tensor_of(att) if att.device_refs() else torch.frombuffer(
+            bytearray(att.to_bytes()), dtype=torch.uint8).to(dev)
+        if resp.message != str(i) or not torch.equal(back, data):
+            return us, (i, "bytes differ")
+        return us, None
+
+    try:
+        peer = _Peer(coord, "xfer", kv, device,
+                     extra=("--threshold", XFER_THRESHOLD),
+                     log_path=os.path.join(log_dir, "peer.log")
+                     if log_dir else None)
+        out["pids"] = [os.getpid(), peer.info["os_pid"]]
+        ch = rpc.Channel()
+        ch.init("ici://0", options=rpc.ChannelOptions(timeout_ms=60000,
+                                                      max_retry=0))
+        stats(reset=True)
+        for i in range(4):                  # warm: the IPC library, maps
+            echo(XFER_SIZES[0][0], -1 - i)
+        s = sock()
+        out["adverts"] = {"xfer_usable": s._xfer_usable,
+                          "dplane_eligible": s.dplane_eligible(4 << 20),
+                          "shm": s.shm_bound(), "bulk": bool(s._bulk)}
+        check(out["adverts"] == {"xfer_usable": True,
+                                 "dplane_eligible": False, "shm": False,
+                                 "bulk": False},
+              f"xfer: the pair's planes {out['adverts']}")
+        stats(reset=True)
+        sync()
+        l0, x0, d0 = count(), fabric.xfer_stats(), dev_back[0]
+        r0 = route.route_stats()
+        lat, errs = {}, []
+        for nbytes, calls in XFER_SIZES:
+            ts = []
+            for i in range(calls):
+                us, err = echo(nbytes, i)
+                ts.append(us)
+                if err:
+                    errs.append(err)
+            lat[nbytes] = ts
+        check(not errs, f"xfer: echoes failed or differ: {errs[:3]}")
+        r1 = route.route_stats()
+        out["echo"] = {f"{n >> 10}k": {"calls": len(v),
+                                        "p50_us": _pct(v, 0.5),
+                                        "p99_us": _pct(v, 0.99)}
+                       for n, v in lat.items()}
+        total = sum(c for _n, c in XFER_SIZES)
+        out["route"] = {"xfer_frames": r1.get("xfer_frames", 0)
+                        - r0.get("xfer_frames", 0),
+                        "xfer_bytes": r1.get("xfer_bytes", 0)
+                        - r0.get("xfer_bytes", 0)}
+        check(out["route"] == {"xfer_frames": total,
+                               "xfer_bytes": sum(n * c for n, c
+                                                 in XFER_SIZES)},
+              f"xfer: the payloads' route {out['route']}")
+        # the refusal budget: the first refused stage latches the plane
+        # down; the next stage asked is after the re-probe window
+        plan = fi.FabricFaultPlan(xfer_refuse_stages=XFER_REFUSE)
+        q0 = route.route_stats()
+        refused = []
+        with fi.inject_fabric(plan):
+            for k in range(XFER_REFUSE + 1):
+                refused.append(echo(XFER_SIZES[1][0], 1000 + k)[1])
+                time.sleep(fabric.DEVICE_RETRY_S + 0.2)
+        q1 = route.route_stats()
+        out["refusal"] = {
+            "failed": [e for e in refused if e],
+            "injected": plan.injected["xfer"],
+            "xfer_frames": q1.get("xfer_frames", 0)
+            - q0.get("xfer_frames", 0),
+            "inline_bytes": q1.get("inline_bytes", 0)
+            - q0.get("inline_bytes", 0),
+            "events": {k: v for k, v in route.plane_stats().items()
+                       if k.startswith("xfer_")}}
+        sync()
+        theirs = stats()
+        out["launches"] = count() - l0
+        x1 = fabric.xfer_stats()
+        out["pulled"] = x1["pulled"] - x0["pulled"]
+        out["attachments"] = dev_back[0] - d0
+        out["refused"] = x1["refused"] - x0["refused"]
+        out["peer"] = {k: theirs[k] for k in ("launches", "xfer_pulled",
+                                              "attachments", "received",
+                                              "staged", "mapped",
+                                              "segments", "foreign")}
+        deadline = time.monotonic() + 5
+        while (sum(len(x._staged) for x in list_sockets()
+                   if isinstance(x, fabric.FabricSocket))
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
+        out["staged"] = sum(len(x._staged) for x in list_sockets()
+                            if isinstance(x, fabric.FabricSocket))
+        out["peer"]["staged"] = stats()["staged"]
+        out["ipc"] = s.ipc_stats()
+    except BaseException:
+        if peer is not None:
+            peer.kill()
+            print(f"xfer peer output:\n{peer.output()[-6000:]}",
+                  file=sys.stderr, flush=True)
+        raise
+    finally:
+        if ch is not None:
+            ch.close()
+        if peer is not None:
+            peer.kill()
+        node.quiesce()
+        faulthandler.cancel_dump_traceback_later()
+    out["foreign"] = sorted(m for m in sys.modules if m in ("jax", "brpc_tpu")
+                            or m.startswith(("jax.", "jaxlib", "brpc_tpu.")))
+    return out
+
+
+def phase_xfer(device: str = "cuda", **sizes) -> dict:
+    """(b) kind 1 (see the module docstring, phase 21): its traffic runs
+    in a member process (:func:`_xfer_member`), which starts the peer;
+    this process checks the result and launches nothing."""
+    g = globals()
+    saved = {k: g[k] for k in sizes}
+    g.update(sizes)
+    try:
+        return _phase_xfer(device, sizes)
+    finally:
+        g.update(saved)
+
+
+def _phase_xfer(device: str, sizes: dict) -> dict:
+    t_phase = time.monotonic()
+    (r,) = _run_member("cs._xfer_member(sys.argv[1], sys.argv[3])",
+                       "XFER", device, sizes)
+    p = r["peer"]
+    check(r["foreign"] == [] and p["foreign"] == [],
+          f"xfer: loaded {r['foreign']} {p['foreign']}")
+    total = sum(c for _n, c in XFER_SIZES)
+    # every echo's request crossed once each way on kind 1, and the last
+    # call of the refusal leg too
+    check(r["launches"] == r["pulled"] == r["attachments"] == total + 1,
+          f"xfer: here p2p_copy launches {r['launches']}, kind-1 pulled "
+          f"{r['pulled']}, DEVICE attachments back {r['attachments']}, "
+          f"expected {total + 1}")
+    check(p["launches"] == p["xfer_pulled"] == p["attachments"] == total + 1
+          and p["received"] == 0,
+          f"xfer: the peer's launches {p['launches']}, kind-1 pulled "
+          f"{p['xfer_pulled']}, attachments {p['attachments']}, kind-4 "
+          f"received {p['received']}, expected {total + 1}")
+    check(r["staged"] == 0 and p["staged"] == 0,
+          f"xfer: rows still staged: here {r['staged']}, peer {p['staged']}")
+    f = r["refusal"]
+    check(not f["failed"] and f["injected"] == XFER_REFUSE
+          and r["refused"] == XFER_REFUSE and f["xfer_frames"] == 1
+          and XFER_REFUSE * XFER_SIZES[1][0] <= f["inline_bytes"]
+          < (XFER_REFUSE + 1) * XFER_SIZES[1][0],
+          f"xfer: the refusal leg {f}, refused {r['refused']}")
+    r["wall_s"] = time.monotonic() - t_phase
+    e = r["echo"]
+    sizes_txt = ", ".join(f"{k}iB {v['p50_us']:.1f}/{v['p99_us']:.1f} us"
+                          for k, v in e.items())
+    print(f"xfer: kind-1 echo p50/p99 {sizes_txt}; launches = kind-1 "
+          f"pulled = "
+          f"attachments = {r['launches']} here and {p['launches']} in the "
+          f"peer; staged 0/0; {XFER_REFUSE} stages refused, "
+          f"{f['inline_bytes']} B inline, 0 failed calls; IPC opens "
+          f"{r['ipc']['opens']} hits {r['ipc']['hits']}; "
+          f"{r['wall_s']:.1f} s", flush=True)
+    return r
+
+
+def _kv_member(device: str, pid: int) -> dict:
+    """Phase 21 (c) in one of two fresh interpreters: process 0 (the
+    store's host, ranks 4-7) serves a DecodeService on ici://4 with its
+    pool on its rank; process 1 (ranks 0-3) sends the LoadKv sessions and
+    decodes.  Each counts its own copy launches."""
+    import importlib
+    import brpc_tpu_torch.policy  # noqa: F401
+    from datetime import timedelta
+    from torch.distributed import TCPStore
+    from brpc_tpu_torch import rpc
+    from brpc_tpu_torch.butil import flags
+    from brpc_tpu_torch.examples.disagg_serving import model
+    from brpc_tpu_torch.ici import device_plane, fabric, route
+    from brpc_tpu_torch.ici.mesh import IciMesh
+    from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
+    from brpc_tpu_torch.rpc.socket import list_sockets
+
+    copy_mod = importlib.import_module("brpc_tpu_torch.ici.p2p_copy")
+    plain = [0]
+    if device == "cpu":
+        inner = copy_mod.p2p_copy_plain
+
+        def counted(src, dst):
+            plain[0] += 1
+            return inner(src, dst)
+
+        copy_mod.p2p_copy_plain = counted
+        flags.set_flag("ici_device_plane_host_mesh", True)
+
+    def count() -> int:
+        return plain[0] if device == "cpu" else copy_mod.p2p_copy.launches
+
+    mesh = IciMesh(8, device=device)
+    IciMesh.set_default(mesh)
+    plane = device_plane.plane()
+    payload = model.kv_nbytes(KV21_SEQ)
+    out = {"pid": pid}
+
+    def socks():
+        return [s for s in list_sockets() if isinstance(s, fabric.FabricSocket)]
+
+    # process 0 hosts the store at the port the driving process chose
+    port = int(os.environ["KV21_PORT"])
+    node = fabric.FabricNode.initialize(
+        f"127.0.0.1:{port}", 2, pid,
+        ranks=range(4, 8) if pid == 0 else range(4), mesh=mesh)
+    kv = TCPStore("127.0.0.1", port, is_master=False,
+                  timeout=timedelta(seconds=120))
+    try:
+        if pid == 0:
+            from brpc_tpu_torch.examples.disagg_serving.workers import \
+                DecodeService
+            from brpc_tpu_torch.serving import KvPoolOptions, kv_load_stats
+            server = rpc.Server()
+            svc = DecodeService(4, mesh=mesh, pool_options=KvPoolOptions(
+                bytes_per_token=model.KV_LAYERS * model.KV_DMODEL,
+                num_blocks=256, block_tokens=16, use_timers=False))
+            server.add_service(svc)
+            check(server.start("ici://4") == 0, "kv: DecodeService start")
+            l0, r0 = count(), plane.remote_received
+            kv.set("kv21/up", "1")
+            kv.wait(["kv21/done"], timedelta(seconds=120))
+            s = socks()
+            out.update({"stats": kv_load_stats(),
+                        "served": svc.describe_serving()["kv_load"],
+                        "shm_bound": bool(s) and s[0].shm_bound(),
+                        "claimed": sum(x.shm_bytes_claimed for x in s),
+                        "launches": count() - l0,
+                        "received": plane.remote_received - r0,
+                        "loads": svc.loads})
+            kv.set("kv21/read", "1")
+            svc.close()
+            server.stop()
+        else:
+            kv.wait(["kv21/up"], timedelta(seconds=120))
+            ch = rpc.Channel()
+            ch.init("ici://4", options=rpc.ChannelOptions(
+                timeout_ms=120000, max_retry=0))
+            dev = mesh.device(0)
+            decodes, errs = [], []
+            r0 = route.route_stats()
+            for i in range(KV21_HOST_SESSIONS + 1):
+                tokens = [(11 * i + j) % 997 for j in range(KV21_SEQ)]
+                blob = model.toy_kv_blocks(tokens, dev)
+                cntl = rpc.Controller()
+                if i < KV21_HOST_SESSIONS:
+                    # the KV as host bytes: the ring carries them
+                    cntl.request_attachment.append(blob.cpu().numpy()
+                                                   .tobytes())
+                else:
+                    cntl.request_attachment.append_device_array(
+                        mesh.own(blob, 0))
+                ch.call_method("Decode.LoadKv", cntl, EchoRequest(
+                    message=json.dumps({"session": f"s{i}",
+                                        "seq_len": KV21_SEQ,
+                                        "last_token": tokens[-1]})),
+                    EchoResponse)
+                if cntl.failed():
+                    errs.append((i, cntl.error_code_, cntl.error_text))
+                    continue
+                dc = rpc.Controller()
+                resp = ch.call_method("Decode.Decode", dc, EchoRequest(
+                    message=json.dumps({"session": f"s{i}",
+                                        "steps": KV21_STEPS,
+                                        "mode": "sync"})), EchoResponse)
+                if dc.failed():
+                    errs.append((i, dc.error_code_, dc.error_text))
+                    continue
+                decodes.append([tokens, json.loads(resp.message)["tokens"]])
+            r1 = route.route_stats()
+            s = socks()
+            out.update({"errors": errs, "decodes": decodes,
+                        "shm_bound": bool(s) and s[0].shm_bound(),
+                        "shm_sent": sum(x.shm_bytes_sent for x in s),
+                        "shm_route_bytes": r1.get("shm_bytes", 0)
+                        - r0.get("shm_bytes", 0),
+                        "device_route_bytes": r1.get("device_bytes", 0)
+                        - r0.get("device_bytes", 0)})
+            kv.set("kv21/done", "1")
+            kv.wait(["kv21/read"], timedelta(seconds=120))
+            ch.close()
+    finally:
+        node.quiesce()
+    out["payload"] = payload
+    out["foreign"] = sorted(m for m in sys.modules if m in ("jax", "brpc_tpu")
+                            or m.startswith(("jax.", "jaxlib", "brpc_tpu.")))
+    return out
+
+
+def phase_kv_routes(mesh, plane, p2p_copy, device: str = "cuda",
+                    launches=None, **sizes) -> dict:
+    """(c) the KV loader's routes (see the module docstring, phase 21):
+    the in-process leg on the native ici:// door here, then the two-process
+    shape in two member processes."""
+    import gc
+    import brpc_tpu_torch.policy  # noqa: F401
+    from brpc_tpu_torch import rpc
+    from brpc_tpu_torch.butil import flags
+    from brpc_tpu_torch.examples.disagg_serving import model
+    from brpc_tpu_torch.examples.disagg_serving.workers import DecodeService
+    from brpc_tpu_torch.ici import native_plane as npl
+    from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
+    from brpc_tpu_torch.serving import KvPoolOptions, kv_load_stats
+
+    launches = launches or (lambda: p2p_copy.launches)
+    t_phase = time.monotonic()
+    flags.set_flag("ici_device_plane_threshold", 64 * 1024)
+    out = {}
+    taken = []
+    real_take = npl.NativeAttachment.take_segments
+
+    def take(self):
+        taken.append(len(self))
+        return real_take(self)
+
+    tokens = [(17 * j) % 499 for j in range(KV21_SEQ)]
+    want = model.reference_generate(tokens, KV21_STEPS, mesh.device(0))
+    server = rpc.Server()
+    svc = DecodeService(6, mesh=mesh, pool_options=KvPoolOptions(
+        bytes_per_token=model.KV_LAYERS * model.KV_DMODEL, num_blocks=256,
+        block_tokens=16, use_timers=False))
+    server.add_service(svc)
+    check(server.start("ici://6") == 0, "kv: ici://6 start")
+    check(server._native_ici is not None, "kv: ici://6 has no native door")
+    ch = rpc.Channel()
+    ch.init("ici://6", options=rpc.ChannelOptions(timeout_ms=60000,
+                                                  max_retry=0))
+
+    def load_decode(session):
+        cntl = rpc.Controller()
+        cntl.request_attachment.append_device_array(
+            mesh.own(model.toy_kv_blocks(tokens, mesh.device(1)), 1))
+        ch.call_method("Decode.LoadKv", cntl, EchoRequest(
+            message=json.dumps({"session": session, "seq_len": KV21_SEQ,
+                                "last_token": tokens[-1]})), EchoResponse)
+        check(not cntl.failed(), f"kv {session}: LoadKv {cntl.error_text}")
+        dc = rpc.Controller()
+        resp = ch.call_method("Decode.Decode", dc, EchoRequest(
+            message=json.dumps({"session": session, "steps": KV21_STEPS,
+                                "mode": "sync"})), EchoResponse)
+        check(not dc.failed(), f"kv {session}: Decode {dc.error_text}")
+        return json.loads(resp.message)["tokens"]
+
+    npl.NativeAttachment.take_segments = take
+    try:
+        l0, t0 = launches(), plane.stats()["transfers"]
+        s0 = kv_load_stats()
+        got = load_decode("n1")
+        s1 = kv_load_stats()
+        flags.set_flag("serving_kv_adopt", False)
+        try:
+            got_off = load_decode("n2")
+        finally:
+            flags.set_flag("serving_kv_adopt", True)
+        s2 = kv_load_stats()
+        torch.cuda.synchronize() if mesh.device(0).type == "cuda" else None
+        out["launches"] = launches() - l0
+        out["transfers"] = plane.stats()["transfers"] - t0
+    finally:
+        npl.NativeAttachment.take_segments = real_take
+        ch.close()
+        svc.close()
+        server.stop()
+        server.join()
+    gc.collect()
+    payload = model.kv_nbytes(KV21_SEQ)
+    out["native"] = {
+        "taken": taken, "scattered": s1["scattered"] - s0["scattered"],
+        "materialized": s2["materialized"] - s1["materialized"],
+        "copy_bytes": [s1["copy_bytes"] - s0["copy_bytes"],
+                       s2["copy_bytes"] - s1["copy_bytes"]],
+        "registry": npl.registry().live(), "att_table": npl.att_table_live()}
+    check(got == want and got_off == want,
+          f"kv: the native door's decodes differ from reference_generate")
+    check(out["native"] == {"taken": [payload], "scattered": 1,
+                            "materialized": 1,
+                            "copy_bytes": [payload, 3 * payload],
+                            "registry": 0, "att_table": 0},
+          f"kv: the native door's leg {out['native']}")
+    check(out["launches"] == out["transfers"] == 2,
+          f"kv: p2p_copy launches {out['launches']}, plane transfers "
+          f"{out['transfers']}, LoadKv relocations 2")
+    # the two-process shape
+    g = globals()
+    saved = {k: g[k] for k in sizes}
+    g.update(sizes)
+    os.environ["KV21_PORT"] = str(_free_port())
+    try:
+        srv, cli = _run_member("cs._kv_member(sys.argv[1], "
+                               "int(sys.argv[4]))", "KV21", device, sizes,
+                               args=[(0,), (1,)])
+    finally:
+        os.environ.pop("KV21_PORT", None)
+        g.update(saved)
+    check(srv["foreign"] == cli["foreign"] == [],
+          f"kv: loaded {srv['foreign']} {cli['foreign']}")
+    check(not cli["errors"], f"kv: calls failed {cli['errors'][:3]}")
+    bad = [i for i, (tk, got) in enumerate(cli["decodes"])
+           if got != model.reference_generate(tk, KV21_STEPS,
+                                              mesh.device(0))]
+    check(len(cli["decodes"]) == KV21_HOST_SESSIONS + 1 and not bad,
+          f"kv: sessions {bad} decode differently")
+    st = srv["stats"]
+    n = KV21_HOST_SESSIONS
+    check((st["adopted"], st["scattered"], st["materialized"]) == (n, 1, 0)
+          and st["copy_bytes"] == (st["adopted"] + st["scattered"])
+          * payload,
+          f"kv: the decode process's routes {st}")
+    check(srv["shm_bound"] and cli["shm_bound"]
+          and srv["claimed"] >= n * payload
+          and cli["shm_route_bytes"] >= n * payload,
+          f"kv: the ring did not carry the host sessions: {srv['claimed']},"
+          f" {cli['shm_route_bytes']}")
+    check(srv["launches"] == srv["received"] == 1
+          and cli["device_route_bytes"] == payload,
+          f"kv: the DEVICE session's pull: launches {srv['launches']}, "
+          f"kind-4 received {srv['received']}, device bytes "
+          f"{cli['device_route_bytes']}")
+    out["two_process"] = {"stats": st, "claimed": srv["claimed"],
+                          "launches": srv["launches"],
+                          "decodes": len(cli["decodes"])}
+    out["wall_s"] = time.monotonic() - t_phase
+    print(f"kv routes: native door: parked handle taken "
+          f"({out['native']['taken'][0]} B), scattered, the flag-off leg "
+          f"materialized, registry and attachment table 0; two processes: "
+          f"adopted {st['adopted']}, scattered {st['scattered']}, "
+          f"materialized {st['materialized']}, copy bytes "
+          f"{st['copy_bytes']} = {st['adopted'] + st['scattered']} x "
+          f"{payload}; every decode equals reference_generate; "
+          f"{out['wall_s']:.1f} s", flush=True)
+    return out
 
 
 def _fabric_overload(rpc, mesh, plane, ch, count, peer_stats, sync) -> dict:
@@ -5532,6 +6292,37 @@ def main() -> int:
           f"{launches}")
     print("tiers: " + json.dumps(tiers20), flush=True)
 
+    # 21. the native TCP datapath (host only: no kernel), kind 1 (its
+    # member process and the member's peer count their own launches), and
+    # the KV loader's routes (the in-process leg's two relocations launch
+    # here, the two-process leg's DEVICE session in the decode process)
+    zero_counts()
+    ntcp = phase_native_tcp()
+    xfer = phase_xfer()
+    launches = {k.name: k.launches for k in kernels_all}
+    check(all(v == 0 for v in launches.values()),
+          f"a kernel launched in the driving process during phase 21 "
+          f"(a)-(b): {launches}")
+    kvr = phase_kv_routes(mesh, plane, p2p_copy)
+    launches = {k.name: k.launches for k in kernels_all}
+    check(launches["p2p_copy"] == kvr["launches"]
+          and launches["ring_all_reduce"] == 0
+          and launches["ring_all_gather"] == 0,
+          f"phase 21 (c): launches {launches}, the leg's own count "
+          f"{kvr['launches']}")
+    e = xfer["echo"]
+    print(f"kind 1 against kind 4 at 4 KiB: p50 {e['4k']['p50_us']:.1f} us "
+          f"(p99 {e['4k']['p99_us']:.1f}), 64 KiB p50 "
+          f"{e['64k']['p50_us']:.1f} us (p99 {e['64k']['p99_us']:.1f}); "
+          f"phase 17's kind-4 p50 at 4 KiB {fab['echo']['p50_us_4k']:.1f} "
+          f"us", flush=True)
+    print("native_tcp: " + json.dumps(ntcp), flush=True)
+    print("xfer: " + json.dumps(xfer), flush=True)
+    print("kv_routes: " + json.dumps(kvr), flush=True)
+    phase21 = {"xfer": xfer["launches"] + xfer["peer"]["launches"],
+               "kv_routes": kvr["launches"],
+               "kv_routes_2proc": kvr["two_process"]["launches"]}
+
     head = next(r for r in rows if r["label"] == "4 MiB")
     red = ring_rows["ring_all_reduce"]
     gat = ring_rows["ring_all_gather"]
@@ -5551,7 +6342,7 @@ def main() -> int:
                      + calls["launches"] + native["launches"]
                      + native_adm["launches"] + fab["launches"]
                      + pod["launches"] + xproc["launches"]
-                     + tiers20["launches"]),
+                     + tiers20["launches"] + sum(phase21.values())),
         "launches_by_path": {"echo": main_launches,
                              "serving": serve["launches"],
                              "migration": tiers["launches"], **phase10,
@@ -5566,7 +6357,7 @@ def main() -> int:
                              **{f"pod_{k}": v for k, v in
                                 pod["launches_by_scenario"].items()},
                              "fanout_xproc": xproc["launches"],
-                             "tiers": tiers20["launches"]},
+                             "tiers": tiers20["launches"], **phase21},
         "migration_path_split": {
             "migrate_in": tiers["migrate_in_calls"],
             "loadkv": tiers["calls_received"] - tiers["migrate_in_calls"]},

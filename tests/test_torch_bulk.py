@@ -626,27 +626,32 @@ class _RouteSock:
 
 
 def test_route_candidates_grid_equal_jax():
-    """Every class x size x ring/bulk health x adverts gives the JAX list
-    (the JAX table's xfer row is never usable here); a DEVICE payload the
-    device plane must carry is the port's difference: ``[device]``
-    alone, where the JAX fabric consults its device plane before the
-    table and falls to it on a refusal."""
+    """Every class x size x ring/bulk/xfer health x adverts gives the JAX
+    list (the xfer row, kind 1, for DEVICE payloads the device plane does
+    not take); a DEVICE payload the device plane must carry is the port's
+    difference: ``[device]`` alone, where the JAX fabric consults its
+    device plane before the table and falls to it on a refusal."""
     n = 0
     for cls in (troute.HOST, troute.DEVICE, troute.STREAM):
         for size in (0, 100, 65535, 65536, 1 << 20, 40 << 20):
             for shm in (True, False, "small"):
                 for bulk in (True, False):
-                    sock = _RouteSock(shm, bulk, eligible=False)
-                    assert troute.candidates(sock, cls, size) == \
-                        jroute.candidates(sock, cls, size), (cls, size)
-                    n += 1
-                    sock = _RouteSock(shm, bulk, eligible=True)
-                    got = troute.candidates(sock, cls, size)
-                    if cls == troute.DEVICE:
-                        assert got == [troute.DEVICE]
-                    else:
-                        assert got == jroute.candidates(sock, cls, size)
-    assert n == 108
+                    for xfer in (False, True):
+                        sock = _RouteSock(shm, bulk, eligible=False,
+                                          xfer=xfer)
+                        assert troute.candidates(sock, cls, size) == \
+                            jroute.candidates(sock, cls, size), \
+                            (cls, size, xfer)
+                        n += 1
+                        sock = _RouteSock(shm, bulk, eligible=True,
+                                          xfer=xfer)
+                        got = troute.candidates(sock, cls, size)
+                        if cls == troute.DEVICE:
+                            assert got == [troute.DEVICE]
+                        else:
+                            assert got == jroute.candidates(sock, cls,
+                                                            size)
+    assert n == 216
 
 
 def _prober_run(ph, route_mod, name):

@@ -166,15 +166,19 @@ def test_slow_never_degrades_the_ports_planes():
     ("xfer_refuse_stages", 1, "transfer server"),
 ])
 def test_knobs_of_missing_tiers_are_refused(knob, value, tier):
-    """Only the transfer server's knob is still refused; the bulk plane's
-    and the shm ring's are ported and decide as the JAX plan does (the
-    native mode armed on an attach, the handshake refusals counted)."""
+    """The knobs of the tiers ported since the plan came (the bulk plane,
+    the shm ring, the transfer pull of kind 1) decide as the JAX plan
+    does: the native mode armed on an attach, the handshake refusals and
+    the refused stages counted."""
     jplan = jfi.FabricFaultPlan(**{knob: value})  # the JAX plan has it
-    if tier == "transfer server":
-        with pytest.raises(ValueError, match=tier):
-            tfi.FabricFaultPlan(**{knob: value})
-        return
     tplan = tfi.FabricFaultPlan(**{knob: value})
+    if tier == "transfer server":
+        stages = {pkg: ([plan.on_xfer_stage() for _ in range(3)],
+                        plan.injected)
+                  for pkg, plan in (("jax", jplan), ("port", tplan))}
+        assert stages["port"] == stages["jax"]
+        assert stages["port"][0] == [True, False, False]
+        return
     calls = {}
     for pkg, plan in (("jax", jplan), ("port", tplan)):
         seen = []
@@ -193,10 +197,12 @@ def test_knobs_of_missing_tiers_are_refused(knob, value, tier):
 
 
 def test_slow_planes_and_unknown_knobs_are_refused():
-    with pytest.raises(ValueError, match="xfer"):
-        tfi.FabricFaultPlan(plane_slow_ms={"xfer": 5})
-    for plane in ("shm", "bulk", "device", "collective"):
-        tfi.FabricFaultPlan(plane_slow_ms={plane: 5})
+    with pytest.raises(ValueError, match="bogus"):
+        tfi.FabricFaultPlan(plane_slow_ms={"bogus": 5})
+    for plane in ("shm", "bulk", "device", "xfer", "collective"):
+        tplan = tfi.FabricFaultPlan(plane_slow_ms={plane: 5})
+        assert tplan.plane_slow_ms == \
+            jfi.FabricFaultPlan(plane_slow_ms={plane: 5}).plane_slow_ms
     with pytest.raises(TypeError):
         tfi.FabricFaultPlan(no_such_knob=1)
     assert set(tfi.FabricFaultPlan().injected) \

@@ -610,6 +610,69 @@ print(json.dumps({
 """
 
 
+_SLICE14 = r"""
+import json, os, sys
+opened = []
+
+def _audit(event, args):
+    if event == "open" and args and isinstance(args[0], (str, bytes)):
+        opened.append(os.fsdecode(args[0]))
+    elif event == "ctypes.dlopen" and args and args[0]:
+        opened.append(os.fsdecode(args[0]))
+
+sys.addaudithook(_audit)
+import brpc_tpu_torch.policy
+from brpc_tpu_torch import rpc
+from brpc_tpu_torch.butil import native
+from brpc_tpu_torch.ici import fabric, route
+from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
+from brpc_tpu_torch.rpc.native_fabric import (NativeChannel,
+                                              NativePooledChannel,
+                                              NativeServer)
+from brpc_tpu_torch.serving import kv_source
+
+class Echo(rpc.Service):
+    @rpc.method(EchoRequest, EchoResponse)
+    def Echo(self, cntl, request, response, done):
+        response.message = request.message
+        done()
+
+server = NativeServer()
+server.add_service(Echo())
+server.register_native_echo("Raw.Echo")
+port = server.start(0)
+ch = NativeChannel()
+ch.init(f"127.0.0.1:{port}")
+ok = True
+for method in ("Echo.Echo", "Raw.Echo"):
+    cntl = rpc.Controller()
+    resp = ch.call_method(method, cntl, EchoRequest(message="t"),
+                          EchoResponse)
+    ok = ok and not cntl.failed() and resp.message == "t"
+fut = ch.call_method_async("Echo.Echo", rpc.Controller(),
+                           EchoRequest(message="a"), EchoResponse)
+ok = ok and fut.wait(10) and fut.response.message == "a"
+ch.close()
+server.stop()
+repo = os.path.dirname(os.path.dirname(os.path.abspath(native.__file__)))
+native_dir = os.path.join(repo, "native") + os.sep
+print(json.dumps({
+    "ok": ok,
+    "p50": native.native_rpc_echo_p50_us(iters=50, payload=64) > 0,
+    "xfer_row": route.XFER,
+    "kv_labels": [kv_source.ADOPTED, kv_source.SCATTERED,
+                  kv_source.MATERIALIZED],
+    "under_native": sorted({p for p in opened
+                            if os.path.abspath(p).startswith(native_dir)}),
+    "core": [p for p in opened if "libici_native" in p],
+    "jax": sorted(m for m in sys.modules
+                  if m == "jax" or m.startswith(("jax.", "jaxlib"))),
+    "brpc_tpu": sorted(m for m in sys.modules
+                       if m == "brpc_tpu" or m.startswith("brpc_tpu.")),
+}))
+"""
+
+
 _EVERY_MODULE = r"""
 import importlib, json, pkgutil, sys
 import brpc_tpu_torch
@@ -858,4 +921,25 @@ def test_port_pod_loads_no_jax():
                  "brpc_tpu_torch.ici.clock",
                  "brpc_tpu_torch.rpc.builtin.pod_scope",
                  "brpc_tpu_torch.tools.pod_peer"):
+        assert name in mods, name
+
+
+def test_port_native_tcp_kv_routes_and_kind1_load_no_jax():
+    """Slice 14 driven alone: a NativeServer (a Python service and a
+    native echo) called through a NativeChannel, sync and async, and a
+    bench entry, all on the port's own core; the KV loader and the fabric
+    with its kind-1 row imported.  Neither JAX, the JAX package nor any
+    path under the reference's native/ directory is loaded or opened."""
+    out = _run_alone(_SLICE14)
+    assert out["ok"] and out["p50"]
+    assert out["xfer_row"] == "xfer"
+    assert out["under_native"] == []
+    assert out["core"] and all("brpc_tpu_torch" in p for p in out["core"])
+    assert out["jax"] == []
+    assert out["brpc_tpu"] == []
+    mods = _run_alone(_EVERY_MODULE)["modules"]
+    for name in ("brpc_tpu_torch.rpc.native_fabric",
+                 "brpc_tpu_torch.serving.kv_source",
+                 "brpc_tpu_torch.examples.native_echo",
+                 "brpc_tpu_torch.examples.native_async_pool"):
         assert name in mods, name

@@ -501,6 +501,158 @@ def test_host_attachment_segments_straddle_like_jax(cuts):
         tp.close()
 
 
+def test_load_route_consults_plane_health_like_jax():
+    """With the carrying fabric socket given, the adopt-or-scatter label
+    comes from the shared route table on both packages: every descriptor
+    plane down records SCATTERED, a healthy plane (or no socket) ADOPTED,
+    and DEVICE bytes scatter whatever the planes say."""
+    import jax.numpy as jnp
+    from brpc_tpu.ici import fabric as _jfabric  # noqa: F401  (flags)
+    from brpc_tpu.ici import route as jroute
+    from brpc_tpu_torch.ici import fabric as _tfabric  # noqa: F401
+    from brpc_tpu_torch.ici import route as troute
+
+    class _Sock:
+        def __init__(self, up):
+            self.up = up
+
+        def plane_usable(self, plane, nbytes=0):
+            return self.up
+
+        def dplane_eligible(self, nbytes):
+            return False
+
+    # above ici_fabric_bulk_host_min (64 KiB), where the planes count
+    big = bytes(128 * 1024)
+    layers, dmodel = 4, 64
+    seq = len(big) // (layers * dmodel)
+
+    def labels(mod, buf_cls, dev_buf):
+        def host():
+            b = buf_cls()
+            b.append_user_data(memoryview(big))
+            return b
+        return (mod.wire_source(host(), layers, seq, dmodel).route,
+                mod.wire_source(host(), layers, seq, dmodel,
+                                sock=_Sock(True)).route,
+                mod.wire_source(host(), layers, seq, dmodel,
+                                sock=_Sock(False)).route,
+                mod.wire_source(dev_buf(), layers, seq, dmodel,
+                                sock=_Sock(True)).route)
+
+    def jdev():
+        b = JaxIOBuf()
+        b.append_device_array(jnp.zeros(len(big), jnp.uint8))
+        return b
+
+    def tdev():
+        b = IOBuf()
+        b.append_device_array(torch.zeros(len(big), dtype=torch.uint8))
+        return b
+
+    got = labels(kv_source, IOBuf, tdev)
+    assert got == labels(jkv_source, JaxIOBuf, jdev)
+    assert got == (kv_source.ADOPTED, kv_source.ADOPTED,
+                   kv_source.SCATTERED, kv_source.SCATTERED)
+    for route, sock in ((troute, _Sock(True)), (jroute, _Sock(True))):
+        assert route.SHM in route.candidates(sock, route.HOST, len(big))
+    assert troute.candidates(_Sock(False), troute.HOST, len(big)) \
+        == jroute.candidates(_Sock(False), jroute.HOST, len(big)) \
+        == [troute.INLINE]
+
+
+def test_rpc_routes_and_custody_drain_on_three_planes():
+    """The DecodeService's LoadKv over the loopback plane (a DEVICE
+    block: scattered), over the native ici:// door (the parked handle
+    taken through take_segments: scattered) and with serving_kv_adopt
+    off (materialized, three passes): every decode equals the JAX
+    model's reference_generate, and the device-ref registry and the
+    native attachment table are empty after each."""
+    import gc
+    from brpc_tpu_torch.butil import flags as tflags
+    from brpc_tpu_torch.examples.disagg_serving import model as tmodel
+    from brpc_tpu_torch.examples.disagg_serving.workers import \
+        DecodeService
+    from brpc_tpu_torch.ici import native_plane as npl
+    from brpc_tpu_torch.ici.mesh import IciMesh
+    tokens = [(17 * j) % 499 for j in range(40)]
+    want = jmodel.reference_generate(tokens, 9)
+    nbytes = len(tokens) * BPT
+    mesh = IciMesh(ranks=8, device="cpu")
+    IciMesh.set_default(mesh)
+    parked = []
+    real_take = npl.NativeAttachment.take_segments
+
+    def take(self):
+        parked.append(len(self))
+        return real_take(self)
+
+    def load(ch, session):
+        cntl = rpc.Controller()
+        cntl.request_attachment.append_device_array(
+            mesh.own(tmodel.toy_kv_blocks(tokens, "cpu"), 1))
+        ch.call_method("Decode.LoadKv", cntl, EchoRequest(
+            message=json.dumps({"session": session,
+                                "seq_len": len(tokens),
+                                "last_token": tokens[-1]})), EchoResponse)
+        assert not cntl.failed(), cntl.error_text
+
+    def decode(ch, session):
+        cntl = rpc.Controller()
+        resp = ch.call_method("Decode.Decode", cntl, EchoRequest(
+            message=json.dumps({"session": session, "steps": 9,
+                                "mode": "sync"})), EchoResponse)
+        assert not cntl.failed(), cntl.error_text
+        return json.loads(resp.message)["tokens"]
+
+    npl.NativeAttachment.take_segments = take
+    try:
+        for plane, addr in (("loopback", "mem://kv-route"),
+                            ("ici", "ici://5")):
+            server = rpc.Server()
+            svc = DecodeService(5, mesh=mesh,
+                                pool_options=serving.KvPoolOptions(
+                                    bytes_per_token=BPT, num_blocks=32,
+                                    block_tokens=16))
+            server.add_service(svc)
+            assert server.start(addr) == 0
+            ch = rpc.Channel()
+            ch.init(addr, options=rpc.ChannelOptions(timeout_ms=30000))
+            try:
+                parked.clear()
+                s0 = kv_source.kv_load_stats()
+                load(ch, "r1")
+                assert decode(ch, "r1") == want, plane
+                s1 = kv_source.kv_load_stats()
+                assert s1["scattered"] - s0["scattered"] == 1, plane
+                assert s1["materialized"] == s0["materialized"], plane
+                assert s1["copy_bytes"] - s0["copy_bytes"] == nbytes
+                # the native door hands the handler a parked handle
+                assert parked == ([nbytes] if plane == "ici" else []), \
+                    plane
+                tflags.set_flag("serving_kv_adopt", False)
+                try:
+                    load(ch, "r2")
+                finally:
+                    tflags.set_flag("serving_kv_adopt", True)
+                assert decode(ch, "r2") == want, plane
+                s2 = kv_source.kv_load_stats()
+                assert s2["materialized"] - s1["materialized"] == 1
+                assert s2["copy_bytes"] - s1["copy_bytes"] == 3 * nbytes
+                gc.collect()
+                assert npl.registry().live() == 0, plane
+                assert npl.att_table_live() == 0, plane
+                assert svc.describe_serving()["kv_load"]["scattered"] >= 1
+            finally:
+                ch.close()
+                svc.close()
+                server.stop()
+                server.join()
+    finally:
+        npl.NativeAttachment.take_segments = real_take
+        IciMesh.set_default(None)
+
+
 def test_wire_source_is_single_use_and_checks_size():
     pool = serving.PagedKvPool(serving.KvPoolOptions(
         bytes_per_token=BPT, num_blocks=8, block_tokens=8,
@@ -611,3 +763,84 @@ def test_request_context_crosses_the_wire_both_ways():
     finally:
         ch.close()
         server.stop()
+
+
+# the port's twin of tests/test_serving.py's two-process shm claim: process
+# 1's KV crosses as host bytes on the fabric's shm ring and its zero-copy
+# claim lands in process 0's pool (adopted); one DEVICE session crosses on
+# the device plane and scatters.  Nothing materializes, and every decode
+# equals the reference.
+_KV_SHM_BODY = r"""
+from brpc_tpu_torch.examples.disagg_serving import model as m
+from brpc_tpu_torch.ici.route import route_stats
+SEQ, STEPS, N = 512, 7, 4
+PAYLOAD = m.kv_nbytes(SEQ)
+if pid == 0:
+    from brpc_tpu_torch.serving import KvPoolOptions, kv_load_stats
+    from brpc_tpu_torch.examples.disagg_serving.workers import DecodeService
+    server = rpc.Server()
+    svc = DecodeService(0, mesh=mesh, pool_options=KvPoolOptions(
+        bytes_per_token=m.KV_LAYERS * m.KV_DMODEL, num_blocks=256,
+        block_tokens=16, use_timers=False))
+    server.add_service(svc)
+    assert server.start("ici://0") == 0
+    put("kvshm/up", 1)
+    barrier("kvshm/done")
+    socks = fabric_socks()
+    st = kv_load_stats()
+    result({"shm_bound": bool(socks) and socks[0].shm_bound(),
+            "claimed": socks[0].shm_bytes_claimed if socks else 0,
+            "stats": st, "served": svc.describe_serving()["kv_load"],
+            "foreign": foreign()})
+    svc.close(); server.stop()
+else:
+    get("kvshm/up")
+    ch = rpc.Channel()
+    ch.init("ici://0", options=rpc.ChannelOptions(timeout_ms=120000,
+                                                  max_retry=0))
+    decodes = []
+    for i in range(N + 1):
+        tokens = [(11 * i + j) % 997 for j in range(SEQ)]
+        payload = m.toy_kv_blocks(tokens, "cpu")
+        cntl = rpc.Controller()
+        if i < N:
+            cntl.request_attachment.append(payload.numpy().tobytes())
+        else:
+            cntl.request_attachment.append_device_array(
+                mesh.own(payload, 2))
+        ch.call_method("Decode.LoadKv", cntl, EchoRequest(
+            message=json.dumps({"session": "s%d" % i, "seq_len": SEQ,
+                                "last_token": tokens[-1]})), EchoResponse)
+        assert not cntl.failed(), cntl.error_text
+        dc = rpc.Controller()
+        resp = ch.call_method("Decode.Decode", dc, EchoRequest(
+            message=json.dumps({"session": "s%d" % i, "steps": STEPS,
+                                "mode": "sync"})), EchoResponse)
+        assert not dc.failed(), dc.error_text
+        decodes.append([tokens, json.loads(resp.message)["tokens"]])
+    s = fabric_socks()[0]
+    rs = route_stats()
+    result({"shm_bound": s.shm_bound(), "sent": s.shm_bytes_sent,
+            "shm_route_bytes": rs.get("shm_bytes", 0),
+            "decodes": decodes, "foreign": foreign()})
+    barrier("kvshm/done")
+    ch.close()
+finish()
+"""
+
+
+def test_kv_shm_claim_lands_in_pool_2proc():
+    from tests.torch_procs import ok, run_procs
+    srv, cli = ok(run_procs(_KV_SHM_BODY, 2, timeout=120))
+    payload = jmodel.kv_nbytes(512)
+    assert srv["foreign"] == cli["foreign"] == []
+    assert srv["shm_bound"] and cli["shm_bound"]
+    assert srv["claimed"] >= 4 * payload
+    assert cli["sent"] >= 4 * payload
+    assert cli["shm_route_bytes"] >= 4 * payload
+    st = srv["stats"]
+    assert (st["adopted"], st["scattered"], st["materialized"]) == (4, 1, 0)
+    assert st["copy_bytes"] == (st["adopted"] + st["scattered"]) * payload
+    assert srv["served"]["adopted"] == 4
+    for tokens, got in cli["decodes"]:
+        assert got == jmodel.reference_generate(tokens, 7)

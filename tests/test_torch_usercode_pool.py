@@ -396,6 +396,18 @@ def test_cpu_bound_handlers_do_not_starve_other_sockets(addrs):
         srv_b.stop()
 
 
+def _inflight_after_release(srv, deadline_s=2.0) -> int:
+    """``srv.inflight_requests()`` once it reached 0, or at the deadline.
+    The server writes a response before it gives back the request's
+    concurrency and usercode slot (the order the JAX package has), so a
+    caller whose synchronous call returned can read the count a moment
+    before the release."""
+    end = time.monotonic() + deadline_s
+    while srv.inflight_requests() and time.monotonic() < end:
+        time.sleep(0.001)
+    return srv.inflight_requests()
+
+
 def test_usercode_pool_lifecycle_and_results(addrs):
     srv = rpc.Server(rpc.ServerOptions(usercode_in_pthread=True,
                                        usercode_backup_threads=2))
@@ -409,7 +421,7 @@ def test_usercode_pool_lifecycle_and_results(addrs):
             resp = ch.call_method("EchoService.Echo", cntl,
                                   EchoRequest(message=str(i)), EchoResponse)
             assert not cntl.failed() and resp.message == f"echo:{i}"
-        assert srv.inflight_requests() == 0
+        assert _inflight_after_release(srv) == 0
     finally:
         ch.close()
         srv.stop()
@@ -432,7 +444,7 @@ def test_drain_bounces_pooled_requests_with_elogoff(addrs):
         ch.call_method("EchoService.Echo", cntl, EchoRequest(message="x"),
                        EchoResponse)
         assert cntl.error_code == errors.ELOGOFF
-        assert srv.inflight_requests() == 0
+        assert _inflight_after_release(srv) == 0
     finally:
         srv._draining = False
         ch.close()
