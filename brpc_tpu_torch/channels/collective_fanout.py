@@ -120,6 +120,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..bthread.timer_thread import TimerThread
 from ..butil import flags as _flags
 from ..butil import logging as log
 from ..butil.endpoint import SCHEME_ICI
@@ -1160,10 +1161,13 @@ class _XprocCall:
         if not pending:
             self.export.release()
             return
-        expiry = time.monotonic() + 2 * _flags.get_flag(
-            "ici_fanout_xproc_timeout_s")
+        hold = 2 * _flags.get_flag("ici_fanout_xproc_timeout_s")
+        expiry = time.monotonic() + hold
         with _announce_lock:
             _orphans[self.uuid] = (self.export, self.full, pending, expiry)
+        # the pin goes at its expiry even if no later call or stats read
+        # sweeps: a member silent to the end holds nothing past it
+        TimerThread.instance().schedule_after(_sweep_orphans, hold + 0.05)
 
 
 def _sweep_orphans(uuid: Optional[int] = None, pid: Optional[int] = None) \

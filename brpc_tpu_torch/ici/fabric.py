@@ -151,6 +151,7 @@ from ..bthread.device_waiter import DeviceEventDispatcher
 from ..butil.iobuf import IOBuf, IOPortal, DEVICE
 from ..rpc import errors
 from ..rpc import fault_injection as _fi
+from ..rpc import rpc_dump as _rdump
 from ..rpc.socket import Socket
 from . import device_plane as _dp
 from . import ipc_pull as _ipc
@@ -1320,6 +1321,12 @@ class FabricSocket(CreditWindow, OrderedDelivery, Socket):
         uuid = self.node.next_uuid()
         with self._staged_lock:
             self._staged[uuid] = _XferStage(block, arr, exp)
+        if self.failed or self._peer_gone():
+            # the connection is over and its staged rows were let go (or
+            # are being): nothing will pull or flush this one, so the
+            # write fails as on any dead connection, EFAILEDSOCKET
+            self._unstage(uuid, "connection over")
+            raise ConnectionError("kind-1 stage: the connection is over")
         _xfer_count("staged")
         return encode_array_descriptor(1, uuid, int(arr.shape[0])) + exp.ext
 
@@ -1877,6 +1884,9 @@ class FabricSocket(CreditWindow, OrderedDelivery, Socket):
                     pass
                 raise ConnectionError("fabric control channel: "
                                       "injected sever")
+        if ftype in _PLANE_FRAMES and _rdump.dump_enabled():
+            # the plane-healing handshake as sent (rpc_dump's trace)
+            _rdump.maybe_dump_fabric_frame(self, "out", ftype, body)
         with self._conn_wlock:
             _send_frame(self._conn, ftype, body)
 
@@ -2350,6 +2360,9 @@ class FabricSocket(CreditWindow, OrderedDelivery, Socket):
                 elif ftype == _F_PULL_ERR:
                     self._on_pull_err(body)
                 elif ftype in _PLANE_FRAMES:
+                    if _rdump.dump_enabled():
+                        _rdump.maybe_dump_fabric_frame(
+                            self, "in", ftype, body)
                     which, op = _PLANE_FRAMES[ftype]
                     self._on_plane_frame(which, op, body)
                 elif ftype == _F_GOODBYE:
@@ -2495,9 +2508,13 @@ class FabricSocket(CreditWindow, OrderedDelivery, Socket):
                 if isinstance(p, _dp.DeviceTransfer):
                     if p.out is None or p.state == _dp.FAILED:
                         # the byte stream cannot be repaired: the socket
-                        # and its calls fail with the pull's own code
+                        # and its calls fail with the pull's own code, or
+                        # as a dead connection when the connection died
+                        # under the pull (its EOF queues behind this
+                        # frame; retryable, as in the JAX package)
                         self.set_failed(
-                            errors.EINTERNAL,
+                            errors.EFAILEDSOCKET if self._peer_gone()
+                            else errors.EINTERNAL,
                             f"device-plane transfer {p.uuid:#x} failed: "
                             f"{p.error}")
                         return

@@ -183,6 +183,10 @@ def _relocate(key: int, target_dev: int, err: Optional[int] = None,
     when the rank already owns it, or 0 on failure: native fails the
     call with EINTERNAL and the reason this writes into ``err`` (a
     buffer of ``err_cap`` bytes), so the text belongs to that call.
+    A fabric payload delivered host-resident (kinds 2 and 5: a CPU tensor
+    over the native receive buffer, which no rank owns) takes
+    ``device_put``, which copies, so the buffer may be recycled under the
+    moved tensor (the JAX package detaches such a view first).
     Never raises across ctypes: an error is logged."""
     try:
         from . import device_plane as _dp

@@ -17,17 +17,43 @@ naming_service_thread.h (one shared polling thread per url), ported from
                                 move the pod epoch and show at the next
                                 poll
 
+and its remote schemes, fetched over HTTP with the standard library:
+
+  * ``dns://host:port``         the host's IPv4 addresses, resolved each
+                                period (the reference's DomainNamingService;
+                                ``http://`` and ``https://`` alike)
+  * ``consul://host:port/name`` Consul's health API with its blocking
+                                watch: the first GET primes the index from
+                                ``X-Consul-Index``, each later round
+                                long-polls ``?index=<last>&wait=60s``; a
+                                plain JSON list of ``"host:port"`` strings
+                                (which may name ``ici://`` ranks) is taken
+                                too, and with no index the thread polls
+  * ``remotefile://host/path``  a list file fetched over HTTP, one
+                                ``endpoint [weight] [tag]`` a line
+  * ``nacos://host:port/svc``   Nacos' instance list: unhealthy and
+                                disabled hosts dropped, weight x 100,
+                                ``clusterName`` as the tag
+  * ``discovery://host:port/app`` Bilibili discovery: status 1 only,
+                                every address of an instance, ``zone`` as
+                                the tag
+
 A NamingServiceThread polls its source and pushes full server lists to
 watchers (load balancers implement the watcher interface via
-``reset_servers``).  The remote schemes (``dns://``, ``consul://``,
-``nacos://``, ``discovery://``, remote file) are not ported yet.
+``reset_servers``); a source that watches (consul) is instead re-asked
+the moment its long poll returns.  ``stop`` shuts the socket of a held
+poll, so it returns within its timeout rather than after the poll's 75 s.
 """
 from __future__ import annotations
 
+import http.client
+import json
+import socket as _pysocket
 import threading
+import urllib.request
 from typing import Dict, List, Optional
 
-from ..butil.endpoint import parse_endpoint
+from ..butil.endpoint import EndPoint, parse_endpoint
 from ..butil import flags as _flags
 from ..butil import logging as log
 from .load_balancers import ServerEntry
@@ -39,6 +65,18 @@ _flags.define_flag("ns_poll_interval_s", 1.0,
 class NamingService:
     def get_servers(self) -> List[ServerEntry]:
         raise NotImplementedError
+
+    def supports_watch(self) -> bool:
+        return False
+
+    def watch(self) -> List[ServerEntry]:
+        """One blocking watch round (sources with supports_watch()):
+        returns when membership changed or the source's hold elapsed."""
+        return self.get_servers()
+
+    def cancel(self) -> None:
+        """End a fetch in flight, and refuse later ones (the thread's
+        ``stop``)."""
 
 
 def _parse_line(line: str) -> Optional[ServerEntry]:
@@ -157,18 +195,233 @@ class PodNamingService(NamingService):
         return out
 
 
+class _HttpFetcher:
+    """GETs through urllib that ``cancel`` can end: the HTTP connection's
+    socket is kept while its request is in flight, and ``cancel`` shuts it,
+    which wakes a read held by a long poll at once."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._socks = set()
+        self._cancelled = False
+        fetcher = self
+
+        class _Conn(http.client.HTTPConnection):
+            def connect(self):
+                super().connect()
+                with fetcher._lock:
+                    if fetcher._cancelled:
+                        self.sock.close()
+                        raise ConnectionError("naming fetch cancelled")
+                    fetcher._socks.add(self.sock)
+
+        class _Handler(urllib.request.HTTPHandler):
+            def http_open(self, req):
+                return self.do_open(_Conn, req)
+
+        self._opener = urllib.request.build_opener(_Handler)
+
+    def get(self, url: str, timeout: float):
+        """``(headers, body bytes)`` of one GET."""
+        try:
+            with self._opener.open(url, timeout=timeout) as r:
+                return r.headers, r.read()
+        finally:
+            with self._lock:        # urllib closed the finished ones
+                self._socks = {sk for sk in self._socks
+                               if sk.fileno() != -1}
+
+    def cancel(self) -> None:
+        with self._lock:
+            self._cancelled = True
+            socks = list(self._socks)
+        for sk in socks:
+            try:
+                sk.shutdown(_pysocket.SHUT_RDWR)
+            except OSError:
+                pass
+
+
+class DnsNamingService(NamingService):
+    def __init__(self, hostport: str):
+        host, _, port = hostport.rpartition(":")
+        self.host = host
+        self.port = int(port)
+
+    def get_servers(self) -> List[ServerEntry]:
+        infos = _pysocket.getaddrinfo(self.host, self.port,
+                                      _pysocket.AF_INET,
+                                      _pysocket.SOCK_STREAM)
+        eps = sorted({info[4][0] for info in infos})
+        return [ServerEntry(EndPoint(scheme="tcp", host=ip, port=self.port))
+                for ip in eps]
+
+
+class _HttpNamingService(NamingService):
+    def __init__(self):
+        self._http = _HttpFetcher()
+
+    def cancel(self) -> None:
+        self._http.cancel()
+
+    def _get_json(self, url: str, timeout: float = 5.0):
+        return json.loads(self._http.get(url, timeout)[1].decode())
+
+
+class ConsulNamingService(_HttpNamingService):
+    """Consul's health API with the blocking long-poll watch (reference
+    policy/consul_naming_service.cpp:99-114): the first GET primes the
+    index from the ``X-Consul-Index`` header, and every later round
+    long-polls ``.../v1/health/service/<name>?index=<last>&wait=60s``,
+    which the server holds until membership moves past <last> (or the
+    wait elapses), so a change arrives in one round trip rather than one
+    polling period.  A plain JSON list of ``"host:port"`` strings is taken
+    as well (generic HTTP discovery); it has no index, so the thread
+    polls it."""
+
+    WAIT = "60s"            # consul's hold; the client's timeout adds slack
+
+    def __init__(self, rest: str):
+        super().__init__()
+        hostport, _, name = rest.partition("/")
+        self.url = f"http://{hostport}/v1/health/service/{name}"
+        self.last_index: Optional[str] = None
+
+    def supports_watch(self) -> bool:
+        return True
+
+    def _fetch(self, url: str, timeout: float):
+        headers, body = self._http.get(url, timeout)
+        return headers.get("X-Consul-Index"), json.loads(body.decode())
+
+    @staticmethod
+    def parse_health_response(data) -> List[ServerEntry]:
+        out = []
+        for item in data:
+            if isinstance(item, str):
+                out.append(ServerEntry(parse_endpoint(item)))
+            else:
+                svc = item.get("Service", {})
+                out.append(ServerEntry(
+                    EndPoint(scheme="tcp", host=svc.get("Address", ""),
+                             port=int(svc.get("Port", 0))),
+                    tag=",".join(svc.get("Tags") or [])))
+        return out
+
+    def get_servers(self) -> List[ServerEntry]:
+        idx, data = self._fetch(self.url, timeout=5)
+        if idx:
+            self.last_index = idx
+        return self.parse_health_response(data)
+
+    def watch(self) -> List[ServerEntry]:
+        if self.last_index is None:
+            return self.get_servers()        # prime the index first
+        url = f"{self.url}?index={self.last_index}&wait={self.WAIT}"
+        idx, data = self._fetch(url, timeout=75.0)
+        if idx:
+            self.last_index = idx
+        return self.parse_health_response(data)
+
+
+class RemoteFileNamingService(_HttpNamingService):
+    """``remotefile://<url without its scheme>``: a server list fetched
+    over HTTP, one ``endpoint [weight] [tag]`` a line
+    (policy/remote_file_naming_service.cpp)."""
+
+    def __init__(self, rest: str):
+        super().__init__()
+        self.url = rest if rest.startswith(("http://", "https://")) \
+            else f"http://{rest}"
+
+    def get_servers(self) -> List[ServerEntry]:
+        body = self._http.get(self.url, 5)[1].decode()
+        out = []
+        for line in body.splitlines():
+            e = _parse_line(line)
+            if e is not None:
+                out.append(e)
+        return out
+
+
+class NacosNamingService(_HttpNamingService):
+    """``nacos://host:port/serviceName[?namespaceId=..&groupName=..]``:
+    Nacos' open API GET /nacos/v1/ns/instance/list
+    (policy/nacos_naming_service.cpp).  Unhealthy and disabled hosts are
+    dropped; a weight scales the default 100."""
+
+    def __init__(self, rest: str):
+        super().__init__()
+        hostport, _, svc = rest.partition("/")
+        name, _, query = svc.partition("?")
+        q = f"serviceName={name}" + (f"&{query}" if query else "")
+        self.url = f"http://{hostport}/nacos/v1/ns/instance/list?{q}"
+
+    def get_servers(self) -> List[ServerEntry]:
+        out = []
+        for h in self._get_json(self.url).get("hosts", []):
+            if not h.get("healthy", True) or not h.get("enabled", True):
+                continue
+            out.append(ServerEntry(
+                EndPoint(scheme="tcp", host=str(h.get("ip", "")),
+                         port=int(h.get("port", 0))),
+                weight=int(float(h.get("weight", 1.0)) * 100),
+                tag=str(h.get("clusterName", ""))))
+        return out
+
+
+class DiscoveryNamingService(_HttpNamingService):
+    """``discovery://host:port/appid[?env=..&status=1]``: Bilibili
+    discovery's GET /discovery/fetchs
+    (policy/discovery_naming_service.cpp).  Instances of status 1 only,
+    one entry per address, the zone as the tag."""
+
+    def __init__(self, rest: str):
+        super().__init__()
+        hostport, _, app = rest.partition("/")
+        self.appid, _, query = app.partition("?")
+        q = f"appid={self.appid}" + (f"&{query}" if query else
+                                     "&env=prod&status=1")
+        self.url = f"http://{hostport}/discovery/fetchs?{q}"
+
+    def get_servers(self) -> List[ServerEntry]:
+        data = self._get_json(self.url)
+        out = []
+        app = data.get("data", {}).get(self.appid, {})
+        for inst in app.get("instances", []):
+            if inst.get("status", 1) != 1:
+                continue
+            for addr in inst.get("addrs", []):
+                _, _, hp = addr.partition("://")
+                host, _, port = hp.rpartition(":")
+                if host and port.isdigit():
+                    out.append(ServerEntry(
+                        EndPoint(scheme="tcp", host=host, port=int(port)),
+                        tag=str(inst.get("zone", ""))))
+        return out
+
+
 def create_naming_service(url: str) -> NamingService:
     scheme, _, rest = url.partition("://")
     if scheme == "list":
         return ListNamingService(rest)
     if scheme == "file":
         return FileNamingService(rest)
+    if scheme in ("dns", "http", "https"):
+        return DnsNamingService(rest)
     if scheme == "mesh":
         return MeshNamingService()
     if scheme == "pod":
         return PodNamingService(rest)
-    raise ValueError(f"unknown naming service scheme {scheme!r}: the port "
-                     "resolves list://, file://, mesh:// and pod://")
+    if scheme == "consul":
+        return ConsulNamingService(rest)
+    if scheme == "remotefile":
+        return RemoteFileNamingService(rest)
+    if scheme == "nacos":
+        return NacosNamingService(rest)
+    if scheme == "discovery":
+        return DiscoveryNamingService(rest)
+    raise ValueError(f"unknown naming service scheme {scheme!r}")
 
 
 class NamingServiceThread:
@@ -237,11 +490,42 @@ class NamingServiceThread:
                               exc_info=True)
 
     def _run(self) -> None:
+        if self.ns.supports_watch():
+            self._watch_loop()
+            return
         while not self._stop.wait(_flags.get_flag("ns_poll_interval_s")):
             self._poll_once()
 
+    def _watch_loop(self) -> None:
+        """Each round holds a long poll at the source and publishes the
+        moment it returns.  After an error the next round waits one
+        polling period, so a registry that is down is not hammered; a
+        source that answered without an index is polled at that period
+        rather than re-asked at once."""
+        period = lambda: _flags.get_flag("ns_poll_interval_s")  # noqa: E731
+        while not self._stop.is_set():
+            try:
+                entries = self.ns.watch()
+            except Exception as e:
+                if self._stop.is_set():
+                    return
+                if not self._failing:
+                    log.warning("naming watch %s failed: %s", self.url, e)
+                self._failing = True
+                if self._stop.wait(period()):
+                    return
+                continue
+            self._failing = False
+            self._publish(entries)
+            if getattr(self.ns, "last_index", "armed") is None \
+                    and self._stop.wait(period()):
+                return
+
     def stop(self, timeout: float = 2.0) -> None:
+        """Stop polling; a long poll in flight is ended by shutting its
+        socket, so this returns within ``timeout``."""
         self._stop.set()
+        self.ns.cancel()
         if self._thread is not threading.current_thread():
             self._thread.join(timeout)
 
@@ -257,3 +541,12 @@ def get_naming_service_thread(url: str) -> NamingServiceThread:
             t = NamingServiceThread(url)
             _threads[url] = t
         return t
+
+
+def stop_naming_service_thread(url: str, timeout: float = 2.0) -> None:
+    """Stop the shared thread of ``url`` and forget it: a later Channel
+    on that url starts a new one."""
+    with _threads_lock:
+        t = _threads.pop(url, None)
+    if t is not None:
+        t.stop(timeout)

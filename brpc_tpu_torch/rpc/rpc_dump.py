@@ -17,11 +17,17 @@ transport commits a received frame only after its device copy completed,
 and the read is ordered after the plane's copies on the device as well
 (:meth:`DevicePlane.order_after_copies`): the buffer is never read blind.
 
-The fabric's plane-frame traces (``maybe_dump_fabric_frame``,
-``load_fabric_trace``) wait for the multi-process fabric.
+The fabric's plane-frame trace: with ``rpc_dump`` on, every bulk-conn
+and shm-ring healing frame (types 8-11 and 17-20) a fabric socket sends
+or receives is appended to ``fabric_planes.trace`` under
+``rpc_dump_dir``, one JSON line ``{"sock", "dir", "ftype", "body"}`` a
+frame (the body in hex), as the JAX package writes it
+(:func:`maybe_dump_fabric_frame`, :func:`load_fabric_trace`).  The fabric
+filters to those types, so a healthy call writes nothing.
 """
 from __future__ import annotations
 
+import json
 import os
 import threading
 from typing import List, Optional
@@ -138,3 +144,46 @@ def load_dumped_frames(path: str) -> List[bytes]:
         frames.append(data[pos:end])
         pos = end
     return frames
+
+
+# ---- the fabric's plane-frame trace ------------------------------------
+
+_FABRIC_TRACE_NAME = "fabric_planes.trace"
+_fab_trace_lock = threading.Lock()
+
+
+def maybe_dump_fabric_frame(sock, direction: str, ftype: int,
+                            body: bytes) -> bool:
+    """Append one plane-healing control frame to the trace: the socket's
+    id, the direction ("in" or "out"), the frame type and the body in
+    hex."""
+    if not dump_enabled():
+        return False
+    rec = json.dumps({"sock": getattr(sock, "id", 0),
+                      "dir": direction, "ftype": ftype,
+                      "body": bytes(body).hex()})
+    d = _flags.get_flag("rpc_dump_dir")
+    with _fab_trace_lock:
+        try:
+            os.makedirs(d, exist_ok=True)
+            with open(os.path.join(d, _FABRIC_TRACE_NAME), "a") as f:
+                f.write(rec + "\n")
+        except OSError:
+            return False
+    return True
+
+
+def load_fabric_trace(directory: Optional[str] = None) -> List[dict]:
+    """The plane-frame trace as dicts in the order written (empty when
+    none was recorded)."""
+    d = directory or _flags.get_flag("rpc_dump_dir")
+    path = os.path.join(d, _FABRIC_TRACE_NAME)
+    if not os.path.isfile(path):
+        return []
+    out = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if line:
+                out.append(json.loads(line))
+    return out

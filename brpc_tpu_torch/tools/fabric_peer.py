@@ -1,7 +1,7 @@
 """A peer process of the multi-process fabric: serves ranks of the mesh.
 
     python -m brpc_tpu_torch.tools.fabric_peer HOST:PORT TOKEN \\
-        [--device cuda|cpu] [--threshold BYTES]
+        [--device cuda|cpu] [--threshold BYTES] [--rpc-dump DIR]
 
 Joins as process 1 of 2 the fabric whose store process 0 hosts at
 ``HOST:PORT``, owns ranks 0-3 of an 8-rank mesh and serves, on ``ici://0``
@@ -26,7 +26,18 @@ Joins as process 1 of 2 the fabric whose store process 0 hosts at
     and answers with the cleared plan's ``injected`` counts;
   * ``Stream.Start``: accepts a stream and counts the bytes it receives;
     with the message ``verify`` it also checks every chunk against its
-    sequence tag (an 8-digit number, then ``seq % 251`` repeated).
+    sequence tag (an 8-digit number, then ``seq % 251`` repeated);
+  * ``Sink.Forward``: takes its request's attachment as one tensor and
+    answers JSON with its device, data pointer and ``rank_of``; with the
+    message ``forward`` it also forwards the tensor into a call on this
+    process's native door (``Keep.Hold`` on ``ici://1``, started at the
+    first forward), which keeps what arrives, and adds the call's error
+    and the moves of ``native_plane.relocation_stats()``;
+  * ``Sink.Kept``: the SHA-256 of the first tensor ``Keep.Hold`` kept, its
+    rank and how many it kept (``reset`` forgets them).
+
+``--rpc-dump DIR`` turns ``rpc_dump`` on with ``DIR`` as its directory,
+one file of at most 16 requests (the plane-frame trace is written there).
 
 Its device-plane threshold (``--threshold``, default
 :data:`DEVICE_THRESHOLD`) and socket window (:data:`SOCKET_WINDOW`) are set
@@ -80,6 +91,7 @@ def main(argv=None) -> int:
     ap.add_argument("token")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--threshold", type=int, default=DEVICE_THRESHOLD)
+    ap.add_argument("--rpc-dump", default="")
     args = ap.parse_args(argv)
 
     import brpc_tpu_torch.policy  # noqa: F401  (registers tpu_std)
@@ -111,6 +123,11 @@ def main(argv=None) -> int:
     IciMesh.set_default(mesh)
     flags.set_flag("ici_device_plane_threshold", args.threshold)
     flags.set_flag("ici_socket_window_bytes", SOCKET_WINDOW)
+    if args.rpc_dump:
+        flags.set_flag("rpc_dump_dir", args.rpc_dump)
+        flags.set_flag("rpc_dump_max_files", 1)
+        flags.set_flag("rpc_dump_max_requests_in_one_file", 16)
+        flags.set_flag("rpc_dump", True)
     node = fabric.FabricNode.initialize(args.coord, 2, 1, ranks=range(4),
                                         mesh=mesh)
     host, _, port = args.coord.rpartition(":")
@@ -222,6 +239,71 @@ def main(argv=None) -> int:
                 spec["unloaded_s"], spec["overload_s"], bank,
                 overload_clients.attachment_tensor))
             done()
+
+        @rpc.method(EchoRequest, EchoResponse)
+        def Forward(self, cntl, request, response, done):
+            t = overload_clients.attachment_tensor(cntl.request_attachment)
+            info = {"device": str(t.device), "ptr": t.data_ptr(),
+                    "rank_of": mesh.rank_of(t)}
+            if request.message == "forward":
+                from brpc_tpu_torch.ici import native_plane
+                ch = keeper()
+                r0 = native_plane.relocation_stats()
+                c2 = rpc.Controller()
+                c2.request_attachment.append_device_array(t)
+                resp2 = ch.call_method("Keep.Hold", c2,
+                                       EchoRequest(message="k"),
+                                       EchoResponse)
+                r1 = native_plane.relocation_stats()
+                info.update(error=c2.error_text if c2.failed() else None,
+                            native=ch._native_ici is not None,
+                            callee_rank=resp2.message,
+                            relocated={k: r1[k] - r0[k] for k in r1})
+            del t
+            response.message = json.dumps(info)
+            done()
+
+        @rpc.method(EchoRequest, EchoResponse)
+        def Kept(self, cntl, request, response, done):
+            import hashlib
+            with lock:
+                first = kept[0] if kept else None
+                info = {"n": len(kept), "rank": mesh.rank_of(first)
+                        if first is not None else None,
+                        "sha256": hashlib.sha256(
+                            first.cpu().numpy().tobytes()).hexdigest()
+                        if first is not None else None}
+                if request.message == "reset":
+                    kept.clear()
+            response.message = json.dumps(info)
+            done()
+
+    kept = []
+    keep_ch = []
+
+    class Keep(rpc.Service):
+        @rpc.method(EchoRequest, EchoResponse)
+        def Hold(self, cntl, request, response, done):
+            t = overload_clients.attachment_tensor(cntl.request_attachment)
+            with lock:
+                kept.append(t)
+            response.message = str(mesh.rank_of(t))
+            done()
+
+    def keeper():
+        """The channel to Keep.Hold on this process's native door."""
+        with lock:
+            if not keep_ch:
+                srv = rpc.Server()
+                srv.add_service(Keep())
+                assert srv.start(f"ici://{node.devices[1]}") == 0
+                servers.append(srv)
+                ch = rpc.Channel()
+                ch.init(f"ici://{node.devices[1]}",
+                        options=rpc.ChannelOptions(timeout_ms=30000,
+                                                   max_retry=0))
+                keep_ch.append(ch)
+            return keep_ch[0]
 
     class Stream(rpc.Service):
         @rpc.method(EchoRequest, EchoResponse)

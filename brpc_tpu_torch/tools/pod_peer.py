@@ -4,9 +4,10 @@
         [--device cuda|cpu] [--seq 512 --steps 64 --prompts 20 --warmup 2]
         [--attach 65536]
 
-Every process uses the same 8-rank mesh and owns ranks ``2·PID`` and
-``2·PID + 1`` (``FabricNode.initialize(..., ranks=...)``); process 0
-hosts the fabric's store at ``HOST:PORT``.  Each joins one pod and serves
+Every process uses the same mesh of 8 ranks (``2·NPROC`` past four
+processes) and owns ranks ``2·PID`` and ``2·PID + 1``
+(``FabricNode.initialize(..., ranks=...)``); process 0 hosts the fabric's
+store at ``HOST:PORT``.  Each joins one pod and serves
 on ``ici://2·PID`` (the Python plane).  The processes coordinate through
 the store and each prints its result as its last line, ``RESULT
 {json}``.  Two scenarios:
@@ -41,6 +42,7 @@ from __future__ import annotations
 
 import argparse
 import importlib
+import itertools
 import json
 import os
 import sys
@@ -84,7 +86,8 @@ class _Member:
 
             self.copy_mod.p2p_copy_plain = counted
             flags.set_flag("ici_device_plane_host_mesh", True)
-        self.mesh = IciMesh(ranks=8, device=args.device)
+        # two ranks a member: 8, or more for a pod of over four
+        self.mesh = IciMesh(ranks=max(8, 2 * self.n), device=args.device)
         IciMesh.set_default(self.mesh)
         flags.set_flag("ici_socket_window_bytes", SOCKET_WINDOW)
         self.fabric = fabric
@@ -165,7 +168,8 @@ class _Member:
         from brpc_tpu_torch.ici import ipc_pull
         deadline = time.monotonic() + 10.0
         while time.monotonic() < deadline and (
-                self.plane.active_transfers() or self.ipc()["mapped"]):
+                self.plane.active_transfers() or self.ipc()["mapped"]
+                or ipc_pull.live_segments()):
             time.sleep(0.05)
         return {"active": self.plane.active_transfers(),
                 "mapped": self.ipc()["mapped"],
@@ -427,6 +431,10 @@ def _drive_generate(m, pod, server, kv_nbytes, reference_generate, rpc,
         "vars_processes": [p for p in range(3)
                            if f"== process {p} ==" in vbody],
         "vars_unreachable": "<unreachable" in vbody,
+        "vars_errors": [ln for ln in vbody.splitlines()
+                        if "<unreachable" in ln],
+        "metrics_errors": [ln for ln in mbody.splitlines()
+                           if "unreachable" in ln],
         "metrics_processes": [p for p in range(3)
                               if f'process="{p}"' in mbody],
         "metrics_typed": "# TYPE" in mbody}
@@ -575,7 +583,10 @@ def run_chaos(m: _Member) -> dict:
             dch.call_method("EchoService.Echo", cntl,
                             EchoRequest(message="d"), EchoResponse)
             assert not cntl.failed(), cntl.error_text
-            socks = [s for s in m.fabric_sockets() if s.remote_dev == 4]
+            # this process's connection to ici://4 (process 2's own calls
+            # here arrive on a server-side socket that may name rank 4 too)
+            socks = [s for s in m.fabric_sockets() if s.remote_dev == 4
+                     and not s.is_server_side]
             assert socks, "no fabric socket to the kill target"
             old_sid = socks[0].id
             m.put("presock", 1)
@@ -611,7 +622,7 @@ def run_chaos(m: _Member) -> dict:
             assert Socket.address(old_sid) is None, \
                 "stale pre-kill socket id must not resolve"
             new = [s for s in m.fabric_sockets() if s.remote_dev == 4
-                   and not s._peer_gone()]
+                   and not s.is_server_side and not s._peer_gone()]
             assert new and all(s.id != old_sid for s in new), (
                 old_sid, [s.id for s in new])
             dch.close()
@@ -1024,6 +1035,40 @@ def _fanout_client(m, pod, cf, channels, rpc, route, flags, EchoRequest,
     return res
 
 
+_port_calls = itertools.count()
+
+
+def free_port() -> int:
+    """A free port of 127.0.0.1 for a store or a listener that another
+    process binds.  A port that ``bind(("127.0.0.1", 0))`` hands out is in
+    the kernel's ephemeral range, where any socket's connect may take it
+    before the other process binds it; this one is below that range,
+    probed from a seed of (process, call), so test processes running at
+    once try different ports, and bound once to check it is free."""
+    import hashlib
+    import socket
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            lo = int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        lo = 0
+    span = lo - 10000
+    if span >= 1000:
+        seed = f"{os.getpid()}|{next(_port_calls)}".encode()
+        h = int.from_bytes(hashlib.sha1(seed).digest()[:4], "big")
+        for i in range(64):
+            port = 10000 + (h + i * 131) % span
+            with socket.socket() as s:
+                try:
+                    s.bind(("127.0.0.1", port))
+                except OSError:
+                    continue
+            return port
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def run_members(scenario: str, nproc: int, device: str = "cuda",
                 extra=(), timeout: float = 600.0, cwd=None) -> list:
     """Start ``nproc`` members of ``scenario`` as fresh interpreters, all
@@ -1031,12 +1076,9 @@ def run_members(scenario: str, nproc: int, device: str = "cuda",
     one's RESULT (None for a member that printed none) beside its exit
     code and output: ``[(rc, result, output), ...]``.  A member still
     running at ``timeout`` is killed."""
-    import socket
     import subprocess
     import tempfile
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        coord = f"127.0.0.1:{s.getsockname()[1]}"
+    coord = f"127.0.0.1:{free_port()}"
     procs = []
     for pid in range(nproc):
         log = tempfile.TemporaryFile(mode="w+")
@@ -1063,7 +1105,11 @@ def run_members(scenario: str, nproc: int, device: str = "cuda",
 
 
 def main(argv=None) -> int:
+    import faulthandler
     _exit_with_parent()
+    # a member killed by a signal (an abort in interpreter teardown)
+    # prints every thread's stack with its output
+    faulthandler.enable(all_threads=True)
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("coord")
     ap.add_argument("pid", type=int)
@@ -1086,7 +1132,10 @@ def main(argv=None) -> int:
            "fanout": run_fanout}[args.scenario]
     out = run(m)
     m.node.quiesce()
-    print("RESULT " + json.dumps(out), flush=True)
+    # one write: another thread's log line (stderr, the same file for
+    # run_members) cannot land between the line and its newline
+    sys.stdout.write("RESULT " + json.dumps(out) + "\n")
+    sys.stdout.flush()
     return 0
 
 

@@ -450,6 +450,47 @@ Phases, each fatal on failure:
                 one DEVICE session (kind 4, scattered): materialized 0,
                 copy bytes = (adopted + scattered) x payload, every
                 decode equal to reference_generate
+ 22. remote naming, the plane-frame trace, the relocation
+                a registry on 127.0.0.1 in this process
+                (tools/fake_registry.py) answers the five remote APIs:
+                (a) remotefile:// naming ici://4-7, four servers on the
+                default door, an rr Channel: 200 calls, each with a 64
+                KiB DEVICE attachment owned by rank 1 (one relocation on
+                p2p_copy a call): launches = transfers = calls received
+                over the four, 50 +- 10 on each, p50/p99 printed; then
+                the registry withdraws ici://7 while calls go on: the ms
+                until the balancer drops it printed (under 10 polling
+                periods), no call reaches it after, 0 failed calls;
+                (b) consul:// in Consul's health form over four TCP
+                servers: 4 KiB DEVICE echoes (one D2H copy each, no
+                launch), then an index bump for a withdrawal and one for
+                the re-add under traffic: the ms from each bump to the
+                watcher's reset printed (under one polling period), 0
+                failed calls; the naming thread's stop ms printed;
+                (c) nacos:// (unhealthy and disabled hosts dropped,
+                weight x 100, clusterName as tag), discovery:// (status
+                1 only, zone as tag) and dns://localhost:<port> each
+                resolve to the expected list and serve 16 echoes;
+                (d) in a member process (ranks 4-7) and a fabric_peer
+                --threshold 65536 (ranks 0-3), rpc_dump on in both: a
+                256 KiB host echo, then the bulk conn severed and the
+                ring killed on that socket (chaos_plane KILL, each
+                landed on this end before the next echo): in each
+                process's fabric_planes.trace DOWN (empty) and
+                REESTABLISH ({"bulk_key"} / {"shm_seg"}) from the member,
+                one empty OK from the peer, 8 < 9 < 10 and 17 < 18 < 19,
+                nothing for the healthy echo, 0 failed calls;
+                (e) DEVICE payloads above the device-plane threshold on
+                a one-stripe 32 MiB ring (kind 5, delivered
+                host-resident: rank_of -1) at two sizes: 4 MiB - 128 KiB
+                (the largest the native door's window takes) and 8 MiB
+                (over it); the first of each forwarded into a call on
+                the peer's native door (relocated by the door, device_put
+                +1 and no plane relocation; the 8 MiB one by the Python
+                plane's transport, the door's counts unmoved), then
+                enough later ones to go round the ring, one landing over
+                the first's bytes; the callee's copy equals the first
+                payload's SHA-256
 
 Launch counts are zeroed just before each path and read just after it:
 during phases 3-4 and during phase 8 p2p_copy's launches must equal the
@@ -480,7 +521,10 @@ its peer the launches equal the kind-4 transfers each received, one per
 frame of (c); during phase 21 the driving process launches none in (a)
 and (b) and one per LoadKv relocation in (c); in (b)'s member and its
 peer the launches equal the kind-1 rows each pulled, and in (c)'s decode
-process the kind-4 transfer it received; during phase 6 each ring kernel's launches must equal the calls of its entry
+process the kind-4 transfer it received; during phase 22 (a)-(c) they
+equal the transfers and the calls the four ici:// servers received (the
+TCP legs launch none), and in (d)-(e) the driving process, the member
+and its peer launch none; during phase 6 each ring kernel's launches must equal the calls of its entry
 point.  The line before the last is the ``kernels`` JSON; the last line
 is the device JSON.
 """
@@ -634,6 +678,19 @@ XFER_THRESHOLD = 64 << 10
 XFER_SIZES = ((4 << 10, 200), (64 << 10, 200), (4 << 20, 16))
 XFER_REFUSE = 2
 KV21_SEQ, KV21_STEPS, KV21_HOST_SESSIONS = 512, 7, 4
+# phase 22: (a) remotefile:// over ici://4-7: calls of a 64 KiB DEVICE
+# attachment, then calls while the registry withdraws ici://7; (b)
+# consul:// over four TCP servers: 4 KiB DEVICE echoes; (c) each of
+# nacos://, discovery:// and dns:// once; (d) the plane-frame trace's host
+# payloads; (e) DEVICE payloads on a one-stripe ring of 32 MiB, the first
+# of each size forwarded, enough later ones to go round the ring: the
+# largest the native door takes (its window less 128 KiB, as phase 16 (e))
+# and 8 MiB, over that window
+NAMING_CALLS, NAMING_PAYLOAD = 200, 64 << 10
+NAMING_TCP_CALLS, NAMING_TCP_PAYLOAD, NAMING_ECHOES = 64, 4 << 10, 16
+TRACE_PAYLOAD = 256 << 10
+RELOC_NATIVE, RELOC_PAYLOAD = (4 << 20) - (128 << 10), 8 << 20
+RELOC_RING = 32 << 20
 
 
 def fail(msg: str) -> None:
@@ -3935,10 +3992,8 @@ def phase_native(mesh, plane, p2p_copy) -> dict:
 
 
 def _free_port() -> int:
-    import socket
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    from brpc_tpu_torch.tools.pod_peer import free_port
+    return free_port()
 
 
 # phase 17 (f): a fabric peer whose open of the device leg refuses (a
@@ -4378,12 +4433,14 @@ def phase_fabric(mesh, plane, p2p_copy, device: str = "cuda",
     return out
 
 
-def phase_pod(device: str = "cuda") -> dict:
+def phase_pod(device: str = "cuda", scenarios=("generate", "chaos"),
+              chaos_procs: int = 0) -> dict:
     """The pod (see the module docstring, phase 18): the disaggregated
     Generate over three member processes, then the membership contract over
-    four, each member a fresh interpreter (``tools/pod_peer.py``) started
-    with the others at once.  The members count their own copy launches
-    from just before their traffic and report them."""
+    four (``chaos_procs`` when given), each member a fresh interpreter
+    (``tools/pod_peer.py``) started with the others at once.  The members
+    count their own copy launches from just before their traffic and
+    report them.  ``scenarios`` picks the legs to run."""
     from brpc_tpu_torch.examples.disagg_serving.model import kv_nbytes
     from brpc_tpu_torch.ici import ipc_pull
     from brpc_tpu_torch.tools import pod_peer
@@ -4411,104 +4468,107 @@ def phase_pod(device: str = "cuda") -> dict:
             check(not left, f"pod member {r['pid']}'s segments left: {left}")
         return rs, wall
 
-    # (a)-(c): router (p0), prefill (p1, ici://2), decode (p2, ici://4)
-    gen, wall = members("generate", 3, [
-        "--seq", POD_SEQ, "--steps", POD_STEPS, "--prompts", POD_PROMPTS,
-        "--warmup", POD_WARMUP])
-    a, b, c = gen[0]["a"], gen[0]["b"], gen[0]["c"]
-    n_gen = POD_WARMUP + POD_PROMPTS
-    check(not gen[0]["errors"] and not a["errors"],
-          f"pod Generate errors: {gen[0]['errors'] or a['errors']}")
-    check(a["generates"] == n_gen, f"pod Generates: {a['generates']}")
-    check(a["handoff_bytes"] == a["handoff_expected"]
-          == n_gen * kv_nbytes(POD_SEQ),
-          f"handoff bytes {a['handoff_bytes']}, expected "
-          f"{n_gen * kv_nbytes(POD_SEQ)}")
-    dec = a["decode"]
-    check(dec["launches"] == dec["received"] == dec["attachments"] == n_gen,
-          f"decode process: p2p_copy launches {dec['launches']}, kind-4 "
-          f"transfers received {dec['received']}, attachments "
-          f"{dec['attachments']}, Generates {n_gen}")
-    check(a["router"]["launches"] == a["prefill"]["launches"] == 0,
-          f"a copy launched outside the decode: {a['router']}, "
-          f"{a['prefill']}")
-    check(gen[0]["pod_list"] == ["ici://0", "ici://2", "ici://4"],
-          f"pod://pd listed {gen[0]['pod_list']}")
-    check(not b["problems"], f"stitched trace: {b['problems']}")
-    check(b["vars_processes"] == [0, 1, 2] and not b["vars_unreachable"],
-          f"/vars?scope=pod listed {b['vars_processes']}")
-    check(b["metrics_processes"] == [0, 1, 2] and b["metrics_typed"],
-          f"/brpc_metrics?scope=pod listed {b['metrics_processes']}")
-    check(c["dropped_s"] is not None and c["relisted_s"] is not None,
-          f"pod://pd through the decode's drain: {c}")
-    check(c["generate_after_restart_ok"],
-          f"the Generate after the decode's restart failed: "
-          f"{gen[0]['errors']}")
-    epochs = [r["epoch"] for r in gen]
-    check(len(set(epochs)) == 1 and epochs[0] == 9,
-          f"pod pd epochs {epochs}, expected 9 in every member")
-    out["generate"] = {"wall_s": wall, "a": a, "b": b, "c": c,
-                       "epochs": epochs}
-    print(f"pod generate: {n_gen} Generates equal to reference_generate, "
-          f"{a['tokens_per_s']:.1f} tokens/s from 2 clients, handoff "
-          f"{a['handoff_bytes']} B = {n_gen} x {kv_nbytes(POD_SEQ)}, "
-          f"{a['handoff_gbps']:.3f} GB/s over the timed prompts' LoadKv "
-          f"round trips; "
-          f"decode process: launches = "
-          f"kind-4 received = attachments = {dec['launches']}, IPC opens "
-          f"{dec['ipc']['opens']} against hits {dec['ipc']['hits']}; "
-          f"stitched trace of {b['span_count']} spans, clock bounds "
-          f"{b['clock_bound_us']} us; drain: pod://pd dropped ici://4 "
-          f"after {c['dropped_s'] * 1e3:.1f} ms, relisted after "
-          f"{c['relisted_s'] * 1e3:.1f} ms, the next Generate passed on "
-          f"its one try; epochs {epochs}; "
-          f"{wall:.1f} s", flush=True)
+    gen, chaos = [], []
+    if "generate" in scenarios:
+        # (a)-(c): router (p0), prefill (p1, ici://2), decode (p2, ici://4)
+        gen, wall = members("generate", 3, [
+            "--seq", POD_SEQ, "--steps", POD_STEPS, "--prompts", POD_PROMPTS,
+            "--warmup", POD_WARMUP])
+        a, b, c = gen[0]["a"], gen[0]["b"], gen[0]["c"]
+        n_gen = POD_WARMUP + POD_PROMPTS
+        check(not gen[0]["errors"] and not a["errors"],
+              f"pod Generate errors: {gen[0]['errors'] or a['errors']}")
+        check(a["generates"] == n_gen, f"pod Generates: {a['generates']}")
+        check(a["handoff_bytes"] == a["handoff_expected"]
+              == n_gen * kv_nbytes(POD_SEQ),
+              f"handoff bytes {a['handoff_bytes']}, expected "
+              f"{n_gen * kv_nbytes(POD_SEQ)}")
+        dec = a["decode"]
+        check(dec["launches"] == dec["received"] == dec["attachments"] == n_gen,
+              f"decode process: p2p_copy launches {dec['launches']}, kind-4 "
+              f"transfers received {dec['received']}, attachments "
+              f"{dec['attachments']}, Generates {n_gen}")
+        check(a["router"]["launches"] == a["prefill"]["launches"] == 0,
+              f"a copy launched outside the decode: {a['router']}, "
+              f"{a['prefill']}")
+        check(gen[0]["pod_list"] == ["ici://0", "ici://2", "ici://4"],
+              f"pod://pd listed {gen[0]['pod_list']}")
+        check(not b["problems"], f"stitched trace: {b['problems']}")
+        check(b["vars_processes"] == [0, 1, 2] and not b["vars_unreachable"],
+              f"/vars?scope=pod listed {b['vars_processes']}")
+        check(b["metrics_processes"] == [0, 1, 2] and b["metrics_typed"],
+              f"/brpc_metrics?scope=pod listed {b['metrics_processes']}")
+        check(c["dropped_s"] is not None and c["relisted_s"] is not None,
+              f"pod://pd through the decode's drain: {c}")
+        check(c["generate_after_restart_ok"],
+              f"the Generate after the decode's restart failed: "
+              f"{gen[0]['errors']}")
+        epochs = [r["epoch"] for r in gen]
+        check(len(set(epochs)) == 1 and epochs[0] == 9,
+              f"pod pd epochs {epochs}, expected 9 in every member")
+        out["generate"] = {"wall_s": wall, "a": a, "b": b, "c": c,
+                           "epochs": epochs}
+        print(f"pod generate: {n_gen} Generates equal to reference_generate, "
+              f"{a['tokens_per_s']:.1f} tokens/s from 2 clients, handoff "
+              f"{a['handoff_bytes']} B = {n_gen} x {kv_nbytes(POD_SEQ)}, "
+              f"{a['handoff_gbps']:.3f} GB/s over the timed prompts' LoadKv "
+              f"round trips; "
+              f"decode process: launches = "
+              f"kind-4 received = attachments = {dec['launches']}, IPC opens "
+              f"{dec['ipc']['opens']} against hits {dec['ipc']['hits']}; "
+              f"stitched trace of {b['span_count']} spans, clock bounds "
+              f"{b['clock_bound_us']} us; drain: pod://pd dropped ici://4 "
+              f"after {c['dropped_s'] * 1e3:.1f} ms, relisted after "
+              f"{c['relisted_s'] * 1e3:.1f} ms, the next Generate passed on "
+              f"its one try; epochs {epochs}; "
+              f"{wall:.1f} s", flush=True)
 
-    # the membership contract: a kill and a drain under traffic
-    chaos, wall = members("chaos", POD_CHAOS_PROCS, ["--attach", POD_ATTACH])
-    want_epoch = 2 * POD_CHAOS_PROCS + 4
-    for r in chaos:
-        check(r["failed"] == 0, f"pod chaos member {r['pid']}: "
-                                f"{r['failed']} calls failed: "
-                                f"{r['failures']}")
-        check(r["epoch"] == want_epoch,
-              f"pod chaos member {r['pid']} read epoch {r['epoch']}, "
-              f"expected {want_epoch}")
-        d = r["counts"]
-        check(d["launches"] == d["copies"] and d["remote_received"] > 0,
-              f"pod chaos member {r['pid']}: p2p_copy launches "
-              f"{d['launches']}, transfers received {d['copies']} "
-              f"({d['remote_received']} from other processes)")
-    check(chaos[0].get("old_socket_revoked") is True,
-          "the pre-kill socket id was not revoked")
-    mark = chaos[0]["drain_mark"]
-    unlisted = [r["unlisted_at"] for r in chaos]
-    check(all(u is not None for u in unlisted),
-          f"ici://6 never left some member's pod://: {unlisted}")
-    drain_ms = (max(unlisted) - mark) * 1e3
-    out["chaos"] = {
-        "wall_s": wall, "epochs": [r["epoch"] for r in chaos],
-        "calls": [r["calls"] for r in chaos],
-        "counts": [r["counts"] for r in chaos],
-        "ipc": [r["ipc"] for r in chaos],
-        "drain_s": chaos[3].get("drain_s"),
-        "drain_to_unlisted_ms": drain_ms}
-    print(f"pod chaos: {POD_CHAOS_PROCS} members, calls "
-          f"{out['chaos']['calls']}, none failed through p2's kill and "
-          f"p3's drain; epochs {out['chaos']['epochs']} = {want_epoch}; "
-          f"ici://6 left every member's pod:// {drain_ms:.1f} ms after the "
-          f"drain mark; launches = transfers received "
-          f"{[d['launches'] for d in out['chaos']['counts']]} "
-          f"({[d['remote_received'] for d in out['chaos']['counts']]} "
-          f"from other processes); the pre-kill socket id revoked; "
-          f"{wall:.1f} s", flush=True)
-    out["launches"] = sum(r["a"]["launches"] for r in gen[1:]) \
-        + a["router"]["launches"] \
-        + sum(r["counts"]["launches"] for r in chaos)
-    out["launches_by_scenario"] = {
-        "generate": out["launches"]
-        - sum(r["counts"]["launches"] for r in chaos),
-        "chaos": sum(r["counts"]["launches"] for r in chaos)}
+    if "chaos" in scenarios:
+        # the membership contract: a kill and a drain under traffic
+        nproc = chaos_procs or POD_CHAOS_PROCS
+        chaos, wall = members("chaos", nproc, ["--attach", POD_ATTACH])
+        want_epoch = 2 * nproc + 4
+        for r in chaos:
+            check(r["failed"] == 0, f"pod chaos member {r['pid']}: "
+                                    f"{r['failed']} calls failed: "
+                                    f"{r['failures']}")
+            check(r["epoch"] == want_epoch,
+                  f"pod chaos member {r['pid']} read epoch {r['epoch']}, "
+                  f"expected {want_epoch}")
+            d = r["counts"]
+            check(d["launches"] == d["copies"] and d["remote_received"] > 0,
+                  f"pod chaos member {r['pid']}: p2p_copy launches "
+                  f"{d['launches']}, transfers received {d['copies']} "
+                  f"({d['remote_received']} from other processes)")
+        check(chaos[0].get("old_socket_revoked") is True,
+              "the pre-kill socket id was not revoked")
+        mark = chaos[0]["drain_mark"]
+        unlisted = [r["unlisted_at"] for r in chaos]
+        check(all(u is not None for u in unlisted),
+              f"ici://6 never left some member's pod://: {unlisted}")
+        drain_ms = (max(unlisted) - mark) * 1e3
+        out["chaos"] = {
+            "wall_s": wall, "epochs": [r["epoch"] for r in chaos],
+            "calls": [r["calls"] for r in chaos],
+            "counts": [r["counts"] for r in chaos],
+            "ipc": [r["ipc"] for r in chaos],
+            "drain_s": chaos[3].get("drain_s"),
+            "drain_to_unlisted_ms": drain_ms}
+        print(f"pod chaos: {nproc} members, calls "
+              f"{out['chaos']['calls']}, none failed through p2's kill and "
+              f"p3's drain; epochs {out['chaos']['epochs']} = {want_epoch}; "
+              f"ici://6 left every member's pod:// {drain_ms:.1f} ms after the "
+              f"drain mark; launches = transfers received "
+              f"{[d['launches'] for d in out['chaos']['counts']]} "
+              f"({[d['remote_received'] for d in out['chaos']['counts']]} "
+              f"from other processes); the pre-kill socket id revoked; "
+              f"{wall:.1f} s", flush=True)
+    gen_launches = sum(r["a"]["launches"] for r in gen[1:]) \
+        + (gen[0]["a"]["router"]["launches"] if gen else 0)
+    chaos_launches = sum(r["counts"]["launches"] for r in chaos)
+    out["launches"] = gen_launches + chaos_launches
+    out["launches_by_scenario"] = {"generate": gen_launches,
+                                   "chaos": chaos_launches}
     out["wall_s"] = time.monotonic() - t_phase
     out["members"] = {"generate": gen, "chaos": chaos}
     return out
@@ -4630,7 +4690,8 @@ def _run_member(expr: str, tag: str, device: str, sizes: dict,
             procs.append((subprocess.Popen(
                 [sys.executable, "-c", "import sys, json, chip_smoke as cs; "
                  "vars(cs).update(json.loads(sys.argv[2])); "
-                 f"print({tag!r} + ' ' + json.dumps({expr}), flush=True)",
+                 f"sys.stdout.write({tag!r} + ' ' + json.dumps({expr}) + "
+                 "'\\n'); sys.stdout.flush()",
                  device, json.dumps(sizes), logs, *map(str, extra)],
                 cwd=str(ROOT), stdout=log, stderr=subprocess.STDOUT), log))
         outs = []
@@ -5972,6 +6033,598 @@ def _fabric_overload(rpc, mesh, plane, ch, count, peer_stats, sync) -> dict:
     return out
 
 
+# ---- phase 22: remote naming, the plane-frame trace, the relocation -----
+
+def _naming_servers(rpc, EchoRequest, EchoResponse, targets):
+    """One server per ``(tag, target)``, each answering ``Tag.Echo`` with
+    its tag (and, for the message ``echo``, its request's attachment) and
+    counting the calls it received."""
+    received = {tag: 0 for tag, _t in targets}
+    lock = threading.Lock()
+    servers = []
+    for tag, target in targets:
+        class Tag(rpc.Service):
+            @rpc.method(EchoRequest, EchoResponse)
+            def Echo(self, cntl, request, response, done, tag=tag):
+                with lock:
+                    received[tag] += 1
+                response.message = tag
+                if request.message == "echo":
+                    cntl.response_attachment.append(
+                        cntl.request_attachment)
+                done()
+        srv = rpc.Server()
+        srv.add_service(Tag())
+        check(srv.start(target) == 0, f"phase 22: server on {target}")
+        servers.append(srv)
+    return servers, received
+
+
+def _echo_device(rpc, ch, payload, EchoRequest, EchoResponse, want=None):
+    """One ``Tag.Echo`` with ``payload`` as a DEVICE attachment, echoed
+    back when ``want`` (its bytes) is given; returns (the tag of the
+    member that answered, an error or None)."""
+    cntl = rpc.Controller()
+    cntl.request_attachment.append_device_array(payload)
+    resp = ch.call_method("Tag.Echo", cntl, EchoRequest(
+        message="push" if want is None else "echo"), EchoResponse)
+    if cntl.failed():
+        return None, (cntl.error_code_, cntl.error_text)
+    if want is not None and cntl.response_attachment.to_bytes() != want:
+        return resp.message, "the echo came back with other bytes"
+    return resp.message, None
+
+
+def phase_remote_naming(mesh, plane, p2p_copy, launches=None) -> dict:
+    """Remote naming against a registry on localhost (see the module
+    docstring, phase 22 (a)-(c)).  ``launches`` reads this process's copy
+    launches (default the kernel's counter; a CPU rehearsal passes its
+    plain-version count)."""
+    import brpc_tpu_torch.policy  # noqa: F401
+    from brpc_tpu_torch import rpc
+    from brpc_tpu_torch.butil import flags
+    from brpc_tpu_torch.policy import naming
+    from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
+    from brpc_tpu_torch.tools.fake_registry import FakeRegistry
+
+    t_phase = time.monotonic()
+    count = launches or (lambda: p2p_copy.launches)
+    sync = torch.cuda.synchronize if mesh.device_type == "cuda" \
+        else (lambda: None)
+    reg = FakeRegistry()
+    out = {}
+    period = flags.get_flag("ns_poll_interval_s")
+    threshold = flags.get_flag("ici_device_plane_threshold")
+    try:
+        # (a) remotefile:// naming ici://4-7 on the default door
+        flags.set_flag("ici_device_plane_threshold", 1)
+        ranks = [f"ici://{r}" for r in range(4, 8)]
+        servers, received = _naming_servers(rpc, EchoRequest, EchoResponse,
+                                            [(r, r) for r in ranks])
+        reg.set_file("/fleet", ranks)
+        url = f"remotefile://{reg.hostport}/fleet"
+        ch = rpc.Channel()
+        check(ch.init(url, "rr", options=rpc.ChannelOptions(
+            timeout_ms=30000, max_retry=0)) == 0, "phase 22 (a): init")
+        _, payload = make_payload(mesh, NAMING_PAYLOAD, 1, seed=22)
+        l0, x0 = count(), plane.stats()["transfers"]
+        lat, errs = [], []
+        for _ in range(NAMING_CALLS):
+            t0 = time.perf_counter_ns()
+            _who, err = _echo_device(rpc, ch, payload, EchoRequest,
+                                     EchoResponse)
+            lat.append((time.perf_counter_ns() - t0) / 1000.0)
+            if err:
+                errs.append(err)
+        sync()
+        per = dict(received)
+        # the registry withdraws ici://7 while calls go on
+        stop = threading.Event()
+        during = []
+
+        def traffic():
+            while not stop.is_set():
+                who, err = _echo_device(rpc, ch, payload, EchoRequest,
+                                        EchoResponse)
+                during.append((time.monotonic(), who))
+                if err:
+                    errs.append(err)
+
+        th = threading.Thread(target=traffic)
+        th.start()
+        time.sleep(0.2)
+        t_w = time.monotonic()
+        reg.set_file("/fleet", ranks[:3])
+        deadline = t_w + 10 * period
+        while ranks[3] in [str(e.endpoint) for e in ch._lb.servers()] \
+                and time.monotonic() < deadline:
+            time.sleep(0.001)
+        drop_ms = (time.monotonic() - t_w) * 1e3
+        time.sleep(0.3)
+        t_after = time.monotonic()
+        time.sleep(0.3)
+        stop.set()
+        th.join(60)
+        sync()
+        deadline = time.monotonic() + 10
+        while plane.active_transfers() and time.monotonic() < deadline:
+            time.sleep(0.005)
+        calls = NAMING_CALLS + len(during)
+        a = {"calls": calls, "errors": errs[:3], "per_member": per,
+             "received": sum(received.values()),
+             "launches": count() - l0,
+             "transfers": plane.stats()["transfers"] - x0,
+             "p50_us": _pct(lat, 0.5), "p99_us": _pct(lat, 0.99),
+             "drop_ms": drop_ms,
+             "to_7_after_drop": sum(1 for t, who in during
+                                    if t >= t_after and who == ranks[3])}
+        ch.close()
+        naming.stop_naming_service_thread(url)
+        for srv in servers:
+            srv.stop()
+        flags.set_flag("ici_device_plane_threshold", threshold)
+        out["a"] = a
+        check(not errs, f"phase 22 (a): calls failed: {errs[:3]}")
+        check(a["launches"] == a["transfers"] == a["received"] == calls,
+              f"phase 22 (a): launches {a['launches']}, transfers "
+              f"{a['transfers']}, calls received {a['received']}, calls "
+              f"{calls}")
+        check(all(abs(v - NAMING_CALLS // 4) <= NAMING_CALLS // 20
+                  for v in per.values()),
+              f"phase 22 (a): rr spread {per}")
+        check(drop_ms < 10 * period * 1e3 and a["to_7_after_drop"] == 0,
+              f"phase 22 (a): ici://7 left the balancer after {drop_ms} ms,"
+              f" {a['to_7_after_drop']} calls reached it after")
+
+        # (b) consul:// in Consul's health form, four TCP servers
+        servers, received = _naming_servers(
+            rpc, EchoRequest, EchoResponse,
+            [(f"tcp{i}", "tcp://127.0.0.1:0") for i in range(4)])
+        ports = [srv.listen_port for srv in servers]
+        items = [reg.consul_item("127.0.0.1", p, tags=("tcp",))
+                 for p in ports]
+        reg.set_consul("fleet", items)
+        url = f"consul://{reg.hostport}/fleet"
+        ch = rpc.Channel()
+        check(ch.init(url, "rr", options=rpc.ChannelOptions(
+            timeout_ms=30000, max_retry=0)) == 0, "phase 22 (b): init")
+        resets = []
+
+        class Watch:
+            def reset_servers(self, entries):
+                resets.append((time.monotonic(), len(entries)))
+
+        nst = naming.get_naming_service_thread(url)
+        nst.add_watcher(Watch())
+        data, small = make_payload(mesh, NAMING_TCP_PAYLOAD, 1, seed=221)
+        want = data.tobytes()
+        l0 = count()
+        errs, who = [], {}
+        for _ in range(NAMING_TCP_CALLS):
+            w, err = _echo_device(rpc, ch, small, EchoRequest, EchoResponse,
+                                  want)
+            who[w] = who.get(w, 0) + 1
+            if err:
+                errs.append(err)
+        stop.clear()
+        during = []
+
+        def traffic_b():
+            while not stop.is_set():
+                w, err = _echo_device(rpc, ch, small, EchoRequest,
+                                      EchoResponse, want)
+                during.append(w)
+                if err:
+                    errs.append(err)
+
+        th = threading.Thread(target=traffic_b)
+        th.start()
+        watch_ms = []
+        for n, listing in ((3, items[:3]), (4, items)):
+            time.sleep(0.2)
+            k = len(resets)
+            t_b = time.monotonic()
+            reg.set_consul("fleet", listing)
+            deadline = t_b + 10
+            while not any(c == n for _t, c in resets[k:]) \
+                    and time.monotonic() < deadline:
+                time.sleep(0.0005)
+            hit = [t for t, c in resets[k:] if c == n]
+            watch_ms.append((hit[0] - t_b) * 1e3 if hit else None)
+        time.sleep(0.2)
+        stop.set()
+        th.join(60)
+        sync()
+        b = {"calls": NAMING_TCP_CALLS + len(during), "errors": errs[:3],
+             "members": len([w for w in who if w]),
+             "launches": count() - l0, "watch_ms": watch_ms}
+        ch.close()
+        t0 = time.monotonic()
+        naming.stop_naming_service_thread(url)
+        b["stop_ms"] = (time.monotonic() - t0) * 1e3
+        out["b"] = b
+        check(not errs, f"phase 22 (b): calls failed: {errs[:3]}")
+        check(b["members"] == 4, f"phase 22 (b): answered by {who}")
+        check(b["launches"] == 0, f"phase 22 (b): {b['launches']} copy "
+                                  f"launches on the TCP leg")
+        check(all(m is not None and m < period * 1e3 for m in watch_ms),
+              f"phase 22 (b): the watch published after {watch_ms} ms "
+              f"(period {period} s)")
+
+        # (c) nacos://, discovery:// and dns://, each once
+        p = ports
+        reg.set_nacos("svc", [
+            {"ip": "127.0.0.1", "port": p[0], "weight": 1.0,
+             "healthy": True, "enabled": True, "clusterName": "c1"},
+            {"ip": "127.0.0.1", "port": p[1], "weight": 2.5,
+             "healthy": True, "enabled": True, "clusterName": "c1"},
+            {"ip": "127.0.0.1", "port": p[2], "weight": 1.0,
+             "healthy": False, "enabled": True, "clusterName": "c1"},
+            {"ip": "127.0.0.1", "port": p[3], "weight": 1.0,
+             "healthy": True, "enabled": False, "clusterName": "c2"}])
+        reg.set_discovery("app", [
+            {"addrs": [f"grpc://127.0.0.1:{p[0]}",
+                       f"http://127.0.0.1:{p[2]}"], "status": 1,
+             "zone": "z1"},
+            {"addrs": [f"grpc://127.0.0.1:{p[3]}"], "status": 3,
+             "zone": "z2"}])
+        cases = {
+            "nacos": (f"nacos://{reg.hostport}/svc",
+                      [(f"127.0.0.1:{p[0]}", 100, "c1"),
+                       (f"127.0.0.1:{p[1]}", 250, "c1")]),
+            "discovery": (f"discovery://{reg.hostport}/app",
+                          [(f"127.0.0.1:{p[0]}", 100, "z1"),
+                           (f"127.0.0.1:{p[2]}", 100, "z1")]),
+            "dns": (f"dns://localhost:{p[1]}",
+                    [(f"127.0.0.1:{p[1]}", 100, "")])}
+        l0 = count()
+        c = {}
+        for name, (url, expect) in cases.items():
+            got = [(str(e.endpoint), e.weight, e.tag) for e in
+                   naming.create_naming_service(url).get_servers()]
+            ch = rpc.Channel()
+            check(ch.init(url, "rr", options=rpc.ChannelOptions(
+                timeout_ms=30000, max_retry=0)) == 0,
+                f"phase 22 (c) {name}: init")
+            errs = [e for _w, e in (
+                _echo_device(rpc, ch, small, EchoRequest, EchoResponse, want)
+                for _ in range(NAMING_ECHOES)) if e]
+            ch.close()
+            naming.stop_naming_service_thread(url)
+            c[name] = {"entries": got, "errors": errs[:3]}
+            check(got == expect, f"phase 22 (c) {name}: resolved {got}, "
+                                 f"expected {expect}")
+            check(not errs, f"phase 22 (c) {name}: echoes failed {errs}")
+        c["launches"] = count() - l0
+        out["c"] = c
+        check(c["launches"] == 0, f"phase 22 (c): {c['launches']} copy "
+                                  f"launches on TCP")
+        for srv in servers:
+            srv.stop()
+    finally:
+        flags.set_flag("ici_device_plane_threshold", threshold)
+        reg.close()
+    out["launches"] = out["a"]["launches"]
+    out["transfers"] = out["a"]["transfers"]
+    out["wall_s"] = time.monotonic() - t_phase
+    a, b = out["a"], out["b"]
+    print(f"remote naming: (a) remotefile:// over ici://4-7, {a['calls']} "
+          f"calls of {NAMING_PAYLOAD} B DEVICE: launches = transfers = "
+          f"received = {a['launches']}, rr {a['per_member']}, p50 "
+          f"{a['p50_us']:.1f} us, p99 {a['p99_us']:.1f} us; ici://7 left "
+          f"the balancer {a['drop_ms']:.1f} ms after the registry withdrew "
+          f"it; (b) consul:// over 4 TCP servers, {b['calls']} echoes of "
+          f"{NAMING_TCP_PAYLOAD} B DEVICE, 0 launches, the watch published "
+          f"a withdrawal and a re-add {[round(m, 2) for m in b['watch_ms']]}"
+          f" ms after the index moved, stop {b['stop_ms']:.1f} ms; (c) "
+          f"nacos, discovery, dns resolved as expected, {NAMING_ECHOES} "
+          f"echoes each; 0 failed calls; {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
+def _trace_member(device: str, log_dir: str = "") -> dict:
+    """Phase 22 (d)-(e) in a fresh interpreter of its own (process 0 of a
+    two-process fabric, ranks 4-7) against a ``fabric_peer`` it starts
+    (process 1, ``--threshold 65536``), ``rpc_dump`` on in both."""
+    import hashlib
+    import importlib
+    import tempfile
+    import brpc_tpu_torch.policy  # noqa: F401
+    from datetime import timedelta
+    from torch.distributed import TCPStore
+    from brpc_tpu_torch import rpc
+    from brpc_tpu_torch.butil import flags
+    from brpc_tpu_torch.ici import fabric
+    from brpc_tpu_torch.ici.mesh import IciMesh
+    from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
+    from brpc_tpu_torch.rpc import fault_injection as fi
+    from brpc_tpu_torch.rpc import rpc_dump
+    from brpc_tpu_torch.rpc.socket import list_sockets
+    from brpc_tpu_torch.tools.fabric_peer import SOCKET_WINDOW
+
+    copy_mod = importlib.import_module("brpc_tpu_torch.ici.p2p_copy")
+    plain = [0]
+    if device == "cpu":
+        inner = copy_mod.p2p_copy_plain
+
+        def counted(src, dst):
+            plain[0] += 1
+            return inner(src, dst)
+
+        copy_mod.p2p_copy_plain = counted
+        flags.set_flag("ici_device_plane_host_mesh", True)
+
+    def count() -> int:
+        return plain[0] if device == "cpu" else copy_mod.p2p_copy.launches
+
+    mesh = IciMesh(8, device=device)
+    IciMesh.set_default(mesh)
+    dev = mesh.device(4)
+    flags.set_flag("ici_device_plane_threshold", TIER_THRESHOLD)
+    flags.set_flag("ici_socket_window_bytes", SOCKET_WINDOW)
+    dumps = tempfile.mkdtemp(prefix="plane_trace_")
+    mine, theirs = os.path.join(dumps, "member"), os.path.join(dumps, "peer")
+    flags.set_flag("rpc_dump_dir", mine)
+    flags.set_flag("rpc_dump_max_files", 1)
+    flags.set_flag("rpc_dump_max_requests_in_one_file", 16)
+    flags.set_flag("rpc_dump", True)
+    port = _free_port()
+    coord = f"127.0.0.1:{port}"
+    node = fabric.FabricNode.initialize(coord, 2, 0, ranks=range(4, 8),
+                                        mesh=mesh)
+    kv = TCPStore("127.0.0.1", port, is_master=False,
+                  timeout=timedelta(seconds=60))
+    out = {"device": device}
+    chans, peer = [], None
+
+    def channel():
+        while chans:                    # one connection at a time
+            chans.pop().close()
+        ch = rpc.Channel()
+        ch.init("ici://0", options=rpc.ChannelOptions(timeout_ms=60000,
+                                                      max_retry=0))
+        chans.append(ch)
+        return ch
+
+    def sock():
+        return [s for s in list_sockets() if isinstance(s, fabric.FabricSocket)
+                and not s.failed and not s.is_server_side][-1]
+
+    def call(ch, method, msg="", host=None, att=None):
+        cntl = rpc.Controller()
+        if host is not None:
+            cntl.request_attachment.append(host)
+        if att is not None:
+            cntl.request_attachment.append_device_array(att)
+        resp = ch.call_method(method, cntl, EchoRequest(message=msg),
+                              EchoResponse)
+        return cntl, resp
+
+    def stats(ch, reset=False):
+        cntl, resp = call(ch, "Sink.Stats", "reset" if reset else "")
+        check(not cntl.failed(), f"Sink.Stats: {cntl.error_text}")
+        return json.loads(resp.message)
+
+    def wait_for(cond, secs):
+        deadline = time.monotonic() + secs
+        while not cond() and time.monotonic() < deadline:
+            time.sleep(0.005)
+        return cond()
+
+    def kill(s, plane):
+        """chaos_plane KILL, then wait until this end's reader saw it: the
+        next frame's route probe here finds the plane dead, so this side
+        sends DOWN (tests/test_chaos_fabric.py:1789's goldens)."""
+        with s._bulk_lock:
+            h = s._bulk if plane == "bulk" else s._shm
+            lib = s._blib if plane == "bulk" else s._shmlib
+        alive = (lib.brpc_tpu_torch_fab_alive if plane == "bulk"
+                 else lib.brpc_tpu_torch_shm_alive)
+        armed = fi.chaos_plane(s, plane, fi.KILL)
+        return armed and wait_for(lambda: not alive(h), 30)
+
+    try:
+        peer = _Peer(coord, "trace", kv, device,
+                     extra=("--threshold", TIER_THRESHOLD,
+                            "--rpc-dump", theirs),
+                     log_path=os.path.join(log_dir, "peer.log")
+                     if log_dir else None)
+        out["pids"] = [os.getpid(), peer.info["os_pid"]]
+        l0 = count()
+        # (d) a bulk sever, then a ring kill, on one socket
+        ch = channel()
+        stats(ch, reset=True)
+        payload = bytes(bytearray((i * 5 + 1) & 0xFF
+                                  for i in range(TRACE_PAYLOAD)))
+        errs = []
+
+        def echo(tag):
+            cntl, _ = call(ch, "Sink.Push", tag, host=payload)
+            if cntl.failed():
+                errs.append((tag, cntl.error_code_, cntl.error_text))
+            elif cntl.response_attachment.to_bytes() != payload:
+                errs.append((tag, "corrupt"))
+
+        echo("healthy")
+        s = sock()
+        d = {"healthy_records": len(rpc_dump.load_fabric_trace(mine))
+             + len(rpc_dump.load_fabric_trace(theirs)),
+             "bound": [bool(s.shm_bound()), bool(s._bulk)],
+             "armed": [kill(s, "bulk")]}
+        t0 = time.monotonic()
+        echo("bulk-severed")
+        d["bulk_revived"] = wait_for(lambda: s.bulk_epoch() >= 2, 30)
+        d["bulk_revive_s"] = time.monotonic() - t0
+        d["armed"].append(kill(s, "shm"))
+        t0 = time.monotonic()
+        echo("ring-killed")
+        d["shm_revived"] = wait_for(lambda: s.shm_epoch() >= 2, 30)
+        d["shm_revive_s"] = time.monotonic() - t0
+        echo("both-revived")
+        d.update(errors=errs, sock=s.id, failed=s.failed,
+                 member_trace=rpc_dump.load_fabric_trace(mine),
+                 peer_trace=rpc_dump.load_fabric_trace(theirs),
+                 launches=count() - l0, peer=stats(ch)["launches"])
+        flags.set_flag("rpc_dump", False)
+        out["d"] = d
+        # (e) DEVICE payloads the device plane does not carry: kind 5 on
+        # a one-stripe ring, delivered host-resident.  The first of each
+        # size is forwarded into a call on the peer's native door; the
+        # later ones recycle its slot.  One size fits the native window
+        # (the door relocates it), the other does not (the Python plane's
+        # transport does)
+        flags.set_flag("ici_device_plane_threshold", 1 << 30)
+        flags.set_flag("ici_shm_stripes", 1)
+        flags.set_flag("ici_shm_ring_bytes", RELOC_RING)
+        ch = channel()
+        gen = torch.Generator(device=dev).manual_seed(222)
+        out["e"] = {}
+        for door, size in (("native", RELOC_NATIVE),
+                           ("python", RELOC_PAYLOAD)):
+            before = stats(ch, reset=True)["shm_claimed"]
+            call(ch, "Sink.Kept", "reset")
+            l0 = count()
+            seen, errs, first_sha = [], [], None
+            # enough later payloads to go round the ring at least once
+            later = RELOC_RING // size + 2
+            for i in range(1 + later):
+                t = mesh.own(torch.randint(0, 256, (size,), dtype=torch.uint8,
+                                           device=dev, generator=gen), 4)
+                if i == 0:
+                    first_sha = hashlib.sha256(
+                        t.cpu().numpy().tobytes()).hexdigest()
+                cntl, resp = call(ch, "Sink.Forward",
+                                  "forward" if i == 0 else "plain", att=t)
+                if cntl.failed():
+                    errs.append((i, cntl.error_code_, cntl.error_text))
+                else:
+                    seen.append(json.loads(resp.message))
+            _, resp = call(ch, "Sink.Kept")
+            theirs_now = stats(ch)
+            out["e"][door] = {
+                "bytes": size, "calls": 1 + later, "errors": errs,
+                "seen": seen, "kept": json.loads(resp.message),
+                "first_sha256": first_sha,
+                # a later payload landed over the first one's bytes
+                "recycled": bool(seen) and any(
+                    abs(x["ptr"] - seen[0]["ptr"]) < size
+                    for x in seen[1:]),
+                "shm_claimed": theirs_now["shm_claimed"] - before,
+                "launches": count() - l0, "peer": theirs_now["launches"]}
+    except BaseException:
+        if peer is not None:
+            peer.kill()
+            print(f"trace peer output:\n{peer.output()[-6000:]}",
+                  file=sys.stderr, flush=True)
+        raise
+    finally:
+        while chans:
+            chans.pop().close()
+        if peer is not None:
+            peer.kill()
+        node.quiesce()
+    out["foreign"] = sorted(m for m in sys.modules if m in ("jax", "brpc_tpu")
+                            or m.startswith(("jax.", "jaxlib", "brpc_tpu.")))
+    return out
+
+
+def _trace_families(trace, sends, name):
+    """The checks of tests/test_chaos_fabric.py:1789 on one side's trace
+    (``sends``: this side sent DOWN and REESTABLISH)."""
+    mine, theirs = ("out", "in") if sends else ("in", "out")
+    for lo, key in ((8, "bulk_key"), (17, "shm_seg")):
+        req = [r for r in trace if r["dir"] == mine
+               and lo <= r["ftype"] <= lo + 3]
+        ok_ = [r for r in trace if r["dir"] == theirs
+               and lo <= r["ftype"] <= lo + 3]
+        body = json.loads(bytes.fromhex(req[1]["body"])) \
+            if len(req) == 2 else {}
+        check([r["ftype"] for r in req] == [lo, lo + 1]
+              and req[0]["body"] == "" and set(body) == {key}
+              and [r["ftype"] for r in ok_] == [lo + 2]
+              and ok_[0]["body"] == "",
+              f"phase 22 (d) {name}: frames {lo}-{lo + 3}: {trace}")
+    order = [r["ftype"] for r in trace]
+    check(order.index(8) < order.index(9) < order.index(10)
+          and order.index(17) < order.index(18) < order.index(19),
+          f"phase 22 (d) {name}: order {order}")
+
+
+def phase_plane_trace(device: str = "cuda", **sizes) -> dict:
+    """The plane-frame trace and the host-delivered relocation (see the
+    module docstring, phase 22 (d)-(e)): the traffic runs in a member
+    process (:func:`_trace_member`), which starts the peer; this process
+    checks the result and launches nothing."""
+    g = globals()
+    saved = {k: g[k] for k in sizes}
+    g.update(sizes)
+    try:
+        return _phase_plane_trace(device, sizes)
+    finally:
+        g.update(saved)
+
+
+def _phase_plane_trace(device: str, sizes: dict) -> dict:
+    t_phase = time.monotonic()
+    (r,) = _run_member("cs._trace_member(sys.argv[1], sys.argv[3])",
+                       "TRACE", device, sizes)
+    check(r["foreign"] == [], f"phase 22 (d): loaded {r['foreign']}")
+    d, e = r["d"], r["e"]
+    check(not d["errors"] and not d["failed"] and d["bound"] == [True, True]
+          and d["armed"] == [True, True] and d["bulk_revived"]
+          and d["shm_revived"],
+          f"phase 22 (d): {({k: d[k] for k in d if 'trace' not in k})}")
+    check(d["healthy_records"] == 0,
+          f"phase 22 (d): a healthy call wrote {d['healthy_records']} "
+          f"plane frames")
+    check(all(x["sock"] == d["sock"] for x in d["member_trace"]),
+          "phase 22 (d): the member's trace names another socket")
+    _trace_families(d["member_trace"], True, "member")
+    _trace_families(d["peer_trace"], False, "peer")
+    for door, x in e.items():
+        first = x["seen"][0] if x["seen"] else {}
+        moved = first.get("relocated", {})
+        check(not x["errors"] and len(x["seen"]) == x["calls"],
+              f"phase 22 (e) {door}: calls failed {x['errors']}")
+        check(all(y["device"] == "cpu" and y["rank_of"] == -1
+                  for y in x["seen"])
+              and first.get("error") is None and first.get("native")
+              and first.get("callee_rank") == "1",
+              f"phase 22 (e) {door}: the forward: {first}")
+        want = ({"plane": 0, "device_put": 1, "failed": 0, "dropped": 0}
+                if door == "native" else
+                {"plane": 0, "device_put": 0, "failed": 0, "dropped": 0})
+        check(moved == want, f"phase 22 (e) {door}: native relocations "
+                             f"moved {moved}, expected {want}")
+        check(x["recycled"], f"phase 22 (e) {door}: no later payload "
+                             f"landed over the first's bytes: "
+                             f"{[y['ptr'] for y in x['seen']]}")
+        check(x["kept"]["n"] == 1 and x["kept"]["rank"] == 1
+              and x["kept"]["sha256"] == x["first_sha256"],
+              f"phase 22 (e) {door}: the callee holds {x['kept']}, the "
+              f"first payload was {x['first_sha256']}")
+        check(x["shm_claimed"] >= x["calls"] * x["bytes"],
+              f"phase 22 (e) {door}: the ring carried {x['shm_claimed']} "
+              f"B")
+    r["launches"] = d["launches"] + d["peer"] + sum(
+        x["launches"] + x["peer"] for x in e.values())
+    check(r["launches"] == 0, f"phase 22 (d)-(e): {r['launches']} copy "
+                              f"launches on host payloads")
+    r["wall_s"] = time.monotonic() - t_phase
+    print(f"plane trace: (d) bulk severed and ring killed on one socket, "
+          f"revived in {d['bulk_revive_s']:.3f} s and "
+          f"{d['shm_revive_s']:.3f} s; each process's rpc_dump trace holds "
+          f"8 < 9 < 10 and 17 < 18 < 19, one handshake a kill, none for "
+          f"the healthy call; (e) {RELOC_NATIVE} B and {RELOC_PAYLOAD} B "
+          f"DEVICE payloads on the ring delivered host-resident (rank_of "
+          f"-1), each forwarded into a call on the peer's native door "
+          f"(the first relocated there by device_put, +1; the second, over "
+          f"the native window, by the Python plane's transport), their "
+          f"slots recycled by later payloads, the callee's bytes equal to "
+          f"the first's; 0 failed calls; {r['wall_s']:.1f} s", flush=True)
+    return r
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
@@ -6323,6 +6976,37 @@ def main() -> int:
                "kv_routes": kvr["launches"],
                "kv_routes_2proc": kvr["two_process"]["launches"]}
 
+    # 22. remote naming (in this process, the counts zeroed just before
+    # it), then the plane-frame trace and the host-delivered relocation
+    # (a member process and its peer count their own launches)
+    zero_counts()
+    rnaming = phase_remote_naming(mesh, plane, p2p_copy)
+    launches = {k.name: k.launches for k in kernels_all}
+    check(launches["p2p_copy"] == rnaming["launches"]
+          == rnaming["transfers"] > 0
+          and launches["ring_all_reduce"] == 0
+          and launches["ring_all_gather"] == 0,
+          f"phase 22 (a)-(c): launches {launches}, the legs' own count "
+          f"{rnaming['launches']}, transfers {rnaming['transfers']}")
+    zero_counts()
+    trace = phase_plane_trace()
+    launches = {k.name: k.launches for k in kernels_all}
+    check(all(v == 0 for v in launches.values()),
+          f"a kernel launched in the driving process during phase 22 "
+          f"(d)-(e): {launches}")
+    print("remote_naming: " + json.dumps(rnaming), flush=True)
+    print("plane_trace: " + json.dumps(
+        {k: v for k, v in trace.items() if k != "d"}
+        | {"d": {k: v for k, v in trace["d"].items() if "trace" not in k},
+           "trace_records": [len(trace["d"]["member_trace"]),
+                             len(trace["d"]["peer_trace"])]}), flush=True)
+    phase22 = {"naming_remotefile": rnaming["a"]["launches"],
+               "naming_consul_tcp": rnaming["b"]["launches"],
+               "naming_nacos_discovery_dns": rnaming["c"]["launches"],
+               "plane_trace": trace["d"]["launches"] + trace["d"]["peer"],
+               "host_relocation": sum(x["launches"] + x["peer"]
+                                      for x in trace["e"].values())}
+
     head = next(r for r in rows if r["label"] == "4 MiB")
     red = ring_rows["ring_all_reduce"]
     gat = ring_rows["ring_all_gather"]
@@ -6342,7 +7026,8 @@ def main() -> int:
                      + calls["launches"] + native["launches"]
                      + native_adm["launches"] + fab["launches"]
                      + pod["launches"] + xproc["launches"]
-                     + tiers20["launches"] + sum(phase21.values())),
+                     + tiers20["launches"] + sum(phase21.values())
+                     + sum(phase22.values())),
         "launches_by_path": {"echo": main_launches,
                              "serving": serve["launches"],
                              "migration": tiers["launches"], **phase10,
@@ -6357,7 +7042,8 @@ def main() -> int:
                              **{f"pod_{k}": v for k, v in
                                 pod["launches_by_scenario"].items()},
                              "fanout_xproc": xproc["launches"],
-                             "tiers": tiers20["launches"], **phase21},
+                             "tiers": tiers20["launches"], **phase21,
+                             **phase22},
         "migration_path_split": {
             "migrate_in": tiers["migrate_in_calls"],
             "loadkv": tiers["calls_received"] - tiers["migrate_in_calls"]},

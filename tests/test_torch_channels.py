@@ -9,8 +9,8 @@ SelectiveChannel classes: each scenario runs on both packages' stacks over
     ``create_load_balancer`` picks the same sequence in both packages, and
     consistent hashing maps the same keys to the same servers (murmur3 and
     md5 bit for bit);
-  * naming parity for ``list://`` and ``file://``; ``mesh://`` drops a
-    draining rank;
+  * naming parity for ``list://`` and ``file://``, and the remote schemes
+    build the same sources; ``mesh://`` drops a draining rank;
   * ``Channel.init`` takes the reference's signature: the same positional
     call means the same in both packages;
   * DEVICE shards fanned out over ``ici://`` on a CPU mesh with the plane
@@ -464,8 +464,15 @@ def test_naming_list_and_file_match(tmp_path):
     got = _entries(tnaming.create_naming_service(url).get_servers())
     assert got == _entries(jnaming.create_naming_service(url).get_servers())
     assert len(got) == 3
+    # the remote schemes resolve (tests/test_torch_naming_remote.py holds
+    # their entries against the JAX package's); an unknown one is refused
+    for url in ("consul://x:1/s", "nacos://x:1/s", "discovery://x:1/a",
+                "remotefile://x:1/f"):
+        t, j = (tnaming.create_naming_service(url),
+                jnaming.create_naming_service(url))
+        assert (type(t).__name__, t.url) == (type(j).__name__, j.url)
     with pytest.raises(ValueError):
-        tnaming.create_naming_service("consul://x:1/s")
+        tnaming.create_naming_service("zk://x:1/s")
 
 
 def test_naming_mesh_drops_a_draining_rank(mesh):

@@ -34,6 +34,7 @@ from __future__ import annotations
 import json
 import time
 import threading
+import types
 
 import numpy as np
 import pytest
@@ -314,6 +315,33 @@ def test_collective_slow_is_the_ports_own_point(monkeypatch):
         "point" in plan_doc
 
 
+def test_an_orphaned_scatter_pin_goes_at_its_expiry():
+    """A call that ends while a committed member has not reported keeps
+    its scatter export for that member's pull, at most twice the timeout:
+    the export is released at the expiry with no later call or stats read
+    to sweep it."""
+    released = []
+    member = types.SimpleNamespace(failed=False, _peer_gone=lambda: False,
+                                   _ctrl_send=lambda ft, body: None)
+    call = tcf._XprocCall.__new__(tcf._XprocCall)
+    call.uuid, call.cpid = 0x5EED, 0
+    call._cv = threading.Condition(threading.Lock())
+    call.committed, call.results = {1: member}, {}
+    call.export = types.SimpleNamespace(release=lambda: released.append(1))
+    call.full = None
+    old = tflags.get_flag("ici_fanout_xproc_timeout_s")
+    tflags.set_flag("ici_fanout_xproc_timeout_s", 0.1)
+    try:
+        call.finish()
+        assert released == []                # member 1 may still pull
+        deadline = time.monotonic() + 5
+        while not released and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert released == [1]
+    finally:
+        tflags.set_flag("ici_fanout_xproc_timeout_s", old)
+
+
 # ---------------------------------------------------------------------------
 # Across processes.
 # ---------------------------------------------------------------------------
@@ -402,6 +430,15 @@ if pid == 0:
     out["s4"] = stats()
     time.sleep(0.3)
     # leg 5: process 1's announce black-holed; process 2 accepts, parks
+    get("member2_on")                    # process 2 takes the leg too
+    # the first call to process 2 dials its fabric socket: done here, not
+    # inside the warm-up announce's 1 s timeout
+    dial = rpc.Channel()
+    dial.init("ici://4", options=rpc.ChannelOptions(timeout_ms=30000))
+    c = rpc.Controller()
+    c.request_attachment.append(np.zeros(SHARD, np.float32).tobytes())
+    dial.call_method("Fan.Scale", c, EchoRequest(message="x"), EchoResponse)
+    assert not c.failed(), c.error_text
     pc3 = mkpc((0, 2, 4))
     op3 = np.arange(3 * SHARD, dtype=np.float32).reshape(3, SHARD)
     out["leg5_warm"] = call(pc3, op3)[0]
@@ -415,11 +452,8 @@ if pid == 0:
 else:
     get("leg2_done")
     out["s2"] = stats()
-    if pid == 1:
-        flags.set_flag("ici_device_plane_xproc_compiled", "on")
-        put("member_on", 1)
-    else:
-        flags.set_flag("ici_device_plane_xproc_compiled", "on")
+    flags.set_flag("ici_device_plane_xproc_compiled", "on")
+    put("member_on" if pid == 1 else "member2_on", 1)
     get("legs_done")
     time.sleep(2.5)                      # twice the timeout, then a sweep
     out["xproc"] = cf.xproc_stats()

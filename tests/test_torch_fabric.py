@@ -283,6 +283,56 @@ def test_write_on_an_ended_connection_fails_as_a_dead_socket(
     b.close()
 
 
+@pytest.mark.parametrize("conn_dead,code", [
+    (False, terrors.EINTERNAL), (True, terrors.EFAILEDSOCKET)],
+    ids=["live", "dead"])
+def test_failed_pull_fails_the_socket_as_its_cause(host_plane, conn_dead,
+                                                   code):
+    """A kind-4 transfer that fails on a live connection fails the socket
+    with EINTERNAL (the device leg's own failure, not retried); one that
+    fails because the connection died under it (its EOF queued behind
+    the frame) fails it as a dead connection, EFAILEDSOCKET, which a
+    channel retries, the JAX package's code."""
+    a, b = socket.socketpair()
+    ts = _sock(PORT, a)
+    ts._ipc_peer = False                 # no export rides: the pull fails
+    ts._conn_dead = conn_dead
+    body = struct.pack("<I", 1) + tfab.encode_device_descriptor(
+        UUID + 1, 8192, 1, -1)
+    ts._on_data(body)
+    deadline = time.monotonic() + 5
+    while not ts.failed and time.monotonic() < deadline:
+        time.sleep(0.01)
+    assert ts.failed and ts.failed_error == code, (ts.failed,
+                                                   ts.failed_error)
+    ts._close_dplane()
+    a.close()
+    b.close()
+
+
+@pytest.mark.parametrize("ended", ["conn_dead", "failed"])
+def test_kind1_stage_on_an_ended_connection_lets_the_row_go(ended):
+    """A kind-1 row staged once the connection is over (its staged rows
+    already let go, so nothing would pull or flush it) fails the write as
+    a dead connection, EFAILEDSOCKET, and unlinks its export at once."""
+    a, b = socket.socketpair()
+    ts = _sock(PORT, a)
+    arr = ts.mesh.device_put(torch.arange(4096, dtype=torch.int32)
+                             .to(torch.uint8), 1)
+    before = set(tipc.live_segments())
+    if ended == "conn_dead":
+        ts._conn_dead = True
+    else:
+        ts.set_failed(terrors.EFAILEDSOCKET, "test")
+    with pytest.raises(ConnectionError):
+        ts._stage_xfer(arr, None)
+    assert ts.inflight_send_blocks() == 0
+    assert set(tipc.live_segments()) == before
+    ts.set_failed(terrors.ECLOSE, "test done")
+    a.close()
+    b.close()
+
+
 def _sequence(pkg, master: bool, ops):
     mesh = TMesh(ranks=8, device="cpu") if pkg is PORT else None
     sent = []

@@ -126,6 +126,9 @@ def _both(scenario, src_kw=None):
     for pkg in (JAX, PORT):
         src = _mk_pool(pkg, **(src_kw or {}))
         dst = _mk_pool(pkg)
+        # the migrate plane is process-wide: a ramp an earlier test file
+        # in this worker left pending is taken here, not in the scenario
+        pkg.migration.migrate_health().usable()
         p0 = pkg.route.plane_stats()
         l0 = pkg.migration.migration_stats()
         try:
@@ -385,7 +388,10 @@ def test_migration_chaos_matrix_zero_client_failures():
     before = troute.plane_stats()
     st0 = tmigration.migration_stats()
     try:
-        tflags.set_flag("serving_migrate_reprobe_s", 0.2)
+        # the latch must outlast a loaded host's gap between the kill and
+        # the next MigrateOut (a server restart), so it is 2 s, and each
+        # wait for its lapse is longer
+        tflags.set_flag("serving_migrate_reprobe_s", 2.0)
         t.start()
         deadline = time.monotonic() + 10
         while len(stream) < 4 and time.monotonic() < deadline:
@@ -413,7 +419,7 @@ def test_migration_chaos_matrix_zero_client_failures():
                                                  "dest": url_b})
             assert cntl.failed() and "latched" in cntl.error_text
             assert time.monotonic() - t0 < 1.0
-        time.sleep(0.25)                    # the latch lapses
+        time.sleep(2.1)                     # the latch lapses
 
         # (b) destination black-holed: the transfer deadline fires
         with quiesce:
@@ -432,7 +438,7 @@ def test_migration_chaos_matrix_zero_client_failures():
             assert cntl.failed() and "latched" in cntl.error_text
             gate.set()
             svc_b.migrate_in_gate = None
-            time.sleep(0.3)
+            time.sleep(2.1)
             cntl, resp = call(url_a, "MigrateOut", {"session": "s",
                                                     "dest": url_b,
                                                     "deadline_ms": 5000})

@@ -441,25 +441,33 @@ def test_three_process_pod_generate_trace_and_drain(phase18):
     lists it again; every member reads epoch 9."""
     rs = phase18["members"]["generate"]
     p0 = rs[0]
-    assert [r["pod_list"] for r in rs] == [["ici://0", "ici://2",
-                                            "ici://4"]] * 3
+    lists = [r["pod_list"] for r in rs]
+    assert lists == [["ici://0", "ici://2", "ici://4"]] * 3, lists
     a, b, c = p0["a"], p0["b"], p0["c"]
-    assert a["errors"] == [] and p0["errors"] == []
-    assert a["generates"] == 5
-    assert a["handoff_bytes"] == a["handoff_expected"] == 5 * 96 * 1024
+    assert a["errors"] == [] and p0["errors"] == [], (a["errors"],
+                                                      p0["errors"])
+    assert a["generates"] == 5, a["generates"]
+    hand = (a["handoff_bytes"], a["handoff_expected"], 5 * 96 * 1024)
+    assert hand[0] == hand[1] == hand[2], hand
     dec = a["decode"]
-    assert dec["launches"] == dec["received"] == dec["attachments"] == 5
-    assert a["router"]["launches"] == a["prefill"]["launches"] == 0
-    assert b["problems"] == []
-    assert b["span_count"] >= 10
-    assert set(b["clock"]) == {"1", "2"}
-    assert all(v["bound_us"] > 0 for v in b["clock"].values())
-    assert b["vars_processes"] == [0, 1, 2] and not b["vars_unreachable"]
-    assert b["metrics_processes"] == [0, 1, 2] and b["metrics_typed"]
-    assert c["dropped_s"] is not None and c["relisted_s"] is not None
-    assert c["generate_after_restart_ok"] is True
-    assert [r["epoch"] for r in rs] == [9, 9, 9]
-    assert phase18["launches_by_scenario"]["generate"] == 5
+    assert dec["launches"] == dec["received"] == dec["attachments"] == 5, dec
+    assert a["router"]["launches"] == a["prefill"]["launches"] == 0, (
+        a["router"], a["prefill"])
+    assert b["problems"] == [], (b["problems"], b["span_count"],
+                                 b["processes"])
+    assert b["span_count"] >= 10, (b["span_count"], b["processes"])
+    assert set(b["clock"]) == {"1", "2"}, b["clock"]
+    assert all(v["bound_us"] > 0 for v in b["clock"].values()), b["clock"]
+    assert b["vars_processes"] == [0, 1, 2] and not b["vars_unreachable"], (
+        b["vars_processes"], b["vars_unreachable"], b.get("vars_errors"))
+    assert b["metrics_processes"] == [0, 1, 2] and b["metrics_typed"], (
+        b["metrics_processes"], b["metrics_typed"], b.get("metrics_errors"))
+    assert c["dropped_s"] is not None and c["relisted_s"] is not None, c
+    assert c["generate_after_restart_ok"] is True, (c, p0["errors"])
+    epochs = [r["epoch"] for r in rs]
+    assert epochs == [9, 9, 9], (epochs, [r.get("drain_s") for r in rs])
+    n = phase18["launches_by_scenario"]["generate"]
+    assert n == 5, (n, [r.get("a") for r in rs])
 
 
 def test_four_process_kill_and_drain_under_traffic(phase18):
@@ -470,15 +478,49 @@ def test_four_process_kill_and_drain_under_traffic(phase18):
     process the copy launches equal the transfers it received."""
     rs = phase18["members"]["chaos"]
     for r in rs:
-        assert r["failed"] == 0, r["failures"]
-        assert r["epoch"] == r["expected_epoch"] == 12
+        p = r["pid"]
+        assert r["failed"] == 0, (p, r["failures"])
+        assert r["epoch"] == r["expected_epoch"] == 12, (
+            p, r["epoch"], r["expected_epoch"])
         d = r["counts"]
-        assert d["launches"] == d["copies"]
-        assert d["remote_received"] > 0
-        assert r["unlisted_at"] is not None
-        assert r["unlisted_at"] >= r["drain_mark"]
-    assert rs[0]["old_socket_revoked"] is True
-    assert rs[3]["drain_s"] < 4.0
+        assert d["launches"] == d["copies"], (p, d)
+        assert d["remote_received"] > 0, (p, d)
+        assert r["unlisted_at"] is not None, (p, r["unlisted_at"],
+                                              r["drain_mark"])
+        assert r["unlisted_at"] >= r["drain_mark"], (
+            p, r["unlisted_at"], r["drain_mark"])
+    assert rs[0]["old_socket_revoked"] is True, rs[0]["old_socket_revoked"]
+    assert rs[3]["drain_s"] < 4.0, rs[3]["drain_s"]
+
+
+@pytest.mark.slow
+def test_six_process_kill_and_drain_under_traffic():
+    """``tests/test_pod.py:738-744`` on the port: the N=4 contract at N=6,
+    four surviving members carrying the traffic through process 2's kill
+    and process 3's drain; every member reads epoch 2*6 + 4 = 16.  Phase
+    18's chaos leg (``chip_smoke.phase_pod``) with six members, on the
+    CPU only."""
+    import chip_smoke as cs
+    out = cs.phase_pod(device="cpu", scenarios=("chaos",), chaos_procs=6)
+    rs = out["members"]["chaos"]
+    assert len(rs) == 6
+    for r in rs:
+        p = r["pid"]
+        assert r["failed"] == 0, (p, r["failures"])
+        assert r["epoch"] == r["expected_epoch"] == 16, (
+            p, r["epoch"], r["expected_epoch"])
+        d = r["counts"]
+        assert d["launches"] == d["copies"], (p, d)
+        assert d["remote_received"] > 0, (p, d)
+        assert r["unlisted_at"] is not None, (p, r["unlisted_at"])
+        assert r["unlisted_at"] >= r["drain_mark"], (
+            p, r["unlisted_at"], r["drain_mark"])
+        assert r["foreign"] == [], (p, r["foreign"])
+        assert tipc.segments_on_disk(r["os_pid"]) == []
+    assert rs[0]["old_socket_revoked"] is True, rs[0]["old_socket_revoked"]
+    assert rs[3]["drain_s"] < 4.0, rs[3]["drain_s"]
+    assert out["launches_by_scenario"] == {
+        "generate": 0, "chaos": sum(r["counts"]["launches"] for r in rs)}
 
 
 # ---- kind 4 both ways on one socket pair -------------------------------

@@ -11,7 +11,11 @@ CPU.
   * rotation keeps the same files with the same frames on both;
   * sixteen calls with DEVICE attachments dumped on the port and replayed
     against a fresh server: the replayed frames equal the dumped ones but
-    for their correlation ids, and the answers are equal.
+    for their correlation ids, and the answers are equal;
+  * the fabric's plane-frame trace: the same frames written through both
+    packages' ``maybe_dump_fabric_frame`` give equal files and equal
+    records, and nothing is written with ``rpc_dump`` off.  The wire
+    order on two processes is ``tests/test_torch_chaos_fabric.py``'s.
 """
 from __future__ import annotations
 
@@ -402,3 +406,39 @@ def test_device_calls_dump_and_replay_against_a_fresh_server(dump_flags):
         for n, v in tsaved.items():
             tfl.set_flag(n, v)
         IciMesh.set_default(None)
+
+
+class _TraceSock:
+    def __init__(self, sid):
+        self.id = sid
+
+
+_PLANE_HANDSHAKE = [
+    (8, "out", b""), (9, "out", b'{"bulk_key": "bulk-7f3a"}'),
+    (10, "in", b""), (17, "out", b""),
+    (18, "out", b'{"shm_seg": "brpc_tpu_torch_shm.1.ab12"}'),
+    (19, "in", b""), (11, "in", b"refused"), (20, "in", b"\x00\x01\xff")]
+
+
+def test_fabric_trace_records_equal_jax(dump_flags):
+    """The trace's record format: one JSON line a frame with ``sock``,
+    ``dir``, ``ftype`` and ``body`` in hex, byte for byte as the JAX
+    package writes it, read back in the order written."""
+    files = {}
+    for name, mod, flags in (("jax", jdump, jfl), ("port", tdump, tfl)):
+        d = dump_flags / name
+        _set_dump(flags, d, on=False)
+        assert mod.maybe_dump_fabric_frame(_TraceSock(5), "out", 8,
+                                           b"") is False
+        assert mod.load_fabric_trace(str(d)) == []
+        _set_dump(flags, d)
+        for i, (ftype, direction, body) in enumerate(_PLANE_HANDSHAKE):
+            assert mod.maybe_dump_fabric_frame(
+                _TraceSock(5 + i % 2), direction, ftype, body) is True
+        with open(d / "fabric_planes.trace", "rb") as f:
+            files[name] = (f.read(), mod.load_fabric_trace(str(d)))
+    assert files["port"] == files["jax"]
+    recs = files["port"][1]
+    assert [(r["ftype"], r["dir"], bytes.fromhex(r["body"]))
+            for r in recs] == _PLANE_HANDSHAKE
+    assert [r["sock"] for r in recs] == [5, 6] * 4

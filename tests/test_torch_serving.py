@@ -785,13 +785,16 @@ if pid == 0:
     server.add_service(svc)
     assert server.start("ici://0") == 0
     put("kvshm/up", 1)
-    barrier("kvshm/done")
+    # read the socket while the client still holds its channel: once it
+    # closes, this end's ring is let go with the connection
+    get("kvshm/sent")
     socks = fabric_socks()
     st = kv_load_stats()
     result({"shm_bound": bool(socks) and socks[0].shm_bound(),
             "claimed": socks[0].shm_bytes_claimed if socks else 0,
             "stats": st, "served": svc.describe_serving()["kv_load"],
             "foreign": foreign()})
+    barrier("kvshm/done")
     svc.close(); server.stop()
 else:
     get("kvshm/up")
@@ -818,6 +821,7 @@ else:
                                 "mode": "sync"})), EchoResponse)
         assert not dc.failed(), dc.error_text
         decodes.append([tokens, json.loads(resp.message)["tokens"]])
+    put("kvshm/sent", 1)
     s = fabric_socks()[0]
     rs = route_stats()
     result({"shm_bound": s.shm_bound(), "sent": s.shm_bytes_sent,

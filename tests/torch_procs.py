@@ -16,7 +16,6 @@ from __future__ import annotations
 
 import json
 import os
-import socket
 import subprocess
 import sys
 import tempfile
@@ -70,7 +69,10 @@ def foreign():
                   or m.startswith(("jax.", "jaxlib", "brpc_tpu.")))
 
 def result(d):
-    print("RESULT " + json.dumps(d), flush=True)
+    # one write: another thread's log line (stderr, the same file) cannot
+    # land between the line and its newline
+    sys.stdout.write("RESULT " + json.dumps(d) + "\n")
+    sys.stdout.flush()
 
 def finish():
     if pid:
@@ -82,9 +84,8 @@ def finish():
 
 
 def free_coord() -> str:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return f"127.0.0.1:{s.getsockname()[1]}"
+    from brpc_tpu_torch.tools.pod_peer import free_port
+    return f"127.0.0.1:{free_port()}"
 
 
 def run_procs(body: str, n: int, timeout: float = 120.0) -> list:
