@@ -17,11 +17,19 @@ blocked request never wedges unrelated requests (docs/en/io.md tail-latency
 doctrine).  The hard-latency datapath belongs to the C++ core (native/),
 which implements real fibers; this scheduler is the orchestration layer
 driving it and the device plane.
+
+At interpreter exit the workers are stopped and joined (``quiesce``, an
+``atexit`` hook): a daemon worker still inside a torch call when the
+interpreter finalizes is unwound through C++ frames that cannot unwind,
+and the process aborts ("terminate called without an active exception")
+whatever exit code it was leaving with.
 """
 from __future__ import annotations
 
+import atexit
 import collections
 import threading
+import time
 from typing import Any, Callable, Deque, Dict, List, Optional
 
 from ..butil.resource_pool import ResourcePool
@@ -102,7 +110,22 @@ class TaskControl:
         with cls._instance_lock:
             if cls._instance is None:
                 cls._instance = TaskControl()
+                atexit.register(cls._instance.quiesce)
             return cls._instance
+
+    def quiesce(self, timeout: float = 2.0) -> bool:
+        """Stop the workers: each finishes the tasklet it runs and exits;
+        queued tasklets are dropped.  Waits at most ``timeout`` seconds in
+        all; True when every worker (other than the caller) has exited."""
+        self._stop = True
+        with self._parking:
+            self._parking.notify_all()
+        deadline = time.monotonic() + timeout
+        me = threading.current_thread()
+        for t in list(self._workers):
+            if t is not me:
+                t.join(max(0.0, deadline - time.monotonic()))
+        return not any(t.is_alive() for t in self._workers if t is not me)
 
     # -- workers -------------------------------------------------------
     def _add_worker(self, index: int) -> None:

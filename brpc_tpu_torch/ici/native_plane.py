@@ -234,26 +234,49 @@ def _relocate(key: int, target_dev: int, err: Optional[int] = None,
 
 
 def _release(key: int) -> None:
+    """The core ends its custody of ``key``.  A plane relocation no
+    handler took and no bounce counted (a call the core failed after its
+    relocation, as a stop fails its in-flight calls) is a launch nobody
+    saw: it counts as dropped here."""
+    _account([_registry.peek(key)], dropped=True)
     _registry.release(key)
+
+
+def _account(arrs, dropped: bool) -> None:
+    """Mark each plane-relocated array in ``arrs`` accounted, once: as a
+    request received, or (``dropped``) as a launch no handler saw."""
+    n = 0
+    for a in arrs:
+        if (getattr(a, "_brpc_plane_relocated", False)
+                and not getattr(a, "_brpc_plane_accounted", False)):
+            a._brpc_plane_accounted = True
+            n += 1
+    if n and dropped:
+        with _stats_lock:
+            _reloc["dropped"] += n
+
+
+def _attachment_arrays(att) -> list:
+    if att is None:
+        return []
+    if isinstance(att, NativeAttachment) and att.parked:
+        return [_registry.peek(key) for key, _n, _d in att._seg_meta]
+    if isinstance(att, NativeAttachment) and not att._mat:
+        return []                      # surrendered or disposed
+    return [r.block.data for r in att._refs if r.block.kind == DEVICE]
 
 
 def _count_bounced(att) -> None:
     """A request turned away before its method counted it received: count
     the plane relocations its attachment carries as dropped.  Call it
     before the attachment's custody is released."""
-    if att is None:
-        return
-    if isinstance(att, NativeAttachment) and att.parked:
-        arrs = [_registry.peek(key) for key, _n, _d in att._seg_meta]
-    elif isinstance(att, NativeAttachment) and not att._mat:
-        return                         # surrendered or disposed
-    else:
-        arrs = [r.block.data for r in att._refs if r.block.kind == DEVICE]
-    n = sum(1 for a in arrs
-            if getattr(a, "_brpc_plane_relocated", False))
-    if n:
-        with _stats_lock:
-            _reloc["dropped"] += n
+    _account(_attachment_arrays(att), dropped=True)
+
+
+def _count_received(att) -> None:
+    """A request its method counted received: its plane relocations are
+    accounted, whatever later releases them."""
+    _account(_attachment_arrays(att), dropped=False)
 
 
 _hooks_installed = False
@@ -936,6 +959,7 @@ class ServerBinding:
                 self._respond_one(token, errors.ELOGOFF,
                                   "server is draining (lame duck)")
                 return
+            _count_received(attachment)
             pri_wire, tenant, ddl = adm_meta or (0, "", 0)
             adm = server.admission
             if adm is not None:
@@ -1041,6 +1065,7 @@ class ServerBinding:
         status = ent[4]
         if status is not None:
             status.received << 1
+        _count_received(attachment)
         adm = server.admission
         if adm is not None:
             # the wire and loopback planes' decision, in front of the same

@@ -45,7 +45,7 @@ from ..butil import flags as _flags
 from ..butil import logging as log
 from ..bthread import id as bthread_id
 from ..proto import rpc_meta_pb2 as meta_pb
-from ..rpc import admission, errors, rpc_dump
+from ..rpc import admission, compress as compress_mod, errors, rpc_dump
 from ..rpc.controller import Controller, server_controller_pool
 from ..rpc.protocol import (Protocol, ParseResult, find_protocol,
                             register_protocol)
@@ -167,6 +167,8 @@ def serialize_request(request: Any, cntl: Controller) -> IOBuf:
         data = bytes(request)
     else:
         raise TypeError(f"cannot serialize {type(request)}")
+    if cntl.compress_type:
+        data = compress_mod.compress(cntl.compress_type, data)
     buf.append(data)
     return buf
 
@@ -183,6 +185,9 @@ def pack_request(payload: IOBuf, cid: int, cntl: Controller,
         meta.stream_settings.need_feedback = True
     meta.request.log_id = cntl.log_id
     meta.correlation_id = cid
+    meta.compress_type = cntl.compress_type
+    if cntl.auth_token:
+        meta.request.auth_token = cntl.auth_token
     if cntl.timeout_ms:
         meta.request.timeout_ms = cntl.timeout_ms
         # deadline budget REMAINING at send time: total budget minus what
@@ -267,6 +272,12 @@ def process_request(msg: StdMessage, socket, server) -> None:
     cntl.server = server
     cntl.log_id = req_meta.log_id
     cntl.remote_side = socket.remote_side
+    if req_meta.auth_token:
+        cntl.auth_token = req_meta.auth_token
+    if meta.compress_type:
+        cntl.compress_type = meta.compress_type
+    if req_meta.timeout_ms:
+        cntl.method_deadline = time.monotonic() + req_meta.timeout_ms / 1e3
     # request context (offset-decoded priority; handlers may read)
     if req_meta.priority:
         cntl.priority = req_meta.priority - 1
@@ -315,7 +326,12 @@ def process_request(msg: StdMessage, socket, server) -> None:
                 srv_stream.mark_connected(client_sid, socket)
         payload = IOBuf()
         if resp is not None and not cntl.failed():
-            payload.append(resp.SerializeToString())
+            data = resp.SerializeToString()
+            if meta.compress_type:
+                # the response is compressed as the request was
+                data = compress_mod.compress(meta.compress_type, data)
+                rmeta.compress_type = meta.compress_type
+            payload.append(data)
         resp_att = cntl._peek_response_attachment()
         att_size = len(resp_att) if resp_att is not None else 0
         if att_size:
@@ -363,6 +379,12 @@ def process_request(msg: StdMessage, socket, server) -> None:
     def parse_and_invoke() -> None:
         # the gates are held; send_response accounts for them
         nonlocal handler_t0
+        auth = server.options.auth
+        if auth is not None and not auth.verify(cntl.auth_token, socket):
+            # the protocol's verify hook: before any user code runs
+            cntl.set_failed(errors.ERPCAUTH, "authentication failed")
+            finish()
+            return
         t_parse0 = time.monotonic_ns() if stages else 0
         try:
             body = msg.body
@@ -371,8 +393,11 @@ def process_request(msg: StdMessage, socket, server) -> None:
                 payload_part = body.cut(keep)
                 body.cutn(cntl.request_attachment, meta.attachment_size)
                 body = payload_part
+            data = body.to_bytes()
+            if meta.compress_type:
+                data = compress_mod.decompress(meta.compress_type, data)
             request = md.request_cls()
-            request.ParseFromString(body.to_bytes())
+            request.ParseFromString(data)
         except Exception as e:
             cntl.set_failed(errors.EREQUEST, f"fail to parse request: {e}")
             finish()
@@ -415,6 +440,12 @@ def process_request(msg: StdMessage, socket, server) -> None:
     if iso is not None:
         # a method served by the isolation workers (no MethodDescriptor)
         def run_isolated(deadline_left_ms: int) -> None:
+            auth = server.options.auth
+            if auth is not None and not auth.verify(cntl.auth_token,
+                                                    socket):
+                cntl.set_failed(errors.ERPCAUTH, "authentication failed")
+                finish()
+                return
             body = msg.body
             if meta.attachment_size:
                 payload_part = body.cut(len(body) - meta.attachment_size)

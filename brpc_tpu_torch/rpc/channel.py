@@ -4,7 +4,8 @@ Reference: src/brpc/channel.{h,cpp} (Init :236-393, CallMethod :407-592) and
 Controller::IssueRPC (controller.cpp:985-1144).  A channel targets one
 ``ici://k``, ``mem://name`` or ``host:port`` endpoint, or a naming url (``list://``,
 ``file://``, ``mesh://``) whose members a load balancer picks from per
-try, over tpu_std; per-call state lives in the Controller.  ``init`` takes
+try, over ``ChannelOptions.protocol`` (tpu_std by default, or http or
+grpc); per-call state lives in the Controller.  ``init`` takes
 the reference's signature, ``init(target, lb_name="", options=None)``.  A
 call made inside a handler inherits the inbound request's context
 (:mod:`.request_context`).  Every call's outcome feeds the endpoint's
@@ -54,6 +55,12 @@ _CONNECTION_TYPES = {"single": CONNECTION_TYPE_SINGLE,
 
 @dataclass
 class ChannelOptions:
+    # the wire protocol: "tpu_std", "http" (JSON over HTTP/1.1) or "grpc"
+    # (h2); only tpu_std takes the native door and the loopback plane
+    protocol: str = "tpu_std"
+    # Authenticator (policy/auth.py): fills each call's auth_token when
+    # the call set none
+    auth: Any = None
     # "" = single; an explicit value must be one the protocol supports
     connection_type: str = ""           # "" | single | pooled | short
     timeout_ms: int = 1000
@@ -125,10 +132,11 @@ class Channel:
         (round robin when empty) picks from."""
         if options is not None:
             self.options = options
-        self._protocol = find_protocol("tpu_std")
+        self._protocol = find_protocol(self.options.protocol)
         if self._protocol is None:
-            raise ValueError("tpu_std is not registered: import "
-                             "brpc_tpu_torch.policy")
+            raise ValueError(f"unknown protocol {self.options.protocol!r}"
+                             " (protocols register on importing "
+                             "brpc_tpu_torch.policy)")
         ctype = self.options.connection_type
         if ctype and ctype not in _CONNECTION_TYPES:
             raise ValueError(f"unknown connection_type {ctype!r}")
@@ -154,12 +162,14 @@ class Channel:
         if ep.scheme not in (SCHEME_ICI, SCHEME_MEM, SCHEME_TCP):
             raise ValueError(f"unsupported scheme {ep.scheme}")
         self._endpoint = ep
-        if ep.scheme == SCHEME_MEM and self.options.backup_request_ms <= 0:
+        if (ep.scheme == SCHEME_MEM and self.options.backup_request_ms <= 0
+                and self.options.protocol == "tpu_std"
+                and self.options.auth is None):
             # the loopback plane's channel-level screen (the per-call ones
             # are in call_method): unary tpu_std to an in-process mem://
-            # server, no hedging.  The breaker gates it too: an isolated
-            # endpoint fails fast in process (loopback calls themselves
-            # never trip or reset a breaker)
+            # server, no authenticator, no hedging.  The breaker gates it
+            # too: an isolated endpoint fails fast in process (loopback
+            # calls themselves never trip or reset a breaker)
             self._loopback_name = ep.host
             self._loopback_breaker = BreakerRegistry.instance().breaker(ep)
         return 0
@@ -176,7 +186,8 @@ class Channel:
         nch0 = self._native_ici
         skip_native = False
         if (nch0 is not None and done is None and nch0._fused
-                and cntl.stream_creator is None):
+                and cntl.stream_creator is None
+                and not cntl.compress_type and not cntl.auth_token):
             result = nch0.call_fused(method_full_name, cntl, request,
                                      response_cls, self)
             if result is not nch0.FUSED_FALLTHROUGH:
@@ -227,7 +238,10 @@ class Channel:
             nch = self._native_ici
             if nch is None:
                 nch = self._native_ici_binding(cntl)
-            elif cntl.stream_creator is not None:
+            elif (cntl.stream_creator is not None or cntl.compress_type
+                  or cntl.auth_token):
+                # the per-call screens; the channel's (protocol,
+                # authenticator) were read when the binding was made
                 nch = None
         if nch is not None and not self._fast_call_fits(nch, cntl, request):
             nch = None
@@ -273,12 +287,13 @@ class Channel:
                 native_plane.run_async(_run)
                 return None
         # the mem:// loopback plane (loopback.py).  Per-call screens: what
-        # the wire plane implements and loopback does not (streaming, fault
-        # injection, rpc_dump sampling) and what exists to observe the
-        # wire plane (rpcz-sampled calls, the stage-metrics mode) take the
-        # wire
+        # the wire plane implements and loopback does not (streaming,
+        # compression, a credential, fault injection, rpc_dump sampling)
+        # and what exists to observe the wire plane (rpcz-sampled calls,
+        # the stage-metrics mode) take the wire
         lb_name = self._loopback_name
         if (lb_name is not None and cntl.stream_creator is None
+                and not cntl.compress_type and not cntl.auth_token
                 and _loopback.enabled()):
             _fi, _dump, _stage_flag = _loopback_screen_modules()
             if cntl.span is None:
@@ -286,7 +301,9 @@ class Channel:
             srv = _loopback.server_for(lb_name)
             # a method served by the isolation workers has no method
             # descriptor: it takes the wire path, which dispatches it
+            # a server with an authenticator verifies on the wire
             if (srv is not None and cntl.span is None
+                    and srv.options.auth is None
                     and srv.isolated_method(method_full_name) is None
                     and not self._loopback_breaker.is_isolated()
                     and _stage_flag.value != "on"
@@ -298,6 +315,8 @@ class Channel:
                                       request, response_cls, done)
         # a Controller reused after a loopback call joins this call's id
         cntl.__dict__.pop("_loopback_state", None)
+        if self.options.auth is not None and not cntl.auth_token:
+            cntl.auth_token = self.options.auth.generate_credential(cntl)
         payload = self._protocol.serialize_request(request, cntl)
         if _rpcz.value and cntl.span is None:
             maybe_start_client_span(cntl, method_full_name)
@@ -431,7 +450,10 @@ class Channel:
         streaming call."""
         ep = self._endpoint
         if (ep is None or ep.scheme != SCHEME_ICI
-                or cntl.stream_creator is not None):
+                or self.options.protocol != "tpu_std"
+                or self.options.auth is not None
+                or cntl.stream_creator is not None
+                or cntl.compress_type or cntl.auth_token):
             return None
         cached = self._native_ici
         if cached is not None:
@@ -467,8 +489,23 @@ class Channel:
         # a socket that fails EINTERNAL (a refused device payload) names
         # the refusal; the call's text is that reason (Controller)
         cntl._try_socket = sock
+        # a connection-stateful protocol (h2) packs on the socket itself
+        cntl._pack_socket = sock
         cid = cntl.current_cid()
-        packet = self._protocol.pack_request(
+        proto = self._protocol
+        if proto.pipelined:
+            # the response takes the oldest id: queue and write under one
+            # lock, so the ids stay in the order the requests left
+            with sock._pipeline_write_lock:
+                packet = proto.pack_request(
+                    cntl._request_buf, cid, cntl, cntl._method_full_name)
+                sock.push_pipelined_context(cid)
+                cntl._pipelined.append((sock, cid))
+                rc = sock.write(packet, notify_cid=cid)
+            if rc != 0:
+                raise ConnectionError(f"write failed: {rc}")
+            return
+        packet = proto.pack_request(
             cntl._request_buf, cid, cntl, cntl._method_full_name)
         span = cntl.span
         if span is None:
@@ -521,6 +558,19 @@ class Channel:
         overload would isolate the server still serving its protected
         band."""
         d = cntl.__dict__
+        if cntl.failed():
+            exclusive = {id(s) for _ep, s in d.get("_pooled_sockets", ())}
+            exclusive.update(id(s) for s in d.get("_short_sockets", ()))
+            for sock, ctx in d.get("_pipelined", ()):
+                # a failed call whose context still waits on a connection
+                # only it uses: the late response would answer the next
+                # call on it, so the connection goes
+                if id(sock) in exclusive:
+                    with sock._pipeline_lock:
+                        dangling = ctx in sock.pipelined_contexts
+                    if dangling:
+                        sock.set_failed(errors.ECLOSE, "own pipelined "
+                                        "context still outstanding")
         for ep, sock in d.get("_pooled_sockets", ()):
             SocketMap.instance().return_pooled_socket(
                 ep, sock, group=self._protocol.name)

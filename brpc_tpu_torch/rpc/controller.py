@@ -79,6 +79,14 @@ class Controller:
     tenant: str = ""
     retry_after_ms: int = 0
     deadline_left_ms: int = 0
+    # the credential the call carries (a channel's authenticator fills it
+    # when empty; a server reads the caller's here) and the compression
+    # of the request and response bodies (rpc/compress.py; 0 = none)
+    auth_token: str = ""
+    compress_type: int = 0
+    # server side: the monotonic time at which the caller gives up (from
+    # tpu_std's timeout or gRPC's grpc-timeout), or None
+    method_deadline: Optional[float] = None
     # client call state; None takes the channel's option
     timeout_ms: Optional[int] = None
     max_retry: Optional[int] = None
@@ -107,6 +115,9 @@ class Controller:
     # call ends, every try's (a backup try's answer may win)
     _pooled_sockets = _LazyField("_pooled_sockets", list)
     _short_sockets = _LazyField("_short_sockets", list)
+    # (socket, context) of each try on a pipelined protocol (http)
+    _pipelined = _LazyField("_pipelined", list)
+    _pack_socket = None                 # the try's socket (h2 packs on it)
     # consistent-hashing key of the call (balanced channels)
     request_code: Any = None
     # streaming RPC (rpc/stream.py): the client's stream, set by
@@ -452,6 +463,9 @@ class Controller:
                 body = tmp
                 self.response_attachment = att
             data = body.to_bytes()
+            if meta.compress_type:
+                from .compress import decompress
+                data = decompress(meta.compress_type, data)
             if self._response_cls is not None:
                 resp = self._response_cls()
                 resp.ParseFromString(data)
@@ -460,6 +474,11 @@ class Controller:
                 self.response = data
         except Exception as e:
             self.set_failed(errors.ERESPONSE, f"fail to parse response: {e}")
+        self._end_rpc(cid)
+
+    def finish_parsed_response(self, cid: int) -> None:
+        """Completion for protocols that parse the response themselves
+        (http, grpc): ``response`` is already set."""
         self._end_rpc(cid)
 
     def _start_shed_retry(self) -> None:

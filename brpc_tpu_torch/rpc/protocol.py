@@ -73,6 +73,10 @@ class Protocol:
     process_inline: Optional[Callable[[Any, Any], bool]] = None
     # the connection types a channel may ask for with this protocol
     supported_connection_type: int = CONNECTION_TYPE_ALL
+    # responses correlate by arrival order on the connection instead of
+    # an id on the wire (HTTP/1.1): the channel queues each call's id on
+    # the socket, and a response takes the oldest
+    pipelined: bool = False
 
 
 _protocols: List[Protocol] = []

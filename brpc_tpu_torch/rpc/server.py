@@ -114,8 +114,17 @@ class ServerOptions:
     # an ici:// server also opens the native front door (the C++ datapath
     # of csrc/ici_native.cpp); in-process channels prefer it for the
     # calls it can carry.  The Python listener stays open beside it.
-    # False serves every call on the Python plane
+    # False serves every call on the Python plane.  A server with an
+    # authenticator serves on the Python plane only (the native door has
+    # no verify hook)
     native_ici: bool = True
+    # verifies every request's credential before user code runs
+    # (policy/auth.py; tpu_std, http/h2 REST and gRPC): a failure is
+    # ERPCAUTH, 401 or UNAUTHENTICATED
+    auth: Any = None
+    # http: url path -> "Service.Method" (reference restful.cpp), served
+    # as JSON-RPC beside the /Service/Method routes
+    restful_mappings: Dict[str, str] = field(default_factory=dict)
 
 
 class Server:
@@ -371,7 +380,7 @@ class Server:
         if ep.scheme == SCHEME_ICI:
             from ..ici.transport import ici_listen
             self._listener = ici_listen(ep.device_id, self._on_accept)
-            if self.options.native_ici:
+            if self.options.native_ici and self.options.auth is None:
                 from ..ici import native_plane
                 try:
                     self._native_ici = native_plane.ServerBinding(
@@ -600,6 +609,11 @@ class Server:
         from . import loopback
         loopback.fail_inflight(self, errors.ELOGOFF, "server stopping")
         for s in conns:
+            if getattr(s, "_h2_conn", None) is not None:
+                # h2: GOAWAY first, naming the last stream this server
+                # took, so the peer fails the rest retryably at once
+                from ..policy.grpc import send_goaway
+                send_goaway(s)
             s.set_failed(errors.ELOGOFF, "server stopping")
         pool, self.usercode_pool = self.usercode_pool, None
         if pool is not None:

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Callable, List, Optional
+from typing import Any, Callable, List, Optional
 
 from ..butil.iobuf import IOBuf, IOPortal
 from ..butil import flags as _flags
@@ -34,6 +34,7 @@ from ..butil.endpoint import EndPoint
 from ..bthread import scheduler
 from . import errors
 from . import fault_injection as _fi
+from ..bvar.variable import PassiveStatus
 
 _socket_pool: ResourcePool = ResourcePool()
 
@@ -107,6 +108,12 @@ class Socket:
         # called with the socket once it failed: a stream riding the
         # connection closes with it (rpc/stream.py)
         self.on_failed_callbacks: List[Callable[["Socket"], None]] = []
+        # pipelined protocols (HTTP/1.1): one context per call in write
+        # order; a response takes the oldest (reference socket.h
+        # PipelinedInfo)
+        self.pipelined_contexts: List[Any] = []
+        self._pipeline_lock = threading.Lock()
+        self._pipeline_write_lock = threading.Lock()
 
     @staticmethod
     def address(sid: int) -> Optional["Socket"]:
@@ -121,6 +128,16 @@ class Socket:
                 f"failed={self.failed} server_side={self.is_server_side} "
                 f"in={st.in_size}B/{st.in_num_messages} "
                 f"out={st.out_size}B/{st.out_num_messages}}}")
+
+    # ---- pipelining ---------------------------------------------------
+    def push_pipelined_context(self, ctx: Any) -> None:
+        with self._pipeline_lock:
+            self.pipelined_contexts.append(ctx)
+
+    def pop_pipelined_context(self) -> Optional[Any]:
+        with self._pipeline_lock:
+            return self.pipelined_contexts.pop(0) \
+                if self.pipelined_contexts else None
 
     # ---- failure -----------------------------------------------------
     def set_failed(self, error_code: int = errors.EFAILEDSOCKET,
@@ -349,3 +366,11 @@ def list_sockets() -> List[Socket]:
     """Live sockets (the census of tests and debug pages)."""
     return [s for s in _socket_pool.live_payloads()
             if isinstance(s, Socket)]
+
+
+def _socket_count() -> int:
+    return len(list_sockets())
+
+
+# the live connections on /vars, as the reference's rpc_socket_count
+_socket_count_var = PassiveStatus(_socket_count, "rpc_socket_count")

@@ -108,6 +108,18 @@ class _Member:
         return TCPStore(host, int(port), is_master=False,
                         timeout=timedelta(seconds=BARRIER_S))
 
+    def leave_store(self, skip=()) -> None:
+        """The store lives in process 0, which stays up until every other
+        member (but those in ``skip``, killed by the scenario) has made
+        its last store call, ``Pod.leave``'s record: a member's late write
+        to a store whose host exited fails."""
+        if self.pid != 0:
+            self.put(f"left/{self.pid}", 1)
+            return
+        for q in range(1, self.n):
+            if q not in skip:
+                self.get(f"left/{q}")
+
     def sync(self) -> None:
         if self.args.device == "cuda":
             torch.cuda.synchronize()
@@ -322,6 +334,7 @@ def run_generate(m: _Member) -> dict:
     svc.close()
     server.stop()
     pod.leave()
+    m.leave_store()
     from brpc_tpu_torch.rpc.builtin import pod_scope
     pod_scope.close_channels_for_test()
     out["leaks"] = m.leaks()
@@ -682,6 +695,7 @@ def run_chaos(m: _Member) -> dict:
     ch.close()
     live_server.stop()
     pod.leave()
+    m.leave_store()
     out["leaks"] = m.leaks()
     out["foreign"] = _foreign()
     return out
@@ -813,6 +827,7 @@ def run_fanout(m: _Member) -> dict:
     for s in servers.values():
         s.stop()
     pod.leave()
+    m.leave_store(skip=(FANOUT_VICTIM,))
     out["leaks"] = m.leaks()
     out["xproc"] = cf.xproc_stats()
     out["foreign"] = _foreign()

@@ -491,6 +491,38 @@ Phases, each fatal on failure:
                 enough later ones to go round the ring, one landing over
                 the first's bytes; the callee's copy equals the first
                 payload's SHA-256
+  23. dryrun, HTTP and gRPC
+                (a) python -m brpc_tpu_torch.graft_entry in a fresh
+                interpreter, as the reference's dryrun runs: entry()'s
+                fabric step on the card (8 ranks of (4096,) float32)
+                against its float64 formula (rtol 1e-5), then
+                dryrun_multichip(8) on cuda:0,
+                each leg's wall time and launches printed: the step, the
+                rpc stack (its 64 KiB device-plane echo launches p2p_copy
+                once per plane transfer), the 4-member compiled fan-out
+                against the per-member loop, the native door against the
+                Python plane, the decode workers (batched, prefix-shared,
+                migrated), the two-process fabric (stress, a verified
+                stream, one shm ring and four stripes; a child process and
+                a fabric_peer) and the N=4 pod (pod_peer members);
+                (b) one TCP server on 127.0.0.1:0 with an internal port:
+                200 HTTP JSON-RPC echoes through the port's HTTP client
+                (p50/p99 us); /health, /vars and /status 200 on the
+                internal port and 403 on the public one; 200 gRPC unary
+                echoes of 4 KiB and 16 of 1 MiB (across the 64 KiB
+                flow-control window; p50/p99 us); a call with a 1 ms
+                budget fails ERPCTIMEDOUT (DEADLINE_EXCEEDED) and a raw
+                h2 request with grpc-timeout 1m gets grpc-status 4; gzip
+                bodies with an HMAC credential on tpu_std and gRPC (the
+                wrong key fails ERPCAUTH); a stop with 8 gRPC calls in
+                flight: the client reads the GOAWAY, every call ends
+                within 5 s with a retryable code; /health 503 on the
+                internal port during a stop(2 s) that a held call keeps
+                draining;
+                (c) tests/fixtures/h2_curl_c2s.bin (curl's request bytes)
+                replayed into the port's TCP server: stream 1, POST
+                /Echo/Echo with a JSON body {"message": "from-curl"},
+                answered 200 with h2_curl_s2c.bin's body
 
 Launch counts are zeroed just before each path and read just after it:
 during phases 3-4 and during phase 8 p2p_copy's launches must equal the
@@ -524,9 +556,13 @@ peer the launches equal the kind-1 rows each pulled, and in (c)'s decode
 process the kind-4 transfer it received; during phase 22 (a)-(c) they
 equal the transfers and the calls the four ici:// servers received (the
 TCP legs launch none), and in (d)-(e) the driving process, the member
-and its peer launch none; during phase 6 each ring kernel's launches must equal the calls of its entry
-point.  The line before the last is the ``kernels`` JSON; the last line
-is the device JSON.
+and its peer launch none; during phase 23 the driving process launches
+none: the dryrun runs in a process of its own, which counts its launches
+per leg (in its rpc stack they equal the plane transfers of its
+device-plane echo; its children count their own), and (b) and (c) are
+host bytes only; during phase 6 each ring kernel's launches must equal
+the calls of its entry point.  The line before the last is the
+``kernels`` JSON; the last line is the device JSON.
 """
 from __future__ import annotations
 
@@ -691,6 +727,15 @@ NAMING_TCP_CALLS, NAMING_TCP_PAYLOAD, NAMING_ECHOES = 64, 4 << 10, 16
 TRACE_PAYLOAD = 256 << 10
 RELOC_NATIVE, RELOC_PAYLOAD = (4 << 20) - (128 << 10), 8 << 20
 RELOC_RING = 32 << 20
+# phase 23: the dryrun's mesh, and the HTTP/gRPC legs' counts and sizes
+DRYRUN_RANKS = 8
+DRYRUN_TIMEOUT_S = 400
+HTTP_CALLS = 200
+GRPC_SMALL, GRPC_SMALL_CALLS = 4 << 10, 200
+GRPC_BIG, GRPC_BIG_CALLS = 1 << 20, 16
+GOAWAY_CALLS = 8
+DRAIN_GRACE_S = 2.0
+AUTH_KEY = "chip-smoke-key"
 
 
 def fail(msg: str) -> None:
@@ -6625,6 +6670,345 @@ def _phase_plane_trace(device: str, sizes: dict) -> dict:
     return r
 
 
+def phase_graft_entry(device: str = "cuda") -> dict:
+    """Phase 23 (a): the port's dryrun entry (see the module docstring),
+    in a fresh interpreter as the reference's dryrun runs (the fabric node
+    phase 17 left here would make ranks 0-3 remote).  The child counts
+    its own launches, per leg; returns its RESULT."""
+    t0 = time.monotonic()
+    cmd = [sys.executable, "-m", "brpc_tpu_torch.graft_entry",
+           "--n", str(DRYRUN_RANKS)]
+    if device != "cuda":
+        cmd += ["--device", device]
+    proc = subprocess.run(cmd, cwd=str(ROOT), capture_output=True,
+                          text=True, timeout=DRYRUN_TIMEOUT_S)
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("RESULT ")]
+    if proc.returncode != 0 or not lines:
+        print(proc.stdout[-6000:], proc.stderr[-6000:], file=sys.stderr,
+              flush=True)
+        fail(f"the dryrun ended rc {proc.returncode}")
+    out = json.loads(lines[-1][7:])
+    for ln in proc.stdout.splitlines():
+        if "SKIP" in ln:
+            print(ln, flush=True)        # the reference's SKIP lines
+    e = out["entry"]
+    check(e["device"].startswith(device),
+          f"entry() ran on {e['device']}, meant to run on {device}")
+    legs = out["legs"]
+    rs = legs["rpc_stack"]
+    check(rs.get("plane_launches") == rs.get("plane_transfers", -1) > 0,
+          f"dryrun rpc stack: p2p_copy launched {rs.get('plane_launches')}"
+          f" times for {rs.get('plane_transfers')} plane transfers")
+    check(legs["collective_fanout"].get("routes") == ["collective", "rpc"],
+          f"dryrun fan-out routes {legs['collective_fanout']}")
+    out["launches"] = sum(leg["launches"] for leg in legs.values())
+    out["wall_s"] = time.monotonic() - t0
+    return out
+
+
+def _raw_http(port: int, request: bytes) -> bytes:
+    import socket as pysocket
+    with pysocket.create_connection(("127.0.0.1", port), timeout=10) as s:
+        s.sendall(request)
+        data = b""
+        while True:
+            head, sep, rest = data.partition(b"\r\n\r\n")
+            if sep:
+                n = [int(line.split(b":")[1]) for line in head.split(b"\r\n")
+                     if line.lower().startswith(b"content-length:")]
+                if n and len(rest) >= n[0]:
+                    return data
+            chunk = s.recv(65536)
+            if not chunk:
+                return data
+            data += chunk
+
+
+def _h2_frames(data: bytes, off: int = 0) -> list:
+    out = []
+    while off + 9 <= len(data):
+        n = int.from_bytes(data[off:off + 3], "big")
+        if off + 9 + n > len(data):
+            break
+        out.append((data[off + 3], data[off + 4],
+                    int.from_bytes(data[off + 5:off + 9], "big") & 0x7FFFFFFF,
+                    data[off + 9:off + 9 + n]))
+        off += 9 + n
+    return out
+
+
+def _h2_exchange(port: int, wire: bytes, stream_id: int,
+                 timeout: float = 10.0) -> list:
+    """Send ``wire`` on a fresh connection and read frames until
+    ``stream_id`` ends (END_STREAM on a DATA or HEADERS frame)."""
+    import socket as pysocket
+    with pysocket.create_connection(("127.0.0.1", port), timeout=timeout) as s:
+        s.sendall(wire)
+        data = b""
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            frames = _h2_frames(data)
+            if any(sid == stream_id and flags & 0x1 and ftype in (0, 1)
+                   for ftype, flags, sid, _ in frames):
+                return frames
+            chunk = s.recv(65536)
+            if not chunk:
+                break
+            data += chunk
+    fail(f"h2 stream {stream_id} did not end within {timeout} s")
+
+
+def phase_http_grpc() -> dict:
+    """Phase 23 (b) and (c): HTTP/1.1, HPACK and gRPC on the port's TCP
+    server (see the module docstring).  Host bytes only: no kernel
+    launches."""
+    import brpc_tpu_torch.policy  # noqa: F401
+    from brpc_tpu_torch import rpc
+    from brpc_tpu_torch.bthread import scheduler
+    from brpc_tpu_torch.policy import grpc as g2
+    from brpc_tpu_torch.policy import hpack
+    from brpc_tpu_torch.policy.auth import HmacAuthenticator
+    from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
+    from brpc_tpu_torch.rpc import compress
+    from brpc_tpu_torch.rpc.socket import list_sockets
+    t_phase = time.monotonic()
+    out = {}
+    gate = threading.Event()
+    entered = []
+
+    class EchoService(rpc.Service):
+        @rpc.method(EchoRequest, EchoResponse)
+        def Echo(self, cntl, request, response, done):
+            response.message = request.message
+            done()
+
+        @rpc.method(EchoRequest, EchoResponse)
+        def Slow(self, cntl, request, response, done):
+            entered.append(request.message)
+            scheduler.note_worker_blocked()
+            try:
+                gate.wait(float(request.sleep_us or 30e6) / 1e6)
+            finally:
+                scheduler.note_worker_unblocked()
+            response.message = "late"
+            done()
+
+    def server(**opts):
+        s = rpc.Server(rpc.ServerOptions(**opts))
+        s.add_service(EchoService())
+        check(s.start("127.0.0.1:0") == 0, "TCP server did not start")
+        return s
+
+    chans = []
+
+    def channel(port, **opts):
+        ch = rpc.Channel()
+        opts.setdefault("timeout_ms", 30000)
+        ch.init(f"127.0.0.1:{port}", options=rpc.ChannelOptions(**opts))
+        chans.append(ch)
+        return ch
+
+    def echo(ch, msg, cntl=None, method="EchoService.Echo"):
+        cntl = cntl or rpc.Controller()
+        t = time.perf_counter_ns()
+        resp = ch.call_method(method, cntl, EchoRequest(message=msg),
+                              EchoResponse)
+        return cntl, resp, (time.perf_counter_ns() - t) / 1e3
+
+    def timed(ch, msg, n, warm, what):
+        lat = []
+        for i in range(n + warm):
+            cntl, resp, us = echo(ch, msg)
+            check(not cntl.failed() and resp.message == msg,
+                  f"{what} {i}: {cntl.error_text}")
+            if i >= warm:
+                lat.append(us)
+        return {"calls": n, "p50_us": _pct(lat, 0.5),
+                "p99_us": _pct(lat, 0.99)}
+
+    srv = server(internal_port=0)
+    public, internal = srv.listen_port, srv.internal_port
+    try:
+        # HTTP/1.1 JSON-RPC through the port's HTTP client
+        out["http_echo"] = timed(channel(public, protocol="http"),
+                                 "h" * 64, HTTP_CALLS, 10, "http echo")
+        # the pages: on the internal port, refused on the public one
+        pages = {}
+        for page in ("health", "vars", "status"):
+            req = b"GET /%s HTTP/1.1\r\nHost: x\r\n\r\n" % page.encode()
+            a, b = _raw_http(internal, req), _raw_http(public, req)
+            check(a.startswith(b"HTTP/1.1 200"),
+                  f"/{page} on the internal port: {a[:60]!r}")
+            check(b.startswith(b"HTTP/1.1 403"),
+                  f"/{page} on the public port: {b[:60]!r}")
+            pages[page] = {"internal": 200, "public": 403,
+                           "bytes": len(a)}
+        out["pages"] = pages
+        # gRPC unary echoes, 4 KiB and 1 MiB (16 x the 64 KiB window)
+        gch = channel(public, protocol="grpc")
+        out["grpc_4k"] = timed(gch, "g" * GRPC_SMALL, GRPC_SMALL_CALLS, 10,
+                               "grpc 4 KiB echo")
+        out["grpc_1m"] = timed(gch, "G" * GRPC_BIG, GRPC_BIG_CALLS, 2,
+                               "grpc 1 MiB echo")
+        # a 1 ms budget: the client's deadline, and the server's answer to
+        # a spent grpc-timeout
+        cntl = rpc.Controller()
+        cntl.timeout_ms = 1
+        cntl.max_retry = 0
+        req = EchoRequest(message="d", sleep_us=50_000)
+        gch.call_method("EchoService.Slow", cntl, req, EchoResponse)
+        check(cntl.error_code == rpc.errors.ERPCTIMEDOUT,
+              f"1 ms call: code {cntl.error_code} {cntl.error_text}")
+        block = hpack.Encoder(index=False).encode(
+            [(b":method", b"POST"), (b":scheme", b"http"),
+             (b":path", b"/EchoService/Slow"), (b":authority", b"x"),
+             (b"content-type", b"application/grpc"), (b"te", b"trailers"),
+             (b"grpc-timeout", b"1m")])
+        wire = (g2.PREFACE + g2.frame(g2.FRAME_SETTINGS, 0, 0, b"")
+                + g2.frame(g2.FRAME_HEADERS, g2.FLAG_END_HEADERS, 1, block)
+                + g2.frame(g2.FRAME_DATA, g2.FLAG_END_STREAM, 1,
+                           g2.grpc_message(req.SerializeToString())))
+        dec = hpack.Decoder()
+        hdrs = {}
+        for ftype, _f, sid, payload in _h2_exchange(public, wire, 1):
+            if ftype == g2.FRAME_HEADERS and sid == 1:
+                hdrs.update(dec.decode(payload))
+        check(hdrs.get(b"grpc-status") == b"4",
+              f"grpc-timeout 1m: trailers {hdrs}")
+        out["deadline"] = {"client_code": cntl.error_code,
+                           "server_grpc_status": 4}
+        # gzip bodies with an HMAC credential, tpu_std and gRPC
+        asrv = server(auth=HmacAuthenticator(AUTH_KEY))
+        try:
+            comp = {}
+            for proto in ("tpu_std", "grpc"):
+                for key, ok in ((AUTH_KEY, True), ("wrong", False)):
+                    ch = channel(asrv.listen_port, protocol=proto,
+                                 auth=HmacAuthenticator(key), max_retry=0)
+                    cntl = rpc.Controller()
+                    cntl.compress_type = compress.COMPRESS_TYPE_GZIP
+                    msg = "compressible " * 4096
+                    cntl, resp, _ = echo(ch, msg, cntl)
+                    if ok:
+                        check(not cntl.failed() and resp.message == msg,
+                              f"{proto} gzip + auth: {cntl.error_text}")
+                    else:
+                        check(cntl.error_code == rpc.errors.ERPCAUTH,
+                              f"{proto} wrong key: {cntl.error_code}")
+                comp[proto] = {"gzip_ok": True, "wrong_key": "ERPCAUTH"}
+            out["gzip_auth"] = comp
+        finally:
+            asrv.stop()
+        # a stop with 8 gRPC calls in flight on its own server
+        ssrv = server()
+        sch = channel(ssrv.listen_port, protocol="grpc", max_retry=0)
+        done, cntls = [], []
+        entered.clear()
+        for i in range(GOAWAY_CALLS):
+            cntl = rpc.Controller()
+            cntls.append(cntl)
+            sch.call_method("EchoService.Slow", cntl,
+                            EchoRequest(message=str(i)), EchoResponse,
+                            done=lambda c: done.append(time.monotonic()))
+        deadline = time.monotonic() + 10
+        while len(entered) < GOAWAY_CALLS and time.monotonic() < deadline:
+            time.sleep(0.005)
+        socks = [s for s in list_sockets()
+                 if getattr(s, "_h2_conn", None) is not None
+                 and not s.is_server_side]
+        t0 = time.monotonic()
+        ssrv.stop()
+        while len(done) < GOAWAY_CALLS and time.monotonic() < t0 + 10:
+            time.sleep(0.005)
+        hung = GOAWAY_CALLS - len(done)
+        gate.set()
+        goaway = [s._h2_conn.goaway_last_sid for s in socks]
+        codes = sorted(c.error_code for c in cntls)
+        check(hung == 0, f"stop with gRPC calls in flight: {hung} hung")
+        check(any(g is not None for g in goaway),
+              f"the client never read a GOAWAY: {goaway}")
+        check(all(rpc.Controller._retryable(c) for c in codes),
+              f"stop with gRPC calls in flight: codes {codes}")
+        out["goaway"] = {"calls": GOAWAY_CALLS, "entered": len(entered),
+                         "hung": hung, "last_stream_id": goaway,
+                         "codes": codes,
+                         "ended_ms": (max(done) - t0) * 1e3}
+        gate.clear()
+        # /health 503 on the internal port during a drain a held call
+        # keeps open
+        held = rpc.Controller()
+        channel(public).call_method(
+            "EchoService.Slow", held, EchoRequest(message="held"),
+            EchoResponse, done=lambda c: None)
+        deadline = time.monotonic() + 10
+        while "held" not in entered and time.monotonic() < deadline:
+            time.sleep(0.005)
+        get = b"GET /health HTTP/1.1\r\nHost: x\r\n\r\n"
+        check(_raw_http(internal, get).startswith(b"HTTP/1.1 200"),
+              "/health before the drain")
+        stopper = threading.Thread(target=srv.stop, args=(DRAIN_GRACE_S,))
+        stopper.start()
+        deadline = time.monotonic() + 5
+        while not srv.is_draining() and time.monotonic() < deadline:
+            time.sleep(0.002)
+        during = _raw_http(internal, get)
+        gate.set()
+        stopper.join(30)
+        check(during.startswith(b"HTTP/1.1 503"),
+              f"/health during the drain: {during[:60]!r}")
+        out["drain_health"] = 503
+    finally:
+        gate.set()
+        for ch in chans:
+            ch.close()
+        srv.stop()
+    # (c) curl's request bytes replayed into the port's server
+    fix = ROOT / "tests" / "fixtures"
+    c2s = (fix / "h2_curl_c2s.bin").read_bytes()
+    s2c = (fix / "h2_curl_s2c.bin").read_bytes()
+
+    class CurlEcho(rpc.Service):
+        SERVICE_NAME = "Echo"
+
+        @rpc.method(EchoRequest, EchoResponse)
+        def Echo(self, cntl, request, response, done):
+            response.message = "srv:" + request.message
+            done()
+
+    csrv = rpc.Server()
+    csrv.add_service(CurlEcho())
+    check(csrv.start("127.0.0.1:0") == 0, "curl replay server")
+    try:
+        sent = _h2_frames(c2s, len(g2.PREFACE))
+        want = _h2_frames(s2c)
+        sent_hdrs = dict(hpack.Decoder().decode(sent[2][3]))
+        got = _h2_exchange(csrv.listen_port, c2s, 1)
+        dec = hpack.Decoder()
+        got_hdrs, body = {}, b""
+        for ftype, _f, sid, payload in got:
+            if ftype == g2.FRAME_HEADERS and sid == 1:
+                got_hdrs.update(dec.decode(payload))
+            elif ftype == g2.FRAME_DATA and sid == 1:
+                body += payload
+        want_hdrs = dict(hpack.Decoder().decode(want[4][3]))
+        check(sent[2][2] == sent[3][2] == want[5][2] == 1
+              and sent_hdrs[b":path"] == b"/Echo/Echo"
+              and json.loads(sent[3][3]) == {"message": "from-curl"},
+              "the c2s transcript does not decode to stream 1's request")
+        check(got_hdrs.get(b":status") == want_hdrs[b":status"] == b"200"
+              and json.loads(body) == json.loads(want[5][3]),
+              f"curl replay: {got_hdrs} {body[:80]!r}")
+        out["curl_replay"] = {"stream_id": 1,
+                              "path": sent_hdrs[b":path"].decode(),
+                              "status": got_hdrs[b":status"].decode(),
+                              "body": json.loads(body)}
+    finally:
+        csrv.stop()
+    out["wall_s"] = time.monotonic() - t_phase
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
@@ -7007,6 +7391,36 @@ def main() -> int:
                "host_relocation": sum(x["launches"] + x["peer"]
                                       for x in trace["e"].values())}
 
+    # 23. the dryrun entry in a process of its own, which counts its own
+    # launches (its children count theirs), then HTTP/1.1, HPACK and
+    # gRPC: host bytes only; this process launches nothing
+    zero_counts()
+    dry = phase_graft_entry()
+    web = phase_http_grpc()
+    launches = {k.name: k.launches for k in kernels_all}
+    check(all(v == 0 for v in launches.values()),
+          f"a kernel launched in the driving process during phase 23: "
+          f"{launches}")
+    check(dry["launches"] > 0, "the dryrun never launched p2p_copy")
+    for name, leg in dry["legs"].items():
+        print(f"dryrun {name}: {leg['wall_s']:.3f} s, {leg['launches']} "
+              f"p2p_copy launches in the dryrun's process"
+              + (f", {leg['child_launches']} in its child"
+                 if "child_launches" in leg else "")
+              + (f", {leg['member_launches']} in its members"
+                 if "member_launches" in leg else ""), flush=True)
+    print(f"http/grpc: HTTP echo p50 {web['http_echo']['p50_us']:.1f} us "
+          f"(p99 {web['http_echo']['p99_us']:.1f}); gRPC 4 KiB p50 "
+          f"{web['grpc_4k']['p50_us']:.1f} us (p99 "
+          f"{web['grpc_4k']['p99_us']:.1f}), 1 MiB p50 "
+          f"{web['grpc_1m']['p50_us']:.1f} us (p99 "
+          f"{web['grpc_1m']['p99_us']:.1f}); stop with "
+          f"{web['goaway']['calls']} calls in flight: "
+          f"{web['goaway']['hung']} hung, codes {web['goaway']['codes']}",
+          flush=True)
+    print("graft_entry: " + json.dumps(dry), flush=True)
+    print("http_grpc: " + json.dumps(web), flush=True)
+
     head = next(r for r in rows if r["label"] == "4 MiB")
     red = ring_rows["ring_all_reduce"]
     gat = ring_rows["ring_all_gather"]
@@ -7027,7 +7441,7 @@ def main() -> int:
                      + native_adm["launches"] + fab["launches"]
                      + pod["launches"] + xproc["launches"]
                      + tiers20["launches"] + sum(phase21.values())
-                     + sum(phase22.values())),
+                     + sum(phase22.values()) + dry["launches"]),
         "launches_by_path": {"echo": main_launches,
                              "serving": serve["launches"],
                              "migration": tiers["launches"], **phase10,
@@ -7043,7 +7457,7 @@ def main() -> int:
                                 pod["launches_by_scenario"].items()},
                              "fanout_xproc": xproc["launches"],
                              "tiers": tiers20["launches"], **phase21,
-                             **phase22},
+                             **phase22, "dryrun": dry["launches"]},
         "migration_path_split": {
             "migrate_in": tiers["migrate_in_calls"],
             "loadkv": tiers["calls_received"] - tiers["migrate_in_calls"]},

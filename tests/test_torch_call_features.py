@@ -387,7 +387,10 @@ def test_seeded_drops_same_codes_and_tries(no_loopback, seed):
     outcomes = []
     for pkg in (JAX, PORT):
         server, svc, target = start(pkg, "d")
-        ch = channel(pkg, target, timeout_ms=400, max_retry=3,
+        # 300 ms a try: only a seeded drop makes a try time out, never a
+        # loaded host's slow answer (which would spend one more write of
+        # the seeded sequence on one side only)
+        ch = channel(pkg, target, timeout_ms=1200, max_retry=3,
                      retry_on_timeout=True)
         try:
             calls = []

@@ -206,3 +206,36 @@ def test_native_lame_duck_bounce_counts_a_drop(mesh):
         ch.close()
         server.stop()
         server.join()
+
+
+def test_native_relocation_released_unseen_counts_a_drop(mesh):
+    """A plane relocation the core releases before any handler took it
+    (a call the core fails after its relocation, as a stop fails its
+    in-flight calls) counts as dropped once; one a handler received, and
+    one already counted at a bounce, do not count again at the release."""
+    m, launches = mesh
+    dropped0 = _dropped()
+    keys = []
+    for _ in range(3):
+        src = m.device_put(torch.arange(_PAYLOAD).to(torch.uint8), 1)
+        key = native_plane._registry.put(src)
+        moved = native_plane._relocate(key, 5)
+        native_plane._release(key)          # the core ends the source's
+        assert moved not in (0, key)
+        keys.append(moved)
+    assert len(launches) == 3
+    unseen, received, bounced = keys
+    native_plane._count_received(_view(received))
+    native_plane._count_bounced(_view(bounced))
+    assert _dropped() - dropped0 == 1
+    for k in keys:
+        native_plane._release(k)
+    assert _dropped() - dropped0 == 2
+
+
+def _view(key):
+    """A request attachment holding the relocated tensor behind ``key``."""
+    from brpc_tpu_torch.butil.iobuf import IOBuf
+    buf = IOBuf()
+    buf.append_device_array(native_plane._registry.peek(key))
+    return buf

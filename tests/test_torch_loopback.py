@@ -429,7 +429,11 @@ def test_stop_past_grace_fails_stragglers_elogoff(pkg):
 
         ch.call_method("Echo.Echo", pkg.rpc.Controller(),
                        pkg.Req(message="s"), pkg.Resp, done)
-        time.sleep(0.1)
+        # the stop must find the call in flight: on a loaded host a fixed
+        # sleep can end before the call reaches the server
+        deadline = time.monotonic() + 5
+        while server.inflight_requests() < 1 and time.monotonic() < deadline:
+            time.sleep(0.005)
         t0 = time.monotonic()
         server.stop(0.3)
         assert 0.25 <= time.monotonic() - t0 < 1.0

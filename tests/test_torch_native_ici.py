@@ -44,9 +44,10 @@ from brpc_tpu_torch.proto.echo_pb2 import (EchoRequest as TReq,
                                            EchoResponse as TResp)
 from brpc_tpu_torch.rpc import request_context as treqctx
 from tests.echo_pb2 import EchoRequest as JReq, EchoResponse as JResp
+from tests.torch_procs import jax_core_available
 
 pytestmark = pytest.mark.skipif(
-    not (jnp_plane.available() and tnp_plane.available()),
+    not (jax_core_available() and tnp_plane.available()),
     reason="a native core is unavailable")
 
 _PORT_FLAGS = ("ici_device_plane", "ici_device_plane_host_mesh",

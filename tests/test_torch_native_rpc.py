@@ -34,9 +34,10 @@ from brpc_tpu_torch.rpc import native_fabric as tnf
 from brpc_tpu_torch.proto.echo_pb2 import (EchoRequest as TReq,
                                            EchoResponse as TResp)
 from tests.echo_pb2 import EchoRequest as JReq, EchoResponse as JResp
+from tests.torch_procs import jax_core_available
 
 pytestmark = pytest.mark.skipif(
-    not (jnative.available() and tnative.available()),
+    not (jax_core_available() and tnative.available()),
     reason="a native core is unavailable")
 
 

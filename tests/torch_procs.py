@@ -11,6 +11,9 @@ its own with ``put``/``get``/``barrier``, ``fabric_socks()``,
 ``result(dict)`` and ``finish()``, which holds process 0, the store's
 host, until every other process is done with the store.  Children load
 no JAX and nothing of the JAX package.
+
+``jax_core_available()`` answers whether the JAX package's native core
+loads, waiting out a build that another process is making.
 """
 from __future__ import annotations
 
@@ -127,3 +130,41 @@ def ok(res, pids=None) -> list:
         f"--- process {p} rc {rc} ---\n{text[-5000:]}"
         for p, (rc, _r, text) in enumerate(res))
     return [r for _rc, r, _t in res]
+
+
+def jax_core_available(timeout: float = 300.0) -> bool:
+    """Whether the JAX package's native core loads here, independent of
+    what other processes do at the same moment.
+
+    The JAX package builds its core with an unlocked ``make`` at its first
+    use, and six test workers import their test files at once: a worker
+    can load the library while another worker's linker is still writing
+    it, see a broken file and answer False, and every test gated on it
+    would skip.  Here the build runs under one file lock per checkout and
+    the load is retried until the library is whole (``native.load`` keeps
+    no failure), so only a toolchain that cannot build the core answers
+    False."""
+    import fcntl
+    import hashlib
+    from brpc_tpu.butil import native
+    if native.available():
+        return True
+    native_dir = native._NATIVE_DIR
+    tag = hashlib.sha1(os.path.abspath(native_dir).encode()).hexdigest()[:12]
+    lock = os.path.join(tempfile.gettempdir(),
+                        f"brpc_tpu_core_build.{tag}.lock")
+    deadline = time.monotonic() + timeout
+    with open(lock, "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        while True:
+            try:
+                subprocess.run(["make", "-C", native_dir,
+                                "libbrpc_tpu_core.so"], capture_output=True,
+                               timeout=max(1.0, deadline - time.monotonic()))
+            except (OSError, subprocess.TimeoutExpired):
+                pass
+            if native.available():
+                return True
+            if time.monotonic() > deadline:
+                return False
+            time.sleep(1.0)
