@@ -326,7 +326,9 @@ _F_HELLO_ERR = 3
 _F_DATA = 4        # chunk list: host bytes + device descriptors
 _F_CREDIT = 5      # u64 consumed bytes
 _F_PULLED = 6      # u64 uuid: the receiver's copy finished
-_F_FIN = 7         # [u32 close code]
+_F_FIN = 7         # [u32 close code][EINTERNAL: its reason, utf-8]
+# the longest refusal reason a FIN carries after its code
+_FIN_REASON_MAX = 512
 # the bulk conn's degrade and revival, in this order: DOWN (the sender
 # saw it die; the peer degrades too), REESTABLISH (json {bulk_key}: the
 # client parked a fresh conn), OK (the server claimed and attached it),
@@ -1184,6 +1186,7 @@ class FabricSocket(CreditWindow, OrderedDelivery, Socket):
         self._peer_closed = False         # reader-visible EOF (ordered)
         self._conn_dead = False           # writer-visible death
         self._fin_code = 0                # the peer's close code
+        self._fin_reason = ""             # and the reason it sent
         self._init_window(window_bytes)
         self._init_delivery()
         self._reader: Optional[threading.Thread] = None
@@ -2378,8 +2381,11 @@ class FabricSocket(CreditWindow, OrderedDelivery, Socket):
                 elif ftype == _F_FIN:
                     if len(body) >= 4:
                         # the peer closed with an explicit code (a
-                        # lame-duck ELOGOFF): in-flight calls fail with it
+                        # lame-duck ELOGOFF, a refusal's EINTERNAL and its
+                        # reason): in-flight calls fail with it
                         self._fin_code = struct.unpack("<I", body[:4])[0]
+                        self._fin_reason = body[4:].decode("utf-8",
+                                                           "replace")
                     break
         except OSError:
             pass
@@ -2410,9 +2416,11 @@ class FabricSocket(CreditWindow, OrderedDelivery, Socket):
                 # it once the queued input is parsed, as in process
                 self._eof_error_code = errors.ELOGOFF
             elif self._fin_code:
+                reason = f"{errors.berror(self._fin_code)}"
+                if self._fin_reason:
+                    reason += f" ({self._fin_reason})"
                 self.set_failed(self._fin_code,
-                                "peer failed the connection: "
-                                f"{errors.berror(self._fin_code)}")
+                                f"peer failed the connection: {reason}")
                 return
             self.start_input_event()
 
@@ -2596,11 +2604,17 @@ class FabricSocket(CreditWindow, OrderedDelivery, Socket):
         try:
             # FIN carries a lame-duck stop's ELOGOFF, so the peer's
             # in-flight calls fail over without a connection-failure
-            # backoff, and a refused device payload's EINTERNAL, so the
-            # peer's calls fail with the refusal's code
-            body = struct.pack("<I", self.failed_error) \
-                if self.failed_error in (errors.ELOGOFF, errors.EINTERNAL) \
-                else b""
+            # backoff, and a refused device payload's EINTERNAL with its
+            # reason after the code, so the peer's calls fail with the
+            # refusal's code and say what was refused (a JAX peer reads
+            # the code and ignores the rest)
+            body = b""
+            if self.failed_error == errors.ELOGOFF:
+                body = struct.pack("<I", errors.ELOGOFF)
+            elif self.failed_error == errors.EINTERNAL:
+                body = struct.pack("<I", errors.EINTERNAL) + (
+                    self.failed_reason or "").encode(
+                        "utf-8", "replace")[:_FIN_REASON_MAX]
             self._ctrl_send(_F_FIN, body)
         except OSError:
             pass

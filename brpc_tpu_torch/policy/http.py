@@ -26,7 +26,6 @@ finishes first.
 from __future__ import annotations
 
 import json
-import threading
 import time
 import urllib.parse
 from typing import Any, Dict, Optional
@@ -38,6 +37,7 @@ from ..proto import rpc_meta_pb2 as meta_pb
 from ..rpc import errors
 from ..rpc.controller import Controller
 from ..rpc.protocol import Protocol, ParseResult, register_protocol
+from . import ordered
 
 _METHODS = (b"GET ", b"POST", b"PUT ", b"DELE", b"HEAD", b"OPTI", b"PATC",
             b"HTTP")
@@ -207,40 +207,11 @@ def _encode_chunked(body: bytes) -> bytes:
 
 # ---- server side ------------------------------------------------------
 
-class _InOrder:
-    """A request's socket whose ``write`` holds the response until every
-    earlier request of the connection has been answered (HTTP/1.1
-    pipelining: responses leave in request order)."""
-
-    __slots__ = ("_sock", "_seq")
-
-    def __init__(self, sock, seq: int):
-        self._sock = sock
-        self._seq = seq
-
-    def __getattr__(self, name):
-        return getattr(self._sock, name)
-
-    def write(self, buf: IOBuf, **kw) -> int:
-        sock = self._sock
-        lock, pending = sock._http_order
-        rc = 0
-        with lock:
-            pending[self._seq] = buf
-            # the lock spans the writes: two handlers finishing at once
-            # must not interleave their turns
-            while sock._http_next_out in pending:
-                out = pending.pop(sock._http_next_out)
-                sock._http_next_out += 1
-                rc = sock.write(out) or rc
-        return rc
-
-
 def process_request(msg: HttpMessage, socket, server) -> None:
     if msg.seq is None:
         _process_request(msg, socket, server)
         return
-    out = _InOrder(socket, msg.seq)
+    out = ordered.InOrder(socket, msg.seq)
     try:
         _process_request(msg, out, server)
     except Exception as e:
@@ -419,11 +390,7 @@ def process_inline(msg: HttpMessage, socket) -> bool:
     if not msg.is_request:
         msg.pipeline_ctx = socket.pop_pipelined_context()
         return False
-    if getattr(socket, "_http_order", None) is None:
-        socket._http_order = (threading.Lock(), {})
-        socket._http_next_in = socket._http_next_out = 0
-    msg.seq = socket._http_next_in
-    socket._http_next_in += 1
+    msg.seq = ordered.number(socket)
     return False
 
 

@@ -494,13 +494,15 @@ class Channel:
         cid = cntl.current_cid()
         proto = self._protocol
         if proto.pipelined:
-            # the response takes the oldest id: queue and write under one
-            # lock, so the ids stay in the order the requests left
+            # the response takes the oldest context: queue and write under
+            # one lock, so the contexts stay in the order the requests left
             with sock._pipeline_write_lock:
                 packet = proto.pack_request(
                     cntl._request_buf, cid, cntl, cntl._method_full_name)
-                sock.push_pipelined_context(cid)
-                cntl._pipelined.append((sock, cid))
+                maker = proto.make_pipeline_ctx
+                ctx = cid if maker is None else maker(cid, cntl)
+                sock.push_pipelined_context(ctx)
+                cntl._pipelined.append((sock, ctx))
                 rc = sock.write(packet, notify_cid=cid)
             if rc != 0:
                 raise ConnectionError(f"write failed: {rc}")
@@ -532,6 +534,11 @@ class Channel:
         the call ends (every try's: a hedged try may still answer)."""
         smap = SocketMap.instance()
         ctype = self.options.connection_type
+        if not ctype and not (self._protocol.supported_connection_type
+                              & CONNECTION_TYPE_SINGLE):
+            # adaptive connection type: a protocol with no id on the wire
+            # cannot share one connection among concurrent calls
+            ctype = "pooled"
         cto_ms = self.options.connect_timeout_ms
         cto = None if cto_ms < 0 else (cto_ms or 1000) / 1000.0
         if ctype == "pooled":

@@ -21,8 +21,11 @@ from .protocol import ParseResultType, Protocol, list_protocols
 
 
 class InputMessenger:
-    def __init__(self, server=None):
+    def __init__(self, server=None, protocols=None):
         self.server = server                 # set for server-side messengers
+        # the protocols this messenger tries, in order (None: every
+        # registered one)
+        self._protocols = protocols
 
     # called from Socket._process_event (single reader per socket)
     def on_new_messages(self, socket):
@@ -72,7 +75,9 @@ class InputMessenger:
 
     def _cut_messages(self, socket) -> Optional[list]:
         out = []
-        protocols = list_protocols()
+        protocols = self._protocols
+        if protocols is None:
+            protocols = list_protocols()
         while len(socket._read_portal):
             result = None
             if socket._selected_protocol_index >= 0:

@@ -73,10 +73,19 @@ class Protocol:
     process_inline: Optional[Callable[[Any, Any], bool]] = None
     # the connection types a channel may ask for with this protocol
     supported_connection_type: int = CONNECTION_TYPE_ALL
+    # the sides this protocol speaks (a server-only or client-only
+    # variant says so here)
+    support_client: bool = True
+    support_server: bool = True
     # responses correlate by arrival order on the connection instead of
-    # an id on the wire (HTTP/1.1): the channel queues each call's id on
-    # the socket, and a response takes the oldest
+    # an id on the wire (HTTP/1.1, redis, memcache, the nshead family):
+    # the channel queues each call's context on the socket, and a response
+    # takes the oldest
     pipelined: bool = False
+    # make_pipeline_ctx(cid, controller) -> the context a pipelined call
+    # queues (a redis call's expected reply count, nshead's completion);
+    # None queues the bare cid
+    make_pipeline_ctx: Optional[Callable[[int, Any], Any]] = None
 
 
 _protocols: List[Protocol] = []

@@ -127,6 +127,27 @@ class ServerOptions:
     restful_mappings: Dict[str, str] = field(default_factory=dict)
 
 
+def _connection_service_slot(svc) -> Optional[tuple]:
+    """The server attribute a connection-level service fills and whether
+    it takes a single owner, or None for a protobuf service.  Duck-typed,
+    so the rpc layer imports no protocol module: a RedisService has
+    ``dispatch`` and ``add_handler``, a ThriftService ``handle`` and
+    ``add_method``, and the others name themselves in ``SERVICE_NAME``
+    (nova, public_pbrpc and ubrpc ride on the nshead slot)."""
+    if hasattr(svc, "dispatch") and hasattr(svc, "add_handler"):
+        return "redis_service", False
+    if hasattr(svc, "handle") and hasattr(svc, "add_method"):
+        return "thrift_service", False
+    kind = getattr(svc, "SERVICE_NAME", None)
+    if kind == "mongo" and hasattr(svc, "process"):
+        return "_mongo_service", False
+    if kind == "nshead" and hasattr(svc, "process_nshead_request"):
+        return "_nshead_service", True
+    if kind == "esp" and hasattr(svc, "process_esp_request"):
+        return "_esp_service", True
+    return None
+
+
 class Server:
     def __init__(self, options: Optional[ServerOptions] = None):
         self.options = options or ServerOptions()
@@ -166,11 +187,28 @@ class Server:
         self._session_data_pool: List[Any] = []
         self._session_data_lock = threading.Lock()
         self._thread_local = threading.local()
+        # connection-level services (add_service): the protocol of each
+        # claims a connection only while its slot is filled
+        self.redis_service = None
+        self.thrift_service = None
+        self._mongo_service = None
+        self._nshead_service = None
+        self._esp_service = None
 
     # ---- registry -----------------------------------------------------
     def add_service(self, svc: Service) -> int:
         if self._started:
             raise RuntimeError("cannot add service after start")
+        slot = _connection_service_slot(svc)
+        if slot is not None:
+            # a connection-level service (redis, thrift, mongo, nshead,
+            # esp) answers its protocol's frames itself; nshead and esp
+            # each take one owner
+            attr, single = slot
+            if single and getattr(self, attr) is not None:
+                return errors.EINVAL
+            setattr(self, attr, svc)
+            return 0
         name = svc.service_name()
         if name in self._services:
             return errors.EINVAL

@@ -60,8 +60,12 @@ CRC pass; byte verification adds one per prefix hit.  A demote syncs
 once after its device-to-host copy, a restore once after its
 host-to-device copy.
 
-Not ported: the A/B flags of the reference (``host_blocks=0`` is the
-evict-only pool).
+Three flags restore the older disciplines for a same-run A/B, each on
+by default as in the JAX package: ``serving_kv_prefix_share=False`` gives
+every session private blocks (no CRC pass, no index, no CoW),
+``serving_kv_concurrent_fill=False`` holds the pool lock through the
+fill, and ``serving_kv_spill=False`` evicts on pressure even with a host
+arena.
 """
 from __future__ import annotations
 
@@ -78,6 +82,27 @@ import torch
 from .. import bvar
 from ..butil import flags as _flags
 from ..rpc.admission import tenant_weight_of
+
+_flags.define_flag(
+    "serving_kv_prefix_share", True,
+    "content-hash full KV blocks at load commit so sessions sharing a "
+    "block-aligned prefix map the same physical blocks under a refcount "
+    "(byte-verified on every hit; divergence or write_rows splits a "
+    "private copy).  False gives every session private blocks, with no "
+    "CRC pass and no index, for a same-run A/B")
+
+_flags.define_flag(
+    "serving_kv_concurrent_fill", True,
+    "run load_into's fill outside the pool lock: reserve under the lock, "
+    "fill unlocked, commit with a re-check, so concurrent LoadKv fills "
+    "proceed in parallel.  False holds the lock through the fill for a "
+    "same-run A/B")
+
+_flags.define_flag(
+    "serving_kv_spill", True,
+    "demote pressure victims to the host arena tier instead of evicting "
+    "them (pools built with host_blocks > 0).  False evicts on pressure "
+    "for a same-run A/B")
 
 _flags.define_flag(
     "serving_kv_spill_reprobe_s", 0.25,
@@ -300,6 +325,7 @@ class PagedKvPool:
         self.fill_aborts = bvar.Adder("serving_kv_pool_fill_aborts")
         self.prefix_hits = bvar.Adder("serving_kv_pool_prefix_hits")
         self.commit_races = bvar.Adder("serving_kv_pool_commit_races")
+        self.locked_fills = bvar.Adder("serving_kv_pool_locked_fills")
         self.unlocked_fills = bvar.Adder("serving_kv_pool_unlocked_fills")
         # the CRC's device-to-host passes and the bytes they moved
         self.crc_passes = bvar.Adder("serving_kv_pool_crc_d2h_passes")
@@ -401,33 +427,65 @@ class PagedKvPool:
         reduction rows and ``acc`` on the device, zeroes the partial tail
         so no prior tenant's bytes survive, computes the full blocks'
         chained CRCs, dedupes them against the prefix index and commits
-        the table."""
+        the table.
+
+        ``serving_kv_concurrent_fill=False`` holds the lock from the
+        reservation through the commit instead (``fill`` must then not
+        call back into this pool), and ``serving_kv_prefix_share=False``
+        skips the CRC pass and the dedupe."""
         if seq_len <= 0:
             raise ValueError("seq_len must be >= 1")
         pri = self._clip_priority(priority)
         need = self.blocks_for(seq_len)
         now = self._now()
-        with self._lock:
-            blocks, deferred_old = self._reserve_locked(session, need, pri)
-        try:
-            extents, views = self._extent_views(blocks, seq_len)
-            fill(views)
-            acc = self._derive_sums(extents, views, seq_len)
-            crcs = self._chained_crcs(blocks, seq_len)
-            s = _KvSession(session, tenant, pri, seq_len, last_token, acc,
-                           blocks, now, crcs)
-        except BaseException:
-            # abort clean: the reservation never became a session
+        share = bool(_flags.get_flag("serving_kv_prefix_share"))
+        if not _flags.get_flag("serving_kv_concurrent_fill"):
             with self._lock:
-                self._abort_fill_locked(blocks)
-            self.fill_aborts << 1
-            raise
-        with self._lock:
-            self._commit_locked(s, deferred_old)
-        self.unlocked_fills << 1
+                blocks, deferred_old = self._reserve_locked(session, need,
+                                                            pri)
+                try:
+                    s = self._fill_session(session, tenant, pri, seq_len,
+                                           last_token, blocks, now, fill,
+                                           share)
+                except BaseException:
+                    # abort clean (close() cannot race: the lock is held)
+                    self._return_blocks_locked(blocks)
+                    self.fill_aborts << 1
+                    raise
+                self._commit_locked(s, deferred_old)
+            self.locked_fills << 1
+        else:
+            with self._lock:
+                blocks, deferred_old = self._reserve_locked(session, need,
+                                                            pri)
+            try:
+                s = self._fill_session(session, tenant, pri, seq_len,
+                                       last_token, blocks, now, fill, share)
+            except BaseException:
+                # abort clean: the reservation never became a session
+                with self._lock:
+                    self._abort_fill_locked(blocks)
+                self.fill_aborts << 1
+                raise
+            with self._lock:
+                self._commit_locked(s, deferred_old)
+            self.unlocked_fills << 1
         self.loads << 1
         self.bytes_in << seq_len * self.options.bytes_per_token
         return s
+
+    def _fill_session(self, session, tenant, pri, seq_len, last_token,
+                      blocks, now, fill, share: bool) -> "_KvSession":
+        """Fill a reservation and build its session: the views, the
+        caller's fill, the reduction rows and, when prefixes are shared,
+        the full blocks' chained CRCs.  Touches only reserved rows, so it
+        runs with or without the pool lock."""
+        extents, views = self._extent_views(blocks, seq_len)
+        fill(views)
+        acc = self._derive_sums(extents, views, seq_len)
+        crcs = self._chained_crcs(blocks, seq_len) if share else []
+        return _KvSession(session, tenant, pri, seq_len, last_token, acc,
+                          blocks, now, crcs)
 
     def _extent_views(self, blocks: np.ndarray, seq_len: int):
         """Coalesce a reservation into contiguous extents and build the
@@ -548,7 +606,8 @@ class PagedKvPool:
             if cur.pinned:
                 self._return_blocks_locked(s.blocks)
                 raise SessionBusy(s.session)
-        self._dedupe_blocks_locked(s)
+        if _flags.get_flag("serving_kv_prefix_share"):
+            self._dedupe_blocks_locked(s)
         for b in s.blocks:
             b = int(b)
             self._refs[b] = self._refs.get(b, 0) + 1
@@ -728,6 +787,7 @@ class PagedKvPool:
         plane is usable: a latched IO failure turns pressure back into
         eviction until the latch lapses."""
         return (self.options.host_blocks > 0
+                and bool(_flags.get_flag("serving_kv_spill"))
                 and self._spill_health.usable())
 
     def _tier_copy(self, runs, to_host: bool) -> int:
@@ -1329,9 +1389,13 @@ class PagedKvPool:
             "ttl_s": o.ttl_s,
             "device": str(self.device),
             "prefix": {
+                "enabled": bool(_flags.get_flag("serving_kv_prefix_share")),
+                "concurrent_fill": bool(_flags.get_flag(
+                    "serving_kv_concurrent_fill")),
                 "shared_blocks": shared,
                 "prefix_hits": self.prefix_hits.get_value(),
                 "commit_races": self.commit_races.get_value(),
+                "locked_fills": self.locked_fills.get_value(),
                 "unlocked_fills": self.unlocked_fills.get_value(),
                 "logical_blocks": logical,
                 "physical_blocks": physical,
@@ -1354,7 +1418,8 @@ class PagedKvPool:
         and the process-wide migration ledger."""
         o = self.options
         out = {
-            "enabled": o.host_blocks > 0,
+            "enabled": (o.host_blocks > 0
+                        and bool(_flags.get_flag("serving_kv_spill"))),
             "host_blocks_total": o.host_blocks,
             "host_blocks_free": host_free,
             "resident_sessions": resident,

@@ -537,6 +537,12 @@ def run_chaos(m: _Member) -> dict:
             calls[0] += 1
         if cntl.failed():
             failures.append((i, cntl.error_code_, cntl.error_text))
+            if cntl.error_code_ == rpc.errors.EINTERNAL:
+                # a peer refused a device payload: its reason rides the
+                # FIN into the call's text
+                print(f"chaos member {m.pid}: call {i} failed "
+                      f"{cntl.error_code_}: {cntl.error_text}",
+                      file=sys.stderr, flush=True)
             return
         try:
             back = attachment_tensor(cntl.response_attachment)

@@ -523,6 +523,36 @@ Phases, each fatal on failure:
                 replayed into the port's TCP server: stream 1, POST
                 /Echo/Echo with a JSON body {"message": "from-curl"},
                 answered 200 with h2_curl_s2c.bin's body
+ 24. the KV flags, the storage and Baidu-legacy protocols
+                (a) the KV pool's three A/B flags on card arenas, at
+                bench_serving_kv_prefix's shapes: two 192-token system
+                prompts with unique 16-token tails in 16-token blocks, 64
+                blocks, loaded pinned to saturation with
+                serving_kv_prefix_share on and then off, every resident
+                session byte-checked, the capacity ratio printed (at
+                least 5x); a fill parked for 0.3 s inside the pool while
+                a second loader loads, serving_kv_concurrent_fill on and
+                then off, the time to the first completion printed; a
+                spill pressure run at phase 9's block size (12 sessions
+                of 2,048 tokens into 8 sessions' worth of card arena with
+                a pinned host arena), serving_kv_spill on and then off,
+                spilled against evicted printed and every live session
+                byte-checked; 8 concurrent identical-prompt LoadKv calls
+                over ici://6 through the plane, the attachments owned by
+                rank 1, prefix sharing on and then off, every session
+                byte-exact;
+                (b) one TCP server port holding tpu_std, HTTP, gRPC,
+                redis, thrift, mongo, the nshead family (raw, nova,
+                public_pbrpc, ubrpc mcpack2 and compack behind one
+                owner), hulu, sofa and esp
+                (brpc_tpu_torch/tools/multi_protocol.py), and a
+                memcached (tools/mini_memcached.py): 200 calls of a 4 KiB
+                echo on each protocol, redis and memcache at
+                memtier_benchmark's defaults (32-byte values, set:get
+                1:10) at pipeline depths 1 and 16, 2,000 operations each,
+                p50 and p99 µs per call printed, every reply checked; the
+                golden RESP and memcache fixture bytes on a raw socket,
+                their answers compared
 
 Launch counts are zeroed just before each path and read just after it:
 during phases 3-4 and during phase 8 p2p_copy's launches must equal the
@@ -560,7 +590,10 @@ and its peer launch none; during phase 23 the driving process launches
 none: the dryrun runs in a process of its own, which counts its launches
 per leg (in its rpc stack they equal the plane transfers of its
 device-plane echo; its children count their own), and (b) and (c) are
-host bytes only; during phase 6 each ring kernel's launches must equal
+host bytes only; during phase 24 (a) they equal the LoadKv relocations
+the ici:// servers received (the pool legs copy with copy_, no launch),
+and in (b) the driving process launches none; during phase 6 each ring
+kernel's launches must equal
 the calls of its entry point.  The line before the last is the
 ``kernels`` JSON; the last line is the device JSON.
 """
@@ -736,6 +769,16 @@ GRPC_BIG, GRPC_BIG_CALLS = 1 << 20, 16
 GOAWAY_CALLS = 8
 DRAIN_GRACE_S = 2.0
 AUTH_KEY = "chip-smoke-key"
+# phase 24 (a): bench_serving_kv_prefix's capacity shapes (prompt, tail,
+# block tokens, arena blocks), its parked-fill stall, big fill and probe,
+# the spill run (sessions, their tokens, card and host arena blocks at
+# phase 9's block size) and the concurrent identical-prompt LoadKvs;
+# (b) the calls per protocol, the echo payload, the memtier operations
+KVF_PROMPT, KVF_TAIL, KVF_BLOCK, KVF_CAP_BLOCKS = 192, 16, 16, 64
+KVF_STALL_S, KVF_BIG, KVF_PROBE = 0.3, 2048, 64
+KVF_SPILL_SESSIONS, KVF_SPILL_SEQ, KVF_SPILL_BLOCKS = 12, 2048, 1024
+KVF_LOADS, KVF_LOAD_SEQ = 8, 256
+PROTO_CALLS, PROTO_PAYLOAD, PROTO_KV_OPS = 200, 4096, 2000
 
 
 def fail(msg: str) -> None:
@@ -7009,6 +7052,319 @@ def phase_http_grpc() -> dict:
     return out
 
 
+def _kv_rows(model, tokens, dev) -> torch.Tensor:
+    """A prompt's token-major pool rows (the LoadKv transpose)."""
+    n = len(tokens)
+    kv = model.toy_kv_blocks(tokens, dev)
+    return kv.view(model.KV_LAYERS, n, model.KV_DMODEL).transpose(
+        0, 1).reshape(n, model.KV_LAYERS * model.KV_DMODEL).contiguous()
+
+
+def phase_kv_flags(mesh, plane, p2p_copy, device: str = "cuda",
+                   launches=None) -> dict:
+    """Phase 24 (a): the KV pool's three A/B flags on card arenas (see the
+    module docstring).  Only the LoadKv leg launches p2p_copy, one per
+    relocation the ici:// server receives."""
+    import brpc_tpu_torch.policy  # noqa: F401
+    from brpc_tpu_torch import rpc
+    from brpc_tpu_torch.butil import flags
+    from brpc_tpu_torch.examples.disagg_serving import model
+    from brpc_tpu_torch.examples.disagg_serving.workers import DecodeService
+    from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
+    from brpc_tpu_torch.serving import (KvPoolOptions, PagedKvPool,
+                                        PoolSaturated)
+
+    launches = launches or (lambda: p2p_copy.launches)
+    t_phase = time.monotonic()
+    dev = mesh.device(0)
+    bpt = model.KV_LAYERS * model.KV_DMODEL
+    sync = (torch.cuda.synchronize if dev.type == "cuda"
+            else (lambda: None))
+    out = {}
+
+    def pool(blocks, **kw):
+        return PagedKvPool(KvPoolOptions(
+            bytes_per_token=bpt, num_blocks=blocks, block_tokens=KVF_BLOCK,
+            use_timers=False, **kw), device=dev)
+
+    # capacity: prefix sharing on, then off
+    pre = [[(7 * j) % 997 for j in range(KVF_PROMPT)],
+           [(11 * j + 3) % 997 for j in range(KVF_PROMPT)]]
+    rows = {}
+
+    def session(i):
+        if i not in rows:
+            toks = pre[i % 2] + [(13 * i + j + 1) % 997
+                                 for j in range(KVF_TAIL)]
+            rows[i] = (toks, _kv_rows(model, toks, dev))
+        return rows[i]
+
+    cap = {}
+    for share in (True, False):
+        flags.set_flag("serving_kv_prefix_share", share)
+        p = pool(KVF_CAP_BLOCKS)
+        loaded = []
+        try:
+            while len(loaded) < 4 * KVF_CAP_BLOCKS:
+                i = len(loaded)
+                toks, r = session(i)
+                try:
+                    p.load(f"cap{i}", r, last_token=toks[-1])
+                except PoolSaturated:
+                    break
+                check(p.pin(f"cap{i}"), f"kv flags: pin cap{i}")
+                loaded.append(i)
+            bad = [i for i in loaded
+                   if not torch.equal(p.materialize(f"cap{i}"),
+                                      session(i)[1])]
+            check(not bad, f"kv flags: capacity sessions {bad[:4]} differ "
+                           f"(prefix share {share})")
+            d = p.describe()["prefix"]
+            check((d["shared_blocks"] > 0 and d["prefix_hits"] > 0)
+                  if share else
+                  (d["shared_blocks"] == 0 and d["prefix_hits"] == 0
+                   and d["crc_d2h_passes"] == 0),
+                  f"kv flags: prefix block {d} (share {share})")
+            cap["on" if share else "off"] = {
+                "sessions": len(loaded), "checked": len(loaded),
+                "shared_blocks": d["shared_blocks"],
+                "sharing_ratio": d["sharing_ratio"],
+                "crc_d2h_passes": d["crc_d2h_passes"]}
+        finally:
+            for i in loaded:
+                p.unpin(f"cap{i}")
+            p.close()
+    flags.set_flag("serving_kv_prefix_share", True)
+    cap["ratio"] = cap["on"]["sessions"] / cap["off"]["sessions"]
+    check(cap["ratio"] >= 5, f"kv flags: capacity ratio {cap['ratio']}")
+    out["capacity"] = cap
+    # a parked fill and a second loader: concurrent fill on, then off
+    big_toks = [(13 * j) % 997 for j in range(KVF_BIG)]
+    big = _kv_rows(model, big_toks, dev)
+    probe_toks = [(5 * j + 2) % 997 for j in range(KVF_PROBE)]
+    probe = _kv_rows(model, probe_toks, dev)
+    fill_out = {}
+    for conc in (True, False):
+        flags.set_flag("serving_kv_concurrent_fill", conc)
+        p = pool(4 * (KVF_BIG // KVF_BLOCK + 1))
+        in_fill, unblock = threading.Event(), threading.Event()
+
+        def parked(views):
+            off = 0
+            for v in views:
+                v.copy_(big[off:off + v.shape[0]])
+                off += v.shape[0]
+            sync()
+            in_fill.set()
+            unblock.wait(10)
+
+        try:
+            ta = threading.Thread(target=lambda: p.load_into(
+                "parked", KVF_BIG, parked, last_token=big_toks[-1]))
+            ta.start()
+            check(in_fill.wait(10), "kv flags: the parked fill never ran")
+            timer = threading.Timer(KVF_STALL_S, unblock.set)
+            timer.start()
+            t0 = time.perf_counter_ns()
+            p.load("probe", probe, last_token=probe_toks[-1])
+            first_ms = (time.perf_counter_ns() - t0) / 1e6
+            unblock.set()
+            timer.cancel()
+            ta.join(10)
+            d = p.describe()["prefix"]
+            route = "unlocked_fills" if conc else "locked_fills"
+            check(d[route] == 2, f"kv flags: fill routes {d} (conc {conc})")
+            check(torch.equal(p.materialize("parked"), big)
+                  and torch.equal(p.materialize("probe"), probe),
+                  f"kv flags: parked/probe bytes (conc {conc})")
+            fill_out["on" if conc else "off"] = {
+                "first_completion_ms": first_ms,
+                "locked_fills": d["locked_fills"],
+                "unlocked_fills": d["unlocked_fills"]}
+        finally:
+            unblock.set()
+            p.close()
+    flags.set_flag("serving_kv_concurrent_fill", True)
+    check(fill_out["on"]["first_completion_ms"] < 500 * KVF_STALL_S
+          <= fill_out["off"]["first_completion_ms"],
+          f"kv flags: first completion {fill_out} against a "
+          f"{KVF_STALL_S} s stall")
+    fill_out["stall_ms"] = KVF_STALL_S * 1e3
+    out["concurrent_fill"] = fill_out
+    # spill pressure: spill on, then off
+    spill_out = {}
+    sessions = {}
+    for i in range(KVF_SPILL_SESSIONS):
+        toks = [(3 * i + 17 * j + 1) % 997 for j in range(KVF_SPILL_SEQ)]
+        sessions[f"s{i}"] = toks
+    for spill in (True, False):
+        flags.set_flag("serving_kv_spill", spill)
+        p = pool(KVF_SPILL_BLOCKS, host_blocks=KVF_SPILL_BLOCKS)
+        try:
+            t0 = time.monotonic()
+            for name, toks in sessions.items():
+                p.load(name, _kv_rows(model, toks, dev), last_token=toks[-1])
+            load_s = time.monotonic() - t0
+            spilled = len(p.spilled_sessions())
+            tiers = p.describe()["tiers"]
+            evicted = p.evictions.get_value()
+            live, bad = 0, []
+            for name, toks in sessions.items():
+                got = p.materialize(name)
+                if got is None:
+                    continue
+                live += 1
+                if not torch.equal(got, _kv_rows(model, toks, dev)):
+                    bad.append(name)
+            check(not bad, f"kv flags: spill sessions {bad} differ")
+            spill_out["on" if spill else "off"] = {
+                "spilled": spilled, "evicted": evicted,
+                "demotions": tiers["demotions"], "live": live,
+                "load_s": load_s}
+        finally:
+            p.close()
+    flags.set_flag("serving_kv_spill", True)
+    per = KVF_SPILL_BLOCKS // (KVF_SPILL_SEQ // KVF_BLOCK)
+    over = KVF_SPILL_SESSIONS - per
+    check(spill_out["on"]["spilled"] == over
+          and spill_out["on"]["evicted"] == 0
+          and spill_out["on"]["live"] == KVF_SPILL_SESSIONS
+          and spill_out["off"]["spilled"] == 0
+          and spill_out["off"]["evicted"] == over
+          and spill_out["off"]["live"] == per,
+          f"kv flags: spill A/B {spill_out}")
+    out["spill"] = spill_out
+    # concurrent identical-prompt LoadKv over ici://6 through the plane
+    toks = [(19 * j) % 997 for j in range(KVF_LOAD_SEQ)]
+    want = _kv_rows(model, toks, mesh.device(6))
+    loads = {"launches": 0, "received": 0}
+    for share in (True, False):
+        flags.set_flag("serving_kv_prefix_share", share)
+        server = rpc.Server()
+        svc = DecodeService(6, mesh=mesh, pool_options=KvPoolOptions(
+            bytes_per_token=bpt, num_blocks=256, block_tokens=KVF_BLOCK,
+            use_timers=False))
+        server.add_service(svc)
+        check(server.start("ici://6") == 0, "kv flags: ici://6 start")
+        ch = rpc.Channel()
+        ch.init("ici://6", options=rpc.ChannelOptions(timeout_ms=60000,
+                                                      max_retry=0))
+        errs = []
+        try:
+            l0 = launches()
+
+            def load(i):
+                cntl = rpc.Controller()
+                cntl.request_attachment.append_device_array(
+                    mesh.own(model.toy_kv_blocks(toks, mesh.device(1)), 1))
+                ch.call_method("Decode.LoadKv", cntl, EchoRequest(
+                    message=json.dumps({"session": f"r{i}",
+                                        "seq_len": KVF_LOAD_SEQ,
+                                        "last_token": toks[-1]})),
+                    EchoResponse)
+                if cntl.failed():
+                    errs.append(cntl.error_text)
+
+            ts = [threading.Thread(target=load, args=(i,))
+                  for i in range(KVF_LOADS)]
+            t0 = time.monotonic()
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join(60)
+            wall = time.monotonic() - t0
+            sync()
+            n = launches() - l0
+            check(not errs, f"kv flags: LoadKv failed {errs[:3]}")
+            d = svc.pool.describe()["prefix"]
+            bad = [i for i in range(KVF_LOADS)
+                   if not torch.equal(svc.pool.materialize(f"r{i}"), want)]
+            check(not bad, f"kv flags: LoadKv sessions {bad} differ")
+            check(n == svc.loadkv_received == KVF_LOADS,
+                  f"kv flags: p2p_copy launches {n}, LoadKv relocations "
+                  f"received {svc.loadkv_received}")
+            check((d["shared_blocks"] == KVF_LOAD_SEQ // KVF_BLOCK)
+                  if share else d["shared_blocks"] == 0,
+                  f"kv flags: LoadKv prefix block {d} (share {share})")
+            loads["launches"] += n
+            loads["received"] += svc.loadkv_received
+            loads["on" if share else "off"] = {
+                "calls": KVF_LOADS, "launches": n, "wall_ms": wall * 1e3,
+                "shared_blocks": d["shared_blocks"],
+                "physical_blocks": d["physical_blocks"],
+                "logical_blocks": d["logical_blocks"]}
+        finally:
+            ch.close()
+            svc.close()
+            server.stop()
+            server.join()
+    flags.set_flag("serving_kv_prefix_share", True)
+    out["loadkv"] = loads
+    out["launches"] = loads["launches"]
+    out["wall_s"] = time.monotonic() - t_phase
+    return out
+
+
+def phase_protocols(calls: int = None, kv_ops: int = None) -> dict:
+    """Phase 24 (b): every protocol on one TCP server port, and the golden
+    fixture bytes on a raw socket (see the module docstring).  Host bytes
+    only: no kernel launches."""
+    import socket as pysocket
+    from brpc_tpu_torch.tools import multi_protocol as mp
+    from brpc_tpu_torch.tools.mini_memcached import MiniMemcached
+    from brpc_tpu_torch.rpc.socket import list_sockets
+
+    t_phase = time.monotonic()
+    m = mp.port_modules()
+    server = mp.start_server(m)
+    mc = MiniMemcached().start()
+
+    def raw(port, data, want):
+        with pysocket.create_connection(("127.0.0.1", port),
+                                        timeout=10) as sk:
+            sk.sendall(data)
+            got = b""
+            while len(got) < want:
+                chunk = sk.recv(65536)
+                if not chunk:
+                    break
+                got += chunk
+            return got
+
+    try:
+        out = mp.drive(m, server.listen_port, mc.port,
+                       calls=calls or PROTO_CALLS,
+                       payload_bytes=PROTO_PAYLOAD,
+                       kv_ops=kv_ops or PROTO_KV_OPS)
+        resp_req = (b"*3\r\n$3\r\nSET\r\n$1\r\nk\r\n$1\r\nv\r\n"
+                    b"*2\r\n$3\r\nGET\r\n$1\r\nk\r\n"
+                    b"*1\r\n$4\r\nPING\r\n")
+        resp_want = b"+OK\r\n$1\r\nv\r\n+PONG\r\n"
+        got = raw(server.listen_port, resp_req, len(resp_want))
+        check(got == resp_want, f"protocols: golden RESP answered {got!r}")
+        get = bytes.fromhex("80000003000000000000000300000000"
+                            "0000000000000000") + b"foo"
+        req = m.memcache.MemcacheRequest()
+        req.set("foo", "bar")
+        raw(mc.port, req.serialize(), 24)
+        hit = bytes.fromhex("81000000040000000000000700000000"
+                            "0000000000000000") + b"\x00" * 4 + b"bar"
+        got = raw(mc.port, get, len(hit))
+        check(got == hit, f"protocols: golden memcache GET answered "
+                          f"{got.hex()}")
+        out["golden"] = {"resp_bytes": len(resp_want),
+                         "memcache_bytes": len(hit)}
+    finally:
+        mc.stop()
+        server.stop()
+    deadline = time.monotonic() + 5
+    while list_sockets() and time.monotonic() < deadline:
+        time.sleep(0.02)
+    out["sockets_left"] = len(list_sockets())
+    out["wall_s"] = time.monotonic() - t_phase
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
@@ -7421,6 +7777,42 @@ def main() -> int:
     print("graft_entry: " + json.dumps(dry), flush=True)
     print("http_grpc: " + json.dumps(web), flush=True)
 
+    # 24. (a) the KV flags on the card, with the counts zeroed just before
+    # them: the LoadKv relocations launch p2p_copy here; (b) the protocols
+    # on one TCP port: host bytes only, this process launches nothing
+    zero_counts()
+    kvf = phase_kv_flags(mesh, plane, p2p_copy)
+    launches = {k.name: k.launches for k in kernels_all}
+    check(launches["p2p_copy"] == kvf["launches"]
+          == kvf["loadkv"]["received"] > 0
+          and launches["ring_all_reduce"] == 0
+          and launches["ring_all_gather"] == 0,
+          f"phase 24 (a): launches {launches}, LoadKv relocations "
+          f"received {kvf['loadkv']['received']}")
+    zero_counts()
+    protos = phase_protocols()
+    launches = {k.name: k.launches for k in kernels_all}
+    check(all(v == 0 for v in launches.values()),
+          f"a kernel launched in the driving process during phase 24 (b): "
+          f"{launches}")
+    c, f, sp = kvf["capacity"], kvf["concurrent_fill"], kvf["spill"]
+    print(f"kv flags: capacity {c['on']['sessions']} sessions with prefix "
+          f"sharing on, {c['off']['sessions']} off (ratio "
+          f"{c['ratio']:.2f}); first completion behind a parked fill "
+          f"{f['on']['first_completion_ms']:.3f} ms concurrent, "
+          f"{f['off']['first_completion_ms']:.3f} ms locked; spill on: "
+          f"{sp['on']['spilled']} spilled, {sp['on']['evicted']} evicted; "
+          f"spill off: {sp['off']['spilled']} spilled, "
+          f"{sp['off']['evicted']} evicted; LoadKv relocations "
+          f"{kvf['loadkv']['received']} = p2p_copy launches "
+          f"{kvf['launches']}; {kvf['wall_s']:.1f} s", flush=True)
+    print("protocols p50/p99 us: " + ", ".join(
+        f"{k} {v['p50_us']:.1f}/{v['p99_us']:.1f}"
+        for k, v in protos.items() if isinstance(v, dict)
+        and "p50_us" in v) + f"; {protos['wall_s']:.1f} s", flush=True)
+    print("kv_flags: " + json.dumps(kvf), flush=True)
+    print("protocols: " + json.dumps(protos), flush=True)
+
     head = next(r for r in rows if r["label"] == "4 MiB")
     red = ring_rows["ring_all_reduce"]
     gat = ring_rows["ring_all_gather"]
@@ -7441,7 +7833,8 @@ def main() -> int:
                      + native_adm["launches"] + fab["launches"]
                      + pod["launches"] + xproc["launches"]
                      + tiers20["launches"] + sum(phase21.values())
-                     + sum(phase22.values()) + dry["launches"]),
+                     + sum(phase22.values()) + dry["launches"]
+                     + kvf["launches"]),
         "launches_by_path": {"echo": main_launches,
                              "serving": serve["launches"],
                              "migration": tiers["launches"], **phase10,
@@ -7457,7 +7850,8 @@ def main() -> int:
                                 pod["launches_by_scenario"].items()},
                              "fanout_xproc": xproc["launches"],
                              "tiers": tiers20["launches"], **phase21,
-                             **phase22, "dryrun": dry["launches"]},
+                             **phase22, "dryrun": dry["launches"],
+                             "kv_flags_loadkv": kvf["launches"]},
         "migration_path_split": {
             "migrate_in": tiers["migrate_in_calls"],
             "loadkv": tiers["calls_received"] - tiers["migrate_in_calls"]},

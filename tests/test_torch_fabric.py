@@ -573,3 +573,45 @@ def test_failed_ipc_open_fails_the_call_with_its_code():
     # the refused payload was never sent inline: only the two small
     # Stats/Push frames' host bytes rode kind 0
     assert out["routes"].get("inline_bytes", 0) < 65536
+
+
+def test_refusal_fin_carries_its_reason_to_the_peers_calls():
+    """A socket failed EINTERNAL (a refused device payload) sends its
+    reason after the code in FIN: the peer's in-flight call fails 2001
+    with the refusal's text.  The JAX package's FIN carries no code for
+    a refusal (its peer sees a plain EOF), and a port FIN with the code
+    alone fails the calls with the code's text."""
+    reason = "device payload 0x2a refused: CUDA IPC open failed"
+    frames = {}
+    for pkg in (JAX, PORT):
+        a, b = socket.socketpair()
+        s = _sock(pkg, a)
+        s.set_failed(pkg.errors.EINTERNAL, reason)
+        frames[pkg.name] = [f for f in _read_frames(b)
+                            if f[0] == pkg.fab._F_FIN]
+        b.close()
+    code = struct.pack("<I", terrors.EINTERNAL)
+    assert frames["jax"] == [(PORT.fab._F_FIN, b"")]
+    assert frames["port"] == [(PORT.fab._F_FIN, code + reason.encode())]
+    for body, want in ((code + reason.encode(), f"({reason})"),
+                       (code, "Internal server error")):
+        a, b = socket.socketpair()
+        s = _sock(PORT, a)
+        s.messenger = PORT.Messenger(server=None)
+        got = []
+        done = threading.Event()
+
+        def on_error(data, cid, code):
+            got.append(code)
+            PORT.ids.unlock_and_destroy(cid)
+            done.set()
+
+        cid = PORT.ids.create_ranged(None, on_error, 1)
+        s._inflight_cids.add(cid)
+        s.start_io()
+        PORT.fab._send_frame(b, PORT.fab._F_FIN, body)
+        b.close()
+        assert done.wait(5)
+        assert got == [terrors.EINTERNAL]
+        assert s.failed_reason.startswith("peer failed the connection: ")
+        assert s.failed_reason.endswith(want), s.failed_reason

@@ -9,10 +9,8 @@ seeded rows and the same injected clock.  Each asserts the JAX test's
 outcomes on both, and the two pools must then agree exactly on the block
 tables, the spilled set, the free lists and the ``describe()["tiers"]``
 counters.  A seeded load/pressure/restore sequence compares the same
-after every operation and every session's bytes at the end.  (The JAX
-test of the ``serving_kv_spill`` flag has no port counterpart: the flag
-stays unported, and ``host_blocks=0`` is its case.)  Tolerances are
-exact.
+after every operation and every session's bytes at the end.  Tolerances
+are exact.
 """
 import time
 import types
