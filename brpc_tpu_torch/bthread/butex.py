@@ -46,6 +46,13 @@ class Butex:
             self._value += delta
             return old
 
+    def compare_exchange(self, expected: int, desired: int) -> bool:
+        with self._cond:
+            if self._value != expected:
+                return False
+            self._value = desired
+            return True
+
     # -- wait/wake -----------------------------------------------------
     def wait(self, expected: int, timeout: Optional[float] = None) -> int:
         """Block while value == expected.  Returns 0, EWOULDBLOCK if the
@@ -74,6 +81,12 @@ class Butex:
         with self._cond:
             woken = self._waiters
             self._cond.notify_all()
+            return woken
+
+    def wake(self, n: int = 1) -> int:
+        with self._cond:
+            woken = min(n, self._waiters)
+            self._cond.notify(n)
             return woken
 
     def wake_all_and_set(self, value: int) -> int:

@@ -28,9 +28,9 @@ from __future__ import annotations
 import atexit
 import collections
 import threading
-from typing import Callable, Deque, Dict, Optional, Sequence, Tuple
+from typing import Callable, Deque, Dict, Optional, Tuple
 
-from .butex import Butex
+from .butex import Butex, EWOULDBLOCK
 
 
 def _complete(event, on_ready: Callable[[], None]) -> None:
@@ -53,6 +53,7 @@ class _DevicePoller:
             collections.deque()
         self.cv = threading.Condition()
         self.closing = False
+        self.completed_count = 0
         # daemon: a process-lifetime poller parked on its condvar must not
         # hold the interpreter open at exit
         self.thread = threading.Thread(
@@ -85,6 +86,7 @@ class _DevicePoller:
                     self.cv.wait()
                 event, on_ready = self.queue.popleft()
             _complete(event, on_ready)
+            self.completed_count += 1
             # parked on the condvar, the loop must not keep the last
             # completion alive (its transfer holds the delivered tensor)
             event = on_ready = None
@@ -134,12 +136,14 @@ class DeviceEventDispatcher:
         of ``device``) has completed."""
         self._poller_for(device).submit(event, callback)
 
-    def on_ready(self, tensors: Sequence, callback: Callable[[], None]) -> None:
-        """Invoke callback once the work that produced ``tensors`` is
-        complete: an event is recorded on the current stream of their
-        device, which was the producing stream.  CPU tensors are complete
-        already."""
+    def on_ready(self, tensors, callback: Callable[[], None]) -> None:
+        """Invoke callback once the work that produced ``tensors`` (one
+        tensor or a sequence) is complete: an event is recorded on the
+        current stream of their device, which was the producing stream.
+        CPU tensors are complete already."""
         import torch
+        if isinstance(tensors, torch.Tensor):
+            tensors = (tensors,)
         cuda = [t for t in tensors if t.is_cuda]
         if not cuda:
             callback()
@@ -148,6 +152,30 @@ class DeviceEventDispatcher:
         ev = torch.cuda.Event()
         ev.record(torch.cuda.current_stream(device))
         self.on_event(ev, device, callback)
+
+
+    def wait(self, tensors, timeout: Optional[float] = None) -> int:
+        """Block the calling tasklet until ``tensors`` are ready (the
+        bthread_fd_wait analogue).  Returns 0 or ETIMEDOUT."""
+        done = Butex(0)
+        self.on_ready(tensors, lambda: done.wake_all_and_set(1))
+        rc = done.wait(0, timeout)
+        # EWOULDBLOCK: ready before the wait began (a CPU tensor's
+        # callback runs inside on_ready)
+        return 0 if rc == EWOULDBLOCK else rc
+
+    def stats(self) -> Dict[str, int]:
+        """Completions observed per device poller."""
+        with self._plock:
+            return {k: p.completed_count for k, p in self._pollers.items()}
+
+
+def device_wait(tensors, timeout: Optional[float] = None) -> int:
+    return DeviceEventDispatcher.instance().wait(tensors, timeout)
+
+
+def device_on_ready(tensors, callback: Callable[[], None]) -> None:
+    DeviceEventDispatcher.instance().on_ready(tensors, callback)
 
 
 class DeviceCompletion:

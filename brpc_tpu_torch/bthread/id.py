@@ -52,6 +52,10 @@ def _make_cid(rid: int, version: int) -> int:
     return (version << 48) | rid
 
 
+def create(data: Any = None, on_error: Optional[OnError] = None) -> int:
+    return create_ranged(data, on_error, 1)
+
+
 def create_ranged(data: Any, on_error: Optional[OnError],
                   version_range: int) -> int:
     if version_range < 1 or version_range > 0xFFFF:
@@ -180,3 +184,19 @@ def _drain_pending(st: _IdState) -> None:
                 continue            # stale try's error — drop
             st.locked = True
         _invoke_on_error(st, cid, code)
+
+
+def join(cid: int, timeout: Optional[float] = None) -> int:
+    """Wait until the id is destroyed (bthread_id_join): 0, or ETIMEDOUT
+    (110)."""
+    st = _state(cid)
+    if st is None:
+        return 0                    # already destroyed
+    from . import scheduler
+    scheduler.note_worker_blocked()
+    try:
+        with st.cond:
+            done = st.cond.wait_for(lambda: st.destroyed, timeout)
+    finally:
+        scheduler.note_worker_unblocked()
+    return 0 if done else 110

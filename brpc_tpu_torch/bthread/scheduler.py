@@ -42,8 +42,20 @@ _flags.define_flag("bthread_max_concurrency", 64,
                    "cap on compensated workers", _flags.positive_integer)
 
 
+class _Joiner:
+    """What a ``join`` waits on: made by the first joiner, filled by the
+    worker when the tasklet returns."""
+    __slots__ = ("event", "result", "exception")
+
+    def __init__(self):
+        self.event = threading.Event()
+        self.result: Any = None
+        self.exception: Optional[BaseException] = None
+
+
 class Tasklet:
-    __slots__ = ("fn", "args", "kwargs", "tid", "name", "local_storage")
+    __slots__ = ("fn", "args", "kwargs", "tid", "name", "local_storage",
+                 "joiner")
 
     def __init__(self, fn: Callable, args: tuple, kwargs: dict,
                  name: Optional[str] = None):
@@ -54,6 +66,7 @@ class Tasklet:
         self.name = name
         # bthread-locals (key.cpp), made on the first local_set
         self.local_storage: Optional[Dict[str, Any]] = None
+        self.joiner: Optional[_Joiner] = None
 
 
 _tls = threading.local()
@@ -164,14 +177,24 @@ class TaskControl:
 
     def _run_task(self, task: Tasklet) -> None:
         _tls.current = task
+        result = exc = None
         try:
-            task.fn(*task.args, **task.kwargs)
-        except Exception:
+            result = task.fn(*task.args, **task.kwargs)
+        except Exception as e:
+            exc = e
             from ..butil import logging as log
             log.error("tasklet %s raised", task.name, exc_info=True)
         finally:
             _tls.current = None
             self.pool.return_resource(task.tid)
+            # read after the id is returned: a joiner that comes later
+            # finds the id gone (join's poll)
+            j = task.joiner
+            if j is not None:
+                j.result, j.exception = result, exc
+                j.event.set()
+                task.joiner = None
+            result = exc = None
             # an idle worker still holds its last tasklet: drop what it
             # ran on (a request's frame, and so its device attachment)
             task.fn = task.args = task.kwargs = None
@@ -211,6 +234,13 @@ class TaskControl:
                 and len(self._workers) < _flags.get_flag("bthread_max_concurrency")):
             self._add_worker(len(self.groups))
 
+    # -- introspection -------------------------------------------------
+    def worker_count(self) -> int:
+        return len(self._workers)
+
+    def address(self, tid: int) -> Optional[Tasklet]:
+        return self.pool.address(tid)
+
 
 # ---- module-level API (the bthread_* C functions) ---------------------
 
@@ -222,6 +252,46 @@ def start_urgent(fn: Callable, *args, name: Optional[str] = None, **kwargs) -> i
 def start_background(fn: Callable, *args, name: Optional[str] = None, **kwargs) -> int:
     """bthread_start_background: scheduled FIFO."""
     return TaskControl.instance().submit(Tasklet(fn, args, kwargs, name), False)
+
+
+def join(tid: int, timeout: Optional[float] = None):
+    """bthread_join: wait for the tasklet to return and give its result,
+    raising its exception.  None when it had already returned and its id
+    was reclaimed before this join found it."""
+    import time
+    ctl = TaskControl.instance()
+    task = ctl.address(tid)
+    if task is None:
+        return None
+    j = task.joiner
+    if j is None:
+        j = task.joiner = _Joiner()
+    deadline = None if timeout is None else time.monotonic() + timeout
+    note_worker_blocked()
+    try:
+        while not j.event.wait(0.01):
+            if ctl.address(tid) is not task:
+                if j.event.is_set():
+                    break
+                return None         # returned before it saw this joiner
+            if deadline is not None and time.monotonic() >= deadline:
+                raise TimeoutError(f"join({tid}) timed out")
+    finally:
+        note_worker_unblocked()
+    if j.exception is not None:
+        raise j.exception
+    return j.result
+
+
+def self_id() -> int:
+    cur = getattr(_tls, "current", None)
+    return cur.tid if cur is not None else 0
+
+
+def yield_tasklet() -> None:
+    """bthread_yield: give other runnables a chance (a hint here)."""
+    import time
+    time.sleep(0)
 
 
 def in_worker() -> bool:

@@ -87,3 +87,11 @@ class TimerThread:
         from . import scheduler
         # timers run in tasklets so a slow callback can't delay the wheel
         scheduler.start_urgent(fn, name="timer_cb")
+
+
+def timer_add(fn: Callable[[], None], delay_s: float) -> TimerId:
+    return TimerThread.instance().schedule_after(fn, delay_s)
+
+
+def timer_del(tid: TimerId) -> int:
+    return TimerThread.instance().unschedule(tid)

@@ -51,6 +51,9 @@ class EndPoint:
             raise ValueError(f"{self} has mesh coords, not a flat device id")
         return self.coords[0]
 
+    def is_device(self) -> bool:
+        return self.scheme == SCHEME_ICI
+
 
 def parse_endpoint(s: str) -> EndPoint:
     s = s.strip()
@@ -90,3 +93,7 @@ def parse_endpoint(s: str) -> EndPoint:
         return EndPoint(scheme=SCHEME_MEM, host=s)
     host, _, port = s.rpartition(":")
     return EndPoint(scheme=SCHEME_TCP, host=host, port=int(port))
+
+
+def endpoint2str(ep: EndPoint) -> str:
+    return str(ep)

@@ -95,3 +95,7 @@ def list_flags() -> list:
 
 def positive_integer(v: Any) -> bool:
     return isinstance(v, int) and v > 0
+
+
+def non_negative_integer(v: Any) -> bool:
+    return isinstance(v, int) and v >= 0

@@ -213,6 +213,20 @@ class IOBuf:
         self._size -= n
         return n
 
+    def pop_back(self, n: int) -> int:
+        n = min(n, self._size)
+        left = n
+        while left > 0:
+            r = self._refs[-1]
+            if r.length <= left:
+                left -= r.length
+                self._refs.pop()
+            else:
+                r.length -= left
+                left = 0
+        self._size -= n
+        return n
+
     def cutn(self, out: "IOBuf", n: int) -> int:
         """Move first n bytes into out (ref moves, no copies)."""
         n = min(n, self._size)
@@ -238,6 +252,16 @@ class IOBuf:
         self.cutn(out, n)
         return out
 
+    def cut_until(self, delim: bytes) -> Optional["IOBuf"]:
+        """Cut up to (excluding) delim, also consuming delim; None if
+        absent."""
+        idx = self.to_bytes().find(delim)
+        if idx < 0:
+            return None
+        out = self.cut(idx)
+        self.pop_front(len(delim))
+        return out
+
     # ---- read --------------------------------------------------------
     def to_bytes(self) -> bytes:
         if len(self._refs) == 1:
@@ -260,8 +284,24 @@ class IOBuf:
                 break
         return b"".join(out)
 
+    def fetch1(self) -> Optional[int]:
+        b = self.fetch(1)
+        return b[0] if b else None
+
+    def host_views(self) -> List[memoryview]:
+        """Per-ref memoryviews (each DEVICE ref copies to the host)."""
+        return [r.block.host_view(r.offset, r.length) for r in self._refs]
+
     def device_refs(self) -> List[BlockRef]:
         return [r for r in self._refs if r.block.kind == DEVICE]
+
+    def has_device_blocks(self) -> bool:
+        return any(r.block.kind == DEVICE for r in self._refs)
+
+    def device_bytes(self) -> int:
+        """Bytes referenced from DEVICE blocks: the volume a transport's
+        device plane is responsible for moving."""
+        return sum(r.length for r in self._refs if r.block.kind == DEVICE)
 
     # ---- fd IO (reference cut_into_file_descriptor iobuf.h:160) ------
     def cut_into_file_descriptor(self, fd: int,
@@ -289,6 +329,21 @@ class IOPortal(IOBuf):
     IOPortal); inbox-backed transports cut already-resident refs into it,
     a TCP socket reads into it (:meth:`append_from_socket`)."""
 
+    def append_from_file_descriptor(self, fd: int,
+                                    max_count: int = 1 << 16) -> int:
+        """``readv`` into a fresh host block: the bytes read, 0 at EOF, -1
+        when nothing is ready (EAGAIN)."""
+        blk = new_host_block(max(max_count, DEFAULT_BLOCK_SIZE))
+        try:
+            nr = os.readv(fd, [memoryview(blk.data)[:max_count]])
+        except (BlockingIOError, InterruptedError):
+            return -1
+        if nr > 0:
+            blk.size = nr
+            self._refs.append(BlockRef(blk, 0, nr))
+            self._size += nr
+        return nr
+
     def append_from_socket(self, sock, max_count: int = 1 << 16) -> int:
         """``recv_into`` a fresh host block: the bytes read, 0 at EOF, -1
         when nothing is ready (EAGAIN)."""
@@ -302,3 +357,58 @@ class IOPortal(IOBuf):
             self._refs.append(BlockRef(blk, 0, nr))
             self._size += nr
         return nr
+
+
+class IOBufCutter:
+    """Parsing cursor over an IOBuf (reference IOBufCutter,
+    iobuf_inl.h): consumes from the front."""
+
+    __slots__ = ("_buf",)
+
+    def __init__(self, buf: IOBuf):
+        self._buf = buf
+
+    def remaining(self) -> int:
+        return len(self._buf)
+
+    def cutn_bytes(self, n: int) -> Optional[bytes]:
+        if len(self._buf) < n:
+            return None
+        return self._buf.cut(n).to_bytes()
+
+    def cutn(self, out: IOBuf, n: int) -> int:
+        return self._buf.cutn(out, n)
+
+    def _cut_be(self, n: int) -> Optional[int]:
+        b = self.cutn_bytes(n)
+        return None if b is None else int.from_bytes(b, "big")
+
+    def cut_uint8(self) -> Optional[int]:
+        return self._cut_be(1)
+
+    def cut_uint32_be(self) -> Optional[int]:
+        return self._cut_be(4)
+
+    def cut_uint64_be(self) -> Optional[int]:
+        return self._cut_be(8)
+
+
+class IOBufAppender:
+    """Sequential writer producing an IOBuf (reference IOBufAppender)."""
+
+    def __init__(self):
+        self.buf = IOBuf()
+
+    def append(self, data) -> None:
+        self.buf.append(data)
+
+    def append_uint32_be(self, v: int) -> None:
+        self.buf.append(v.to_bytes(4, "big"))
+
+    def append_uint64_be(self, v: int) -> None:
+        self.buf.append(v.to_bytes(8, "big"))
+
+    def move_to(self) -> IOBuf:
+        out = self.buf
+        self.buf = IOBuf()
+        return out

@@ -1,5 +1,5 @@
-"""Authentication (reference: src/brpc/authenticator.h and the giano
-authenticator's signed credential).
+"""Authentication (reference: src/brpc/authenticator.h and the giano,
+couchbase, esp and redis authenticators).
 
 An Authenticator generates a credential on the client (``Channel`` puts
 it in every call's ``auth_token``: tpu_std's request meta, h2's
@@ -21,6 +21,19 @@ class Authenticator:
     def verify(self, token: str, socket) -> bool:
         """Called by the server protocol; returning False → ERPCAUTH."""
         raise NotImplementedError
+
+
+class TokenAuthenticator(Authenticator):
+    """Shared-secret bearer token, compared in constant time."""
+
+    def __init__(self, token: str):
+        self._token = token
+
+    def generate_credential(self, cntl) -> str:
+        return self._token
+
+    def verify(self, token: str, socket) -> bool:
+        return hmac.compare_digest(token, self._token)
 
 
 class HmacAuthenticator(Authenticator):
@@ -49,3 +62,49 @@ class HmacAuthenticator(Authenticator):
         if abs(window - now_window) > 1:
             return False                  # expired credential
         return hmac.compare_digest(sig, self._sig(window))
+
+
+class RedisAuthenticator(Authenticator):
+    """Redis AUTH (policy/redis_authenticator.{h,cpp}): the credential is
+    the password, or ``user\\x00password`` for a Redis 6 ACL user (NUL so
+    a password with spaces survives the argument split); the redis
+    protocol sends AUTH before a connection's first command."""
+
+    def __init__(self, password: str, user: str = ""):
+        self._cred = f"{user}\x00{password}" if user else password
+
+    def generate_credential(self, cntl) -> str:
+        return self._cred
+
+    def verify(self, token: str, socket) -> bool:
+        return hmac.compare_digest(token, self._cred)
+
+
+class CouchbaseAuthenticator(Authenticator):
+    """SASL PLAIN over the memcache binary protocol
+    (policy/couchbase_authenticator.{h,cpp}): the credential is
+    ``user:password``; the memcache protocol sends OP_SASL_AUTH before a
+    connection's first operation."""
+
+    def __init__(self, user: str, password: str):
+        self._cred = f"{user}:{password}"
+
+    def generate_credential(self, cntl) -> str:
+        return self._cred
+
+    def verify(self, token: str, socket) -> bool:
+        return hmac.compare_digest(token, self._cred)
+
+
+class EspAuthenticator(Authenticator):
+    """ESP magic-number credential (policy/esp_authenticator.cpp: a 6-byte
+    magic and a 2-byte local port); a server accepts anything, as the
+    reference's VerifyCredential does."""
+
+    _MAGIC = b"\x00ESP\x01\x02"
+
+    def generate_credential(self, cntl) -> str:
+        return (self._MAGIC + b"\x00\x00").decode("latin-1")
+
+    def verify(self, token: str, socket) -> bool:
+        return True

@@ -61,6 +61,10 @@ class ChannelOptions:
     # Authenticator (policy/auth.py): fills each call's auth_token when
     # the call set none
     auth: Any = None
+    # ssl.SSLContext: TCP connections of this channel speak TLS (the
+    # handshake runs at connect); such a channel never takes the native
+    # door or the loopback plane
+    ssl_context: Any = None
     # "" = single; an explicit value must be one the protocol supports
     connection_type: str = ""           # "" | single | pooled | short
     timeout_ms: int = 1000
@@ -164,7 +168,8 @@ class Channel:
         self._endpoint = ep
         if (ep.scheme == SCHEME_MEM and self.options.backup_request_ms <= 0
                 and self.options.protocol == "tpu_std"
-                and self.options.auth is None):
+                and self.options.auth is None
+                and self.options.ssl_context is None):
             # the loopback plane's channel-level screen (the per-call ones
             # are in call_method): unary tpu_std to an in-process mem://
             # server, no authenticator, no hedging.  The breaker gates it
@@ -452,6 +457,7 @@ class Channel:
         if (ep is None or ep.scheme != SCHEME_ICI
                 or self.options.protocol != "tpu_std"
                 or self.options.auth is not None
+                or self.options.ssl_context is not None
                 or cntl.stream_creator is not None
                 or cntl.compress_type or cntl.auth_token):
             return None
@@ -541,20 +547,34 @@ class Channel:
             ctype = "pooled"
         cto_ms = self.options.connect_timeout_ms
         cto = None if cto_ms < 0 else (cto_ms or 1000) / 1000.0
+        group = self._channel_signature()
+        ssl_ctx = self.options.ssl_context
         if ctype == "pooled":
-            sock = smap.get_pooled_socket(ep, self.messenger,
-                                          group=self._protocol.name,
+            sock = smap.get_pooled_socket(ep, self.messenger, group=group,
+                                          ssl_context=ssl_ctx,
                                           connect_timeout=cto)
             cntl._pooled_sockets.append((ep, sock))
         elif ctype == "short":
             sock = smap.get_short_socket(ep, self.messenger,
+                                         ssl_context=ssl_ctx,
                                          connect_timeout=cto)
             cntl._short_sockets.append(sock)
         else:
-            sock = smap.get_socket(ep, self.messenger,
-                                   group=self._protocol.name,
+            sock = smap.get_socket(ep, self.messenger, group=group,
+                                   ssl_context=ssl_ctx,
                                    connect_timeout=cto)
         return sock
+
+    def _channel_signature(self) -> tuple:
+        """The connection-sharing key (reference channel.cpp
+        ComputeChannelSignature): channels share a connection only when
+        the peer would read it alike, so the protocol, TLS and the
+        authenticator each split it.  The key holds the authenticator
+        itself, so its identity cannot be reused while its connections
+        live (a redis or memcache connection authenticates once, before
+        its first command)."""
+        return (self._protocol.name, self.options.ssl_context is not None,
+                self.options.auth)
 
     def _on_call_end(self, cntl: Controller) -> None:
         """Return the call's pooled connections and close its short ones.
@@ -580,7 +600,7 @@ class Channel:
                                         "context still outstanding")
         for ep, sock in d.get("_pooled_sockets", ()):
             SocketMap.instance().return_pooled_socket(
-                ep, sock, group=self._protocol.name)
+                ep, sock, group=self._channel_signature())
         for sock in d.get("_short_sockets", ()):
             sock.set_failed(errors.ECLOSE, "short connection done")
         sel = cntl._selected_endpoint
@@ -618,14 +638,15 @@ class Channel:
             nch, self._native_ici = self._native_ici, None
         if nch is not None:
             nch.close()
+        sig = self._channel_signature()
         if self._endpoint is not None:
-            smap.close_endpoint(self._endpoint, self._protocol.name)
+            smap.close_endpoint(self._endpoint, sig)
         lb = self._lb
         if lb is not None:
             if self._ns_thread is not None:
                 self._ns_thread.remove_watcher(self._ns_watcher)
             for e in lb.servers():
-                smap.close_endpoint(e.endpoint, self._protocol.name)
+                smap.close_endpoint(e.endpoint, sig)
 
 
 class _FilteredWatcher:

@@ -125,6 +125,8 @@ class ServerOptions:
     # http: url path -> "Service.Method" (reference restful.cpp), served
     # as JSON-RPC beside the /Service/Method routes
     restful_mappings: Dict[str, str] = field(default_factory=dict)
+    # ssl.SSLContext: the TCP listener (and the internal port) speak TLS
+    ssl_context: Any = None
 
 
 def _connection_service_slot(svc) -> Optional[tuple]:
@@ -133,7 +135,8 @@ def _connection_service_slot(svc) -> Optional[tuple]:
     so the rpc layer imports no protocol module: a RedisService has
     ``dispatch`` and ``add_handler``, a ThriftService ``handle`` and
     ``add_method``, and the others name themselves in ``SERVICE_NAME``
-    (nova, public_pbrpc and ubrpc ride on the nshead slot)."""
+    (nova, public_pbrpc and ubrpc ride on the nshead slot; an
+    RtmpService makes each connection's streams)."""
     if hasattr(svc, "dispatch") and hasattr(svc, "add_handler"):
         return "redis_service", False
     if hasattr(svc, "handle") and hasattr(svc, "add_method"):
@@ -145,6 +148,8 @@ def _connection_service_slot(svc) -> Optional[tuple]:
         return "_nshead_service", True
     if kind == "esp" and hasattr(svc, "process_esp_request"):
         return "_esp_service", True
+    if kind == "rtmp" and hasattr(svc, "new_stream"):
+        return "_rtmp_service", True
     return None
 
 
@@ -194,6 +199,7 @@ class Server:
         self._mongo_service = None
         self._nshead_service = None
         self._esp_service = None
+        self._rtmp_service = None
 
     # ---- registry -----------------------------------------------------
     def add_service(self, svc: Service) -> int:
@@ -202,8 +208,8 @@ class Server:
         slot = _connection_service_slot(svc)
         if slot is not None:
             # a connection-level service (redis, thrift, mongo, nshead,
-            # esp) answers its protocol's frames itself; nshead and esp
-            # each take one owner
+            # esp, rtmp) answers its protocol's frames itself; nshead, esp
+            # and rtmp each take one owner
             attr, single = slot
             if single and getattr(self, attr) is not None:
                 return errors.EINVAL
@@ -430,7 +436,8 @@ class Server:
                                 "Python datapath only", e)
         elif ep.scheme == SCHEME_TCP:
             from .tcp_transport import Acceptor
-            acceptor = Acceptor(self._on_accept)
+            acceptor = Acceptor(self._on_accept,
+                                ssl_context=self.options.ssl_context)
             port = acceptor.start(ep.host or "0.0.0.0", ep.port)
             self._listener = acceptor
             ep = EndPoint(scheme=SCHEME_TCP, host=ep.host or "0.0.0.0",
@@ -451,7 +458,9 @@ class Server:
                 # a surprise 0.0.0.0 listener
                 host = ep.host if ep.scheme == SCHEME_TCP and ep.host \
                     else "127.0.0.1"
-                self._internal_acceptor = Acceptor(self._on_accept_internal)
+                self._internal_acceptor = Acceptor(
+                    self._on_accept_internal,
+                    ssl_context=self.options.ssl_context)
                 self._internal_port = self._internal_acceptor.start(
                     host, self.options.internal_port)
             if self.options.idle_timeout_s > 0:
@@ -477,6 +486,10 @@ class Server:
                     "the main thread): TERM will not drain this server")
         log.info("Server started on %s with %d services", ep,
                  len(self._services))
+        # version ping, off unless the trackme_server flag is set
+        # (reference server.cpp StartInternal → trackme.cpp:36)
+        from .trackme import start_trackme
+        start_trackme(str(ep))
         return 0
 
     def _on_accept(self, sock) -> None:

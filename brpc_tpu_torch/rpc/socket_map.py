@@ -9,7 +9,9 @@ short connection serves one call and closes.  A connect that fails hands
 the endpoint to the health checker before the error propagates.  The port
 connects ``ici://`` (a rank another process owns through the fabric,
 :func:`..ici.fabric.connect_any`), ``mem://`` and TCP endpoints; a TCP
-connect waits at most the channel's ``connect_timeout_ms``.
+connect waits at most the channel's ``connect_timeout_ms`` and, with an
+``ssl_context``, handshakes TLS before the socket joins the dispatcher.
+The key's ``group`` is the channel's signature (protocol, TLS, auth).
 """
 from __future__ import annotations
 
@@ -56,21 +58,23 @@ class SocketMap:
             return e
 
     def get_socket(self, ep: EndPoint, messenger=None, group: Any = "",
-                   connect_timeout: Optional[float] = 5.0) -> Socket:
+                   connect_timeout: Optional[float] = 5.0,
+                   ssl_context=None) -> Socket:
         """The shared 'single' connection to ep (creates/replaces lazily)."""
         e = self._entry(ep, group)
         with e.lock:
             if e.socket is not None and not e.socket.failed \
                     and not e.socket.logoff:
                 return e.socket
-            s = self._checked_connect(ep, connect_timeout)
+            s = self._checked_connect(ep, connect_timeout, ssl_context)
             s.messenger = messenger
             e.socket = s
             return s
 
     def get_pooled_socket(self, ep: EndPoint, messenger=None,
                           group: Any = "",
-                          connect_timeout: Optional[float] = 5.0) -> Socket:
+                          connect_timeout: Optional[float] = 5.0,
+                          ssl_context=None) -> Socket:
         """A connection for one call alone, from the pool or new
         (reference GetPooledSocket); the call gives it back with
         :meth:`return_pooled_socket`."""
@@ -80,7 +84,7 @@ class SocketMap:
                 s = e.pooled.pop()
                 if not s.failed and not s.logoff:
                     return s
-        s = self._checked_connect(ep, connect_timeout)
+        s = self._checked_connect(ep, connect_timeout, ssl_context)
         s.messenger = messenger
         return s
 
@@ -100,22 +104,24 @@ class SocketMap:
             e.pooled.append(s)
 
     def get_short_socket(self, ep: EndPoint, messenger=None,
-                         connect_timeout: Optional[float] = 5.0) -> Socket:
+                         connect_timeout: Optional[float] = 5.0,
+                         ssl_context=None) -> Socket:
         """A new connection for one call, closed when the call ends."""
-        s = self._checked_connect(ep, connect_timeout)
+        s = self._checked_connect(ep, connect_timeout, ssl_context)
         s.messenger = messenger
         return s
 
     @classmethod
     def _checked_connect(cls, ep: EndPoint,
-                         connect_timeout: Optional[float] = 5.0) -> Socket:
+                         connect_timeout: Optional[float] = 5.0,
+                         ssl_context=None) -> Socket:
         """``_connect``, but an endpoint that refuses is handed to the
         health checker before the error propagates (the reference starts
         a health check whenever a connect fails): a failed connect makes
         no socket, so the socket-failure hand-off alone would miss the
         retries issued while the peer is down."""
         try:
-            return cls._connect(ep, connect_timeout)
+            return cls._connect(ep, connect_timeout, ssl_context)
         except Exception:
             try:
                 from .health_check import start_health_check
@@ -125,8 +131,8 @@ class SocketMap:
             raise
 
     @staticmethod
-    def _connect(ep: EndPoint,
-                 connect_timeout: Optional[float] = 5.0) -> Socket:
+    def _connect(ep: EndPoint, connect_timeout: Optional[float] = 5.0,
+                 ssl_context=None) -> Socket:
         if ep.scheme == SCHEME_ICI:
             # an in-process rank rides the IciSocket, one another process
             # owns the fabric
@@ -137,7 +143,10 @@ class SocketMap:
             return mem_connect(ep.host)
         if ep.scheme == SCHEME_TCP:
             from .tcp_transport import tcp_connect
-            return tcp_connect(ep, timeout=connect_timeout)
+            if ssl_context is None:
+                return tcp_connect(ep, timeout=connect_timeout)
+            return tcp_connect(ep, timeout=connect_timeout,
+                               ssl_context=ssl_context)
         raise ValueError(f"unsupported scheme {ep.scheme}")
 
     def remove(self, ep: EndPoint, group: Any = "") -> None:

@@ -553,6 +553,38 @@ Phases, each fatal on failure:
                 p50 and p99 µs per call printed, every reply checked; the
                 golden RESP and memcache fixture bytes on a raw socket,
                 their answers compared
+ 25. TLS, auth, RTMP and trackme, all TCP in this process
+                (a) a self-signed certificate made with openssl; a tpu_std
+                server with ServerOptions.ssl_context and a plain one: 200
+                4 KiB echoes over TLS and 200 over TCP, in turns (p50/p99
+                us each); 16 calls over TLS and 16 over TCP in turns, each
+                with a 4 MiB DEVICE attachment (a seeded uint8 tensor on
+                cuda:0) that the server compares with the seed's bytes
+                (p50/p99 and MB/s each); a plaintext client
+                against the TLS server fails (its code printed) and the
+                TLS calls after it succeed;
+                (b) 200 4 KiB echoes with a TokenAuthenticator and 200
+                without, in turns (p50 each); a wrong token fails
+                ERPCAUTH; two redis channels with different
+                RedisAuthenticators make two connections and two AUTHs;
+                MiniMemcached with SASL PLAIN serves a right
+                CouchbaseAuthenticator and fails a wrong one ERPCAUTH;
+                (c) an RTMP relay hub on one port, 4 players, one
+                publisher (out chunk size 4,096) sending a seeded 10 s
+                1080p30 stream as fast as it can: a 150 KiB keyframe
+                every 2 s, 59 frames of 20 KiB between, AAC frames of 384
+                B at 43 a second, one onMetaData (300 video and 430 audio
+                messages); every player gets every message in order,
+                byte-equal; messages/s and MB/s per player and the one-way
+                p50/p99 ms from a monotonic stamp in each payload's first
+                8 bytes; once with rtmp_client_digest off and once on; a
+                player's stream written to FLV reads back equal, and muxed
+                to TS is a whole number of 188-byte packets whose
+                continuity counters step;
+                (d) a TrackMeService hub on 127.0.0.1 and an app server
+                started with trackme_server set and trackme_interval 1:
+                at least 2 pings within 3 s and the bulletin seen, none
+                after stop_trackme
 
 Launch counts are zeroed just before each path and read just after it:
 during phases 3-4 and during phase 8 p2p_copy's launches must equal the
@@ -592,7 +624,9 @@ per leg (in its rpc stack they equal the plane transfers of its
 device-plane echo; its children count their own), and (b) and (c) are
 host bytes only; during phase 24 (a) they equal the LoadKv relocations
 the ici:// servers received (the pool legs copy with copy_, no launch),
-and in (b) the driving process launches none; during phase 6 each ring
+and in (b) the driving process launches none; during phase 25 the
+driving process launches none (TCP carries host bytes); during phase 6
+each ring
 kernel's launches must equal
 the calls of its entry point.  The line before the last is the
 ``kernels`` JSON; the last line is the device JSON.
@@ -7365,6 +7399,574 @@ def phase_protocols(calls: int = None, kv_ops: int = None) -> dict:
     return out
 
 
+# phase 25: TLS, the authenticators, an RTMP relay and trackme (see the
+# module docstring).  (a) the echoes in turns, the DEVICE attachments over
+# TLS and their size; (b) the auth echoes; (c) the relay's players, the
+# stream's seconds, frame rate, keyframe and frame sizes, the AAC frame
+# size and rate, the publisher's out chunk size; (d) trackme's interval
+# and the time the pings get
+TLS_ECHOES, TLS_PAYLOAD = 200, 4096
+TLS_DEVICE_CALLS, TLS_DEVICE_BYTES = 16, 4 << 20
+AUTH_ECHOES = 200
+RTMP_PLAYERS, RTMP_SECONDS, RTMP_FPS = 4, 10, 30
+RTMP_KEYFRAME, RTMP_FRAME = 150 << 10, 20 << 10
+RTMP_AAC, RTMP_AAC_RATE, RTMP_CHUNK = 384, 43, 4096
+TRACKME_WAIT_S = 3.0
+
+
+def _p50_p99(lat_s) -> dict:
+    us = sorted(x * 1e6 for x in lat_s)
+    return {"p50_us": _pct(us, 0.50), "p99_us": _pct(us, 0.99),
+            "calls": len(us)}
+
+
+def _tls_contexts(workdir: str):
+    import ssl
+    key, crt = os.path.join(workdir, "key.pem"), os.path.join(workdir,
+                                                              "cert.pem")
+    subprocess.run(["openssl", "req", "-x509", "-newkey", "rsa:2048",
+                    "-keyout", key, "-out", crt, "-days", "1", "-nodes",
+                    "-subj", "/CN=localhost", "-addext",
+                    "subjectAltName=DNS:localhost,IP:127.0.0.1"],
+                   check=True, capture_output=True, timeout=60)
+    server_ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+    server_ctx.load_cert_chain(crt, key)
+    client_ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_CLIENT)
+    client_ctx.load_verify_locations(crt)
+    return server_ctx, client_ctx
+
+
+def _seeded_bytes(seed: int, n: int) -> np.ndarray:
+    return np.random.default_rng(seed).integers(0, 256, n, dtype=np.uint8)
+
+
+def _tls_auth_servers(rpc, EchoRequest, EchoResponse, expected=None,
+                      **options):
+    """A tpu_std server on 127.0.0.1:0 with Echo.Echo and Echo.Check, which
+    compares a request's attachment with ``expected[seed]`` (the bytes made
+    from the seed the request names, made before the timed calls)."""
+    class Echo(rpc.Service):
+        @rpc.method(EchoRequest, EchoResponse)
+        def Echo(self, cntl, request, response, done):
+            response.message = request.message
+            done()
+
+        @rpc.method(EchoRequest, EchoResponse)
+        def Check(self, cntl, request, response, done):
+            want = expected[int(request.message)]
+            got = cntl.request_attachment.to_bytes()
+            response.message = "equal" if got == want else \
+                f"differ ({len(got)} bytes)"
+            done()
+
+    server = rpc.Server(rpc.ServerOptions(**options))
+    server.add_service(Echo())
+    check(server.start("127.0.0.1:0") == 0, "phase 25: a server did not "
+                                            "start")
+    return server
+
+
+def _echo_once(rpc, ch, EchoRequest, EchoResponse, msg, timeout_ms=10000):
+    cntl = rpc.Controller()
+    cntl.timeout_ms = timeout_ms
+    t0 = time.perf_counter()
+    resp = ch.call_method("Echo.Echo", cntl, EchoRequest(message=msg),
+                          EchoResponse)
+    return cntl, resp, time.perf_counter() - t0
+
+
+def _phase25_tls(rpc, EchoRequest, EchoResponse, device, workdir) -> dict:
+    """(a) TLS against plain TCP in turns, DEVICE attachments over TLS, a
+    plaintext client refused."""
+    server_ctx, client_ctx = _tls_contexts(workdir)
+    seeds = [2500 + i for i in range(TLS_DEVICE_CALLS)]
+    host = {s: _seeded_bytes(s, TLS_DEVICE_BYTES) for s in seeds}
+    expected = {s: a.tobytes() for s, a in host.items()}
+    tls_srv = _tls_auth_servers(rpc, EchoRequest, EchoResponse, expected,
+                                ssl_context=server_ctx)
+    plain_srv = _tls_auth_servers(rpc, EchoRequest, EchoResponse, expected)
+    chans = []
+
+    def channel(port, **options):
+        ch = rpc.Channel()
+        ch.init(f"127.0.0.1:{port}",
+                options=rpc.ChannelOptions(timeout_ms=10000, **options))
+        chans.append(ch)
+        return ch
+
+    out = {}
+    try:
+        tls_ch = channel(tls_srv.listen_port, ssl_context=client_ctx)
+        plain_ch = channel(plain_srv.listen_port)
+        msg = "t" * TLS_PAYLOAD
+        lat = {"tls": [], "tcp": []}
+        for i in range(TLS_ECHOES + 4):           # 2 warm-ups each
+            for name, ch in (("tls", tls_ch), ("tcp", plain_ch)):
+                cntl, resp, dt = _echo_once(rpc, ch, EchoRequest,
+                                            EchoResponse, msg)
+                check(not cntl.failed() and resp.message == msg,
+                      f"phase 25 (a): {name} echo {i} failed: "
+                      f"{cntl.error_text}")
+                if i >= 4:
+                    lat[name].append(dt)
+        out["echo_4k"] = {k: _p50_p99(v) for k, v in lat.items()}
+        dev = torch.device(device, 0) if device == "cuda" else \
+            torch.device("cpu")
+        # the same attachments over TLS and over plain TCP, in turns
+        dlat = {"tls": [], "tcp": []}
+        for i, seed in enumerate(seeds):
+            for name, ch in (("tls", tls_ch), ("tcp", plain_ch)):
+                t = torch.from_numpy(host[seed]).to(dev)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                cntl = rpc.Controller()
+                cntl.timeout_ms = 30000
+                cntl.request_attachment.append_device_array(t)
+                t0 = time.perf_counter()
+                resp = ch.call_method("Echo.Check", cntl,
+                                      EchoRequest(message=str(seed)),
+                                      EchoResponse)
+                dlat[name].append(time.perf_counter() - t0)
+                check(not cntl.failed() and resp.message == "equal",
+                      f"phase 25 (a): DEVICE attachment {i} over {name}: "
+                      f"{cntl.error_text or resp.message}")
+        out["device_4m"] = {
+            name: dict(_p50_p99(v), device=str(dev),
+                       mb_per_s=TLS_DEVICE_BYTES * len(v) / sum(v) / 1e6)
+            for name, v in dlat.items()}
+        bad = channel(tls_srv.listen_port, max_retry=0)
+        cntl, _resp, dt = _echo_once(rpc, bad, EchoRequest, EchoResponse,
+                                     "plain", timeout_ms=3000)
+        check(cntl.failed(), "phase 25 (a): a plaintext client was served "
+                             "by the TLS server")
+        out["plaintext_refused"] = {"code": cntl.error_code,
+                                    "text": cntl.error_text,
+                                    "ms": dt * 1e3}
+        for i in range(2):
+            cntl, resp, _dt = _echo_once(rpc, tls_ch, EchoRequest,
+                                         EchoResponse, "after")
+            check(not cntl.failed() and resp.message == "after",
+                  f"phase 25 (a): a TLS call after the plaintext client "
+                  f"failed: {cntl.error_text}")
+        out["tls_after_refusal"] = 2
+    finally:
+        for ch in chans:
+            ch.close()
+        tls_srv.stop()
+        plain_srv.stop()
+    return out
+
+
+def _phase25_auth(rpc, EchoRequest, EchoResponse) -> dict:
+    """(b) a token echo against an open one, a wrong token, two redis
+    credentials on two connections, memcache SASL right and wrong."""
+    from brpc_tpu_torch.policy import auth, memcache, redis
+    from brpc_tpu_torch.tools.mini_memcached import MiniMemcached
+    from brpc_tpu_torch.rpc import errors
+    out = {}
+    tok_srv = _tls_auth_servers(rpc, EchoRequest, EchoResponse,
+                                auth=auth.TokenAuthenticator("chip-token"))
+    open_srv = _tls_auth_servers(rpc, EchoRequest, EchoResponse)
+    chans = []
+
+    def channel(port, **options):
+        ch = rpc.Channel()
+        ch.init(f"127.0.0.1:{port}",
+                options=rpc.ChannelOptions(timeout_ms=10000, **options))
+        chans.append(ch)
+        return ch
+
+    try:
+        tok_ch = channel(tok_srv.listen_port,
+                         auth=auth.TokenAuthenticator("chip-token"))
+        open_ch = channel(open_srv.listen_port)
+        lat = {"token": [], "none": []}
+        for i in range(AUTH_ECHOES + 4):
+            for name, ch in (("token", tok_ch), ("none", open_ch)):
+                cntl, resp, dt = _echo_once(rpc, ch, EchoRequest,
+                                            EchoResponse, "a" * 4096)
+                check(not cntl.failed(), f"phase 25 (b): {name} echo "
+                                         f"failed: {cntl.error_text}")
+                if i >= 4:
+                    lat[name].append(dt)
+        out["echo_4k"] = {k: _p50_p99(v) for k, v in lat.items()}
+        wrong = channel(tok_srv.listen_port, max_retry=0,
+                        auth=auth.TokenAuthenticator("not-it"))
+        cntl, _resp, _dt = _echo_once(rpc, wrong, EchoRequest,
+                                      EchoResponse, "w")
+        check(cntl.error_code == errors.ERPCAUTH,
+              f"phase 25 (b): a wrong token gave {cntl.error_code}, not "
+              f"ERPCAUTH")
+        out["wrong_token_code"] = cntl.error_code
+    finally:
+        for ch in chans:
+            ch.close()
+        tok_srv.stop()
+        open_srv.stop()
+
+    class Recorder(redis.RedisService):
+        def __init__(self):
+            super().__init__()
+            self.auth_attempts = []
+            self.add_handler("AUTH", self._auth)
+            self.add_handler("PING", lambda args: redis.RedisReply(
+                redis.REPLY_STATUS, "PONG"))
+
+        def _auth(self, args):
+            self.auth_attempts.append(bytes(args[0]))
+            return redis.RedisReply(redis.REPLY_STATUS, "OK")
+
+    rec = Recorder()
+    rsrv = rpc.Server()
+    rsrv.add_service(rec)
+    check(rsrv.start("127.0.0.1:0") == 0, "phase 25 (b): redis server")
+    rchans = []
+    try:
+        for password in ("a", "b"):
+            ch = rpc.Channel()
+            ch.init(f"127.0.0.1:{rsrv.listen_port}",
+                    options=rpc.ChannelOptions(
+                        protocol="redis", timeout_ms=10000,
+                        auth=auth.RedisAuthenticator(password)))
+            rchans.append(ch)
+        for _ in range(2):
+            for ch in rchans:
+                cntl = rpc.Controller()
+                resp = ch.call_method("redis", cntl, ("PING",), None)
+                check(not cntl.failed() and resp.reply(0).value == "PONG",
+                      f"phase 25 (b): redis PING failed: {cntl.error_text}")
+        conns = rpc.SocketMap.instance().stats()[rchans[0]._endpoint]
+        check(rec.auth_attempts == [b"a", b"b"] and conns == 2,
+              f"phase 25 (b): two redis credentials gave AUTHs "
+              f"{rec.auth_attempts} on {conns} connections")
+        out["redis"] = {"auths": [a.decode() for a in rec.auth_attempts],
+                        "connections": conns}
+    finally:
+        for ch in rchans:
+            ch.close()
+        rsrv.stop()
+
+    mc = MiniMemcached(sasl=b"\0user\0pw").start()
+    try:
+        res = {}
+        for name, password in (("right", "pw"), ("wrong", "nope")):
+            ch = rpc.Channel()
+            ch.init(f"127.0.0.1:{mc.port}", options=rpc.ChannelOptions(
+                protocol="memcache", timeout_ms=10000, max_retry=0,
+                auth=auth.CouchbaseAuthenticator("user", password)))
+            req = memcache.MemcacheRequest()
+            req.set("k", b"v")
+            req.get("k")
+            cntl = rpc.Controller()
+            resp = ch.call_method("memcache", cntl, req, None)
+            res[name] = cntl.error_code
+            if name == "right":
+                check(not cntl.failed() and resp.op(1).value == b"v",
+                      f"phase 25 (b): memcache with the right SASL "
+                      f"credential: {cntl.error_text}")
+            ch.close()
+        check(res["wrong"] == errors.ERPCAUTH,
+              f"phase 25 (b): a wrong SASL credential gave {res['wrong']}")
+        out["memcache_sasl"] = res
+    finally:
+        mc.stop()
+    return out
+
+
+def _rtmp_schedule(seed: int) -> list:
+    """The seeded stream: (type, timestamp ms, payload) in send order."""
+    from brpc_tpu_torch.policy import rtmp
+    rng = np.random.default_rng(seed)
+    msgs = []
+    for i in range(RTMP_SECONDS * RTMP_FPS):
+        size = RTMP_KEYFRAME if i % (2 * RTMP_FPS) == 0 else RTMP_FRAME
+        msgs.append((rtmp.MSG_VIDEO, i * 1000 // RTMP_FPS,
+                     rng.integers(0, 256, size, dtype=np.uint8).tobytes()))
+    for j in range(RTMP_SECONDS * RTMP_AAC_RATE):
+        msgs.append((rtmp.MSG_AUDIO, j * 1000 // RTMP_AAC_RATE,
+                     rng.integers(0, 256, RTMP_AAC,
+                                  dtype=np.uint8).tobytes()))
+    msgs.sort(key=lambda m: (m[1], m[0] == rtmp.MSG_AUDIO))
+    return msgs
+
+
+def _rtmp_relay_run(digest: bool, seed: int) -> dict:
+    """One publisher and RTMP_PLAYERS players through a relay hub."""
+    from brpc_tpu_torch import rpc
+    from brpc_tpu_torch.butil import flags
+    from brpc_tpu_torch.policy import rtmp
+
+    class Hub(rtmp.RtmpService):
+        def __init__(self):
+            self.players = []
+            self.lock = threading.Lock()
+
+        def new_stream(self, remote_side, connect_info):
+            hub = self
+
+            class Relay(rtmp.RtmpServerStream):
+                def on_play(self, name):
+                    with hub.lock:
+                        hub.players.append(self)
+                    return 0
+
+                def on_meta_data(self, meta, name="onMetaData"):
+                    for p in list(hub.players):
+                        p.send_meta_data(meta, name)
+
+                def on_audio_message(self, timestamp, data):
+                    for p in list(hub.players):
+                        p.send_audio_message(data, timestamp)
+
+                def on_video_message(self, timestamp, data):
+                    for p in list(hub.players):
+                        p.send_video_message(data, timestamp)
+            return Relay()
+
+    class Player(rtmp.RtmpClientStream):
+        def __init__(self, want):
+            super().__init__()
+            self.got = []
+            self.meta = []
+            self.want = want
+            self.done = threading.Event()
+
+        def _add(self, mtype, ts, data):
+            self.got.append((mtype, ts, data, time.monotonic_ns()))
+            if len(self.got) >= self.want:
+                self.done.set()
+
+        def on_meta_data(self, meta, name="onMetaData"):
+            self.meta.append(dict(meta))
+
+        def on_audio_message(self, timestamp, data):
+            self._add(rtmp.MSG_AUDIO, timestamp, data)
+
+        def on_video_message(self, timestamp, data):
+            self._add(rtmp.MSG_VIDEO, timestamp, data)
+
+    flags.set_flag("rtmp_client_digest", digest)
+    hub = Hub()
+    server = rpc.Server()
+    check(server.add_service(hub) == 0, "phase 25 (c): RtmpService")
+    check(server.start("127.0.0.1:0") == 0, "phase 25 (c): relay start")
+    addr = f"127.0.0.1:{server.listen_port}"
+    msgs = _rtmp_schedule(seed)
+    clients = []
+    try:
+        players = []
+        for _ in range(RTMP_PLAYERS):
+            c = rtmp.RtmpClient(addr)
+            clients.append(c)
+            p = Player(len(msgs))
+            c.create_stream(p)
+            check(p.play("live") == 0, "phase 25 (c): play refused")
+            players.append(p)
+        pub_client = rtmp.RtmpClient(addr)
+        clients.append(pub_client)
+        pub = pub_client.create_stream()
+        check(pub.publish("live") == 0, "phase 25 (c): publish refused")
+        pub_client._conn.set_out_chunk_size(RTMP_CHUNK)
+        meta = {"width": 1920.0, "height": 1080.0,
+                "framerate": float(RTMP_FPS), "videocodecid": 7.0,
+                "audiocodecid": 10.0, "audiosamplerate": 44100.0}
+        pub.send_meta_data(meta)
+        sent = []
+        t0 = time.monotonic_ns()
+        for mtype, ts, body in msgs:
+            body = time.monotonic_ns().to_bytes(8, "big") + body[8:]
+            sent.append((mtype, ts, body))
+            rc = (pub.send_video_message(body, ts)
+                  if mtype == rtmp.MSG_VIDEO
+                  else pub.send_audio_message(body, ts))
+            check(rc == 0, f"phase 25 (c): publisher send failed: {rc}")
+        t_sent = time.monotonic_ns()
+        for i, p in enumerate(players):
+            check(p.done.wait(60), f"phase 25 (c): player {i} got "
+                                   f"{len(p.got)} of {len(sent)} messages")
+        per_player, lat = [], []
+        total_bytes = sum(len(b) for _, _, b in sent)
+        for i, p in enumerate(players):
+            check([g[:3] for g in p.got] == sent,
+                  f"phase 25 (c): player {i}'s stream differs from the "
+                  f"publisher's (order or bytes)")
+            check(p.meta and p.meta[0] == meta,
+                  f"phase 25 (c): player {i}'s onMetaData {p.meta}")
+            span_s = (p.got[-1][3] - t0) / 1e9
+            per_player.append({"msgs_per_s": len(p.got) / span_s,
+                               "mb_per_s": total_bytes / span_s / 1e6})
+            lat += [(g[3] - int.from_bytes(g[2][:8], "big")) / 1e6
+                    for g in p.got]
+        lat.sort()
+        out = {"digest": digest, "messages": len(sent) + 1,
+               "video": sum(1 for m in sent if m[0] == rtmp.MSG_VIDEO),
+               "audio": sum(1 for m in sent if m[0] == rtmp.MSG_AUDIO),
+               "bytes": total_bytes, "publish_s": (t_sent - t0) / 1e9,
+               "players": per_player,
+               "one_way_ms": {"p50": _pct(lat, 0.50),
+                              "p99": _pct(lat, 0.99)}}
+        return out, players[0], meta
+    finally:
+        for c in clients:
+            c.stop()
+        server.stop()
+        flags.set_flag("rtmp_client_digest", False)
+
+
+def _phase25_media(player, meta) -> dict:
+    """(c)'s received stream to FLV and back, and muxed to TS."""
+    from brpc_tpu_torch.policy import flv, rtmp, ts
+    w = flv.FlvWriter()
+    w.write_meta_data(meta)
+    for mtype, t, data, _ in player.got:
+        (w.write_video if mtype == rtmp.MSG_VIDEO else w.write_audio)(t,
+                                                                      data)
+    raw = w.buf.to_bytes()
+    r = flv.FlvReader(raw)
+    tags = list(r)
+    name, meta_back = r.read_meta_data(tags[0][2])
+    check(name == "onMetaData" and meta_back == meta
+          and [(ty, t, d) for ty, t, d in tags[1:]]
+          == [(g[0], g[1], g[2]) for g in player.got],
+          "phase 25 (c): the FLV file did not read back equal")
+    mux = ts.TsMuxer()
+    for mtype, t, data, _ in player.got:
+        if mtype == rtmp.MSG_VIDEO:
+            mux.write_video(t * 90, b"\x00\x00\x00\x01\x65" + data)
+        else:
+            mux.write_audio(t * 90, b"\xff\xf1" + data)
+    out_ts = mux.buf.to_bytes()
+    check(len(out_ts) % ts.TS_PACKET_SIZE == 0,
+          f"phase 25 (c): TS length {len(out_ts)} is no multiple of 188")
+    last, steps = {}, 0
+    for off in range(0, len(out_ts), ts.TS_PACKET_SIZE):
+        p = out_ts[off:off + ts.TS_PACKET_SIZE]
+        check(p[0] == 0x47, "phase 25 (c): a TS packet lacks its sync byte")
+        pid, cc = ((p[1] & 0x1F) << 8) | p[2], p[3] & 0xF
+        if pid in last:
+            check(cc == (last[pid] + 1) & 0xF,
+                  f"phase 25 (c): PID {pid}'s continuity counter went "
+                  f"{last[pid]} -> {cc}")
+            steps += 1
+        last[pid] = cc
+    return {"flv_bytes": len(raw), "flv_tags": len(tags),
+            "ts_bytes": len(out_ts),
+            "ts_packets": len(out_ts) // ts.TS_PACKET_SIZE,
+            "ts_cc_steps": steps}
+
+
+def _phase25_trackme() -> dict:
+    """(d) an app server pings a TrackMeService hub every second."""
+    from brpc_tpu_torch import rpc
+    from brpc_tpu_torch.butil import flags
+    from brpc_tpu_torch.proto.trackme_pb2 import TRACKME_WARNING
+    from brpc_tpu_torch.rpc import trackme
+    from brpc_tpu_torch.tools.trackme_server import TrackMeService
+    svc = TrackMeService()
+    svc.add_bulletin(0, 10 ** 9, TRACKME_WARNING, "chip smoke bulletin")
+    hub = rpc.Server()
+    hub.add_service(svc)
+    check(hub.start("127.0.0.1:0") == 0, "phase 25 (d): hub start")
+    flags.set_flag("trackme_server", f"127.0.0.1:{hub.listen_port}")
+    flags.set_flag("trackme_interval", 1)
+    app = rpc.Server()
+    try:
+        t0 = time.monotonic()
+        check(app.start("127.0.0.1:0") == 0, "phase 25 (d): app start")
+        while (sum(svc.version_counts().values()) < 2
+               and time.monotonic() - t0 < TRACKME_WAIT_S):
+            time.sleep(0.02)
+        pings = sum(svc.version_counts().values())
+        within = time.monotonic() - t0
+        check(pings >= 2, f"phase 25 (d): {pings} pings in "
+                          f"{TRACKME_WAIT_S} s")
+        check(trackme.last_bulletin() == (TRACKME_WARNING,
+                                          "chip smoke bulletin"),
+              f"phase 25 (d): bulletin seen {trackme.last_bulletin()}")
+        trackme.stop_trackme()
+        time.sleep(0.2)
+        frozen = sum(svc.version_counts().values())
+        time.sleep(1.5)
+        after = sum(svc.version_counts().values())
+        check(after == frozen, f"phase 25 (d): pings went on after "
+                               f"stop_trackme ({frozen} -> {after})")
+        return {"pings": pings, "first_two_s": within,
+                "versions": {str(k): v for k, v in
+                             svc.version_counts().items()},
+                "after_stop": after - frozen}
+    finally:
+        trackme.stop_trackme()
+        flags.set_flag("trackme_server", "")
+        flags.set_flag("trackme_interval", 30)
+        app.stop()
+        hub.stop()
+
+
+def phase_tls_auth_media(device: str = "cuda") -> dict:
+    """Phase 25: TLS, the authenticators, the RTMP relay with FLV and TS,
+    and trackme, all on TCP in this process (see the module docstring).
+    Host bytes only: no kernel launches."""
+    import tempfile
+    import brpc_tpu_torch.policy  # noqa: F401
+    from brpc_tpu_torch import rpc
+    from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
+    from brpc_tpu_torch.rpc.socket import list_sockets
+    t_phase = time.monotonic()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tls_") as workdir:
+        t0 = time.monotonic()
+        out["a"] = _phase25_tls(rpc, EchoRequest, EchoResponse, device,
+                                workdir)
+        out["a"]["wall_s"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    out["b"] = _phase25_auth(rpc, EchoRequest, EchoResponse)
+    out["b"]["wall_s"] = time.monotonic() - t0
+    out["c"] = {}
+    for digest in (False, True):
+        t0 = time.monotonic()
+        run, player, meta = _rtmp_relay_run(digest, seed=25)
+        run["wall_s"] = time.monotonic() - t0
+        out["c"]["digest" if digest else "simple"] = run
+    out["c"]["media"] = _phase25_media(player, meta)
+    t0 = time.monotonic()
+    out["d"] = _phase25_trackme()
+    out["d"]["wall_s"] = time.monotonic() - t0
+    deadline = time.monotonic() + 5
+    while list_sockets() and time.monotonic() < deadline:
+        time.sleep(0.02)
+    out["sockets_left"] = len(list_sockets())
+    out["wall_s"] = time.monotonic() - t_phase
+    return out
+
+
+def phase25_summary(p25: dict) -> str:
+    """Phase 25's one-line summary."""
+    a, b, c, d = p25["a"], p25["b"], p25["c"], p25["d"]
+    echo, dev = a["echo_4k"], a["device_4m"]
+    rtmp = "; ".join(
+        f"{k}: {r['messages']} messages, per player "
+        f"{[round(x['msgs_per_s'], 1) for x in r['players']]} msg/s "
+        f"{[round(x['mb_per_s'], 2) for x in r['players']]} MB/s, one-way "
+        f"p50/p99 {r['one_way_ms']['p50']:.3f}/{r['one_way_ms']['p99']:.3f}"
+        f" ms" for k, r in c.items() if k != "media")
+    return (f"tls/auth/rtmp/trackme: 4 KiB echo p50/p99 TLS "
+            f"{echo['tls']['p50_us']:.1f}/{echo['tls']['p99_us']:.1f} us, "
+            f"TCP {echo['tcp']['p50_us']:.1f}/{echo['tcp']['p99_us']:.1f} "
+            f"us; 4 MiB DEVICE p50 TLS {dev['tls']['p50_us'] / 1e3:.2f} ms "
+            f"({dev['tls']['mb_per_s']:.1f} MB/s), TCP "
+            f"{dev['tcp']['p50_us'] / 1e3:.2f} ms "
+            f"({dev['tcp']['mb_per_s']:.1f} MB/s); plaintext client "
+            f"refused with {a['plaintext_refused']['code']}; token echo "
+            f"p50 {b['echo_4k']['token']['p50_us']:.1f} us, none "
+            f"{b['echo_4k']['none']['p50_us']:.1f} us; wrong token "
+            f"{b['wrong_token_code']}; redis AUTHs {b['redis']['auths']} on "
+            f"{b['redis']['connections']} connections; memcache SASL "
+            f"{b['memcache_sasl']}; rtmp {rtmp}; FLV {c['media']['flv_tags']}"
+            f" tags, TS {c['media']['ts_packets']} packets; trackme "
+            f"{d['pings']} pings in {d['first_two_s']:.2f} s; "
+            f"{p25['wall_s']:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
@@ -7812,6 +8414,20 @@ def main() -> int:
         and "p50_us" in v) + f"; {protos['wall_s']:.1f} s", flush=True)
     print("kv_flags: " + json.dumps(kvf), flush=True)
     print("protocols: " + json.dumps(protos), flush=True)
+
+    # 25. TLS, the authenticators, the RTMP relay with FLV and TS, and
+    # trackme: TCP host bytes only (a DEVICE attachment crosses TLS as
+    # host bytes), so this process launches nothing
+    zero_counts()
+    p25 = phase_tls_auth_media()
+    launches = {k.name: k.launches for k in kernels_all}
+    check(all(v == 0 for v in launches.values()),
+          f"a kernel launched in the driving process during phase 25: "
+          f"{launches}")
+    check(p25["sockets_left"] == 0,
+          f"phase 25 left {p25['sockets_left']} sockets open")
+    print(phase25_summary(p25), flush=True)
+    print("phase 25: " + json.dumps(p25), flush=True)
 
     head = next(r for r in rows if r["label"] == "4 MiB")
     red = ring_rows["ring_all_reduce"]
