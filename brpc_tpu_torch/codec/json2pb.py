@@ -29,3 +29,11 @@ def json_to_pb(json_str: str, message_cls: Type) -> Tuple[bool, Any, str]:
         return True, msg, ""
     except Exception as e:
         return False, None, str(e)
+
+
+def dict_to_pb(d: dict, message_cls: Type) -> Any:
+    """A ``message_cls`` from a parsed JSON object (rpc_press's request
+    body); unknown fields are ignored."""
+    msg = message_cls()
+    json_format.ParseDict(d, msg, ignore_unknown_fields=True)
+    return msg

@@ -13,7 +13,8 @@ from brpc_tpu_torch import channels, rpc
 from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
 
 __all__ = ["EchoRequest", "EchoResponse", "EchoService", "ConcatMerger",
-           "parse_device", "setup_mesh", "start_echo_server"]
+           "device_parser", "parse_device", "setup_mesh",
+           "start_echo_server"]
 
 
 class EchoService(rpc.Service):
@@ -52,11 +53,16 @@ def start_echo_server(addr: str, tag: str = "") -> rpc.Server:
     return server
 
 
-def parse_device(argv, doc: str) -> str:
+def device_parser(doc: str) -> argparse.ArgumentParser:
+    """An example's argument parser, ``--device`` already on it."""
     ap = argparse.ArgumentParser(description=doc.splitlines()[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where the mesh and its tensors live")
-    return ap.parse_args(argv).device
+    return ap
+
+
+def parse_device(argv, doc: str) -> str:
+    return device_parser(doc).parse_args(argv).device
 
 
 def setup_mesh(device: str):

@@ -4,15 +4,18 @@ datapath (example/asynchronous_echo_c++, socket.h:256-262):
 channel's reader thread; ``NativePooledChannel`` round-robins N
 connections so concurrent large calls overlap in the kernel.  Host only:
 
-    python -m brpc_tpu_torch.examples.native_async_pool
+    python -m brpc_tpu_torch.examples.native_async_pool            # card
+    python -m brpc_tpu_torch.examples.native_async_pool --device cpu
 """
 from __future__ import annotations
 
+import sys
 import threading
 
 from brpc_tpu_torch import rpc
 from brpc_tpu_torch.butil import native
-from brpc_tpu_torch.examples.common import EchoRequest, EchoResponse
+from brpc_tpu_torch.examples.common import (EchoRequest, EchoResponse,
+                                            parse_device, setup_mesh)
 from brpc_tpu_torch.rpc.native_fabric import (NativeChannel, NativePooledChannel,
                                         NativeServer)
 
@@ -24,10 +27,11 @@ class EchoService(rpc.Service):
         done()
 
 
-def main() -> None:
+def main(argv=None) -> int:
+    setup_mesh(parse_device(argv, __doc__))
     if not native.available():
         print("native core unavailable; skipping")
-        return
+        return 0
     server = NativeServer()
     server.add_service(EchoService())
     port = server.start()
@@ -84,7 +88,8 @@ def main() -> None:
     pool.close()
     server.stop()
     print("pooled: 4 threads x 10 calls over 3 connections, all verified")
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

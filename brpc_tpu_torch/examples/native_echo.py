@@ -3,16 +3,19 @@ both a zero-Python native echo method and a regular Python service, called
 through a NativeChannel.  Host only (no tensor crosses), the same on the
 card's host and here:
 
-    python -m brpc_tpu_torch.examples.native_echo
+    python -m brpc_tpu_torch.examples.native_echo            # card
+    python -m brpc_tpu_torch.examples.native_echo --device cpu
 """
 from __future__ import annotations
 
 import statistics
+import sys
 import time
 
 from brpc_tpu_torch import rpc
 from brpc_tpu_torch.butil import native
-from brpc_tpu_torch.examples.common import EchoRequest, EchoResponse
+from brpc_tpu_torch.examples.common import (EchoRequest, EchoResponse,
+                                            parse_device, setup_mesh)
 from brpc_tpu_torch.rpc.native_fabric import NativeChannel, NativeServer
 
 
@@ -23,10 +26,11 @@ class EchoService(rpc.Service):
         done()
 
 
-def main() -> None:
+def main(argv=None) -> int:
+    setup_mesh(parse_device(argv, __doc__))
     if not native.available():
         print("native core unavailable; skipping")
-        return
+        return 0
     server = NativeServer()
     server.add_service(EchoService())               # Python handler tier
     server.register_native_echo("RawEcho.Echo")     # zero-Python tier
@@ -48,10 +52,11 @@ def main() -> None:
         # the all-native tier, measured inside C (no ctypes per call)
         p50 = native.native_rpc_echo_p50_us(iters=1000, payload=4096)
         print(f"full native stack echo (4KB): p50={p50:.1f}us")
+        return 0
     finally:
         ch.close()
         server.stop()
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

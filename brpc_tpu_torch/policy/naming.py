@@ -120,6 +120,29 @@ def is_naming_url(target: str) -> bool:
         ("mem://", "ici://", "tcp://"))
 
 
+def resolve_servers(target: str) -> List[str]:
+    """One endpoint url per resolved server, the resolver that rpc_press
+    and rpc_view share: a naming url resolves through its naming service,
+    a comma-separated list is split (the parens of ici mesh coords kept
+    whole), a single endpoint passes through.  An empty resolution raises
+    ValueError, so a mistyped pod name never targets nothing."""
+    # a comma list whose first entry is a bare host:port and a later one a
+    # scheme ("127.0.0.1:80,mem://x") holds "://" too; a naming url's
+    # scheme (before its first "://") never holds a comma
+    if is_naming_url(target) and "," not in target.split("://", 1)[0]:
+        out = [str(e.endpoint)
+               for e in create_naming_service(target).get_servers()]
+        if not out:
+            raise ValueError(f"{target} resolved to no servers")
+        return out
+    if "," in target:
+        out = _split_list(target)
+        if not out:
+            raise ValueError(f"empty server list {target!r}")
+        return out
+    return [target]
+
+
 class ListNamingService(NamingService):
     def __init__(self, body: str):
         self._entries = []

@@ -45,6 +45,24 @@ IsolationCaps = namedtuple(
 _caps: Optional[IsolationCaps] = None
 _caps_lock = threading.Lock()
 
+# the process-wide backend of servers configured "auto": rpc_press's
+# --usercode-pool pins it for the servers it hosts
+_default_kind = "auto"
+
+
+def set_default_kind(kind: str) -> None:
+    """The backend that "auto"-configured pools resolve to ("auto"
+    restores the resolution by capability)."""
+    global _default_kind
+    if kind not in ("auto", "pthread", "subinterp"):
+        raise ValueError(f"unknown usercode pool kind {kind!r}")
+    _default_kind = kind
+
+
+def default_kind() -> str:
+    return _default_kind
+
+
 def probe_isolation() -> IsolationCaps:
     """Probe the interpreter's isolation capability ONCE per process.
 
@@ -299,6 +317,8 @@ class UsercodePool:
             raise ValueError(f"unknown usercode pool kind {kind!r}")
         from concurrent.futures import ThreadPoolExecutor
         self.caps = probe_isolation()
+        if kind == "auto":
+            kind = _default_kind
         if kind == "auto":
             if self.caps.mode == "free-threading":
                 # plain threads already scale past the (absent) GIL:

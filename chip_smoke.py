@@ -585,6 +585,42 @@ Phases, each fatal on failure:
                 started with trackme_server set and trackme_interval 1:
                 at least 2 pings within 3 s and the bulletin seen, none
                 after stop_trackme
+ 26. tools and examples, in a process of its own (the fabric node
+                phase 17 leaves here owns ranks 4-7 only) on the card's
+                mesh (IciMesh(ranks=8), the device-plane threshold 4 KiB
+                for the phase), which counts its own launches
+                (a) tools/rpc_press.py, plain: 2 s unthrottled at
+                concurrency 8, a tpu_std echo of a JSON body, against an
+                ici://1 server, a mem:// server and a 127.0.0.1 TCP
+                server (qps, and p50/p99 from the run's own recorder: the
+                summary holds avg and p99, as the JAX tool's does); the
+                comma list ici://1,ici://2,ici://3 (every endpoint sends,
+                none errs); 1,000 qps for 2 s against the mem:// server
+                (qps at most 1,050, and at least 900 where that server
+                ran above 1,500 unthrottled);
+                (b) --fanout 4 over four ici:// servers that registered
+                their method as a collective (merge gather, mapping
+                shard): 2 s at concurrency 2, the operand a (4, 64 KiB)
+                uint8 tensor made once on cuda:0; every call on the
+                collective route, none failed, collective_selected
+                counted (p50/p99);
+                (c) --serving at the tool's defaults (5 s, 20 sessions a
+                second, a batch ratio of 3, seq 32-96, steps 8-64) against
+                the disagg stack: prefill on ici://7, decode on ici://6,
+                the router on mem://; both tenants served with no failure,
+                the serving_status, kv_prefix and kv_tiers blocks present
+                and not empty, p2p_copy's launches = the plane's transfers
+                = the LoadKv calls the decode received (tokens/s, each
+                tenant's session tokens/s p50/p99);
+                (d) tools/rpc_view.py renders status and vars for the
+                ici://1 server, the TCP server and a list:// of both (one
+                section a member, none an error); tools/parallel_http.py
+                fetches 64 URLs of the TCP server's builtin pages at
+                concurrency 16, all 200 (p50/p99 ms);
+                (e) the 16 examples this slice added, each main(["--device",
+                "cuda"]) returning 0; ici_echo's echoed bytes equal and
+                p2p_copy's launches during it = its plane transfers (each
+                example's seconds)
 
 Launch counts are zeroed just before each path and read just after it:
 during phases 3-4 and during phase 8 p2p_copy's launches must equal the
@@ -625,7 +661,9 @@ device-plane echo; its children count their own), and (b) and (c) are
 host bytes only; during phase 24 (a) they equal the LoadKv relocations
 the ici:// servers received (the pool legs copy with copy_, no launch),
 and in (b) the driving process launches none; during phase 25 the
-driving process launches none (TCP carries host bytes); during phase 6
+driving process launches none (TCP carries host bytes); during phase 26
+the driving process launches none, and in the phase's own process they
+equal the plane's transfers, in (c) and in ici_echo too; during phase 6
 each ring
 kernel's launches must equal
 the calls of its entry point.  The line before the last is the
@@ -801,7 +839,7 @@ HTTP_CALLS = 200
 GRPC_SMALL, GRPC_SMALL_CALLS = 4 << 10, 200
 GRPC_BIG, GRPC_BIG_CALLS = 1 << 20, 16
 GOAWAY_CALLS = 8
-DRAIN_GRACE_S = 2.0
+GOAWAY_GRACE_S = 2.0
 AUTH_KEY = "chip-smoke-key"
 # phase 24 (a): bench_serving_kv_prefix's capacity shapes (prompt, tail,
 # block tokens, arena blocks), its parked-fill stall, big fill and probe,
@@ -7024,7 +7062,7 @@ def phase_http_grpc() -> dict:
         get = b"GET /health HTTP/1.1\r\nHost: x\r\n\r\n"
         check(_raw_http(internal, get).startswith(b"HTTP/1.1 200"),
               "/health before the drain")
-        stopper = threading.Thread(target=srv.stop, args=(DRAIN_GRACE_S,))
+        stopper = threading.Thread(target=srv.stop, args=(GOAWAY_GRACE_S,))
         stopper.start()
         deadline = time.monotonic() + 5
         while not srv.is_draining() and time.monotonic() < deadline:
@@ -7967,6 +8005,417 @@ def phase25_summary(p25: dict) -> str:
             f"{p25['wall_s']:.1f} s")
 
 
+# phase 26: the operator tools and the examples (see the module docstring).
+# (a) rpc_press's legs' seconds, concurrency and throttle; (b) the fan-out's
+# members, shard bytes and seconds; (c) the serving press's seconds (the
+# tool's defaults); (d) parallel_http's URLs and concurrency
+PRESS_S, PRESS_CONCURRENCY, PRESS_QPS = 2.0, 8, 1000
+PRESS_FANOUT_MEMBERS, PRESS_FANOUT_SHARD, PRESS_FANOUT_S = 4, 64 << 10, 2.0
+PRESS_SERVING_S = 5.0
+PARALLEL_HTTP_URLS, PARALLEL_HTTP_CONCURRENCY = 64, 16
+# the examples this slice added, run by phase 26 (e)
+EXAMPLES_26 = ("echo_client_server", "asynchronous_echo",
+               "multi_threaded_echo", "multi_threaded_echo_fns",
+               "cascade_echo", "auto_concurrency_limiter", "ici_echo",
+               "http_server", "grpc_echo", "grpc_interop", "redis_kv",
+               "memcache_client", "mongo_service", "thrift_echo",
+               "nshead_extension", "rtmp_relay")
+_PROTO = "brpc_tpu_torch.proto.echo_pb2:EchoRequest,EchoResponse"
+
+
+def _press_p50(run, **kw) -> dict:
+    """``run(**kw)`` (a plain rpc_press run) and its summary, with the p50
+    of the run's own latency recorder beside it: the tool makes that
+    recorder first, on the calling thread."""
+    from brpc_tpu_torch import bvar
+    base = bvar.LatencyRecorder
+    me = threading.get_ident()
+    made = []
+
+    class Recorder(base):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            if threading.get_ident() == me:
+                made.append(self)
+
+    bvar.LatencyRecorder = Recorder
+    try:
+        res = run(**kw)
+    finally:
+        bvar.LatencyRecorder = base
+    res["phase_p50_us"] = made[0].latency_percentile(0.5)
+    return res
+
+
+def _phase26_press(press) -> dict:
+    """(a): the plain press against ici://1, mem:// and TCP, the comma
+    list, the throttled leg."""
+    import io
+    from brpc_tpu_torch.examples.common import start_echo_server
+    out = {}
+    servers = {f"ici://{r}": start_echo_server(f"ici://{r}")
+               for r in (1, 2, 3)}
+    servers["mem://press-26"] = start_echo_server("mem://press-26")
+    tcp = start_echo_server("127.0.0.1:0")
+    tcp_ep = f"127.0.0.1:{tcp.listen_port}"
+    try:
+        common = dict(method="EchoService.Echo",
+                      request_json='{"message":"p"}', proto=_PROTO,
+                      duration=PRESS_S, concurrency=PRESS_CONCURRENCY,
+                      out=io.StringIO())
+        for label, target in (("ici", "ici://1"), ("mem", "mem://press-26"),
+                              ("tcp", tcp_ep)):
+            r = _press_p50(press.run_press, server=target, **common)
+            check(r["errors"] == 0 and r["sent"] > 0,
+                  f"phase 26 (a) {label}: {r['errors']} errors of "
+                  f"{r['sent']}")
+            out[label] = r
+        r = press.run_press("ici://1,ici://2,ici://3", **common)
+        per = r["per_endpoint"]
+        check(sorted(per) == ["ici://1", "ici://2", "ici://3"]
+              and all(c["sent"] > 0 and c["errors"] == 0
+                      for c in per.values()) and r["errors"] == 0,
+              f"phase 26 (a) comma list: {per}")
+        out["comma"] = r
+        r = press.run_press("mem://press-26", **{**common,
+                                                  "qps": PRESS_QPS})
+        check(r["errors"] == 0 and r["qps"] <= PRESS_QPS * 1.05,
+              f"phase 26 (a) throttle: {r['qps']} qps over {PRESS_QPS}")
+        if out["mem"]["qps"] > PRESS_QPS * 1.5:
+            check(r["qps"] >= PRESS_QPS * 0.9,
+                  f"phase 26 (a) throttle: {r['qps']} qps, under 90 % of "
+                  f"{PRESS_QPS} with {out['mem']['qps']} unthrottled")
+        out["throttled"] = r
+    finally:
+        for s in servers.values():
+            s.stop()
+        tcp.stop()
+    return out
+
+
+def _phase26_fanout(rpc, press, stub) -> dict:
+    """(b): --fanout over four ici:// members whose method is registered
+    as a collective."""
+    import io
+    EchoRequest, EchoResponse = stub
+
+    class PressFan(rpc.Service):
+        @rpc.method(EchoRequest, EchoResponse)
+        def Press(self, cntl, request, response, done):
+            cntl.response_attachment.append(cntl.request_attachment)
+            done()
+
+    ranks = range(8 - PRESS_FANOUT_MEMBERS, 8)
+    servers = []
+    try:
+        for r in ranks:
+            s = rpc.Server()
+            s.add_service(PressFan())
+            s.register_collective("PressFan.Press", lambda x: x,
+                                  merge="gather", mapping="shard")
+            check(s.start(f"ici://{r}") == 0, f"ici://{r} did not start")
+            servers.append(s)
+        res = press.run_press_fanout(
+            ",".join(f"ici://{r}" for r in ranks), "PressFan.Press",
+            PRESS_FANOUT_MEMBERS, duration=PRESS_FANOUT_S, concurrency=2,
+            shard_bytes=PRESS_FANOUT_SHARD, out=io.StringIO())
+    finally:
+        for s in servers:
+            s.stop()
+    check(res["per_route"] == {"collective": res["sent"]} and res["sent"] > 0
+          and res["errors"] == 0,
+          f"phase 26 (b): routes {res['per_route']}, {res['errors']} errors "
+          f"of {res['sent']}")
+    check(res.get("route_counters", {}).get("collective_selected", 0) > 0,
+          f"phase 26 (b): no collective_selected in "
+          f"{res.get('route_counters')}")
+    return res
+
+
+def _phase26_serving(press, plane, launches) -> dict:
+    """(c): the serving press at its defaults against the disagg stack."""
+    import io
+    from brpc_tpu_torch.examples.disagg_serving.workers import (
+        close_services, start_decode_worker, start_prefill_worker,
+        start_router)
+    prefill = start_prefill_worker("ici://7")
+    decode = start_decode_worker("ici://6")
+    router = start_router("mem://press26-router", "ici://7", ["ici://6"])
+    dsvc = decode.services()["Decode"]
+    try:
+        l0, t0 = launches(), plane.stats()["transfers"]
+        k0 = dsvc.loadkv_received
+        res = press.run_press_serving("mem://press26-router",
+                                      duration=PRESS_SERVING_S,
+                                      out=io.StringIO())
+        res["launches"] = launches() - l0
+        res["transfers"] = plane.stats()["transfers"] - t0
+        res["loadkv_received"] = dsvc.loadkv_received - k0
+    finally:
+        close_services(router, prefill, decode)
+    for tenant in ("inter", "bulk"):
+        c = res["per_tenant"][tenant]
+        check(c["ok"] > 0 and c["failures"] == 0,
+              f"phase 26 (c) {tenant}: {c}")
+    for block in ("serving_status", "kv_prefix", "kv_tiers"):
+        check(bool(res.get(block)), f"phase 26 (c): no {block} block")
+    check(res["launches"] == res["transfers"] == res["loadkv_received"] > 0,
+          f"phase 26 (c): {res['launches']} launches, {res['transfers']} "
+          f"transfers, {res['loadkv_received']} LoadKv")
+    return res
+
+
+def _phase26_view_http(view, http) -> dict:
+    """(d): rpc_view over ici://1, TCP and a list:// of both; then
+    parallel_http over the TCP server's builtin pages."""
+    import contextlib
+    import io
+    from brpc_tpu_torch.examples.common import start_echo_server
+    ici = start_echo_server("ici://1")
+    tcp = start_echo_server("127.0.0.1:0")
+    tcp_ep = f"127.0.0.1:{tcp.listen_port}"
+    out = {"view": {}}
+    try:
+        for page in ("status", "vars"):
+            for label, target in (("ici", "ici://1"), ("tcp", tcp_ep),
+                                  ("list", f"list://ici://1,{tcp_ep}")):
+                t0 = time.monotonic()
+                pages = view.fetch_pages(target, page)
+                want = ["ici://1", tcp_ep] if label == "list" else [target]
+                check([p[0] for p in pages] == want
+                      and all(b and not b.startswith("<error")
+                              for _, b in pages),
+                      f"phase 26 (d) rpc_view {page} {label}: "
+                      f"{[(t, b[:80]) for t, b in pages]}")
+                out["view"][f"{page}_{label}"] = {
+                    "members": len(pages), "bytes": [len(b) for _, b in pages],
+                    "ms": (time.monotonic() - t0) * 1e3}
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            check(view.main(["--server", f"list://ici://1,{tcp_ep}",
+                             "--page", "status"]) == 0,
+                  "phase 26 (d): rpc_view's main failed")
+        check("=== ici://1 ===" in buf.getvalue()
+              and f"=== {tcp_ep} ===" in buf.getvalue(),
+              "phase 26 (d): rpc_view's main printed no section a member")
+        pages = ("health", "status", "vars", "brpc_metrics", "flags",
+                 "connections", "version", "threads")
+        # one warm fetch a page first: a page's first render imports and
+        # registers what it reads
+        http.fetch_all([f"http://{tcp_ep}/{p}" for p in pages],
+                       concurrency=1, out=io.StringIO())
+        urls = [f"http://{tcp_ep}/{pages[i % len(pages)]}"
+                for i in range(PARALLEL_HTTP_URLS)]
+        got = http.fetch_all(urls, concurrency=PARALLEL_HTTP_CONCURRENCY,
+                             out=io.StringIO())
+        bad = [r for r in got["results"] if r[2] != 200]
+        check(got["summary"]["ok"] == PARALLEL_HTTP_URLS and not bad,
+              f"phase 26 (d) parallel_http: {got['summary']}, {bad[:4]}")
+        ms = sorted(r[4] * 1e3 for r in got["results"])
+        out["http"] = {**got["summary"], "p50_ms": _pct(ms, 0.5),
+                       "p99_ms": _pct(ms, 0.99)}
+    finally:
+        ici.stop()
+        tcp.stop()
+    return out
+
+
+def _phase26_examples(device, plane, launches) -> dict:
+    """(e): the examples this slice added, each on ``device``."""
+    import contextlib
+    import importlib
+    import io
+    out = {}
+    for name in EXAMPLES_26:
+        mod = importlib.import_module(f"brpc_tpu_torch.examples.{name}")
+        buf = io.StringIO()
+        l0, t0 = launches(), plane.stats()["transfers"]
+        start = time.monotonic()
+        with contextlib.redirect_stdout(buf):
+            rc = mod.main(["--device", device])
+        out[name] = {"rc": rc, "s": time.monotonic() - start,
+                     "launches": launches() - l0,
+                     "transfers": plane.stats()["transfers"] - t0,
+                     "stdout": buf.getvalue()[-400:]}
+        check(rc == 0, f"phase 26 (e): {name} returned {rc}: "
+                       f"{buf.getvalue()[-800:]}")
+    ici = out["ici_echo"]
+    check(ici["launches"] == ici["transfers"] > 0,
+          f"phase 26 (e) ici_echo: {ici['launches']} launches for "
+          f"{ici['transfers']} transfers")
+    return out
+
+
+def phase_tools_examples(device: str = "cuda", launches=None) -> dict:
+    """Phase 26: rpc_press (plain, fan-out, serving), rpc_view,
+    parallel_http and this slice's examples on the default mesh (see the
+    module docstring).  ``launches`` reads p2p_copy's count (its
+    ``launches`` attribute unless given)."""
+    import brpc_tpu_torch.policy  # noqa: F401
+    from brpc_tpu_torch import rpc
+    from brpc_tpu_torch.butil import flags
+    from brpc_tpu_torch.ici import device_plane
+    from brpc_tpu_torch.ici.mesh import IciMesh
+    from brpc_tpu_torch.ici.p2p_copy import p2p_copy
+    from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
+    from brpc_tpu_torch.rpc.socket import list_sockets
+    from brpc_tpu_torch.tools import parallel_http, rpc_press, rpc_view
+    if launches is None:
+        def launches():
+            return p2p_copy.launches
+    mesh = IciMesh.default()
+    plane = device_plane.plane()
+    saved = {n: flags.get_flag(n) for n in (
+        "ici_device_plane_threshold", "ici_device_plane_host_mesh")}
+    flags.set_flag("ici_device_plane_threshold", 4096)
+    t_phase = time.monotonic()
+    out = {}
+    l0, tr0 = launches(), plane.stats()["transfers"]
+    try:
+        t0 = time.monotonic()
+        out["a"] = _phase26_press(rpc_press)
+        out["a"]["wall_s"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        out["b"] = _phase26_fanout(rpc, rpc_press,
+                                   (EchoRequest, EchoResponse))
+        out["b"]["wall_s"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        out["c"] = _phase26_serving(rpc_press, plane, launches)
+        out["c"]["wall_s"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        out["d"] = _phase26_view_http(rpc_view, parallel_http)
+        out["d"]["wall_s"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        out["e"] = _phase26_examples(device, plane, launches)
+        out["e_wall_s"] = time.monotonic() - t0
+    finally:
+        # the examples make a mesh of their own the default and set the
+        # plane's flags: put back the phase's
+        IciMesh.set_default(mesh)
+        for n, v in saved.items():
+            flags.set_flag(n, v)
+    out["launches"] = launches() - l0
+    out["transfers"] = plane.stats()["transfers"] - tr0
+    check(out["launches"] == out["transfers"],
+          f"phase 26: {out['launches']} launches for {out['transfers']} "
+          f"plane transfers")
+    deadline = time.monotonic() + 5
+    while list_sockets() and time.monotonic() < deadline:
+        time.sleep(0.02)
+    out["sockets_left"] = len(list_sockets())
+    out["wall_s"] = time.monotonic() - t_phase
+    return out
+
+
+_TOOLS_CHILD = r"""
+import json, sys
+import chip_smoke as cs
+device, sizes = sys.argv[1], json.loads(sys.argv[2])
+for name, value in sizes.items():
+    setattr(cs, name, value)
+sys.exit(cs._tools_examples_member(device))
+"""
+
+
+def _tools_examples_member(device: str) -> int:
+    """The body of phase 26's process: its mesh made the default, the
+    phase run, its RESULT line written.  On the card p2p_copy's launches
+    are counted; on the CPU, where the plane copies with the plain
+    version, its calls are."""
+    import importlib
+    from brpc_tpu_torch.butil import flags, native
+    from brpc_tpu_torch.ici import pallas_ring as pr
+    from brpc_tpu_torch.ici.mesh import IciMesh
+    pc = importlib.import_module("brpc_tpu_torch.ici.p2p_copy")
+    kernels = [pc.p2p_copy, pr.ring_all_reduce_kernel,
+               pr.ring_all_gather_kernel]
+    if device == "cuda":
+        native.build()                  # loads the library phase 1 built
+        build_all([pc.p2p_copy])
+
+        def launches():
+            return pc.p2p_copy.launches
+    else:
+        flags.set_flag("ici_device_plane_host_mesh", True)
+        copies = [0]
+        plain = pc.p2p_copy_plain
+
+        def counted(*args, **kwargs):
+            copies[0] += 1
+            return plain(*args, **kwargs)
+        pc.p2p_copy_plain = counted
+
+        def launches():
+            return copies[0]
+    IciMesh.set_default(IciMesh(ranks=8, device=device))
+    for k in kernels:
+        k.launches = 0
+    r = phase_tools_examples(device, launches)
+    r["kernel_launches"] = {k.name: k.launches for k in kernels}
+    r["foreign"] = sorted(
+        m for m in sys.modules if m in ("jax", "brpc_tpu")
+        or m.startswith(("jax.", "jaxlib", "brpc_tpu.")))
+    r["default_device"] = IciMesh.default().device_type
+    sys.stdout.write("RESULT " + json.dumps(r) + "\n")
+    sys.stdout.flush()
+    return 0
+
+
+def phase_tools_examples_proc(device: str = "cuda", **sizes) -> dict:
+    """Phase 26 in a fresh interpreter, as phase 23's dryrun: the fabric
+    node phase 17 left in this process makes ranks 0-3 another process's,
+    and the phase serves ici://1-3.  ``sizes`` overrides the phase's
+    constants there.  Returns the child's RESULT."""
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-c", _TOOLS_CHILD, device, json.dumps(sizes)],
+        cwd=str(ROOT), capture_output=True, text=True, timeout=300)
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("RESULT ")]
+    if proc.returncode != 0 or not lines:
+        print(proc.stdout[-6000:], proc.stderr[-6000:], file=sys.stderr,
+              flush=True)
+        fail(f"phase 26's process ended rc {proc.returncode}")
+    out = json.loads(lines[-1][len("RESULT "):])
+    check(out["foreign"] == [], f"phase 26 loaded {out['foreign']}")
+    kl = out["kernel_launches"]
+    if device == "cuda":
+        check(kl["p2p_copy"] == out["launches"],
+              f"phase 26: p2p_copy launched {kl['p2p_copy']} times, the "
+              f"phase counted {out['launches']}")
+    else:
+        check(kl["p2p_copy"] == 0, f"a kernel launched on the CPU: {kl}")
+    check(kl["ring_all_reduce"] == kl["ring_all_gather"] == 0,
+          f"a ring kernel launched during phase 26: {kl}")
+    out["process_wall_s"] = time.monotonic() - t0
+    return out
+
+
+def phase26_summary(p26: dict) -> str:
+    """Phase 26's one-line summary."""
+    a, b, c, d, e = p26["a"], p26["b"], p26["c"], p26["d"], p26["e"]
+    press = ", ".join(
+        f"{k} {a[k]['qps']:.1f} qps p50/p99 {a[k]['phase_p50_us']}/"
+        f"{a[k]['p99_latency_us']} us" for k in ("ici", "mem", "tcp"))
+    tenants = "; ".join(
+        f"{k} {v['ok']} ok, session tokens/s p50/p99 "
+        f"{v['session_tokens_per_s_p50']}/{v['session_tokens_per_s_p99']}"
+        for k, v in c["per_tenant"].items())
+    return (f"tools/examples: rpc_press {press}; comma list "
+            f"{ {k: v['sent'] for k, v in a['comma']['per_endpoint'].items()} }"
+            f" sent; throttled {a['throttled']['qps']:.1f} qps at "
+            f"{PRESS_QPS}; fan-out {b['sent']} calls p50/p99 "
+            f"{b['fanout_p50_us']}/{b['fanout_p99_us']} us routes "
+            f"{b['per_route']}; serving {c['issued']} sessions, "
+            f"{c['tokens_per_s']:.1f} tokens/s ({tenants}), "
+            f"{c['launches']} launches = {c['transfers']} transfers; "
+            f"parallel_http {d['http']['ok']}/{d['http']['urls']} p50/p99 "
+            f"{d['http']['p50_ms']:.2f}/{d['http']['p99_ms']:.2f} ms; "
+            f"examples "
+            f"{ {k: round(v['s'], 2) for k, v in e.items()} } s; "
+            f"{p26['wall_s']:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
@@ -8429,6 +8878,25 @@ def main() -> int:
     print(phase25_summary(p25), flush=True)
     print("phase 25: " + json.dumps(p25), flush=True)
 
+    # 26. the operator tools (rpc_press plain, fan-out and serving,
+    # rpc_view, parallel_http) and this slice's examples on the card's
+    # mesh: p2p_copy's launches equal the plane's transfers (the serving
+    # press's KV handoffs and ici_echo's legs), no ring kernel launches
+    zero_counts()
+    p26 = phase_tools_examples_proc()
+    launches = {k.name: k.launches for k in kernels_all}
+    check(all(v == 0 for v in launches.values()),
+          f"a kernel launched in the driving process during phase 26: "
+          f"{launches}")
+    check(p26["sockets_left"] == 0,
+          f"phase 26 left {p26['sockets_left']} sockets open")
+    phase26 = {"tools_serving": p26["c"]["launches"],
+               "examples_ici_echo": p26["e"]["ici_echo"]["launches"]}
+    phase26["tools_examples_other"] = p26["launches"] - sum(
+        phase26.values())
+    print(phase26_summary(p26), flush=True)
+    print("phase 26: " + json.dumps(p26), flush=True)
+
     head = next(r for r in rows if r["label"] == "4 MiB")
     red = ring_rows["ring_all_reduce"]
     gat = ring_rows["ring_all_gather"]
@@ -8450,7 +8918,7 @@ def main() -> int:
                      + pod["launches"] + xproc["launches"]
                      + tiers20["launches"] + sum(phase21.values())
                      + sum(phase22.values()) + dry["launches"]
-                     + kvf["launches"]),
+                     + kvf["launches"] + p26["launches"]),
         "launches_by_path": {"echo": main_launches,
                              "serving": serve["launches"],
                              "migration": tiers["launches"], **phase10,
@@ -8467,7 +8935,8 @@ def main() -> int:
                              "fanout_xproc": xproc["launches"],
                              "tiers": tiers20["launches"], **phase21,
                              **phase22, "dryrun": dry["launches"],
-                             "kv_flags_loadkv": kvf["launches"]},
+                             "kv_flags_loadkv": kvf["launches"],
+                             **phase26},
         "migration_path_split": {
             "migrate_in": tiers["migrate_in_calls"],
             "loadkv": tiers["calls_received"] - tiers["migrate_in_calls"]},

@@ -807,7 +807,18 @@ def test_every_port_module_imports_without_jax():
                  "brpc_tpu_torch.policy.naming",
                  "brpc_tpu_torch.channels.parallel_channel",
                  "brpc_tpu_torch.channels.partition_channel",
-                 "brpc_tpu_torch.channels.selective_channel"):
+                 "brpc_tpu_torch.channels.selective_channel",
+                 "brpc_tpu_torch.tools.rpc_press",
+                 "brpc_tpu_torch.tools.rpc_view",
+                 "brpc_tpu_torch.tools.parallel_http",
+                 *(f"brpc_tpu_torch.examples.{name}" for name in (
+                     "echo_client_server", "asynchronous_echo",
+                     "multi_threaded_echo", "multi_threaded_echo_fns",
+                     "cascade_echo", "auto_concurrency_limiter",
+                     "ici_echo", "http_server", "grpc_echo",
+                     "grpc_interop", "redis_kv", "memcache_client",
+                     "mongo_service", "thrift_echo", "nshead_extension",
+                     "rtmp_relay"))):
         assert name in out["modules"], name
     assert out["jax"] == []
     assert out["brpc_tpu"] == []

@@ -8,10 +8,32 @@ in ``namespace`` under the package's name, ``TestFooJax`` / ``TestFooPort``
 and ``test_foo_jax`` / ``test_foo_port``, so pytest collects every test of
 the file once per package with its fixtures intact.  The file on disk is
 read, never edited.
+
+A copy runs in the same worker as the original file, and the JAX copy on
+the same process-global state, so every published test, on either
+package, runs isolated from what ran before it (``_isolated``):
+
+- the package's flag registry (``butil/flags.py _registry``) is taken as
+  it stands before the test, keys and values, and put back after it: each
+  flag it held, with its value; the flags that the file itself defines by
+  literal name (``test_flag_x``, ``test_flag_frozen`` and
+  ``test_flag_listed`` in ``tests/test_butil.py``) are absent while the
+  test runs and after it, so a define returns a fresh flag at its default,
+  not the one an earlier run of the same body left set.  A flag that a
+  module defined at its first import during the test stays, as the module
+  stays imported;
+- the settings in ``_SETTINGS`` are saved and put back: the usercode
+  pool's default kind (``rpc/usercode_pool.py _default_kind``, pinned by
+  rpc_press's ``--usercode-pool``).  The ``ici_fabric_*`` and
+  ``ici_shm_stripes`` values that rpc_press's ``--bulk-plane`` and
+  ``--shm-stripes`` set are flags, so the registry's snapshot covers them.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import gc
+import importlib
 import os
 import re
 import sys
@@ -23,6 +45,39 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PKG = re.compile(r"\bbrpc_tpu\b(?!_torch)")
+_OWN_FLAG = re.compile(r"define_flag\(\s*[\"'](\w+)[\"']")
+# (module under the package, attribute): process-global settings a
+# mirrored file's tests change and do not always put back
+_SETTINGS = (("rpc.usercode_pool", "_default_kind"),)
+
+
+@contextlib.contextmanager
+def _isolated(package: str, own_flags: Tuple[str, ...]):
+    """Run a test body on ``package``'s flag registry and settings as they
+    stand, without the file's own flags ``own_flags``, and put both back
+    after it."""
+    flags = importlib.import_module(f"{package}.butil.flags")
+    with flags._registry_lock:
+        kept = dict(flags._registry)
+        for name in own_flags:
+            flags._registry.pop(name, None)
+    values = {name: f.value for name, f in kept.items()}
+    settings = []
+    for mod_name, attr in _SETTINGS:
+        mod = importlib.import_module(f"{package}.{mod_name}")
+        settings.append((mod, attr, getattr(mod, attr)))
+    try:
+        yield
+    finally:
+        with flags._registry_lock:
+            for name in own_flags:
+                flags._registry.pop(name, None)
+            flags._registry.update(kept)
+        for name, f in kept.items():
+            with f._lock:
+                f.value = values[name]
+        for mod, attr, value in settings:
+            setattr(mod, attr, value)
 
 
 def load(path: str, port: bool,
@@ -43,6 +98,8 @@ def load(path: str, port: bool,
     mod.__file__ = full
     mod.__package__ = "tests"
     sys.modules[name] = mod
+    mod._mirror_own_flags = tuple(sorted(set(_OWN_FLAG.findall(src))))
+    mod._mirror_package = "brpc_tpu_torch" if port else "brpc_tpu"
     exec(compile(src, full, "exec"), mod.__dict__)
     # the copies run beside the original module in one worker: names
     # they register (mem:// listeners) must not collide with its own
@@ -63,6 +120,8 @@ def mirror(path: str, namespace: Dict[str, object],
     for port in (False, True):
         mod = load(path, port, swaps)
         tag = "Port" if port else "Jax"
+        isolated = functools.partial(_isolated, mod._mirror_package,
+                                     mod._mirror_own_flags)
         for key, obj in list(mod.__dict__.items()):
             if getattr(obj, "__module__", None) != mod.__name__:
                 continue
@@ -71,9 +130,31 @@ def mirror(path: str, namespace: Dict[str, object],
             if key.startswith("Test") and isinstance(obj, type):
                 name = f"Test{prefix}{key[4:]}{tag}"
                 namespace[name] = type(name, (obj,), {
-                    "__module__": namespace["__name__"]})
+                    "__module__": namespace["__name__"],
+                    "_mirror_isolation": _isolation_fixture(isolated)})
             elif key.startswith("test_") and callable(obj):
-                namespace[f"{key}_{tag.lower()}"] = obj
+                namespace[f"{key}_{tag.lower()}"] = _isolated_test(
+                    obj, isolated)
+
+
+def _isolation_fixture(isolated):
+    """An autouse fixture for a published class: each of its tests runs
+    inside ``isolated()``."""
+    @pytest.fixture(autouse=True)
+    def _mirror_isolation(self):
+        with isolated():
+            yield
+    return _mirror_isolation
+
+
+def _isolated_test(fn, isolated):
+    """A module-level test that runs inside ``isolated()``; pytest reads
+    its fixtures through ``__wrapped__``."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        with isolated():
+            return fn(*args, **kwargs)
+    return run
 
 
 @pytest.fixture(scope="module", autouse=True)
