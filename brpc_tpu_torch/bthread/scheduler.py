@@ -32,6 +32,7 @@ import threading
 import time
 from typing import Any, Callable, Deque, Dict, List, Optional
 
+from ..butil import debug_sync as _dbg
 from ..butil.resource_pool import ResourcePool
 from ..butil import flags as _flags
 
@@ -75,11 +76,13 @@ _tls = threading.local()
 class TaskGroup:
     """Per-worker run queue (work_stealing_queue.h + remote_task_queue.h)."""
 
+    _GUARDED_BY = {"deque": "lock"}
+
     def __init__(self, control: "TaskControl", index: int):
         self.control = control
         self.index = index
         self.deque: Deque[Tasklet] = collections.deque()
-        self.lock = threading.Lock()
+        self.lock = _dbg.make_lock("TaskGroup.lock")
 
     def push_urgent(self, t: Tasklet) -> None:
         with self.lock:
@@ -101,6 +104,11 @@ class TaskGroup:
 
 
 class TaskControl:
+    _GUARDED_BY = {
+        "_blocked_workers": "_blocked_lock",
+        "_pending_signal": "_parking",
+    }
+
     _instance: Optional["TaskControl"] = None
     _instance_lock = threading.Lock()
 
@@ -112,7 +120,7 @@ class TaskControl:
         self._pending_signal = 0
         self._workers: List[threading.Thread] = []
         self._blocked_workers = 0
-        self._blocked_lock = threading.Lock()
+        self._blocked_lock = _dbg.make_lock("TaskControl._blocked_lock")
         self._stop = False
         self._next_victim = 0
         for i in range(self.concurrency):

@@ -46,6 +46,7 @@ class TimerThread:
             heapq.heappush(self._heap, (abstime, tid))
             self._entries[tid] = fn
             if self._thread is None:
+                # fablint: thread-quiesced(process-lifetime singleton; parks on its condvar between timers)
                 self._thread = threading.Thread(
                     target=self._run, name="brpc_timer", daemon=True)
                 self._thread.start()

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 from typing import Any, Generic, List, Optional, TypeVar
 
-import threading
+from . import debug_sync as _dbg
 
 T = TypeVar("T")
 
@@ -37,10 +37,12 @@ def make_id(version: int, slot: int) -> int:
 class ResourcePool(Generic[T]):
     """Versioned-id pool.  get() -> (id, set_payload), address(id) -> payload."""
 
+    _GUARDED_BY = {"_slots": "_lock", "_free": "_lock"}
+
     def __init__(self):
         self._slots: List[List[Any]] = []   # each: [version, payload, in_use]
         self._free: List[int] = []
-        self._lock = threading.Lock()
+        self._lock = _dbg.make_lock("ResourcePool._lock")
 
     def get_resource(self, payload: T) -> int:
         with self._lock:
@@ -58,9 +60,9 @@ class ResourcePool(Generic[T]):
         """Wait-free in the reference; here a plain bounds+version check
         (no lock: slot list only ever grows, version mismatch is benign)."""
         slot = id_slot(rid)
-        if slot >= len(self._slots):  # the slot list only grows: a stale length is a benign miss
+        if slot >= len(self._slots):  # fablint: ignore[guarded-state] wait-free by design: the slot list only grows, so a stale length is a benign miss
             return None
-        entry = self._slots[slot]  # the version check rejects a recycled entry
+        entry = self._slots[slot]  # fablint: ignore[guarded-state] wait-free by design: the version check below rejects any entry recycled mid-read
         if entry[0] != id_version(rid) or not entry[2]:
             return None
         return entry[1]

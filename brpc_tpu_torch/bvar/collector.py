@@ -75,6 +75,7 @@ class Collector:
         with self._cv:
             self._queue.append(sample)
             if self._thread is None:
+                # fablint: thread-quiesced(process-lifetime sampler parked on its condvar; the _stop flag ends it once the queue is empty)
                 self._thread = threading.Thread(
                     target=self._run, name="bvar_collector", daemon=True)
                 self._thread.start()

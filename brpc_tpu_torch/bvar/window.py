@@ -85,6 +85,7 @@ class SamplerCollector:
         with self._lock:
             self._samplers.append(sampler)
             if self._thread is None:
+                # fablint: thread-quiesced(process-lifetime 1Hz sampler; waits on _stop between ticks, owns no native state)
                 self._thread = threading.Thread(
                     target=self._run, name="bvar_sampler", daemon=True)
                 self._thread.start()

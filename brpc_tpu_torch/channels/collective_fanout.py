@@ -120,6 +120,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..butil import debug_sync as _dbg
 from ..bthread.timer_thread import TimerThread
 from ..butil import flags as _flags
 from ..butil import logging as log
@@ -189,8 +190,14 @@ class CollectiveRegistry:
     screen consults.  Every transition bumps the epoch, so a degraded route
     sees a member's restart as an epoch move."""
 
+    _GUARDED_BY = {
+        "_methods": "_lock",
+        "_serving": "_lock",
+        "_epoch": "_lock",
+    }
+
     def __init__(self) -> None:
-        self._lock = threading.Lock()
+        self._lock = _dbg.make_lock("CollectiveRegistry._lock")
         self._methods: Dict[str, CollectiveMethodDef] = {}
         self._serving: Dict[int, int] = {}      # device -> serve count
         self._epoch = 0
@@ -286,8 +293,14 @@ class FanoutSequencer:
     is assigned at submit and executions are admitted strictly in seq
     order, one at a time."""
 
+    _GUARDED_BY = {
+        "_next_assign": "_cv",
+        "_next_exec": "_cv",
+        "_aborted": "_cv",
+    }
+
     def __init__(self) -> None:
-        self._cv = threading.Condition(threading.Lock())
+        self._cv = threading.Condition(_dbg.make_lock("FanoutSequencer._lock"))
         self._next_assign = 0
         self._next_exec = 0
         self._aborted: set = set()
@@ -298,6 +311,7 @@ class FanoutSequencer:
             self._next_assign += 1
             return seq
 
+    # fablint: lock-held(_cv)
     def _advance_aborted_locked(self) -> None:
         while self._next_exec in self._aborted:
             self._aborted.discard(self._next_exec)
@@ -631,7 +645,7 @@ class CollectiveFanoutPlane:
 
     def __init__(self) -> None:
         self._health = _ph.register_plane(
-            "collective", threading.Lock(),
+            "collective", _dbg.make_lock("CollectiveFanoutPlane._health"),
             epoch_fn=self._epoch,
             transient_reasons=_TRANSIENT_REASONS,
             reprobe_s=lambda: _flags.get_flag("ici_fanout_reprobe_s"),
@@ -1059,7 +1073,7 @@ class _AnnounceWaiter:
         self.reason = ""
 
 
-_announce_lock = threading.Lock()
+_announce_lock = _dbg.make_lock("collective_fanout._announce_lock")
 _announce_waiters: Dict[Tuple[int, int], _AnnounceWaiter] = {}
 # announce group ids: a counter, never id()-derived
 _announce_counter = itertools.count(1)
@@ -1193,7 +1207,7 @@ def _sweep_orphans(uuid: Optional[int] = None, pid: Optional[int] = None) \
 # The cross-process leg: the member's half.
 # ---------------------------------------------------------------------------
 
-_entry_lock = threading.Lock()
+_entry_lock = _dbg.make_lock("collective_fanout._entry_lock")
 _entry_queue: "collections.deque" = collections.deque()
 # (client pid, uuid) -> (sock, low, msg, expiry): accepted, not committed
 _pending_entries: Dict[Tuple[int, int], tuple] = {}
@@ -1203,6 +1217,14 @@ _held_results: Dict[Tuple[int, int], tuple] = {}
 _entry_wake = threading.Event()
 _entry_stop = threading.Event()
 _entry_thread: Optional[threading.Thread] = None
+
+_GUARDED_BY_GLOBALS = {
+    "_announce_waiters": "_announce_lock",
+    "_announce_socks": "_announce_lock",
+    "_entry_queue": "_entry_lock",
+    "_pending_entries": "_entry_lock",
+    "_entry_thread": "_entry_lock",
+}
 
 
 def on_frame(sock, ftype: int, msg: dict) -> None:
@@ -1305,6 +1327,7 @@ def on_remote_go(sock, msg: dict) -> None:
     _entry_wake.set()
 
 
+# fablint: lock-held(_entry_lock)
 def _ensure_runner_locked() -> None:
     """Start the entry runner if it is not running.  Caller holds
     ``_entry_lock``."""
@@ -1331,6 +1354,7 @@ def _release_held(held) -> None:
         exp.release()
 
 
+# fablint: lock-held(_entry_lock)
 def _sweep_pending_locked(now: float) -> None:
     """Drop parked entries whose commit never came (the client degraded
     after this member's accept), and held results whose client died or
@@ -1433,7 +1457,8 @@ def _quiesce_entry_runner() -> None:
     cut off inside a torch call aborts the process."""
     _entry_stop.set()
     _entry_wake.set()
-    t = _entry_thread
+    with _entry_lock:
+        t = _entry_thread
     if t is not None and t.is_alive() and t is not threading.current_thread():
         t.join(5.0)
 
@@ -1493,7 +1518,7 @@ def _member_sock(dev: int):
     return s
 
 
-_local_devs_lock = threading.Lock()
+_local_devs_lock = _dbg.make_lock("collective_fanout._local_devs_lock")
 _local_devs_memo: Tuple = (None, None, frozenset())
 
 

@@ -29,14 +29,18 @@ every aligned timestamp.
 """
 from __future__ import annotations
 
-import threading
 import time
 from typing import Dict, Optional, Tuple
 
-_lock = threading.Lock()
+from ..butil import debug_sync as _dbg
+
+_lock = _dbg.make_lock("ici.clock._lock")
 # pid -> (offset_us, bound_us, recorded_monotonic); samples arrive from
 # every fabric socket's handshake concurrently
 _peers: Dict[int, Tuple[float, float, float]] = {}
+
+# fablint guarded-state contract for the module-level registry
+_GUARDED_BY_GLOBALS = {"_peers": "_lock"}
 
 # a sample this old is replaced even by a looser-bound fresh one (drift
 # over hours would otherwise hide behind one lucky tight probe)

@@ -52,6 +52,8 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
+from ..butil import custody_ledger as _ledger
+from ..butil import debug_sync as _dbg
 from ..butil import flags as _flags
 from ..bthread.device_waiter import DeviceCompletion, DeviceEventDispatcher
 from ..rpc import span as _span
@@ -124,7 +126,7 @@ class DeviceTransfer:
         self._src_arr = src_arr        # the pin (rdma_endpoint.cpp:926)
         self._posted_event = None
         self._releases: List[Callable[[], None]] = []
-        self._lock = threading.Lock()
+        self._lock = _dbg.make_lock("DeviceTransfer._lock")
         # posted with rpcz on: annotated, and its timeline kept.  With an
         # RPC span in scope as well, the transfer owns a span of its own
         # in that trace
@@ -247,11 +249,33 @@ class DevicePlane:
     """Per-process device plane: the posted-WR table and one copy stream
     per CUDA device."""
 
+    _GUARDED_BY = {
+        "_pending": "_lock",
+        "_active": "_lock",
+        "_streams": "_lock",
+        "_next_uuid": "_lock",
+        "transfers": "_lock",
+        "bytes_sent": "_lock",
+        "bytes_recv": "_lock",
+        "kernel_builds": "_lock",
+        "build_failures": "_lock",
+        "match_timeouts": "_lock",
+        "remote_received": "_lock",
+        "remote_sent": "_lock",
+    }
+
+    # fablint custody contract: every tracked transfer (its source pin
+    # rides the _active entry) must untrack — completion, failure, and
+    # the lame-duck fail_pending sweep are the exits.  The post sites
+    # carry custody-moved markers because the release fires from the
+    # completion poller, not on the posting path.
+    _CUSTODY = {"_track": ("_untrack",)}
+
     _instance: Optional["DevicePlane"] = None
     _ilock = threading.Lock()
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = _dbg.make_lock("DevicePlane._lock")
         self._pending: Dict[int, DeviceTransfer] = {}   # posted sends
         self._active: set = set()      # posted-but-incomplete (drain gate)
         self._streams: Dict[torch.device, "torch.cuda.Stream"] = {}
@@ -371,10 +395,7 @@ class DevicePlane:
             ev = torch.cuda.Event()
             ev.record(torch.cuda.current_stream(arr.device))
             t._posted_event = ev
-        with self._lock:
-            if not remote:
-                self._pending[t.uuid] = t
-            self._active.add(t)
+        self._track(t, pending=not remote)  # fablint: custody-moved(completion-path) the completion (_matched's done) or _fail untracks when the transfer completes or dies; fail_pending and the match-timeout sweep reap the orphans
         if traced:
             self._annotate(t, "posted")
         self._sweep_stale()
@@ -415,8 +436,7 @@ class DevicePlane:
         t = DeviceTransfer(uuid, src_dev, dst_dev, nbytes, None, mesh,
                            traced=traced, trace_id=trace_id,
                            parent_span_id=parent_span_id)
-        with self._lock:
-            self._active.add(t)
+        self._track(t)  # fablint: custody-moved(completion-path) execute_remote's completion or fail_transfer untracks when the pull completes or dies
         if traced:
             self._annotate(t, "recv enqueued")
         return t
@@ -565,7 +585,17 @@ class DevicePlane:
         t.completion.signal(1)
 
     # ---- drain barrier -------------------------------------------------
+    def _track(self, t: DeviceTransfer, pending: bool = False) -> None:
+        _ledger.acquire("dev.transfer", (id(self), t.uuid))
+        with self._lock:
+            if pending:
+                self._pending[t.uuid] = t
+            self._active.add(t)
+
     def _untrack(self, t: DeviceTransfer) -> None:
+        # non-strict: discard is idempotent (a fail_pending sweep can
+        # race the CQ callback), so a second untrack must stay a no-op
+        _ledger.release("dev.transfer", (id(self), t.uuid))
         with self._lock:
             self._active.discard(t)
 

@@ -144,6 +144,7 @@ import time
 from datetime import timedelta
 from typing import Dict, List, Optional, Tuple
 
+from ..butil import debug_sync as _dbg
 from ..butil import flags as _flags
 from ..butil import logging as log
 from ..butil import native as _native
@@ -420,6 +421,10 @@ def encode_array_descriptor(kind: int, uuid: int, nbytes: int) -> bytes:
 class FabricNode:
     """Per-process fabric runtime: the control listener and the store."""
 
+    _GUARDED_BY = {"_next_uuid": "_uuid_lock", "_peers": "_peers_lock",
+                   "_device_health": "_peers_lock",
+                   "_store_closed": "_store_lock"}
+
     _instance: Optional["FabricNode"] = None
     _lock = threading.Lock()
 
@@ -434,7 +439,7 @@ class FabricNode:
         self._ctrl_listener: Optional[_pysocket.socket] = None
         self.ctrl_addr = ""
         self.host_ip = ""
-        self._uuid_lock = threading.Lock()
+        self._uuid_lock = _dbg.make_lock("FabricNode._uuid_lock")
         self._next_uuid = 1
         self._peers: Dict[int, dict] = {}            # pid -> contact info
         self._peers_lock = threading.Lock()
@@ -710,6 +715,7 @@ class FabricNode:
                 conn, _ = lst.accept()
             except OSError:
                 return
+            # fablint: thread-quiesced(per-connection; exits when the handshake completes or refuses and the conn closes)
             threading.Thread(target=self._handshake_server, args=(conn,),
                              name="fabric_handshake", daemon=True).start()
 
@@ -1029,7 +1035,7 @@ class CollectiveSequencer:
         self.sock = sock
         self.master = master
         self.epoch = epoch
-        self._cv = threading.Condition(threading.Lock())
+        self._cv = threading.Condition(_dbg.make_lock("CollectiveSequencer._lock"))
         self._next_assign = 0
         self._next_exec = 0
         self._ready: Dict[int, object] = {}        # seq -> transfer
@@ -1163,6 +1169,34 @@ class FabricSocket(CreditWindow, OrderedDelivery, Socket):
     """Cross-process ici socket: the control TCP connection, the credit
     window of the in-process IciSocket and the sequenced device leg."""
 
+    # fablint guarded-state contract: the bulk and shm planes' handles and
+    # counters move under _bulk_lock (a degrade swaps them atomically),
+    # the inbox under _inbox_lock, the device plane's sequence under
+    # _dplane_lock
+    _GUARDED_BY = {
+        "_bulk": "_bulk_lock",
+        "_blib": "_bulk_lock",
+        "_bulk_epoch": "_bulk_lock",
+        "_reestab_pending": "_bulk_lock",
+        "bulk_bytes_sent": "_bulk_lock",
+        "bulk_bytes_claimed": "_bulk_lock",
+        "_shm": "_bulk_lock",
+        "_shm_dead": "_bulk_lock",
+        "_shmlib": "_bulk_lock",
+        "_shm_epoch": "_bulk_lock",
+        "_shm_ring_bytes": "_bulk_lock",
+        "_shm_stripes": "_bulk_lock",
+        "_shm_dead_stripes": "_bulk_lock",
+        "_shm_reestab_pending": "_bulk_lock",
+        "shm_bytes_sent": "_bulk_lock",
+        "shm_bytes_claimed": "_bulk_lock",
+        "_staged": "_staged_lock",
+        "_inbox": "_inbox_lock",
+        "_consumed_unacked": "_inbox_lock",
+        "_dplane_seq": "_dplane_lock",
+        "_dplane_closed": "_dplane_lock",
+    }
+
     def __init__(self, conn: _pysocket.socket, local_dev: int,
                  remote_dev: int, peer_pid: int, node: FabricNode,
                  window_bytes: Optional[int] = None,
@@ -1175,9 +1209,9 @@ class FabricSocket(CreditWindow, OrderedDelivery, Socket):
         self.peer_pid = peer_pid
         self.node = node
         self._conn = conn
-        self._conn_wlock = threading.Lock()
+        self._conn_wlock = _dbg.make_lock("FabricSocket._conn_wlock")
         self._inbox = IOBuf()
-        self._inbox_lock = threading.Lock()
+        self._inbox_lock = _dbg.make_lock("FabricSocket._inbox_lock")
         self.read_chunk_hint = 1 << 26    # _do_read cuts, never allocates
         # full RPC messages are queued to tasklets, so a handler never
         # stalls the control channel's CREDIT/PULLED processing
@@ -1197,13 +1231,13 @@ class FabricSocket(CreditWindow, OrderedDelivery, Socket):
         self._ipc_peer = (info.get(_ipc.HANDSHAKE_KEY)
                           == _ipc.HANDSHAKE_VERSION)
         self._plane_device = node.device_health(peer_pid)
-        self._dplane_lock = threading.Lock()
+        self._dplane_lock = _dbg.make_lock("FabricSocket._dplane_lock")
         self._dplane_seq: Optional[CollectiveSequencer] = None   # lazy
         self._dplane_closed = False
         # sends pinned until the peer's PULLED: uuid -> transfer
         # (a kind-1 stage is an _XferStage)
         self._staged: Dict[int, object] = {}
-        self._staged_lock = threading.Lock()
+        self._staged_lock = _dbg.make_lock("FabricSocket._staged_lock")
         # kind 1 needs an export on this side and a pull on the peer's
         self._xfer_usable = (info.get(XFER_KEY) == _ipc.HANDSHAKE_VERSION
                              and _ipc.can_export(self.mesh))
@@ -1214,7 +1248,7 @@ class FabricSocket(CreditWindow, OrderedDelivery, Socket):
         # epochs, pending revivals and byte counters (writers of several
         # streams share the socket), and is the lock their health records
         # decide under, so a death and a handle swap serialize
-        self._bulk_lock = threading.Lock()
+        self._bulk_lock = _dbg.make_lock("FabricSocket._bulk_lock")
         self._bulk = 0                         # the bulk conn's handle
         self._blib = None
         self._bulk_epoch = 0                   # attachments so far
@@ -1264,7 +1298,8 @@ class FabricSocket(CreditWindow, OrderedDelivery, Socket):
             dead=gone, thread_name="fabric_shm_revive",
             seed=self.id ^ 0x73686D)
         self._plane_xfer = _ph.register_plane(
-            "xfer", probe=lambda n: self._xfer_usable,
+            "xfer", _dbg.make_lock("FabricSocket._xfer_plane_lock"),
+            probe=lambda n: self._xfer_usable,
             retry_s=lambda: DEVICE_RETRY_S)
         self._planes = {"bulk": self._plane_bulk, "shm": self._plane_shm,
                         "xfer": self._plane_xfer}

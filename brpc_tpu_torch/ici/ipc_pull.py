@@ -51,7 +51,7 @@ import struct
 import subprocess
 import threading
 import time
-from typing import Dict, List, Optional, Set, Tuple
+from typing import Dict, List, Set, Tuple
 
 import torch
 
@@ -127,7 +127,7 @@ class _IpcLibrary:
                 tmp = path.with_suffix(f".{os.getpid()}.tmp")
                 cmd = [os.path.join(CUDA_HOME, "bin", "nvcc"), *NVCC_FLAGS,
                        "-o", str(tmp), str(SOURCE), *self._link_flags()]
-                proc = subprocess.run(cmd, capture_output=True, text=True)
+                proc = subprocess.run(cmd, capture_output=True, text=True)  # fablint: ignore[blocking-under-lock] the lock serializes this process's one build of the library; every caller needs its result and waits for it
                 if proc.returncode != 0:
                     raise RuntimeError(f"cuda_ipc: nvcc failed "
                                        f"({proc.returncode}):\n{proc.stderr}")

@@ -44,6 +44,7 @@ import time as _time
 import weakref
 from typing import Any, Dict, List, Optional, Tuple
 
+from ..butil import debug_sync as _dbg
 from ..butil import flags as _flags
 from ..butil import logging as log
 from ..butil import native
@@ -105,6 +106,11 @@ class _DevRegistry:
     """key -> tensor, alive while the key is in native custody.  Keys come
     from ``itertools.count`` and every table op is one dict operation, so
     no lock is needed; a key is written once and removed once."""
+
+    # fablint custody contract: a key handed out by put() leaves the
+    # registry through take() or release() exactly once; keys parked in
+    # wire segments or IOBuf handles carry custody-moved markers
+    _CUSTODY = {"put": ("take", "release")}
 
     def __init__(self):
         self._m: Dict[int, Any] = {}
@@ -335,6 +341,14 @@ def has_listener(device_id: int) -> bool:
 
 # device_id -> ServerBinding, for what native cannot answer (dispatch mode)
 _server_bindings: Dict[int, "ServerBinding"] = {}
+
+# fablint guarded-state contract for the module-level registries
+_GUARDED_BY_GLOBALS = {
+    "_reloc": "_stats_lock",
+    "_reloc_live": "_stats_lock",
+    "_hooks_installed": "_hooks_lock",
+    "_server_bindings": "_server_bindings_lock",
+}
 _server_bindings_lock = threading.Lock()
 
 
@@ -652,11 +666,13 @@ class _RespondCollector:
     ``brpc_tpu_ici_respond_batch`` crossing flushes them when the upcall
     closes.  A later ``done()`` responds as a batch of one."""
 
+    _GUARDED_BY = {"_items": "_lock", "_open": "_lock"}
+
     __slots__ = ("_binding", "_lock", "_items", "_open")
 
     def __init__(self, binding: "ServerBinding"):
         self._binding = binding
-        self._lock = threading.Lock()
+        self._lock = _dbg.make_lock("_RespondCollector._lock")
         self._items: List[tuple] = []
         self._open = True
 
@@ -1112,7 +1128,7 @@ class ServerBinding:
         full, fn, request_cls, response_cls, status = ent
         server = self._server
         stages = self._stage_flag.value == "on"
-        cntl = self._pool.acquire()
+        cntl = self._pool.acquire()  # fablint: custody-moved(request-lifecycle) the shim rides the request; _maybe_recycle releases it back to the pool when the response (or failure path) completes
         d = cntl.__dict__
         if log_id:
             d["log_id"] = log_id
@@ -1489,7 +1505,7 @@ class ChannelBinding:
                     seg_arr = tls["seg1"] = (IciSegC * 1)()
                 e = seg_arr[0]
                 e.dev = _device_index(arr)
-                e.key = _registry.put(arr)
+                e.key = _registry.put(arr)  # fablint: custody-moved(wire-segment) the key rides the IciSeg to the native sender, which takes/releases it after the DMA posts
                 e.nbytes = nbytes
                 e.is_dev = 1
                 nseg = 1
@@ -1580,7 +1596,7 @@ class ChannelBinding:
                 else:
                     prev.append(rbuf)
             # one process-wide byte count for both planes
-            with _t._retired_lock:
+            with _t._ici_stats_lock:
                 moved = _t._retired_moved
                 moved[0] += len(req) + len(att_host) + dev_bytes
                 moved[1] += dev_bytes
@@ -1716,6 +1732,7 @@ class _Callers:
                 self._idle -= 1
                 return
             self._threads += 1
+        # fablint: thread-quiesced(self-terminating: a caller thread that finds no call for idle_s returns)
         threading.Thread(target=self._run, name="ici_native_caller",
                          daemon=True).start()
 

@@ -55,6 +55,7 @@ import threading
 import time
 from typing import Callable, Optional, Tuple
 
+from ..butil import debug_sync as _dbg
 from . import route as _route
 
 UP = "up"
@@ -65,6 +66,20 @@ REESTABLISHING = "reestablishing"
 class PlaneHealth:
     """One plane's health record.  All mutable state is guarded by the
     plane-supplied ``lock``; counters and hooks run outside it."""
+
+    _GUARDED_BY = {
+        "state": "_lock",
+        "reason": "_lock",
+        "down_at": "_lock",
+        "down_epoch": "_lock",
+        "down_until": "_lock",
+        "wanted": "_lock",
+        "running": "_lock",
+        "half_open": "_lock",
+        "probe_failures": "_lock",
+        "downs": "_lock",
+        "revivals": "_lock",
+    }
 
     def __init__(self, name: str, lock, *,
                  probe: Optional[Callable[[int], bool]] = None,
@@ -156,6 +171,7 @@ class PlaneHealth:
             self.running = True
             if self.state != UP:
                 self.state = REESTABLISHING
+        # fablint: thread-quiesced(self-terminating: exits on attach, when no longer wanted, or when the peer is gone)
         threading.Thread(target=self._revival_loop,
                          name=self._thread_name, daemon=True).start()
 
@@ -315,5 +331,5 @@ def register_plane(name: str, lock=None, **policy) -> PlaneHealth:
     the revival policy, ``probe`` is the capability check and ``events``
     the plane's hook."""
     if lock is None:
-        lock = threading.Lock()
+        lock = _dbg.make_lock(f"plane_health.{name}")
     return PlaneHealth(name, lock, **policy)

@@ -38,6 +38,7 @@ import threading
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
+from ..butil import debug_sync as _dbg
 from ..butil import flags as _flags
 from ..butil import logging as log
 from ..butil.endpoint import EndPoint
@@ -121,6 +122,18 @@ class Pod:
     ``_lock`` guards the local record, the cached membership view, the
     watchers and the attached autoscaler."""
 
+    _GUARDED_BY = {
+        "_members": "_lock",
+        "_gen": "_lock",
+        "_serving": "_lock",
+        "_draining_devs": "_lock",
+        "_state": "_lock",
+        "_watchers": "_lock",
+        "_coll": "_lock",
+        "_load": "_lock",
+        "_autoscaler": "_lock",
+    }
+
     _instance: Optional["Pod"] = None
     _ilock = threading.Lock()
 
@@ -130,8 +143,8 @@ class Pod:
         self.pid = node.process_id
         self._store = node._store
         self._store_lock = node._store_lock
-        self._lock = threading.Lock()
-        self._publish_lock = threading.Lock()
+        self._lock = _dbg.make_lock("Pod._lock")
+        self._publish_lock = _dbg.make_lock("Pod._publish_lock")
         self._gen = 0
         self._state = DOWN
         self._serving: List[int] = []

@@ -39,13 +39,13 @@ write instead of moving the bytes another way.
 """
 from __future__ import annotations
 
-import threading
 from typing import Dict, List
 
+from ..butil import debug_sync as _dbg
 from .. import bvar
 from ..butil import flags as _flags
 
-_lock = threading.Lock()
+_counters_lock = _dbg.make_lock("ici.route._counters_lock")
 
 DEVICE = "device"      # a route, and the class of DEVICE-block payloads
 SHM = "shm"
@@ -90,7 +90,7 @@ _route_counters: Dict[str, tuple] = {}
 def _counter_pair(label: str):
     pair = _route_counters.get(label)
     if pair is None:
-        with _lock:
+        with _counters_lock:
             pair = _route_counters.get(label)
             if pair is None:
                 pair = _route_counters[label] = (
@@ -121,7 +121,7 @@ def record_shm_stripe(stripe: int, nbytes: int, frames: int = 1) -> None:
 
 def route_stats() -> Dict[str, int]:
     """``{"<route>_frames": n, "<route>_bytes": n}`` so far."""
-    with _lock:
+    with _counters_lock:
         items = list(_route_counters.items())
     out: Dict[str, int] = {}
     for route, (frames, nbytes) in items:
@@ -138,7 +138,7 @@ def record_plane(name: str, event: str, n: int = 1) -> None:
     label = f"{name}_{event}"
     adder = _plane_events.get(label)
     if adder is None:
-        with _lock:
+        with _counters_lock:
             adder = _plane_events.get(label)
             if adder is None:
                 adder = _plane_events[label] = bvar.Adder(
@@ -148,7 +148,7 @@ def record_plane(name: str, event: str, n: int = 1) -> None:
 
 def plane_stats() -> Dict[str, int]:
     """``{"<plane>_<event>": count}`` for every event recorded so far."""
-    with _lock:
+    with _counters_lock:
         items = list(_plane_events.items())
     return {label: a.get_value() for label, a in items}
 
@@ -163,7 +163,7 @@ def record_collective(event: str, reason: str = "", n: int = 1) -> None:
     label = f"collective_{event}" + (f"_{reason}" if reason else "")
     adder = _collective_events.get(label)
     if adder is None:
-        with _lock:
+        with _counters_lock:
             adder = _collective_events.get(label)
             if adder is None:
                 adder = _collective_events[label] = bvar.Adder(
@@ -174,6 +174,6 @@ def record_collective(event: str, reason: str = "", n: int = 1) -> None:
 def collective_stats() -> Dict[str, int]:
     """``{"collective_<event>[_<reason>]": count}`` for the /ici page and
     the route assertions."""
-    with _lock:
+    with _counters_lock:
         items = list(_collective_events.items())
     return {label: a.get_value() for label, a in items}

@@ -28,6 +28,7 @@ import threading
 import time as _time
 from typing import Callable, Dict, List, Optional, Tuple
 
+from ..butil import debug_sync as _dbg
 from ..butil.endpoint import EndPoint
 from ..butil import flags as _flags
 from ..butil.iobuf import IOBuf, IOPortal, DEVICE
@@ -52,7 +53,7 @@ _flags.define_flag("ici_socket_window_bytes", 4 * 1024 * 1024,
 # write path takes no process-wide lock; its close folds them in here
 # under that same lock, and a write that finishes after the fold counts
 # here directly: no write is lost to a close
-_retired_lock = threading.Lock()
+_ici_stats_lock = _dbg.make_lock("ici.transport._ici_stats_lock")
 _retired_moved = [0, 0]
 
 
@@ -61,7 +62,7 @@ def ici_transport_stats() -> Tuple[int, int]:
     the process (the /ici page and the default variables): the closed
     sockets' folded totals plus the live sockets' own counters."""
     from ..rpc.socket import list_sockets
-    with _retired_lock:
+    with _ici_stats_lock:
         moved, device_moved = _retired_moved
     for s in list_sockets():
         if isinstance(s, IciSocket) and not s._counters_folded:
@@ -104,11 +105,14 @@ class CreditWindow:
     ``_wait_writable`` timeout FAILS the socket — pending writes complete
     with an error instead of silently wedging forever."""
 
+    _GUARDED_BY = {"_send_window": "_window_lock"}
+
+    # fablint: init
     def _init_window(self, window_bytes: Optional[int]) -> None:
         self.window_bytes = (window_bytes if window_bytes is not None
                              else _flags.get_flag("ici_socket_window_bytes"))
         self._send_window = self.window_bytes
-        self._window_lock = threading.Lock()
+        self._window_lock = _dbg.make_lock("CreditWindow._window_lock")
         self._window_gen = Butex(0)       # bumped whenever credits return
 
     def send_window_left(self) -> int:
@@ -179,9 +183,12 @@ class OrderedDelivery:
     or device-plane transfers / any object exposing ``add_done_callback``
     (gated on its completion — the CQ entry)."""
 
+    _GUARDED_BY = {"_dq": "_dq_lock", "_dq_draining": "_dq_lock"}
+
+    # fablint: init
     def _init_delivery(self) -> None:
         self._dq = collections.deque()    # entries: [ready, commit_fn]
-        self._dq_lock = threading.Lock()
+        self._dq_lock = _dbg.make_lock("OrderedDelivery._dq_lock")
         self._dq_draining = False
 
     def _enqueue_delivery(self, waits: List,
@@ -231,6 +238,15 @@ class OrderedDelivery:
 
 
 class IciSocket(CreditWindow, OrderedDelivery, Socket):
+    # fablint guarded-state contract: the inbox and the pinned-send
+    # table are touched from the writer, the reader, and the device
+    # completion poller
+    _GUARDED_BY = {
+        "_inbox": "_inbox_lock",
+        "_inflight_sends": "_inflight_lock",
+        "_inflight_seq": "_inflight_lock",
+    }
+
     def __init__(self, local_dev: int, remote_dev: int,
                  mesh: Optional[IciMesh] = None,
                  window_bytes: Optional[int] = None):
@@ -244,7 +260,7 @@ class IciSocket(CreditWindow, OrderedDelivery, Socket):
         self.local_side = self.mesh.endpoint(local_dev)
         self.peer: Optional["IciSocket"] = None
         self._inbox = IOBuf()
-        self._inbox_lock = threading.Lock()
+        self._inbox_lock = _dbg.make_lock("IciSocket._inbox_lock")
         self.read_chunk_hint = 1 << 26    # _do_read cuts, never allocates
         self._peer_closed = False
         # (inbox byte offset just past a plane payload, transfers in it)
@@ -262,7 +278,7 @@ class IciSocket(CreditWindow, OrderedDelivery, Socket):
         # rdma_endpoint.cpp:926 HandleCompletion)
         self._inflight_sends: Dict[int, Tuple] = {}
         self._inflight_seq = 0
-        self._inflight_lock = threading.Lock()
+        self._inflight_lock = _dbg.make_lock("IciSocket._inflight_lock")
 
     def inflight_send_blocks(self) -> int:
         """Device source blocks pinned awaiting copy completion."""
@@ -289,7 +305,7 @@ class IciSocket(CreditWindow, OrderedDelivery, Socket):
         if self._counters_folded:
             # the socket closed while this write ran: its totals are the
             # process's now
-            with _retired_lock:
+            with _ici_stats_lock:
                 _retired_moved[0] += nbytes
                 _retired_moved[1] += device_nbytes
             return
@@ -297,7 +313,7 @@ class IciSocket(CreditWindow, OrderedDelivery, Socket):
         self.device_out_size += device_nbytes
 
     def _fold_counters_locked(self) -> None:
-        with _retired_lock:
+        with _ici_stats_lock:
             _retired_moved[0] += self.stat.out_size
             _retired_moved[1] += self.device_out_size
         self._counters_folded = True
@@ -515,7 +531,14 @@ def _all_ready(tensors) -> bool:
 # ---- listener registry (ici "ports") ----------------------------------
 
 _listeners: Dict[int, "IciListener"] = {}
-_listeners_lock = threading.Lock()
+
+# fablint guarded-state contract for the module-level registries
+_GUARDED_BY_GLOBALS = {
+    "_retired_moved": "_ici_stats_lock",
+    "_dropped_transfers": "_dropped_lock",
+    "_listeners": "_listeners_lock",
+}
+_listeners_lock = _dbg.make_lock("ici.transport._listeners_lock")
 
 
 class IciListener:

@@ -23,6 +23,7 @@ import time
 import weakref
 from typing import Dict, List, Optional, Tuple
 
+from ..butil import debug_sync as _dbg
 from ..butil.endpoint import EndPoint
 from ..butil.misc import FastRand, fast_rand_less_than
 
@@ -52,10 +53,12 @@ class _ListLB:
     endpoint excluded until ``until_ts`` (``time.monotonic()``) is not
     selected before then, unless every member is excluded."""
 
+    _GUARDED_BY = {"_excluded": "_excl_lock"}
+
     def __init__(self):
         self._list_lock = threading.Lock()
         self._list: List[ServerEntry] = []
-        self._excl_lock = threading.Lock()
+        self._excl_lock = _dbg.make_lock("_ListLB._excl_lock")
         self._excluded: Dict[EndPoint, float] = {}
         _live_lbs.add(self)
 
@@ -106,7 +109,7 @@ class _ListLB:
         # materialize an empty set)
         per_call = cntl.__dict__.get("_excluded_servers") \
             if cntl is not None else None
-        if not self._excluded and not per_call:   # no lock taken
+        if not self._excluded and not per_call:  # fablint: ignore[guarded-state] lock-free emptiness peek on the pick fast path: a stale read misses only an exclusion racing this very pick, as a locked read could
             return lst
         now = time.monotonic()
         with self._excl_lock:
@@ -166,6 +169,8 @@ class LocalityAwareLB(_ListLB):
     traffic it needs to recover.  ``rng`` draws the selections; pass a
     seeded ``random.Random`` for a reproducible sequence."""
 
+    _GUARDED_BY = {"_servers": "_w_lock"}
+
     name = "la"
     WEIGHT_SCALE = 1e7
     INITIAL_WEIGHT = 1000.0     # until the first sample lands
@@ -174,7 +179,7 @@ class LocalityAwareLB(_ListLB):
     def __init__(self, rng: Optional[random.Random] = None):
         super().__init__()
         self._rng = rng or random.Random()
-        self._w_lock = threading.Lock()
+        self._w_lock = _dbg.make_lock("LocalityAwareLB._w_lock")
         self._servers: Dict[EndPoint, _LaWeight] = {}
 
     def remove_server(self, ep: EndPoint) -> bool:
@@ -187,6 +192,7 @@ class LocalityAwareLB(_ListLB):
             self._servers.pop(ep, None)
         return ok
 
+    # fablint: lock-held(_w_lock)
     def _weight_for(self, ep: EndPoint) -> _LaWeight:
         w = self._servers.get(ep)
         if w is None:
@@ -267,12 +273,14 @@ class LocalityAwareLB(_ListLB):
 
 
 class RoundRobinLB(_ListLB):
+    _GUARDED_BY = {"_index": "_ilock"}
+
     name = "rr"
 
     def __init__(self):
         super().__init__()
         self._index = 0
-        self._ilock = threading.Lock()
+        self._ilock = _dbg.make_lock("RoundRobinLB._ilock")
 
     def select_server(self, cntl=None) -> Optional[EndPoint]:
         usable = self._usable(cntl)
@@ -287,11 +295,13 @@ class WeightedRoundRobinLB(_ListLB):
     """Smooth weighted round robin (the distribution contract of
     weighted_round_robin_load_balancer.cpp)."""
 
+    _GUARDED_BY = {"_current": "_lock"}
+
     name = "wrr"
 
     def __init__(self):
         super().__init__()
-        self._lock = threading.Lock()
+        self._lock = _dbg.make_lock("WeightedRoundRobinLB._lock")
         self._current: Dict[EndPoint, int] = {}
 
     def select_server(self, cntl=None) -> Optional[EndPoint]:
@@ -395,12 +405,14 @@ class ConsistentHashingLB(_ListLB):
     A call's ``cntl.request_code`` is its key; without one the key is a
     random draw."""
 
+    _GUARDED_BY = {"_ring": "_ring_lock"}
+
     def __init__(self, kind: str = "murmur", vnodes: int = 64):
         super().__init__()
         self.kind = kind
         self.name = "c_" + kind + "hash"
         self._vnodes = vnodes
-        self._ring_lock = threading.Lock()
+        self._ring_lock = _dbg.make_lock("ConsistentHashingLB._ring_lock")
         self._ring: List[Tuple[int, EndPoint]] = []
 
     def _hash(self, data: bytes) -> int:

@@ -268,7 +268,7 @@ def process_request(msg: StdMessage, socket, server) -> None:
     if _dump_flag.value:
         rpc_dump.maybe_dump_request(pack_frame(meta, msg.body))
 
-    cntl = server_controller_pool.acquire()
+    cntl = server_controller_pool.acquire()  # fablint: custody-moved(request-lifecycle) the shim rides the request; _maybe_recycle releases it back to the pool when the response (or failure path) completes
     cntl.server = server
     cntl.log_id = req_meta.log_id
     cntl.remote_side = socket.remote_side

@@ -39,6 +39,7 @@ from collections import OrderedDict, deque
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Optional
 
+from ..butil import debug_sync as _dbg
 from .. import bvar
 from . import errors
 
@@ -207,6 +208,16 @@ class AdmissionController:
     gate + continuations, the server calls :meth:`on_release` every time
     an admitted request exits (``Server.on_request_out``)."""
 
+    _GUARDED_BY = {
+        "_bands": "_lock",
+        "_queued_total": "_lock",
+        "_rate_ema": "_lock",
+        "_last_release_us": "_lock",
+        "_stopped_reason": "_lock",
+        "_counters": "_counters_lock",
+        "_tenant_labels": "_counters_lock",
+    }
+
 
     # distinct NON-CONFIGURED tenant labels tracked in per-tenant
     # counters before new ones fold into "~other": the tenant string is
@@ -221,7 +232,7 @@ class AdmissionController:
         self.options = options or AdmissionOptions()
         self._now_us = now_us or (lambda: time.monotonic_ns() // 1000)
         self._dispatch_override = dispatch
-        self._lock = threading.Lock()
+        self._lock = _dbg.make_lock("AdmissionController._lock")
         self._bands = [_BandQueue() for _ in range(self.options.bands)]
         self._queued_total = 0
         self._rate_ema = 0.0             # observed service rate, req/s
@@ -229,7 +240,7 @@ class AdmissionController:
         self._stopped_reason: Optional[tuple] = None
         # per-(tenant, band) counters, created lazily; aggregate adders
         # are eager so /vars always shows the family
-        self._counters_lock = threading.Lock()
+        self._counters_lock = _dbg.make_lock("AdmissionController._counters_lock")
         self._counters: Dict[tuple, bvar.Adder] = {}
         self._tenant_labels: set = set()
         self.admitted = bvar.Adder("rpc_admission_admitted")

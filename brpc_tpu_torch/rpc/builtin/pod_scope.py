@@ -35,6 +35,8 @@ from typing import Dict, List, Optional, Tuple
 _channels_lock = threading.Lock()
 _channels: Dict[str, object] = {}
 
+_GUARDED_BY_GLOBALS = {"_channels": "_channels_lock"}
+
 _FANOUT_TIMEOUT_MS = 4000
 
 

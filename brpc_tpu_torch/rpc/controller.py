@@ -34,6 +34,8 @@ import threading
 import time
 from typing import Any, Callable, Optional
 
+from ..butil import custody_ledger as _ledger
+from ..butil import debug_sync as _dbg
 from ..butil.iobuf import IOBuf
 from ..butil.endpoint import EndPoint
 from ..butil.resource_pool import ResourcePool
@@ -559,11 +561,19 @@ class ControllerPool:
     list.  Reset is ``Controller.reset()`` (one dict clear), so a recycled
     shim never leaks request k's error code or attachment into k+1."""
 
+    _GUARDED_BY = {"_free": "_lock"}
+
+    # fablint custody contract: a pooled shim handed out by acquire()
+    # comes back through release() exactly once; the id version makes a
+    # double release a no-op, the ledger makes a NO release attributable
+    # to its acquiring call site.
+    _CUSTODY = {"acquire": ("release",)}
+
     def __init__(self, capacity: int = 1024):
         self.capacity = capacity
         self._ids: "ResourcePool[Controller]" = ResourcePool()
         self._free: list = []
-        self._lock = threading.Lock()
+        self._lock = _dbg.make_lock("ControllerPool._lock")
 
     def acquire(self) -> Controller:
         with self._lock:
@@ -573,12 +583,14 @@ class ControllerPool:
         d = c.__dict__
         d["_pool_rid"] = self._ids.get_resource(c)
         d["_recycle_pool"] = self
+        _ledger.acquire("cntl", (id(self), d["_pool_rid"]))
         return c
 
     def release(self, c: Controller) -> None:
         rid = c.__dict__.get("_pool_rid", 0)
         if not rid or not self._ids.return_resource(rid):
             return                   # not ours / already released: drop
+        _ledger.release("cntl", (id(self), rid))
         # a native attachment view whose handle never left custody (the
         # handler ignored it, or the response failed before passing it
         # back) is disposed here; plain IOBufs have no such hook

@@ -15,6 +15,7 @@ import random
 import threading
 from typing import Any, Callable, Dict, Optional
 
+from ..butil import debug_sync as _dbg
 from ..butil.endpoint import EndPoint, SCHEME_ICI, SCHEME_MEM, SCHEME_TCP
 from ..butil import flags as _flags
 from ..butil import logging as log
@@ -68,6 +69,8 @@ class HealthCheckTask:
     back off exponentially (base health_check_interval_s, doubling to
     health_check_max_interval_s) with jitter seeded from the endpoint, so
     a fleet of checkers never stampedes a recovering peer."""
+
+    _GUARDED_BY = {"_revive_cbs": "_tasks_lock"}
 
     def __init__(self, ep: EndPoint,
                  on_revived: Optional[Callable[[EndPoint], None]] = None):
@@ -132,7 +135,9 @@ class HealthCheckTask:
 
 
 _tasks: Dict[EndPoint, HealthCheckTask] = {}
-_tasks_lock = threading.Lock()
+_tasks_lock = _dbg.make_lock("health_check._tasks_lock")
+
+_GUARDED_BY_GLOBALS = {"_tasks": "_tasks_lock"}
 
 
 def start_health_check(ep: EndPoint,

@@ -36,6 +36,7 @@ import threading
 import time
 from typing import Any, Dict, Optional
 
+from ..butil import debug_sync as _dbg
 from ..butil import flags as _flags
 from ..butil import logging as log
 from . import errors
@@ -50,10 +51,12 @@ _loopback_flag = _flags.define_flag(
 
 # mem name -> Server, kept by Server.start and its teardown
 _servers: Dict[str, Any] = {}
-_servers_lock = threading.Lock()
+_servers_lock = _dbg.make_lock("loopback._servers_lock")
 # id(server) -> set of in-flight _CallStates (the stop's straggler view)
 _inflight: Dict[int, set] = {}
-_inflight_lock = threading.Lock()
+_inflight_lock = _dbg.make_lock("loopback._inflight_lock")
+
+_GUARDED_BY_GLOBALS = {"_servers": "_servers_lock", "_inflight": "_inflight_lock"}
 # calls this plane served, process-wide
 calls = 0
 
@@ -255,7 +258,7 @@ def _serve(server, full_name: str, client_cntl: Controller,
     the caller (``usercode_inline``) or on a tasklet or pool thread."""
     t0 = state.t0
     done = state.done
-    cntl = server_controller_pool.acquire()
+    cntl = server_controller_pool.acquire()  # fablint: custody-moved(request-lifecycle) the shim rides the request; _maybe_recycle releases it back to the pool when the response (or failure path) completes
     cntl.server = server
     if client_cntl.log_id:
         cntl.log_id = client_cntl.log_id

@@ -44,7 +44,7 @@ def profile_for(seconds: float = 1.0, top: int = 40) -> str:
     with _profile_lock:
         pr = cProfile.Profile()
         pr.enable()
-        time.sleep(seconds)
+        time.sleep(seconds)  # fablint: ignore[blocking-under-lock] the lock serializes the process-global profiler; the sleep is the sampling window itself
         pr.disable()
     out = io.StringIO()
     pstats.Stats(pr, stream=out).sort_stats("cumulative").print_stats(top)

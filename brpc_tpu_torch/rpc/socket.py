@@ -27,6 +27,7 @@ import threading
 import time
 from typing import Any, Callable, List, Optional
 
+from ..butil import debug_sync as _dbg
 from ..butil.iobuf import IOBuf, IOPortal
 from ..butil import flags as _flags
 from ..butil.resource_pool import ResourcePool
@@ -69,6 +70,16 @@ class WriteRequest:
 class Socket:
     """Base socket; see module docstring."""
 
+    _GUARDED_BY = {
+        "_write_queue": "_write_lock",
+        "_writing": "_write_lock",
+        "_unwritten": "_write_lock",
+        "_nevent": "_nevent_lock",
+        "pipelined_contexts": "_pipeline_lock",
+        "_inflight_cids": "_cid_lock",
+        "_inflight_prune_at": "_cid_lock",
+    }
+
     def __init__(self, remote_side: Optional[EndPoint] = None):
         self.id: int = _socket_pool.get_resource(self)
         self.remote_side = remote_side
@@ -78,10 +89,10 @@ class Socket:
         self.failed_reason = ""
         self._write_queue: List[WriteRequest] = []
         self._unwritten = 0          # queued-but-unwritten bytes (EOVERCROWDED)
-        self._write_lock = threading.Lock()
+        self._write_lock = _dbg.make_lock("Socket._write_lock")
         self._writing = False
         self._nevent = 0                    # input-event dedup counter
-        self._nevent_lock = threading.Lock()
+        self._nevent_lock = _dbg.make_lock("Socket._nevent_lock")
         self.messenger = None               # InputMessenger set by owner
         self._read_portal = IOPortal()
         self._selected_protocol_index = -1  # protocol memory per socket
@@ -112,7 +123,7 @@ class Socket:
         # order; a response takes the oldest (reference socket.h
         # PipelinedInfo)
         self.pipelined_contexts: List[Any] = []
-        self._pipeline_lock = threading.Lock()
+        self._pipeline_lock = _dbg.make_lock("Socket._pipeline_lock")
         self._pipeline_write_lock = threading.Lock()
 
     @staticmethod
@@ -373,4 +384,5 @@ def _socket_count() -> int:
 
 
 # the live connections on /vars, as the reference's rpc_socket_count
-_socket_count_var = PassiveStatus(_socket_count, "rpc_socket_count")
+# (the variable registry holds it from its construction)
+PassiveStatus(_socket_count, "rpc_socket_count")

@@ -50,10 +50,11 @@ such a frame fails the stream, which cannot claim its bytes.
 from __future__ import annotations
 
 import struct
-import threading
 import time
 from typing import List, Optional
 
+from ..butil import custody_ledger as _ledger
+from ..butil import debug_sync as _dbg
 from ..butil import flags as _flags
 from ..butil import logging as log
 from ..butil.iobuf import IOBuf
@@ -121,6 +122,15 @@ class Stream:
     closed it), "close" or "rst" (the peer's frame), or "socket" (the
     connection failed)."""
 
+    _GUARDED_BY = {
+        "_produced": "_flow_lock",
+        "_remote_consumed": "_flow_lock",
+        "_exec": "_state_lock",
+        "_sock_failed_cb": "_state_lock",
+        "_seq": "_wire_lock",
+        "_pending_desc": "_wire_lock",
+    }
+
     _CLOSE_MARKER = object()
 
     def __init__(self, options: StreamOptions, is_client: bool):
@@ -136,15 +146,15 @@ class Stream:
         # sender side
         self._produced = 0
         self._remote_consumed = 0
-        self._flow_lock = threading.Lock()
+        self._flow_lock = _dbg.make_lock("Stream._flow_lock")
         self._writable_butex = Butex(0)
         # receiver side
         self._local_consumed = 0
         self._last_feedback = 0
         self._seq = 0
         self._sock_failed_cb = None     # registered at mark_connected
-        self._state_lock = threading.Lock()
-        self._wire_lock = threading.Lock()
+        self._state_lock = _dbg.make_lock("Stream._state_lock")
+        self._wire_lock = _dbg.make_lock("Stream._wire_lock")
         # ring frames published but not yet announced (frame 7), and the
         # generation that makes a stale linger timer a no-op; the timer
         # reads it without the lock (an int read; a stale positive only
@@ -319,7 +329,7 @@ class Stream:
                     h.on_closed(self.sid)
                 except Exception:
                     log.error("stream on_closed raised", exc_info=True)
-        _streams.return_resource(self.sid)
+        _pool_remove(self.sid)
 
     def on_remote_close(self, reason: str = "close") -> None:
         with self._state_lock:
@@ -427,6 +437,7 @@ class Stream:
             raise ConnectionError(f"stream write failed: {rc}")
 
     # -- ring descriptor batching ----------------------------------------
+    # fablint: lock-held(_wire_lock)
     def _flush_desc_locked(self, sock) -> int:
         """Announce every published, unannounced ring frame in one control
         frame (a lone one as FRAME_DATA_SHM).  The caller holds
@@ -460,6 +471,7 @@ class Stream:
         except Exception:
             pass
 
+    # fablint: lock-held(_wire_lock)
     def _arm_flush_timer(self) -> None:
         """The caller holds ``_wire_lock``: arm one linger flush per batch,
         so a writer that goes idle never strands announced-to-nobody
@@ -483,7 +495,18 @@ class Stream:
 
 # ---- stream registry (versioned ids like SocketId) ---------------------
 
+# fablint custody contract: a registry slot handed out by get_resource
+# comes back through return_resource exactly once (the versioned id
+# rejects doubles); _pool_remove is the single drop point every close
+# path funnels through.
+_CUSTODY = {"get_resource": ("return_resource",)}
+
 _streams: ResourcePool = ResourcePool()
+
+
+def _pool_remove(sid: int) -> None:
+    _streams.return_resource(sid)
+    _ledger.release("stream", (sid,))
 
 
 def stream_create(cntl, options: Optional[StreamOptions] = None) -> Stream:
@@ -491,6 +514,7 @@ def stream_create(cntl, options: Optional[StreamOptions] = None) -> Stream:
     stream.cpp:732)."""
     s = Stream(options or StreamOptions(), is_client=True)
     s.sid = _streams.get_resource(s)
+    _ledger.acquire("stream", (s.sid,))
     cntl.stream_creator = s
     return s
 
@@ -500,6 +524,7 @@ def stream_accept(cntl, options: Optional[StreamOptions] = None) -> Stream:
     stream.cpp:756)."""
     s = Stream(options or StreamOptions(), is_client=False)
     s.sid = _streams.get_resource(s)
+    _ledger.acquire("stream", (s.sid,))
     cntl.accepted_stream_id = s.sid
     return s
 

@@ -37,7 +37,7 @@ class _Pinger:
         self.server_addr = server_addr
         self._stop = threading.Event()
         self._channel = None
-        # stop() sets _stop; the loop waits on it between pings and ends
+        # fablint: thread-quiesced(stop() sets _stop; the ping loop waits on it between pings and exits promptly)
         self._thread = threading.Thread(target=self._run,
                                         name="trackme", daemon=True)
         self._thread.start()

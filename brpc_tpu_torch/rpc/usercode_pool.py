@@ -37,6 +37,7 @@ import time
 from collections import namedtuple
 from typing import Dict, Optional
 
+from ..butil import debug_sync as _dbg
 from ..butil import logging as log
 
 IsolationCaps = namedtuple(
@@ -312,6 +313,16 @@ class UsercodePool:
     a passthrough to a ``ThreadPoolExecutor``, so the dispatch, drain and
     admission semantics are those of a plain backup pool."""
 
+    _GUARDED_BY = {
+        "_iso_workers": "_lock",
+        "_iso_handlers": "_lock",
+        "_shutdown_flag": "_lock",
+        "isolated_calls": "_lock",
+        "contract_rejections": "_lock",
+        "worker_deaths": "_lock",
+        "requeues": "_lock",
+    }
+
     def __init__(self, kind: str = "auto", workers: int = 8):
         if kind not in ("auto", "pthread", "subinterp"):
             raise ValueError(f"unknown usercode pool kind {kind!r}")
@@ -339,7 +350,7 @@ class UsercodePool:
         self.workers = max(int(workers), 1)
         self._tp = ThreadPoolExecutor(max_workers=self.workers,
                                       thread_name_prefix="usercode")
-        self._lock = threading.Lock()
+        self._lock = _dbg.make_lock("UsercodePool._lock")
         self._iso_queue: "queue.SimpleQueue" = queue.SimpleQueue()
         self._iso_workers: list = []
         self._iso_handlers: Dict[str, str] = {}

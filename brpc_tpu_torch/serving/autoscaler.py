@@ -24,6 +24,7 @@ import time
 from dataclasses import dataclass
 from typing import Callable, Optional
 
+from ..butil import debug_sync as _dbg
 from .. import bvar
 from ..butil import logging as log
 
@@ -42,6 +43,14 @@ class AutoscalerOptions:
 class LoadThresholdAutoscaler:
     """Sample → hysteresis → scale callback.  One per serving pod
     member (usually the one hosting the router)."""
+
+    _GUARDED_BY = {
+        "_hi_run": "_lock",
+        "_lo_run": "_lock",
+        "_last_action_ts": "_lock",
+        "_last": "_lock",
+        "_running": "_lock",
+    }
 
     def __init__(self, load_fn: Callable[[], float],
                  size_fn: Callable[[], int],
@@ -63,7 +72,7 @@ class LoadThresholdAutoscaler:
         self._scale_down = scale_down
         self._drain = drain
         self._pod = pod
-        self._lock = threading.Lock()
+        self._lock = _dbg.make_lock("LoadThresholdAutoscaler._lock")
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self._running = False

@@ -69,7 +69,6 @@ arena.
 """
 from __future__ import annotations
 
-import threading
 import time
 import zlib
 from collections import deque
@@ -79,6 +78,8 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..butil import custody_ledger as _ledger
+from ..butil import debug_sync as _dbg
 from .. import bvar
 from ..butil import flags as _flags
 from ..rpc.admission import tenant_weight_of
@@ -257,6 +258,44 @@ class PagedKvPool:
     # string is untrusted wire input
     MAX_TRACKED_TENANTS = 64
 
+    _GUARDED_BY = {
+        "_free": "_lock",
+        "_tables": "_lock",
+        "_refs": "_lock",
+        "_prefix_index": "_lock",
+        "_block_hash": "_lock",
+        "_recent_evicted": "_lock",
+        "_host_free": "_lock",
+        "_spilled": "_lock",
+        "_host_refs": "_lock",
+        "_spill_map": "_lock",
+        "_restoring": "_lock",
+        "_spill_fault": "_lock",
+        "_restore_us": "_lock",
+        "_sweep_timer": "_lock",
+        "_closed": "_lock",
+        "_counters": "_counters_lock",
+        "_tenant_labels": "_counters_lock",
+    }
+
+    # fablint custody contract.  A pin is owed an unpin; a reservation
+    # is owed exactly one of commit / abort / return (the restore path
+    # resolves through _finish_restore_locked); the block refcounts free
+    # through _free_session_locked (or an inline guarded decrement), the
+    # host-tier refcounts through _host_unref_locked.  The methods named
+    # here are the protocol implementation and are exempt from the
+    # acquire-release rule; everything else that acquires must release
+    # on every exit path.
+    _CUSTODY = {
+        "pin": ("unpin",),
+        "pinned": ("unpin",),
+        "_reserve_locked": ("_commit_locked", "_abort_fill_locked",
+                            "_return_blocks_locked",
+                            "_finish_restore_locked"),
+        "_refs": ("_free_session_locked", "_return_blocks_locked"),
+        "_host_refs": ("_host_unref_locked", "_finish_restore_locked"),
+    }
+
     def __init__(self, options: KvPoolOptions, device=None,
                  now: Optional[Callable[[], float]] = None):
         o = options
@@ -266,8 +305,8 @@ class PagedKvPool:
             raise RuntimeError("PagedKvPool: CUDA is not available; pass "
                                "device='cpu' to keep the pool on the host")
         self._now = now or time.monotonic
-        self._lock = threading.Lock()
-        self._counters_lock = threading.Lock()
+        self._lock = _dbg.make_lock("PagedKvPool._lock")
+        self._counters_lock = _dbg.make_lock("PagedKvPool._counters_lock")
         self._store = torch.zeros(
             (o.num_blocks, o.block_tokens * o.bytes_per_token),
             dtype=torch.uint8, device=self.device)
@@ -443,6 +482,7 @@ class PagedKvPool:
             with self._lock:
                 blocks, deferred_old = self._reserve_locked(session, need,
                                                             pri)
+                _ledger.acquire("kv.reserve", (id(self), id(blocks)))
                 try:
                     s = self._fill_session(session, tenant, pri, seq_len,
                                            last_token, blocks, now, fill,
@@ -450,14 +490,22 @@ class PagedKvPool:
                 except BaseException:
                     # abort clean (close() cannot race: the lock is held)
                     self._return_blocks_locked(blocks)
+                    _ledger.release("kv.reserve", (id(self), id(blocks)))
                     self.fill_aborts << 1
                     raise
-                self._commit_locked(s, deferred_old)
+                try:
+                    self._commit_locked(s, deferred_old)
+                finally:
+                    _ledger.release("kv.reserve", (id(self), id(blocks)))
             self.locked_fills << 1
         else:
             with self._lock:
                 blocks, deferred_old = self._reserve_locked(session, need,
                                                             pri)
+            _ledger.acquire("kv.reserve", (id(self), id(blocks)))
+            # the fill touches only rows nothing else references;
+            # everything between the reserve and the commit sits inside
+            # the try, so an abort reaches the reservation from every edge
             try:
                 s = self._fill_session(session, tenant, pri, seq_len,
                                        last_token, blocks, now, fill, share)
@@ -465,10 +513,16 @@ class PagedKvPool:
                 # abort clean: the reservation never became a session
                 with self._lock:
                     self._abort_fill_locked(blocks)
+                _ledger.release("kv.reserve", (id(self), id(blocks)))
                 self.fill_aborts << 1
                 raise
-            with self._lock:
-                self._commit_locked(s, deferred_old)
+            try:
+                with self._lock:
+                    self._commit_locked(s, deferred_old)
+            finally:
+                # a refused commit (SessionBusy, a closed pool) already
+                # returned the blocks: custody ends either way
+                _ledger.release("kv.reserve", (id(self), id(blocks)))
             self.unlocked_fills << 1
         self.loads << 1
         self.bytes_in << seq_len * self.options.bytes_per_token
@@ -546,6 +600,7 @@ class PagedKvPool:
             crcs.append(h)
         return crcs
 
+    # fablint: lock-held(_lock)
     def _reserve_locked(self, session: str, need: int, pri: int):
         """Allocate ``need`` blocks for ``session``, evicting under
         pressure per the band/weight/LRU policy.  Returns ``(blocks,
@@ -585,12 +640,14 @@ class PagedKvPool:
             blocks[k] = self._free.pop()
         return blocks, deferred_old
 
+    # fablint: lock-held(_lock)
     def _abort_fill_locked(self, blocks) -> None:
         """Return an aborted reservation — unless the pool closed
         mid-fill, whose free-list rebuild already reclaimed every block."""
         if not self._closed:
             self._return_blocks_locked(blocks)
 
+    # fablint: lock-held(_lock)
     def _commit_locked(self, s: _KvSession, deferred_old) -> None:
         """Publish a filled reservation: the commit-time re-check.  Order
         matters: the raced/pinned check first (an abort returns the
@@ -619,6 +676,7 @@ class PagedKvPool:
         self._recent_evicted.pop(s.session, None)
         self._schedule_sweep_locked()
 
+    # fablint: lock-held(_lock)
     def _dedupe_blocks_locked(self, s: _KvSession) -> None:
         """Map ``s``'s FULL blocks onto existing physical blocks where a
         byte-identical block-aligned prefix already lives in the pool.
@@ -650,11 +708,13 @@ class PagedKvPool:
             s.contiguous = bool((np.diff(new_blocks) == 1).all())
             self._return_blocks_locked(returned)
 
+    # fablint: lock-held(_lock)
     def _unregister_block_locked(self, blk: int) -> None:
         h = self._block_hash.pop(blk, None)
         if h is not None and self._prefix_index.get(h) == blk:
             del self._prefix_index[h]
 
+    # fablint: lock-held(_lock)
     def _pick_victims_locked(self, blocks_needed: int, requester_pri: int,
                              exclude=None, spill: bool = False):
         """Eviction order under pressure: most-sheddable band first,
@@ -727,6 +787,7 @@ class PagedKvPool:
                     have += 1
         return victims if have >= blocks_needed else None
 
+    # fablint: lock-held(_lock)
     def _any_shared_locked(self) -> bool:
         """Does any block have more than one owner?  Every table entry
         holds one ref, so exactly when the entries outnumber the physical
@@ -736,12 +797,14 @@ class PagedKvPool:
         logical = sum(len(s.blocks) for s in self._tables.values())
         return logical > len(self._refs)
 
+    # fablint: lock-held(_lock)
     def _return_blocks_locked(self, blocks) -> None:
         """Put blocks back keeping the free list sorted descending, so
         ``pop()`` hands out ascending runs that coalesce into extents."""
         self._free.extend(int(b) for b in blocks)
         self._free.sort(reverse=True)
 
+    # fablint: lock-held(_lock)
     def _free_session_locked(self, s: _KvSession, reason: str) -> None:
         """Retire a session's table: decrement each block's refcount,
         freeing (and unregistering) only the blocks that reach zero."""
@@ -775,6 +838,7 @@ class PagedKvPool:
         else:
             self._count(f"evicted_{reason}", s.tenant)
 
+    # fablint: lock-held(_lock)
     def _note_gone_locked(self, session: str, reason: str) -> None:
         """Remember why a session died, for a typed re-prefill shed."""
         self._recent_evicted[session] = reason
@@ -782,6 +846,7 @@ class PagedKvPool:
             self._recent_evicted.pop(next(iter(self._recent_evicted)))
 
     # ---- host tier: spill / restore -------------------------------------
+    # fablint: lock-held(_lock)
     def _spill_usable_locked(self) -> bool:
         """Demotion is on when the pool has a host arena and the spill
         plane is usable: a latched IO failure turns pressure back into
@@ -807,6 +872,7 @@ class PagedKvPool:
             torch.cuda.current_stream(self.device).synchronize()
         return time.perf_counter_ns() - t0
 
+    # fablint: lock-held(_lock)
     def _demote_session_locked(self, s: _KvSession) -> bool:
         """Copy ``s``'s blocks into the host arena and retire its device
         table ("spilled": retrievable, not dead).  A device block that
@@ -817,16 +883,12 @@ class PagedKvPool:
         if self._spill_fault == "demote":
             self._spill_health.mark_down("demote_io")
             return False
-
-        def need_new() -> int:
-            return sum(1 for b in s.blocks if int(b) not in self._spill_map)
-
-        short = need_new() - len(self._host_free)
+        short = self._host_blocks_needed_locked(s) - len(self._host_free)
         if short > 0 and not self._host_reclaim_locked(short, s.priority):
             return False
         # a reclaimed record may have held the host copy of one of s's
         # shared blocks: count again
-        if need_new() > len(self._host_free):
+        if self._host_blocks_needed_locked(s) > len(self._host_free):
             return False
         hblocks = np.empty(len(s.blocks), np.int64)
         fresh = []
@@ -837,6 +899,7 @@ class PagedKvPool:
                 hb = self._host_free.pop()
                 self._spill_map[b] = hb
                 fresh.append((b, hb))
+            # fablint: custody-moved(spill-record) the ref lives in the _SpilledSession entry below; _drop_spilled_locked / _host_unref_locked balance it
             self._host_refs[hb] = self._host_refs.get(hb, 0) + 1
             hblocks[k] = hb
         if fresh:
@@ -852,6 +915,13 @@ class PagedKvPool:
         self._free_session_locked(s, "spilled")
         return True
 
+    # fablint: lock-held(_lock)
+    def _host_blocks_needed_locked(self, s: _KvSession) -> int:
+        """Host blocks a demote of ``s`` must take fresh: its device
+        blocks with no live host copy yet."""
+        return sum(1 for b in s.blocks if int(b) not in self._spill_map)
+
+    # fablint: lock-held(_lock)
     def _host_reclaim_locked(self, shortage: int, requester_pri: int
                              ) -> bool:
         """Make room in the host arena by dropping the most sheddable
@@ -885,6 +955,7 @@ class PagedKvPool:
             self._count("evicted_pressure", sp.tenant)
         return True
 
+    # fablint: lock-held(_lock)
     def _drop_spilled_locked(self, session: str) -> None:
         """Retire one spilled record, freeing the host blocks whose
         refcount reaches zero."""
@@ -892,6 +963,7 @@ class PagedKvPool:
         if sp is not None:
             self._host_unref_locked(sp.hblocks)
 
+    # fablint: lock-held(_lock)
     def _host_unref_locked(self, hblocks) -> None:
         dead = []
         for h in hblocks:
@@ -956,6 +1028,7 @@ class PagedKvPool:
                         raise
                     for h in sp.hblocks:
                         self._host_refs[int(h)] += 1
+                    _ledger.acquire("kv.reserve", (id(self), id(blocks)))
                     fault = self._spill_fault
                     break
             # another thread is restoring this session: wait it out
@@ -992,12 +1065,14 @@ class PagedKvPool:
                                                ok=ok, io_fail=io_fail,
                                                now=now)
 
+    # fablint: lock-held(_lock)
     def _finish_restore_locked(self, session: str, sp, blocks, t0, *,
                                ok: bool, io_fail: bool,
                                now: Optional[float], failed: bool = False):
         """The restore's one resolution point for both the device
         reservation and its host refs: exactly one of commit, return the
         blocks, or nothing left (the pool closed) happens here."""
+        _ledger.release("kv.reserve", (id(self), id(blocks)))
         self._restoring.discard(session)
         if self._closed:
             return None
@@ -1217,6 +1292,7 @@ class PagedKvPool:
             if s is None or s.release_pending:
                 return False
             s.pinned += 1
+            _ledger.acquire("kv.pin", (id(self), session))
             return True
 
     def unpin(self, session: str) -> None:
@@ -1227,7 +1303,11 @@ class PagedKvPool:
             if s is not None:
                 if s.pinned:
                     s.pinned -= 1
+                    _ledger.release("kv.pin", (id(self), session),
+                                    strict=True)
                 else:
+                    # an unpin nobody holds: swallowing it silently would
+                    # let the NEXT unpin steal a live holder's fence
                     unbalanced = True
                 s.last_used = now
                 if not s.pinned and s.release_pending:
@@ -1264,7 +1344,9 @@ class PagedKvPool:
                 b0 = int(blocks[0])
                 rows = self._store[b0:b0 + len(blocks)].view(
                     -1, o.bytes_per_token)[:s.seq_len]
+                # fablint: custody-moved(caller) the view pin is owed back through the caller's unpin before any release — the documented view=True contract
                 s.pinned += 1
+                _ledger.acquire("kv.pin", (id(self), session))
                 return rows, s.seq_len, s.last_token, True
             idx = torch.as_tensor(blocks, device=self.device)
             rows = self._store.index_select(0, idx).view(
@@ -1274,6 +1356,7 @@ class PagedKvPool:
             return rows, s.seq_len, s.last_token
 
     # ---- expiry ---------------------------------------------------------
+    # fablint: lock-held(_lock)
     def _schedule_sweep_locked(self) -> None:
         if (not self.options.use_timers or self._closed
                 or self._sweep_timer is not None or not self._tables):
@@ -1341,6 +1424,10 @@ class PagedKvPool:
             self._restoring.clear()
             self._host_free = list(
                 range(self.options.host_blocks - 1, -1, -1))
+        # custody ends with the pool: the free-list rebuild reclaimed
+        # every block, outstanding pins die with the tables
+        _ledger.drop_prefix("kv.pin", id(self))
+        _ledger.drop_prefix("kv.reserve", id(self))
         if timer is not None:
             from ..bthread.timer_thread import TimerThread
             TimerThread.instance().unschedule(timer)

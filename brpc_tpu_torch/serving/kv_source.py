@@ -36,12 +36,12 @@ migration's token-major payload.
 from __future__ import annotations
 
 import bisect
-import threading
 import warnings
 from typing import Dict, List, Optional
 
 import torch
 
+from ..butil import debug_sync as _dbg
 from .. import bvar
 from ..butil import flags as _flags
 from ..butil.iobuf import DEVICE, IOBuf
@@ -67,8 +67,10 @@ class _KvLoadStats:
     """Which path carried each session's bytes and how many copy passes
     they paid, for every KV load in the process."""
 
+    _GUARDED_BY = {"_route_bytes": "_lock"}
+
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = _dbg.make_lock("kv_source._KvLoadStats._lock")
         self._route_bytes: Dict[str, int] = {}
         self.adopted = bvar.Adder("serving_kv_load_adopted")
         self.scattered = bvar.Adder("serving_kv_load_scattered")

@@ -33,6 +33,7 @@ from __future__ import annotations
 import threading
 from typing import Callable, Optional, Tuple
 
+from ..butil import debug_sync as _dbg
 from .. import bvar
 from ..bthread import scheduler as _bthread
 from ..butil import flags as _flags
@@ -53,8 +54,10 @@ class _MigrationStats:
     """Process-wide migration ledger: ``describe()["tiers"]["migration"]``
     and the tests' assertion surface."""
 
+    _GUARDED_BY = {"_last_abort": "_lock"}
+
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = _dbg.make_lock("migration._MigrationStats._lock")
         self._last_abort = ""
         self.migrations_out = bvar.Adder("serving_kv_migrations_out")
         self.migrations_in = bvar.Adder("serving_kv_migrations_in")
@@ -83,7 +86,7 @@ class _MigrationStats:
 stats = _MigrationStats()
 
 _health = None
-_health_lock = threading.Lock()
+_health_lock = _dbg.make_lock("migration._health_lock")
 
 
 def migrate_health():
@@ -107,6 +110,13 @@ def migration_stats() -> dict:
     if h is not None:
         out["plane"] = h.snapshot()
     return out
+
+
+# fablint custody contract: the source pin taken by migrate_out is
+# owed its unpin on every exit path (the try/finally below)
+_CUSTODY = {
+    "pin": ("unpin",),
+}
 
 
 def migrate_out(pool, session: str,
@@ -156,6 +166,7 @@ def migrate_out(pool, session: str,
 
         dl_ms = deadline_ms if deadline_ms is not None else int(
             _flags.get_flag("serving_migrate_deadline_ms"))
+        # fablint: thread-quiesced(daemon sender owns a private payload copy; abandoned past the deadline it can only set an Event nobody waits on)
         threading.Thread(target=_runner, name="kv_migrate_send",
                          daemon=True).start()
         # a handler waiting here holds a scheduler worker: count it as

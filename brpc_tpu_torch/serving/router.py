@@ -23,6 +23,7 @@ import random
 import threading
 from typing import Dict, List, Optional
 
+from ..butil import debug_sync as _dbg
 from ..butil.endpoint import parse_endpoint
 from ..policy.load_balancers import LocalityAwareLB
 
@@ -31,6 +32,15 @@ class LoadAwareRouter:
     """LALB selection + channel cache for a router service.  Thread-safe.
     ``rng`` draws the weighted selections (a seeded ``random.Random``
     makes them reproducible)."""
+
+    _GUARDED_BY = {
+        "_channels": "_lock",
+        "_picks": "_lock",
+        "_affinity": "_lock",
+        "_rebinds": "_lock",
+        "_refresher": "_lock",
+        "_closed": "_lock",
+    }
 
     # session-affinity cardinality cap: session ids are wire input
     MAX_BOUND_SESSIONS = 8192
@@ -44,7 +54,7 @@ class LoadAwareRouter:
         from .. import rpc
         self._copts = channel_options or rpc.ChannelOptions(
             timeout_ms=60000)
-        self._lock = threading.Lock()
+        self._lock = _dbg.make_lock("LoadAwareRouter._lock")
         self._lb = LocalityAwareLB(rng)
         self._channels: Dict[str, object] = {}
         self._picks: Dict[str, int] = {}

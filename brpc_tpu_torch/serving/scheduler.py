@@ -100,6 +100,14 @@ class ContinuousBatchScheduler:
     """Admit → step → retire, forever.  One per decode worker; its step
     runs on the pool's device."""
 
+    _GUARDED_BY = {
+        "_pending": "_cv",
+        "_active": "_cv",
+        "_owned": "_cv",
+        "_stopping": "_cv",
+        "_thread": "_cv",
+    }
+
     def __init__(self, pool: PagedKvPool,
                  options: BatchSchedulerOptions,
                  now_us: Optional[Callable[[], int]] = None):
@@ -203,6 +211,7 @@ class ContinuousBatchScheduler:
         for req, (code, text) in victims:
             self._safe_fail(req, code, text, 0)
 
+    # fablint: lock-held(_cv)
     def _drain_locked(self):
         victims = []
         for band in self._pending:
@@ -258,6 +267,7 @@ class ContinuousBatchScheduler:
             self._last_step_us = now
         return len(roster)
 
+    # fablint: lock-held(_cv)
     def _admit_locked(self):
         """Fill the roster from the band queues (strict priority order),
         expire dead deadlines, preempt batch work for interactive
@@ -304,10 +314,12 @@ class ContinuousBatchScheduler:
                 refusals.append((nxt, *code_text))
         return refusals
 
+    # fablint: lock-held(_cv)
     def _roster_add(self, req: StepRequest):
         """Pin + roster one admitted request; returns (code, text, hint)
         on refusal, None on success."""
         kv = self.pool.get(req.session)
+        # fablint: custody-moved(decode-roster) the pin rides req into _active; every roster exit (completion, shed, deadline expiry, drain) unpins before dropping the request
         if kv is None or not self.pool.pin(req.session):
             reason = self.pool.evicted_reason(req.session)
             self.rejected << 1
@@ -323,10 +335,12 @@ class ContinuousBatchScheduler:
         self.admitted << 1
         return None
 
+    # fablint: lock-held(_cv)
     def _interactive_waiting_locked(self) -> bool:
         return any(self._pending[b]
                    for b in range(INTERACTIVE_PRIORITY_MAX + 1))
 
+    # fablint: lock-held(_cv)
     def _pop_interactive_locked(self, now, refusals):
         for b in range(INTERACTIVE_PRIORITY_MAX + 1):
             while self._pending[b]:
@@ -340,6 +354,7 @@ class ContinuousBatchScheduler:
                 return req
         return None
 
+    # fablint: lock-held(_cv)
     def _pick_preempt_locked(self):
         best = None
         for req in self._active:

@@ -81,7 +81,7 @@ def _exit_with_parent() -> None:
             time.sleep(0.5)
         os._exit(1)
 
-    threading.Thread(target=watch, name="parent_watch", daemon=True).start()
+    threading.Thread(target=watch, name="parent_watch", daemon=True).start()  # fablint: thread-quiesced(os._exit: the watch ends only by ending the process)
 
 
 def main(argv=None) -> int:
@@ -141,6 +141,7 @@ def main(argv=None) -> int:
     base = {"launches": 0, "received": 0, "xfer_pulled": 0}
     quit_evt = threading.Event()
     servers = []
+    stoppers = []        # Stop's threads, joined before the peer exits
 
     def snapshot() -> dict:
         socks = [s for s in _live_fabric_sockets(fabric)]
@@ -226,7 +227,9 @@ def main(argv=None) -> int:
                     s.stop(grace)
                 quit_evt.set()
 
-            threading.Thread(target=stop, daemon=True).start()
+            t = threading.Thread(target=stop, daemon=True)
+            stoppers.append(t)
+            t.start()
 
         @rpc.method(EchoRequest, EchoResponse)
         def Overload(self, cntl, request, response, done):
@@ -268,13 +271,15 @@ def main(argv=None) -> int:
             import hashlib
             with lock:
                 first = kept[0] if kept else None
-                info = {"n": len(kept), "rank": mesh.rank_of(first)
-                        if first is not None else None,
-                        "sha256": hashlib.sha256(
-                            first.cpu().numpy().tobytes()).hexdigest()
-                        if first is not None else None}
+                n = len(kept)
                 if request.message == "reset":
                     kept.clear()
+            # the digest's copy runs outside the lock Hold takes
+            info = {"n": n, "rank": mesh.rank_of(first)
+                    if first is not None else None,
+                    "sha256": hashlib.sha256(
+                        first.cpu().numpy().tobytes()).hexdigest()
+                    if first is not None else None}
             response.message = json.dumps(info)
             done()
 
@@ -350,6 +355,8 @@ def main(argv=None) -> int:
         "tcp_port": tcp_srv.listen_port,
         "internal_port": tcp_srv.internal_port, "os_pid": os.getpid()}))
     quit_evt.wait()
+    for t in stoppers:
+        t.join()
     if args.device == "cuda":
         torch.cuda.synchronize()
     print(json.dumps(snapshot()), flush=True)

@@ -621,6 +621,37 @@ Phases, each fatal on failure:
                 "cuda"]) returning 0; ici_echo's echoed bytes equal and
                 p2p_copy's launches during it = its plane transfers (each
                 example's seconds)
+ 27. the debug tooling's two runtime layers, in processes of their own
+                (module-level locks take their kind at import, so the
+                environment is set before the port is imported): a
+                process with both off, then one with
+                BRPC_TPU_DEBUG_LOCK_ORDER=1, BRPC_TPU_DEBUG_CUSTODY=1 and
+                both report paths, each on the card's mesh
+                (IciMesh(ranks=8), the socket window 64 MiB)
+                (a) the ici:// unary echo, a 4 MiB DEVICE attachment owned
+                by rank 0 sent to ici://1 and returned, 200 calls after 10
+                warm-ups (the first and last returned bytes equal); one
+                serving session (prefill on ici://2, decode on ici://3, the
+                router on mem://): a 512-token Generate of 16 steps whose
+                tokens equal reference_generate's, its KV handoff a LoadKv
+                over the plane (kv.reserve, kv.pin, dev.transfer); one
+                stream of 16 DEVICE chunks of 4 MiB from rank 4 to
+                ici://5, every chunk byte-equal;
+                (b) phase 17's kind-4 DEVICE echo, 16 calls of 4 MiB from
+                rank 4 to ici://0 of a fabric_peer (process 1, ranks 0-3)
+                that runs under both layers too;
+                each process's lock-order report (no cycle, no hold over
+                debug_lock_hold_warn_s) and custody report (no
+                outstanding hold, no unmatched strict release), dumped at
+                its exit, is read and must be ok; the lock graph's nodes
+                and edges, the long holds and the outstanding holds
+                printed;
+                (c) the echo's p50 with both layers off (the first
+                process runs the echo alone) and with both on, printed
+                side by side, not gated;
+                (d) python -m brpc_tpu_torch.tools.fablint all
+                brpc_tpu_torch over the checkout exits 0 (run while the
+                first process runs)
 
 Launch counts are zeroed just before each path and read just after it:
 during phases 3-4 and during phase 8 p2p_copy's launches must equal the
@@ -663,7 +694,11 @@ the ici:// servers received (the pool legs copy with copy_, no launch),
 and in (b) the driving process launches none; during phase 25 the
 driving process launches none (TCP carries host bytes); during phase 26
 the driving process launches none, and in the phase's own process they
-equal the plane's transfers, in (c) and in ici_echo too; during phase 6
+equal the plane's transfers, in (c) and in ici_echo too; during phase 27
+the driving process launches none, and in each of its processes they
+equal the plane's transfers on the echo, the serving session and the
+stream, and on (b)'s echo the kind-4 transfers received and the
+attachments returned, in the process and in its peer; during phase 6
 each ring
 kernel's launches must equal
 the calls of its entry point.  The line before the last is the
@@ -675,6 +710,7 @@ import gc
 import json
 import os
 import random
+import shutil
 import statistics
 import subprocess
 import threading
@@ -4174,10 +4210,12 @@ sys.exit(fabric_peer.main(sys.argv[1:]))
 class _Peer:
     """A ``brpc_tpu_torch.tools.fabric_peer`` process: a fresh interpreter
     (never a fork of this CUDA process), its output in a temporary file.
-    ``refuse_open`` starts it with the device leg's open refused."""
+    ``refuse_open`` starts it with the device leg's open refused; ``env``
+    is its environment (default this process's)."""
 
     def __init__(self, coord: str, token: str, kv, device: str,
-                 refuse_open: bool = False, extra=(), log_path=None):
+                 refuse_open: bool = False, extra=(), log_path=None,
+                 env=None):
         import tempfile
         self.log = (open(log_path, "w+") if log_path
                     else tempfile.TemporaryFile(mode="w+"))
@@ -4186,7 +4224,8 @@ class _Peer:
         self.proc = subprocess.Popen(
             [sys.executable, *start, coord, token, "--device", device,
              *map(str, extra)],
-            cwd=str(ROOT), stdout=self.log, stderr=subprocess.STDOUT)
+            cwd=str(ROOT), env=env, stdout=self.log,
+            stderr=subprocess.STDOUT)
         key = f"fabric_peer/{token}"
         deadline = time.monotonic() + FABRIC_PEER_START_S
         while not kv.check([key]):
@@ -8416,6 +8455,496 @@ def phase26_summary(p26: dict) -> str:
             f"{p26['wall_s']:.1f} s")
 
 
+# phase 27: the main path under both runtime layers of the debug tooling
+# (see the module docstring).  (a) the echo's calls, warm-ups and DEVICE
+# attachment, the KV session's prompt and decode steps, the stream's DEVICE
+# chunks; (b) phase 17's kind-4 echo's calls and size
+DEBUG_ECHO_CALLS, DEBUG_ECHO_WARM, DEBUG_ECHO_BYTES = 200, 10, 4 << 20
+DEBUG_PROMPT, DEBUG_STEPS = 512, 16
+DEBUG_STREAM_CHUNKS, DEBUG_STREAM_CHUNK = 16, 4 << 20
+DEBUG_FABRIC_CALLS, DEBUG_FABRIC_BYTES = 16, 4 << 20
+DEBUG_WINDOW = 64 << 20
+_DEBUG_ENV = ("BRPC_TPU_DEBUG_LOCK_ORDER", "BRPC_TPU_DEBUG_SYNC_REPORT",
+              "BRPC_TPU_DEBUG_CUSTODY", "BRPC_TPU_CUSTODY_REPORT")
+
+
+def debug_layers_env(on: bool, report_dir: str = "", tag: str = "") -> dict:
+    """The environment of a process run with both runtime layers of the
+    debug tooling on (each report dumped at exit into ``report_dir``) or
+    with both off.  Module-level locks take their kind at import, so it
+    is set before the port is imported: in a process of its own."""
+    env = {k: v for k, v in os.environ.items() if k not in _DEBUG_ENV}
+    if not on:
+        env["BRPC_TPU_DEBUG_LOCK_ORDER"] = "0"
+        env["BRPC_TPU_DEBUG_CUSTODY"] = "0"
+        return env
+    env.update({
+        "BRPC_TPU_DEBUG_LOCK_ORDER": "1",
+        "BRPC_TPU_DEBUG_SYNC_REPORT": os.path.join(
+            report_dir, f"debug_sync_{tag}.json"),
+        "BRPC_TPU_DEBUG_CUSTODY": "1",
+        "BRPC_TPU_CUSTODY_REPORT": os.path.join(report_dir,
+                                                f"custody_{tag}.json")})
+    return env
+
+
+def debug_layers_reports(env: dict, who: str) -> dict:
+    """One process's two reports as its exit dumped them, checked: an
+    acyclic lock graph with no long hold, no outstanding custody hold and
+    no unmatched strict release.  Returns their counts."""
+    reps = {}
+    for key, name in (("BRPC_TPU_DEBUG_SYNC_REPORT", "debug_sync"),
+                      ("BRPC_TPU_CUSTODY_REPORT", "custody")):
+        path = env[key]
+        check(os.path.exists(path), f"{who} wrote no {name} report")
+        with open(path) as f:
+            reps[name] = json.load(f)
+    ds, cl = reps["debug_sync"], reps["custody"]
+    check(ds["ok"] and not ds["cycles"] and not ds["long_holds"],
+          f"{who}: debug_sync report not ok: cycles {ds['cycles']}, long "
+          f"holds {ds['long_holds']}")
+    check(cl["enabled"] and cl["ok"] and not cl["outstanding"]
+          and not cl["unmatched_releases"],
+          f"{who}: custody report not ok: outstanding "
+          f"{cl['outstanding'][:8]}, unmatched "
+          f"{cl['unmatched_releases'][:8]}")
+    return {"nodes": len(ds["nodes"]),
+            "edges": sum(len(v) for v in ds["edges"].values()),
+            "cycles": len(ds["cycles"]), "long_holds": len(ds["long_holds"]),
+            "outstanding": len(cl["outstanding"]),
+            "unmatched": len(cl["unmatched_releases"])}
+
+
+def _p27_echo(rpc, mesh, plane, launches, EchoRequest, EchoResponse) -> dict:
+    """(a)/(c): the ici:// unary echo, a DEVICE attachment owned by rank 0
+    sent to ici://1 and returned."""
+    dev = mesh.device(0)
+
+    class Echo(rpc.Service):
+        @rpc.method(EchoRequest, EchoResponse)
+        def Echo(self, cntl, request, response, done):
+            response.message = request.message
+            cntl.response_attachment.append(cntl.request_attachment)
+            done()
+
+    server = rpc.Server()
+    server.add_service(Echo())
+    check(server.start("ici://1") == 0, "phase 27: echo server on ici://1")
+    ch = rpc.Channel()
+    ch.init("ici://1", options=rpc.ChannelOptions(timeout_ms=30000,
+                                                  max_retry=0))
+    gen = torch.Generator(device=dev).manual_seed(27)
+    src = mesh.own(torch.randint(0, 256, (DEBUG_ECHO_BYTES,),
+                                 dtype=torch.uint8, device=dev,
+                                 generator=gen), 0)
+    lat = []
+    try:
+        l0, t0 = launches(), plane.stats()["transfers"]
+        for i in range(DEBUG_ECHO_WARM + DEBUG_ECHO_CALLS):
+            cntl = rpc.Controller()
+            cntl.request_attachment.append_device_array(src)
+            start = time.perf_counter_ns()
+            ch.call_method("Echo.Echo", cntl, EchoRequest(message=str(i)),
+                           EchoResponse)
+            if i >= DEBUG_ECHO_WARM:
+                lat.append((time.perf_counter_ns() - start) / 1000.0)
+            check(not cntl.failed(), f"phase 27 echo #{i}: "
+                                     f"{cntl.error_text}")
+            if i in (0, DEBUG_ECHO_WARM + DEBUG_ECHO_CALLS - 1):
+                back = _tensor_of(cntl.response_attachment)
+                check(torch.equal(back, src),
+                      f"phase 27 echo #{i}: bytes differ")
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        out = {"calls": DEBUG_ECHO_CALLS, "bytes": DEBUG_ECHO_BYTES,
+               "p50_us": _pct(lat, 0.5), "p99_us": _pct(lat, 0.99),
+               "launches": launches() - l0,
+               "transfers": plane.stats()["transfers"] - t0}
+    finally:
+        ch.close()
+        server.stop()
+    check(out["launches"] == out["transfers"] > 0,
+          f"phase 27 echo: {out['launches']} launches for "
+          f"{out['transfers']} transfers")
+    return out
+
+
+def _p27_serving(rpc, mesh, plane, launches, EchoRequest,
+                 EchoResponse) -> dict:
+    """(a): one serving session with its KV handoff (LoadKv over the plane
+    into a decode pool: kv.reserve, kv.pin, dev.transfer)."""
+    from brpc_tpu_torch.examples.disagg_serving import model
+    from brpc_tpu_torch.examples.disagg_serving.workers import (
+        close_services, start_decode_worker, start_prefill_worker,
+        start_router)
+    prefill = start_prefill_worker("ici://2", mesh=mesh)
+    decode = start_decode_worker("ici://3", mesh=mesh)
+    router = start_router("mem://p27-router", "ici://2", ["ici://3"])
+    dsvc = decode.services()["Decode"]
+    front = rpc.Channel()
+    front.init("mem://p27-router", options=rpc.ChannelOptions(
+        timeout_ms=120000, max_retry=0))
+    tokens = np.random.default_rng(27).integers(
+        0, model.VOCAB, DEBUG_PROMPT).tolist()
+    try:
+        l0, t0 = launches(), plane.stats()["transfers"]
+        k0 = dsvc.loadkv_received
+        cntl = rpc.Controller()
+        start = time.monotonic()
+        resp = front.call_method("Router.Generate", cntl, EchoRequest(
+            message=json.dumps({"tokens": tokens, "steps": DEBUG_STEPS})),
+            EchoResponse)
+        check(not cntl.failed(), f"phase 27 Generate: {cntl.error_text}")
+        got = json.loads(resp.message)["tokens"]
+        out = {"prompt": DEBUG_PROMPT, "steps": DEBUG_STEPS,
+               "generate_s": time.monotonic() - start,
+               "launches": launches() - l0,
+               "transfers": plane.stats()["transfers"] - t0,
+               "loadkv_received": dsvc.loadkv_received - k0}
+    finally:
+        front.close()
+        close_services(router, prefill, decode)
+    check(got == model.reference_generate(tokens, DEBUG_STEPS,
+                                          mesh.device(0)),
+          "phase 27 Generate: tokens differ from reference_generate")
+    check(out["launches"] == out["transfers"] == out["loadkv_received"] > 0,
+          f"phase 27 serving: {out['launches']} launches, "
+          f"{out['transfers']} transfers, {out['loadkv_received']} LoadKv")
+    return out
+
+
+def _p27_stream(rpc, mesh, plane, launches, EchoRequest,
+                EchoResponse) -> dict:
+    """(a): one stream of DEVICE chunks owned by rank 4 to ici://5, each
+    chunk's bytes checked."""
+    from brpc_tpu_torch.butil.iobuf import DEVICE, IOBuf
+    dev = mesh.device(0)
+    n, size = DEBUG_STREAM_CHUNKS, DEBUG_STREAM_CHUNK
+    gen = torch.Generator(device=dev).manual_seed(2727)
+    src = mesh.own(torch.randint(0, 256, (n * size,), dtype=torch.uint8,
+                                 device=dev, generator=gen), 4)
+
+    class Verify(rpc.StreamInputHandler):
+        def __init__(self):
+            self.seen = self.equal = 0
+            self.closed = threading.Event()
+
+        def on_received_messages(self, sid, msgs):
+            for m in msgs:
+                i = self.seen
+                self.seen += 1
+                ref = m.backing_block(0)
+                if (m.backing_block_num() == 1 and ref.block.kind == DEVICE
+                        and torch.equal(
+                            ref.block.data[ref.offset:ref.offset
+                                           + ref.length],
+                            src[i * size:(i + 1) * size])):
+                    self.equal += 1
+
+        def on_closed(self, sid):
+            self.closed.set()
+
+    verify = Verify()
+    accepted = []
+
+    class Sink(rpc.Service):
+        @rpc.method(EchoRequest, EchoResponse)
+        def Open(self, cntl, request, response, done):
+            accepted.append(rpc.stream_accept(cntl, rpc.StreamOptions(
+                handler=verify, max_buf_size=DEBUG_WINDOW)))
+            response.message = "ok"
+            done()
+
+    server = rpc.Server()
+    server.add_service(Sink())
+    check(server.start("ici://5") == 0, "phase 27: stream server on ici://5")
+    ch = rpc.Channel()
+    ch.init("ici://5", options=rpc.ChannelOptions(timeout_ms=30000))
+    try:
+        l0, t0 = launches(), plane.stats()["transfers"]
+        cntl = rpc.Controller()
+        st = rpc.stream_create(cntl, rpc.StreamOptions(
+            max_buf_size=DEBUG_WINDOW))
+        ch.call_method("Sink.Open", cntl, EchoRequest(message="s"),
+                       EchoResponse)
+        check(not cntl.failed() and st.wait_connected(10),
+              f"phase 27 stream handshake: {cntl.error_text}")
+        for i in range(n):
+            buf = IOBuf()
+            buf.append_device_array(src[i * size:(i + 1) * size])
+            check(st.write(buf, timeout=30) == 0,
+                  f"phase 27 stream chunk {i}")
+        del buf
+        st.close()
+        check(verify.closed.wait(60), "phase 27: the stream never closed")
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        out = {"chunks": n, "chunk": size, "received": verify.seen,
+               "equal": verify.equal, "launches": launches() - l0,
+               "transfers": plane.stats()["transfers"] - t0}
+    finally:
+        ch.close()
+        server.stop()
+    check(out["received"] == out["equal"] == n,
+          f"phase 27 stream: {out['equal']} of {n} chunks equal, "
+          f"{out['received']} received")
+    check(out["launches"] == out["transfers"] == n,
+          f"phase 27 stream: {out['launches']} launches, "
+          f"{out['transfers']} transfers, {n} chunks")
+    return out
+
+
+def _p27_fabric(rpc, mesh, plane, launches, device, report_dir,
+                EchoRequest, EchoResponse) -> dict:
+    """(b): phase 17's kind-4 DEVICE echo against a fabric_peer that runs
+    under both layers too (process 1, ranks 0-3; this process is process
+    0, ranks 4-7)."""
+    from datetime import timedelta
+    from torch.distributed import TCPStore
+    from brpc_tpu_torch.butil import flags
+    from brpc_tpu_torch.ici import fabric
+    from brpc_tpu_torch.tools.fabric_peer import DEVICE_THRESHOLD
+    flags.set_flag("ici_device_plane_threshold", DEVICE_THRESHOLD)
+    port = _free_port()
+    coord = f"127.0.0.1:{port}"
+    fabric.FabricNode.initialize(coord, 2, 0, ranks=range(4, 8), mesh=mesh)
+    kv = TCPStore("127.0.0.1", port, is_master=False,
+                  timeout=timedelta(seconds=60))
+    penv = debug_layers_env(True, report_dir, "peer")
+    peer = _Peer(coord, "p27", kv, device, env=penv)
+    ch = rpc.Channel()
+    ch.init("ici://0", options=rpc.ChannelOptions(timeout_ms=30000,
+                                                  max_retry=0))
+    dev = mesh.device(4)
+    gen = torch.Generator(device=dev).manual_seed(2728)
+
+    def call(method, msg="", att=None):
+        cntl = rpc.Controller()
+        if att is not None:
+            cntl.request_attachment.append_device_array(att)
+        resp = ch.call_method(method, cntl, EchoRequest(message=msg),
+                              EchoResponse)
+        return cntl, resp
+
+    try:
+        cntl, _r = call("Sink.Stats", "reset")
+        check(not cntl.failed(), f"phase 27 Sink.Stats: {cntl.error_text}")
+        l0, r0 = launches(), plane.remote_received
+        lat, returned = [], 0
+        for i in range(DEBUG_FABRIC_CALLS):
+            src = mesh.own(torch.randint(0, 256, (DEBUG_FABRIC_BYTES,),
+                                         dtype=torch.uint8, device=dev,
+                                         generator=gen), 4)
+            start = time.perf_counter_ns()
+            cntl, _r = call("Sink.Push", f"{DEBUG_FABRIC_BYTES}:{i}", src)
+            lat.append((time.perf_counter_ns() - start) / 1000.0)
+            check(not cntl.failed(), f"phase 27 fabric echo #{i}: "
+                                     f"{cntl.error_code_} {cntl.error_text}")
+            back = _tensor_of(cntl.response_attachment)
+            check(mesh.rank_of(back) == 4 and torch.equal(back, src),
+                  f"phase 27 fabric echo #{i}: bytes or rank differ")
+            returned += len(cntl.response_attachment.device_refs())
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        mine = {"launches": launches() - l0,
+                "received": plane.remote_received - r0,
+                "attachments": returned}
+        cntl, resp = call("Sink.Stats")
+        check(not cntl.failed(), f"phase 27 Sink.Stats: {cntl.error_text}")
+        theirs = json.loads(resp.message)
+        cntl, _r = call("Sink.Stop", json.dumps({"grace_s": 0.5}))
+        check(not cntl.failed(), f"phase 27 Sink.Stop: {cntl.error_text}")
+        rc = peer.proc.wait(60)
+    except subprocess.TimeoutExpired:
+        rc = None
+    finally:
+        ch.close()
+        peer.kill()
+    check(rc == 0, f"phase 27: the fabric peer ended rc {rc}:\n"
+                   f"{peer.output()[-4000:]}")
+    for who, c in (("this process", mine), ("the peer", theirs)):
+        check(c["launches"] == c["received"] == c["attachments"]
+              == DEBUG_FABRIC_CALLS,
+              f"phase 27 fabric echo, {who}: launches {c['launches']}, "
+              f"received {c['received']}, attachments {c['attachments']}")
+    return {"calls": DEBUG_FABRIC_CALLS, "bytes": DEBUG_FABRIC_BYTES,
+            "p50_us": _pct(lat, 0.5), "p99_us": _pct(lat, 0.99),
+            "this_process": mine,
+            "peer": {k: theirs[k] for k in
+                     ("launches", "received", "attachments")},
+            "peer_reports": debug_layers_reports(penv, "phase 27's peer"),
+            "launches": mine["launches"]}
+
+
+_DEBUG_CHILD = r"""
+import json, sys
+import chip_smoke as cs
+device, mode, report_dir, sizes = sys.argv[1:4] + [json.loads(sys.argv[4])]
+for name, value in sizes.items():
+    setattr(cs, name, value)
+sys.exit(cs._debug_layers_member(device, mode, report_dir))
+"""
+
+
+def _debug_layers_member(device: str, mode: str, report_dir: str) -> int:
+    """The body of one phase 27 process: ``mode`` "on" runs (a) and (b)
+    with both layers on (set in its environment before the port was
+    imported), "off" runs the echo alone with both off.  Writes its
+    RESULT line; its reports are dumped at its exit."""
+    import importlib
+    import brpc_tpu_torch.policy  # noqa: F401
+    from brpc_tpu_torch import rpc
+    from brpc_tpu_torch.butil import (custody_ledger, debug_sync, flags,
+                                      native)
+    from brpc_tpu_torch.ici import device_plane
+    from brpc_tpu_torch.ici import pallas_ring as pr
+    from brpc_tpu_torch.ici.mesh import IciMesh
+    from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
+    pc = importlib.import_module("brpc_tpu_torch.ici.p2p_copy")
+    kernels = [pc.p2p_copy, pr.ring_all_reduce_kernel,
+               pr.ring_all_gather_kernel]
+    on = mode == "on"
+    check(flags.get_flag("debug_lock_order") == on
+          and custody_ledger.enabled() == on,
+          f"phase 27 ({mode}): the layers read lock order "
+          f"{flags.get_flag('debug_lock_order')}, custody "
+          f"{custody_ledger.enabled()}")
+    if device == "cuda":
+        native.build()
+        build_all([pc.p2p_copy])
+
+        def launches():
+            return pc.p2p_copy.launches
+    else:
+        flags.set_flag("ici_device_plane_host_mesh", True)
+        copies = [0]
+        plain = pc.p2p_copy_plain
+
+        def counted(*args, **kwargs):
+            copies[0] += 1
+            return plain(*args, **kwargs)
+        pc.p2p_copy_plain = counted
+
+        def launches():
+            return copies[0]
+    flags.set_flag("ici_socket_window_bytes", DEBUG_WINDOW)
+    mesh = IciMesh(ranks=8, device=device)
+    IciMesh.set_default(mesh)
+    plane = device_plane.plane()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.monotonic()
+    args = (rpc, mesh, plane, launches, EchoRequest, EchoResponse)
+    r = {"mode": mode, "echo": _p27_echo(*args)}
+    if on:
+        r["serving"] = _p27_serving(*args)
+        r["stream"] = _p27_stream(*args)
+        r["fabric"] = _p27_fabric(rpc, mesh, plane, launches, device,
+                                  report_dir, EchoRequest, EchoResponse)
+    r["launches"] = launches()
+    r["kernel_launches"] = {k.name: k.launches for k in kernels}
+    ds, cl = debug_sync.report(), custody_ledger.report()
+    r["in_process"] = {"nodes": len(ds["nodes"]),
+                       "edges": sum(len(v) for v in ds["edges"].values()),
+                       "debug_sync_ok": ds["ok"], "custody_ok": cl["ok"],
+                       "outstanding": len(cl["outstanding"])}
+    r["foreign"] = sorted(
+        m for m in sys.modules if m in ("jax", "brpc_tpu")
+        or m.startswith(("jax.", "jaxlib", "brpc_tpu.")))
+    r["wall_s"] = time.monotonic() - t0
+    sys.stdout.write("RESULT " + json.dumps(r) + "\n")
+    sys.stdout.flush()
+    return 0
+
+
+def _debug_layers_child(device: str, mode: str, report_dir: str,
+                        sizes: dict) -> dict:
+    env = debug_layers_env(mode == "on", report_dir, "main")
+    proc = subprocess.run(
+        [sys.executable, "-c", _DEBUG_CHILD, device, mode, report_dir,
+         json.dumps(sizes)],
+        cwd=str(ROOT), env=env, capture_output=True, text=True, timeout=300)
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("RESULT ")]
+    if proc.returncode != 0 or not lines:
+        print(proc.stdout[-6000:], proc.stderr[-6000:], file=sys.stderr,
+              flush=True)
+        fail(f"phase 27's {mode} process ended rc {proc.returncode}")
+    out = json.loads(lines[-1][len("RESULT "):])
+    check(out["foreign"] == [], f"phase 27 loaded {out['foreign']}")
+    if mode == "on":
+        out["reports"] = debug_layers_reports(env, "phase 27's process")
+    kl = out["kernel_launches"]
+    if device == "cuda":
+        check(kl["p2p_copy"] == out["launches"],
+              f"phase 27 ({mode}): p2p_copy launched {kl['p2p_copy']} "
+              f"times, the phase counted {out['launches']}")
+    else:
+        check(kl["p2p_copy"] == 0, f"a kernel launched on the CPU: {kl}")
+    check(kl["ring_all_reduce"] == kl["ring_all_gather"] == 0,
+          f"a ring kernel launched during phase 27: {kl}")
+    return out
+
+
+def phase_debug_layers(device: str = "cuda", **sizes) -> dict:
+    """Phase 27: the main path with both runtime layers of the debug
+    tooling on, in processes of their own (see the module docstring):
+    the echo with both layers off, then (a) and (b) with both on; (d)
+    fablint over the package while the first runs.  ``sizes`` overrides
+    the phase's constants in the processes."""
+    import tempfile
+    t_phase = time.monotonic()
+    lint = subprocess.Popen(
+        [sys.executable, "-m", "brpc_tpu_torch.tools.fablint", "all",
+         "brpc_tpu_torch"], cwd=str(ROOT), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    report_dir = tempfile.mkdtemp(prefix="chip_smoke_p27_")
+    try:
+        off = _debug_layers_child(device, "off", report_dir, sizes)
+        try:
+            lint_out, _e = lint.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            lint.kill()
+            lint_out, _e = lint.communicate()
+        check(lint.returncode == 0,
+              f"phase 27 (d): fablint all exited {lint.returncode}:\n"
+              f"{lint_out[-4000:]}")
+        on = _debug_layers_child(device, "on", report_dir, sizes)
+    finally:
+        if lint.poll() is None:
+            lint.kill()
+            lint.wait()
+        shutil.rmtree(report_dir, ignore_errors=True)
+    lint_line = lint_out.strip().splitlines()[-1] if lint_out.strip() else ""
+    check(on["in_process"]["debug_sync_ok"] and on["in_process"]["custody_ok"]
+          and on["in_process"]["outstanding"] == 0,
+          f"phase 27 (a): the reports in process: {on['in_process']}")
+    return {"off": off, "on": on, "fablint": lint_line,
+            "echo_p50_us": {"layers_off": off["echo"]["p50_us"],
+                            "layers_on": on["echo"]["p50_us"]},
+            "launches": off["launches"] + on["launches"],
+            "wall_s": time.monotonic() - t_phase}
+
+
+def phase27_summary(p27: dict) -> str:
+    """Phase 27's one-line summary."""
+    on = p27["on"]
+    rep, peer = on["reports"], on["fabric"]["peer_reports"]
+    return (f"debug layers: echo {on['echo']['bytes'] >> 10} KiB p50 "
+            f"{p27['echo_p50_us']['layers_off']:.1f} us off / "
+            f"{p27['echo_p50_us']['layers_on']:.1f} us on; lock graph "
+            f"{rep['nodes']} nodes {rep['edges']} edges, {rep['cycles']} "
+            f"cycles, {rep['long_holds']} long holds, {rep['outstanding']} "
+            f"outstanding holds; peer {peer['nodes']} nodes "
+            f"{peer['edges']} edges, {peer['long_holds']} long holds, "
+            f"{peer['outstanding']} outstanding; launches = transfers: echo "
+            f"{on['echo']['launches']}, serving {on['serving']['launches']}, "
+            f"stream {on['stream']['launches']}, fabric "
+            f"{on['fabric']['launches']} (peer "
+            f"{on['fabric']['peer']['launches']}); fablint: "
+            f"{p27['fablint']}; {p27['wall_s']:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
@@ -8897,6 +9426,22 @@ def main() -> int:
     print(phase26_summary(p26), flush=True)
     print("phase 26: " + json.dumps(p26), flush=True)
 
+    # 27. the main path under both runtime layers of the debug tooling, in
+    # processes of their own (the layers are read at import): the echo
+    # with both off, then the echo, a serving session, a stream and phase
+    # 17's kind-4 echo with both on; every process's reports ok, p2p_copy's
+    # launches = the plane's transfers on each path; fablint all exits 0
+    zero_counts()
+    p27 = phase_debug_layers()
+    launches = {k.name: k.launches for k in kernels_all}
+    check(all(v == 0 for v in launches.values()),
+          f"a kernel launched in the driving process during phase 27: "
+          f"{launches}")
+    phase27 = {"debug_layers_off": p27["off"]["launches"],
+               "debug_layers_on": p27["on"]["launches"]}
+    print(phase27_summary(p27), flush=True)
+    print("phase 27: " + json.dumps(p27), flush=True)
+
     head = next(r for r in rows if r["label"] == "4 MiB")
     red = ring_rows["ring_all_reduce"]
     gat = ring_rows["ring_all_gather"]
@@ -8918,7 +9463,8 @@ def main() -> int:
                      + pod["launches"] + xproc["launches"]
                      + tiers20["launches"] + sum(phase21.values())
                      + sum(phase22.values()) + dry["launches"]
-                     + kvf["launches"] + p26["launches"]),
+                     + kvf["launches"] + p26["launches"]
+                     + p27["launches"]),
         "launches_by_path": {"echo": main_launches,
                              "serving": serve["launches"],
                              "migration": tiers["launches"], **phase10,
@@ -8936,7 +9482,7 @@ def main() -> int:
                              "tiers": tiers20["launches"], **phase21,
                              **phase22, "dryrun": dry["launches"],
                              "kv_flags_loadkv": kvf["launches"],
-                             **phase26},
+                             **phase26, **phase27},
         "migration_path_split": {
             "migrate_in": tiers["migrate_in_calls"],
             "loadkv": tiers["calls_received"] - tiers["migrate_in_calls"]},

@@ -53,6 +53,7 @@ from brpc_tpu_torch.rpc.admission import AdmissionOptions
 from brpc_tpu_torch.rpc.socket_map import SocketMap
 from tests.echo_pb2 import (EchoRequest as JEchoRequest,
                             EchoResponse as JEchoResponse)
+from tests.torch_census import custody_census  # noqa: F401  (fixture)
 
 JAX = types.SimpleNamespace(
     name="jax", rpc=jrpc, fi=jfi, errors=jerrors, bid=jbid, flags=jfl,

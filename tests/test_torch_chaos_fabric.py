@@ -75,6 +75,14 @@ Besides, the host-delivered relocation (``brpc_tpu/ici/native_plane.py:
 native receive buffer, a handler forwards it into an in-process native-door
 call to a rank of its own, later payloads recycle the buffer, and the
 callee still holds the first payload's bytes.
+
+Every two-process scenario here runs its children under both runtime
+layers of the debug tooling, as ``tests/test_chaos_fabric.py:47-115``
+runs the JAX children: ``BRPC_TPU_DEBUG_LOCK_ORDER=1``,
+``BRPC_TPU_DEBUG_CUSTODY=1`` and both report paths
+(``tests/torch_census.py``'s ``debug_layers``), and the fixture asserts
+each child's reports: no lock-order cycle, no long hold, no outstanding
+custody hold, no unmatched strict release.
 """
 from __future__ import annotations
 
@@ -101,6 +109,7 @@ from brpc_tpu_torch.rpc import errors
 from brpc_tpu_torch.rpc import fault_injection as tfi
 
 from tests.torch_procs import ok, run_procs
+from tests.torch_census import debug_layers
 
 u8p = ctypes.POINTER(ctypes.c_uint8)
 JAX = types.SimpleNamespace(fi=jfi, ph=jph, route=jroute, name="jax")
@@ -837,10 +846,15 @@ def two_proc():
     scen = {"parity": _PARITY, "drain": _DRAIN,
             "relocate_shm": _RELOCATE % {"kind": "shm"},
             "relocate_bulk": _RELOCATE % {"kind": "bulk"}}
-    with ThreadPoolExecutor(len(scen)) as ex:
-        futs = {k: ex.submit(run_procs, body, 2, 110)
-                for k, body in scen.items()}
-        res = {k: ok(f.result()) for k, f in futs.items()}
+    # every child under both runtime layers, its reports asserted
+    with debug_layers() as layers:
+        with ThreadPoolExecutor(len(scen)) as ex:
+            futs = {k: ex.submit(run_procs, layers.body(body, k), 2, 110)
+                    for k, body in scen.items()}
+            raw = {k: f.result() for k, f in futs.items()}
+        res = {k: ok(rs) for k, rs in raw.items()}
+        for k, rs in raw.items():
+            assert len(layers.check(k, rs)) == 2
     for rs in res.values():
         for r in rs:
             assert r["foreign"] == []

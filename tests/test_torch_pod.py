@@ -610,9 +610,15 @@ def test_xproc_bidirectional_total_order_and_byte_exactness():
     two processes (each client socket's order equals the peer's server
     socket's), byte-exact; every request and every answer crossed as kind
     4 (the IPC pull's plain carrier here)."""
+    from tests.torch_census import debug_layers
     from tests.torch_procs import ok, run_procs
     k, n = 6, 128 * 1024
-    for r in ok(run_procs(_XPROC_BIDIR, 2, timeout=120)):
+    # both processes under both runtime layers, their reports asserted
+    with debug_layers() as layers:
+        res = run_procs(layers.body(_XPROC_BIDIR, "bidir"), 2, timeout=120)
+        rs = ok(res)
+        assert len(layers.check("bidir", res)) == 2
+    for r in rs:
         assert r["errs"] == []
         assert r["clients"] == r["servers"] == 1
         assert len(r["c_executed"]) == len(r["s_executed"]) == 4 * k
@@ -688,9 +694,15 @@ def test_pod_membership_join_resolve_drain_restart_n4():
     every member's serving rank the same in each, an ``rr`` channel over
     it reaches all four, and one member's ``stop(2.0)`` and restart move
     the epoch to 2N+3 everywhere, each member serving its rank again."""
+    from tests.torch_census import debug_layers
     from tests.torch_procs import ok, run_procs
     n = 4
-    rs = ok(run_procs(_POD_MEMBERSHIP, n, timeout=120))
+    # every member under both runtime layers, its reports asserted
+    with debug_layers() as layers:
+        res = run_procs(layers.body(_POD_MEMBERSHIP, "pod"), n,
+                        timeout=120)
+        rs = ok(res)
+        assert len(layers.check("pod", res)) == n
     want = sorted(f"ici://{2 * p}" for p in range(n))
     for r in rs:
         assert r["foreign"] == []

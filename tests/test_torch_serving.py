@@ -41,6 +41,7 @@ from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
 from brpc_tpu_torch.rpc.controller import server_controller_pool
 from brpc_tpu_torch.serving import kv_source
 from examples.disagg_serving import model as jmodel
+from tests.torch_census import custody_census  # noqa: F401  (fixture)
 
 BPT = jmodel.KV_LAYERS * jmodel.KV_DMODEL
 

@@ -49,6 +49,7 @@ from brpc_tpu_torch.rpc.circuit_breaker import BreakerRegistry
 from brpc_tpu_torch.rpc.controller import server_controller_pool
 from tests.echo_pb2 import EchoRequest as JEchoRequest
 from tests.echo_pb2 import EchoResponse as JEchoResponse
+from tests.torch_census import custody_census  # noqa: F401  (fixture)
 
 WAIT_S = 10.0
 _FLAGS = ("ici_device_plane", "ici_device_plane_host_mesh",
