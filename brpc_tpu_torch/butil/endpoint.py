@@ -16,6 +16,7 @@ and by every naming service.
 from __future__ import annotations
 
 import re
+import socket as _socket
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -97,3 +98,11 @@ def parse_endpoint(s: str) -> EndPoint:
 
 def endpoint2str(ep: EndPoint) -> str:
     return str(ep)
+
+
+def hostname2endpoint(hostport: str) -> EndPoint:
+    """Resolve ``hostname:port`` to a numeric tcp endpoint (reference
+    butil::hostname2endpoint)."""
+    host, _, port = hostport.rpartition(":")
+    return EndPoint(scheme=SCHEME_TCP, host=_socket.gethostbyname(host),
+                    port=int(port))

@@ -35,6 +35,10 @@ class Flag:
                 raise ValueError(f"env override for flag {name} rejected by validator: {env!r}")
         self.value = default
 
+    @property
+    def reloadable(self) -> bool:
+        return self._reloadable
+
     def get(self) -> Any:
         return self.value
 

@@ -61,6 +61,10 @@ class Block:
         # completion)
         self.on_send_complete: Optional[Callable[[], None]] = None
 
+    @property
+    def cap(self) -> int:
+        return len(self.data)
+
     def left_space(self) -> int:
         return len(self.data) - self.size if self.kind == HOST else 0
 
@@ -193,6 +197,17 @@ class IOBuf:
         self._refs.append(BlockRef(blk, 0, n))
         self._size += n
 
+    def append_device_array_unchecked(self, arr, nbytes: int) -> None:
+        """append_device_array for a tensor already known to be flat
+        uint8 of ``nbytes`` (one re-emerging from the native plane's
+        registry): no type or shape checks."""
+        blk = Block(DEVICE, arr, meta=0, size=nbytes)
+        self._refs.append(BlockRef(blk, 0, nbytes))
+        self._size += nbytes
+
+    def push_back(self, byte: int) -> None:
+        self.append(bytes([byte]))
+
     # ---- consume -----------------------------------------------------
     def clear(self) -> None:
         self._refs.clear()
@@ -270,6 +285,11 @@ class IOBuf:
         return b"".join(
             bytes(r.block.host_view(r.offset, r.length)) for r in self._refs)
 
+    def copy_to(self, n: Optional[int] = None, pos: int = 0) -> bytes:
+        """``n`` bytes (all with None) from offset ``pos``, not consumed."""
+        data = self.to_bytes()
+        return data[pos:] if n is None else data[pos:pos + n]
+
     def fetch(self, n: int) -> Optional[bytes]:
         """Peek first n bytes without consuming; None if fewer available."""
         if self._size < n:
@@ -321,6 +341,13 @@ class IOBuf:
         written = os.writev(fd, views)
         if written > 0:
             self.pop_front(written)
+        return written
+
+    def copy_to_file_descriptor(self, fd: int) -> int:
+        """Write every byte into ``fd`` without consuming them."""
+        written = 0
+        for v in self.host_views():
+            written += os.write(fd, v)
         return written
 
 

@@ -236,6 +236,10 @@ class CollectiveRegistry:
                 self._serving[device_id] = n - 1
             self._epoch += 1
 
+    def serving(self, device_id: int) -> bool:
+        with self._lock:
+            return self._serving.get(device_id, 0) > 0
+
     def serving_all(self, device_ids) -> bool:
         """One lock hold for a whole fan-out's liveness check."""
         with self._lock:

@@ -142,9 +142,8 @@ class ParallelChannel:
             # against a listener that answers inline on the native plane,
             # a tasklet per sub-call buys no concurrency (the handler runs
             # in the caller's stack either way): issue it here
-            check = getattr(chan, "inline_fast_call_ok", None)
-            if done is None and check is not None and check(
-                    sub_cntl, sub.request, method_full_name):
+            if done is None and self._inline_eligible(
+                    chan, sub_cntl, sub.request, method_full_name):
                 chan.call_method(method_full_name, sub_cntl, sub.request,
                                  response_cls)
                 state.on_sub_done(i, merger, sub_cntl)
@@ -156,6 +155,15 @@ class ParallelChannel:
             state.wait(_join_timeout_s(cntl, (c for c, _, _ in self._subs)))
             return response
         return None
+
+    @staticmethod
+    def _inline_eligible(chan, sub_cntl, request, method_full_name) -> bool:
+        """Would ``chan`` answer this sub-call inline on the native plane?
+        The channel runs call_method's full routing screen, so an inline
+        issue never commits to a call that rides the Python plane."""
+        check = getattr(chan, "inline_fast_call_ok", None)
+        return check is not None and check(sub_cntl, request,
+                                           method_full_name)
 
 
 def _join_timeout_s(cntl: Controller, channels) -> float:

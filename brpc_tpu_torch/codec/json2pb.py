@@ -5,18 +5,36 @@ as in the .proto, no default-valued fields, enums by name), so both
 packages print the same JSON."""
 from __future__ import annotations
 
-from typing import Any, Tuple, Type
+from typing import Any, Optional, Tuple, Type
 
 from google.protobuf import json_format
 
 
-def pb_to_json(message: Any) -> Tuple[bool, str]:
+class Pb2JsonOptions:
+    """The reference's pb-to-JSON options; ``always_print_primitive_fields``
+    and ``enum_option_as_number`` reach json_format."""
+
+    def __init__(self, bytes_to_base64: bool = True,
+                 jsonify_empty_array: bool = True,
+                 always_print_primitive_fields: bool = False,
+                 enum_option_as_number: bool = False):
+        self.bytes_to_base64 = bytes_to_base64
+        self.jsonify_empty_array = jsonify_empty_array
+        self.always_print_primitive_fields = always_print_primitive_fields
+        self.enum_option_as_number = enum_option_as_number
+
+
+def pb_to_json(message: Any, options: Optional[Pb2JsonOptions] = None
+               ) -> Tuple[bool, str]:
     """Returns (ok, json or the error)."""
+    options = options or Pb2JsonOptions()
     try:
         return True, json_format.MessageToJson(
             message, preserving_proto_field_name=True,
-            always_print_fields_with_no_presence=False,
-            use_integers_for_enums=False, indent=None)
+            always_print_fields_with_no_presence=(
+                options.always_print_primitive_fields),
+            use_integers_for_enums=options.enum_option_as_number,
+            indent=None)
     except Exception as e:
         return False, str(e)
 
@@ -29,6 +47,11 @@ def json_to_pb(json_str: str, message_cls: Type) -> Tuple[bool, Any, str]:
         return True, msg, ""
     except Exception as e:
         return False, None, str(e)
+
+
+def pb_to_dict(message: Any) -> dict:
+    return json_format.MessageToDict(message,
+                                     preserving_proto_field_name=True)
 
 
 def dict_to_pb(d: dict, message_cls: Type) -> Any:

@@ -94,7 +94,7 @@ def _reply(response, done, **kw) -> None:
 class PrefillService(rpc.Service):
     SERVICE_NAME = "Prefill"
 
-    def __init__(self, rank: int, mesh: Optional[IciMesh] = None,
+    def __init__(self, rank: int = 0, mesh: Optional[IciMesh] = None,
                  channel_options: Optional[rpc.ChannelOptions] = None):
         self.mesh = mesh or IciMesh.default()
         self.rank = rank
@@ -165,7 +165,7 @@ class PrefillService(rpc.Service):
 class DecodeService(rpc.Service):
     SERVICE_NAME = "Decode"
 
-    def __init__(self, rank: int, mesh: Optional[IciMesh] = None,
+    def __init__(self, rank: int = 0, mesh: Optional[IciMesh] = None,
                  pool_options: Optional[KvPoolOptions] = None,
                  sched_options: Optional[BatchSchedulerOptions] = None):
         self.mesh = mesh or IciMesh.default()
@@ -189,6 +189,11 @@ class DecodeService(rpc.Service):
         # each one's attachment crossed the transport once
         self.loadkv_received = 0
         self.migrate_in_received = 0
+
+    @property
+    def sessions_expired(self) -> int:
+        """Sessions the pool's TTL timer reclaimed."""
+        return self.pool.expirations.get_value()
 
     def live_sessions(self) -> int:
         return self.pool.sessions()
@@ -603,10 +608,13 @@ class RouterService(rpc.Service):
 
 
 def _rank_of(addr: str, rank: Optional[int]) -> int:
+    """``rank``, else the rank an ``ici://`` address names, else rank 0
+    (the JAX package's default device)."""
     if rank is not None:
         return rank
-    from ...butil.endpoint import parse_endpoint
-    return parse_endpoint(addr).device_id
+    from ...butil.endpoint import SCHEME_ICI, parse_endpoint
+    ep = parse_endpoint(addr)
+    return ep.device_id if ep.scheme == SCHEME_ICI else 0
 
 
 def start_prefill_worker(addr: str, rank: Optional[int] = None,

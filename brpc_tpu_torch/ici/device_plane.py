@@ -206,6 +206,12 @@ def _describe(timeline: tuple) -> dict:
     }
 
 
+def mesh_index_of(arr: torch.Tensor, mesh: Optional[IciMesh] = None) -> int:
+    """The rank owning a tensor's storage in ``mesh`` (default: the
+    default mesh); -1 when off-mesh."""
+    return (mesh or IciMesh.default()).rank_of(arr)
+
+
 def platform_allows(mesh: IciMesh) -> bool:
     """The plane engages on a CUDA mesh; a CPU mesh opts in through
     ``ici_device_plane_host_mesh`` (the JAX package's host-mesh rule)."""
@@ -307,6 +313,10 @@ class DevicePlane:
             if cls._instance is None:
                 cls._instance = DevicePlane()
             return cls._instance
+
+    def mesh(self) -> IciMesh:
+        """The mesh a post without one addresses: the default mesh."""
+        return IciMesh.default()
 
     def _stream(self, device: torch.device) -> "torch.cuda.Stream":
         with self._lock:
@@ -419,6 +429,13 @@ class DevicePlane:
             raise
         self._matched(t, out, done_event)
         return t
+
+    def transfer_local(self, arr: torch.Tensor, src_dev: int, dst_dev: int,
+                       socket=None) -> DeviceTransfer:
+        """post_send and its in-process rendezvous in one call; raises
+        DevicePlaneError when the post is refused."""
+        t = self.post_send(arr, src_dev, dst_dev, socket=socket)
+        return self.post_recv(t.uuid)
 
     # ---- fabric (cross-process) halves ---------------------------------
     def post_recv_remote(self, uuid: int, nbytes: int, src_dev: int,

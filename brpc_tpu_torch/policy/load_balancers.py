@@ -21,7 +21,7 @@ import random
 import threading
 import time
 import weakref
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 from ..butil import debug_sync as _dbg
 from ..butil.endpoint import EndPoint
@@ -46,7 +46,53 @@ def live_load_balancers() -> List["_ListLB"]:
     return list(_live_lbs)
 
 
-class _ListLB:
+class LoadBalancer:
+    """Interface (load_balancer.h): membership + selection + feedback."""
+
+    name = "base"
+
+    def add_server(self, ep: EndPoint, weight: int = 100,
+                   tag: str = "") -> bool:
+        raise NotImplementedError
+
+    def remove_server(self, ep: EndPoint) -> bool:
+        raise NotImplementedError
+
+    def reset_servers(self, entries: List[ServerEntry]) -> None:
+        raise NotImplementedError
+
+    def select_server(self, cntl=None) -> Optional[EndPoint]:
+        raise NotImplementedError
+
+    def feedback(self, ep: EndPoint, error_code: int,
+                 latency_us: int) -> None:
+        pass
+
+    def server_count(self) -> int:
+        raise NotImplementedError
+
+    def servers(self) -> List[ServerEntry]:
+        """Membership snapshot (screens and tools)."""
+        return []
+
+
+def _per_call_exclusions(cntl) -> Optional[Iterable[EndPoint]]:
+    """The call's own excluded servers, or None.  A controller's set is a
+    lazy field that an unread instance lacks: the class attribute is then
+    the descriptor, not a set, and the call excludes nothing (reading the
+    field would materialize an empty set on the pick fast path).  Any
+    other object's ``_excluded_servers``, on the instance or its class,
+    is honoured."""
+    if cntl is None:
+        return None
+    own = getattr(cntl, "__dict__", None)
+    if own is not None and "_excluded_servers" in own:
+        return own["_excluded_servers"]
+    found = getattr(type(cntl), "_excluded_servers", None)
+    return found if isinstance(found, Iterable) else None
+
+
+class _ListLB(LoadBalancer):
     """Membership: a list of ServerEntry replaced whole on every change, so
     a selection reads one immutable snapshot (the reference keeps it in
     DoublyBufferedData for the same reason), and timed exclusions: an
@@ -105,10 +151,7 @@ class _ListLB:
 
     def _usable(self, cntl=None) -> List[ServerEntry]:
         lst = self._list
-        # the call's own exclusions, peeked (reading the field would
-        # materialize an empty set)
-        per_call = cntl.__dict__.get("_excluded_servers") \
-            if cntl is not None else None
+        per_call = _per_call_exclusions(cntl)
         if not self._excluded and not per_call:  # fablint: ignore[guarded-state] lock-free emptiness peek on the pick fast path: a stale read misses only an exclusion racing this very pick, as a locked read could
             return lst
         now = time.monotonic()
@@ -270,6 +313,23 @@ class LocalityAwareLB(_ListLB):
         with self._w_lock:
             return self._effective_weight(self._weight_for(ep),
                                           time.monotonic() * 1e6)
+
+    def describe(self) -> dict:
+        """Per-server divided-weight snapshot (the serving router's
+        /status block): effective weight, window average latency, and
+        the in-flight count the extrapolation divides by."""
+        now_us = time.monotonic() * 1e6
+        eps = [e.endpoint for e in self._list]
+        out = {}
+        with self._w_lock:
+            for ep in eps:
+                w = self._weight_for(ep)
+                out[str(ep)] = {
+                    "weight": round(self._effective_weight(w, now_us), 1),
+                    "avg_latency_us": round(w.avg_latency(), 1),
+                    "inflight": w.begin_time_count,
+                }
+        return out
 
 
 class RoundRobinLB(_ListLB):

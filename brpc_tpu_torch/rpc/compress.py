@@ -17,6 +17,11 @@ _codecs: Dict[int, Tuple[Callable[[bytes], bytes], Callable[[bytes], bytes]]] = 
 }
 
 
+def register_compression(ctype: int, compressor, decompressor) -> None:
+    """Add (or replace) the codec of compress type ``ctype``."""
+    _codecs[ctype] = (compressor, decompressor)
+
+
 def compress(ctype: int, data: bytes) -> bytes:
     if ctype == COMPRESS_TYPE_NONE:
         return data

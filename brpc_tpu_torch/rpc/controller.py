@@ -483,6 +483,12 @@ class Controller:
         (http, grpc): ``response`` is already set."""
         self._end_rpc(cid)
 
+    def handle_parsed_http_response(self, cid: int, http_msg) -> None:
+        """HTTP client completion with the parsed message: record it as
+        ``http_response`` and finish."""
+        self.http_response = http_msg
+        self._end_rpc(cid)
+
     def _start_shed_retry(self) -> None:
         """Timer callback: re-issue a shed call off the timer thread,
         unless the call already ended (its deadline, a cancel, or a backup

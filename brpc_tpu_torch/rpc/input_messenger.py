@@ -13,7 +13,7 @@ still queued behind a busy pool.
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, List, Optional
 
 from ..bthread import scheduler
 from . import errors
@@ -26,6 +26,11 @@ class InputMessenger:
         # the protocols this messenger tries, in order (None: every
         # registered one)
         self._protocols = protocols
+
+    def protocols(self) -> List[Protocol]:
+        """The protocols this messenger tries, in order."""
+        return self._protocols if self._protocols is not None \
+            else list_protocols()
 
     # called from Socket._process_event (single reader per socket)
     def on_new_messages(self, socket):

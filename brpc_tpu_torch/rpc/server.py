@@ -382,13 +382,31 @@ class Server:
         return data
 
     # ---- lifecycle ----------------------------------------------------
-    def start(self, addr: Any) -> int:
+    def start(self, addr: Any = None,
+              options: Optional[ServerOptions] = None) -> int:
         """Listen on ``ici://k``, ``mem://name`` or ``host:port`` (also
         ``tcp://host:port``; port 0 binds an ephemeral one), a string or an
-        EndPoint.  A stopped server may start again."""
+        EndPoint.  ``None`` is ``mem://server``, an ``int`` a TCP port on
+        ``0.0.0.0`` and a port-less bare name ``mem://<name>``.
+        ``options`` replace the server's.  A stopped server may start
+        again."""
+        if options is not None:
+            self.options = options
         if self._started:
             return errors.EINVAL
-        ep = parse_endpoint(addr) if isinstance(addr, str) else addr
+        if addr is None:
+            addr = "mem://server"
+        if isinstance(addr, int):
+            ep = EndPoint(scheme=SCHEME_TCP, host="0.0.0.0", port=addr)
+        elif isinstance(addr, str):
+            # a port-less bare name cannot be a TCP listen address, so
+            # any such name (dotted or all digits too) is an in-process
+            # registry
+            if ":" not in addr and "://" not in addr:
+                addr = "mem://" + addr
+            ep = parse_endpoint(addr)
+        else:
+            ep = addr
         if ep.scheme not in (SCHEME_ICI, SCHEME_MEM, SCHEME_TCP):
             raise ValueError(f"cannot listen on scheme {ep.scheme}")
         if self.options.enable_builtin_services:

@@ -110,9 +110,6 @@ _flags.define_flag(
     "spill plane-health timer latch: how long after a demote/restore IO "
     "failure before the first use re-probes the host tier")
 
-BANDS = 4                # priority bands, 0 = most protected
-DEFAULT_PRIORITY = 2     # sessions arriving without one
-
 
 class SessionBusy(RuntimeError):
     """A load hit a session id that is PINNED in the step roster: freeing
@@ -148,6 +145,8 @@ class KvPoolOptions:
     bytes_per_token: int
     num_blocks: int = 256
     block_tokens: int = 16
+    bands: int = 4                   # priority bands, 0 = most protected
+    default_priority: int = 2        # sessions arriving without one
     # host-tier arena size in blocks: 0 disables spill (pressure evicts)
     host_blocks: int = 0
     ttl_s: float = 120.0             # idle-session expiry
@@ -158,16 +157,11 @@ class KvPoolOptions:
 
     @classmethod
     def from_admission(cls, adm, **kw) -> "KvPoolOptions":
-        """Take the eviction order's tenant table from an
+        """Take the eviction order's bands and tenant table from an
         ``rpc.admission.AdmissionOptions``, so queue fairness and memory
-        pressure agree on who absorbs overload.  The pool's bands are
-        fixed (``BANDS``, ``DEFAULT_PRIORITY``): admission options with
-        other bands are refused rather than silently disagreeing."""
-        if adm.bands != BANDS or adm.default_priority != DEFAULT_PRIORITY:
-            raise ValueError(
-                f"the pool has {BANDS} bands and default priority "
-                f"{DEFAULT_PRIORITY}; the admission options have "
-                f"{adm.bands} and {adm.default_priority}")
+        pressure agree on who absorbs overload."""
+        kw.setdefault("bands", adm.bands)
+        kw.setdefault("default_priority", adm.default_priority)
         kw.setdefault("tenant_weights", dict(adm.tenant_weights))
         kw.setdefault("default_tenant_weight", adm.default_tenant_weight)
         return cls(**kw)
@@ -390,8 +384,9 @@ class PagedKvPool:
                                 self.options.default_tenant_weight, tenant)
 
     def _clip_priority(self, priority: Optional[int]) -> int:
-        pri = DEFAULT_PRIORITY if priority is None else priority
-        return min(max(pri, 0), BANDS - 1)
+        pri = self.options.default_priority if priority is None \
+            else priority
+        return min(max(pri, 0), self.options.bands - 1)
 
     def _count(self, what: str, tenant: str) -> None:
         with self._counters_lock:

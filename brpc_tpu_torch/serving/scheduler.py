@@ -36,17 +36,19 @@ import torch
 
 from .. import bvar
 from ..rpc import errors
-from .kv_pool import BANDS, DEFAULT_PRIORITY, PagedKvPool
-
-# bands <= this are "interactive": they may preempt batch-band sessions
-# out of a full roster (progress preserved)
-INTERACTIVE_PRIORITY_MAX = 1
+from .kv_pool import PagedKvPool
 
 
 @dataclass
 class BatchSchedulerOptions:
     vocab: int                       # the decode recurrence's modulus
     max_batch: int = 64
+    bands: int = 4
+    default_priority: int = 2
+    # bands <= this are "interactive": they may preempt batch-band
+    # sessions out of a full roster (progress preserved)
+    interactive_priority_max: int = 1
+    preempt: bool = True
     # False: no step thread — tests drive step_once() deterministically
     auto_start: bool = True
 
@@ -115,7 +117,8 @@ class ContinuousBatchScheduler:
         self.options = options
         self._now_us = now_us or (lambda: time.monotonic_ns() // 1000)
         self._cv = threading.Condition()
-        self._pending: List[deque] = [deque() for _ in range(BANDS)]
+        self._pending: List[deque] = [deque()
+                                      for _ in range(options.bands)]
         self._active: List[StepRequest] = []     # roster, admit order
         # sessions currently owned by the scheduler (pending OR
         # rostered): a duplicate submit is refused, since two roster
@@ -146,8 +149,9 @@ class ContinuousBatchScheduler:
         """Queue one decode request.  Admission happens at the next step
         boundary; refusal paths fire ``req.fail`` (on this thread when
         the scheduler is stopping, on the step thread otherwise)."""
-        pri = DEFAULT_PRIORITY if req.priority is None else req.priority
-        pri = min(max(pri, 0), BANDS - 1)
+        pri = self.options.default_priority if req.priority is None \
+            else req.priority
+        pri = min(max(pri, 0), self.options.bands - 1)
         req.priority = pri
         req.enq_us = self._now_us()
         duplicate = False
@@ -295,7 +299,7 @@ class ContinuousBatchScheduler:
             if kept is not None:
                 band.appendleft(kept)
                 break
-        while (len(self._active) >= o.max_batch
+        while (o.preempt and len(self._active) >= o.max_batch
                and self._interactive_waiting_locked()):
             victim = self._pick_preempt_locked()
             if victim is None:
@@ -338,11 +342,12 @@ class ContinuousBatchScheduler:
     # fablint: lock-held(_cv)
     def _interactive_waiting_locked(self) -> bool:
         return any(self._pending[b]
-                   for b in range(INTERACTIVE_PRIORITY_MAX + 1))
+                   for b in range(self.options.interactive_priority_max
+                                  + 1))
 
     # fablint: lock-held(_cv)
     def _pop_interactive_locked(self, now, refusals):
-        for b in range(INTERACTIVE_PRIORITY_MAX + 1):
+        for b in range(self.options.interactive_priority_max + 1):
             while self._pending[b]:
                 req = self._pending[b].popleft()
                 if req.deadline_us is not None and now >= req.deadline_us:
@@ -358,7 +363,7 @@ class ContinuousBatchScheduler:
     def _pick_preempt_locked(self):
         best = None
         for req in self._active:
-            if req.priority <= INTERACTIVE_PRIORITY_MAX:
+            if req.priority <= self.options.interactive_priority_max:
                 continue
             if best is None or (req.priority, req.enq_us) > \
                     (best.priority, best.enq_us):
@@ -371,10 +376,7 @@ class ContinuousBatchScheduler:
                 or self._tbl.shape[0] != len(roster):
             self._build_tensors(roster)
             self._dirty = False
-        prev = step_tokens(self.pool.pos_sums_flat, self._tbl, self._seq,
-                           self._acc, self._prev, self._stepi,
-                           self.pool.options.block_tokens,
-                           self.options.vocab)
+        prev = self._step_eager(self.pool.options.block_tokens)
         self._prev = prev
         self._stepi += 1
         toks = prev.tolist()                 # the step's one host sync
@@ -383,6 +385,13 @@ class ContinuousBatchScheduler:
             req.prev = toks[k]
             req.stepi += 1
         self.tokens_out << len(roster)
+
+    def _step_eager(self, bt: int) -> torch.Tensor:
+        """The roster's next tokens: one ``step_tokens`` over the roster
+        tensors (block size ``bt``)."""
+        return step_tokens(self.pool.pos_sums_flat, self._tbl, self._seq,
+                           self._acc, self._prev, self._stepi, bt,
+                           self.options.vocab)
 
     def _build_tensors(self, roster: List[StepRequest]) -> None:
         # r.kv.blocks may be PREFIX-SHARED: two rostered sessions gather

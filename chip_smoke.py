@@ -652,6 +652,30 @@ Phases, each fatal on failure:
                 (d) python -m brpc_tpu_torch.tools.fablint all
                 brpc_tpu_torch over the checkout exits 0 (run while the
                 first process runs)
+ 28. the entry points the JAX suites hold, in a process of its own on
+                the card's mesh (IciMesh(ranks=8)):
+                (a) one Server started each way, start(0) (TCP on
+                0.0.0.0), start("p28") (mem://p28) and start()
+                (mem://server), each answering a 4 KiB Channel echo with
+                listen_endpoint naming its address; then 8 echoes of a
+                4 MiB DEVICE attachment owned by rank 0 through ici://1,
+                bytes equal;
+                (b) disaggregated serving (prefill on ici://2, decode on
+                ici://3, the router on mem://) whose decode server, pool
+                and scheduler take six bands from AdmissionOptions(bands=6):
+                one 256-token Generate of 8 steps at each priority 0-5,
+                tokens equal to reference_generate; then a decode worker on
+                ici://4 at max_batch 2, run with preempt=False and again
+                with preempt=True: two batch-band sessions (priority 3, 400
+                steps) fill its roster and an interactive one (priority 0,
+                8 steps) arrives behind them; preempted is 0, then at least
+                1, and every session's tokens equal reference_generate; each
+                session's KV arrives by LoadKv with a DEVICE attachment
+                owned by rank 1;
+                (c) 200 calls balanced by LocalityAwareLB over ici://5-7,
+                the third slowed by 2 ms in its handler;
+                LocalityAwareLB.describe() printed with every server's
+                weight, average latency, in-flight count and calls
 
 Launch counts are zeroed just before each path and read just after it:
 during phases 3-4 and during phase 8 p2p_copy's launches must equal the
@@ -698,7 +722,10 @@ equal the plane's transfers, in (c) and in ici_echo too; during phase 27
 the driving process launches none, and in each of its processes they
 equal the plane's transfers on the echo, the serving session and the
 stream, and on (b)'s echo the kind-4 transfers received and the
-attachments returned, in the process and in its peer; during phase 6
+attachments returned, in the process and in its peer; during phase 28
+the driving process launches none, and in the phase's process they equal
+the plane's transfers on (a)'s DEVICE echo and the LoadKv relocations
+the decode servers received in (b); during phase 6
 each ring
 kernel's launches must equal
 the calls of its entry point.  The line before the last is the
@@ -8945,6 +8972,451 @@ def phase27_summary(p27: dict) -> str:
             f"{p27['fablint']}; {p27['wall_s']:.1f} s")
 
 
+# phase 28: the entry points the JAX suites hold, on the card (see the
+# module docstring).  (a) the echo's size on each start form and the DEVICE
+# attachment's size and calls; (b) the six-band sessions' prompt and steps,
+# the preemption run's batch and interactive steps; (c) LALB's calls and
+# the slow member's handler delay
+ENTRY_ECHO_BYTES, ENTRY_DEVICE_BYTES, ENTRY_DEVICE_CALLS = 4 << 10, 4 << 20, 8
+ENTRY_PROMPT, ENTRY_STEPS = 256, 8
+ENTRY_BATCH_STEPS, ENTRY_INTERACTIVE_STEPS = 400, 8
+ENTRY_LALB_CALLS, ENTRY_LALB_SLOW_S = 200, 0.002
+
+
+def _p28_echo_service(rpc, EchoRequest, EchoResponse, delay_s=0.0):
+    class Echo(rpc.Service):
+        @rpc.method(EchoRequest, EchoResponse)
+        def Echo(self, cntl, request, response, done):
+            if delay_s:
+                time.sleep(delay_s)
+            response.message = request.message
+            cntl.response_attachment.append(cntl.request_attachment)
+            done()
+    return Echo()
+
+
+def _p28_start_forms(rpc, mesh, plane, launches, EchoRequest,
+                     EchoResponse) -> dict:
+    """(a): a server started each way, ``start(0)``, ``start("p28")`` and
+    ``start()``, answering a host echo and naming its address; then a
+    DEVICE attachment owned by rank 0 echoed through ``ici://1``."""
+    forms = {"start(0)": ((0,), "tcp", None),
+             "start('p28')": (("p28",), "mem", "p28"),
+             "start()": ((), "mem", "server")}
+    out = {}
+    payload = bytes(random.Random(28).getrandbits(8)
+                    for _ in range(ENTRY_ECHO_BYTES))
+    for label, (args, scheme, host) in forms.items():
+        server = rpc.Server()
+        server.add_service(_p28_echo_service(rpc, EchoRequest,
+                                             EchoResponse))
+        check(server.start(*args) == 0, f"phase 28 (a): {label} failed")
+        ep = server.listen_endpoint
+        target = (f"127.0.0.1:{ep.port}" if scheme == "tcp"
+                  else f"mem://{host}")
+        ch = rpc.Channel()
+        try:
+            check(ep.scheme == scheme
+                  and (ep.host == host if host else
+                       ep.host == "0.0.0.0" and ep.port > 0),
+                  f"phase 28 (a): {label} listens on {ep}")
+            ch.init(target, options=rpc.ChannelOptions(timeout_ms=30000,
+                                                       max_retry=0))
+            cntl = rpc.Controller()
+            cntl.request_attachment.append(payload)
+            t0 = time.perf_counter_ns()
+            resp = ch.call_method("Echo.Echo", cntl,
+                                  EchoRequest(message=label), EchoResponse)
+            us = (time.perf_counter_ns() - t0) / 1000.0
+            check(not cntl.failed() and resp.message == label
+                  and cntl.response_attachment.to_bytes() == payload,
+                  f"phase 28 (a): echo to {label}: {cntl.error_text}")
+            out[label] = {"listen_endpoint": str(ep), "echo_us": us}
+        finally:
+            ch.close()
+            server.stop()
+    dev = mesh.device(0)
+    server = rpc.Server()
+    server.add_service(_p28_echo_service(rpc, EchoRequest, EchoResponse))
+    check(server.start("ici://1") == 0, "phase 28 (a): ici://1 start")
+    ch = rpc.Channel()
+    ch.init("ici://1", options=rpc.ChannelOptions(timeout_ms=30000,
+                                                  max_retry=0))
+    gen = torch.Generator(device=dev).manual_seed(2828)
+    src = mesh.own(torch.randint(0, 256, (ENTRY_DEVICE_BYTES,),
+                                 dtype=torch.uint8, device=dev,
+                                 generator=gen), 0)
+    try:
+        l0, t0 = launches(), plane.stats()["transfers"]
+        for i in range(ENTRY_DEVICE_CALLS):
+            cntl = rpc.Controller()
+            cntl.request_attachment.append_device_array(src)
+            ch.call_method("Echo.Echo", cntl, EchoRequest(message=str(i)),
+                           EchoResponse)
+            check(not cntl.failed(), f"phase 28 (a) device echo #{i}: "
+                                     f"{cntl.error_text}")
+            check(torch.equal(_tensor_of(cntl.response_attachment), src),
+                  f"phase 28 (a) device echo #{i}: bytes differ")
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        dev_out = {"calls": ENTRY_DEVICE_CALLS, "bytes": ENTRY_DEVICE_BYTES,
+                   "listen_endpoint": str(server.listen_endpoint),
+                   "launches": launches() - l0,
+                   "transfers": plane.stats()["transfers"] - t0}
+    finally:
+        ch.close()
+        server.stop()
+    check(dev_out["launches"] == dev_out["transfers"] > 0,
+          f"phase 28 (a) device echo: {dev_out['launches']} launches for "
+          f"{dev_out['transfers']} transfers")
+    out["device_echo"] = dev_out
+    return out
+
+
+def _p28_six_bands(rpc, mesh, plane, launches, EchoRequest,
+                   EchoResponse) -> dict:
+    """(b): disaggregated serving whose decode server, pool and scheduler
+    take six bands from ``AdmissionOptions(bands=6)``; one Generate at
+    each priority 0-5 through the router."""
+    from brpc_tpu_torch.examples.disagg_serving import model
+    from brpc_tpu_torch.examples.disagg_serving.workers import (
+        close_services, start_decode_worker, start_prefill_worker,
+        start_router)
+    from brpc_tpu_torch.serving import BatchSchedulerOptions, KvPoolOptions
+    adm = rpc.AdmissionOptions(bands=6)
+    prefill = start_prefill_worker("ici://2", mesh=mesh)
+    decode = start_decode_worker(
+        "ici://3", mesh=mesh, options=rpc.ServerOptions(admission=adm),
+        pool_options=KvPoolOptions.from_admission(
+            adm, bytes_per_token=model.KV_LAYERS * model.KV_DMODEL,
+            num_blocks=1024, block_tokens=16),
+        sched_options=BatchSchedulerOptions(
+            vocab=model.VOCAB, max_batch=8, bands=adm.bands,
+            default_priority=adm.default_priority))
+    router = start_router("mem://p28-router", "ici://2", ["ici://3"])
+    dsvc = decode.services()["Decode"]
+    front = rpc.Channel()
+    front.init("mem://p28-router", options=rpc.ChannelOptions(
+        timeout_ms=120000, max_retry=0))
+    rng = np.random.default_rng(28)
+    prompts = {p: rng.integers(0, model.VOCAB, ENTRY_PROMPT).tolist()
+               for p in range(6)}
+    got, errs = {}, {}
+    try:
+        l0, t0 = launches(), plane.stats()["transfers"]
+        k0 = dsvc.loadkv_received
+
+        def generate(pri):
+            cntl = rpc.Controller()
+            cntl.priority = pri
+            resp = front.call_method("Router.Generate", cntl, EchoRequest(
+                message=json.dumps({"tokens": prompts[pri],
+                                    "steps": ENTRY_STEPS})), EchoResponse)
+            if cntl.failed():
+                errs[pri] = cntl.error_text
+            else:
+                got[pri] = json.loads(resp.message)["tokens"]
+        start = time.monotonic()
+        ts = [threading.Thread(target=generate, args=(p,)) for p in range(6)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(120)
+        wall = time.monotonic() - start
+        if mesh.device_type == "cuda":
+            torch.cuda.synchronize()
+        out = {"sessions": 6, "prompt": ENTRY_PROMPT, "steps": ENTRY_STEPS,
+               "generate_s": wall,
+               "pool_bands": dsvc.pool.options.bands,
+               "scheduler_bands": dsvc.scheduler.options.bands,
+               "admission_bands": decode.admission.options.bands,
+               "launches": launches() - l0,
+               "transfers": plane.stats()["transfers"] - t0,
+               "loadkv_received": dsvc.loadkv_received - k0}
+    finally:
+        front.close()
+        close_services(router, prefill, decode)
+    check(not errs, f"phase 28 (b) six bands: Generate failed {errs}")
+    bad = [p for p in range(6) if got.get(p) != model.reference_generate(
+        prompts[p], ENTRY_STEPS, mesh.device(0))]
+    check(not bad, f"phase 28 (b) six bands: priorities {bad} differ "
+                   f"from reference_generate")
+    check(out["pool_bands"] == out["scheduler_bands"]
+          == out["admission_bands"] == 6,
+          f"phase 28 (b) six bands: bands {out}")
+    check(out["launches"] == out["transfers"] == out["loadkv_received"] == 6,
+          f"phase 28 (b) six bands: {out['launches']} launches, "
+          f"{out['transfers']} transfers, {out['loadkv_received']} LoadKv")
+    return out
+
+
+def _p28_preempt(rpc, mesh, plane, launches, EchoRequest, EchoResponse,
+                 preempt: bool) -> dict:
+    """(b): a decode worker at max_batch 2 with ``preempt`` set; two
+    batch-band sessions (priority 3) fill its roster, then an interactive
+    one (priority 0) arrives.  Every session's KV is a LoadKv whose
+    DEVICE attachment, owned by rank 1, is relocated to rank 4."""
+    from brpc_tpu_torch.examples.disagg_serving import model
+    from brpc_tpu_torch.examples.disagg_serving.workers import (
+        close_services, start_decode_worker)
+    from brpc_tpu_torch.serving import BatchSchedulerOptions, KvPoolOptions
+    decode = start_decode_worker(
+        "ici://4", mesh=mesh,
+        pool_options=KvPoolOptions(
+            bytes_per_token=model.KV_LAYERS * model.KV_DMODEL,
+            num_blocks=256, block_tokens=16),
+        sched_options=BatchSchedulerOptions(
+            vocab=model.VOCAB, max_batch=2, interactive_priority_max=1,
+            preempt=preempt))
+    dsvc = decode.services()["Decode"]
+    ch = rpc.Channel()
+    ch.init("ici://4", options=rpc.ChannelOptions(timeout_ms=120000,
+                                                  max_retry=0))
+    rng = np.random.default_rng(2800 + preempt)
+    specs = {"b0": (3, ENTRY_BATCH_STEPS), "b1": (3, ENTRY_BATCH_STEPS),
+             "i0": (0, ENTRY_INTERACTIVE_STEPS)}
+    prompts = {s: rng.integers(0, model.VOCAB, ENTRY_PROMPT).tolist()
+               for s in specs}
+    got, errs, done_at = {}, {}, {}
+    try:
+        l0, t0 = launches(), plane.stats()["transfers"]
+        k0 = dsvc.loadkv_received
+        for s, toks in prompts.items():
+            cntl = rpc.Controller()
+            cntl.priority = specs[s][0]
+            cntl.request_attachment.append_device_array(
+                mesh.own(model.toy_kv_blocks(toks, mesh.device(1)), 1))
+            ch.call_method("Decode.LoadKv", cntl, EchoRequest(
+                message=json.dumps({"session": s, "seq_len": len(toks),
+                                    "last_token": toks[-1]})),
+                EchoResponse)
+            check(not cntl.failed(), f"phase 28 (b) LoadKv {s}: "
+                                     f"{cntl.error_text}")
+        if mesh.device_type == "cuda":
+            torch.cuda.synchronize()
+        loads = {"launches": launches() - l0,
+                 "transfers": plane.stats()["transfers"] - t0,
+                 "loadkv_received": dsvc.loadkv_received - k0}
+        start = time.monotonic()
+
+        def decode_call(s):
+            cntl = rpc.Controller()
+            cntl.priority = specs[s][0]
+            resp = ch.call_method("Decode.Decode", cntl, EchoRequest(
+                message=json.dumps({"session": s, "steps": specs[s][1]})),
+                EchoResponse)
+            done_at[s] = time.monotonic() - start
+            if cntl.failed():
+                errs[s] = cntl.error_text
+            else:
+                got[s] = json.loads(resp.message)["tokens"]
+        threads = {s: threading.Thread(target=decode_call, args=(s,))
+                   for s in specs}
+        threads["b0"].start()
+        threads["b1"].start()
+        sched = dsvc.scheduler
+        deadline = time.monotonic() + 30
+        while sched.describe()["active"] < 2 and time.monotonic() < deadline:
+            time.sleep(0.001)
+        check(sched.describe()["active"] == 2,
+              "phase 28 (b): the batch sessions never filled the roster")
+        threads["i0"].start()
+        for t in threads.values():
+            t.join(120)
+        out = {"preempt": preempt,
+               "preempted": sched.preempted.get_value(),
+               "done_s": done_at, "loads": loads}
+    finally:
+        ch.close()
+        close_services(decode)
+    check(not errs, f"phase 28 (b) preempt={preempt}: Decode failed {errs}")
+    bad = [s for s in specs if got.get(s) != model.reference_generate(
+        prompts[s], specs[s][1], mesh.device(0))]
+    check(not bad, f"phase 28 (b) preempt={preempt}: sessions {bad} differ "
+                   f"from reference_generate")
+    check(out["preempted"] >= 1 if preempt else out["preempted"] == 0,
+          f"phase 28 (b) preempt={preempt}: preempted {out['preempted']}")
+    check(loads["launches"] == loads["transfers"]
+          == loads["loadkv_received"] == 3,
+          f"phase 28 (b) preempt={preempt}: LoadKv {loads}")
+    return out
+
+
+def _p28_lalb(rpc, EchoRequest, EchoResponse) -> dict:
+    """(c): ``la`` balancing over three ici:// servers, the third slowed by
+    its handler; ``LocalityAwareLB.describe()`` read after the calls."""
+    servers = []
+    for rank, delay in ((5, 0.0), (6, 0.0), (7, ENTRY_LALB_SLOW_S)):
+        s = rpc.Server()
+        s.add_service(_p28_echo_service(rpc, EchoRequest, EchoResponse,
+                                        delay))
+        check(s.start(f"ici://{rank}") == 0, f"phase 28 (c): ici://{rank}")
+        servers.append(s)
+    ch = rpc.Channel()
+    try:
+        check(ch.init("list://ici://5,ici://6,ici://7", "la",
+                      rpc.ChannelOptions(timeout_ms=30000, max_retry=0)) == 0,
+              "phase 28 (c): the la channel did not init")
+        by_server: dict = {}
+        start = time.monotonic()
+        for i in range(ENTRY_LALB_CALLS):
+            cntl = rpc.Controller()
+            ch.call_method("Echo.Echo", cntl, EchoRequest(message=str(i)),
+                           EchoResponse)
+            check(not cntl.failed(), f"phase 28 (c) call #{i}: "
+                                     f"{cntl.error_text}")
+            key = str(cntl.remote_side)
+            by_server[key] = by_server.get(key, 0) + 1
+        wall = time.monotonic() - start
+        desc = ch._lb.describe()
+    finally:
+        ch.close()
+        for s in servers:
+            s.stop()
+    check(sorted(desc) == ["ici://5", "ici://6", "ici://7"]
+          and sum(by_server.values()) == ENTRY_LALB_CALLS
+          and all(d["inflight"] == 0 for d in desc.values()),
+          f"phase 28 (c): describe {desc}, calls {by_server}")
+    return {"calls": ENTRY_LALB_CALLS, "wall_s": wall,
+            "calls_by_server": by_server, "describe": desc}
+
+
+_ENTRY_CHILD = r"""
+import json, sys
+import chip_smoke as cs
+device, sizes = sys.argv[1], json.loads(sys.argv[2])
+for name, value in sizes.items():
+    setattr(cs, name, value)
+sys.exit(cs._entry_points_member(device))
+"""
+
+
+def _entry_points_member(device: str) -> int:
+    """The body of phase 28's process: its mesh made the default, (a)-(c)
+    run, its RESULT line written.  On the card p2p_copy's launches are
+    counted; on the CPU, where the plane copies with the plain version,
+    its calls are."""
+    import importlib
+    import brpc_tpu_torch.policy  # noqa: F401
+    from brpc_tpu_torch import rpc
+    from brpc_tpu_torch.butil import flags, native
+    from brpc_tpu_torch.ici import device_plane
+    from brpc_tpu_torch.ici import pallas_ring as pr
+    from brpc_tpu_torch.ici.mesh import IciMesh
+    from brpc_tpu_torch.proto.echo_pb2 import EchoRequest, EchoResponse
+    pc = importlib.import_module("brpc_tpu_torch.ici.p2p_copy")
+    kernels = [pc.p2p_copy, pr.ring_all_reduce_kernel,
+               pr.ring_all_gather_kernel]
+    if device == "cuda":
+        native.build()                  # loads the library phase 1 built
+        build_all([pc.p2p_copy])
+
+        def launches():
+            return pc.p2p_copy.launches
+    else:
+        flags.set_flag("ici_device_plane_host_mesh", True)
+        copies = [0]
+        plain = pc.p2p_copy_plain
+
+        def counted(*args, **kwargs):
+            copies[0] += 1
+            return plain(*args, **kwargs)
+        pc.p2p_copy_plain = counted
+
+        def launches():
+            return copies[0]
+    mesh = IciMesh(ranks=8, device=device)
+    IciMesh.set_default(mesh)
+    plane = device_plane.plane()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.monotonic()
+    args = (rpc, mesh, plane, launches, EchoRequest, EchoResponse)
+    r = {"a": _p28_start_forms(*args), "b": {
+        "six_bands": _p28_six_bands(*args),
+        "preempt_off": _p28_preempt(*args, preempt=False),
+        "preempt_on": _p28_preempt(*args, preempt=True)},
+        "c": _p28_lalb(rpc, EchoRequest, EchoResponse)}
+    from brpc_tpu_torch.rpc.socket import list_sockets
+    deadline = time.monotonic() + 5
+    while list_sockets() and time.monotonic() < deadline:
+        gc.collect()
+        time.sleep(0.02)
+    r["sockets_left"] = len(list_sockets())
+    r["launches"] = launches()
+    r["kernel_launches"] = {k.name: k.launches for k in kernels}
+    r["foreign"] = sorted(
+        m for m in sys.modules if m in ("jax", "brpc_tpu")
+        or m.startswith(("jax.", "jaxlib", "brpc_tpu.")))
+    r["default_device"] = IciMesh.default().device_type
+    r["wall_s"] = time.monotonic() - t0
+    sys.stdout.write("RESULT " + json.dumps(r) + "\n")
+    sys.stdout.flush()
+    return 0
+
+
+def phase_entry_points(device: str = "cuda", **sizes) -> dict:
+    """Phase 28 in a fresh interpreter, as phases 26 and 27: the fabric
+    node phase 17 left in this process makes ranks 0-3 another process's,
+    and the phase serves ici://1-7.  ``sizes`` overrides the phase's
+    constants there.  Returns the child's RESULT, checked."""
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-c", _ENTRY_CHILD, device, json.dumps(sizes)],
+        cwd=str(ROOT), capture_output=True, text=True, timeout=300)
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("RESULT ")]
+    if proc.returncode != 0 or not lines:
+        print(proc.stdout[-6000:], proc.stderr[-6000:], file=sys.stderr,
+              flush=True)
+        fail(f"phase 28's process ended rc {proc.returncode}")
+    out = json.loads(lines[-1][len("RESULT "):])
+    check(out["foreign"] == [], f"phase 28 loaded {out['foreign']}")
+    check(out["default_device"] == device,
+          f"phase 28 ran on {out['default_device']}, not {device}")
+    check(out["sockets_left"] == 0,
+          f"phase 28 left {out['sockets_left']} sockets open")
+    kl = out["kernel_launches"]
+    if device == "cuda":
+        check(kl["p2p_copy"] == out["launches"],
+              f"phase 28: p2p_copy launched {kl['p2p_copy']} times, the "
+              f"phase counted {out['launches']}")
+    else:
+        check(kl["p2p_copy"] == 0, f"a kernel launched on the CPU: {kl}")
+    check(kl["ring_all_reduce"] == kl["ring_all_gather"] == 0,
+          f"a ring kernel launched during phase 28: {kl}")
+    paths = (out["a"]["device_echo"]["launches"]
+             + out["b"]["six_bands"]["launches"]
+             + out["b"]["preempt_off"]["loads"]["launches"]
+             + out["b"]["preempt_on"]["loads"]["launches"])
+    check(paths == out["launches"],
+          f"phase 28: {out['launches']} launches, the paths counted {paths}")
+    out["process_wall_s"] = time.monotonic() - t0
+    return out
+
+
+def phase28_summary(p28: dict) -> str:
+    """Phase 28's one-line summary."""
+    a, b, c = p28["a"], p28["b"], p28["c"]
+    starts = "; ".join(f"{k} -> {v['listen_endpoint']} {v['echo_us']:.0f} us"
+                       for k, v in a.items() if k != "device_echo")
+    de, six = a["device_echo"], b["six_bands"]
+    lalb = "; ".join(
+        f"{ep} weight {d['weight']} inflight {d['inflight']} avg "
+        f"{d['avg_latency_us']} us calls {c['calls_by_server'].get(ep, 0)}"
+        for ep, d in sorted(c["describe"].items()))
+    return (f"entry points: {starts}; device echo {de['bytes'] >> 10} KiB x "
+            f"{de['calls']} via {de['listen_endpoint']}, {de['launches']} "
+            f"launches = {de['transfers']} transfers; six bands: pool "
+            f"{six['pool_bands']}, scheduler {six['scheduler_bands']}, "
+            f"admission {six['admission_bands']}, 6 priorities served in "
+            f"{six['generate_s']:.2f} s, {six['launches']} launches = "
+            f"{six['loadkv_received']} LoadKv; preempt off: "
+            f"{b['preempt_off']['preempted']} preempted, on: "
+            f"{b['preempt_on']['preempted']} preempted; LALB after "
+            f"{c['calls']} calls: {lalb}; {p28['process_wall_s']:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
@@ -9442,6 +9914,24 @@ def main() -> int:
     print(phase27_summary(p27), flush=True)
     print("phase 27: " + json.dumps(p27), flush=True)
 
+    # 28. the entry points the JAX suites hold, in a process of its own:
+    # Server.start's address forms, six bands from the admission options,
+    # the scheduler's preempt option, LALB's describe; p2p_copy's launches
+    # = the plane's transfers on the DEVICE echo and the LoadKv relocations
+    zero_counts()
+    p28 = phase_entry_points()
+    launches = {k.name: k.launches for k in kernels_all}
+    check(all(v == 0 for v in launches.values()),
+          f"a kernel launched in the driving process during phase 28: "
+          f"{launches}")
+    phase28 = {"entry_device_echo": p28["a"]["device_echo"]["launches"],
+               "entry_six_bands": p28["b"]["six_bands"]["launches"],
+               "entry_preempt_loadkv": (
+                   p28["b"]["preempt_off"]["loads"]["launches"]
+                   + p28["b"]["preempt_on"]["loads"]["launches"])}
+    print(phase28_summary(p28), flush=True)
+    print("phase 28: " + json.dumps(p28), flush=True)
+
     head = next(r for r in rows if r["label"] == "4 MiB")
     red = ring_rows["ring_all_reduce"]
     gat = ring_rows["ring_all_gather"]
@@ -9464,7 +9954,7 @@ def main() -> int:
                      + tiers20["launches"] + sum(phase21.values())
                      + sum(phase22.values()) + dry["launches"]
                      + kvf["launches"] + p26["launches"]
-                     + p27["launches"]),
+                     + p27["launches"] + p28["launches"]),
         "launches_by_path": {"echo": main_launches,
                              "serving": serve["launches"],
                              "migration": tiers["launches"], **phase10,
@@ -9482,7 +9972,7 @@ def main() -> int:
                              "tiers": tiers20["launches"], **phase21,
                              **phase22, "dryrun": dry["launches"],
                              "kv_flags_loadkv": kvf["launches"],
-                             **phase26, **phase27},
+                             **phase26, **phase27, **phase28},
         "migration_path_split": {
             "migrate_in": tiers["migrate_in_calls"],
             "loadkv": tiers["calls_received"] - tiers["migrate_in_calls"]},

@@ -140,19 +140,55 @@ def test_pool_options_from_admission_agree():
     topts = tserving.KvPoolOptions.from_admission(
         rpc.AdmissionOptions(**kw), bytes_per_token=64, num_blocks=8)
     for f in ("tenant_weights", "default_tenant_weight", "bytes_per_token",
-              "num_blocks", "block_tokens", "host_blocks", "ttl_s"):
+              "num_blocks", "block_tokens", "host_blocks", "ttl_s",
+              "bands", "default_priority"):
         assert getattr(jopts, f) == getattr(topts, f), f
-    assert (jopts.bands, jopts.default_priority) == (
-        tserving.kv_pool.BANDS, tserving.kv_pool.DEFAULT_PRIORITY)
     pool = tserving.PagedKvPool(topts, device="cpu")
     try:
         assert pool._weight("gold") == 4
         assert pool._weight("other") == 2
     finally:
         pool.close()
-    with pytest.raises(ValueError, match="bands"):
-        tserving.KvPoolOptions.from_admission(
-            rpc.AdmissionOptions(bands=6), bytes_per_token=64)
+
+
+def _six_band_pool_run(serving, admission_options):
+    """A pool from ``AdmissionOptions(bands=6, default_priority=3)``: its
+    options, then the order in which pressure from three priority-0 loads
+    evicts one-block sessions at priorities 0-5, 7 (clamped) and none
+    (the default)."""
+    opts = serving.KvPoolOptions.from_admission(
+        admission_options(bands=6, default_priority=3),
+        bytes_per_token=16, num_blocks=8, block_tokens=4, use_timers=False)
+    kw = {} if serving is jserving else {"device": "cpu"}
+    pool = serving.PagedKvPool(opts, **kw)
+    def rows(k):     # distinct bytes: no two sessions share a block
+        return np.full((4, 16), k, dtype=np.uint8)
+    try:
+        for k, pri in enumerate((0, 1, 2, 3, 4, 5, 7, None)):
+            pool.load(f"p{pri}", rows(k), last_token=1, priority=pri)
+        evicted = []
+        for k in range(3):
+            pool.load(f"new{k}", rows(10 + k), last_token=1, priority=0)
+            evicted += sorted(s for s in ("p0", "p1", "p2", "p3", "p4",
+                                          "p5", "p7", "pNone")
+                              if s not in evicted and pool.get(s) is None)
+        return ((opts.bands, opts.default_priority), evicted,
+                [pool._clip_priority(p) for p in (None, -1, 4, 5, 9)])
+    finally:
+        pool.close()
+
+
+@pytest.mark.parametrize("serving", PKGS)
+def test_six_band_admission_options_serve_like_jax(serving):
+    """Admission options with six bands give the pool six bands on both
+    packages: equal options, an equal eviction order (the two band-5
+    sessions before band 4, then band 3's), an equal clamp."""
+    adm = JAdmissionOptions if serving is jserving else rpc.AdmissionOptions
+    got = _six_band_pool_run(serving, adm)
+    assert got == _six_band_pool_run(jserving, JAdmissionOptions)
+    assert got[0] == (6, 3)
+    assert got[1][:2] == ["p5", "p7"] and got[1][2] == "p4"
+    assert got[2] == [3, 0, 4, 5, 5]
 
 
 # ---- the JAX package's autoscaler cases, on both packages ---------------------

@@ -34,6 +34,7 @@ import contextlib
 import functools
 import gc
 import importlib
+import inspect
 import os
 import re
 import sys
@@ -52,10 +53,13 @@ _SETTINGS = (("rpc.usercode_pool", "_default_kind"),)
 
 
 @contextlib.contextmanager
-def _isolated(package: str, own_flags: Tuple[str, ...]):
+def _isolated(package: str, own_flags: Tuple[str, ...],
+              cpu_mesh: bool = False):
     """Run a test body on ``package``'s flag registry and settings as they
     stand, without the file's own flags ``own_flags``, and put both back
-    after it."""
+    after it.  With ``cpu_mesh`` the port's default mesh is a fresh
+    8-rank CPU mesh while it runs (the JAX copy's default is the CPU
+    platform's 8 devices), and the default before it is put back."""
     flags = importlib.import_module(f"{package}.butil.flags")
     with flags._registry_lock:
         kept = dict(flags._registry)
@@ -66,9 +70,16 @@ def _isolated(package: str, own_flags: Tuple[str, ...]):
     for mod_name, attr in _SETTINGS:
         mod = importlib.import_module(f"{package}.{mod_name}")
         settings.append((mod, attr, getattr(mod, attr)))
+    mesh_cls = mesh_before = None
+    if cpu_mesh and package == "brpc_tpu_torch":
+        mesh_cls = importlib.import_module(f"{package}.ici.mesh").IciMesh
+        mesh_before = mesh_cls._default
+        mesh_cls.set_default(mesh_cls(ranks=8, device="cpu"))
     try:
         yield
     finally:
+        if mesh_cls is not None:
+            mesh_cls.set_default(mesh_before)
         with flags._registry_lock:
             for name in own_flags:
                 flags._registry.pop(name, None)
@@ -112,16 +123,19 @@ def load(path: str, port: bool,
 
 def mirror(path: str, namespace: Dict[str, object],
            swaps: Iterable[Tuple[str, str]] = (),
-           names: Optional[Iterable[str]] = None, prefix: str = "") -> None:
+           names: Optional[Iterable[str]] = None, prefix: str = "",
+           cpu_mesh: bool = False) -> None:
     """Publish the tests of ``path`` on both packages into ``namespace``
     (a test module's ``globals()``): every test class and module-level
     test, or only the classes ``names``, as ``Test<prefix><Name>Jax`` /
-    ``...Port`` (``test_<name>_jax`` / ``..._port``)."""
+    ``...Port`` (``test_<name>_jax`` / ``..._port``).  ``cpu_mesh``: the
+    port's copy runs on a CPU default mesh (``_isolated``)."""
     for port in (False, True):
         mod = load(path, port, swaps)
         tag = "Port" if port else "Jax"
         isolated = functools.partial(_isolated, mod._mirror_package,
-                                     mod._mirror_own_flags)
+                                     mod._mirror_own_flags, cpu_mesh)
+        fixtures = _module_fixtures(mod)
         for key, obj in list(mod.__dict__.items()):
             if getattr(obj, "__module__", None) != mod.__name__:
                 continue
@@ -130,11 +144,41 @@ def mirror(path: str, namespace: Dict[str, object],
             if key.startswith("Test") and isinstance(obj, type):
                 name = f"Test{prefix}{key[4:]}{tag}"
                 namespace[name] = type(name, (obj,), {
+                    **{k: v for k, v in fixtures.items()
+                       if not hasattr(obj, k)},
                     "__module__": namespace["__name__"],
                     "_mirror_isolation": _isolation_fixture(isolated)})
             elif key.startswith("test_") and callable(obj):
                 namespace[f"{key}_{tag.lower()}"] = _isolated_test(
                     obj, isolated)
+
+
+def _module_fixtures(mod: types.ModuleType) -> Dict[str, object]:
+    """The module-level fixtures of a loaded copy (``mesh``, ``fan4``), as
+    fixtures of its published classes: the two copies each define theirs
+    under one name, and a class looks its fixtures up on itself first."""
+    from _pytest.fixtures import getfixturemarker
+    out = {}
+    for key, obj in mod.__dict__.items():
+        marker = getfixturemarker(obj)
+        if marker is None or getattr(obj, "__module__", None) != mod.__name__:
+            continue
+        raw = obj._get_wrapped_function()
+        if inspect.isgeneratorfunction(raw):
+            def method(self, *a, _raw=raw, **k):
+                yield from _raw(*a, **k)
+        else:
+            def method(self, *a, _raw=raw, **k):
+                return _raw(*a, **k)
+        sig = inspect.signature(raw)
+        method.__signature__ = sig.replace(parameters=[
+            inspect.Parameter("self", inspect.Parameter.POSITIONAL_ONLY),
+            *sig.parameters.values()])
+        method.__name__ = method.__qualname__ = key
+        out[key] = pytest.fixture(
+            method, scope=marker.scope, params=marker.params,
+            autouse=marker.autouse, ids=marker.ids, name=marker.name)
+    return out
 
 
 def _isolation_fixture(isolated):
