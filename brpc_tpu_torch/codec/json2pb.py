@@ -11,15 +11,14 @@ from google.protobuf import json_format
 
 
 class Pb2JsonOptions:
-    """The reference's pb-to-JSON options; ``always_print_primitive_fields``
-    and ``enum_option_as_number`` reach json_format."""
+    """The reference's pb-to-JSON options that json_format can honour.
+    The JAX package's ``bytes_to_base64`` and ``jsonify_empty_array``
+    reach nothing there (bytes are always base64, an empty repeated field
+    prints only with ``always_print_primitive_fields``), so the port does
+    not take them."""
 
-    def __init__(self, bytes_to_base64: bool = True,
-                 jsonify_empty_array: bool = True,
-                 always_print_primitive_fields: bool = False,
+    def __init__(self, always_print_primitive_fields: bool = False,
                  enum_option_as_number: bool = False):
-        self.bytes_to_base64 = bytes_to_base64
-        self.jsonify_empty_array = jsonify_empty_array
         self.always_print_primitive_fields = always_print_primitive_fields
         self.enum_option_as_number = enum_option_as_number
 

@@ -87,15 +87,6 @@ class IciMesh:
     def device(self, rank: int) -> torch.device:
         return self.devices[rank % self.size]
 
-    def device_index(self, device) -> int:
-        """The lowest rank placed on ``device`` (-1 if none).  On one card
-        every rank is on it, so a tensor's rank is :meth:`rank_of`'s."""
-        device = torch.device(device)
-        for rank, d in enumerate(self.devices):
-            if d == device:
-                return rank
-        return -1
-
     def process_block(self, process_id: int, num_processes: int) -> range:
         """The ranks process ``process_id`` of ``num_processes`` owns in a
         multi-process fabric by default: a contiguous block, the same

@@ -425,7 +425,7 @@ def process_response(msg: HttpMessage, socket) -> None:
             cntl.handle_response(cid, meta, IOBuf())
             return
         cntl.response = resp
-    cntl.finish_parsed_response(cid)
+    cntl.handle_parsed_http_response(cid, msg)
 
 
 PROTOCOL = Protocol(

@@ -21,11 +21,12 @@ import random
 import threading
 import time
 import weakref
-from typing import Dict, Iterable, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 from ..butil import debug_sync as _dbg
 from ..butil.endpoint import EndPoint
 from ..butil.misc import FastRand, fast_rand_less_than
+from ..rpc.controller import Controller
 
 
 class ServerEntry:
@@ -76,20 +77,10 @@ class LoadBalancer:
         return []
 
 
-def _per_call_exclusions(cntl) -> Optional[Iterable[EndPoint]]:
-    """The call's own excluded servers, or None.  A controller's set is a
-    lazy field that an unread instance lacks: the class attribute is then
-    the descriptor, not a set, and the call excludes nothing (reading the
-    field would materialize an empty set on the pick fast path).  Any
-    other object's ``_excluded_servers``, on the instance or its class,
-    is honoured."""
-    if cntl is None:
-        return None
-    own = getattr(cntl, "__dict__", None)
-    if own is not None and "_excluded_servers" in own:
-        return own["_excluded_servers"]
-    found = getattr(type(cntl), "_excluded_servers", None)
-    return found if isinstance(found, Iterable) else None
+# the types a per-call exclusion set may have when it sits on an object's
+# class rather than in its instance dict (a Controller's class holds the
+# lazy field's descriptor there instead)
+_EXCLUSION_SETS = (set, frozenset)
 
 
 class _ListLB(LoadBalancer):
@@ -151,7 +142,17 @@ class _ListLB(LoadBalancer):
 
     def _usable(self, cntl=None) -> List[ServerEntry]:
         lst = self._list
-        per_call = _per_call_exclusions(cntl)
+        # the call's own exclusions: a controller's lazy field only once
+        # read (peeking the instance dict leaves an unread field
+        # unmaterialized on the pick fast path), else a set on the
+        # object's class, which the JAX package's getattr also finds
+        per_call = None
+        if cntl is not None:
+            per_call = cntl.__dict__.get("_excluded_servers")
+            if per_call is None and type(cntl) is not Controller:
+                per_call = getattr(type(cntl), "_excluded_servers", None)
+                if type(per_call) not in _EXCLUSION_SETS:
+                    per_call = None
         if not self._excluded and not per_call:  # fablint: ignore[guarded-state] lock-free emptiness peek on the pick fast path: a stale read misses only an exclusion racing this very pick, as a locked read could
             return lst
         now = time.monotonic()

@@ -71,6 +71,8 @@ class Controller:
     request_attachment = _LazyField("request_attachment", IOBuf)
     response_attachment = _LazyField("response_attachment", IOBuf)
     remote_side: Optional[EndPoint] = None
+    # the address the call arrived on (server side, the in-process planes)
+    local_side: Optional[EndPoint] = None
     # request context carried in RequestMeta on every call: the priority
     # band (0 = most protected; None = the server's default band) and the
     # fair-queueing tenant, set by a client and read by a handler;
@@ -146,6 +148,8 @@ class Controller:
     # session data it lent this request
     server: Any = None
     _session_data: Any = None
+    # an HTTP client call's parsed response message (policy/http.py)
+    http_response: Any = None
 
     def _peek_request_attachment(self) -> Optional[IOBuf]:
         """The request attachment if one was touched."""

@@ -21,11 +21,12 @@ from .protocol import ParseResultType, Protocol, list_protocols
 
 
 class InputMessenger:
-    def __init__(self, server=None, protocols=None):
-        self.server = server                 # set for server-side messengers
+    def __init__(self, protocols: Optional[List[Protocol]] = None,
+                 server=None):
         # the protocols this messenger tries, in order (None: every
         # registered one)
         self._protocols = protocols
+        self.server = server                 # set for server-side messengers
 
     def protocols(self) -> List[Protocol]:
         """The protocols this messenger tries, in order."""

@@ -262,7 +262,7 @@ def _serve(server, full_name: str, client_cntl: Controller,
     cntl.server = server
     if client_cntl.log_id:
         cntl.log_id = client_cntl.log_id
-    cntl.remote_side = server.listen_endpoint
+    cntl.remote_side = cntl.local_side = server.listen_endpoint
     tms = client_cntl.timeout_ms
     # the request context crosses in process: the caller's controller is
     # the carrier, for every call (handlers read priority, tenant and

@@ -86,9 +86,6 @@ class Protocol:
     # queues (a redis call's expected reply count, nshead's completion);
     # None queues the bare cid
     make_pipeline_ctx: Optional[Callable[[int, Any], Any]] = None
-    # verify(msg) -> bool: authentication hook on a connection's first
-    # message
-    verify: Optional[Callable[[Any], bool]] = None
 
 
 _protocols: List[Protocol] = []

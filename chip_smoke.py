@@ -9102,6 +9102,23 @@ def _p28_six_bands(rpc, mesh, plane, launches, EchoRequest,
     prompts = {p: rng.integers(0, model.VOCAB, ENTRY_PROMPT).tolist()
                for p in range(6)}
     got, errs = {}, {}
+    # the band each live session was held under: the pool's, read just
+    # before the worker releases the session, and the scheduler's, which
+    # submit writes back into the request (a band clamped to 3 at run
+    # time shows here; the tokens would not show it)
+    stored = {"pool": [], "scheduler": []}
+    pool_release, sched_submit = dsvc.pool.release, dsvc.scheduler.submit
+
+    def release(session, *a, **kw):
+        s = dsvc.pool.get(session)
+        if s is not None:
+            stored["pool"].append(s.priority)
+        return pool_release(session, *a, **kw)
+
+    def submit(req):
+        sched_submit(req)
+        stored["scheduler"].append(req.priority)
+    dsvc.pool.release, dsvc.scheduler.submit = release, submit
     try:
         l0, t0 = launches(), plane.stats()["transfers"]
         k0 = dsvc.loadkv_received
@@ -9132,11 +9149,18 @@ def _p28_six_bands(rpc, mesh, plane, launches, EchoRequest,
                "admission_bands": decode.admission.options.bands,
                "launches": launches() - l0,
                "transfers": plane.stats()["transfers"] - t0,
-               "loadkv_received": dsvc.loadkv_received - k0}
+               "loadkv_received": dsvc.loadkv_received - k0,
+               "pool_priorities": sorted(stored["pool"]),
+               "scheduler_priorities": sorted(stored["scheduler"])}
     finally:
         front.close()
         close_services(router, prefill, decode)
     check(not errs, f"phase 28 (b) six bands: Generate failed {errs}")
+    check(out["pool_priorities"] == out["scheduler_priorities"]
+          == list(range(6)),
+          f"phase 28 (b) six bands: sessions held at pool priorities "
+          f"{out['pool_priorities']}, scheduler bands "
+          f"{out['scheduler_priorities']}, not 0-5")
     bad = [p for p in range(6) if got.get(p) != model.reference_generate(
         prompts[p], ENTRY_STEPS, mesh.device(0))]
     check(not bad, f"phase 28 (b) six bands: priorities {bad} differ "
@@ -9409,7 +9433,9 @@ def phase28_summary(p28: dict) -> str:
             f"{de['calls']} via {de['listen_endpoint']}, {de['launches']} "
             f"launches = {de['transfers']} transfers; six bands: pool "
             f"{six['pool_bands']}, scheduler {six['scheduler_bands']}, "
-            f"admission {six['admission_bands']}, 6 priorities served in "
+            f"admission {six['admission_bands']}, sessions held at pool "
+            f"priorities {six['pool_priorities']} and scheduler bands "
+            f"{six['scheduler_priorities']}, 6 priorities served in "
             f"{six['generate_s']:.2f} s, {six['launches']} launches = "
             f"{six['loadkv_received']} LoadKv; preempt off: "
             f"{b['preempt_off']['preempted']} preempted, on: "

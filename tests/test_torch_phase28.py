@@ -27,6 +27,8 @@ def test_phase28_rehearsal_on_cpu():
     assert a["device_echo"]["launches"] == a["device_echo"]["transfers"] == 6
     six = b["six_bands"]
     assert six["pool_bands"] == six["scheduler_bands"] == 6
+    assert six["pool_priorities"] == six["scheduler_priorities"] \
+        == list(range(6))
     assert six["launches"] == six["loadkv_received"] == 6
     assert b["preempt_off"]["preempted"] == 0
     assert b["preempt_on"]["preempted"] >= 1

@@ -3,11 +3,17 @@
 For every ``brpc_tpu/**.py`` the port has a file at the same path under
 ``brpc_tpu_torch/``, and every public name of the JAX file has a
 counterpart there: each public top-level function and class, each
-public method (properties included) of a class, and each field of a
-dataclass.  A class member counts as present when the port's class
-has it (its own or inherited), declares it as a dataclass field, or
-assigns it as ``self.<name>`` in a class of its MRO.  The same holds
-for every flag the JAX package defines with ``define_flag("...")``.
+public method (properties included) of a class, and each annotated
+class-level field (a dataclass's fields, a controller's class defaults).
+A class member counts as present when the port's class has it (its own
+or inherited), declares it as a dataclass field, or assigns it as
+``self.<name>`` in a class of its MRO.  The same holds for every flag
+the JAX package defines with ``define_flag("...")``, and for the
+keywords of the options classes listed in ``ALLOWED_KEYWORDS``.
+
+A name the census finds present is not thereby held to the JAX
+meaning: ``tests/test_torch_surface_parity.py`` runs the names this
+census brought into the port through both packages on the same inputs.
 
 What the port cannot have sits on an allowlist below, each entry with
 its reason; an allowlisted name must still be in the JAX package and
@@ -38,6 +44,14 @@ _SHARDING = ("a jax.sharding.NamedSharding over the JAX mesh; the port's "
 _NATIVE_SCHED = ("the JAX native loader's fiber-scheduler bindings; the "
                  "port schedules in Python (bthread/scheduler.py) and no "
                  "port module needs the C++ fibers (ROADMAP queue 1)")
+_NO_READER = ("nothing in brpc_tpu/ reads it, so it has no meaning to "
+              "port; a server authenticates through ServerOptions.auth "
+              "(policy/tpu_std.py, policy/grpc.py)")
+_DEVICE_INDEX = ("maps a JAX device to its one rank; in the port a device "
+                 "names no rank, since every rank of a one-card mesh sits "
+                 "on that card (and every rank of a CPU mesh on the CPU): "
+                 "a tensor's rank is IciMesh.rank_of, which "
+                 "device_plane.mesh_index_of reads")
 _XFER = ("the JAX node's transfer-server connection cache and staging "
          "(jax.experimental.transfer); the port's kind 1 pulls a staged "
          "row through ici/ipc_pull.py and dials no transfer server")
@@ -54,6 +68,11 @@ ALLOWED = {
         "adapts the JAX package to JAX versions; the port imports no JAX",
     ("ici/mesh.py", "IciMesh.sharding"): _SHARDING,
     ("ici/mesh.py", "IciMesh.shard_along_axis"): _SHARDING,
+    ("ici/mesh.py", "IciMesh.device_index"): _DEVICE_INDEX,
+    ("rpc/protocol.py", "Protocol.verify"): _NO_READER,
+    ("rpc/controller.py", "Controller.request_protocol"):
+        "nothing in brpc_tpu/ writes or reads it, so it has no meaning to "
+        "port",
     ("butil/native.py", "NativeScheduler"): _NATIVE_SCHED,
     ("butil/native.py", "NativeScheduler.selftest"): _NATIVE_SCHED,
     ("butil/native.py", "NativeScheduler.completed"): _NATIVE_SCHED,
@@ -63,6 +82,18 @@ ALLOWED = {
     ("ici/fabric.py", "FabricSocket.stream_bulk_begin"): _BULK,
     ("ici/fabric.py", "FabricSocket.stream_bulk_send"): _BULK,
     ("ici/fabric.py", "FabricSocket.stream_bulk_abort"): _BULK,
+}
+
+# (file, options class, keyword) the JAX class takes and the port's does
+# not, each with its reason
+_JSON_IGNORED = ("the JAX pb_to_json accepts it and passes it nowhere: "
+                 "json_format always prints bytes as base64 and prints an "
+                 "empty repeated field only under "
+                 "always_print_primitive_fields")
+ALLOWED_KEYWORDS = {
+    ("codec/json2pb.py", "Pb2JsonOptions", "bytes_to_base64"): _JSON_IGNORED,
+    ("codec/json2pb.py", "Pb2JsonOptions", "jsonify_empty_array"):
+        _JSON_IGNORED,
 }
 
 # JAX flags with no port definition, each with its reason (ROADMAP queue 1)
@@ -105,15 +136,6 @@ def _jax_files() -> List[str]:
     return sorted(out)
 
 
-def _is_dataclass_def(node: ast.ClassDef) -> bool:
-    for d in node.decorator_list:
-        target = d.func if isinstance(d, ast.Call) else d
-        if getattr(target, "id", getattr(target, "attr", None)) \
-                == "dataclass":
-            return True
-    return False
-
-
 def public_names(path: str) -> List[Tuple[str, Optional[str], int]]:
     """(top-level name, member or None, line) of every public name of a
     JAX file."""
@@ -127,11 +149,10 @@ def public_names(path: str) -> List[Tuple[str, Optional[str], int]]:
         elif isinstance(node, ast.ClassDef):
             if not node.name.startswith("_"):
                 out.append((node.name, None, node.lineno))
-            dc = _is_dataclass_def(node)
             for m in node.body:
                 if isinstance(m, (ast.FunctionDef, ast.AsyncFunctionDef)):
                     name = m.name
-                elif dc and isinstance(m, ast.AnnAssign) \
+                elif isinstance(m, ast.AnnAssign) \
                         and isinstance(m.target, ast.Name):
                     name = m.target.id
                 else:
@@ -214,3 +235,28 @@ def test_every_jax_flag_is_defined_by_the_port_or_allowlisted():
     assert missing == set(ALLOWED_FLAGS), (
         sorted(missing - set(ALLOWED_FLAGS)),
         sorted(set(ALLOWED_FLAGS) - missing))
+
+
+def _keywords(cls) -> set:
+    return set(inspect.signature(cls.__init__).parameters) - {"self"}
+
+
+@pytest.mark.parametrize("rel,cls,kw", sorted(ALLOWED_KEYWORDS))
+def test_allowlisted_keyword_is_still_jax_only(rel, cls, kw):
+    assert ALLOWED_KEYWORDS[(rel, cls, kw)]
+    jax_mod = importlib.import_module(
+        "brpc_tpu." + rel[:-3].replace(os.sep, "."))
+    assert kw in _keywords(getattr(jax_mod, cls))
+    assert kw not in _keywords(getattr(_port_module(rel), cls)), (
+        f"{rel} {cls}({kw}=) is ported now: take it off the allowlist")
+
+
+@pytest.mark.parametrize("rel,cls", sorted(
+    {(rel, cls) for rel, cls, _ in ALLOWED_KEYWORDS}))
+def test_options_keywords_have_a_port_counterpart(rel, cls):
+    jax_mod = importlib.import_module(
+        "brpc_tpu." + rel[:-3].replace(os.sep, "."))
+    gaps = (_keywords(getattr(jax_mod, cls))
+            - _keywords(getattr(_port_module(rel), cls))
+            - {kw for r, c, kw in ALLOWED_KEYWORDS if (r, c) == (rel, cls)})
+    assert not gaps, f"brpc_tpu/{rel} {cls}: keywords {sorted(gaps)}"
