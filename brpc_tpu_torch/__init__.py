@@ -46,3 +46,5 @@ to an NVIDIA Hopper card.  It imports nothing of JAX and nothing of
                    the default variables)
 """
 __version__ = "0.1.0"
+
+from . import butil

@@ -2,7 +2,8 @@
 with its copy kernel (the rdma/ analogue), and the collectives layer with
 its ring kernels."""
 from .mesh import IciMesh, ShardedTensor
-from .transport import IciSocket, ici_listen, ici_unlisten, ici_connect
+from .transport import (IciSocket, ici_listen, ici_unlisten, ici_connect,
+                        ici_transport_stats)
 from . import device_plane
 from .device_plane import DevicePlane, DeviceTransfer, DevicePlaneError
 from .p2p_copy import p2p_copy, p2p_copy_plain

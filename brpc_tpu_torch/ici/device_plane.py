@@ -212,18 +212,23 @@ def mesh_index_of(arr: torch.Tensor, mesh: Optional[IciMesh] = None) -> int:
     return (mesh or IciMesh.default()).rank_of(arr)
 
 
-def platform_allows(mesh: IciMesh) -> bool:
-    """The plane engages on a CUDA mesh; a CPU mesh opts in through
-    ``ici_device_plane_host_mesh`` (the JAX package's host-mesh rule)."""
+def platform_allows(mesh: Optional[IciMesh] = None) -> bool:
+    """The plane engages on a CUDA mesh (default: the default mesh); a
+    CPU mesh opts in through ``ici_device_plane_host_mesh`` (the JAX
+    package's host-mesh rule)."""
+    mesh = mesh or IciMesh.default()
     return (mesh.device_type == "cuda"
             or bool(_flags.get_flag("ici_device_plane_host_mesh")))
 
 
-def eligible(nbytes: int, mesh: IciMesh, src: int, dst: int) -> bool:
-    """Route this payload device-plane?  Flag + threshold + platform.
-    Ranks on different cards are eligible too: ``post_send`` refuses them
-    (the kernel's peer-pointer leg is not built yet) and the write fails,
-    rather than moving the bytes with a library copy."""
+def eligible(nbytes: int, mesh: Optional[IciMesh] = None, src: int = -1,
+             dst: int = -1) -> bool:
+    """Route this payload device-plane?  Flag + threshold + platform of
+    ``mesh`` (default: the default mesh).  The route ``src`` -> ``dst``
+    does not decide it: ranks on different cards are eligible too, and
+    ``post_send`` refuses them (the kernel's peer-pointer leg is not built
+    yet) so the write fails, rather than moving the bytes with a library
+    copy."""
     return (bool(_flags.get_flag("ici_device_plane"))
             and nbytes >= _flags.get_flag("ici_device_plane_threshold")
             and platform_allows(mesh))

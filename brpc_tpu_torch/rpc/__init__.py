@@ -12,11 +12,15 @@ from .channel import Channel, ChannelOptions
 from .socket_map import SocketMap
 from .admission import AdmissionController, AdmissionOptions
 from .method_status import MethodStatus
+from . import compress
+from . import span
 from .stream import (Stream, StreamOptions, StreamInputHandler, stream_create,
                      stream_accept, find_stream, live_streams)
 from .circuit_breaker import (CircuitBreaker, ClusterRecoverPolicy,
                               BreakerRegistry)
-from .health_check import start_health_check
+from .health_check import start_health_check, probe_endpoint, HealthCheckTask
 from .progressive import (ProgressiveReader, ProgressiveAttachment,
                           response_will_be_read_progressively,
                           create_progressive_attachment)
+from . import profiler
+from . import rpc_dump

@@ -62,6 +62,19 @@ def local_pid() -> int:
         return -1
 
 
+def _refuse_off_internal_port(cntl) -> bool:
+    """With ``ServerOptions.internal_port`` set, the admin pages are off
+    the public port, and so is the admin RPC surface: the span store
+    (method names, endpoints, timelines) is what the option keeps off a
+    public address.  True: refused (``cntl`` failed EPERM)."""
+    server = cntl.server
+    if server is not None and server.options.internal_port >= 0:
+        cntl.set_failed(errors.EPERM, "admin services are only served "
+                                      "on the internal port")
+        return True
+    return False
+
+
 class TraceService(Service):
     """find_trace and list-recent over this process's span store
     (builtin/rpcz_service.cpp's query surface)."""
@@ -71,6 +84,9 @@ class TraceService(Service):
     @method(JsonMsg, JsonMsg)
     def FindTrace(self, cntl, request, response, done):
         from ..span import find_trace
+        if _refuse_off_internal_port(cntl):
+            done()
+            return
         try:
             tid = int(str(request.get("trace_id", "0")), 16)
         except ValueError:
@@ -88,6 +104,9 @@ class TraceService(Service):
     @method(JsonMsg, JsonMsg)
     def ListRecent(self, cntl, request, response, done):
         from ..span import recent_spans
+        if _refuse_off_internal_port(cntl):
+            done()
+            return
         limit = int(request.get("limit", 100))
         response.fields = {
             "pid": local_pid(),
@@ -106,6 +125,9 @@ class BuiltinRpcService(Service):
 
     @method(JsonMsg, JsonMsg)
     def Call(self, cntl, request, response, done):
+        if _refuse_off_internal_port(cntl):
+            done()
+            return
         server = cntl.server
         builtin = getattr(server, "_builtin", None) \
             if server is not None else None

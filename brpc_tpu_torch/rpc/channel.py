@@ -621,10 +621,13 @@ class Channel:
                 start_health_check(sel)
             else:
                 # a balanced channel routes around the isolated member
-                # until the checker's probe revives it
+                # until the checker's probe revives it; keyed by the
+                # balancer, so repeated trips replace its callback while
+                # each balancer watching the endpoint keeps its own
                 lb.exclude(sel, breaker.isolated_until())
                 start_health_check(sel,
-                                   on_revived=lambda ep: lb.exclude(ep, 0.0))
+                                   on_revived=lambda ep: lb.exclude(ep, 0.0),
+                                   revive_key=id(lb))
 
     def close(self) -> None:
         """Tear down this channel's connections (failed with ECLOSE): the

@@ -32,11 +32,12 @@ _flags.define_flag("health_check_jitter", 0.2,
                    "random jitter (de-synchronizes probers)")
 
 
-def probe_endpoint(ep: EndPoint) -> bool:
+def probe_endpoint(ep: EndPoint, timeout: float = 1.0) -> bool:
     """Reachability probe (the reference's periodic connect): a server
     listens on ``ep`` in this process and is not draining.  A draining
     server keeps its listener open for the grace window, so new callers
-    get its retryable ELOGOFF bounce; it is not alive for the checker."""
+    get its retryable ELOGOFF bounce; it is not alive for the checker.
+    ``timeout`` bounds a TCP connect and a fabric PING."""
     if ep.scheme == SCHEME_MEM:
         from .mem_transport import _listeners, _listeners_lock
         with _listeners_lock:
@@ -51,11 +52,12 @@ def probe_endpoint(ep: EndPoint) -> bool:
             from ..ici.fabric import FabricNode
             node = FabricNode.instance()
             if node is not None and not node.owns(ep.device_id):
-                return node.ping(ep.device_id, timeout=1.0)
+                return node.ping(ep.device_id, timeout=timeout)
     elif ep.scheme == SCHEME_TCP:
         import socket
         try:
-            with socket.create_connection((ep.host, ep.port), timeout=1.0):
+            with socket.create_connection((ep.host, ep.port),
+                                          timeout=timeout):
                 return True
         except OSError:
             return False
@@ -68,20 +70,29 @@ class HealthCheckTask:
     """Repeating probe for one endpoint until it revives.  Probe delays
     back off exponentially (base health_check_interval_s, doubling to
     health_check_max_interval_s) with jitter seeded from the endpoint, so
-    a fleet of checkers never stampedes a recovering peer."""
+    a fleet of checkers never stampedes a recovering peer.  ``app_check``
+    (an application-level probe, called once the transport probe passes)
+    must also pass for a revival; ``max_probes`` (0: unlimited) gives up
+    after that many failed probes; ``seed`` seeds the jitter in place of
+    the endpoint's hash."""
 
     _GUARDED_BY = {"_revive_cbs": "_tasks_lock"}
 
     def __init__(self, ep: EndPoint,
-                 on_revived: Optional[Callable[[EndPoint], None]] = None):
+                 on_revived: Optional[Callable[[EndPoint], None]] = None,
+                 app_check: Optional[Callable[[EndPoint], bool]] = None,
+                 max_probes: int = 0, seed: Optional[int] = None):
         self.ep = ep
         self.on_revived = on_revived
+        self.app_check = app_check
+        self.max_probes = max_probes
         # more revival callbacks, keyed by the registering call site's
         # code object: several parties can care about one endpoint's
         # revival, and a repeated registration replaces its own entry
         self._revive_cbs: Dict[Any, Callable[[EndPoint], None]] = {}
         self.probe_count = 0
-        self._rng = random.Random(hash(ep) & 0xFFFFFFFF)
+        self._rng = random.Random(
+            seed if seed is not None else hash(ep) & 0xFFFFFFFF)
         self._cancelled = threading.Event()
         self._schedule()
 
@@ -97,9 +108,14 @@ class HealthCheckTask:
                                               self.next_delay_s())
 
     def _probe(self) -> None:
-        """The timer's probe: on failure the next one is scheduled."""
-        if not self._cancelled.is_set() and not self.probe_now():
-            self._schedule()
+        """The timer's probe: on failure the next one is scheduled, up
+        to ``max_probes``."""
+        if self._cancelled.is_set() or self.probe_now():
+            return
+        if self.max_probes and self.probe_count >= self.max_probes:
+            _unregister(self.ep)
+            return
+        self._schedule()
 
     def probe_now(self) -> bool:
         """One probe on the calling thread; True when it revived the
@@ -107,7 +123,13 @@ class HealthCheckTask:
         if self._cancelled.is_set():
             return False
         self.probe_count += 1
-        if not probe_endpoint(self.ep):
+        ok = probe_endpoint(self.ep)
+        if ok and self.app_check is not None:
+            try:
+                ok = bool(self.app_check(self.ep))
+            except Exception:
+                ok = False
+        if not ok:
             return False
         # revived once: a probe still on the timer finds the task done
         self._cancelled.set()
@@ -141,19 +163,23 @@ _GUARDED_BY_GLOBALS = {"_tasks": "_tasks_lock"}
 
 
 def start_health_check(ep: EndPoint,
-                       on_revived: Optional[Callable] = None
-                       ) -> HealthCheckTask:
+                       on_revived: Optional[Callable] = None,
+                       app_check: Optional[Callable] = None,
+                       revive_key: Any = None) -> HealthCheckTask:
     """Ensure ``ep`` is under probing.  ``on_revived`` registers a
-    revival callback, keyed by its code object, so repeated
-    registrations from one call site replace rather than accumulate."""
+    revival callback, keyed by ``revive_key`` (default: its code object),
+    so repeated registrations from one call site replace rather than
+    accumulate.  ``app_check`` is the new task's application-level
+    probe."""
     with _tasks_lock:
         t = _tasks.get(ep)
         if t is None:
-            t = HealthCheckTask(ep, on_revived)
+            t = HealthCheckTask(ep, on_revived, app_check)
             _tasks[ep] = t
         elif on_revived is not None and t.on_revived is not on_revived:
-            t._revive_cbs[getattr(on_revived, "__code__",
-                                  on_revived)] = on_revived
+            key = revive_key if revive_key is not None \
+                else getattr(on_revived, "__code__", on_revived)
+            t._revive_cbs[key] = on_revived
         return t
 
 

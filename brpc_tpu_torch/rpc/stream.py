@@ -588,14 +588,20 @@ def on_stream_frame(meta, body: IOBuf, socket) -> None:
             except Exception as e:
                 # the plane died under the stream: these bytes never
                 # arrive, so this stream fails (the delivered prefix
-                # stays); the socket survives and its plane revives
+                # stays).  A socket with a plane to degrade survives, its
+                # plane revives and the writer is told (RST); one without
+                # keeps the plane-death-is-socket-death contract
                 log.error("stream %d %s frame %#x unclaimable: %s", s.sid,
                           "shm" if is_shm else "bulk", uuid, e)
                 degrade = getattr(socket, "shm_plane_failed" if is_shm
                                   else "bulk_plane_failed", None)
                 if degrade is not None:
                     degrade()
-                _fail_stream(s)
+                    _fail_stream(s)
+                else:
+                    socket.set_failed(errors.EFAILEDSOCKET,
+                                      f"stream bulk claim failed: {e}")
+                    s.on_remote_close("rst")
                 return
             s.on_data(data)
 

@@ -676,6 +676,36 @@ Phases, each fatal on failure:
                 the third slowed by 2 ms in its handler;
                 LocalityAwareLB.describe() printed with every server's
                 weight, average latency, in-flight count and calls
+ 29. what the twins of the JAX main-path suites repaired, in a process
+                of its own on the card's mesh (IciMesh(ranks=8)):
+                (a) tests/test_ici.py's device echo: 8 echoes of a 4 MiB
+                DEVICE attachment owned by rank 2 through ici://1, each
+                arriving resident on rank 1, bytes equal, the byte totals
+                read through brpc_tpu_torch.ici.ici_transport_stats (the
+                package's name);
+                (b) tests/test_device_plane.py's QP lifecycle: one
+                post_send/post_recv of 8 KiB from rank 2 to rank 5, bytes
+                equal and resident on rank 5 after one launch; a send from
+                rank 1 to rank 7 whose recv never comes, reaped by a 50 ms
+                match timeout (its pin released, its recv refused) while
+                the next one completes;
+                (c) tests/test_stream.py's threshold routing over ici://4:
+                a 4 KiB, a 4 MiB and a 4 KiB DEVICE frame owned by rank 3,
+                in order and equal; the big one rides the plane (one
+                launch), the small ones, under the plane's threshold,
+                take mesh.device_put; then the stream's own threshold
+                (ici_stream_bulk_threshold, 64 KiB) over a two-process
+                fabric to a fabric_peer's ici://0 (process 1, ranks 0-3):
+                a 4 KiB, a 4 MiB and a 4 KiB frame, each checked by the
+                peer, the big one claimed from the shm ring or the bulk
+                conn (exactly its bytes), the small ones inline (run
+                last: the fabric makes ranks 0-3 the peer's);
+                (d) rpc.probe_endpoint, rpc.HealthCheckTask and
+                rpc.start_health_check by their package names: ici://6
+                probed down, the checker revived by the server's start
+                (the application probe called, two callbacks kept apart
+                by their revival keys), then a 4 MiB DEVICE echo through
+                the revived endpoint
 
 Launch counts are zeroed just before each path and read just after it:
 during phases 3-4 and during phase 8 p2p_copy's launches must equal the
@@ -725,7 +755,10 @@ stream, and on (b)'s echo the kind-4 transfers received and the
 attachments returned, in the process and in its peer; during phase 28
 the driving process launches none, and in the phase's process they equal
 the plane's transfers on (a)'s DEVICE echo and the LoadKv relocations
-the decode servers received in (b); during phase 6
+the decode servers received in (b); during phase 29 the driving
+process launches none, and in the phase's process they equal the plane's
+transfers on (a)'s echo, (b)'s two completed transfers (one each), (c)'s
+big frame (one) and (d)'s echo; during phase 6
 each ring
 kernel's launches must equal
 the calls of its entry point.  The line before the last is the
@@ -9305,24 +9338,26 @@ def _p28_lalb(rpc, EchoRequest, EchoResponse) -> dict:
             "calls_by_server": by_server, "describe": desc}
 
 
-_ENTRY_CHILD = r"""
+_MEMBER_CHILD = r"""
 import json, sys
 import chip_smoke as cs
-device, sizes = sys.argv[1], json.loads(sys.argv[2])
+member, device, sizes = sys.argv[1], sys.argv[2], json.loads(sys.argv[3])
 for name, value in sizes.items():
     setattr(cs, name, value)
-sys.exit(cs._entry_points_member(device))
+sys.exit(cs._phase_member(getattr(cs, member), device))
 """
 
 
-def _entry_points_member(device: str) -> int:
-    """The body of phase 28's process: its mesh made the default, (a)-(c)
-    run, its RESULT line written.  On the card p2p_copy's launches are
-    counted; on the CPU, where the plane copies with the plain version,
-    its calls are."""
+def _phase_member(body, device: str) -> int:
+    """The body of a phase's own process (phases 28 and 29): its mesh made
+    the default, ``body(kit)`` run, its RESULT line written.  ``kit``
+    holds the port's modules, the mesh, the plane and ``launches``: on
+    the card p2p_copy's launches, on the CPU, where the plane copies with
+    the plain version, its calls."""
     import importlib
+    import types
     import brpc_tpu_torch.policy  # noqa: F401
-    from brpc_tpu_torch import rpc
+    from brpc_tpu_torch import ici, rpc
     from brpc_tpu_torch.butil import flags, native
     from brpc_tpu_torch.ici import device_plane
     from brpc_tpu_torch.ici import pallas_ring as pr
@@ -9351,16 +9386,14 @@ def _entry_points_member(device: str) -> int:
             return copies[0]
     mesh = IciMesh(ranks=8, device=device)
     IciMesh.set_default(mesh)
-    plane = device_plane.plane()
+    kit = types.SimpleNamespace(
+        device=device, rpc=rpc, ici=ici, flags=flags, dp=device_plane,
+        mesh=mesh, plane=device_plane.plane(), launches=launches,
+        EchoRequest=EchoRequest, EchoResponse=EchoResponse)
     for k in kernels:
         k.launches = 0
     t0 = time.monotonic()
-    args = (rpc, mesh, plane, launches, EchoRequest, EchoResponse)
-    r = {"a": _p28_start_forms(*args), "b": {
-        "six_bands": _p28_six_bands(*args),
-        "preempt_off": _p28_preempt(*args, preempt=False),
-        "preempt_on": _p28_preempt(*args, preempt=True)},
-        "c": _p28_lalb(rpc, EchoRequest, EchoResponse)}
+    r = body(kit)
     from brpc_tpu_torch.rpc.socket import list_sockets
     deadline = time.monotonic() + 5
     while list_sockets() and time.monotonic() < deadline:
@@ -9379,44 +9412,69 @@ def _entry_points_member(device: str) -> int:
     return 0
 
 
-def phase_entry_points(device: str = "cuda", **sizes) -> dict:
-    """Phase 28 in a fresh interpreter, as phases 26 and 27: the fabric
-    node phase 17 left in this process makes ranks 0-3 another process's,
-    and the phase serves ici://1-7.  ``sizes`` overrides the phase's
-    constants there.  Returns the child's RESULT, checked."""
+def _phase_process(phase: int, member: str, device: str, sizes: dict,
+                   paths) -> dict:
+    """Phase ``phase`` in a fresh interpreter running ``member`` through
+    :func:`_phase_member`: the fabric node phase 17 left in this process
+    makes ranks 0-3 another process's, and these phases serve ici://1-7.
+    ``sizes`` overrides the phase's constants there.  Returns the child's
+    RESULT, checked: nothing of JAX loaded, the device asked for, no
+    socket left, p2p_copy's launches on the card = the ones the phase
+    counted = ``paths(out)``, the launches of the phase's paths, and no
+    ring kernel launched."""
     t0 = time.monotonic()
     proc = subprocess.run(
-        [sys.executable, "-c", _ENTRY_CHILD, device, json.dumps(sizes)],
+        [sys.executable, "-c", _MEMBER_CHILD, member, device,
+         json.dumps(sizes)],
         cwd=str(ROOT), capture_output=True, text=True, timeout=300)
     lines = [ln for ln in proc.stdout.splitlines()
              if ln.startswith("RESULT ")]
     if proc.returncode != 0 or not lines:
         print(proc.stdout[-6000:], proc.stderr[-6000:], file=sys.stderr,
               flush=True)
-        fail(f"phase 28's process ended rc {proc.returncode}")
+        fail(f"phase {phase}'s process ended rc {proc.returncode}")
     out = json.loads(lines[-1][len("RESULT "):])
-    check(out["foreign"] == [], f"phase 28 loaded {out['foreign']}")
+    check(out["foreign"] == [], f"phase {phase} loaded {out['foreign']}")
     check(out["default_device"] == device,
-          f"phase 28 ran on {out['default_device']}, not {device}")
+          f"phase {phase} ran on {out['default_device']}, not {device}")
     check(out["sockets_left"] == 0,
-          f"phase 28 left {out['sockets_left']} sockets open")
+          f"phase {phase} left {out['sockets_left']} sockets open")
     kl = out["kernel_launches"]
     if device == "cuda":
         check(kl["p2p_copy"] == out["launches"],
-              f"phase 28: p2p_copy launched {kl['p2p_copy']} times, the "
-              f"phase counted {out['launches']}")
+              f"phase {phase}: p2p_copy launched {kl['p2p_copy']} times, "
+              f"the phase counted {out['launches']}")
     else:
         check(kl["p2p_copy"] == 0, f"a kernel launched on the CPU: {kl}")
     check(kl["ring_all_reduce"] == kl["ring_all_gather"] == 0,
-          f"a ring kernel launched during phase 28: {kl}")
-    paths = (out["a"]["device_echo"]["launches"]
-             + out["b"]["six_bands"]["launches"]
-             + out["b"]["preempt_off"]["loads"]["launches"]
-             + out["b"]["preempt_on"]["loads"]["launches"])
-    check(paths == out["launches"],
-          f"phase 28: {out['launches']} launches, the paths counted {paths}")
+          f"a ring kernel launched during phase {phase}: {kl}")
+    counted = paths(out)
+    check(counted == out["launches"],
+          f"phase {phase}: {out['launches']} launches, the paths counted "
+          f"{counted}")
     out["process_wall_s"] = time.monotonic() - t0
     return out
+
+
+def _entry_points_body(kit) -> dict:
+    """Phase 28's (a)-(c)."""
+    args = (kit.rpc, kit.mesh, kit.plane, kit.launches, kit.EchoRequest,
+            kit.EchoResponse)
+    return {"a": _p28_start_forms(*args), "b": {
+        "six_bands": _p28_six_bands(*args),
+        "preempt_off": _p28_preempt(*args, preempt=False),
+        "preempt_on": _p28_preempt(*args, preempt=True)},
+        "c": _p28_lalb(kit.rpc, kit.EchoRequest, kit.EchoResponse)}
+
+
+def phase_entry_points(device: str = "cuda", **sizes) -> dict:
+    """Phase 28 in a fresh interpreter, as phases 26 and 27
+    (:func:`_phase_process`).  ``sizes`` overrides the phase's constants
+    there."""
+    return _phase_process(28, "_entry_points_body", device, sizes, lambda o: (
+        o["a"]["device_echo"]["launches"] + o["b"]["six_bands"]["launches"]
+        + o["b"]["preempt_off"]["loads"]["launches"]
+        + o["b"]["preempt_on"]["loads"]["launches"]))
 
 
 def phase28_summary(p28: dict) -> str:
@@ -9441,6 +9499,422 @@ def phase28_summary(p28: dict) -> str:
             f"{b['preempt_off']['preempted']} preempted, on: "
             f"{b['preempt_on']['preempted']} preempted; LALB after "
             f"{c['calls']} calls: {lalb}; {p28['process_wall_s']:.1f} s")
+
+
+# phase 29: what the JAX main-path suites' twins repaired, on the card (see
+# the module docstring).  (a) the ici:// echo's DEVICE attachment and calls;
+# (b) the QP's payload; (c) the stream's small and big DEVICE frames and
+# the socket window they ride; (d) the revived endpoint's DEVICE echo
+TWIN_ECHO_BYTES, TWIN_ECHO_CALLS = 4 << 20, 8
+TWIN_QP_BYTES = 8 << 10
+TWIN_STREAM_SMALL, TWIN_STREAM_BIG, TWIN_WINDOW = 4 << 10, 4 << 20, 64 << 20
+TWIN_HC_BYTES = 4 << 20
+
+
+def _p29_random(mesh, nbytes: int, rank: int, seed: int) -> torch.Tensor:
+    dev = mesh.device(rank)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return mesh.own(torch.randint(0, 256, (nbytes,), dtype=torch.uint8,
+                                  device=dev, generator=gen), rank)
+
+
+def _p29_sync(mesh) -> None:
+    if mesh.device_type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _p29_echo(rpc, ici, mesh, plane, launches, EchoRequest,
+              EchoResponse) -> dict:
+    """(a): tests/test_ici.py's device echo: a DEVICE attachment owned by
+    rank 2 echoed through ici://1, where it arrives resident on rank 1;
+    the byte totals read through the package's ici_transport_stats."""
+    seen = []
+
+    class DeviceEcho(rpc.Service):
+        SERVICE_NAME = "EchoService"
+
+        @rpc.method(EchoRequest, EchoResponse)
+        def Echo(self, cntl, request, response, done):
+            refs = cntl.request_attachment.device_refs()
+            seen.append([mesh.rank_of(r.block.data) for r in refs])
+            response.message = request.message
+            cntl.response_attachment.append(cntl.request_attachment)
+            done()
+
+    src = _p29_random(mesh, TWIN_ECHO_BYTES, 2, 2929)
+    server = rpc.Server()
+    server.add_service(DeviceEcho())
+    check(server.start("ici://1") == 0, "phase 29 (a): ici://1 start")
+    ch = rpc.Channel()
+    ch.init("ici://1", options=rpc.ChannelOptions(timeout_ms=30000,
+                                                  max_retry=0))
+    try:
+        total0, dev0 = ici.ici_transport_stats()
+        l0, t0 = launches(), plane.stats()["transfers"]
+        lat = []
+        for i in range(TWIN_ECHO_CALLS):
+            cntl = rpc.Controller()
+            cntl.request_attachment.append_device_array(src)
+            t = time.perf_counter_ns()
+            resp = ch.call_method("EchoService.Echo", cntl,
+                                  EchoRequest(message=f"m{i}"), EchoResponse)
+            lat.append((time.perf_counter_ns() - t) / 1000.0)
+            check(not cntl.failed() and resp.message == f"m{i}",
+                  f"phase 29 (a) echo #{i}: {cntl.error_text}")
+            check(torch.equal(_tensor_of(cntl.response_attachment), src),
+                  f"phase 29 (a) echo #{i}: bytes differ")
+        _p29_sync(mesh)
+        total1, dev1 = ici.ici_transport_stats()
+        out = {"calls": TWIN_ECHO_CALLS, "bytes": TWIN_ECHO_BYTES,
+               "launches": launches() - l0,
+               "transfers": plane.stats()["transfers"] - t0,
+               "resident_ranks": sorted({r for rs in seen for r in rs}),
+               "device_bytes": dev1 - dev0, "total_bytes": total1 - total0,
+               "p50_us": statistics.median(lat)}
+    finally:
+        ch.close()
+        server.stop()
+    check(out["resident_ranks"] == [1] and len(seen) == TWIN_ECHO_CALLS,
+          f"phase 29 (a): the server saw ranks {out['resident_ranks']}")
+    check(out["launches"] == out["transfers"] > 0,
+          f"phase 29 (a): {out['launches']} launches for "
+          f"{out['transfers']} transfers")
+    check(out["device_bytes"] >= TWIN_ECHO_CALLS * TWIN_ECHO_BYTES
+          and out["total_bytes"] > out["device_bytes"],
+          f"phase 29 (a): ici_transport_stats moved {out['device_bytes']} "
+          f"device bytes of {out['total_bytes']}")
+    return out
+
+
+def _p29_qp(flags, dp, mesh, plane, launches) -> dict:
+    """(b): tests/test_device_plane.py's QP lifecycle: one post_send /
+    post_recv from rank 2 to rank 5, the bytes equal and resident on rank
+    5 after one launch; then a send whose recv never comes, reaped by the
+    match timeout, failing only itself while the next one completes."""
+    arr = _p29_random(mesh, TWIN_QP_BYTES, 2, 2930)
+    l0, t0 = launches(), plane.stats()["transfers"]
+    t = plane.post_send(arr, 2, 5)
+    check(t.state == dp.POSTED, f"phase 29 (b): posted state {t.state}")
+    check(plane.post_recv(t.uuid) is t, "phase 29 (b): the recv's WR")
+    check(t.wait(30) == 0 and t.state == dp.COMPLETE,
+          f"phase 29 (b): transfer ended {t.state} {t.error}")
+    _p29_sync(mesh)
+    one = {"bytes": TWIN_QP_BYTES, "launches": launches() - l0,
+           "transfers": plane.stats()["transfers"] - t0,
+           "dst_rank": dp.mesh_index_of(t.out),
+           "equal": bool(torch.equal(t.out, arr)),
+           "on_card": t.out.device.type, "timeline": t.describe()}
+    check(one["launches"] == one["transfers"] == 1 and one["equal"]
+          and one["dst_rank"] == 5,
+          f"phase 29 (b): {one['launches']} launches, {one['transfers']} "
+          f"transfers, rank {one['dst_rank']}, equal {one['equal']}")
+    old = flags.get_flag("ici_device_plane_match_timeout_s")
+    released = []
+    l1, m0 = launches(), plane.stats()["match_timeouts"]
+    try:
+        flags.set_flag("ici_device_plane_match_timeout_s", 0.05)
+        orphan = plane.post_send(_p29_random(mesh, TWIN_QP_BYTES, 1, 2931),
+                                 1, 7)
+        orphan.add_source_release(lambda: released.append(1))
+        time.sleep(0.1)
+        plane._sweep_stale()
+    finally:
+        flags.set_flag("ici_device_plane_match_timeout_s", old)
+    refused = False
+    try:
+        plane.post_recv(orphan.uuid)
+    except KeyError:
+        refused = True
+    nxt = plane.post_send(_p29_random(mesh, TWIN_QP_BYTES, 1, 2932), 1, 7)
+    plane.post_recv(nxt.uuid)
+    rc = nxt.wait(30)
+    _p29_sync(mesh)
+    reap = {"orphan_state": orphan.state, "orphan_error": orphan.error,
+            "released": released, "recv_refused": refused,
+            "match_timeouts": plane.stats()["match_timeouts"] - m0,
+            "next_rc": rc, "next_rank": dp.mesh_index_of(nxt.out),
+            "launches": launches() - l1}
+    check(reap["orphan_state"] == dp.FAILED
+          and "match timeout" in (reap["orphan_error"] or "")
+          and released == [1] and refused and reap["match_timeouts"] == 1,
+          f"phase 29 (b): the orphan reaped as {reap}")
+    check(rc == 0 and reap["next_rank"] == 7 and reap["launches"] == 1,
+          f"phase 29 (b): the next transfer {reap}")
+    return {"one": one, "reap": reap,
+            "launches": one["launches"] + reap["launches"]}
+
+
+def _p29_stream(rpc, mesh, plane, launches, EchoRequest,
+                EchoResponse) -> dict:
+    """(c): tests/test_stream.py's threshold routing over ici://4: a
+    small, a big and a small DEVICE frame owned by rank 3 arrive in order,
+    bytes equal; the big one (over the plane's threshold) rides the device
+    plane, one launch, the small ones take mesh.device_put."""
+    from brpc_tpu_torch.butil.iobuf import DEVICE, IOBuf
+    frames = [_p29_random(mesh, n, 3, 2933 + i) for i, n in enumerate(
+        (TWIN_STREAM_SMALL, TWIN_STREAM_BIG, TWIN_STREAM_SMALL))]
+
+    class Keep(rpc.StreamInputHandler):
+        def __init__(self):
+            self.got = []
+            self.closed = threading.Event()
+
+        def on_received_messages(self, sid, msgs):
+            for m in msgs:
+                ref = m.backing_block(0)
+                self.got.append((m.backing_block_num(), ref.block.kind,
+                                 ref.block.data[ref.offset:ref.offset
+                                                + ref.length].clone()))
+
+        def on_closed(self, sid):
+            self.closed.set()
+
+    keep = Keep()
+    accepted = []
+
+    class Sink(rpc.Service):
+        @rpc.method(EchoRequest, EchoResponse)
+        def Open(self, cntl, request, response, done):
+            accepted.append(rpc.stream_accept(cntl, rpc.StreamOptions(
+                handler=keep, max_buf_size=TWIN_WINDOW)))
+            response.message = "ok"
+            done()
+
+    server = rpc.Server()
+    server.add_service(Sink())
+    check(server.start("ici://4") == 0, "phase 29 (c): ici://4 start")
+    ch = rpc.Channel()
+    ch.init("ici://4", options=rpc.ChannelOptions(timeout_ms=30000))
+    try:
+        cntl = rpc.Controller()
+        st = rpc.stream_create(cntl, rpc.StreamOptions(
+            max_buf_size=TWIN_WINDOW))
+        ch.call_method("Sink.Open", cntl, EchoRequest(message="s"),
+                       EchoResponse)
+        check(not cntl.failed() and st.wait_connected(10),
+              f"phase 29 (c) handshake: {cntl.error_text}")
+        per_frame = []
+        for i, f in enumerate(frames):
+            l0, t0 = launches(), plane.stats()["transfers"]
+            buf = IOBuf()
+            buf.append_device_array(f)
+            check(st.write(buf, timeout=30) == 0, f"phase 29 (c) frame {i}")
+            deadline = time.monotonic() + 30
+            while len(keep.got) <= i and time.monotonic() < deadline:
+                time.sleep(0.001)
+            _p29_sync(mesh)
+            per_frame.append({"bytes": int(f.numel()),
+                              "launches": launches() - l0,
+                              "transfers": plane.stats()["transfers"] - t0})
+        del buf
+        st.close()
+        check(keep.closed.wait(60), "phase 29 (c): the stream never closed")
+    finally:
+        ch.close()
+        server.stop()
+    equal = [n == 1 and kind == DEVICE and torch.equal(data, f)
+             for (n, kind, data), f in zip(keep.got, frames)]
+    check(len(keep.got) == 3 and all(equal),
+          f"phase 29 (c): {len(keep.got)} frames, in order and equal "
+          f"{equal}")
+    check([p["launches"] for p in per_frame] == [0, 1, 0]
+          and [p["transfers"] for p in per_frame] == [0, 1, 0],
+          f"phase 29 (c): per frame {per_frame}")
+    from brpc_tpu_torch.butil import flags
+    return {"frames": per_frame,
+            "threshold": flags.get_flag("ici_device_plane_threshold"),
+            "launches": sum(p["launches"] for p in per_frame)}
+
+
+def _p29_health(rpc, mesh, plane, launches, EchoRequest,
+                EchoResponse) -> dict:
+    """(d): rpc.probe_endpoint, rpc.HealthCheckTask and
+    rpc.start_health_check from the package: ici://6 probed while no
+    server listens, the checker's task revived by a server's start (its
+    application probe called, two revival callbacks kept apart by their
+    keys), then a DEVICE echo owned by rank 0 through the revived
+    endpoint."""
+    from brpc_tpu_torch.butil.endpoint import parse_endpoint
+    from brpc_tpu_torch.rpc import health_check
+    ep = parse_endpoint("ici://6")
+    down = rpc.probe_endpoint(ep, timeout=0.5)
+    fired, checked = [], []
+    task = rpc.start_health_check(
+        ep, on_revived=lambda e: fired.append("a"),
+        app_check=lambda e: checked.append(str(e)) or True, revive_key="a")
+    rpc.start_health_check(ep, on_revived=lambda e: fired.append("b"),
+                           revive_key="b")
+    check(isinstance(task, rpc.HealthCheckTask) and health_check.checking(ep),
+          "phase 29 (d): no task for ici://6")
+    server = rpc.Server()
+    server.add_service(_p28_echo_service(rpc, EchoRequest, EchoResponse))
+    t0 = time.monotonic()
+    check(server.start("ici://6") == 0, "phase 29 (d): ici://6 start")
+    ch = rpc.Channel()
+    try:
+        deadline = time.monotonic() + 30
+        while (health_check.checking(ep) or len(fired) < 2) \
+                and time.monotonic() < deadline:
+            time.sleep(0.005)
+        revive_s = time.monotonic() - t0
+        up = rpc.probe_endpoint(ep, timeout=0.5)
+        check(not down and up and sorted(fired) == ["a", "b"]
+              and checked[:1] == ["ici://6"],
+              f"phase 29 (d): probe {down} -> {up}, fired {fired}, "
+              f"app probe {checked}")
+        ch.init("ici://6", options=rpc.ChannelOptions(timeout_ms=30000,
+                                                      max_retry=0))
+        src = _p29_random(mesh, TWIN_HC_BYTES, 0, 2936)
+        l0, t1 = launches(), plane.stats()["transfers"]
+        cntl = rpc.Controller()
+        cntl.request_attachment.append_device_array(src)
+        ch.call_method("Echo.Echo", cntl, EchoRequest(message="up"),
+                       EchoResponse)
+        check(not cntl.failed()
+              and torch.equal(_tensor_of(cntl.response_attachment), src),
+              f"phase 29 (d): echo after revival: {cntl.error_text}")
+        _p29_sync(mesh)
+        out = {"probe_down": down, "probe_up": up, "revive_s": revive_s,
+               "probes": task.probe_count, "fired": sorted(fired),
+               "bytes": TWIN_HC_BYTES, "launches": launches() - l0,
+               "transfers": plane.stats()["transfers"] - t1}
+    finally:
+        ch.close()
+        server.stop()
+    check(out["launches"] == out["transfers"] > 0,
+          f"phase 29 (d): {out['launches']} launches for "
+          f"{out['transfers']} transfers")
+    return out
+
+
+def _p29_fabric_stream(rpc, mesh, device, EchoRequest,
+                       EchoResponse) -> dict:
+    """(c), the stream's own threshold: a stream over a two-process
+    fabric (this process is process 0, ranks 4-7; a fabric_peer is
+    process 1, ranks 0-3) to the peer's ici://0, with a small, a big and
+    a small frame: the big one (at or over ici_stream_bulk_threshold)
+    rides the fast plane (the shm ring or the bulk conn: the peer claims
+    exactly its bytes there), the small ones stay inline; the peer checks
+    every frame's bytes.  Run last: it makes ranks 0-3 the peer's."""
+    from datetime import timedelta
+    from torch.distributed import TCPStore
+    from brpc_tpu_torch.butil import flags
+    from brpc_tpu_torch.butil.iobuf import IOBuf
+    from brpc_tpu_torch.ici import fabric
+    threshold = flags.get_flag("ici_stream_bulk_threshold")
+    sizes = (TWIN_STREAM_SMALL, TWIN_STREAM_BIG, TWIN_STREAM_SMALL)
+    check(sizes[0] < threshold <= sizes[1],
+          f"phase 29 (c): frames {sizes} against threshold {threshold}")
+    frames = [f"{i:08d}".encode() + bytes([i % 251]) * (n - 8)
+              for i, n in enumerate(sizes)]
+    port = _free_port()
+    coord = f"127.0.0.1:{port}"
+    fabric.FabricNode.initialize(coord, 2, 0, ranks=range(4, 8), mesh=mesh)
+    kv = TCPStore("127.0.0.1", port, is_master=False,
+                  timeout=timedelta(seconds=60))
+    peer = _Peer(coord, "p29", kv, device)
+    ch = rpc.Channel()
+    ch.init("ici://0", options=rpc.ChannelOptions(timeout_ms=30000,
+                                                  max_retry=0))
+
+    def stats(msg=""):
+        cntl = rpc.Controller()
+        resp = ch.call_method("Sink.Stats", cntl, EchoRequest(message=msg),
+                              EchoResponse)
+        check(not cntl.failed(), f"phase 29 (c) Sink.Stats: "
+                                 f"{cntl.error_text}")
+        return json.loads(resp.message)
+
+    try:
+        before = stats("reset")
+        cntl = rpc.Controller()
+        st = rpc.stream_create(cntl, rpc.StreamOptions(
+            max_buf_size=TWIN_WINDOW))
+        ch.call_method("Stream.Start", cntl, EchoRequest(message="verify"),
+                       EchoResponse)
+        check(not cntl.failed() and st.wait_connected(10),
+              f"phase 29 (c) fabric stream handshake: {cntl.error_text}")
+        for i, f in enumerate(frames):
+            check(st.write(IOBuf(f), timeout=30) == 0,
+                  f"phase 29 (c) fabric frame {i}")
+        deadline = time.monotonic() + 30
+        theirs = stats()
+        while theirs["stream_chunks"] < 3 and time.monotonic() < deadline:
+            time.sleep(0.01)
+            theirs = stats()
+        st.close()
+        cntl = rpc.Controller()
+        ch.call_method("Sink.Stop", cntl,
+                       EchoRequest(message=json.dumps({"grace_s": 0.5})),
+                       EchoResponse)
+        check(not cntl.failed(), f"phase 29 (c) Sink.Stop: {cntl.error_text}")
+        rc = peer.proc.wait(60)
+    except subprocess.TimeoutExpired:
+        rc = None
+    finally:
+        ch.close()
+        peer.kill()
+    check(rc == 0, f"phase 29 (c): the fabric peer ended rc {rc}:\n"
+                   f"{peer.output()[-4000:]}")
+    fast = {k: theirs[k] - before[k] for k in ("shm_claimed",
+                                                "bulk_claimed")}
+    out = {"threshold": threshold, "frames": list(sizes),
+           "received": theirs["stream_chunks"],
+           "bytes": theirs["stream_bytes"], "bad": theirs["stream_bad"],
+           "fast_claimed": fast, "launches": 0}
+    check(out["received"] == 3 and out["bytes"] == sum(sizes)
+          and out["bad"] == 0,
+          f"phase 29 (c) fabric stream: the peer got {out}")
+    check(sum(fast.values()) == TWIN_STREAM_BIG,
+          f"phase 29 (c) fabric stream: the fast planes carried {fast}, "
+          f"the big frame is {TWIN_STREAM_BIG} B")
+    return out
+
+
+def _twins_body(kit) -> dict:
+    """Phase 29's (a)-(d), then (c)'s fabric stream, which makes ranks 0-3
+    the peer's."""
+    kit.flags.set_flag("ici_socket_window_bytes", TWIN_WINDOW)
+    args = (kit.rpc, kit.mesh, kit.plane, kit.launches, kit.EchoRequest,
+            kit.EchoResponse)
+    r = {"a": _p29_echo(kit.rpc, kit.ici, *args[1:]),
+         "b": _p29_qp(kit.flags, kit.dp, kit.mesh, kit.plane, kit.launches),
+         "c": _p29_stream(*args), "d": _p29_health(*args)}
+    r["c"]["fabric"] = _p29_fabric_stream(kit.rpc, kit.mesh, kit.device,
+                                          kit.EchoRequest, kit.EchoResponse)
+    return r
+
+
+def phase_twins(device: str = "cuda", **sizes) -> dict:
+    """Phase 29 in a fresh interpreter, as phase 28
+    (:func:`_phase_process`).  ``sizes`` overrides the phase's constants
+    there."""
+    return _phase_process(29, "_twins_body", device, sizes, lambda o: sum(
+        o[k]["launches"] for k in "abcd"))
+
+
+def phase29_summary(p29: dict) -> str:
+    """Phase 29's one-line summary."""
+    a, b, c, d = p29["a"], p29["b"], p29["c"], p29["d"]
+    return (f"twins: ici echo {a['bytes'] >> 10} KiB x {a['calls']} via "
+            f"ici://1 (resident on rank {a['resident_ranks']}), "
+            f"{a['launches']} launches = {a['transfers']} transfers, p50 "
+            f"{a['p50_us']:.0f} us, ici_transport_stats +{a['device_bytes']}"
+            f" device of +{a['total_bytes']} B; QP {b['one']['bytes']} B "
+            f"rank 2 -> {b['one']['dst_rank']}: {b['one']['launches']} "
+            f"launch, equal {b['one']['equal']}, match timeout reaped the "
+            f"orphan ({b['reap']['match_timeouts']}) and the next one "
+            f"completed ({b['reap']['launches']} launch); stream frames "
+            f"{[f['bytes'] for f in c['frames']]} B launched "
+            f"{[f['launches'] for f in c['frames']]} (plane threshold "
+            f"{c['threshold']} B), over the fabric "
+            f"{c['fabric']['frames']} B with the stream's threshold "
+            f"{c['fabric']['threshold']} B: fast planes claimed "
+            f"{c['fabric']['fast_claimed']}; health check: probe {d['probe_down']} -> "
+            f"{d['probe_up']}, revived in {d['revive_s']:.2f} s after "
+            f"{d['probes']} probes, callbacks {d['fired']}, echo "
+            f"{d['launches']} launches = {d['transfers']} transfers; "
+            f"{p29['process_wall_s']:.1f} s")
 
 
 def main() -> int:
@@ -9958,6 +10432,23 @@ def main() -> int:
     print(phase28_summary(p28), flush=True)
     print("phase 28: " + json.dumps(p28), flush=True)
 
+    # 29. what the JAX main-path suites' twins repaired, in a process of
+    # its own: test_ici.py's DEVICE echo (ici_transport_stats from the
+    # package), test_device_plane.py's QP lifecycle and match timeout,
+    # test_stream.py's threshold routing, the health checker's package
+    # names; p2p_copy's launches = the plane's transfers on each
+    zero_counts()
+    p29 = phase_twins()
+    launches = {k.name: k.launches for k in kernels_all}
+    check(all(v == 0 for v in launches.values()),
+          f"a kernel launched in the driving process during phase 29: "
+          f"{launches}")
+    phase29 = {f"twin_{name}": p29[k]["launches"] for k, name in
+               (("a", "ici_echo"), ("b", "qp"), ("c", "stream"),
+                ("d", "health_check"))}
+    print(phase29_summary(p29), flush=True)
+    print("phase 29: " + json.dumps(p29), flush=True)
+
     head = next(r for r in rows if r["label"] == "4 MiB")
     red = ring_rows["ring_all_reduce"]
     gat = ring_rows["ring_all_gather"]
@@ -9980,7 +10471,8 @@ def main() -> int:
                      + tiers20["launches"] + sum(phase21.values())
                      + sum(phase22.values()) + dry["launches"]
                      + kvf["launches"] + p26["launches"]
-                     + p27["launches"] + p28["launches"]),
+                     + p27["launches"] + p28["launches"]
+                     + p29["launches"]),
         "launches_by_path": {"echo": main_launches,
                              "serving": serve["launches"],
                              "migration": tiers["launches"], **phase10,
@@ -9998,7 +10490,8 @@ def main() -> int:
                              "tiers": tiers20["launches"], **phase21,
                              **phase22, "dryrun": dry["launches"],
                              "kv_flags_loadkv": kvf["launches"],
-                             **phase26, **phase27, **phase28},
+                             **phase26, **phase27, **phase28,
+                             **phase29},
         "migration_path_split": {
             "migrate_in": tiers["migrate_in_calls"],
             "loadkv": tiers["calls_received"] - tiers["migrate_in_calls"]},

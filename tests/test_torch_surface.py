@@ -11,6 +11,15 @@ or inherited), declares it as a dataclass field, or assigns it as
 the JAX package defines with ``define_flag("...")``, and for the
 keywords of the options classes listed in ``ALLOWED_KEYWORDS``.
 
+A package's ``__init__.py`` binds names by import, and those are checked
+apart: for every ``brpc_tpu/**/__init__.py``, a fresh interpreter imports
+the port's package at the same path alone (so no earlier import can
+have bound a submodule as a side effect) and finds each name the JAX
+file binds (``from .x import a``, ``from . import x``): a re-exported
+function or class, or a submodule, which must be the port's submodule
+of that name.  A binding the port cannot have goes on
+``ALLOWED_BINDINGS`` with its reason.
+
 A name the census finds present is not thereby held to the JAX
 meaning: ``tests/test_torch_surface_parity.py`` runs the names this
 census brought into the port through both packages on the same inputs.
@@ -27,8 +36,11 @@ import ast
 import functools
 import importlib
 import inspect
+import json
 import os
 import re
+import subprocess
+import sys
 from typing import List, Optional, Tuple
 
 import pytest
@@ -125,6 +137,11 @@ ALLOWED_FLAGS = {
         "the compiled fan-out's program cache, a perf_opt PR after the "
         "benchmark (ROADMAP queue 5)",
 }
+
+
+# (package under brpc_tpu, bound name): the reason the port's package
+# does not bind it
+ALLOWED_BINDINGS: dict = {}
 
 
 def _jax_files() -> List[str]:
@@ -260,3 +277,67 @@ def test_options_keywords_have_a_port_counterpart(rel, cls):
             - _keywords(getattr(_port_module(rel), cls))
             - {kw for r, c, kw in ALLOWED_KEYWORDS if (r, c) == (rel, cls)})
     assert not gaps, f"brpc_tpu/{rel} {cls}: keywords {sorted(gaps)}"
+
+
+def init_bindings(path: str) -> List[Tuple[str, Optional[str], int]]:
+    """(bound name, submodule or None, line) of every name a JAX
+    ``__init__.py`` binds by a relative import: ``from . import x as y``
+    binds ``y`` to the submodule ``x``, ``from .x import a`` binds ``a``."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    out = []
+    for node in tree.body:
+        if not isinstance(node, ast.ImportFrom) or node.level != 1:
+            continue
+        for alias in node.names:
+            bound = alias.asname or alias.name
+            sub = alias.name if node.module is None else None
+            out.append((bound, sub, node.lineno))
+    return out
+
+
+def _packages() -> List[str]:
+    return [os.path.dirname(rel) for rel in _jax_files()
+            if os.path.basename(rel) == "__init__.py"]
+
+
+# run in a fresh interpreter: the port's package imported alone, then for
+# each (bound name, submodule) whether it is bound, and bound to the
+# port's submodule of that name where the JAX file binds a submodule
+_PROBE = """
+import importlib, json, sys, types
+pkg = sys.argv[1]
+mod = importlib.import_module(pkg)
+out = []
+for name, sub in json.loads(sys.argv[2]):
+    if not hasattr(mod, name):
+        out.append([name, "unbound"])
+    elif sub is not None and not (
+            isinstance(getattr(mod, name), types.ModuleType)
+            and getattr(mod, name).__name__ == pkg + "." + sub):
+        out.append([name, "not the port's submodule " + sub])
+print(json.dumps(out))
+"""
+
+
+@pytest.mark.parametrize("pkg", _packages())
+def test_init_bindings_have_a_port_counterpart(pkg):
+    rel = os.path.join(pkg, "__init__.py")
+    bindings = init_bindings(os.path.join(JAX_ROOT, rel))
+    if not bindings:
+        return
+    port_pkg = ".".join(["brpc_tpu_torch"] + ([pkg.replace(os.sep, ".")]
+                                               if pkg else []))
+    res = subprocess.run(
+        [sys.executable, "-c", _PROBE, port_pkg,
+         json.dumps([[name, sub] for name, sub, _ in bindings])],
+        cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    found = {name: why for name, why in json.loads(res.stdout)}
+    gaps = [(name, why) for name, why in found.items()
+            if (pkg, name) not in ALLOWED_BINDINGS]
+    assert not gaps, (f"brpc_tpu/{rel}: bindings the port's package "
+                      f"lacks after a fresh import: {gaps}")
+    stale = [name for p, name in ALLOWED_BINDINGS
+             if p == pkg and name not in found]
+    assert not stale, f"{rel} binds {stale} now: take them off the allowlist"

@@ -11,7 +11,11 @@ inputs and the outcomes compared: the IOBuf's ``copy_to``,
 ``DevicePlane.mesh`` and ``mesh_index_of`` on a CPU mesh of 8 ranks;
 ``CollectiveRegistry.serving``; ``InputMessenger.protocols``;
 ``Flag.reloadable``; ``Pb2JsonOptions`` with ``pb_to_json`` and
-``pb_to_dict``.
+``pb_to_dict``; the names the port's ``__init__`` files bind now, each
+reached through its package as a caller writes it: ``rpc.probe_endpoint``,
+``rpc.HealthCheckTask`` and ``rpc.start_health_check`` (the backoff, the
+application probe, the probe budget and the revival keys) and
+``ici.ici_transport_stats`` (an ``ici://`` echo's device bytes).
 
 Each case returns what a caller sees, built from plain values; the
 port's must equal the JAX package's.  A case's tensor or array inputs
@@ -328,6 +332,113 @@ def _collective_registry_serving(name):
     return trail
 
 
+def _ici_transport_stats(name):
+    """An ``ici://3`` echo of a 4096-byte DEVICE attachment owned by rank
+    2, read through the package's ``ici_transport_stats``."""
+    data = _seeded(4096, seed=5)
+    if name == "jax":
+        import jax
+        from brpc_tpu import ici
+        rpc, pb = jrpc, jpb
+        arr = jax.device_put(data, JaxMesh.default().device(2))
+    else:
+        from brpc_tpu_torch import ici
+        rpc, pb = trpc, tpb
+        arr = IciMesh.default().device_put(torch.from_numpy(data.copy()), 2)
+    server = rpc.Server()
+    server.add_service(_echo_service(rpc, pb))
+    assert server.start("ici://3") == 0
+    try:
+        ch = rpc.Channel()
+        ch.init("ici://3")
+        total0, dev0 = ici.ici_transport_stats()
+        cntl = rpc.Controller()
+        cntl.request_attachment.append_device_array(arr)
+        ch.call_method("EchoService.Echo", cntl, pb.EchoRequest(message="s"),
+                       pb.EchoResponse)
+        total1, dev1 = ici.ici_transport_stats()
+        ch.close()
+    finally:
+        server.stop()
+    return {"failed": cntl.failed(), "device_bytes": dev1 - dev0,
+            "host_bytes_too": total1 - total0 > dev1 - dev0,
+            "echoed": cntl.response_attachment.to_bytes() == data.tobytes()}
+
+
+def _echo_service(rpc, pb):
+    class EchoService(rpc.Service):
+        @rpc.method(pb.EchoRequest, pb.EchoResponse)
+        def Echo(self, cntl, request, response, done):
+            response.message = request.message
+            cntl.response_attachment.append(cntl.request_attachment)
+            done()
+    return EchoService()
+
+
+def _wait(pred, timeout=10.0):
+    deadline = time.monotonic() + timeout
+    while not pred() and time.monotonic() < deadline:
+        time.sleep(0.01)
+    return pred()
+
+
+def _health_check(name):
+    """``probe_endpoint``, ``HealthCheckTask`` and ``start_health_check``
+    through the package's ``rpc`` names: probes of served and unserved
+    endpoints, the seeded backoff, a revival gated by the application
+    probe, one that the application probe refuses, and revival callbacks
+    kept apart or replaced by their keys."""
+    rpc, pb, endpoint = ((jrpc, jpb, jendpoint) if name == "jax"
+                         else (trpc, tpb, tendpoint))
+    from importlib import import_module
+    hc = import_module(rpc.__name__ + ".health_check")
+    ep = endpoint.parse_endpoint(f"mem://parity-hc-{name}")
+    refused = endpoint.parse_endpoint(f"mem://parity-hc-refused-{name}")
+    out = {"unserved": rpc.probe_endpoint(ep),
+           "tcp_closed": rpc.probe_endpoint(
+               endpoint.parse_endpoint("127.0.0.1:1"), timeout=0.2)}
+    task = rpc.HealthCheckTask(ep, max_probes=1, seed=42)
+    delays = []
+    for count in (0, 1, 2, 3, 10):
+        task.probe_count = count
+        delays.append(task.next_delay_s())
+    task.cancel()
+    out["delays"] = delays
+    fired = []
+    first = rpc.start_health_check(ep, on_revived=lambda e: fired.append("a"),
+                                   revive_key="a")
+    rpc.start_health_check(ep, on_revived=lambda e: fired.append("b"),
+                           revive_key="b")
+    rpc.start_health_check(ep, on_revived=lambda e: fired.append("b2"),
+                           revive_key="b")
+    checked = []
+    gated = rpc.HealthCheckTask(
+        ep, on_revived=lambda e: fired.append("gated"),
+        app_check=lambda e: checked.append(str(e)) or True, seed=7)
+    never = rpc.start_health_check(refused, app_check=lambda e: False)
+    servers = []
+    for addr in (ep, refused):
+        server = rpc.Server()
+        server.add_service(_echo_service(rpc, pb))
+        assert server.start(str(addr)) == 0
+        servers.append(server)
+    try:
+        out["served"] = rpc.probe_endpoint(ep)
+        out["revived"] = _wait(lambda: not hc.checking(ep)
+                               and len(fired) == 3)
+        out["fired"] = sorted(fired)
+        out["app_checked"] = checked[:1] == [str(ep)]
+        out["refused_probes"] = _wait(lambda: never.probe_count >= 2)
+        out["refused_still_checking"] = hc.checking(refused)
+        out["first_probes_counted"] = first.probe_count >= 1
+    finally:
+        never.cancel()
+        gated.cancel()
+        for server in servers:
+            server.stop()
+    return out
+
+
 # ---- codec ----------------------------------------------------------------
 
 def _pb2json(name):
@@ -363,6 +474,7 @@ CASES = {
     "input_messenger_protocols": _input_messenger_protocols,
     "collective_registry_serving": _collective_registry_serving,
     "pb2json_options": _pb2json,
+    "health_check": _health_check,
 }
 
 
@@ -380,6 +492,14 @@ def test_transfer_local_and_mesh_index_of_like_jax(name, plane_flags):
     assert got["rc"] == 0 and (got["src_rank"], got["dst_rank"]) == (2, 5)
     assert got["bytes"] == _seeded(8192, seed=4).tobytes()
     assert got["loose_rank"] == -1 and got["plane_mesh_is_default"]
+
+
+@pytest.mark.parametrize("name", PKGS)
+def test_ici_transport_stats_like_jax(name):
+    got = _ici_transport_stats(name)
+    assert got == _ici_transport_stats("jax")
+    assert got == {"failed": False, "device_bytes": 4096,
+                   "host_bytes_too": True, "echoed": True}
 
 
 def test_cases_see_what_a_caller_sees():
@@ -400,3 +520,10 @@ def test_cases_see_what_a_caller_sees():
     assert http["before"] is None and http["status"] == 200
     assert _collective_registry_serving("port") == [False, True, True,
                                                     False, False]
+    hc = _health_check("port")
+    assert (hc["unserved"], hc["tcp_closed"], hc["served"]) == (
+        False, False, True)
+    assert 0.1 <= hc["delays"][0] < 0.125 and 2.0 <= hc["delays"][4] < 2.5
+    assert hc["revived"] and hc["fired"] == ["a", "b2", "gated"]
+    assert hc["app_checked"]
+    assert hc["refused_probes"] and hc["refused_still_checking"]

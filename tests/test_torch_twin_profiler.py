@@ -1,0 +1,11 @@
+"""``tests/test_profiler.py`` on both packages (``tests/torch_mirror.py``):
+the hotspot and contention profilers.
+
+No swap and no case left out.
+"""
+from __future__ import annotations
+
+from tests import torch_mirror
+from tests.torch_mirror import drain_sockets  # noqa: F401  (fixture)
+
+torch_mirror.mirror("tests/test_profiler.py", globals())

@@ -45,7 +45,10 @@ from typing import Dict, Iterable, Optional, Tuple
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_PKG = re.compile(r"\bbrpc_tpu\b(?!_torch)")
+# a module path of the JAX package; ``brpc_tpu.Trace``/``brpc_tpu.Builtin``
+# (a capital after the dot) are service names on the wire, which the two
+# packages share
+_PKG = re.compile(r"\bbrpc_tpu\b(?!_torch)(?!\.[A-Z])")
 _OWN_FLAG = re.compile(r"define_flag\(\s*[\"'](\w+)[\"']")
 # (module under the package, attribute): process-global settings a
 # mirrored file's tests change and do not always put back
@@ -150,7 +153,7 @@ def mirror(path: str, namespace: Dict[str, object],
                     "_mirror_isolation": _isolation_fixture(isolated)})
             elif key.startswith("test_") and callable(obj):
                 namespace[f"{key}_{tag.lower()}"] = _isolated_test(
-                    obj, isolated)
+                    obj, isolated, fixtures, tag.lower(), namespace)
 
 
 def _module_fixtures(mod: types.ModuleType) -> Dict[str, object]:
@@ -191,14 +194,72 @@ def _isolation_fixture(isolated):
     return _mirror_isolation
 
 
-def _isolated_test(fn, isolated):
+def _isolated_test(fn, isolated, fixtures=None, tag="", namespace=None):
     """A module-level test that runs inside ``isolated()``; pytest reads
-    its fixtures through ``__wrapped__``."""
+    its fixtures through ``__wrapped__``.
+
+    A test that takes one of its copy's module-level fixtures (``fan4``)
+    takes it as ``<name>_<tag>``, published into ``namespace`` once per
+    copy (the two copies each define theirs under one name), after an
+    isolation fixture, ``_mirror_isolation_<tag>``, that it takes first:
+    the fixture's set-up (servers on the CPU default mesh) runs isolated
+    too."""
+    params = inspect.signature(fn).parameters
+    own = [name for name in params if name in (fixtures or {})]
+    if not own:
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            with isolated():
+                return fn(*args, **kwargs)
+        return run
+    guard = f"_mirror_isolation_{tag}"
+    if guard not in namespace:
+        @pytest.fixture(name=guard)
+        def _guard():
+            with isolated():
+                yield
+        namespace[f"_fixture{guard}"] = _guard
+    for name in own:
+        published = f"{name}_{tag}"
+        if f"_fixture_{published}" not in namespace:
+            namespace[f"_fixture_{published}"] = _module_level_fixture(
+                fixtures[name], published, guard)
+    renamed = {f"{name}_{tag}": name for name in own}
+
     @functools.wraps(fn)
     def run(*args, **kwargs):
-        with isolated():
-            return fn(*args, **kwargs)
+        kwargs.pop(guard, None)
+        for new, old in renamed.items():
+            if new in kwargs:
+                kwargs[old] = kwargs.pop(new)
+        return fn(*args, **kwargs)
+    run.__signature__ = inspect.Signature(
+        [inspect.Parameter(guard, inspect.Parameter.POSITIONAL_OR_KEYWORD)]
+        + [p.replace(name=f"{p.name}_{tag}") if p.name in own else p
+           for p in params.values()])
     return run
+
+
+def _module_level_fixture(method_fixture, name, guard):
+    """The module-level fixture ``name`` of one copy, from its class-level
+    form (``_module_fixtures``), set up after the isolation fixture
+    ``guard``; its own parameters are fixtures the copy's tests see."""
+    raw = method_fixture._get_wrapped_function()
+    sig = inspect.signature(raw)
+    params = [p for p in sig.parameters.values() if p.name != "self"]
+    if inspect.isgeneratorfunction(raw):
+        def body(*a, **k):
+            k.pop(guard, None)
+            yield from raw(None, *a, **k)
+    else:
+        def body(*a, **k):
+            k.pop(guard, None)
+            return raw(None, *a, **k)
+    body.__signature__ = inspect.Signature(
+        [inspect.Parameter(guard, inspect.Parameter.POSITIONAL_OR_KEYWORD)]
+        + params)
+    body.__name__ = body.__qualname__ = name
+    return pytest.fixture(body, name=name)
 
 
 @pytest.fixture(scope="module", autouse=True)
